@@ -1,0 +1,73 @@
+"""The flagship configuration (the port's copy of
+``hydragnn_tpu/flagship.py:flagship_config``): a multi-head PNA stack —
+one graph energy head and three nodal heads — on the deterministic BCC
+dataset, at hidden width 128 with 6 conv layers by default.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+
+def flagship_config(
+    hidden_dim: int = 128,
+    num_conv_layers: int = 6,
+    batch_size: int = 128,
+    num_epoch: int = 1,
+) -> Dict[str, Any]:
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {
+            "name": "flagship_bench",
+            "format": "unit_test",
+            "compositional_stratified_splitting": False,
+            "rotational_invariance": False,
+            "node_features": {
+                "name": ["x", "x2", "x3"],
+                "dim": [1, 1, 1],
+                "column_index": [0, 6, 7],
+            },
+            "graph_features": {
+                "name": ["sum_x_x2_x3"],
+                "dim": [1],
+                "column_index": [0],
+            },
+        },
+        "NeuralNetwork": {
+            "Architecture": {
+                "model_type": "PNA",
+                "radius": 2.0,
+                "max_neighbours": 100,
+                "periodic_boundary_conditions": False,
+                "hidden_dim": hidden_dim,
+                "num_conv_layers": num_conv_layers,
+                "output_heads": {
+                    "graph": {
+                        "num_sharedlayers": 2,
+                        "dim_sharedlayers": hidden_dim,
+                        "num_headlayers": 2,
+                        "dim_headlayers": [hidden_dim, hidden_dim // 2],
+                    },
+                    "node": {
+                        "num_headlayers": 2,
+                        "dim_headlayers": [hidden_dim, hidden_dim // 2],
+                        "type": "mlp",
+                    },
+                },
+                "task_weights": [4.0, 2.0, 2.0, 2.0],
+            },
+            "Variables_of_interest": {
+                "input_node_features": [0],
+                "output_names": ["sum_x_x2_x3", "x", "x2", "x3"],
+                "output_index": [0, 0, 1, 2],
+                "type": ["graph", "node", "node", "node"],
+            },
+            "Training": {
+                "num_epoch": num_epoch,
+                "perc_train": 0.8,
+                "loss_function_type": "mse",
+                "batch_size": batch_size,
+                "Optimizer": {"type": "AdamW", "learning_rate": 1e-3},
+            },
+        },
+    }

@@ -1,0 +1,258 @@
+"""Statically-padded graph batches of torch tensors.
+
+The port's counterpart of ``hydragnn_tpu/graph/batch.py``. A batch is
+built on the host with numpy, padded to a static
+``(num_nodes, num_edges, num_graphs)`` plan with explicit masks, and
+moved to a device with :meth:`GraphBatch.to`:
+
+  - one *padding graph* slot absorbs all padding nodes/edges,
+  - padding edges point at a padding node (``tot_nodes``), so masked
+    segment reductions stay clean,
+  - edges are canonicalized receiver-major (stable sort), which the
+    CSR aggregation kernel (``ops/pna_aggregate.py``) requires,
+  - targets are a dict-of-heads.
+
+Every field the forward reads is emitted, with the JAX package's
+values (``tests/test_torch_batch.py`` holds them equal). Deferred to the
+training slice (ROADMAP A2), together with the kernels that read them:
+the local-window plans ``sender_win`` / ``dense_sender_win``, the dense
+slot map (``dense_senders``, ``dense_mask``, ``dense_edge_attr``,
+``dense_sender_perm``), the ``run_align`` layout and ``pad_batch``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def _round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphBatch:
+    """A fixed-shape batch of graphs.
+
+    Attributes (all torch tensors; shapes after padding):
+      nodes: [N, F] f32 node features.
+      senders / receivers: [E] int32 edge endpoints (sender -> receiver);
+        receivers sorted ascending.
+      node_graph: [N] int32 graph id of each node.
+      n_node / n_edge: [G] int32 per-graph counts (padding slots 0).
+      node_mask / edge_mask / graph_mask: bool, True for real entries.
+      edge_attr: [E, De] f32 or None; pos: [N, 3] f32 or None.
+      graph_targets: {name: [G, d]}; node_targets: {name: [N, d]}.
+      sender_perm: [E] int32, stable argsort of senders.
+      in_degree: [N] f32 count of REAL incoming edges (0 on padding rows).
+      edge_occupancy: [] int32, index after the last slot that can hold
+        a real edge.
+      n_real_nodes: [] int32 real node count.
+    """
+
+    nodes: torch.Tensor
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    node_graph: torch.Tensor
+    n_node: torch.Tensor
+    n_edge: torch.Tensor
+    node_mask: torch.Tensor
+    edge_mask: torch.Tensor
+    graph_mask: torch.Tensor
+    edge_attr: Optional[torch.Tensor] = None
+    pos: Optional[torch.Tensor] = None
+    graph_targets: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    node_targets: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    sender_perm: Optional[torch.Tensor] = None
+    in_degree: Optional[torch.Tensor] = None
+    edge_occupancy: Optional[torch.Tensor] = None
+    n_real_nodes: Optional[torch.Tensor] = None
+
+    @property
+    def num_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return self.senders.shape[0]
+
+    @property
+    def num_graphs(self) -> int:
+        return self.n_node.shape[0]
+
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        """The same batch with every tensor on ``device``."""
+
+        def move(v):
+            if v is None:
+                return None
+            if isinstance(v, dict):
+                return {k: t.to(device, non_blocking=non_blocking) for k, t in v.items()}
+            return v.to(device, non_blocking=non_blocking)
+
+        return dataclasses.replace(
+            self, **{f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)}
+        )
+
+
+def batch_graphs(
+    graphs: Sequence[Dict[str, Any]],
+    n_node_pad: Optional[int] = None,
+    n_edge_pad: Optional[int] = None,
+    n_graph_pad: Optional[int] = None,
+    node_multiple: int = 16,
+    edge_multiple: int = 8,
+) -> GraphBatch:
+    """Concatenate single graphs and pad to static shapes (host, numpy).
+
+    Each graph is a dict with ``x`` [n, F], ``senders``/``receivers``
+    [e] (or ``edge_index`` [2, e]), optional ``edge_attr``, ``pos``,
+    ``graph_targets`` {name: [d]} and ``node_targets`` {name: [n, d]}.
+    Returns CPU tensors; call ``.to(device)`` for the card."""
+    if not graphs:
+        raise ValueError("graphs must be non-empty")
+    n_graphs = len(graphs)
+    tot_nodes = sum(int(np.asarray(g["x"]).shape[0]) for g in graphs)
+    tot_edges = sum(_num_edges(g) for g in graphs)
+
+    for key in ("edge_attr", "pos"):
+        present = [g.get(key) is not None for g in graphs]
+        if any(present) and not all(present):
+            raise ValueError(f"field '{key}' present on some graphs but not others")
+    gt_names = sorted(graphs[0].get("graph_targets", {}).keys())
+    nt_names = sorted(graphs[0].get("node_targets", {}).keys())
+    for g in graphs:
+        if sorted(g.get("graph_targets", {}).keys()) != gt_names:
+            raise ValueError("graph_targets keys differ across graphs")
+        if sorted(g.get("node_targets", {}).keys()) != nt_names:
+            raise ValueError("node_targets keys differ across graphs")
+
+    if n_graph_pad is None:
+        n_graph_pad = n_graphs + 1
+    if n_node_pad is None:
+        n_node_pad = _round_up(tot_nodes + 1, node_multiple)
+    if n_edge_pad is None:
+        n_edge_pad = max(_round_up(tot_edges + 1, edge_multiple), 1)
+    if n_graph_pad <= n_graphs:
+        raise ValueError(
+            f"n_graph_pad={n_graph_pad} must exceed num real graphs {n_graphs} "
+            "(one slot is reserved for the padding graph)"
+        )
+    if n_node_pad <= tot_nodes or n_edge_pad < tot_edges:
+        raise ValueError(
+            f"padded sizes (nodes {n_node_pad}, edges {n_edge_pad}) too small "
+            f"for real totals (nodes {tot_nodes}, edges {tot_edges})"
+        )
+
+    feat_dim = _as_2d(graphs[0]["x"]).shape[1]
+    nodes = np.zeros((n_node_pad, feat_dim), dtype=np.float32)
+    senders = np.full((n_edge_pad,), tot_nodes, dtype=np.int32)
+    receivers = np.full((n_edge_pad,), tot_nodes, dtype=np.int32)
+    node_graph = np.full((n_node_pad,), n_graphs, dtype=np.int32)
+    n_node = np.zeros((n_graph_pad,), dtype=np.int32)
+    n_edge = np.zeros((n_graph_pad,), dtype=np.int32)
+    node_mask = np.zeros((n_node_pad,), dtype=bool)
+    edge_mask = np.zeros((n_edge_pad,), dtype=bool)
+    graph_mask = np.zeros((n_graph_pad,), dtype=bool)
+
+    has_edge_attr = graphs[0].get("edge_attr") is not None
+    has_pos = graphs[0].get("pos") is not None
+    edge_attr = pos = None
+    if has_edge_attr:
+        de = _as_2d(graphs[0]["edge_attr"]).shape[1]
+        edge_attr = np.zeros((n_edge_pad, de), dtype=np.float32)
+    if has_pos:
+        pos = np.zeros((n_node_pad, np.asarray(graphs[0]["pos"]).shape[-1]), dtype=np.float32)
+
+    g_targets: Dict[str, list] = {}
+    n_targets: Dict[str, np.ndarray] = {}
+    for name in nt_names:
+        d = _as_2d(graphs[0]["node_targets"][name]).shape[1]
+        n_targets[name] = np.zeros((n_node_pad, d), dtype=np.float32)
+
+    node_off = edge_off = 0
+    for gi, g in enumerate(graphs):
+        x = _as_2d(g["x"])
+        n, e = x.shape[0], _num_edges(g)
+        s, r = _edge_endpoints(g)
+        nodes[node_off : node_off + n] = x
+        senders[edge_off : edge_off + e] = s + node_off
+        receivers[edge_off : edge_off + e] = r + node_off
+        node_graph[node_off : node_off + n] = gi
+        n_node[gi], n_edge[gi] = n, e
+        node_mask[node_off : node_off + n] = True
+        edge_mask[edge_off : edge_off + e] = True
+        graph_mask[gi] = True
+        if has_edge_attr:
+            edge_attr[edge_off : edge_off + e] = _as_2d(g["edge_attr"])
+        if has_pos:
+            pos[node_off : node_off + n] = np.asarray(g["pos"], dtype=np.float32)
+        for name in gt_names:
+            g_targets.setdefault(name, []).append(
+                np.asarray(g["graph_targets"][name], dtype=np.float32).reshape(-1)
+            )
+        for name in nt_names:
+            n_targets[name][node_off : node_off + n] = _as_2d(g["node_targets"][name])
+        node_off += n
+        edge_off += e
+
+    graph_targets = {}
+    for name, rows in g_targets.items():
+        arr = np.zeros((n_graph_pad, rows[0].shape[0]), dtype=np.float32)
+        arr[:n_graphs] = np.stack(rows)
+        graph_targets[name] = arr
+
+    # canonical receiver-major edge order (stable; the padding sentinel
+    # tail stays last): the CSR kernel's sorted contract
+    if not np.all(receivers[:-1] <= receivers[1:]):
+        perm = np.argsort(receivers, kind="stable")
+        senders = senders[perm]
+        receivers = receivers[perm]
+        edge_mask = edge_mask[perm]
+        if has_edge_attr:
+            edge_attr = edge_attr[perm]
+
+    sender_perm = np.argsort(senders, kind="stable").astype(np.int32)
+    in_degree = np.bincount(receivers[edge_mask], minlength=n_node_pad).astype(np.float32)
+
+    t = torch.from_numpy
+    return GraphBatch(
+        nodes=t(nodes),
+        senders=t(senders),
+        receivers=t(receivers),
+        node_graph=t(node_graph),
+        n_node=t(n_node),
+        n_edge=t(n_edge),
+        node_mask=t(node_mask),
+        edge_mask=t(edge_mask),
+        graph_mask=t(graph_mask),
+        edge_attr=t(edge_attr) if edge_attr is not None else None,
+        pos=t(pos) if pos is not None else None,
+        graph_targets={k: t(v) for k, v in graph_targets.items()},
+        node_targets={k: t(v) for k, v in n_targets.items()},
+        sender_perm=t(sender_perm),
+        in_degree=t(in_degree),
+        edge_occupancy=torch.tensor(tot_edges, dtype=torch.int32),
+        n_real_nodes=torch.tensor(tot_nodes, dtype=torch.int32),
+    )
+
+
+def _as_2d(a) -> np.ndarray:
+    a = np.asarray(a, dtype=np.float32)
+    return a[:, None] if a.ndim == 1 else a
+
+
+def _num_edges(g: Dict[str, Any]) -> int:
+    if "senders" in g:
+        return int(np.asarray(g["senders"]).shape[0])
+    return int(np.asarray(g["edge_index"]).shape[1])
+
+
+def _edge_endpoints(g: Dict[str, Any]):
+    if "senders" in g:
+        return np.asarray(g["senders"]), np.asarray(g["receivers"])
+    ei = np.asarray(g["edge_index"])
+    return ei[0], ei[1]

@@ -1,0 +1,154 @@
+"""The model chassis: shared message-passing encoder + multi-head decoders.
+
+The port's counterpart of ``hydragnn_tpu/models/base.py``: one conv stack
+with interleaved masked BatchNorm + ReLU, masked global mean pooling,
+then graph heads on a shared dense trunk and node ``mlp`` heads. The
+forward returns one output per head: [G, dim] for graph heads, [N, dim]
+for node heads.
+
+This slice builds the PNA chassis with graph and node-``mlp`` heads
+(the flagship). The other conv stacks (ROADMAP A7), the
+``mlp_per_node`` and ``conv`` node heads, edge features and the loss
+(ROADMAP A4) raise ``NotImplementedError``.
+
+Parameter names mirror the flax tree so ``convert.py`` maps one onto
+the other: ``convs.{i}`` = ``conv_{i}``, ``norms.{i}`` =
+``MaskedBatchNorm_{i}``, ``graph_shared``, ``heads.{i}`` =
+``graph_head_{i}`` / ``node_head_{i}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from hydragnn_tpu_torch.graph import segment as S
+from hydragnn_tpu_torch.graph.batch import GraphBatch
+from hydragnn_tpu_torch.models.convs import EdgeContext, PNAConv
+from hydragnn_tpu_torch.models.layers import MLP, MaskedBatchNorm
+
+KNOWN_MODELS = ("GIN", "PNA", "GAT", "MFC", "CGCNN", "SAGE", "SchNet")
+
+
+@dataclasses.dataclass(frozen=True, eq=True)
+class ModelConfig:
+    """Static model configuration (the fields of the JAX package's
+    ``ModelConfig`` that this slice reads)."""
+
+    model_type: str
+    input_dim: int
+    hidden_dim: int
+    output_dim: Tuple[int, ...]
+    output_type: Tuple[str, ...]  # each "graph" | "node"
+    output_names: Tuple[str, ...]
+    task_weights: Tuple[float, ...]
+    num_conv_layers: int = 16
+    loss_function_type: str = "mse"
+    graph_num_sharedlayers: int = 0
+    graph_dim_sharedlayers: int = 0
+    graph_num_headlayers: int = 0
+    graph_dim_headlayers: Tuple[int, ...] = ()
+    node_num_headlayers: int = 0
+    node_dim_headlayers: Tuple[int, ...] = ()
+    node_head_type: str = "mlp"
+    num_nodes: Optional[int] = None
+    edge_dim: Optional[int] = None
+    pna_avg_deg_lin: float = 1.0
+    pna_avg_deg_log: float = 1.0
+
+    def __post_init__(self):
+        if self.model_type not in KNOWN_MODELS:
+            raise ValueError(f"Unknown model_type: {self.model_type}")
+        if len(self.output_dim) != len(self.output_type) or len(self.output_dim) != len(
+            self.output_names
+        ):
+            raise ValueError("output_dim/output_type/output_names length mismatch")
+        if len(self.task_weights) != len(self.output_dim):
+            raise ValueError(
+                "Inconsistent number of loss weights and tasks: "
+                f"{len(self.task_weights)} VS {len(self.output_dim)}"
+            )
+
+    @property
+    def num_heads(self) -> int:
+        return len(self.output_dim)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"hydragnn_tpu_torch: {what} is not ported yet (ROADMAP {item})")
+
+
+class HydraModel(nn.Module):
+    """Encoder + multi-head decoder (PNA, graph heads, node mlp heads)."""
+
+    def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.model_type != "PNA":
+            raise _not_ported(f"model_type {cfg.model_type!r}", "A7")
+        if cfg.edge_dim:
+            raise _not_ported("edge features", "A4")
+        if "node" in cfg.output_type and cfg.node_head_type != "mlp":
+            raise _not_ported(f"node head type {cfg.node_head_type!r}", "A4")
+        self.cfg = cfg
+        h = cfg.hidden_dim
+        self.convs = nn.ModuleList()
+        self.norms = nn.ModuleList()
+        for layer in range(cfg.num_conv_layers):
+            fin = cfg.input_dim if layer == 0 else h
+            self.convs.append(
+                PNAConv(fin, h, cfg.pna_avg_deg_lin, cfg.pna_avg_deg_log, generator)
+            )
+            self.norms.append(MaskedBatchNorm(h))
+        self.graph_shared = None
+        if "graph" in cfg.output_type:
+            dims = (cfg.graph_dim_sharedlayers,) * cfg.graph_num_sharedlayers
+            self.graph_shared = MLP(h, dims, relu_last=True, generator=generator)
+            trunk_out = dims[-1] if dims else h
+        heads = []
+        for ihead in range(cfg.num_heads):
+            out_dim = cfg.output_dim[ihead]
+            if cfg.output_type[ihead] == "graph":
+                dims = tuple(cfg.graph_dim_headlayers[: cfg.graph_num_headlayers]) + (out_dim,)
+                heads.append(MLP(trunk_out, dims, generator=generator))
+            else:
+                dims = tuple(cfg.node_dim_headlayers[: cfg.node_num_headlayers]) + (out_dim,)
+                heads.append(MLP(h, dims, generator=generator))
+        self.heads = nn.ModuleList(heads)
+
+    def edge_context(self, batch: GraphBatch) -> EdgeContext:
+        in_degree = batch.in_degree
+        if in_degree is None:
+            in_degree = S.segment_count(batch.receivers, batch.num_nodes, batch.edge_mask)
+        return EdgeContext(
+            senders=batch.senders,
+            receivers=batch.receivers,
+            edge_mask=batch.edge_mask,
+            node_mask=batch.node_mask,
+            in_degree=in_degree,
+        )
+
+    def forward(self, batch: GraphBatch, train: bool = False) -> List[torch.Tensor]:
+        """``train`` selects masked batch statistics (True) or running
+        statistics (False) in BatchNorm; there is no dropout in PNA."""
+        cfg = self.cfg
+        ctx = self.edge_context(batch)
+        x = batch.nodes
+        for conv, norm in zip(self.convs, self.norms):
+            x = conv(x, ctx)
+            x = norm(x, mask=batch.node_mask, train=train)
+            x = torch.relu(x)
+
+        outputs: List[torch.Tensor] = []
+        graph_shared = None
+        if self.graph_shared is not None:
+            x_graph = S.segment_mean(x, batch.node_graph, batch.num_graphs, mask=batch.node_mask)
+            graph_shared = self.graph_shared(x_graph)
+        for ihead, head in enumerate(self.heads):
+            if cfg.output_type[ihead] == "graph":
+                outputs.append(head(graph_shared))
+            else:
+                outputs.append(head(x))
+        return outputs

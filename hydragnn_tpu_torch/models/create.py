@@ -1,0 +1,72 @@
+"""Model factory: completed config dict -> seeded ``HydraModel``.
+
+The port's counterpart of ``hydragnn_tpu/models/create.py``: the same
+``ModelConfig`` from the same (``update_config``-completed)
+``NeuralNetwork`` section, and parameters initialized from a fixed seed
+through a ``torch.Generator`` (the analog of the reference's
+``torch.manual_seed(0)``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from hydragnn_tpu_torch.device import resolve_device
+from hydragnn_tpu_torch.models.base import HydraModel, ModelConfig
+from hydragnn_tpu_torch.models.convs import avg_degree_stats
+
+
+def model_config_from_dict(config: Dict[str, Any]) -> ModelConfig:
+    """Static ModelConfig from the ``NeuralNetwork`` section."""
+    arch = config["Architecture"]
+    training = config.get("Training", {})
+    heads_cfg = arch.get("output_heads", {})
+    graph_cfg = heads_cfg.get("graph", {})
+    node_cfg = heads_cfg.get("node", {})
+    pna_lin, pna_log = 1.0, 1.0
+    if arch.get("pna_deg") is not None:
+        pna_lin, pna_log = avg_degree_stats(arch["pna_deg"])
+    return ModelConfig(
+        model_type=arch["model_type"],
+        input_dim=int(arch["input_dim"]),
+        hidden_dim=int(arch["hidden_dim"]),
+        output_dim=tuple(int(d) for d in arch["output_dim"]),
+        output_type=tuple(arch["output_type"]),
+        output_names=tuple(config["Variables_of_interest"]["output_names"])
+        if "Variables_of_interest" in config
+        else tuple(f"head_{i}" for i in range(len(arch["output_dim"]))),
+        task_weights=tuple(float(w) for w in arch["task_weights"]),
+        num_conv_layers=int(arch["num_conv_layers"]),
+        loss_function_type=training.get("loss_function_type", "mse"),
+        graph_num_sharedlayers=int(graph_cfg.get("num_sharedlayers", 0)),
+        graph_dim_sharedlayers=int(graph_cfg.get("dim_sharedlayers", 0)),
+        graph_num_headlayers=int(graph_cfg.get("num_headlayers", 0)),
+        graph_dim_headlayers=tuple(graph_cfg.get("dim_headlayers", ())),
+        node_num_headlayers=int(node_cfg.get("num_headlayers", 0)),
+        node_dim_headlayers=tuple(node_cfg.get("dim_headlayers", ())),
+        node_head_type=node_cfg.get("type", "mlp"),
+        num_nodes=arch.get("num_nodes"),
+        edge_dim=arch.get("edge_dim"),
+        pna_avg_deg_lin=pna_lin,
+        pna_avg_deg_log=pna_log,
+    )
+
+
+def create_model(
+    cfg: ModelConfig, seed: int = 0, device: Optional[str] = "cuda"
+) -> HydraModel:
+    """A ``HydraModel`` initialized from ``seed`` (on the CPU), then moved
+    to ``device``, in eval mode."""
+    dev = resolve_device(device)
+    if cfg.model_type == "PNA" and cfg.pna_avg_deg_lin <= 0:
+        raise ValueError("PNA requires degree input.")
+    gen = torch.Generator().manual_seed(int(seed))
+    return HydraModel(cfg, generator=gen).to(dev).eval()
+
+
+def create_model_config(
+    config: Dict[str, Any], seed: int = 0, device: Optional[str] = "cuda"
+) -> HydraModel:
+    return create_model(model_config_from_dict(config), seed=seed, device=device)

@@ -1,0 +1,104 @@
+"""Shared building blocks: masked BatchNorm, MLP and flax-style init.
+
+The port's counterpart of ``hydragnn_tpu/models/layers.py``. Parameters
+are initialized as flax initializes them (lecun-normal kernels, zero
+biases, BatchNorm scale 1 and bias 0, running mean 0 and variance 1)
+from an explicit ``torch.Generator``. The numbers differ from the JAX
+package's for the same seed (different generators); the tests copy
+weights across with ``convert.py`` instead.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+# flax's lecun_normal: truncated normal at +-2 std, rescaled so the
+# truncated distribution has variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def dense(
+    in_dim: int, out_dim: int, generator: Optional[torch.Generator] = None
+) -> nn.Linear:
+    """``nn.Linear`` initialized like flax's ``nn.Dense`` (weight stored
+    [out, in]; ``convert.py`` transposes flax's [in, out] kernels)."""
+    lin = torch.nn.utils.skip_init(nn.Linear, in_dim, out_dim)
+    lecun_normal_(lin.weight, in_dim, generator)
+    with torch.no_grad():
+        lin.bias.zero_()
+    return lin
+
+
+class MaskedBatchNorm(nn.Module):
+    """Mask-aware BatchNorm: padding rows never enter the statistics.
+
+    ``train=True`` normalizes with the masked batch statistics (biased
+    variance, f32); ``train=False`` with the running statistics. The
+    running-statistics update (momentum 0.1, unbiased variance) belongs
+    to the training slice (ROADMAP A4) and is not done here."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))  # flax "scale"
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, train: bool = False):
+        in_dtype = x.dtype
+        x = x.float()
+        if train:
+            if mask is None:
+                count = torch.tensor(float(x.shape[0]), device=x.device)
+                total = x.sum(0)
+                total_sq = (x * x).sum(0)
+            else:
+                m = mask.to(x.dtype)[:, None]
+                count = m.sum()
+                total = (x * m).sum(0)
+                total_sq = (x * x * m).sum(0)
+            safe = torch.clamp(count, min=1.0)
+            mean = total / safe
+            var = torch.clamp(total_sq / safe - mean * mean, min=0.0)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(in_dtype)
+
+
+class MLP(nn.Module):
+    """Dense stack: Linear(+ReLU) x hidden, then a final Linear;
+    ``relu_last`` adds ReLU after the output layer too."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        layer_dims: Sequence[int],
+        relu_last: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        dims = [in_dim] + list(layer_dims)
+        self.layers = nn.ModuleList(
+            dense(a, b, generator) for a, b in zip(dims[:-1], dims[1:])
+        )
+        self.relu_last = relu_last
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = len(self.layers)
+        for i, lin in enumerate(self.layers):
+            x = lin(x)
+            if i < n - 1 or self.relu_last:
+                x = torch.relu(x)
+        return x

@@ -1,0 +1,185 @@
+"""PNA aggregation statistics over sorted receivers: the CUDA kernel
+``pna_aggregate_fwd`` and its plain PyTorch version.
+
+Port of ``hydragnn_tpu/ops/segment_pallas.py:pna_aggregate`` (forward):
+the Pallas ``_family_kernel`` (masked Σv, Σv² per receiver, f32
+accumulation) together with the XLA segment max over ``[v, -v]`` that
+``_pna_aggregate`` pairs with it. One kernel (``csrc/pna_aggregate.cu``)
+reads ``v`` once and emits all four outputs:
+
+  sum   [N, H] f32      Σ_e m_e v_e
+  sumsq [N, H] f32      Σ_e m_e v_e²
+  cnt   [N]    f32      Σ_e m_e
+  both  [N, 2H] v.dtype [max v | max -v] over unmasked edges, empty
+                        (and at-or-below-lowest) rows cleaned to 0
+
+``receivers`` must be sorted ascending (``graph/batch.py`` emits them
+so); this is not checked on the card, where a check would cost a host
+sync. The wrapper dispatches on the tensor's device: a CPU tensor takes
+the plain version, a CUDA tensor launches the kernel or raises — there
+is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+SOURCE = "hydragnn_tpu_torch/ops/csrc/pna_aggregate.cu"
+REPLACES = "hydragnn_tpu/ops/segment_pallas.py:219"
+
+
+class LaunchCount:
+    """Thread-safe count of kernel launches (the dispatch thread adds,
+    callers read and reset)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n
+
+
+# launches of the CUDA kernel through pna_aggregate (never the plain path)
+launches = LaunchCount()
+
+
+def pna_aggregate_plain(
+    v: torch.Tensor,
+    receivers: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference arithmetic in plain PyTorch: masked products summed
+    with ``index_add_`` in f32, the maxima with ``scatter_reduce(amax)``
+    over ``where(mask, [v, -v], lowest)``, cleaned to 0 at or below the
+    type's lowest value (``segment_pallas.py:segment_sum_family_xla`` and
+    ``_pna_aggregate``)."""
+    e, h = v.shape
+    n = int(num_segments)
+    idx = receivers.long()
+    vf = v.float()
+    if mask is None:
+        mask = torch.ones(e, dtype=torch.bool, device=v.device)
+    mf = mask.to(torch.float32)
+    vm = vf * mf[:, None]
+    s = torch.zeros(n, h, dtype=torch.float32, device=v.device).index_add_(0, idx, vm)
+    sq = torch.zeros(n, h, dtype=torch.float32, device=v.device).index_add_(0, idx, vm * vm)
+    cnt = torch.zeros(n, dtype=torch.float32, device=v.device).index_add_(0, idx, mf)
+    lowest = torch.finfo(v.dtype).min
+    vv = torch.cat([v, -v], dim=1)
+    vv = torch.where(mask[:, None], vv, torch.full((), lowest, dtype=v.dtype, device=v.device))
+    raw = torch.full((n, 2 * h), float("-inf"), dtype=v.dtype, device=v.device).scatter_reduce(
+        0, idx[:, None].expand(e, 2 * h), vv, "amax", include_self=True
+    )
+    both = torch.where(raw <= lowest, torch.zeros((), dtype=v.dtype, device=v.device), raw)
+    return s, sq, cnt, both
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_lib_lock = threading.Lock()
+_fn = None  # the bound C entry point; guarded by _lib_lock
+
+
+def _kernel():
+    global _fn
+    with _lib_lock:
+        if _fn is None:
+            from hydragnn_tpu_torch.ops._build import load_library
+
+            lib, _ = load_library("pna_aggregate.cu")
+            fn = lib.hg_pna_aggregate_fwd
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            _fn = fn
+        return _fn
+
+
+def build() -> str:
+    """Build and load the kernel now; returns the compiler's log."""
+    from hydragnn_tpu_torch.ops._build import load_library
+
+    _kernel()
+    return load_library("pna_aggregate.cu")[1]
+
+
+def _check(v, receivers, num_segments, mask) -> None:
+    if v.dim() != 2:
+        raise ValueError(f"pna_aggregate: v must be [E, H], got shape {tuple(v.shape)}")
+    if v.dtype not in _DTYPE_CODE:
+        raise TypeError(f"pna_aggregate: v must be float32 or bfloat16, got {v.dtype}")
+    if receivers.dim() != 1 or receivers.shape[0] != v.shape[0]:
+        raise ValueError("pna_aggregate: receivers must be [E] matching v")
+    if mask is not None and (mask.dim() != 1 or mask.shape[0] != v.shape[0]):
+        raise ValueError("pna_aggregate: mask must be [E] matching v")
+    if mask is not None and mask.dtype != torch.bool:
+        raise TypeError(f"pna_aggregate: mask must be bool, got {mask.dtype}")
+    if int(num_segments) < 1:
+        raise ValueError("pna_aggregate: num_segments must be >= 1")
+
+
+def pna_aggregate(
+    v: torch.Tensor,
+    receivers: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(sum, sumsq, cnt, both)`` of ``v`` grouped by sorted
+    ``receivers`` (module docstring). CPU tensors take the plain
+    version; CUDA tensors launch ``pna_aggregate_fwd``."""
+    _check(v, receivers, num_segments, mask)
+    if v.device.type == "cpu":
+        return pna_aggregate_plain(v, receivers, num_segments, mask)
+    if v.device.type != "cuda":
+        raise ValueError(f"pna_aggregate: unsupported device {v.device}")
+    if receivers.dtype != torch.int32:
+        raise TypeError(f"pna_aggregate: receivers must be int32 on CUDA, got {receivers.dtype}")
+    for name, t in (("receivers", receivers), ("mask", mask)):
+        if t is not None and t.device != v.device:
+            raise ValueError(f"pna_aggregate: {name} on {t.device}, v on {v.device}")
+    if not v.is_contiguous() or not receivers.is_contiguous() or (
+        mask is not None and not mask.is_contiguous()
+    ):
+        raise ValueError("pna_aggregate: v, receivers and mask must be contiguous")
+    e, h = v.shape
+    if e >= 2**31:
+        raise ValueError("pna_aggregate: more than 2^31 - 1 edges")
+    n = int(num_segments)
+    fn = _kernel()
+    dev = v.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        s = torch.empty(n, h, dtype=torch.float32, device=dev)
+        sq = torch.empty(n, h, dtype=torch.float32, device=dev)
+        cnt = torch.empty(n, dtype=torch.float32, device=dev)
+        both = torch.empty(n, 2 * h, dtype=v.dtype, device=dev)
+        rc = fn(
+            v.data_ptr(), _DTYPE_CODE[v.dtype], receivers.data_ptr(),
+            None if mask is None else mask.data_ptr(), e, n, h,
+            row_ptr.data_ptr(), s.data_ptr(), sq.data_ptr(), cnt.data_ptr(),
+            both.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"pna_aggregate_fwd: CUDA error {rc} at launch")
+    launches.add()
+    return s, sq, cnt, both
