@@ -4,32 +4,46 @@ one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
-Phases, one line each (a failing phase raises; nothing is caught):
-  1. device   — the card's name, count and power limit (nvidia-smi).
-  2. build    — nvcc builds every kernel of the serving path from the
-                sources in the checkout; ptxas registers / shared memory.
-  3. check    — each kernel against its plain PyTorch version at the
-                shapes of a real flagship serving batch (conv_0 H=1,
-                conv_1..5 H=128, f32 and bf16), with empty, all-masked
-                and tied segments; two launches bitwise equal.
-  4. serve    — the flagship model at full width (hidden 128, 6 PNA
-                layers, 4 heads, seeded init) served through
-                hydragnn_tpu_torch.serve_model on the card: requests
-                from 4 threads, every answer finite and equal to the
-                same weights' forward on the CPU (plain versions), and
-                kernel launches = 6 x device forwards.
-  5. timing   — CUDA-event times of the kernel, its plain version and
-                the nearest PyTorch library calls, beside the byte
-                bound, at the serving shape and at a 128-graph shape.
-  6. summary  — the kernels line, the card line, then the result line.
+Phases, each printing ``[phase] key=value ...`` lines (a failing phase
+raises; nothing is caught):
+  1. device      — the card's name, count and power limit (nvidia-smi).
+  2. build       — one nvcc per kernel source, all started together;
+                   ptxas registers / spills / shared memory.
+  3. check       — pna_aggregate_fwd (B5) against its plain version at
+                   the shapes of a full flagship serving batch.
+  4. check-train — gather_stats (B1), segment_sum (B2), gather_rows (B3)
+                   and segment_sum_local (B4) against their plain versions
+                   at the flagship training batch's shapes (batch 1024,
+                   conv_0 H=1 and conv_1..5 H=128, f32 and bf16), with
+                   ties, all-masked K-groups, empty rows and a window plan
+                   of overlapping blocks; the backward of every autograd op
+                   against the same op on the CPU; two launches bitwise
+                   equal.
+  5. serve       — the flagship at full width (hidden 128, 6 PNA layers,
+                   4 heads) served on the card: every answer equal to the
+                   CPU forward; pna_aggregate launches = 6 x forwards.
+  6. train       — run_training on the flagship at full width, batch 1024,
+                   1,280 samples (one train step per epoch), 3 epochs:
+                   finite, falling loss; kernel launches equal to the
+                   documented counts; then one train step at 64 graphs on
+                   the card against the same step on the CPU.
+  7. predict     — run_prediction from the run's checkpoint equals the
+                   in-memory model's test pass.
+  8. timing      — each kernel at the main path's shapes: ms eager, ms in
+                   a CUDA graph, plain ms, library ms, beside its bound;
+                   a train step broken into its stages, and its device
+                   time by kernel (torch.profiler).
+  9. summary     — the kernels line, the card line, then the result line.
 
 Without a card (torch.cuda.is_available() false), or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -38,9 +52,31 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
-SUM_TOL = dict(rtol=1e-6, atol=1e-6)  # f32 sums; the maxima must be bit-equal
+SUM_TOL = dict(rtol=1e-6, atol=1e-6)  # f32 sums; gathers and maxima must be bit-equal
 SERVE_TOL = dict(rtol=1e-4, atol=1e-4)  # card vs CPU forward of the whole model
-N_SAMPLES, UNIT_CELLS, SEED = 64, (2, 4), 0
+# card vs CPU train step at 64 graphs. The loss within rtol 1e-5, the
+# BatchNorm running statistics within rtol 1e-4, atol 1e-6. Gradients,
+# per tensor, by the relative L2 norm of the difference:
+#   - heads and graph trunk: 1e-4 (f32 sums in another order);
+#   - conv and BatchNorm parameters: 2e-2. Their gradients come back
+#     through the segment maxima, which send each gradient to the tied or
+#     nearly tied maximum. In a BCC lattice many neighbours are
+#     equivalent, so 1e-7 rounding differences (cuBLAS against the CPU's
+#     GEMM) pick another of two near-equal neighbours and move the
+#     gradient by a whole share, not by a rounding. The kernels
+#     themselves match their plain versions bit for bit (check-train).
+#   - the conv post-layer biases, which feed a BatchNorm: their gradient
+#     is 0 up to rounding, so each is held to 1e-4 x the largest
+#     gradient of its layer's post-layer weight, on both sides.
+STEP_LOSS_RTOL, STEP_BN_TOL = 1e-5, dict(rtol=1e-4, atol=1e-6)
+STEP_HEAD_TOL, STEP_CONV_TOL, STEP_ZERO_TOL = 1e-4, 2e-2, 1e-4
+# prediction vs the in-memory test pass: the pooling's index_add_ uses
+# atomics on the card, so two passes may round differently
+PREDICT_TOL = dict(rtol=1e-5, atol=1e-6)
+N_SAMPLES, UNIT_CELLS, SEED = 64, (2, 4), 0  # the serving phase's data
+TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_EPOCHS, STEP_GRAPHS = 1280, 1024, 3, 64
+TRAIN_UNIT_CELLS = (2, 4)  # 2 or 3 unit cells per axis, as the bench's flagship
+K = 8  # the loader's run alignment
 
 
 def line(phase, **kw):
@@ -89,35 +125,36 @@ def graph_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
-def aggregate_bound(v, mask, n):
-    """Least time (ms) for the same work: bytes that must move (each
-    input read once, each output written once; v rows of masked edges
-    are never read) over HBM rate, or operations over the f32 rate."""
-    e, h = v.shape
-    s = v.element_size()
-    real = int(mask.sum())
-    nbytes = real * h * s + e * 4 + e * 1 + n * h * 4 * 2 + n * 4 + n * 2 * h * s
-    ops = real * h * 5  # add, multiply, add, two comparisons
+def bound(nbytes, ops):
+    """Least time (ms) for the work: bytes over the HBM rate or float32
+    operations over the card's rate, whichever is larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_aggregate(out, ref, label):
-    """Kernel outputs vs plain outputs: sums to SUM_TOL, counts and
-    maxima bit-equal. Returns the max abs error over all four."""
-    s, sq, cnt, both = [t.cpu() for t in out]
-    rs, rsq, rcnt, rboth = [t.cpu() for t in ref]
-    np.testing.assert_allclose(s.numpy(), rs.numpy(), err_msg=label + " sum", **SUM_TOL)
-    np.testing.assert_allclose(sq.numpy(), rsq.numpy(), err_msg=label + " sumsq", **SUM_TOL)
-    if not torch.equal(cnt, rcnt):
-        raise AssertionError(f"{label}: counts differ")
-    if not torch.equal(both.view(torch.int16 if both.dtype == torch.bfloat16 else torch.int32),
-                       rboth.view(torch.int16 if rboth.dtype == torch.bfloat16 else torch.int32)):
-        raise AssertionError(f"{label}: maxima not bit-equal")
-    return max(
-        float((s - rs).abs().max()), float((sq - rsq).abs().max()),
-        float((cnt - rcnt).abs().max()), float((both.float() - rboth.float()).abs().max()),
-    )
+def bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+
+def compare(out, ref, label, exact=False):
+    """Max abs error of ``out`` against ``ref`` (both on any device);
+    raises beyond SUM_TOL, or unless bit-equal when ``exact``."""
+    out, ref = out.detach().cpu(), ref.detach().cpu()
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"{label}: {tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} {ref.dtype}")
+    if exact:
+        if not torch.equal(bits(out), bits(ref)):
+            raise AssertionError(f"{label}: not bit-equal")
+        return 0.0
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(), err_msg=label, **SUM_TOL)
+    return float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0
+
+
+def quarter_grid(shape, seed, scale=4.0):
+    """Values on a 1/4 grid (many ties; every sum of a few of them exact
+    in f32, whatever the order), no -0.0."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((np.round(rng.normal(size=shape) * scale) / 4.0 + 0.0).astype(np.float32))
 
 
 def main():
@@ -125,14 +162,23 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card")
     import hydragnn_tpu_torch
-    from hydragnn_tpu_torch.api import prepare_config_and_samples
-    from hydragnn_tpu_torch.data.loader import pad_plan_for
+    from hydragnn_tpu_torch.api import prepare_config_and_samples, prepare_loaders_and_config
+    from hydragnn_tpu_torch.data.loader import GraphLoader
     from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
     from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.graph import segment as S
     from hydragnn_tpu_torch.graph.batch import batch_graphs
-    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.models.base import model_loss
+    from hydragnn_tpu_torch.models.create import create_model, create_model_config
+    from hydragnn_tpu_torch.ops import gather_rows as b3
+    from hydragnn_tpu_torch.ops import gather_stats as b1
     from hydragnn_tpu_torch.ops import pna_aggregate as agg
+    from hydragnn_tpu_torch.ops import segment_sum as b2
+    from hydragnn_tpu_torch.ops import segment_sum_local as b4
+    from hydragnn_tpu_torch.ops._build import build_all
     from hydragnn_tpu_torch.serve import ServeConfig, build_bucket_ladder, request_to_dict
+    from hydragnn_tpu_torch.train.loop import test_epoch
+    from hydragnn_tpu_torch.train.state import train_step
 
     dev = hydragnn_tpu_torch.resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -141,16 +187,27 @@ def main():
     line("device", kind=repr(kind), count=count, nvidia_smi=repr(card),
          torch=torch.__version__, cuda=torch.version.cuda,
          tf32=torch.backends.cuda.matmul.allow_tf32)
+    mods = {"pna_aggregate_fwd": agg, "gather_stats": b1, "segment_sum": b2,
+            "gather_rows": b3, "segment_sum_local": b4}
+    sources = {name: os.path.basename(m.SOURCE) for name, m in mods.items()}
+
+    def reset_counts():
+        for m in mods.values():
+            m.launches.reset()
+
+    def read_counts():
+        return {name: m.launches.value for name, m in mods.items()}
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.time()
-    log = agg.build()
-    ptxas = [ln.strip() for ln in log.splitlines() if "Used" in ln or "Compiling entry" in ln]
-    line("build", kernel="pna_aggregate_fwd", seconds=round(time.time() - t0, 2))
-    for ln in ptxas:
-        print("  ptxas:", ln)
+    logs = build_all(list(sources.values()))
+    line("build", kernels=len(logs), parallel_nvcc=len(logs), seconds=round(time.time() - t0, 2))
+    for name, src in sources.items():
+        for ln in logs[src].splitlines():
+            if "Used" in ln or "Compiling entry" in ln or "spill" in ln:
+                print(f"  ptxas[{name}]:", ln.strip())
 
-    # the flagship data, prepared once (the serving phase re-prepares its own copy)
+    # ---- 3. check: pna_aggregate_fwd at serving shapes -------------------
     cfg = flagship_config()
     raw = deterministic_graph_data(
         number_configurations=N_SAMPLES, unit_cell_x_range=UNIT_CELLS,
@@ -160,50 +217,141 @@ def main():
     prepared = list(tr) + list(va) + list(te)
     hidden = cfg["NeuralNetwork"]["Architecture"]["hidden_dim"]
     n_layers = cfg["NeuralNetwork"]["Architecture"]["num_conv_layers"]
-
-    # a full serving batch on the largest bucket: the biggest shapes the
-    # main path hands the kernel
     top = build_bucket_ladder(prepared, ServeConfig().max_batch)[-1]
     biggest = sorted(prepared, key=lambda s: -s.num_edges)[: top.max_batch]
     serve_batch = batch_graphs(
         [request_to_dict(s) for s in biggest],
         n_node_pad=top.node_pad, n_edge_pad=top.edge_pad, n_graph_pad=top.graph_pad,
     )
-
-    # ---- 3. check --------------------------------------------------------
     rng = np.random.default_rng(SEED)
-    recv = serve_batch.receivers
-    n_rows = serve_batch.num_nodes
+    recv, n_rows = serve_batch.receivers, serve_batch.num_nodes
     dead = torch.isin(recv, torch.tensor([0, 5, 17], dtype=torch.int32))  # all-masked rows
-    cases = [
+    max_err = {name: 0.0 for name in mods}
+    for label, h, dtype, mask, ties in [
         ("conv0_f32_h1", 1, torch.float32, serve_batch.edge_mask, False),
         ("conv1-5_f32_h128", hidden, torch.float32, serve_batch.edge_mask, False),
         ("conv1-5_bf16_h128", hidden, torch.bfloat16, serve_batch.edge_mask, False),
         ("adversarial_f32_h128", hidden, torch.float32, serve_batch.edge_mask & ~dead, True),
         ("adversarial_bf16_h1", 1, torch.bfloat16, serve_batch.edge_mask & ~dead, True),
-    ]
-    max_err = 0.0
-    for label, h, dtype, mask, ties in cases:
+    ]:
         vals = rng.normal(size=(serve_batch.num_edges, h)).astype(np.float32)
         if ties:
-            vals = np.round(vals * 2.0) / 2.0 + 0.0  # many equal values per row, no -0.0
+            vals = np.round(vals * 2.0) / 2.0 + 0.0
         v = torch.from_numpy(vals).to(dtype)
         ref = agg.pna_aggregate_plain(v, recv, n_rows, mask)  # host copy, sequential f32 order
         args = (v.to(dev), recv.to(dev), n_rows, mask.to(dev))
-        out1 = agg.pna_aggregate(*args)
-        out2 = agg.pna_aggregate(*args)
+        out1, out2 = agg.pna_aggregate(*args), agg.pna_aggregate(*args)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(out1, out2)):
             raise AssertionError(f"{label}: two launches differ")
-        card_plain = agg.pna_aggregate_plain(*args)
-        err = compare_aggregate(out1, ref, label)
-        err_card = max(float((a.float() - b.float()).abs().max()) for a, b in zip(out1, card_plain))
-        max_err = max(max_err, err)
-        line("check", case=label, E=serve_batch.num_edges, N=n_rows, H=h, dtype=str(dtype)[6:],
-             max_abs_err=err, max_abs_err_vs_card_plain=err_card,
-             empty_rows=int((out1[2] == 0).sum()), deterministic=True)
+        err = max(compare(out1[0], ref[0], label + " sum"), compare(out1[1], ref[1], label + " sumsq"),
+                  compare(out1[2], ref[2], label + " cnt", exact=True),
+                  compare(out1[3], ref[3], label + " both", exact=True))
+        max_err["pna_aggregate_fwd"] = max(max_err["pna_aggregate_fwd"], err)
+        line("check", kernel="pna_aggregate_fwd", case=label, E=serve_batch.num_edges, N=n_rows, H=h,
+             dtype=str(dtype)[6:], max_abs_err=err, deterministic=True)
 
-    # ---- 4. serve --------------------------------------------------------
+    # ---- 4. check-train: B1-B4 at the flagship training shapes ------------
+    tcfg = flagship_config(batch_size=TRAIN_BATCH, num_epoch=TRAIN_EPOCHS)
+
+    def train_samples():
+        return deterministic_graph_data(
+            number_configurations=TRAIN_SAMPLES, unit_cell_x_range=TRAIN_UNIT_CELLS,
+            unit_cell_y_range=TRAIN_UNIT_CELLS, unit_cell_z_range=TRAIN_UNIT_CELLS, seed=SEED,
+        )
+
+    t0 = time.time()
+    train_loader, val_loader, test_loader, _ = prepare_loaders_and_config(tcfg, train_samples())
+    host = next(iter(train_loader))
+    line("check-train", batch_build_s=round(time.time() - t0, 3), graphs=int(host.graph_mask.sum()),
+         node_pad=host.num_nodes, edge_pad=host.num_edges, real_edges=int(host.edge_mask.sum()),
+         real_nodes=int(host.n_real_nodes), run_align=host.run_align,
+         sender_win=tuple(host.sender_win.shape), win_block_rows=train_loader.win_block_rows)
+    bd = host.to(dev)
+    n, e = host.num_nodes, host.num_edges
+    send, recv8 = bd.senders, bd.receivers[::K].contiguous()
+    extra_dead = torch.zeros(e, dtype=torch.bool)
+    extra_dead[torch.arange(0, e // K, 97) * K + torch.arange(K)[:, None]] = True  # whole K-groups
+    adv_mask = (host.edge_mask & ~extra_dead.reshape(-1)).to(dev)
+    # a window plan whose blocks overlap: every window widened by 300
+    # positions both ways (strays must be skipped by their id)
+    win_wide = torch.stack([torch.clamp(host.sender_win[0] - 300, min=0),
+                            torch.clamp(host.sender_win[1] + 300, max=e)]).to(torch.int32)
+    win_wide = torch.where(host.sender_win[1] > host.sender_win[0], win_wide, host.sender_win).to(dev)
+
+    def twice(label, fn, *args):
+        out1, out2 = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        o1 = out1 if isinstance(out1, tuple) else (out1,)
+        o2 = out2 if isinstance(out2, tuple) else (out2,)
+        if not all(torch.equal(bits(a) if a.is_floating_point() else a, bits(b) if b.is_floating_point() else b)
+                   for a, b in zip(o1, o2)):
+            raise AssertionError(f"{label}: two launches differ")
+        return out1
+
+    for h in (1, hidden):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{'conv0' if h == 1 else 'conv1-5'}_{str(dtype)[6:]}_h{h}"
+            table = quarter_grid((n, h), h).to(dtype).to(dev)
+            # B1: gather + K-group statistics (adversarial mask)
+            stats, both = twice("gather_stats " + tag, b1.gather_stats, table, send, adv_mask, K)
+            rs, rb = b1.gather_stats_plain(table, send, adv_mask, K)
+            err = max(compare(stats, rs, "gather_stats stats " + tag), compare(both, rb, "gather_stats both " + tag, exact=True))
+            lowest = torch.finfo(dtype).min
+            if not bool((both[extra_dead.reshape(-1, K)[:, 0].to(dev)] == lowest).all()):
+                raise AssertionError("gather_stats: an all-masked group lost its fill value")
+            max_err["gather_stats"] = max(max_err["gather_stats"], err)
+            line("check-train", kernel="gather_stats", case=tag, E=e, N=n, H=h, max_abs_err=err, deterministic=True)
+            # B2: the E/K sum of the statistics (and a 0/1 tie mask in the data's dtype)
+            for label, data in (("stats", stats), ("ties", (both == both.roll(1, 0)).to(dtype))):
+                out = twice("segment_sum " + tag, b2.segment_sum, data, recv8, n)
+                err = compare(out, b2.segment_sum_plain(data, recv8, n), f"segment_sum {label} {tag}")
+                max_err["segment_sum"] = max(max_err["segment_sum"], err)
+                line("check-train", kernel="segment_sum", case=f"{label}_{tag}", E=e // K, N=n, W=data.shape[1],
+                     max_abs_err=err, empty_rows=int((out.abs().sum(1) == 0).sum()), deterministic=True)
+            # B3: the sorted E/K gather of a node table, and the local
+            # E-level regather of v
+            node_table = quarter_grid((n, 2 * h), h + 7).to(dtype).to(dev)
+            for label, src, ids in (("sorted", node_table, recv8), ("local", table, send)):
+                out = twice("gather_rows " + tag, b3.gather_rows, src, ids)
+                compare(out, b3.gather_rows_plain(src, ids), f"gather_rows {label} {tag}", exact=True)
+                line("check-train", kernel="gather_rows", case=f"{label}_{tag}", rows=ids.shape[0], W=src.shape[1],
+                     max_abs_err=0.0, deterministic=True)
+            # B4: the windowed scatter into the senders, tight and overlapping windows
+            data = quarter_grid((e, h), h + 3).to(dtype).to(dev)
+            ref = b4.segment_sum_local_plain(data, send, n)
+            for label, win in (("tight", bd.sender_win), ("overlapping", win_wide)):
+                out = twice("segment_sum_local " + tag, b4.segment_sum_local, data, send, win, n)
+                err = compare(out, ref, f"segment_sum_local {label} {tag}")
+                max_err["segment_sum_local"] = max(max_err["segment_sum_local"], err)
+                line("check-train", kernel="segment_sum_local", case=f"{label}_{tag}", E=e, N=n, H=h,
+                     max_abs_err=err, deterministic=True)
+
+    # the backward of every autograd op on the path, card (kernels) against
+    # CPU (plain versions), at the training shapes, f32
+    for h in (1, hidden):
+        tab_h = quarter_grid((n, h), 40 + h)
+        g_stats = quarter_grid((e // K, 2 * h), 41 + h, scale=1.0)
+        g_both = quarter_grid((e // K, 2 * h), 42 + h, scale=1.0)
+        g_node = quarter_grid((n, 2 * h), 43 + h, scale=1.0)
+        cpu_mask = adv_mask.cpu()
+        grads = {}
+        for where in ("cuda", "cpu"):
+            d = dev if where == "cuda" else torch.device("cpu")
+            t = tab_h.to(d).requires_grad_(True)
+            st, bo = b1.gather_presum_stats(t, send.to(d), cpu_mask.to(d), host.sender_win.to(d), n, K)
+            r8 = recv8.to(d)
+            pair = S.segment_sum_sorted(st, r8, n, grad_dtype=torch.float32)
+            mx = S.segment_max(bo, r8, n, indices_are_sorted=True, empty_value=0.0)
+            torch.autograd.backward((st, bo, pair, mx), (g_stats.to(d), g_both.to(d), g_node.to(d), g_node.to(d)))
+            grads[where] = (t.grad.cpu(), pair.detach().cpu(), mx.detach().cpu())
+        err = max(compare(a, b, f"backward h{h}") for a, b in zip(grads["cuda"], grads["cpu"]))
+        for name in ("gather_stats", "segment_sum", "gather_rows", "segment_sum_local"):
+            max_err[name] = max(max_err[name], err)
+        line("check-train", case=f"autograd_backward_f32_h{h}", ops="gather_presum_stats,segment_sum_sorted,segment_max",
+             max_abs_err_grad_table=err, grad_norm=float(grads["cuda"][0].norm()))
+
+    # ---- 5. serve --------------------------------------------------------
     raw = deterministic_graph_data(
         number_configurations=N_SAMPLES, unit_cell_x_range=UNIT_CELLS,
         unit_cell_y_range=UNIT_CELLS, unit_cell_z_range=UNIT_CELLS, seed=SEED,
@@ -217,7 +365,7 @@ def main():
         results = [None] * len(work)
         lat = [0.0] * len(work)
         snap0 = server.metrics_snapshot()
-        agg.launches.reset()
+        reset_counts()
         t_start = time.perf_counter()
 
         def client(k):
@@ -239,17 +387,16 @@ def main():
             if t.is_alive():
                 raise AssertionError("serve: a client thread did not finish")
         wall = time.perf_counter() - t_start
-        launches = agg.launches.value
+        serve_counts = read_counts()
         snap = server.metrics_snapshot()
         forwards = snap["forwards_total"] - snap0["forwards_total"]
         batches = snap["batches_total"] - snap0["batches_total"]
         if None in results:
             raise AssertionError("serve: a request got no answer")
-        if forwards != batches or launches != n_layers * batches:
-            raise AssertionError(
-                f"serve: {launches} kernel launches, {forwards} forwards, {batches} batches; "
-                f"want launches = {n_layers} x batches"
-            )
+        want = {name: 0 for name in mods}
+        want["pna_aggregate_fwd"] = n_layers * batches
+        if forwards != batches or serve_counts != want:
+            raise AssertionError(f"serve: launches {serve_counts}, {forwards} forwards, {batches} batches; want {want}")
 
         cpu_model = create_model(server.served.cfg, seed=SEED, device="cpu")
         cpu_model.load_state_dict({k: t.cpu() for k, t in server.served.model.state_dict().items()})
@@ -258,114 +405,273 @@ def main():
         for g, res in zip(work, results):
             with torch.no_grad():
                 ref = cpu_model(batch_graphs([g]), train=False)
-            n = g["x"].shape[0]
+            nn_ = g["x"].shape[0]
             for ih, name in enumerate(mcfg.output_names):
                 out = res[name]
-                want = ref[ih][0] if mcfg.output_type[ih] == "graph" else ref[ih][:n]
-                want = want.numpy()
-                if out.shape != want.shape or not np.all(np.isfinite(out)):
+                want_ = (ref[ih][0] if mcfg.output_type[ih] == "graph" else ref[ih][:nn_]).numpy()
+                if out.shape != want_.shape or not np.all(np.isfinite(out)):
                     raise AssertionError(f"serve: head {name} shape {out.shape} or non-finite")
-                np.testing.assert_allclose(out, want, err_msg=f"serve head {name}", **SERVE_TOL)
-                worst = max(worst, float(np.abs(out - want).max()))
-        # light load: one request at a time (each waits out the deadline alone)
+                np.testing.assert_allclose(out, want_, err_msg=f"serve head {name}", **SERVE_TOL)
+                worst = max(worst, float(np.abs(out - want_).max()))
         serial = []
-        for r in requests[:32]:
+        for r in requests[:32]:  # light load: one request at a time
             t = time.perf_counter()
             server.predict(r, timeout=300)
             serial.append(time.perf_counter() - t)
     finally:
         server.stop()
     lat_ms = np.sort(np.asarray(lat)) * 1e3
-    line("serve", requests=len(work), threads=4, forwards=forwards,
-         batches=batches, kernel_launches=launches,
+    line("serve", requests=len(work), threads=4, forwards=forwards, batches=batches,
+         kernel_launches=json.dumps(serve_counts, separators=(",", ":")),
          p50_ms=round(float(np.percentile(lat_ms, 50)), 3),
          p99_ms=round(float(np.percentile(lat_ms, 99)), 3),
          requests_per_s=round(len(work) / wall, 1),
          serial_p50_ms=round(float(np.median(serial)) * 1e3, 3), max_abs_err_vs_cpu=worst,
          hidden=hidden, conv_layers=n_layers, heads=mcfg.num_heads, card=repr(card))
-    line("serve-buckets", **{k: json.dumps(v, separators=(",", ":"))
-                             for k, v in snap["buckets"].items()})
+    line("serve-buckets", **{k: json.dumps(v, separators=(",", ":")) for k, v in snap["buckets"].items()})
 
-    # ---- 5. timing -------------------------------------------------------
-    # where one full serving batch's time goes: host clock, synchronised
-    # between stages, median of 20 (largest bucket, 8 graphs)
-    graphs8 = [request_to_dict(s) for s in biggest]
-    stages = {"batch_build": [], "h2d": [], "forward": [], "d2h": []}
-    for _ in range(20):
+    # ---- 6. train --------------------------------------------------------
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_logs_")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    model, optimizer, history, done = hydragnn_tpu_torch.run_training(
+        flagship_config(batch_size=TRAIN_BATCH, num_epoch=TRAIN_EPOCHS), train_samples(),
+        log_dir=log_dir, device="cuda", seed=SEED,
+    )
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_counts = read_counts()
+    losses = history["train_loss"]
+    if not (np.isfinite(losses).all() and np.isfinite(history["val_loss"]).all()
+            and np.isfinite(history["test_loss"]).all()):
+        raise AssertionError(f"train: a loss is not finite: {history}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the train loss did not fall: {losses}")
+    # per train step: B1 6 (forward), B2 12 (forward E/K sum, backward tie
+    # counts), B3 24 (backward: the max's two gathers, the E/K sum's
+    # cotangent, the regather of v), B4 6 (backward into bsend); per eval
+    # or BatchNorm-statistics forward: B1 6, B2 6
+    steps = TRAIN_EPOCHS * len(train_loader)
+    forwards = TRAIN_EPOCHS * (len(val_loader) + len(test_loader)) + 2 * len(train_loader)
+    per_step = {"gather_stats": n_layers, "segment_sum": 2 * n_layers,
+                "gather_rows": 4 * n_layers, "segment_sum_local": n_layers}
+    per_fwd = {"gather_stats": n_layers, "segment_sum": n_layers}
+    want = {name: steps * per_step.get(name, 0) + forwards * per_fwd.get(name, 0) for name in mods}
+    if train_counts != want:
+        raise AssertionError(f"train: launches {train_counts}, want {want}")
+    line("train", epochs=TRAIN_EPOCHS, steps=steps, eval_and_bn_forwards=forwards, batch=TRAIN_BATCH,
+         hidden=hidden, conv_layers=n_layers, train_loss=json.dumps(losses),
+         val_loss=json.dumps(history["val_loss"]), test_loss=json.dumps(history["test_loss"]),
+         kernel_launches=json.dumps(train_counts, separators=(",", ":")),
+         per_step=json.dumps(per_step, separators=(",", ":")), wall_s=round(train_wall, 3),
+         max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=repr(card))
+
+    # one train step at STEP_GRAPHS graphs: card (kernels) against CPU (plain)
+    step_loader = GraphLoader(train_loader.samples[:STEP_GRAPHS], STEP_GRAPHS)
+    step_batch = next(iter(step_loader))
+    nn_cfg = done["NeuralNetwork"]
+    results = {}
+    for where in ("cpu", "cuda"):
+        m = create_model_config(nn_cfg, seed=SEED + 1, device=where)
+        b = step_batch.to(next(m.parameters()).device)
+        reset_counts()
+        m.zero_grad(set_to_none=True)
+        loss, tasks = model_loss(m.cfg, m(b, train=True), b)
+        loss.backward()
+        counts = read_counts()
+        results[where] = (
+            loss.item(), {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+            {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}, counts,
+        )
+    step_want = {name: per_step.get(name, 0) for name in mods}
+    if results["cuda"][3] != step_want or any(results["cpu"][3].values()):
+        raise AssertionError(f"train step launches card {results['cuda'][3]}, cpu {results['cpu'][3]}; want {step_want}")
+    rel = {}  # relative L2 difference, card against CPU, per gradient
+    worst = {"head": ("", 0.0), "conv": ("", 0.0), "zero": ("", 0.0)}
+    gc_all, gp_all = results["cuda"][1], results["cpu"][1]
+    for k, g in gp_all.items():
+        if k.startswith("convs.") and k.endswith("post.bias"):
+            ref_w = max(float(gp_all[k[:-4] + "weight"].abs().max()), 1e-30)
+            r = max(float(g.abs().max()), float(gc_all[k].abs().max())) / ref_w
+            tier = "zero"
+        else:
+            r = float((gc_all[k] - g).norm() / max(float(g.norm()), 1e-30))
+            tier = "conv" if k.startswith(("convs.", "norms.")) else "head"
+        rel[k] = r
+        if r >= worst[tier][1]:
+            worst[tier] = (k, r)
+    bn_ok = all(torch.allclose(results["cuda"][2][k], v, **STEP_BN_TOL) for k, v in results["cpu"][2].items())
+    line("train-step-vs-cpu", graphs=STEP_GRAPHS, edge_pad=step_batch.num_edges, loss_card=results["cuda"][0],
+         loss_cpu=results["cpu"][0], worst_head_grad_rel_l2=json.dumps(worst["head"]),
+         worst_conv_grad_rel_l2=json.dumps(worst["conv"]), worst_bn_fed_bias_grad=json.dumps(worst["zero"]),
+         bn_stats_close=bn_ok, params=len(rel), kernel_launches=json.dumps(results["cuda"][3], separators=(",", ":")))
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=STEP_LOSS_RTOL, err_msg="step loss")
+    limits = {"head": STEP_HEAD_TOL, "conv": STEP_CONV_TOL, "zero": STEP_ZERO_TOL}
+    if not bn_ok or any(worst[t][1] > limits[t] for t in worst):
+        raise AssertionError(f"train step: card and CPU differ beyond the tolerance: {rel}, BN close {bn_ok}")
+
+    # ---- 7. predict ------------------------------------------------------
+    in_memory = test_epoch(test_loader, model)
+    err, tasks, trues, preds = hydragnn_tpu_torch.run_prediction(
+        flagship_config(batch_size=TRAIN_BATCH, num_epoch=TRAIN_EPOCHS), train_samples(),
+        log_dir=log_dir, device="cuda",
+    )
+    np.testing.assert_allclose(err, in_memory[0], err_msg="predict loss", **PREDICT_TOL)
+    worst = 0.0
+    for a, b in zip(preds + trues, in_memory[3] + in_memory[2]):
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError("predict: shape or non-finite")
+        np.testing.assert_allclose(a, b, err_msg="predict values", **PREDICT_TOL)
+        worst = max(worst, float(np.abs(a - b).max()))
+    line("predict", test_loss=err, in_memory_test_loss=in_memory[0], heads=len(preds),
+         rows=json.dumps([int(p.shape[0]) for p in preds]), max_abs_err=worst)
+
+    # ---- 8. timing -------------------------------------------------------
+    h = hidden
+    table = torch.randn(n, h, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    stats, both = b1.gather_stats(table, send, bd.edge_mask, K)
+    gsend = torch.randn(e, h, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    node_w = torch.randn(n, 2 * h, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    lengths = torch.bincount(recv8.long(), minlength=n)
+    real = int(host.edge_mask.sum())
+    s4 = 4
+    nb = int(bd.sender_win.shape[1])
+    specs = {
+        # name: (kernel, plain, library or None, bytes, ops, shape)
+        "gather_stats": (
+            lambda: b1.gather_stats(table, send, bd.edge_mask, K),
+            lambda: b1.gather_stats_plain(table, send, bd.edge_mask, K), None,
+            e * 4 + e * 1 + n * h * s4 + (e // K) * 2 * h * s4 * 2, real * h * 5,
+            dict(E=e, N=n, H=h, K=K)),
+        "segment_sum": (
+            lambda: b2.segment_sum(stats, recv8, n),
+            lambda: b2.segment_sum_plain(stats, recv8, n),
+            lambda: torch.segment_reduce(stats, "sum", lengths=lengths, axis=0),
+            (e // K) * 2 * h * s4 + (e // K) * 4 + n * 2 * h * s4, (e // K) * 2 * h,
+            dict(rows=e // K, N=n, W=2 * h)),
+        "gather_rows": (
+            lambda: b3.gather_rows(node_w, recv8),
+            lambda: b3.gather_rows_plain(node_w, recv8),
+            lambda: torch.index_select(node_w, 0, recv8),
+            n * 2 * h * s4 + (e // K) * 4 + (e // K) * 2 * h * s4, 0,
+            dict(rows=e // K, N=n, W=2 * h)),
+        "segment_sum_local": (
+            lambda: b4.segment_sum_local(gsend, send, bd.sender_win, n),
+            lambda: b4.segment_sum_local_plain(gsend, send, n),
+            lambda: torch.zeros(n, h, device=dev).index_add_(0, send, gsend),
+            e * h * s4 + e * 4 + 2 * nb * 4 + n * h * s4, e * h,
+            dict(E=e, N=n, H=h, blocks=nb)),
+    }
+    timing = {}
+    for name, (kern, plain, library, nbytes, ops, shape) in specs.items():
+        t = {"kernel": [], "plain": [], "library": []}
+        for which in ("kernel", "plain", "library", "kernel"):  # kernel first and last
+            fn = {"kernel": kern, "plain": plain, "library": library}[which]
+            if fn is not None:
+                t[which].append(cuda_ms(fn, 50))
+        bms, by = bound(nbytes, ops)
+        timing[name] = {
+            "ms": float(np.mean(t["kernel"])), "graph_ms": graph_ms(kern, 20),
+            "plain_ms": t["plain"][0], "library_ms": t["library"][0] if t["library"] else None,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, **shape,
+        }
+        line("timing", kernel=name, card=repr(card),
+             **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing[name].items()})
+    # the E-level regather of the B1 backward, and pna_aggregate_fwd at the serving shape
+    regather_ms = cuda_ms(lambda: b3.gather_rows(table, send), 50)
+    regather_bound, _ = bound(n * h * s4 + e * 4 + e * h * s4, 0)
+    line("timing", kernel="gather_rows", case="regather_E", rows=e, W=h, ms=round(regather_ms, 5),
+         graph_ms=round(graph_ms(lambda: b3.gather_rows(table, send), 20), 5),
+         library_ms=round(cuda_ms(lambda: torch.index_select(table, 0, send), 50), 5),
+         bound_ms=round(regather_bound, 5))
+    v = torch.randn(serve_batch.num_edges, hidden, generator=torch.Generator().manual_seed(1)).to(dev)
+    recv_d, mask_d, ns = serve_batch.receivers.to(dev), serve_batch.edge_mask.to(dev), serve_batch.num_nodes
+    lengths_s = torch.bincount(serve_batch.receivers.long(), minlength=ns).to(dev)
+    vm = torch.where(mask_d[:, None], v, 0.0)
+    pair_sum = torch.cat([vm, vm * vm], dim=1)
+    pair_max = torch.where(mask_d[:, None], torch.cat([v, -v], dim=1), float("-inf"))
+    real_s = int(serve_batch.edge_mask.sum())
+    es, sv = serve_batch.num_edges, 4
+    pna_bytes = real_s * hidden * sv + es * 4 + es + ns * hidden * 8 + ns * 4 + ns * 2 * hidden * sv
+    bms, by = bound(pna_bytes, real_s * hidden * 5)
+    timing["pna_aggregate_fwd"] = {
+        "ms": float(np.mean([cuda_ms(lambda: agg.pna_aggregate(v, recv_d, ns, mask_d), 200) for _ in range(2)])),
+        "graph_ms": graph_ms(lambda: agg.pna_aggregate(v, recv_d, ns, mask_d), 50),
+        "plain_ms": cuda_ms(lambda: agg.pna_aggregate_plain(v, recv_d, ns, mask_d), 200),
+        "library_ms": cuda_ms(lambda: (torch.segment_reduce(pair_sum, "sum", lengths=lengths_s, axis=0),
+                                       torch.segment_reduce(pair_max, "max", lengths=lengths_s, axis=0)), 200),
+        "bound_ms": bms, "bound_by": by, "E": es, "N": ns, "H": hidden,
+    }
+    line("timing", kernel="pna_aggregate_fwd", shape="serve_batch8", card=repr(card),
+         **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing["pna_aggregate_fwd"].items()})
+
+    # where one flagship train step's time goes (host clock, synchronised
+    # between stages, median of 5 steps at batch 1024)
+    stages = {"batch_build": [], "h2d": [], "forward": [], "backward": [], "optimizer": []}
+    order = np.arange(len(train_loader.samples))
+    for _ in range(5):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        b = batch_graphs(graphs8, n_node_pad=top.node_pad, n_edge_pad=top.edge_pad,
-                         n_graph_pad=top.graph_pad)
+        hb = train_loader.make_batch(order[:TRAIN_BATCH])
         t1 = time.perf_counter()
-        bd = b.to(dev)
+        b = hb.to(dev)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        outs = server.served.forward(bd)
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = model_loss(model.cfg, model(b, train=True), b)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        [o.cpu() for o in outs]
+        loss.backward()
+        torch.cuda.synchronize()
         t4 = time.perf_counter()
-        for k, a, z in (("batch_build", t0, t1), ("h2d", t1, t2), ("forward", t2, t3), ("d2h", t3, t4)):
+        optimizer.step()
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        for k, a, z in (("batch_build", t0, t1), ("h2d", t1, t2), ("forward", t2, t3),
+                        ("backward", t3, t4), ("optimizer", t4, t5)):
             stages[k].append((z - a) * 1e3)
-    line("breakdown", shape="serve_batch8", card=repr(card),
+    step_ms = cuda_ms(lambda: train_step(model, optimizer, bd), 5)
+    line("breakdown", shape=f"train_batch{TRAIN_BATCH}", card=repr(card), device_step_ms=round(step_ms, 4),
          **{f"{k}_ms": round(float(np.median(v)), 4) for k, v in stages.items()})
 
-    shapes = [("serve_batch8", serve_batch)]
-    big_plan = pad_plan_for(prepared * 2, 128)
-    shapes.append(("batch128", batch_graphs(
-        [request_to_dict(s) for s in (prepared * 2)[:128]],
-        n_node_pad=big_plan[0], n_edge_pad=big_plan[1], n_graph_pad=big_plan[2],
-    )))
-    timing = {}
-    for label, b in shapes:
-        v = torch.randn(b.num_edges, hidden, generator=torch.Generator().manual_seed(1)).to(dev)
-        recv_d, mask_d, n = b.receivers.to(dev), b.edge_mask.to(dev), b.num_nodes
-        # library yardstick: segment_reduce over the contiguous sorted runs
-        lengths = torch.bincount(b.receivers.long(), minlength=n).to(dev)
-        vm = torch.where(mask_d[:, None], v, 0.0)
-        pair_sum = torch.cat([vm, vm * vm], dim=1)
-        pair_max = torch.where(mask_d[:, None], torch.cat([v, -v], dim=1), float("-inf"))
-        run = {
-            "kernel": lambda: agg.pna_aggregate(v, recv_d, n, mask_d),
-            "plain": lambda: agg.pna_aggregate_plain(v, recv_d, n, mask_d),
-            "library": lambda: (
-                torch.segment_reduce(pair_sum, "sum", lengths=lengths, axis=0),
-                torch.segment_reduce(pair_max, "max", lengths=lengths, axis=0),
-            ),
-        }
-        t = {}
-        for name in ("kernel", "plain", "library", "kernel"):  # kernel first and last
-            t.setdefault(name, []).append(cuda_ms(run[name], 200))
-        bound, bound_by = aggregate_bound(v, b.edge_mask, n)
-        timing[label] = {
-            "ms": float(np.mean(t["kernel"])),
-            "graph_ms": graph_ms(run["kernel"], 50),
-            "plain_ms": t["plain"][0],
-            "library_ms": t["library"][0],
-            "bound_ms": bound,
-            "bound_by": bound_by,
-            "E": b.num_edges, "N": n, "H": hidden,
-        }
-        line("timing", shape=label, card=repr(card),
-             **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing[label].items()})
+    # the device time of one train step by kernel (torch.profiler), and
+    # the share of the step's wall time the card was busy
+    from torch.profiler import ProfilerActivity, profile
 
-    # ---- 6. summary ------------------------------------------------------
-    main_t = timing["serve_batch8"]
-    kernels = [{
-        "name": "pna_aggregate_fwd",
-        "route": "cuda",
-        "source": agg.SOURCE,
-        "replaces": agg.REPLACES,
-        "checked": True,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_t["ms"],
-        "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"],
-        "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms"],
-        "graph_ms": main_t["graph_ms"],
-        "shape": {"E": main_t["E"], "N": main_t["N"], "H": main_t["H"]},
-    }]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, optimizer, bd)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel_rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in kernel_rows)
+    ours = ("gather_stats_kernel", "segment_sum_kernel", "gather_rows_kernel", "segment_sum_local_kernel",
+            "csr_row_ptr_kernel")
+    port_ms = sum(ms for key, ms, _ in kernel_rows if any(o in key for o in ours))
+    gemm_ms = sum(ms for key, ms, _ in kernel_rows if "gemm" in key.lower())
+    line("profile", shape=f"train_batch{TRAIN_BATCH}", card=repr(card), wall_ms=round(prof_wall_ms, 3),
+         device_busy_ms=round(busy_ms, 3) if kernel_rows else "not measured",
+         device_busy_share=round(busy_ms / prof_wall_ms, 4) if kernel_rows else "not measured",
+         port_kernels_ms=round(port_ms, 3), gemm_ms=round(gemm_ms, 3),
+         other_pytorch_ms=round(busy_ms - port_ms - gemm_ms, 3), kernels_seen=len(kernel_rows))
+    for key, ms, calls in sorted(kernel_rows, key=lambda r: -r[1])[:15]:
+        print(f"  profile: {ms:9.3f} ms {calls:5d} calls  {key[:110]}")
+
+    # ---- 9. summary ------------------------------------------------------
+    main_launches = dict(train_counts)
+    main_launches["pna_aggregate_fwd"] = serve_counts["pna_aggregate_fwd"]
+    kernels = []
+    for name, m in mods.items():
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": m.SOURCE, "replaces": m.REPLACES,
+            "launches": main_launches[name], "max_abs_err": max_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "graph_ms": t["graph_ms"],
+            "path": "serve" if name == "pna_aggregate_fwd" else "train",
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -14,11 +14,13 @@ launches its hand-written Hopper kernel (``ops/``); on a CPU tensor it
 runs the kernel's plain PyTorch version.
 
     import hydragnn_tpu_torch as hg
-    server = hg.serve_model(config, samples, params=state_dict)
+    model, optimizer, history, config = hg.run_training(config, samples)
+    error, tasks, true, pred = hg.run_prediction(config, samples)
+    server = hg.serve_model(config, samples, params=model.state_dict())
     server.predict(graph)
 """
 
-from hydragnn_tpu_torch.api import serve_model  # noqa: F401
+from hydragnn_tpu_torch.api import run_prediction, run_training, serve_model  # noqa: F401
 from hydragnn_tpu_torch.device import resolve_device  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,19 +1,29 @@
-"""Top-level entry points.
+"""Top-level entry points: ``run_training``, ``run_prediction`` and
+``serve_model``.
 
-The port's counterpart of ``hydragnn_tpu/api.py``. This slice ports
-``serve_model``; ``run_training`` and ``run_prediction`` come with the
-training slice (ROADMAP A5, A6).
+The port's counterpart of ``hydragnn_tpu/api.py``. Every entry point
+takes ``device=`` and runs on the CUDA card unless given ``"cpu"``;
+without a card a CUDA request raises. The dataset comes from an
+in-memory ``samples`` list; reading ``Dataset.path`` raw files is not
+ported yet (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from hydragnn_tpu_torch.data.ingest import prepare_dataset
+from hydragnn_tpu_torch.data.loader import GraphLoader
 from hydragnn_tpu_torch.device import resolve_device
-from hydragnn_tpu_torch.utils.config import load_config, update_config
+from hydragnn_tpu_torch.models.create import create_model_config
+from hydragnn_tpu_torch.postprocess import output_denormalize
+from hydragnn_tpu_torch.train.loop import test_epoch, train_validate_test
+from hydragnn_tpu_torch.train.optimizer import select_optimizer
+from hydragnn_tpu_torch.utils.checkpoint import load_existing_model, save_model
+from hydragnn_tpu_torch.utils.config import get_log_name_config, load_config, save_config, update_config
 
 
 def prepare_config_and_samples(
@@ -29,6 +39,98 @@ def prepare_config_and_samples(
     voi["minmax_node_feature"] = mm_n.tolist()
     config = update_config(config, train, val, test)
     return train, val, test, config
+
+
+def _require_samples(samples) -> None:
+    if samples is None:
+        raise NotImplementedError(
+            "hydragnn_tpu_torch: reading Dataset.path is not ported yet "
+            "(ROADMAP A8); pass samples="
+        )
+
+
+def create_dataloaders(
+    train: List, val: List, test: List, config: Dict[str, Any]
+) -> Tuple[GraphLoader, GraphLoader, GraphLoader]:
+    """Per-split loaders: the train split reshuffles every epoch."""
+    bs = int(config["NeuralNetwork"]["Training"]["batch_size"])
+    return GraphLoader(train, bs, shuffle=True), GraphLoader(val, bs), GraphLoader(test, bs)
+
+
+def prepare_loaders_and_config(
+    config: Dict[str, Any], samples: Optional[List] = None
+) -> Tuple[GraphLoader, GraphLoader, GraphLoader, Dict[str, Any]]:
+    """Data preparation, split, config inference and the three loaders."""
+    _require_samples(samples)
+    train, val, test, config = prepare_config_and_samples(config, samples)
+    return (*create_dataloaders(train, val, test, config), config)
+
+
+def train_with_loaders(
+    config: Dict[str, Any],
+    train_loader: GraphLoader,
+    val_loader: GraphLoader,
+    test_loader: GraphLoader,
+    log_dir: str = "./logs/",
+    device: Optional[str] = "cuda",
+    seed: int = 0,
+):
+    """Model (seeded init) + optimizer + epoch loop + checkpoint, on
+    loaders whose config went through ``update_config``. Returns
+    (model, optimizer, history)."""
+    dev = resolve_device(device)
+    verbosity = config.get("Verbosity", {}).get("level", 0)
+    log_name = get_log_name_config(config)
+    save_config(config, log_name, log_dir)
+    nn_config = config["NeuralNetwork"]
+    model = create_model_config(nn_config, seed=seed, device=dev)
+    optimizer = select_optimizer(model, nn_config["Training"])
+    history = train_validate_test(
+        model, optimizer, train_loader, val_loader, test_loader, nn_config, verbosity=verbosity
+    )
+    save_model(model, log_name, log_dir, optimizer=optimizer, epoch=len(history["train_loss"]))
+    return model, optimizer, history
+
+
+def run_training(
+    config_file_or_dict,
+    samples: Optional[List] = None,
+    log_dir: str = "./logs/",
+    device: Optional[str] = "cuda",
+    seed: int = 0,
+):
+    """The full training pipeline on ``device``; returns (model,
+    optimizer, history, completed config)."""
+    resolve_device(device)
+    config = load_config(config_file_or_dict)
+    train_loader, val_loader, test_loader, config = prepare_loaders_and_config(config, samples)
+    model, optimizer, history = train_with_loaders(
+        config, train_loader, val_loader, test_loader, log_dir=log_dir, device=device, seed=seed
+    )
+    return model, optimizer, history, config
+
+
+def run_prediction(
+    config_file_or_dict,
+    samples: Optional[List] = None,
+    log_dir: str = "./logs/",
+    device: Optional[str] = "cuda",
+) -> Tuple[float, np.ndarray, List[np.ndarray], List[np.ndarray]]:
+    """Load the data and the trained run's checkpoint, run the full test
+    pass on ``device``; returns (error, per-head errors, true values,
+    predicted values), denormalized when
+    ``Variables_of_interest.denormalize_output`` is set."""
+    dev = resolve_device(device)
+    config = load_config(config_file_or_dict)
+    _, _, test_loader, config = prepare_loaders_and_config(config, samples)
+    nn_config = config["NeuralNetwork"]
+    model = create_model_config(nn_config, device=dev)
+    load_existing_model(model, get_log_name_config(config), log_dir)
+    error, error_tasks, true_values, predicted_values = test_epoch(test_loader, model)
+    voi = nn_config["Variables_of_interest"]
+    if voi.get("denormalize_output"):
+        true_values, predicted_values = output_denormalize(voi["y_minmax"], true_values, predicted_values)
+    return error, error_tasks, true_values, predicted_values
 
 
 def serve_model(
@@ -55,11 +157,7 @@ def serve_model(
     (``server.stop()``, or use it as a context manager)."""
     dev = resolve_device(device)
     config = load_config(config_file_or_dict)
-    if samples is None:
-        raise NotImplementedError(
-            "hydragnn_tpu_torch: reading Dataset.path is not ported yet "
-            "(ROADMAP A8); pass samples="
-        )
+    _require_samples(samples)
     train, val, test, config = prepare_config_and_samples(config, samples)
 
     from hydragnn_tpu_torch.serve import ModelRegistry, ModelServer, ServeConfig

@@ -184,3 +184,23 @@ def select_input_features(
         cols.extend(range(starts[idx], starts[idx + 1]))
     for s in samples:
         s.x = np.ascontiguousarray(s.x[:, cols], dtype=np.float32)
+
+
+def samples_to_graph_dicts(samples: Sequence[GraphSample]) -> List[Dict[str, Any]]:
+    """The dict form ``graph/batch.py:batch_graphs`` consumes, targets
+    included."""
+    out = []
+    for s in samples:
+        g: Dict[str, Any] = {
+            "x": s.x,
+            "senders": s.edge_index[0],
+            "receivers": s.edge_index[1],
+            "graph_targets": s.graph_targets,
+            "node_targets": s.node_targets,
+        }
+        if s.pos is not None:
+            g["pos"] = s.pos
+        if s.edge_attr is not None:
+            g["edge_attr"] = s.edge_attr
+        out.append(g)
+    return out

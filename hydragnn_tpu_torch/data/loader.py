@@ -1,16 +1,27 @@
-"""Static pad plans for graph batches.
+"""Static pad plans and the training ``GraphLoader``.
 
-The port's counterpart of the pad-plan half of
-``hydragnn_tpu/data/loader.py``: ``pad_plan_for`` (one plan covering
-any batch of ``batch_size`` samples) and ``bucket_pad_plans`` (the
-serving ladder). The training ``GraphLoader`` waits for the training
-slice (ROADMAP A2).
+The port's counterpart of ``hydragnn_tpu/data/loader.py``:
+``pad_plan_for`` (one plan covering any batch of ``batch_size``
+samples), ``bucket_pad_plans`` (the serving ladder) and ``GraphLoader``,
+which yields fixed-shape host batches (CPU tensors; the train loop moves
+them to the card) with the JAX loader's shuffle order, pad plan,
+run-aligned layout and sender windows.
+
+Not ported yet (ROADMAP A2): the dense slot map (an AUTO pick of it
+raises), the prefetch thread, multi-host sharding, ``device_stack > 1``
+with its ``_mask_out`` filler batches, and device-cached batches.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from hydragnn_tpu_torch.data.dataset import samples_to_graph_dicts
+from hydragnn_tpu_torch.graph.batch import GraphBatch, batch_graphs
+from hydragnn_tpu_torch.utils.config import max_in_degree
 
 
 def _round_up(x: int, m: int) -> int:
@@ -83,3 +94,130 @@ def bucket_pad_plans(
         seen.add(plan)
         plans.append(((cap_n, cap_e), plan))
     return plans
+
+
+def _aligned_edge_counts(samples, k: int) -> Optional[List[int]]:
+    """Per-sample edge-slot count under run-K alignment (the sum over
+    nodes of roundup(in_degree, k)), or None when any sample lacks an
+    ``edge_index``."""
+    out = []
+    for s in samples:
+        ei = getattr(s, "edge_index", None)
+        if ei is None:
+            return None
+        r = np.asarray(ei)[1]
+        if r.size:
+            deg = np.bincount(r)
+            out.append(int((((deg + k - 1) // k) * k * (deg > 0)).sum()))
+        else:
+            out.append(0)
+    return out
+
+
+class GraphLoader:
+    """Iterable over fixed-shape host ``GraphBatch``es.
+
+    Args:
+      samples: the split's prepared samples.
+      batch_size: graphs per batch.
+      shuffle: reshuffle each epoch, in the order
+        ``np.random.default_rng(seed + epoch).permutation`` gives.
+      drop_last: drop the last partial batch.
+      dense_slots: True = AUTO (the JAX loader's gate: the dense slot map
+        when the slot inflation pad_nodes x Dmax / pad_edges stays under
+        1.35); any pick of the dense map raises ``NotImplementedError``
+        (ROADMAP A2). False/0 disables it.
+      run_align: True = AUTO (K = 8 whenever the dense map is off and the
+        samples have edges), an int pins K, False/0 disables it. The edge
+        pad widens to the aligned worst case, a multiple of
+        lcm(edge_multiple, K).
+
+    The JAX loader also rounds the aligned edge pad up to its Pallas
+    kernels' chunk sizes (CE, _BCAST_CE) once it reaches 32,768 slots;
+    that is TPU tiling, and this loader does not (the batches are equal
+    below that size)."""
+
+    def __init__(
+        self,
+        samples: Sequence,
+        batch_size: int,
+        shuffle: bool = False,
+        seed: int = 0,
+        node_multiple: int = 16,
+        edge_multiple: int = 8,
+        drop_last: bool = False,
+        dense_slots=True,
+        run_align=True,
+    ):
+        self.samples = list(samples)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self._epoch = 0
+        self.pad_nodes, self.pad_edges, self.pad_graphs = pad_plan_for(
+            self.samples, batch_size, node_multiple, edge_multiple
+        )
+        dense = None
+        if dense_slots is True:
+            dmax = max_in_degree(self.samples)
+            if dmax and self.pad_nodes * dmax / max(self.pad_edges, 1) <= 1.35:
+                dense = dmax
+        elif dense_slots:
+            dense = int(dense_slots)
+        if dense is not None:
+            raise NotImplementedError(
+                f"GraphLoader: the dense slot map (dense_slots={dense}) is not ported "
+                "yet (ROADMAP A2); pass dense_slots=False for the run-aligned layout"
+            )
+        if run_align is True:
+            self.run_align = 8
+        else:
+            self.run_align = int(run_align) if run_align and run_align > 1 else 0
+        if self.run_align:
+            aligned = _aligned_edge_counts(self.samples, self.run_align)
+            if aligned is None:
+                self.run_align = 0  # a sample without edges built: nothing to align
+            else:
+                worst = sorted(aligned, reverse=True)[:batch_size]
+                self.pad_edges = _round_up(
+                    max(sum(worst) + 1, self.pad_edges), math.lcm(edge_multiple, self.run_align)
+                )
+        # window-plan node block: the dataset's mean graph, at least 128
+        # and at most 512 rows, so one block covers whole graphs
+        mean_nodes = int(sum(s.num_nodes for s in self.samples) / max(len(self.samples), 1))
+        self.win_block_rows = min(512, _round_up(max(mean_nodes, 128), 128))
+        self._dicts = samples_to_graph_dicts(self.samples)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def __len__(self) -> int:
+        n = len(self.samples)
+        if self.drop_last:
+            return n // self.batch_size
+        return math.ceil(n / self.batch_size)
+
+    def _order(self) -> np.ndarray:
+        n = len(self.samples)
+        if not self.shuffle:
+            return np.arange(n)
+        return np.random.default_rng(self.seed + self._epoch).permutation(n)
+
+    def make_batch(self, idx: Sequence[int]) -> GraphBatch:
+        """The batch of the samples at ``idx``, on this loader's pad plan
+        and layout."""
+        return batch_graphs(
+            [self._dicts[i] for i in idx],
+            n_node_pad=self.pad_nodes,
+            n_edge_pad=self.pad_edges,
+            n_graph_pad=self.pad_graphs,
+            run_align=self.run_align,
+            win_block_rows=self.win_block_rows,
+        )
+
+    def __iter__(self) -> Iterator[GraphBatch]:
+        bs = self.batch_size
+        order = self._order()
+        for b in range(len(self)):
+            yield self.make_batch(order[b * bs : (b + 1) * bs])

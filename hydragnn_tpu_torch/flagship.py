@@ -1,12 +1,12 @@
-"""The flagship configuration (the port's copy of
-``hydragnn_tpu/flagship.py:flagship_config``): a multi-head PNA stack —
-one graph energy head and three nodal heads — on the deterministic BCC
-dataset, at hidden width 128 with 6 conv layers by default.
+"""The flagship (the port's copy of ``hydragnn_tpu/flagship.py``): a
+multi-head PNA stack — one graph energy head and three nodal heads — on
+the deterministic BCC dataset, at hidden width 128 with 6 conv layers by
+default. ``build_flagship`` returns it ready to train.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 
 def flagship_config(
@@ -71,3 +71,37 @@ def flagship_config(
             },
         },
     }
+
+
+def build_flagship(
+    n_samples: int = 512,
+    hidden_dim: int = 128,
+    num_conv_layers: int = 6,
+    batch_size: int = 128,
+    unit_cells: Tuple[int, int] = (2, 4),
+    seed: int = 0,
+    edge_multiple: int = 8,
+    device: Optional[str] = "cuda",
+):
+    """Returns (config, model, train_loader): the completed flagship
+    config, the seeded model on ``device`` and a shuffling, drop-last
+    train loader of run-aligned batches."""
+    from hydragnn_tpu_torch.data.ingest import prepare_dataset
+    from hydragnn_tpu_torch.data.loader import GraphLoader
+    from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.utils.config import update_config
+
+    config = flagship_config(hidden_dim, num_conv_layers, batch_size)
+    samples = deterministic_graph_data(
+        number_configurations=n_samples,
+        unit_cell_x_range=unit_cells,
+        unit_cell_y_range=unit_cells,
+        unit_cell_z_range=unit_cells,
+        seed=seed,
+    )
+    train, val, test, _, _ = prepare_dataset(samples, config)
+    config = update_config(config, train, val, test)
+    loader = GraphLoader(train, batch_size, shuffle=True, drop_last=True, edge_multiple=edge_multiple)
+    model = create_model_config(config["NeuralNetwork"], seed=seed, device=device)
+    return config, model, loader

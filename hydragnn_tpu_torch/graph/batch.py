@@ -9,15 +9,21 @@ moved to a device with :meth:`GraphBatch.to`:
   - padding edges point at a padding node (``tot_nodes``), so masked
     segment reductions stay clean,
   - edges are canonicalized receiver-major (stable sort), which the
-    CSR aggregation kernel (``ops/pna_aggregate.py``) requires,
+    CSR kernels (``ops/pna_aggregate.py``, ``ops/segment_sum.py``)
+    require,
+  - ``run_align=K`` pads every receiver's run to a multiple of K with
+    masked self-loops, so each K-group of edge slots has one receiver
+    (or is batch tail) — the layout the training path pre-reduces over
+    (``ops/gather_stats.py``),
+  - ``sender_win`` holds the per-node-block edge windows of the senders
+    (``ops/segment_sum_local.py``),
   - targets are a dict-of-heads.
 
-Every field the forward reads is emitted, with the JAX package's
-values (``tests/test_torch_batch.py`` holds them equal). Deferred to the
-training slice (ROADMAP A2), together with the kernels that read them:
-the local-window plans ``sender_win`` / ``dense_sender_win``, the dense
-slot map (``dense_senders``, ``dense_mask``, ``dense_edge_attr``,
-``dense_sender_perm``), the ``run_align`` layout and ``pad_batch``.
+Every field is emitted with the JAX package's values
+(``tests/test_torch_batch.py`` and ``tests/test_torch_loader.py`` hold
+them equal). Not ported yet (ROADMAP A2): the dense slot map
+(``dense_senders``, ``dense_mask``, ``dense_edge_attr``,
+``dense_sender_perm``, ``dense_sender_win``) and ``pad_batch``.
 """
 
 from __future__ import annotations
@@ -28,9 +34,41 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from hydragnn_tpu_torch.ops.segment_sum_local import local_block_rows
+
+# default node-block target of the window plans (the JAX package's BN)
+WIN_BLOCK_ROWS = 128
+
 
 def _round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
+
+
+def _block_windows(
+    ids: np.ndarray, perm: np.ndarray, num_rows: int, target_rows: Optional[int] = None
+) -> np.ndarray:
+    """Per-node-block edge-position windows [2, n_blocks] int32: every
+    position p with ``ids[p] // B == i`` lies in ``[win[0, i], win[1, i])``,
+    where B = ``local_block_rows(num_rows, n_blocks)`` — the block size
+    rides the window's shape. ``perm`` is a stable argsort of ``ids``;
+    ``target_rows`` sizes the blocks (default 128). Empty blocks get
+    ``lo == hi == 0``."""
+    t = target_rows or WIN_BLOCK_ROWS
+    n_blocks = max(1, (max(num_rows, 1) + t - 1) // t)
+    b_eff = local_block_rows(num_rows, n_blocks)
+    lo = np.zeros(n_blocks, dtype=np.int64)
+    hi = np.zeros(n_blocks, dtype=np.int64)
+    if ids.size:
+        sblk = ids[perm] // b_eff  # sorted ids -> sorted block ids
+        starts = np.searchsorted(sblk, np.arange(n_blocks), side="left")
+        ends = np.searchsorted(sblk, np.arange(n_blocks), side="right")
+        ne = ends > starts
+        if ne.any():
+            # nonempty block segments tile the sorted array contiguously,
+            # so reduceat over their starts reduces exactly [start, end)
+            lo[ne] = np.minimum.reduceat(perm, starts[ne])
+            hi[ne] = np.maximum.reduceat(perm, starts[ne]) + 1
+    return np.stack([lo, hi]).astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +89,10 @@ class GraphBatch:
       edge_occupancy: [] int32, index after the last slot that can hold
         a real edge.
       n_real_nodes: [] int32 real node count.
+      sender_win: [2, n_blocks] int32 sender windows (``_block_windows``).
+      run_align: int K > 1 for the run-aligned layout, else 0. Masked
+        edges may then target REAL nodes (always as self-loops), so
+        every consumer applies ``edge_mask``.
     """
 
     nodes: torch.Tensor
@@ -70,6 +112,8 @@ class GraphBatch:
     in_degree: Optional[torch.Tensor] = None
     edge_occupancy: Optional[torch.Tensor] = None
     n_real_nodes: Optional[torch.Tensor] = None
+    sender_win: Optional[torch.Tensor] = None
+    run_align: int = 0
 
     @property
     def num_nodes(self) -> int:
@@ -87,11 +131,11 @@ class GraphBatch:
         """The same batch with every tensor on ``device``."""
 
         def move(v):
-            if v is None:
-                return None
             if isinstance(v, dict):
                 return {k: t.to(device, non_blocking=non_blocking) for k, t in v.items()}
-            return v.to(device, non_blocking=non_blocking)
+            if isinstance(v, torch.Tensor):
+                return v.to(device, non_blocking=non_blocking)
+            return v
 
         return dataclasses.replace(
             self, **{f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)}
@@ -105,13 +149,19 @@ def batch_graphs(
     n_graph_pad: Optional[int] = None,
     node_multiple: int = 16,
     edge_multiple: int = 8,
+    run_align: int = 0,
+    win_block_rows: Optional[int] = None,
 ) -> GraphBatch:
     """Concatenate single graphs and pad to static shapes (host, numpy).
 
     Each graph is a dict with ``x`` [n, F], ``senders``/``receivers``
     [e] (or ``edge_index`` [2, e]), optional ``edge_attr``, ``pos``,
     ``graph_targets`` {name: [d]} and ``node_targets`` {name: [n, d]}.
-    Returns CPU tensors; call ``.to(device)`` for the card."""
+    ``run_align=K`` (K > 1) emits the run-aligned layout (module
+    docstring); ``n_edge_pad`` must then be a multiple of K and hold the
+    aligned edge count. ``win_block_rows`` sizes the sender windows'
+    node blocks (it must not depend on the batch). Returns CPU tensors;
+    call ``.to(device)`` for the card."""
     if not graphs:
         raise ValueError("graphs must be non-empty")
     n_graphs = len(graphs)
@@ -215,8 +265,48 @@ def batch_graphs(
         if has_edge_attr:
             edge_attr = edge_attr[perm]
 
+    edge_occ = tot_edges
+    if run_align and run_align > 1:
+        k = int(run_align)
+        if n_edge_pad % k:
+            raise ValueError(f"n_edge_pad={n_edge_pad} not a multiple of run_align={k}")
+        # real edges occupy [0, tot_edges), receiver-major; re-lay each
+        # run on a K-aligned start, the pad slots masked self-loops at
+        # their node (receivers stay sorted, senders stay local, and a
+        # masked self-loop cannot reach any masked aggregation); the tail
+        # keeps the padding-node sentinel
+        deg = np.bincount(receivers[:tot_edges], minlength=n_node_pad)
+        adeg = ((deg + k - 1) // k) * k * (deg > 0)
+        total = int(adeg.sum())
+        if total > n_edge_pad:
+            raise ValueError(
+                f"run_align={k} needs {total} edge slots > n_edge_pad={n_edge_pad}; size "
+                "the pad from the aligned per-sample counts (data/loader.py:"
+                "_aligned_edge_counts — GraphLoader does this)"
+            )
+        rs = np.zeros(n_node_pad + 1, dtype=np.int64)
+        rs[1:] = np.cumsum(adeg)
+        row_ptr = np.zeros(n_node_pad + 1, dtype=np.int64)
+        row_ptr[1:] = np.cumsum(deg)
+        r = receivers[:tot_edges]
+        new_pos = rs[r] + (np.arange(tot_edges) - row_ptr[r])
+        new_recv = np.full(n_edge_pad, tot_nodes, dtype=np.int32)
+        new_recv[:total] = np.repeat(np.arange(n_node_pad, dtype=np.int32), adeg)
+        new_send = new_recv.copy()
+        new_mask = np.zeros(n_edge_pad, dtype=bool)
+        new_send[new_pos] = senders[:tot_edges]
+        new_mask[new_pos] = True
+        if has_edge_attr:
+            new_ea = np.zeros_like(edge_attr)
+            new_ea[new_pos] = edge_attr[:tot_edges]
+            edge_attr = new_ea
+        senders, receivers, edge_mask = new_send, new_recv, new_mask
+        edge_occ = total
+
     sender_perm = np.argsort(senders, kind="stable").astype(np.int32)
+    # REAL edges per receiver (run_align's masked self-loops excluded)
     in_degree = np.bincount(receivers[edge_mask], minlength=n_node_pad).astype(np.float32)
+    sender_win = _block_windows(senders, sender_perm, n_node_pad, win_block_rows)
 
     t = torch.from_numpy
     return GraphBatch(
@@ -235,8 +325,10 @@ def batch_graphs(
         node_targets={k: t(v) for k, v in n_targets.items()},
         sender_perm=t(sender_perm),
         in_degree=t(in_degree),
-        edge_occupancy=torch.tensor(tot_edges, dtype=torch.int32),
+        edge_occupancy=torch.tensor(edge_occ, dtype=torch.int32),
         n_real_nodes=torch.tensor(tot_nodes, dtype=torch.int32),
+        sender_win=t(sender_win),
+        run_align=int(run_align) if run_align and run_align > 1 else 0,
     )
 
 

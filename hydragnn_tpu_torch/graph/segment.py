@@ -1,11 +1,26 @@
-"""Masked segment reductions in plain torch (forward only).
+"""Masked segment reductions, with the JAX package's gradients.
 
-The port's counterpart of ``hydragnn_tpu/graph/segment.py:31-172``.
-These were XLA ops in the JAX package, not Pallas kernels, so plain
-torch is their port. Every op is mask-aware (padding entries contribute
-the reduction identity) and safe on empty segments (mean, max and min
-return 0 there). The autograd versions with the even tie split wait
-for the training slice (ROADMAP A3).
+The port's counterpart of ``hydragnn_tpu/graph/segment.py``. Every op
+is mask-aware (padding entries contribute the reduction identity) and
+safe on empty segments (mean, max and min return 0 there).
+
+The plain ops (sum, count, mean) were XLA ops in the JAX package and
+are plain torch here, differentiated by torch. The ops that reach a
+Pallas kernel there are ``torch.autograd.Function``s here, with the
+same backward as the reference's ``custom_vjp``:
+
+  - ``segment_max`` / ``segment_min``: XLA's scatter-max forward
+    (``scatter_reduce``), and a backward that splits each segment's
+    gradient evenly among its tied extrema. The tie count is a sorted
+    segment sum (B2, f32 accumulation) of the 0/1 tie mask in the data's
+    dtype; the share is cast to the data's dtype before the widening
+    gather (B3).
+  - ``segment_sum_sorted``: forward B2, backward the sorted gather B3 of
+    the cotangent in ``grad_dtype``.
+  - ``gather_rows``: forward B3, backward B2 for sorted ids.
+  - ``gather_rows_local``: forward B3, backward the windowed sum B4.
+
+On CPU tensors the kernels' plain versions run (``ops/``).
 """
 
 from __future__ import annotations
@@ -13,6 +28,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from hydragnn_tpu_torch.ops.gather_rows import gather_rows as _gather
+from hydragnn_tpu_torch.ops.segment_sum import segment_sum as _sorted_sum
+from hydragnn_tpu_torch.ops.segment_sum_local import segment_sum_local as _local_sum
 
 
 def _expand_mask(mask: Optional[torch.Tensor], data: torch.Tensor) -> Optional[torch.Tensor]:
@@ -57,20 +76,48 @@ def segment_mean(
     return total / torch.clamp(count, min=1.0)
 
 
-def _segment_extremum(data, segment_ids, num_segments, mask, empty_value, is_max):
+class _SegmentExtremum(torch.autograd.Function):
+    """Raw segment max (min) over ``[E, W]`` data: -inf (+inf) on empty
+    segments; the backward of the reference's ``_segment_extremum``."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments, indices_are_sorted, is_max):
+        w = data.shape[1]
+        idx = segment_ids.long()[:, None].expand(-1, w)
+        init = torch.full(
+            (num_segments, w), float("-inf") if is_max else float("inf"),
+            dtype=data.dtype, device=data.device,
+        )
+        out = init.scatter_reduce(0, idx, data, "amax" if is_max else "amin", include_self=True)
+        ctx.save_for_backward(data, segment_ids, out)
+        ctx.num_segments, ctx.sorted = num_segments, indices_are_sorted
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, segment_ids, out = ctx.saved_tensors
+        sel = data == _gather(out, segment_ids)
+        # the 0/1 tie mask travels in the data's dtype; the count
+        # accumulates in f32 (B2) and the share math stays f32
+        ties = sel.to(data.dtype)
+        if ctx.sorted:
+            cnt = _sorted_sum(ties, segment_ids, ctx.num_segments)
+        else:  # the reference's unsorted path is XLA's scatter-add
+            cnt = segment_sum(ties.float(), segment_ids, ctx.num_segments)
+        share = (g.float() / torch.clamp(cnt, min=1.0)).to(data.dtype)
+        zero = torch.zeros((), dtype=data.dtype, device=data.device)
+        return torch.where(sel, _gather(share, segment_ids), zero), None, None, None, None
+
+
+def _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted, empty_value, is_max):
+    if data.dim() != 2:
+        raise ValueError(f"segment_max/min: data must be [E, W], got {tuple(data.shape)}")
     finfo = torch.finfo(data.dtype)
     fill = finfo.min if is_max else finfo.max
     m = _expand_mask(mask, data)
     if m is not None:
         data = torch.where(m, data, torch.full((), fill, dtype=data.dtype, device=data.device))
-    idx = segment_ids.long().view((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    init = torch.full(
-        (num_segments,) + tuple(data.shape[1:]),
-        float("-inf") if is_max else float("inf"),
-        dtype=data.dtype,
-        device=data.device,
-    )
-    out = init.scatter_reduce(0, idx, data, "amax" if is_max else "amin", include_self=True)
+    out = _SegmentExtremum.apply(data, segment_ids, int(num_segments), bool(indices_are_sorted), is_max)
     empty = out <= fill if is_max else out >= fill
     return torch.where(empty, torch.full((), empty_value, dtype=data.dtype, device=data.device), out)
 
@@ -80,9 +127,13 @@ def segment_max(
     segment_ids: torch.Tensor,
     num_segments: int,
     mask: Optional[torch.Tensor] = None,
+    indices_are_sorted: bool = False,
     empty_value: float = 0.0,
 ) -> torch.Tensor:
-    return _segment_extremum(data, segment_ids, num_segments, mask, empty_value, True)
+    """Masked segment max of [E, W] data; empty segments give
+    ``empty_value``. With ``indices_are_sorted`` the backward's tie count
+    runs on the sorted kernel (B2)."""
+    return _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted, empty_value, True)
 
 
 def segment_min(
@@ -90,6 +141,80 @@ def segment_min(
     segment_ids: torch.Tensor,
     num_segments: int,
     mask: Optional[torch.Tensor] = None,
+    indices_are_sorted: bool = False,
     empty_value: float = 0.0,
 ) -> torch.Tensor:
-    return _segment_extremum(data, segment_ids, num_segments, mask, empty_value, False)
+    return _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted, empty_value, False)
+
+
+class _SegmentSumSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments, grad_dtype):
+        ctx.save_for_backward(segment_ids)
+        ctx.grad_dtype = grad_dtype
+        return _sorted_sum(data, segment_ids, num_segments).to(data.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (segment_ids,) = ctx.saved_tensors
+        gd = g if ctx.grad_dtype is None else g.to(ctx.grad_dtype)
+        return _gather(gd.contiguous(), segment_ids).to(g.dtype), None, None, None
+
+
+def segment_sum_sorted(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    grad_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Differentiable sum of [E, W] data over SORTED ids, accumulated in
+    f32 (B2) and returned in the data's dtype. The backward gathers the
+    cotangent (B3) in ``grad_dtype`` (None keeps its dtype)."""
+    return _SegmentSumSorted.apply(data, segment_ids, int(num_segments), grad_dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ids, num_rows, indices_are_sorted):
+        ctx.save_for_backward(ids)
+        ctx.num_rows, ctx.sorted = num_rows, indices_are_sorted
+        return _gather(x, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.sorted:
+            grad = _sorted_sum(g, ids, ctx.num_rows)
+        else:  # the reference's unsorted path is XLA's scatter-add
+            grad = segment_sum(g.float(), ids, ctx.num_rows)
+        return grad.to(g.dtype), None, None, None
+
+
+def gather_rows(
+    x: torch.Tensor, ids: torch.Tensor, num_rows: int, indices_are_sorted: bool = False
+) -> torch.Tensor:
+    """``x[ids]`` (B3) whose backward is a segment sum: the sorted kernel
+    (B2) when ``indices_are_sorted``."""
+    return _GatherRows.apply(x, ids, int(num_rows), bool(indices_are_sorted))
+
+
+class _GatherRowsLocal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ids, win, num_rows):
+        ctx.save_for_backward(ids, win)
+        ctx.num_rows = num_rows
+        return _gather(x, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, win = ctx.saved_tensors
+        return _local_sum(g.contiguous(), ids, win, ctx.num_rows).to(g.dtype), None, None, None
+
+
+def gather_rows_local(
+    x: torch.Tensor, ids: torch.Tensor, win: torch.Tensor, num_rows: int
+) -> torch.Tensor:
+    """``x[ids]`` for unsorted-but-local ids (B3), whose backward scatters
+    through the window plan ``win`` (B4) with no permute."""
+    return _GatherRowsLocal.apply(x, ids, win, int(num_rows))

@@ -6,10 +6,10 @@ then graph heads on a shared dense trunk and node ``mlp`` heads. The
 forward returns one output per head: [G, dim] for graph heads, [N, dim]
 for node heads.
 
-This slice builds the PNA chassis with graph and node-``mlp`` heads
-(the flagship). The other conv stacks (ROADMAP A7), the
-``mlp_per_node`` and ``conv`` node heads, edge features and the loss
-(ROADMAP A4) raise ``NotImplementedError``.
+The port builds the PNA chassis with graph and node-``mlp`` heads (the
+flagship) and its weighted multi-task loss (``model_loss``). The other
+conv stacks (ROADMAP A7), the ``mlp_per_node`` and ``conv`` node heads
+and edge features (ROADMAP A4) raise ``NotImplementedError``.
 
 Parameter names mirror the flax tree so ``convert.py`` maps one onto
 the other: ``convs.{i}`` = ``conv_{i}``, ``norms.{i}`` =
@@ -20,7 +20,7 @@ the other: ``convs.{i}`` = ``conv_{i}``, ``norms.{i}`` =
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -76,6 +76,11 @@ class ModelConfig:
     def num_heads(self) -> int:
         return len(self.output_dim)
 
+    @property
+    def normalized_weights(self) -> Tuple[float, ...]:
+        total = sum(abs(w) for w in self.task_weights)
+        return tuple(w / total for w in self.task_weights)
+
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"hydragnn_tpu_torch: {what} is not ported yet (ROADMAP {item})")
@@ -128,11 +133,14 @@ class HydraModel(nn.Module):
             edge_mask=batch.edge_mask,
             node_mask=batch.node_mask,
             in_degree=in_degree,
+            sender_win=batch.sender_win,
+            run_align=batch.run_align,
         )
 
     def forward(self, batch: GraphBatch, train: bool = False) -> List[torch.Tensor]:
-        """``train`` selects masked batch statistics (True) or running
-        statistics (False) in BatchNorm; there is no dropout in PNA."""
+        """``train`` selects masked batch statistics (True, which also
+        updates the running statistics) or running statistics (False) in
+        BatchNorm; there is no dropout in PNA."""
         cfg = self.cfg
         ctx = self.edge_context(batch)
         x = batch.nodes
@@ -152,3 +160,38 @@ class HydraModel(nn.Module):
             else:
                 outputs.append(head(x))
         return outputs
+
+
+def masked_loss(kind: str, pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean-reduced loss over the unmasked rows (the JAX package's
+    ``masked_loss``)."""
+    m = mask.to(pred.dtype)[:, None]
+    denom = torch.clamp(m.sum() * pred.shape[1], min=1.0)
+    diff = (pred - target) * m
+    if kind == "mse":
+        return (diff * diff).sum() / denom
+    if kind == "mae":
+        return diff.abs().sum() / denom
+    if kind == "rmse":
+        return torch.sqrt((diff * diff).sum() / denom)
+    raise ValueError(f"Unknown loss function type: {kind}")
+
+
+def model_loss(
+    cfg: ModelConfig, outputs: Sequence[torch.Tensor], batch: GraphBatch
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(total, per-head losses): the weighted multi-task loss over masked
+    heads, taken in f32 against f32 targets."""
+    weights = cfg.normalized_weights
+    tasks = []
+    total = None
+    for ihead in range(cfg.num_heads):
+        name = cfg.output_names[ihead]
+        if cfg.output_type[ihead] == "graph":
+            target, mask = batch.graph_targets[name], batch.graph_mask
+        else:
+            target, mask = batch.node_targets[name], batch.node_mask
+        head = masked_loss(cfg.loss_function_type, outputs[ihead].float(), target.float(), mask)
+        tasks.append(head)
+        total = weights[ihead] * head if total is None else total + weights[ihead] * head
+    return total, tasks

@@ -2,10 +2,11 @@
 
 The port's counterpart of ``hydragnn_tpu/models/convs.py``. Message
 direction matches PyG: sender j -> receiver i, aggregation grouped by
-receiver. This slice ports ``PNAConv``'s CSR branch without edge
-features (the branch a serving batch takes) and the
-``EdgeContext`` the chassis hands every layer; the other conv stacks
-and PNA's dense and run-aligned branches follow (ROADMAP A4, A7).
+receiver. The port has ``PNAConv`` without edge features, in two
+branches: the run-aligned branch (training batches, ``run_align=K``)
+and the unaligned CSR branch (serving batches), and the
+``EdgeContext`` the chassis hands every layer. The other conv stacks
+and PNA's dense branch follow (ROADMAP A4, A7).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from hydragnn_tpu_torch.graph import segment as S
 from hydragnn_tpu_torch.models.layers import dense, lecun_normal_
+from hydragnn_tpu_torch.ops.gather_stats import gather_presum_stats
 from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate
 
 
@@ -31,6 +34,11 @@ class EdgeContext:
     node_mask: torch.Tensor  # [N] bool
     in_degree: torch.Tensor  # [N] f32 count of REAL incoming edges
     edge_attr: Optional[torch.Tensor] = None  # [E, De]
+    # the senders' per-node-block edge windows (graph/batch.py)
+    sender_win: Optional[torch.Tensor] = None  # [2, n_blocks] int32
+    # K > 0: every K-group of edge slots has one receiver (or is batch
+    # tail), and masked slots may be self-loops at real nodes
+    run_align: int = 0
 
 
 class PNAConv(nn.Module):
@@ -40,8 +48,14 @@ class PNAConv(nn.Module):
     pre-layer the message decomposes as ``a[recv] + bsend[send]``, so the
     aggregators need only segment statistics of ``v = bsend[senders]``
     (mean and the extrema shift by ``a``; std is shift-invariant). Those
-    statistics come from ``ops.pna_aggregate`` — the CUDA kernel on the
-    card.
+    statistics come from one of two branches:
+
+      - run-aligned batches (``ctx.run_align = K``): ``gather_presum_stats``
+        (B1) gathers ``v`` and pre-reduces each K-group of slots without
+        writing ``v`` to memory, then a sorted segment sum (B2) and a
+        segment max over the E/K groups finish the statistics — every
+        layer, conv_0 (H = 1) included. This branch trains.
+      - unaligned batches: ``ops.pna_aggregate`` (B5), forward only.
 
     ``pre_kernel`` stays one [2·fin, fin] parameter in flax's layout
     (receiver half, then sender half), so ``convert.py`` copies it as it
@@ -70,8 +84,21 @@ class PNAConv(nn.Module):
         w = self.pre_kernel.to(x.dtype)
         a = x @ w[:fin] + self.pre_bias.to(x.dtype)  # receiver part [N, fin]
         bsend = x @ w[fin : 2 * fin]  # sender part [N, fin]
-        v = bsend.index_select(0, ctx.senders)
-        vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask)
+        v = bsend  # dtype source for the shared tail
+        if ctx.run_align:
+            k = ctx.run_align
+            stats8, both8 = gather_presum_stats(
+                bsend, ctx.senders, ctx.edge_mask, ctx.sender_win, n, k
+            )
+            recv8 = ctx.receivers[::k].contiguous()
+            pair = S.segment_sum_sorted(stats8, recv8, n, grad_dtype=bsend.dtype)
+            vsum, vsumsq = pair[:, :fin], pair[:, fin : 2 * fin]
+            # all-masked groups carry the type's lowest value: the max
+            # cleans rows at or below it to 0
+            both = S.segment_max(both8, recv8, n, indices_are_sorted=True, empty_value=0.0)
+        else:
+            v = bsend.index_select(0, ctx.senders)
+            vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask)
         cnt = ctx.in_degree
         max_v = both[:, :fin]
         min_v = -both[:, fin:]

@@ -43,13 +43,15 @@ class MaskedBatchNorm(nn.Module):
     """Mask-aware BatchNorm: padding rows never enter the statistics.
 
     ``train=True`` normalizes with the masked batch statistics (biased
-    variance, f32); ``train=False`` with the running statistics. The
-    running-statistics update (momentum 0.1, unbiased variance) belongs
-    to the training slice (ROADMAP A4) and is not done here."""
+    variance, f32) and updates the running statistics in place, flax's
+    way: ``ra = 0.9·ra + 0.1·batch``, with the unbiased variance
+    ``var·c/max(c−1, 1)`` of the c unmasked rows. ``train=False``
+    normalizes with the running statistics."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))  # flax "scale"
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -71,6 +73,11 @@ class MaskedBatchNorm(nn.Module):
             safe = torch.clamp(count, min=1.0)
             mean = total / safe
             var = torch.clamp(total_sq / safe - mean * mean, min=0.0)
+            with torch.no_grad():
+                unbiased = var * safe / torch.clamp(count - 1.0, min=1.0)
+                mom = self.momentum
+                self.running_mean.copy_((1.0 - mom) * self.running_mean + mom * mean)
+                self.running_var.copy_((1.0 - mom) * self.running_var + mom * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias

@@ -1,7 +1,15 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-``pna_aggregate.py`` (source ``csrc/pna_aggregate.cu``) replaces
-``hydragnn_tpu/ops/segment_pallas.py:_family_kernel`` and the XLA
-segment max it was paired with. Kernels are built at first use
-(``_build.py``), never at import.
+Each module's wrapper launches its CUDA kernel (``csrc/<name>.cu``) on a
+CUDA tensor and runs the plain version on a CPU tensor, counts its
+launches (``launches``) and names the TPU kernel it replaces
+(``REPLACES``):
+
+  pna_aggregate.py      B5 ``_family_kernel`` (+ the XLA max over [v, -v])
+  gather_stats.py       B1 ``_gather_stats_kernel``
+  segment_sum.py        B2 ``_sum_kernel``
+  gather_rows.py        B3 ``_bcast_kernel``
+  segment_sum_local.py  B4 ``_sum_local_kernel``
+
+Kernels are built at first use (``_build.py``), never at import.
 """

@@ -1,0 +1,72 @@
+// common.cuh — helpers shared by the port's Hopper kernels (one copy per
+// translation unit: everything here has internal linkage).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+template <typename T> __device__ __forceinline__ float to_f32(T x);
+template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  // exact where used: x is 0, the type's lowest value, or came from a bf16
+  return __float2bfloat16_rn(x);
+}
+
+// The lowest finite value of the kernel's data type, as a float:
+// -FLT_MAX for float32, bits 0xff7f for bfloat16.
+inline float lowest_of(int dtype) {
+  if (dtype == 0) return -FLT_MAX;
+  const uint32_t bits = 0xff7f0000u;
+  float lowest;
+  memcpy(&lowest, &bits, sizeof(lowest));
+  return lowest;
+}
+
+// ptr[r] = first edge position whose receiver is >= r, for r in [0, n_rows].
+// Thread e fills the rows between the receivers at positions e-1 and e; the
+// thread at e == n_edges closes the tail. Ids are clamped into [-1, n_rows],
+// so an out-of-range id drops its edge instead of writing out of bounds
+// (ptr is zero-filled by the caller, so every entry stays in [0, n_edges]).
+__global__ void csr_row_ptr_kernel(const int32_t* __restrict__ recv, long long n_edges,
+                                   long long n_rows, int32_t* __restrict__ ptr) {
+  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e > n_edges) return;
+  long long prev = (e == 0) ? -1 : (long long)recv[e - 1];
+  long long cur = (e == n_edges) ? n_rows : (long long)recv[e];
+  prev = prev < -1 ? -1 : (prev > n_rows ? n_rows : prev);
+  cur = cur < -1 ? -1 : (cur > n_rows ? n_rows : cur);
+  for (long long r = prev + 1; r <= cur; ++r) ptr[r] = (int32_t)e;
+}
+
+constexpr int kThreads = 256;
+
+inline void launch_row_ptr(const void* recv, long long n_edges, long long n_rows, void* row_ptr,
+                           cudaStream_t stream) {
+  const long long threads = n_edges + 1;
+  csr_row_ptr_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      (const int32_t*)recv, n_edges, n_rows, (int32_t*)row_ptr);
+}
+
+// log2 of the lanes that share one output row: the power of two at or
+// above the row width, at most 128. Lanes run along the feature axis, so a
+// warp reads consecutive values of one row; narrow rows (H = 1) pack many
+// rows per warp instead of idling lanes.
+inline int lanes_log2(int width) {
+  int l = 0;
+  while ((1 << l) < width && l < 7) ++l;
+  return l;
+}
+
+}  // namespace

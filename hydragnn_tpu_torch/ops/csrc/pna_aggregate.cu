@@ -42,43 +42,9 @@
 // The TPU mechanics of the original (one-hot MXU matmuls, the 3-term bf16
 // split, 128-lane padding, double-buffered DMA) have no counterpart here.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
-#include <string.h>
+#include "common.cuh"
 
 namespace {
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  // exact: x is 0 or a value that came from a bf16 input
-  return __float2bfloat16_rn(x);
-}
-
-// ptr[r] = first edge position whose receiver is >= r, for r in [0, n_rows].
-// Thread e fills the rows between the receivers at positions e-1 and e; the
-// thread at e == n_edges closes the tail. Ids are clamped into [-1, n_rows],
-// so an out-of-range id drops its edge instead of writing out of bounds
-// (ptr is zero-filled by the caller, so every entry stays in [0, n_edges]).
-__global__ void csr_row_ptr_kernel(const int32_t* __restrict__ recv, long long n_edges,
-                                   long long n_rows, int32_t* __restrict__ ptr) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e > n_edges) return;
-  long long prev = (e == 0) ? -1 : (long long)recv[e - 1];
-  long long cur = (e == n_edges) ? n_rows : (long long)recv[e];
-  prev = prev < -1 ? -1 : (prev > n_rows ? n_rows : prev);
-  cur = cur < -1 ? -1 : (cur > n_rows ? n_rows : cur);
-  for (long long r = prev + 1; r <= cur; ++r) ptr[r] = (int32_t)e;
-}
 
 template <typename T>
 __global__ void pna_aggregate_kernel(const T* __restrict__ v, const uint8_t* __restrict__ mask,
@@ -120,17 +86,12 @@ __global__ void pna_aggregate_kernel(const T* __restrict__ v, const uint8_t* __r
   }
 }
 
-constexpr int kThreads = 256;
-
 template <typename T>
 void launch(const void* v, const void* recv, const void* mask, long long n_edges,
             long long n_rows, int h, void* row_ptr, void* sum, void* sumsq, void* cnt,
             void* both, float lowest, cudaStream_t stream) {
-  const long long ptr_threads = n_edges + 1;
-  csr_row_ptr_kernel<<<(unsigned)((ptr_threads + kThreads - 1) / kThreads), kThreads, 0,
-                       stream>>>((const int32_t*)recv, n_edges, n_rows, (int32_t*)row_ptr);
-  int lpr_log2 = 0;
-  while ((1 << lpr_log2) < h && lpr_log2 < 7) ++lpr_log2;
+  launch_row_ptr(recv, n_edges, n_rows, row_ptr, stream);
+  const int lpr_log2 = lanes_log2(h);
   const long long rows_per_block = kThreads >> lpr_log2;
   const long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
   pna_aggregate_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
@@ -151,14 +112,10 @@ extern "C" int hg_pna_aggregate_fwd(const void* v, int dtype, const void* recv,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     launch<float>(v, recv, mask, n_edges, n_rows, h, row_ptr, sum, sumsq, cnt, both,
-                  -FLT_MAX, s);
+                  lowest_of(0), s);
   } else if (dtype == 1) {
-    // lowest finite bfloat16 (bits 0xff7f) as a float
-    const uint32_t bits = 0xff7f0000u;
-    float lowest;
-    memcpy(&lowest, &bits, sizeof(lowest));
     launch<__nv_bfloat16>(v, recv, mask, n_edges, n_rows, h, row_ptr, sum, sumsq, cnt, both,
-                          lowest, s);
+                          lowest_of(1), s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,0 +1,173 @@
+"""Fused gather and K-group statistics (B1): the CUDA kernel
+``gather_stats``, its plain PyTorch version, and the differentiable
+``gather_presum_stats`` built on it.
+
+Port of the Pallas ``_gather_stats_kernel`` in
+``hydragnn_tpu/ops/segment_pallas.py`` (``gather_presum_stats``). With
+``v = table[ids]`` masked by ``mask`` and the E edge slots cut into
+E/K groups of K consecutive slots:
+
+  stats [E/K, 2H] f32          [Σ m·v | Σ m·v²] per group
+  both  [E/K, 2H] table.dtype  [max where(m, v, lowest) |
+                                max where(m, -v, lowest)] per group
+
+``lowest`` is ``finfo(table.dtype).min``. All-masked groups keep it: the
+clean to 0 comes only after the E/K segment max (``models/convs.py``).
+This is the reference's ``_presum_stats_ref`` composition, which the
+run-aligned layout (``graph/batch.py`` ``run_align=K``) makes valid: each
+K-group of slots lies within one receiver's run or the batch tail.
+
+Layout contract: ``len(ids) % K == 0``. A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel (``csrc/gather_stats.cu``) or
+raises.
+
+``gather_presum_stats`` is the autograd op. Its backward is the closed
+form of the reference's ``_gather_presum_bwd``: regather ``v`` (B3),
+form ``grad_v`` — the sum terms are linear plus ``2·v·g`` for the
+squares, and each group's max gradient is split evenly among its tied
+slots, ties taken on the filled values — then scatter ``grad_v`` into
+the table through the sender windows (B4).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Tuple
+
+import torch
+
+from hydragnn_tpu_torch.ops._build import (
+    FLOAT_CODE,
+    LaunchCount,
+    bind,
+    check_launch,
+    cuda_args,
+    stream_of,
+)
+from hydragnn_tpu_torch.ops.gather_rows import gather_rows
+from hydragnn_tpu_torch.ops.segment_sum_local import segment_sum_local
+
+SOURCE = "hydragnn_tpu_torch/ops/csrc/gather_stats.cu"
+REPLACES = "hydragnn_tpu/ops/segment_pallas.py:947"
+
+# launches of the CUDA kernel (never the plain path)
+launches = LaunchCount()
+
+_lock = threading.Lock()
+_fn = None  # guarded by _lock
+
+
+def _kernel():
+    global _fn
+    with _lock:
+        if _fn is None:
+            _fn = bind("gather_stats.cu", "hg_gather_stats", [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ])
+        return _fn
+
+
+def gather_stats_plain(
+    table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference composition (``_presum_stats_ref`` over
+    ``table[ids]``) in plain PyTorch."""
+    h = table.shape[1]
+    v = table.index_select(0, ids.long())
+    m = mask[:, None]
+    vf = torch.where(m, v, torch.zeros((), dtype=v.dtype, device=v.device)).float()
+    stats = torch.cat(
+        [vf.view(-1, k, h).sum(1), (vf * vf).view(-1, k, h).sum(1)], dim=-1
+    )
+    neg = torch.full((), torch.finfo(v.dtype).min, dtype=v.dtype, device=v.device)
+    both = torch.cat(
+        [torch.where(m, v, neg).view(-1, k, h).amax(1), torch.where(m, -v, neg).view(-1, k, h).amax(1)],
+        dim=-1,
+    )
+    return stats, both
+
+
+def gather_stats(
+    table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(stats, both)`` of ``table[ids]`` per K-group of slots (module
+    docstring). Not differentiated itself: see ``gather_presum_stats``."""
+    if table.dim() != 2 or ids.dim() != 1 or mask.shape != ids.shape:
+        raise ValueError("gather_stats: table [N, H], ids [E] and mask [E]")
+    if table.dtype not in FLOAT_CODE:
+        raise TypeError(f"gather_stats: table must be float32 or bfloat16, got {table.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"gather_stats: mask must be bool, got {mask.dtype}")
+    k = int(k)
+    if k < 1 or ids.shape[0] % k:
+        raise ValueError(f"gather_stats: len(ids)={ids.shape[0]} is not a multiple of K={k}")
+    if table.device.type == "cpu":
+        return gather_stats_plain(table, ids, mask, k)
+    dev = cuda_args("gather_stats", table, ids, mask)
+    if ids.dtype != torch.int32:
+        raise TypeError(f"gather_stats: ids must be int32 on CUDA, got {ids.dtype}")
+    n, h = table.shape
+    groups = ids.shape[0] // k
+    stats = torch.empty(groups, 2 * h, dtype=torch.float32, device=dev)
+    both = torch.empty(groups, 2 * h, dtype=table.dtype, device=dev)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        rc = fn(
+            table.data_ptr(), FLOAT_CODE[table.dtype], ids.data_ptr(), mask.data_ptr(),
+            groups, n, h, k, stats.data_ptr(), both.data_ptr(), stream_of(dev),
+        )
+    check_launch("gather_stats", rc)
+    launches.add()
+    return stats, both
+
+
+class _GatherPresumStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, mask, win, num_rows, k):
+        stats, both = gather_stats(table, ids, mask, k)
+        ctx.save_for_backward(table, ids, mask, win, both)
+        ctx.num_rows, ctx.k = num_rows, k
+        return stats, both
+
+    @staticmethod
+    def backward(ctx, g_stats, g_both):
+        table, ids, mask, win, both = ctx.saved_tensors
+        k, (e, h) = ctx.k, (ids.shape[0], table.shape[1])
+        # [E/K, K, H] views: a group's K slots against its [E/K, 1, H] row
+        v = gather_rows(table, ids).view(-1, k, h)
+        m = mask.view(-1, k, 1)
+        neg = torch.full((), torch.finfo(v.dtype).min, dtype=v.dtype, device=v.device)
+        zero = torch.zeros((), dtype=v.dtype, device=v.device)
+        # tie masks in the table's dtype (0/1 and counts <= K are exact in
+        # bf16); the shares divide in f32 at the E/K level
+        tie_x = (torch.where(m, v, neg) == both[:, None, :h]).to(v.dtype)
+        tie_n = (torch.where(m, -v, neg) == both[:, None, h:]).to(v.dtype)
+        share_x = (g_both[:, :h].float() / torch.clamp(tie_x.sum(1).float(), min=1.0)).to(v.dtype)
+        share_n = (g_both[:, h:].float() / torch.clamp(tie_n.sum(1).float(), min=1.0)).to(v.dtype)
+        vf = torch.where(m, v, zero).float()
+        grad = (
+            g_stats[:, None, :h]
+            + 2.0 * vf * g_stats[:, None, h:]
+            + (tie_x * share_x[:, None]).float()
+            - (tie_n * share_n[:, None]).float()
+        )
+        grad_v = torch.where(m, grad, 0.0).to(table.dtype).view(e, h)
+        grad_table = segment_sum_local(grad_v, ids, win, ctx.num_rows).to(table.dtype)
+        return grad_table, None, None, None, None, None
+
+
+def gather_presum_stats(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    mask: torch.Tensor,
+    win: torch.Tensor,
+    num_rows: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable ``(stats, both)`` of ``table[ids]`` (module
+    docstring); ``win`` is the ids' window plan, used by the backward's
+    scatter into ``table`` ([num_rows, H])."""
+    return _GatherPresumStats.apply(table, ids, mask, win, int(num_rows), int(k))

@@ -17,7 +17,9 @@ reads ``v`` once and emits all four outputs:
 so); this is not checked on the card, where a check would cost a host
 sync. The wrapper dispatches on the tensor's device: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises — there
-is no fallback from one to the other.
+is no fallback from one to the other. The kernel has no backward yet
+(B6/B7): a CUDA ``v`` that requires grad raises ``NotImplementedError``
+rather than taking the plain version's autograd on the card.
 """
 
 from __future__ import annotations
@@ -28,30 +30,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from hydragnn_tpu_torch.ops._build import (
+    FLOAT_CODE,
+    LaunchCount,
+    bind,
+    check_launch,
+    cuda_args,
+    stream_of,
+)
+
 SOURCE = "hydragnn_tpu_torch/ops/csrc/pna_aggregate.cu"
 REPLACES = "hydragnn_tpu/ops/segment_pallas.py:219"
-
-
-class LaunchCount:
-    """Thread-safe count of kernel launches (the dispatch thread adds,
-    callers read and reset)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        with self._lock:
-            return self._n
 
 
 # launches of the CUDA kernel through pna_aggregate (never the plain path)
@@ -90,7 +79,6 @@ def pna_aggregate_plain(
     return s, sq, cnt, both
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib_lock = threading.Lock()
 _fn = None  # the bound C entry point; guarded by _lib_lock
 
@@ -99,33 +87,19 @@ def _kernel():
     global _fn
     with _lib_lock:
         if _fn is None:
-            from hydragnn_tpu_torch.ops._build import load_library
-
-            lib, _ = load_library("pna_aggregate.cu")
-            fn = lib.hg_pna_aggregate_fwd
-            fn.argtypes = [
+            _fn = bind("pna_aggregate.cu", "hg_pna_aggregate_fwd", [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            _fn = fn
+            ])
         return _fn
-
-
-def build() -> str:
-    """Build and load the kernel now; returns the compiler's log."""
-    from hydragnn_tpu_torch.ops._build import load_library
-
-    _kernel()
-    return load_library("pna_aggregate.cu")[1]
 
 
 def _check(v, receivers, num_segments, mask) -> None:
     if v.dim() != 2:
         raise ValueError(f"pna_aggregate: v must be [E, H], got shape {tuple(v.shape)}")
-    if v.dtype not in _DTYPE_CODE:
+    if v.dtype not in FLOAT_CODE:
         raise TypeError(f"pna_aggregate: v must be float32 or bfloat16, got {v.dtype}")
     if receivers.dim() != 1 or receivers.shape[0] != v.shape[0]:
         raise ValueError("pna_aggregate: receivers must be [E] matching v")
@@ -151,35 +125,33 @@ def pna_aggregate(
         return pna_aggregate_plain(v, receivers, num_segments, mask)
     if v.device.type != "cuda":
         raise ValueError(f"pna_aggregate: unsupported device {v.device}")
+    if torch.is_grad_enabled() and v.requires_grad:
+        raise NotImplementedError(
+            "pna_aggregate: the backward of the unaligned aggregation runs on the "
+            "kernels B6/B7 (_pna_bwd_count_kernel, _pna_bwd_grad_kernel), which are "
+            "not ported yet (ROADMAP B6, B7); train on run-aligned batches "
+            "(GraphLoader run_align) instead"
+        )
+    dev = cuda_args("pna_aggregate", v, receivers, mask)
     if receivers.dtype != torch.int32:
         raise TypeError(f"pna_aggregate: receivers must be int32 on CUDA, got {receivers.dtype}")
-    for name, t in (("receivers", receivers), ("mask", mask)):
-        if t is not None and t.device != v.device:
-            raise ValueError(f"pna_aggregate: {name} on {t.device}, v on {v.device}")
-    if not v.is_contiguous() or not receivers.is_contiguous() or (
-        mask is not None and not mask.is_contiguous()
-    ):
-        raise ValueError("pna_aggregate: v, receivers and mask must be contiguous")
     e, h = v.shape
     if e >= 2**31:
         raise ValueError("pna_aggregate: more than 2^31 - 1 edges")
     n = int(num_segments)
     fn = _kernel()
-    dev = v.device
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
         s = torch.empty(n, h, dtype=torch.float32, device=dev)
         sq = torch.empty(n, h, dtype=torch.float32, device=dev)
         cnt = torch.empty(n, dtype=torch.float32, device=dev)
         both = torch.empty(n, 2 * h, dtype=v.dtype, device=dev)
         rc = fn(
-            v.data_ptr(), _DTYPE_CODE[v.dtype], receivers.data_ptr(),
+            v.data_ptr(), FLOAT_CODE[v.dtype], receivers.data_ptr(),
             None if mask is None else mask.data_ptr(), e, n, h,
             row_ptr.data_ptr(), s.data_ptr(), sq.data_ptr(), cnt.data_ptr(),
-            both.data_ptr(), stream,
+            both.data_ptr(), stream_of(dev),
         )
-    if rc != 0:
-        raise RuntimeError(f"pna_aggregate_fwd: CUDA error {rc} at launch")
+    check_launch("pna_aggregate_fwd", rc)
     launches.add()
     return s, sq, cnt, both

@@ -1,0 +1,109 @@
+"""Sorted segment sum (B2): the CUDA kernel ``segment_sum`` and its plain
+PyTorch version.
+
+Port of the Pallas ``_sum_kernel`` in
+``hydragnn_tpu/ops/segment_pallas.py`` (``segment_sum_fast`` with
+``indices_are_sorted=True``): for ids sorted ascending,
+
+  out [N, W] f32   out[n] = Σ_{e: ids[e] = n, mask[e]} data[e]
+
+accumulated in float32 whatever the input type (f32 or bf16). Rows with
+no edge are 0. On the training path it reduces the run-aligned K-group
+statistics into the nodes (``graph/segment.py:segment_sum_sorted``),
+counts the tied maxima in the extremum backward, and is the backward of
+every sorted gather.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+(``csrc/segment_sum.cu``) or raises. The sorted order is the caller's
+contract and is not checked on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from hydragnn_tpu_torch.ops._build import (
+    FLOAT_CODE,
+    LaunchCount,
+    bind,
+    check_launch,
+    cuda_args,
+    stream_of,
+)
+
+SOURCE = "hydragnn_tpu_torch/ops/csrc/segment_sum.cu"
+REPLACES = "hydragnn_tpu/ops/segment_pallas.py:235"
+
+# launches of the CUDA kernel (never the plain path)
+launches = LaunchCount()
+
+_lock = threading.Lock()
+_fn = None  # guarded by _lock
+
+
+def _kernel():
+    global _fn
+    with _lock:
+        if _fn is None:
+            _fn = bind("segment_sum.cu", "hg_segment_sum", [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ])
+        return _fn
+
+
+def segment_sum_plain(
+    data: torch.Tensor,
+    ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``index_add_`` of the masked rows into f32 zeros (the order of the
+    edges, as the kernel sums them)."""
+    vals = data.float()
+    if mask is not None:
+        vals = torch.where(mask[:, None], vals, torch.zeros((), device=data.device))
+    out = torch.zeros(int(num_segments), data.shape[1], dtype=torch.float32, device=data.device)
+    return out.index_add_(0, ids.long(), vals)
+
+
+def segment_sum(
+    data: torch.Tensor,
+    ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``[N, W]`` float32 sums of ``data`` [E, W] over sorted ``ids`` [E]
+    (module docstring); ``mask`` is an optional bool [E]."""
+    if data.dim() != 2 or ids.dim() != 1 or ids.shape[0] != data.shape[0]:
+        raise ValueError(f"segment_sum: data [E, W] and ids [E], got {tuple(data.shape)}, {tuple(ids.shape)}")
+    if data.dtype not in FLOAT_CODE:
+        raise TypeError(f"segment_sum: data must be float32 or bfloat16, got {data.dtype}")
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != ids.shape):
+        raise ValueError("segment_sum: mask must be bool [E]")
+    n = int(num_segments)
+    if n < 1:
+        raise ValueError("segment_sum: num_segments must be >= 1")
+    if data.device.type == "cpu":
+        return segment_sum_plain(data, ids, n, mask)
+    dev = cuda_args("segment_sum", data, ids, mask)
+    if ids.dtype != torch.int32:
+        raise TypeError(f"segment_sum: ids must be int32 on CUDA, got {ids.dtype}")
+    e, w = data.shape
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        out = torch.empty(n, w, dtype=torch.float32, device=dev)
+        rc = fn(
+            data.data_ptr(), FLOAT_CODE[data.dtype], ids.data_ptr(),
+            None if mask is None else mask.data_ptr(), e, n, w,
+            row_ptr.data_ptr(), out.data_ptr(), stream_of(dev),
+        )
+    check_launch("segment_sum", rc)
+    launches.add()
+    return out

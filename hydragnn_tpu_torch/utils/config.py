@@ -13,6 +13,7 @@ paths the port does not have.
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
@@ -146,3 +147,46 @@ def normalize_output_config(config: Dict[str, Any]) -> Dict[str, Any]:
     else:
         voi["denormalize_output"] = False
     return config
+
+
+def get_log_name_config(config: Dict[str, Any]) -> str:
+    """Deterministic run-directory name from the hyperparameters (the JAX
+    package's ``get_log_name_config``)."""
+    nn = config["NeuralNetwork"]
+    arch, training = nn["Architecture"], nn["Training"]
+    name = config["Dataset"]["name"] if "Dataset" in config else "dataset"
+    cut = name.rfind("_") if name.rfind("_") > 0 else None
+    return (
+        f"{arch['model_type']}-r-{arch.get('radius')}"
+        f"-ncl-{arch['num_conv_layers']}-hd-{arch['hidden_dim']}"
+        f"-ne-{training['num_epoch']}"
+        f"-lr-{training['Optimizer']['learning_rate']}"
+        f"-bs-{training['batch_size']}"
+        f"-data-{name[:cut]}"
+        "-node_ft-"
+        + "".join(str(x) for x in nn["Variables_of_interest"]["input_node_features"])
+        + "-task_weights-"
+        + "".join(f"{w}-" for w in arch["task_weights"])
+    )
+
+
+def save_config(config: Dict[str, Any], log_name: str, path: str = "./logs/") -> None:
+    """JSON dump of the completed config under ``<path>/<log_name>/``."""
+    out_dir = os.path.join(path, log_name)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(_jsonable(config), f)
+
+
+def _jsonable(obj):
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    return obj
