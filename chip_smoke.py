@@ -29,11 +29,27 @@ raises; nothing is caught):
                    the card against the same step on the CPU.
   7. predict     — run_prediction from the run's checkpoint equals the
                    in-memory model's test pass.
-  8. timing      — each kernel at the main path's shapes: ms eager, ms in
+  8. check-conv  — fused_conv (B8) against its plain version at the
+                   flagship training shapes: identity at H=1 and H=128,
+                   the SchNet scale at F=126, the CGCNN gate at width 1
+                   and a gate at width 128 with receiver tables and edge
+                   terms; f32 and bf16; run-aligned fillers, empty rows,
+                   +inf edge terms on masked slots, the occupancy bound
+                   below E and at E; an unaligned dense-map batch of the
+                   molecular data; two launches bitwise equal; the
+                   autograd backward on the card against the CPU.
+  9. train-stacks — run_training on GIN at full width (batch 1024, 6
+                   layers, 3 epochs), run_prediction from its checkpoint;
+                   SAGE, MFC, SchNet and CGCNN through train_with_loaders
+                   for 2 epochs each; finite, falling losses and the
+                   documented launch counts; each stack's train step at 64
+                   graphs on the card against the CPU.
+ 10. timing      — each kernel at the main path's shapes: ms eager, ms in
                    a CUDA graph, plain ms, library ms, beside its bound;
-                   a train step broken into its stages, and its device
-                   time by kernel (torch.profiler).
-  9. summary     — the kernels line, the card line, then the result line.
+                   the PNA, GIN and SchNet train steps broken into their
+                   stages, and the PNA and GIN steps' device time by
+                   kernel (torch.profiler).
+ 11. summary     — the kernels line, the card line, then the result line.
 
 Without a card (torch.cuda.is_available() false), or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -73,10 +89,60 @@ STEP_HEAD_TOL, STEP_CONV_TOL, STEP_ZERO_TOL = 1e-4, 2e-2, 1e-4
 # prediction vs the in-memory test pass: the pooling's index_add_ uses
 # atomics on the card, so two passes may round differently
 PREDICT_TOL = dict(rtol=1e-5, atol=1e-6)
+# B8's branch variants against their plain version: each edge's
+# pre-activation is a dot product taken in another order than the host's
+# matrix product, and expf/log1pf on the card round differently
+GATE_TOL = dict(rtol=1e-5, atol=1e-5)
+# B8's autograd backward, card against CPU, per gradient by relative L2
+# (cuBLAS against the host's BLAS in the recomputed pre-activations and
+# the weight gradients)
+CONV_BWD_TOL = 1e-5
+# the five stacks' train step, card against CPU: the loss rtol 1e-5,
+# BatchNorm statistics as STEP_BN_TOL. Each gradient by relative L2,
+# within the larger of 1e-3 and 10 x its rounding spread: the largest
+# difference between the CPU's f32 step and the same step on the same
+# graphs batched in another order (reversed, and two seeded shuffles),
+# which changes nothing but the order of the f32 sums. No segment maxima
+# here, but two things make some gradients move by more than a rounding:
+#   - some are determined by f32 only to a few percent. GIN's eps = 100
+#     makes its eps gradient and conv_0's weight gradients nearly 0 by
+#     the BatchNorm's invariance (conv_0's input has width 1, so its
+#     BatchNorm sees an almost affine function of one scalar), and what
+#     is left is a cancellation. The spread measures that;
+#   - a rounding-level change can move a ReLU pre-activation across 0,
+#     which moves its gradient by that unit's share (about 1e-4 of a
+#     node head's gradient). The 1e-3 floor covers it.
+# A gradient that is 0 up to rounding (at most 1e-6 of the model's
+# largest entry on the CPU: a conv bias that feeds a BatchNorm) is held,
+# on both sides, to 1e-4 of that largest entry.
+STACK_GRAD_TOL, STACK_SPREAD_FACTOR, STACK_ZERO_TOL = 1e-3, 10.0, 1e-4
 N_SAMPLES, UNIT_CELLS, SEED = 64, (2, 4), 0  # the serving phase's data
 TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_EPOCHS, STEP_GRAPHS = 1280, 1024, 3, 64
 TRAIN_UNIT_CELLS = (2, 4)  # 2 or 3 unit cells per axis, as the bench's flagship
 K = 8  # the loader's run alignment
+STACKS = ("GIN", "SAGE", "MFC", "SchNet", "CGCNN")
+STACK_EPOCHS = 2  # SAGE, MFC, SchNet and CGCNN
+MOLECULE_SAMPLES, MOLECULE_BATCH = 300, 64  # tests/test_train_e2e.py's data
+
+
+def stack_launches(model_type, n_layers):
+    """Kernel launches of one train step of a conv stack (its forward
+    launches fused_conv once per layer; an eval forward only that):
+    the backward gathers the cotangent (B3) and scatters grad_x (B4) in
+    every layer whose input needs a gradient — all but conv_0 where the
+    input is the batch's nodes; SchNet also regathers x for the filter's
+    gradient (B3), and its conv_0 input is a linear layer's output; the
+    CGCNN gate regathers x and both receiver tables (B3) and sums the
+    tables' gradients (B2 x 2)."""
+    lyr = n_layers
+    per = {
+        "GIN": {"fused_conv": lyr, "gather_rows": lyr - 1, "segment_sum_local": lyr - 1},
+        "SchNet": {"fused_conv": lyr, "gather_rows": 2 * lyr, "segment_sum_local": lyr},
+        "CGCNN": {"fused_conv": lyr, "gather_rows": 4 * lyr, "segment_sum": 2 * lyr,
+                  "segment_sum_local": lyr - 1},
+    }
+    per["SAGE"] = per["MFC"] = per["GIN"]
+    return per[model_type]
 
 
 def line(phase, **kw):
@@ -136,9 +202,9 @@ def bits(t):
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
 
 
-def compare(out, ref, label, exact=False):
+def compare(out, ref, label, exact=False, tol=SUM_TOL):
     """Max abs error of ``out`` against ``ref`` (both on any device);
-    raises beyond SUM_TOL, or unless bit-equal when ``exact``."""
+    raises beyond ``tol``, or unless bit-equal when ``exact``."""
     out, ref = out.detach().cpu(), ref.detach().cpu()
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise AssertionError(f"{label}: {tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} {ref.dtype}")
@@ -146,8 +212,12 @@ def compare(out, ref, label, exact=False):
         if not torch.equal(bits(out), bits(ref)):
             raise AssertionError(f"{label}: not bit-equal")
         return 0.0
-    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(), err_msg=label, **SUM_TOL)
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(), err_msg=label, **tol)
     return float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / max(float(b.float().norm()), 1e-30))
 
 
 def quarter_grid(shape, seed, scale=4.0):
@@ -162,7 +232,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card")
     import hydragnn_tpu_torch
-    from hydragnn_tpu_torch.api import prepare_config_and_samples, prepare_loaders_and_config
+    from hydragnn_tpu_torch.api import prepare_config_and_samples, prepare_loaders_and_config, train_with_loaders
     from hydragnn_tpu_torch.data.loader import GraphLoader
     from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
     from hydragnn_tpu_torch.flagship import flagship_config
@@ -175,10 +245,23 @@ def main():
     from hydragnn_tpu_torch.ops import pna_aggregate as agg
     from hydragnn_tpu_torch.ops import segment_sum as b2
     from hydragnn_tpu_torch.ops import segment_sum_local as b4
+    from hydragnn_tpu_torch.ops import fused_conv as b8
     from hydragnn_tpu_torch.ops._build import build_all
     from hydragnn_tpu_torch.serve import ServeConfig, build_bucket_ladder, request_to_dict
     from hydragnn_tpu_torch.train.loop import test_epoch
     from hydragnn_tpu_torch.train.state import train_step
+    from hydragnn_tpu_torch.utils.config import update_config
+
+    def stack_config(model_type, batch_size=TRAIN_BATCH, num_epoch=TRAIN_EPOCHS):
+        """The flagship chassis with ``model_type`` swapped, as a user
+        would set it in a config file; SchNet at the reference's 126
+        filters and 50 Gaussians, CGCNN at the input width."""
+        cfg = flagship_config(batch_size=batch_size, num_epoch=num_epoch)
+        arch = cfg["NeuralNetwork"]["Architecture"]
+        arch["model_type"] = model_type
+        if model_type == "SchNet":
+            arch["num_filters"], arch["num_gaussians"] = 126, 50
+        return cfg
 
     dev = hydragnn_tpu_torch.resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -188,7 +271,7 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda,
          tf32=torch.backends.cuda.matmul.allow_tf32)
     mods = {"pna_aggregate_fwd": agg, "gather_stats": b1, "segment_sum": b2,
-            "gather_rows": b3, "segment_sum_local": b4}
+            "gather_rows": b3, "segment_sum_local": b4, "fused_conv": b8}
     sources = {name: os.path.basename(m.SOURCE) for name, m in mods.items()}
 
     def reset_counts():
@@ -527,7 +610,257 @@ def main():
     line("predict", test_loss=err, in_memory_test_loss=in_memory[0], heads=len(preds),
          rows=json.dumps([int(p.shape[0]) for p in preds]), max_abs_err=worst)
 
-    # ---- 8. timing -------------------------------------------------------
+    # ---- 8. check-conv: B8 at the flagship training shapes ----------------
+    rng8 = np.random.default_rng(SEED + 8)
+
+    def normal(shape, scale=0.3):
+        return torch.from_numpy((rng8.normal(size=shape) * scale).astype(np.float32))
+
+    def b8_case(variant, rows, edges, seed):
+        """(x, branches, acts, scale) of one B8 variant on the host, f32;
+        identity and scale on the 1/4 grid (every order sums exactly)."""
+        if variant == "identity_h1":
+            return quarter_grid((rows, 1), seed), (), (), None
+        if variant == "identity_h128":
+            return quarter_grid((rows, hidden), seed), (), (), None
+        if variant == "scale_f126":
+            return quarter_grid((rows, 126), seed), (), (), quarter_grid((edges, 126), seed + 1, scale=2.0)
+        if variant == "gate_w1":  # CGCNN at the flagship's input width
+            return normal((rows, 1), 1.0), tuple(
+                (normal((1, 1)), None, normal((rows, 1)), None) for _ in range(2)
+            ), ("sigmoid", "softplus"), None
+        w = hidden  # a gate at width 128: the staged product at a real width
+        return normal((rows, w), 1.0), (
+            (normal((w, w), 0.1), normal((w,)), normal((rows, w)), normal((edges, w))),
+            (normal((w, w), 0.1), None, normal((rows, w)), normal((edges, w))),
+        ), ("sigmoid", "softplus"), None
+
+    def cast_case(branches, scale, dtype):
+        """The streamed operands (rtab, eterm, scale) in ``dtype``; W and b stay f32."""
+        br = tuple((w, b, *(None if t is None else t.to(dtype) for t in (r, et))) for w, b, r, et in branches)
+        return br, None if scale is None else scale.to(dtype)
+
+    def on_dev(branches, d):
+        return tuple(tuple(None if t is None else t.to(d) for t in br) for br in branches)
+
+    def as_f32(branches):
+        return tuple(tuple(None if t is None else t.float() for t in br) for br in branches)
+
+    B8_VARIANTS = ("identity_h1", "identity_h128", "scale_f126", "gate_w1", "gate_w128")
+    mask_h = adv_mask.cpu()
+    occ = bd.edge_occupancy
+    e_all = torch.tensor(e, dtype=torch.int32, device=dev)
+    max_err["fused_conv"] = 0.0
+
+    def check_b8(tag, variant, hb, mask_host, dtype, reals, seed):
+        """B8 on the card against its plain version on the host, on the
+        f32 values of the same inputs; two launches bitwise equal."""
+        rows, edges = hb.num_nodes, hb.num_edges
+        x, branches, acts, scale = b8_case(variant, rows, edges, seed)
+        if variant == "gate_w128":  # +inf edge terms on the masked slots
+            for br in branches:
+                br[3][~mask_host] = float("inf")
+        branches, scale = cast_case(branches, scale, dtype)
+        x = x.to(dtype)
+        args_h = (hb.senders, hb.receivers, mask_host, rows)
+        ref = b8.fused_conv_plain(x.float(), *args_h, as_f32(branches), acts, None if scale is None else scale.float())
+        if not bool(torch.isfinite(ref).all()):
+            raise AssertionError(f"fused_conv {tag}: the plain version is not finite")
+        args_d = (hb.senders.to(dev), hb.receivers.to(dev), mask_host.to(dev), rows)
+        xd, bd_, sd_ = x.to(dev), on_dev(branches, dev), None if scale is None else scale.to(dev)
+        tol = GATE_TOL if branches else SUM_TOL
+        err = 0.0
+        for real in reals:
+            out = twice(f"fused_conv {tag}", b8.fused_conv, xd, *args_d, bd_, acts, sd_, real)
+            err = max(err, compare(out, ref, f"fused_conv {tag} real_edges={int(real)}", tol=tol))
+        max_err["fused_conv"] = max(max_err["fused_conv"], err)
+        empty = int((hb.receivers[mask_host].bincount(minlength=rows) == 0).sum())
+        line("check-conv", kernel="fused_conv", case=tag, E=edges, N=rows, H_out=ref.shape[1],
+             dtype=str(dtype)[6:], real_edges=json.dumps([int(r) for r in reals]), empty_rows=empty,
+             max_abs_err=err, tol=json.dumps(tol), deterministic=True)
+
+    for variant in B8_VARIANTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_b8(f"{variant}_{str(dtype)[6:]}", variant, host, mask_h, dtype, (occ, e_all), 80)
+
+    # an unaligned batch of the molecular data (tests/test_train_e2e.py):
+    # the loader picks the dense slot map, and still emits sender windows
+    mcfg = stack_config("GIN", batch_size=MOLECULE_BATCH)
+    mcfg["Dataset"]["compositional_stratified_splitting"] = True
+    mcfg["NeuralNetwork"]["Training"]["perc_train"] = 0.7
+    mol_train, _, _, _ = prepare_loaders_and_config(
+        mcfg, deterministic_graph_data(number_configurations=MOLECULE_SAMPLES, seed=SEED)
+    )
+    mhost = next(iter(mol_train))
+    if not (mol_train.dense_slots and mhost.run_align == 0 and mhost.sender_win is not None):
+        raise AssertionError("check-conv: the molecular loader did not pick the dense map with sender windows")
+    line("check-conv", batch="molecular", dense_slots=mol_train.dense_slots, run_align=mhost.run_align,
+         node_pad=mhost.num_nodes, edge_pad=mhost.num_edges, real_edges=int(mhost.edge_mask.sum()),
+         edge_occupancy=int(mhost.edge_occupancy))
+    mol_reals = (mhost.edge_occupancy.to(dev), torch.tensor(mhost.num_edges, dtype=torch.int32, device=dev))
+    for variant, dtype in (("identity_h128", torch.float32), ("identity_h128", torch.bfloat16),
+                           ("scale_f126", torch.float32), ("gate_w1", torch.float32)):
+        check_b8(f"molecular_{variant}_{str(dtype)[6:]}", variant, mhost, mhost.edge_mask, dtype, mol_reals, 81)
+
+    # the autograd backward on the card (B8, then B3, B2, B4) against the
+    # same op on the CPU, f32: every gradient
+    def check_b8_backward(tag, variant, hb, mask_host, seed):
+        x, branches, acts, scale = b8_case(variant, hb.num_nodes, hb.num_edges, seed)
+        hout = branches[0][0].shape[1] if branches else x.shape[1]
+        g = normal((hb.num_nodes, hout), 1.0)
+        grads = {}
+        for where in ("cpu", "cuda"):
+            d = torch.device("cpu") if where == "cpu" else dev
+            # detach: on the CPU .to() returns the host tensor itself
+            xl = x.detach().to(d).requires_grad_(True)
+            brl = tuple(tuple(None if t is None else t.detach().to(d).requires_grad_(True) for t in br)
+                        for br in branches)
+            scl = None if scale is None else scale.detach().to(d).requires_grad_(True)
+            out = b8.fused_aggregate(xl, hb.senders.to(d), hb.receivers.to(d), mask_host.to(d), hb.num_nodes,
+                                     brl, acts, scl, win=hb.sender_win.to(d), real_edges=hb.edge_occupancy.to(d))
+            out.backward(g.to(d))
+            named = [("out", out.detach()), ("grad_x", xl.grad)]
+            for k, br in enumerate(brl):
+                for nm, t in zip(("gW", "gb", "grtab", "geterm"), br):
+                    if t is not None:
+                        named.append((f"{nm}{k}", t.grad))
+            if scl is not None:
+                named.append(("g_scale", scl.grad))
+            grads[where] = {nm: t.cpu() for nm, t in named}
+        rel = {nm: rel_l2(grads["cuda"][nm], grads["cpu"][nm]) for nm in grads["cpu"]}
+        line("check-conv", case=f"autograd_backward_{tag}", grads=json.dumps(sorted(rel)),
+             worst_rel_l2=max(rel.values()), tol=CONV_BWD_TOL)
+        if max(rel.values()) > CONV_BWD_TOL:
+            raise AssertionError(f"fused_aggregate backward {tag}: card and CPU differ: {rel}")
+
+    for variant in ("identity_h128", "scale_f126", "gate_w1", "gate_w128"):
+        check_b8_backward(f"{variant}_f32", variant, host, mask_h, 82)
+    check_b8_backward("molecular_identity_h128_f32", "identity_h128", mhost, mhost.edge_mask, 83)
+
+    # ---- 9. train-stacks: GIN, SAGE, MFC, SchNet, CGCNN -------------------
+    gin_log = tempfile.mkdtemp(prefix="chip_smoke_gin_")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    gin_model, gin_opt, gin_hist, gin_done = hydragnn_tpu_torch.run_training(
+        stack_config("GIN"), train_samples(), log_dir=gin_log, device="cuda", seed=SEED,
+    )
+    torch.cuda.synchronize()
+    gin_wall = time.perf_counter() - t0
+    stack_counts = {"GIN": read_counts()}
+
+    def check_stack_run(mt, history, counts, epochs, wall):
+        losses = history["train_loss"]
+        if not all(np.isfinite(history[k]).all() for k in ("train_loss", "val_loss", "test_loss")):
+            raise AssertionError(f"train-stacks {mt}: a loss is not finite: {history}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train-stacks {mt}: the train loss did not fall: {losses}")
+        steps_ = epochs * len(train_loader)
+        fwds = epochs * (len(val_loader) + len(test_loader)) + 2 * len(train_loader)
+        per = stack_launches(mt, n_layers)
+        want_ = {name: steps_ * per.get(name, 0) + fwds * (n_layers if name == "fused_conv" else 0) for name in mods}
+        if counts != want_:
+            raise AssertionError(f"train-stacks {mt}: launches {counts}, want {want_}")
+        line("train-stacks", stack=mt, epochs=epochs, steps=steps_, eval_and_bn_forwards=fwds, batch=TRAIN_BATCH,
+             hidden=hidden, conv_layers=n_layers, train_loss=json.dumps(losses),
+             val_loss=json.dumps(history["val_loss"]), test_loss=json.dumps(history["test_loss"]),
+             kernel_launches=json.dumps(counts, separators=(",", ":")),
+             per_step=json.dumps(per, separators=(",", ":")), wall_s=round(wall, 3),
+             max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=repr(card))
+
+    check_stack_run("GIN", gin_hist, stack_counts["GIN"], TRAIN_EPOCHS, gin_wall)
+    gin_mem = test_epoch(test_loader, gin_model)
+    err, tasks, trues, preds = hydragnn_tpu_torch.run_prediction(
+        stack_config("GIN"), train_samples(), log_dir=gin_log, device="cuda",
+    )
+    np.testing.assert_allclose(err, gin_mem[0], err_msg="GIN predict loss", **PREDICT_TOL)
+    worst = 0.0
+    for a, b in zip(preds + trues, gin_mem[3] + gin_mem[2]):
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError("GIN predict: shape or non-finite")
+        np.testing.assert_allclose(a, b, err_msg="GIN predict values", **PREDICT_TOL)
+        worst = max(worst, float(np.abs(a - b).max()))
+    line("train-stacks", stack="GIN", part="predict", test_loss=err, in_memory_test_loss=gin_mem[0],
+         heads=len(preds), max_abs_err=worst)
+
+    minmax = {k: gin_done["NeuralNetwork"]["Variables_of_interest"][k]
+              for k in ("minmax_graph_feature", "minmax_node_feature")}
+    stack_cfgs = {"GIN": gin_done["NeuralNetwork"]}
+    stack_models = {"GIN": (gin_model, gin_opt)}
+    for mt in STACKS[1:]:
+        cfg_mt = stack_config(mt, num_epoch=STACK_EPOCHS)
+        cfg_mt["NeuralNetwork"]["Variables_of_interest"].update(minmax)
+        cfg_mt = update_config(cfg_mt, train_loader.samples, val_loader.samples, test_loader.samples)
+        stack_cfgs[mt] = cfg_mt["NeuralNetwork"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        m_mt, o_mt, h_mt = train_with_loaders(
+            cfg_mt, train_loader, val_loader, test_loader,
+            log_dir=tempfile.mkdtemp(prefix=f"chip_smoke_{mt}_"), device="cuda", seed=SEED,
+        )
+        torch.cuda.synchronize()
+        stack_counts[mt] = read_counts()
+        check_stack_run(mt, h_mt, stack_counts[mt], STACK_EPOCHS, time.perf_counter() - t0)
+        stack_models[mt] = (m_mt, o_mt)
+
+    # each stack's train step at STEP_GRAPHS graphs: card (kernels)
+    # against CPU (plain versions)
+    # the step's graphs batched in three other orders (the spread)
+    step_samples = train_loader.samples[:STEP_GRAPHS]
+    shuffles = [np.random.default_rng(SEED + k).permutation(STEP_GRAPHS) for k in (1, 2)]
+    reordered = [next(iter(GraphLoader([step_samples[i] for i in order], STEP_GRAPHS)))
+                 for order in [np.arange(STEP_GRAPHS)[::-1]] + shuffles]
+    for mt in STACKS:
+        res = {}
+        for where in ("cpu", "cuda", "order1", "order2", "order3"):
+            m = create_model_config(stack_cfgs[mt], seed=SEED + 1, device="cuda" if where == "cuda" else "cpu")
+            b = reordered[int(where[-1]) - 1] if where.startswith("order") else step_batch
+            b = b.to(next(m.parameters()).device)
+            reset_counts()
+            m.zero_grad(set_to_none=True)
+            loss, _ = model_loss(m.cfg, m(b, train=True), b)
+            loss.backward()
+            counts = read_counts()
+            res[where] = (loss.item(), {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                          {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}, counts)
+        want_ = {name: stack_launches(mt, n_layers).get(name, 0) for name in mods}
+        if res["cuda"][3] != want_ or any(res["cpu"][3].values()):
+            raise AssertionError(f"{mt} step launches card {res['cuda'][3]}, cpu {res['cpu'][3]}; want {want_}")
+        gcpu, gcard = res["cpu"][1], res["cuda"][1]
+        g_max = max(float(g.abs().max()) for g in gcpu.values())
+        worst_rel, worst_zero, worst_share = ("", 0.0, 0.0), ("", 0.0), ("", 0.0)
+        spread_above_tol = 0
+        bad = {}
+        for k, g in gcpu.items():
+            if float(g.abs().max()) <= 1e-6 * g_max:
+                r = max(float(g.abs().max()), float(gcard[k].abs().max())) / g_max
+                if r >= worst_zero[1]:
+                    worst_zero = (k, r)
+                if r > STACK_ZERO_TOL:
+                    bad[k] = r
+                continue
+            r = rel_l2(gcard[k], g)
+            spread = max(rel_l2(res[f"order{j}"][1][k], g) for j in (1, 2, 3))
+            tol = max(STACK_GRAD_TOL, STACK_SPREAD_FACTOR * spread)
+            spread_above_tol += STACK_SPREAD_FACTOR * spread > STACK_GRAD_TOL
+            if r >= worst_rel[1]:
+                worst_rel = (k, r, spread)
+            if r / tol >= worst_share[1]:
+                worst_share = (k, r / tol)
+            if r > tol:
+                bad[k] = (r, spread)
+        bn_ok = all(torch.allclose(res["cuda"][2][k], v, **STEP_BN_TOL) for k, v in res["cpu"][2].items())
+        line("train-stacks", stack=mt, part="step-vs-cpu", graphs=STEP_GRAPHS, loss_card=res["cuda"][0],
+             loss_cpu=res["cpu"][0], worst_grad_rel_l2_and_spread=json.dumps(worst_rel),
+             worst_share_of_tol=json.dumps(worst_share), tensors_held_by_spread=spread_above_tol,
+             worst_zero_grad=json.dumps(worst_zero), bn_stats_close=bn_ok, params=len(gcpu),
+             kernel_launches=json.dumps(res["cuda"][3], separators=(",", ":")))
+        np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=STEP_LOSS_RTOL, err_msg=f"{mt} step loss")
+        if bad or not bn_ok:
+            raise AssertionError(f"{mt} train step: card and CPU differ beyond the tolerance: {bad}, BN close {bn_ok}")
+
+    # ---- 10. timing ------------------------------------------------------
     h = hidden
     table = torch.randn(n, h, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     stats, both = b1.gather_stats(table, send, bd.edge_mask, K)
@@ -606,72 +939,137 @@ def main():
     line("timing", kernel="pna_aggregate_fwd", shape="serve_batch8", card=repr(card),
          **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing["pna_aggregate_fwd"].items()})
 
+    # B8 per variant at the flagship training shapes, f32, with the
+    # batch's own mask and occupancy bound (as the conv stacks call it)
+    real_t = int(bd.edge_mask.sum())
+    crow = torch.zeros(n + 1, dtype=torch.int64)
+    crow[1:] = torch.cumsum(torch.bincount(host.receivers.long(), minlength=n), 0)
+    # the receiver-by-sender CSR matrix (values = mask), built once: the
+    # library's one call for the identity variant
+    adj = torch.sparse_csr_tensor(crow, host.senders.long(), host.edge_mask.float(), size=(n, n)).to(dev)
+    b8_timing = {}
+    for variant in B8_VARIANTS:
+        x, branches, acts, scale = b8_case(variant, n, e, 90)
+        xd, brd, scd = x.to(dev), on_dev(branches, dev), None if scale is None else scale.to(dev)
+        hin = x.shape[1]
+        hout = branches[0][0].shape[1] if branches else hin
+        kb = len(branches)
+        args_d = (xd, send, bd.receivers, bd.edge_mask, n, brd, acts, scd)
+        kern = lambda a=args_d: b8.fused_conv(*a, real_edges=occ)  # noqa: E731
+        plain = lambda a=args_d: b8.fused_conv_plain(*a)  # noqa: E731
+        # one library call computes the identity variant; none the others
+        library = (lambda xx=xd: torch.sparse.mm(adj, xx)) if variant.startswith("identity") else None
+        nbytes = e * 9 + n * hin * s4 + n * hout * s4
+        ops = real_t * hout
+        if scale is not None:
+            nbytes += e * hout * s4
+            ops = 2 * real_t * hout
+        if branches:
+            nbytes += hin * kb * hout * s4 + kb * hout * s4 + n * kb * hout * s4
+            nbytes += e * kb * hout * s4 if branches[0][3] is not None else 0
+            ops = 2 * real_t * hin * kb * hout  # the products' multiply-adds
+        t = {"kernel": [], "plain": [], "library": []}
+        for which in ("kernel", "plain", "library", "kernel"):
+            fn = {"kernel": kern, "plain": plain, "library": library}[which]
+            if fn is not None:
+                t[which].append(cuda_ms(fn, 20))
+        bms, by = bound(nbytes, ops)
+        b8_timing[variant] = {
+            "ms": float(np.mean(t["kernel"])), "graph_ms": graph_ms(kern, 10), "plain_ms": t["plain"][0],
+            "library_ms": t["library"][0] if t["library"] else None, "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "ops": ops, "E": e, "N": n, "H_in": hin, "H_out": hout, "branches": kb,
+        }
+        line("timing", kernel="fused_conv", variant=variant, card=repr(card),
+             **{k: (round(v, 5) if isinstance(v, float) else v) for k, v in b8_timing[variant].items()})
+    # the main path's B8 call: the GIN/SAGE/MFC layers 1-5 (identity, H=128)
+    timing["fused_conv"] = dict(b8_timing["identity_h128"])
+
     # where one flagship train step's time goes (host clock, synchronised
-    # between stages, median of 5 steps at batch 1024)
-    stages = {"batch_build": [], "h2d": [], "forward": [], "backward": [], "optimizer": []}
+    # between stages, median of 5 steps at batch 1024), per stack
     order = np.arange(len(train_loader.samples))
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        hb = train_loader.make_batch(order[:TRAIN_BATCH])
-        t1 = time.perf_counter()
-        b = hb.to(dev)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        optimizer.zero_grad(set_to_none=True)
-        loss, _ = model_loss(model.cfg, model(b, train=True), b)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        optimizer.step()
-        torch.cuda.synchronize()
-        t5 = time.perf_counter()
-        for k, a, z in (("batch_build", t0, t1), ("h2d", t1, t2), ("forward", t2, t3),
-                        ("backward", t3, t4), ("optimizer", t4, t5)):
-            stages[k].append((z - a) * 1e3)
-    step_ms = cuda_ms(lambda: train_step(model, optimizer, bd), 5)
-    line("breakdown", shape=f"train_batch{TRAIN_BATCH}", card=repr(card), device_step_ms=round(step_ms, 4),
-         **{f"{k}_ms": round(float(np.median(v)), 4) for k, v in stages.items()})
+
+    def breakdown(label, model_, optimizer_):
+        stages = {"batch_build": [], "h2d": [], "forward": [], "backward": [], "optimizer": []}
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hb = train_loader.make_batch(order[:TRAIN_BATCH])
+            t1 = time.perf_counter()
+            b = hb.to(dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            optimizer_.zero_grad(set_to_none=True)
+            loss, _ = model_loss(model_.cfg, model_(b, train=True), b)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            optimizer_.step()
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            for k, a, z in (("batch_build", t0, t1), ("h2d", t1, t2), ("forward", t2, t3),
+                            ("backward", t3, t4), ("optimizer", t4, t5)):
+                stages[k].append((z - a) * 1e3)
+        step_ms = cuda_ms(lambda: train_step(model_, optimizer_, bd), 5)
+        line("breakdown", stack=label, shape=f"train_batch{TRAIN_BATCH}", card=repr(card),
+             device_step_ms=round(step_ms, 4), graphs_per_s=round(TRAIN_BATCH / step_ms * 1e3, 1),
+             **{f"{k}_ms": round(float(np.median(v)), 4) for k, v in stages.items()})
+
+    breakdown("PNA", model, optimizer)
+    breakdown("GIN", *stack_models["GIN"])
+    breakdown("SchNet", *stack_models["SchNet"])
 
     # the device time of one train step by kernel (torch.profiler), and
     # the share of the step's wall time the card was busy
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(model, optimizer, bd)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernel_rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
-    busy_ms = sum(ms for _, ms, _ in kernel_rows)
     ours = ("gather_stats_kernel", "segment_sum_kernel", "gather_rows_kernel", "segment_sum_local_kernel",
-            "csr_row_ptr_kernel")
-    port_ms = sum(ms for key, ms, _ in kernel_rows if any(o in key for o in ours))
-    gemm_ms = sum(ms for key, ms, _ in kernel_rows if "gemm" in key.lower())
-    line("profile", shape=f"train_batch{TRAIN_BATCH}", card=repr(card), wall_ms=round(prof_wall_ms, 3),
-         device_busy_ms=round(busy_ms, 3) if kernel_rows else "not measured",
-         device_busy_share=round(busy_ms / prof_wall_ms, 4) if kernel_rows else "not measured",
-         port_kernels_ms=round(port_ms, 3), gemm_ms=round(gemm_ms, 3),
-         other_pytorch_ms=round(busy_ms - port_ms - gemm_ms, 3), kernels_seen=len(kernel_rows))
-    for key, ms, calls in sorted(kernel_rows, key=lambda r: -r[1])[:15]:
-        print(f"  profile: {ms:9.3f} ms {calls:5d} calls  {key[:110]}")
+            "csr_row_ptr_kernel", "fused_identity_kernel", "fused_branch_kernel")
 
-    # ---- 9. summary ------------------------------------------------------
-    main_launches = dict(train_counts)
-    main_launches["pna_aggregate_fwd"] = serve_counts["pna_aggregate_fwd"]
+    def profile_step(label, model_, optimizer_):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_step(model_, optimizer_, bd)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        kernel_rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+        busy_ms = sum(ms for _, ms, _ in kernel_rows)
+        port_ms = sum(ms for key, ms, _ in kernel_rows if any(o in key for o in ours))
+        gemm_ms = sum(ms for key, ms, _ in kernel_rows if "gemm" in key.lower())
+        line("profile", stack=label, shape=f"train_batch{TRAIN_BATCH}", card=repr(card),
+             wall_ms=round(prof_wall_ms, 3),
+             device_busy_ms=round(busy_ms, 3) if kernel_rows else "not measured",
+             device_busy_share=round(busy_ms / prof_wall_ms, 4) if kernel_rows else "not measured",
+             port_kernels_ms=round(port_ms, 3), gemm_ms=round(gemm_ms, 3),
+             other_pytorch_ms=round(busy_ms - port_ms - gemm_ms, 3), kernels_seen=len(kernel_rows))
+        for key, ms, calls in sorted(kernel_rows, key=lambda r: -r[1])[:15]:
+            print(f"  profile[{label}]: {ms:9.3f} ms {calls:5d} calls  {key[:110]}")
+
+    profile_step("PNA", model, optimizer)
+    profile_step("GIN", *stack_models["GIN"])
+
+    # ---- 11. summary -----------------------------------------------------
+    # each kernel's launches on its own main path (serve: B5; PNA
+    # training: B1-B4; GIN training: B8), and on every path
+    paths = {"serve": serve_counts, "train_pna": train_counts, "train_gin": stack_counts["GIN"]}
+    home = {name: "train_pna" for name in mods}
+    home.update(pna_aggregate_fwd="serve", fused_conv="train_gin")
     kernels = []
     for name, m in mods.items():
         t = timing[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": m.SOURCE, "replaces": m.REPLACES,
-            "launches": main_launches[name], "max_abs_err": max_err[name],
+            "launches": paths[home[name]][name], "max_abs_err": max_err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "graph_ms": t["graph_ms"],
-            "path": "serve" if name == "pna_aggregate_fwd" else "train",
-        })
+            "library_ms": t["library_ms"], "graph_ms": t["graph_ms"], "path": home[name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+        }
+        if name == "fused_conv":
+            entry["variants"] = {v: {k: b8_timing[v][k] for k in ("ms", "graph_ms", "plain_ms", "library_ms",
+                                                                  "bound_ms", "bound_by")} for v in b8_timing}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

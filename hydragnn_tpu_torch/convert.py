@@ -6,8 +6,12 @@ arrays; convert jax arrays with ``np.asarray`` first) and returns the
 ``state_dict`` of the port's ``HydraModel`` with the same weights.
 Layouts: a flax ``Dense`` kernel is [in, out] and becomes
 ``nn.Linear.weight`` [out, in]; ``PNAConv.pre_kernel`` keeps flax's
-[2·fin, fin] layout and is copied as it is. Every leaf of the input must
-be consumed exactly once, or this raises.
+[2·fin, fin] layout and is copied as it is, as do GIN's scalar ``eps``
+and MFC's stacked ``w_l``/``w_r`` [D+1, fin, out] and ``b_l``
+[D+1, out]. A conv's ``Dense_j`` is PNA's post-layer ``post`` in a PNA
+conv (one that holds ``pre_kernel``) and ``dense_j`` in every other
+(GIN, SAGE, SchNet, CGCNN). Every leaf of the input must be consumed
+exactly once, or this raises.
 """
 
 from __future__ import annotations
@@ -35,8 +39,12 @@ def _dense_index(name: str) -> int:
     return int(name.split("_", 1)[1])
 
 
-def _torch_name(path: str) -> str:
-    """Port parameter/buffer name for one flax leaf path."""
+_CONV_ARRAYS = ("pre_kernel", "pre_bias", "eps", "w_l", "b_l", "w_r")
+
+
+def _torch_name(path: str, pna_convs: frozenset = frozenset()) -> str:
+    """Port parameter/buffer name for one flax leaf path; ``pna_convs``
+    holds the indices of the PNA convs."""
     parts = path.split("/")
     coll, mod = parts[0], parts[1]
     if coll == "batch_stats":
@@ -47,10 +55,13 @@ def _torch_name(path: str) -> str:
         return f"norms.{i}." + {"scale": "weight", "bias": "bias"}[parts[2]]
     if mod.startswith("conv_"):
         i = int(mod.split("_")[1])
-        if parts[2] in ("pre_kernel", "pre_bias"):
+        if parts[2] in _CONV_ARRAYS and len(parts) == 3:
             return f"convs.{i}.{parts[2]}"
-        _dense_index(parts[2])  # the post-layer, Dense_0
-        return f"convs.{i}.post." + {"kernel": "weight", "bias": "bias"}[parts[3]]
+        j = _dense_index(parts[2])
+        sub = "post" if i in pna_convs else f"dense_{j}"
+        if i in pna_convs and j != 0:
+            raise KeyError(f"no port counterpart for flax leaf {path!r}")
+        return f"convs.{i}.{sub}." + {"kernel": "weight", "bias": "bias"}[parts[3]]
     leaf = {"kernel": "weight", "bias": "bias"}[parts[3]]
     if mod == "graph_shared":
         return f"graph_shared.layers.{_dense_index(parts[2])}.{leaf}"
@@ -64,12 +75,17 @@ def _torch_name(path: str) -> str:
 def variables_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` holding the weights of ``variables``."""
     flat = _flatten(variables)
+    pna_convs = frozenset(
+        int(p.split("/")[1].split("_")[1]) for p in flat
+        if p.startswith("params/conv_") and p.endswith("/pre_kernel")
+    )
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
-        name = _torch_name(path)
+        name = _torch_name(path, pna_convs)
         if name in out:
             raise ValueError(f"two flax leaves map to {name!r} (second: {path!r})")
         if path.endswith("/kernel"):
             arr = arr.T  # flax Dense [in, out] -> nn.Linear [out, in]
-        out[name] = torch.tensor(np.ascontiguousarray(arr, dtype=np.float32))
+        # np.array, not np.ascontiguousarray: that one turns a 0-d leaf (eps) into [1]
+        out[name] = torch.tensor(np.array(arr, dtype=np.float32))
     return out

@@ -7,9 +7,9 @@ which yields fixed-shape host batches (CPU tensors; the train loop moves
 them to the card) with the JAX loader's shuffle order, pad plan,
 run-aligned layout and sender windows.
 
-Not ported yet (ROADMAP A2): the dense slot map (an AUTO pick of it
-raises), the prefetch thread, multi-host sharding, ``device_stack > 1``
-with its ``_mask_out`` filler batches, and device-cached batches.
+Not ported yet (ROADMAP A2): the prefetch thread, multi-host sharding,
+``device_stack > 1`` with its ``_mask_out`` filler batches, and
+device-cached batches.
 """
 
 from __future__ import annotations
@@ -123,14 +123,14 @@ class GraphLoader:
       shuffle: reshuffle each epoch, in the order
         ``np.random.default_rng(seed + epoch).permutation`` gives.
       drop_last: drop the last partial batch.
-      dense_slots: True = AUTO (the JAX loader's gate: the dense slot map
-        when the slot inflation pad_nodes x Dmax / pad_edges stays under
-        1.35); any pick of the dense map raises ``NotImplementedError``
-        (ROADMAP A2). False/0 disables it.
+      dense_slots: True = AUTO (the JAX loader's gate: the dense slot map,
+        with D = the dataset's max in-degree, when the slot inflation
+        pad_nodes x D / pad_edges stays under 1.35), an int pins D,
+        False/0 disables it. ``self.dense_slots`` is D or None.
       run_align: True = AUTO (K = 8 whenever the dense map is off and the
-        samples have edges), an int pins K, False/0 disables it. The edge
-        pad widens to the aligned worst case, a multiple of
-        lcm(edge_multiple, K).
+        samples have edges), an int pins K (and then excludes the dense
+        map), False/0 disables it. The edge pad widens to the aligned
+        worst case, a multiple of lcm(edge_multiple, K).
 
     The JAX loader also rounds the aligned edge pad up to its Pallas
     kernels' chunk sizes (CE, _BCAST_CE) once it reaches 32,768 slots;
@@ -158,22 +158,22 @@ class GraphLoader:
         self.pad_nodes, self.pad_edges, self.pad_graphs = pad_plan_for(
             self.samples, batch_size, node_multiple, edge_multiple
         )
-        dense = None
+        self.dense_slots = None
         if dense_slots is True:
             dmax = max_in_degree(self.samples)
             if dmax and self.pad_nodes * dmax / max(self.pad_edges, 1) <= 1.35:
-                dense = dmax
+                self.dense_slots = dmax
         elif dense_slots:
-            dense = int(dense_slots)
-        if dense is not None:
-            raise NotImplementedError(
-                f"GraphLoader: the dense slot map (dense_slots={dense}) is not ported "
-                "yet (ROADMAP A2); pass dense_slots=False for the run-aligned layout"
-            )
+            self.dense_slots = int(dense_slots)
         if run_align is True:
-            self.run_align = 8
+            self.run_align = 8 if self.dense_slots is None else 0
         else:
             self.run_align = int(run_align) if run_align and run_align > 1 else 0
+            if self.run_align and self.dense_slots is not None:
+                raise ValueError(
+                    "run_align and dense_slots are mutually exclusive; pass "
+                    "dense_slots=False alongside an explicit run_align"
+                )
         if self.run_align:
             aligned = _aligned_edge_counts(self.samples, self.run_align)
             if aligned is None:
@@ -214,6 +214,7 @@ class GraphLoader:
             n_graph_pad=self.pad_graphs,
             run_align=self.run_align,
             win_block_rows=self.win_block_rows,
+            dense_slots=self.dense_slots,
         )
 
     def __iter__(self) -> Iterator[GraphBatch]:

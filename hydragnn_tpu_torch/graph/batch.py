@@ -17,13 +17,17 @@ moved to a device with :meth:`GraphBatch.to`:
     (``ops/gather_stats.py``),
   - ``sender_win`` holds the per-node-block edge windows of the senders
     (``ops/segment_sum_local.py``),
+  - ``dense_slots=D`` adds the dense slot map: each node's real edges in
+    D slots (``dense_senders``, ``dense_mask``, ``dense_edge_attr``,
+    ``dense_sender_perm``, ``dense_sender_win``),
   - targets are a dict-of-heads.
 
 Every field is emitted with the JAX package's values
-(``tests/test_torch_batch.py`` and ``tests/test_torch_loader.py`` hold
-them equal). Not ported yet (ROADMAP A2): the dense slot map
-(``dense_senders``, ``dense_mask``, ``dense_edge_attr``,
-``dense_sender_perm``, ``dense_sender_win``) and ``pad_batch``.
+(``tests/test_torch_batch.py``, ``tests/test_torch_loader.py`` and
+``tests/test_torch_conv_stacks.py`` hold them equal). The conv stacks
+that aggregate over the CSR edges never read the dense map; PNA's dense
+branch, its one consumer, is not ported yet (ROADMAP A4). Not ported
+yet (ROADMAP A2): ``pad_batch``.
 """
 
 from __future__ import annotations
@@ -93,6 +97,12 @@ class GraphBatch:
       run_align: int K > 1 for the run-aligned layout, else 0. Masked
         edges may then target REAL nodes (always as self-loops), so
         every consumer applies ``edge_mask``.
+      dense_senders: [N, D] int32, node n's real senders in its first
+        deg(n) slots (the padding sentinel after them);
+        dense_mask: [N, D] bool; dense_edge_attr: [N, D, De] or None;
+        dense_sender_perm: [N·D] int32, stable argsort of the flat
+        dense senders; dense_sender_win: their window plan. All None
+        without ``dense_slots``.
     """
 
     nodes: torch.Tensor
@@ -114,6 +124,11 @@ class GraphBatch:
     n_real_nodes: Optional[torch.Tensor] = None
     sender_win: Optional[torch.Tensor] = None
     run_align: int = 0
+    dense_senders: Optional[torch.Tensor] = None
+    dense_mask: Optional[torch.Tensor] = None
+    dense_edge_attr: Optional[torch.Tensor] = None
+    dense_sender_perm: Optional[torch.Tensor] = None
+    dense_sender_win: Optional[torch.Tensor] = None
 
     @property
     def num_nodes(self) -> int:
@@ -151,6 +166,7 @@ def batch_graphs(
     edge_multiple: int = 8,
     run_align: int = 0,
     win_block_rows: Optional[int] = None,
+    dense_slots: Optional[int] = None,
 ) -> GraphBatch:
     """Concatenate single graphs and pad to static shapes (host, numpy).
 
@@ -160,8 +176,10 @@ def batch_graphs(
     ``run_align=K`` (K > 1) emits the run-aligned layout (module
     docstring); ``n_edge_pad`` must then be a multiple of K and hold the
     aligned edge count. ``win_block_rows`` sizes the sender windows'
-    node blocks (it must not depend on the batch). Returns CPU tensors;
-    call ``.to(device)`` for the card."""
+    node blocks (it must not depend on the batch). ``dense_slots=D``
+    emits the dense slot map (module docstring); it excludes
+    ``run_align``. Returns CPU tensors; call ``.to(device)`` for the
+    card."""
     if not graphs:
         raise ValueError("graphs must be non-empty")
     n_graphs = len(graphs)
@@ -267,6 +285,8 @@ def batch_graphs(
 
     edge_occ = tot_edges
     if run_align and run_align > 1:
+        if dense_slots:
+            raise ValueError("run_align and dense_slots are mutually exclusive")
         k = int(run_align)
         if n_edge_pad % k:
             raise ValueError(f"n_edge_pad={n_edge_pad} not a multiple of run_align={k}")
@@ -303,10 +323,35 @@ def batch_graphs(
         senders, receivers, edge_mask = new_send, new_recv, new_mask
         edge_occ = total
 
+    dense_senders = dense_mask = dense_edge_attr = dense_sender_perm = dense_sender_win = None
+    if dense_slots is not None and dense_slots > 0:
+        # receiver-major and only padding edges masked, so node n's real
+        # edges fill the contiguous range [row_ptr[n], row_ptr[n] + deg[n])
+        deg = np.bincount(receivers[edge_mask], minlength=n_node_pad)
+        dmax = int(deg.max(initial=0))
+        if dmax > dense_slots:
+            raise ValueError(f"dense_slots={dense_slots} < batch max in-degree {dmax}")
+        row_ptr = np.zeros(n_node_pad, dtype=np.int64)
+        row_ptr[1:] = np.cumsum(deg)[:-1]
+        slot = np.arange(dense_slots, dtype=np.int64)[None, :]
+        dense_mask = slot < deg[:, None]
+        # empty slots point at the last edge slot (a padding edge)
+        dense_edge_pos = np.where(dense_mask, row_ptr[:, None] + slot, n_edge_pad - 1).astype(np.int32)
+        dense_senders = senders[dense_edge_pos]
+        if has_edge_attr:
+            dense_edge_attr = edge_attr[dense_edge_pos]
+        dense_sender_perm = np.argsort(dense_senders.reshape(-1), kind="stable").astype(np.int32)
+        dense_sender_win = _block_windows(
+            dense_senders.reshape(-1), dense_sender_perm, n_node_pad, win_block_rows
+        )
+
     sender_perm = np.argsort(senders, kind="stable").astype(np.int32)
     # REAL edges per receiver (run_align's masked self-loops excluded)
     in_degree = np.bincount(receivers[edge_mask], minlength=n_node_pad).astype(np.float32)
     sender_win = _block_windows(senders, sender_perm, n_node_pad, win_block_rows)
+
+    def maybe(a):
+        return None if a is None else torch.from_numpy(a)
 
     t = torch.from_numpy
     return GraphBatch(
@@ -329,6 +374,11 @@ def batch_graphs(
         n_real_nodes=torch.tensor(tot_nodes, dtype=torch.int32),
         sender_win=t(sender_win),
         run_align=int(run_align) if run_align and run_align > 1 else 0,
+        dense_senders=maybe(dense_senders),
+        dense_mask=maybe(dense_mask),
+        dense_edge_attr=maybe(dense_edge_attr),
+        dense_sender_perm=maybe(dense_sender_perm),
+        dense_sender_win=maybe(dense_sender_win),
     )
 
 

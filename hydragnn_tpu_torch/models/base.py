@@ -6,10 +6,13 @@ then graph heads on a shared dense trunk and node ``mlp`` heads. The
 forward returns one output per head: [G, dim] for graph heads, [N, dim]
 for node heads.
 
-The port builds the PNA chassis with graph and node-``mlp`` heads (the
-flagship) and its weighted multi-task loss (``model_loss``). The other
-conv stacks (ROADMAP A7), the ``mlp_per_node`` and ``conv`` node heads
-and edge features (ROADMAP A4) raise ``NotImplementedError``.
+The port builds the chassis for PNA, GIN, SAGE, MFC, SchNet and CGCNN
+with graph and node-``mlp`` heads and its weighted multi-task loss
+(``model_loss``); CGCNN and SchNet take edge features. These raise
+``NotImplementedError`` naming their ROADMAP item: GAT (A3, A7),
+``inforward_radius`` (A7), ``conv_bf16`` and ``fused_conv: false`` (A7),
+PNA's edge features and the ``mlp_per_node`` and ``conv`` node heads
+(A4).
 
 Parameter names mirror the flax tree so ``convert.py`` maps one onto
 the other: ``convs.{i}`` = ``conv_{i}``, ``norms.{i}`` =
@@ -27,7 +30,8 @@ from torch import nn
 
 from hydragnn_tpu_torch.graph import segment as S
 from hydragnn_tpu_torch.graph.batch import GraphBatch
-from hydragnn_tpu_torch.models.convs import EdgeContext, PNAConv
+from hydragnn_tpu_torch.models import convs as C
+from hydragnn_tpu_torch.models.convs import EdgeContext
 from hydragnn_tpu_torch.models.layers import MLP, MaskedBatchNorm
 
 KNOWN_MODELS = ("GIN", "PNA", "GAT", "MFC", "CGCNN", "SAGE", "SchNet")
@@ -56,8 +60,15 @@ class ModelConfig:
     node_head_type: str = "mlp"
     num_nodes: Optional[int] = None
     edge_dim: Optional[int] = None
+    max_neighbours: Optional[int] = None  # MFC max_degree
     pna_avg_deg_lin: float = 1.0
     pna_avg_deg_log: float = 1.0
+    num_gaussians: Optional[int] = None
+    num_filters: Optional[int] = None
+    radius: Optional[float] = None
+    inforward_radius: bool = False
+    fused_conv: bool = True
+    conv_bf16: bool = False
 
     def __post_init__(self):
         if self.model_type not in KNOWN_MODELS:
@@ -71,6 +82,18 @@ class ModelConfig:
                 "Inconsistent number of loss weights and tasks: "
                 f"{len(self.task_weights)} VS {len(self.output_dim)}"
             )
+        if self.node_head_type == "mlp_per_node" and not self.num_nodes:
+            raise ValueError("num_nodes must be positive integer for mlp_per_node")
+        if self.inforward_radius and (self.radius is None or self.max_neighbours is None):
+            raise ValueError("radius_graph_in_forward requires explicit radius and max_neighbours")
+        if self.model_type == "CGCNN" and self.hidden_dim != self.input_dim:
+            raise ValueError("CGCNN preserves width: hidden_dim must equal input_dim")
+        if self.model_type == "CGCNN" and self.node_head_type == "conv" and "node" in self.output_type:
+            raise ValueError("CGCNN does not support conv-type node heads")
+
+    @property
+    def use_edge_attr(self) -> bool:
+        return self.edge_dim is not None and self.edge_dim > 0
 
     @property
     def num_heads(self) -> int:
@@ -86,26 +109,35 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"hydragnn_tpu_torch: {what} is not ported yet (ROADMAP {item})")
 
 
+def _check_ported(cfg: ModelConfig) -> None:
+    """Raise for every configuration the port does not run yet."""
+    if cfg.model_type == "GAT":
+        raise _not_ported("model_type 'GAT' (segment_softmax)", "A3, A7")
+    if cfg.inforward_radius:
+        raise _not_ported("radius_graph_in_forward (ops/dynamic_radius.py)", "A7")
+    if cfg.conv_bf16:
+        raise _not_ported("Architecture.conv_bf16", "A7")
+    if not cfg.fused_conv:
+        raise _not_ported("Architecture.fused_conv = false (the composed conv path)", "A7")
+    if cfg.model_type == "PNA" and cfg.use_edge_attr:
+        raise _not_ported("PNA edge features", "A4")
+    if "node" in cfg.output_type and cfg.node_head_type != "mlp":
+        raise _not_ported(f"node head type {cfg.node_head_type!r}", "A4")
+
+
 class HydraModel(nn.Module):
-    """Encoder + multi-head decoder (PNA, graph heads, node mlp heads)."""
+    """Encoder + multi-head decoder (graph heads, node mlp heads)."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.model_type != "PNA":
-            raise _not_ported(f"model_type {cfg.model_type!r}", "A7")
-        if cfg.edge_dim:
-            raise _not_ported("edge features", "A4")
-        if "node" in cfg.output_type and cfg.node_head_type != "mlp":
-            raise _not_ported(f"node head type {cfg.node_head_type!r}", "A4")
+        _check_ported(cfg)
         self.cfg = cfg
         h = cfg.hidden_dim
         self.convs = nn.ModuleList()
         self.norms = nn.ModuleList()
         for layer in range(cfg.num_conv_layers):
             fin = cfg.input_dim if layer == 0 else h
-            self.convs.append(
-                PNAConv(fin, h, cfg.pna_avg_deg_lin, cfg.pna_avg_deg_log, generator)
-            )
+            self.convs.append(self._make_conv(fin, h, generator))
             self.norms.append(MaskedBatchNorm(h))
         self.graph_shared = None
         if "graph" in cfg.output_type:
@@ -123,24 +155,71 @@ class HydraModel(nn.Module):
                 heads.append(MLP(h, dims, generator=generator))
         self.heads = nn.ModuleList(heads)
 
+    def _make_conv(self, fin: int, out: int, generator: Optional[torch.Generator]) -> nn.Module:
+        cfg = self.cfg
+        mt = cfg.model_type
+        if mt == "PNA":
+            return C.PNAConv(fin, out, cfg.pna_avg_deg_lin, cfg.pna_avg_deg_log, generator)
+        if mt == "GIN":
+            return C.GINConv(fin, out, generator)
+        if mt == "SAGE":
+            return C.SAGEConv(fin, out, generator)
+        if mt == "MFC":
+            if cfg.max_neighbours is None:
+                raise ValueError("MFC requires max_neighbours")
+            return C.MFConv(fin, out, cfg.max_neighbours, generator)
+        if mt == "CGCNN":
+            return C.CGConv(fin, out, cfg.edge_dim if cfg.use_edge_attr else 0, generator)
+        if mt == "SchNet":
+            if not (cfg.num_gaussians and cfg.num_filters and cfg.radius):
+                raise ValueError("SchNet requires num_gaussians, num_filters, and radius")
+            return C.CFConv(fin, out, cfg.num_filters, cfg.num_gaussians, cfg.radius, generator)
+        raise ValueError(mt)
+
     def edge_context(self, batch: GraphBatch) -> EdgeContext:
+        """The layers' EdgeContext (the JAX package's ``_conv_args``,
+        with SchNet's hook: distances from the edge features when the
+        model takes them, else from the positions, then their Gaussian
+        smearing)."""
+        cfg = self.cfg
         in_degree = batch.in_degree
         if in_degree is None:
             in_degree = S.segment_count(batch.receivers, batch.num_nodes, batch.edge_mask)
+        edge_attr = batch.edge_attr if cfg.use_edge_attr else None
+        edge_weight = None
+        if cfg.model_type == "SchNet":
+            if cfg.use_edge_attr and batch.edge_attr is not None:
+                edge_weight = torch.linalg.vector_norm(batch.edge_attr, dim=-1)
+            elif batch.pos is not None:
+                diff = batch.pos.index_select(0, batch.receivers.long()) - batch.pos.index_select(
+                    0, batch.senders.long()
+                )
+                edge_weight = torch.linalg.vector_norm(diff, dim=-1)
+            else:
+                raise ValueError("SchNet requires edge_attr or node positions")
+            edge_attr = C.gaussian_smearing(edge_weight, 0.0, cfg.radius, cfg.num_gaussians)
+        degree_groups = None
+        if cfg.model_type == "MFC":
+            degree_groups = C.MFConv.degree_groups(in_degree, cfg.max_neighbours)
         return EdgeContext(
             senders=batch.senders,
             receivers=batch.receivers,
             edge_mask=batch.edge_mask,
             node_mask=batch.node_mask,
             in_degree=in_degree,
+            edge_attr=edge_attr,
+            edge_weight=edge_weight,
             sender_win=batch.sender_win,
+            edge_occ=batch.edge_occupancy,
             run_align=batch.run_align,
+            dense_senders=batch.dense_senders,
+            degree_groups=degree_groups,
         )
 
     def forward(self, batch: GraphBatch, train: bool = False) -> List[torch.Tensor]:
         """``train`` selects masked batch statistics (True, which also
         updates the running statistics) or running statistics (False) in
-        BatchNorm; there is no dropout in PNA."""
+        BatchNorm; none of the ported stacks has dropout."""
         cfg = self.cfg
         ctx = self.edge_context(batch)
         x = batch.nodes

@@ -2,16 +2,25 @@
 
 The port's counterpart of ``hydragnn_tpu/models/convs.py``. Message
 direction matches PyG: sender j -> receiver i, aggregation grouped by
-receiver. The port has ``PNAConv`` without edge features, in two
-branches: the run-aligned branch (training batches, ``run_align=K``)
-and the unaligned CSR branch (serving batches), and the
-``EdgeContext`` the chassis hands every layer. The other conv stacks
-and PNA's dense branch follow (ROADMAP A4, A7).
+receiver. The port has:
+
+  - ``PNAConv`` without edge features, in two branches: the run-aligned
+    branch (training batches, ``run_align=K``) and the unaligned CSR
+    branch (serving batches). Its dense branch (on batches that carry
+    the dense slot map) raises (ROADMAP A4).
+  - ``GINConv``, ``SAGEConv``, ``MFConv``, ``CFConv`` (SchNet) and
+    ``CGConv`` (CGCNN, in the reference's fused form), whose gather ->
+    edge network -> masked scatter runs through ``ops.fused_conv`` (B8),
+    with the JAX package's parameters and initializers.
+  - the ``EdgeContext`` the chassis hands every layer.
+
+GAT (``segment_softmax``) follows (ROADMAP A3, A7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -19,7 +28,8 @@ import torch
 from torch import nn
 
 from hydragnn_tpu_torch.graph import segment as S
-from hydragnn_tpu_torch.models.layers import dense, lecun_normal_
+from hydragnn_tpu_torch.models.layers import dense, lecun_normal_, uniform_
+from hydragnn_tpu_torch.ops.fused_conv import fused_aggregate
 from hydragnn_tpu_torch.ops.gather_stats import gather_presum_stats
 from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate
 
@@ -34,11 +44,31 @@ class EdgeContext:
     node_mask: torch.Tensor  # [N] bool
     in_degree: torch.Tensor  # [N] f32 count of REAL incoming edges
     edge_attr: Optional[torch.Tensor] = None  # [E, De]
+    edge_weight: Optional[torch.Tensor] = None  # [E] distances (SchNet)
     # the senders' per-node-block edge windows (graph/batch.py)
     sender_win: Optional[torch.Tensor] = None  # [2, n_blocks] int32
+    # index after the last slot that can hold a real edge (the fused
+    # kernel's edge-walk bound); None walks every slot
+    edge_occ: Optional[torch.Tensor] = None  # [] int32
     # K > 0: every K-group of edge slots has one receiver (or is batch
     # tail), and masked slots may be self-loops at real nodes
     run_align: int = 0
+    # the batch's dense slot map, when it carries one (graph/batch.py)
+    dense_senders: Optional[torch.Tensor] = None  # [N, D] int32
+    # MFC's nodes grouped by clamped degree, once per forward
+    # (MFConv.degree_groups)
+    degree_groups: Optional[Tuple[torch.Tensor, Tuple[int, ...]]] = None
+
+
+def _gather_scatter(
+    x: torch.Tensor, ctx: EdgeContext, n: int, scale: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """``Σ_e mask_e · x[send_e] (· scale_e)`` grouped by receiver through
+    the fused kernel (B8), in x's dtype."""
+    return fused_aggregate(
+        x, ctx.senders, ctx.receivers, ctx.edge_mask, n,
+        scale=scale, win=ctx.sender_win, real_edges=ctx.edge_occ,
+    ).to(x.dtype)
 
 
 class PNAConv(nn.Module):
@@ -80,6 +110,11 @@ class PNAConv(nn.Module):
         self.post = dense(17 * in_dim, out_dim, generator)
 
     def forward(self, x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
+        if ctx.dense_senders is not None:
+            raise NotImplementedError(
+                "hydragnn_tpu_torch: PNA's dense branch (batches with the dense slot map) "
+                "is not ported yet (ROADMAP A4); build the loader with dense_slots=False"
+            )
         n, fin = x.shape
         w = self.pre_kernel.to(x.dtype)
         a = x @ w[:fin] + self.pre_bias.to(x.dtype)  # receiver part [N, fin]
@@ -128,6 +163,176 @@ class PNAConv(nn.Module):
             [agg, agg * amplification, agg * attenuation, agg * linear], dim=-1
         )  # [N, 16*fin]
         return self.post(torch.cat([x, scaled], dim=-1))
+
+
+class GINConv(nn.Module):
+    """GIN with a 2-layer MLP and a trainable ``eps`` (an f32 scalar,
+    initialized to 100.0): ``mlp((1 + eps)·x + Σ_j x_j)``."""
+
+    def __init__(self, in_dim: int, out_dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.eps = nn.Parameter(torch.tensor(100.0))
+        self.dense_0 = dense(in_dim, out_dim, generator)
+        self.dense_1 = dense(out_dim, out_dim, generator)
+
+    def forward(self, x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
+        agg = _gather_scatter(x, ctx, x.shape[0])
+        h = (1.0 + self.eps) * x + agg
+        return self.dense_1(torch.relu(self.dense_0(h)))
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE, mean aggregation: ``W_l·mean_j x_j + b + W_r·x_i``
+    (``dense_1`` has no bias)."""
+
+    def __init__(self, in_dim: int, out_dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dense_0 = dense(in_dim, out_dim, generator)
+        self.dense_1 = dense(in_dim, out_dim, generator, bias=False)
+
+    def forward(self, x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
+        total = _gather_scatter(x, ctx, x.shape[0])
+        agg = total / torch.clamp(ctx.in_degree, min=1.0)[:, None].to(total.dtype)
+        return self.dense_0(agg) + self.dense_1(x)
+
+
+class MFConv(nn.Module):
+    """Molecular-fingerprint conv with degree-indexed weights:
+    ``out_i = agg_i·w_l[d_i] + b_l[d_i] + x_i·w_r[d_i]``, ``d_i`` the
+    in-degree clamped to ``max_degree``. The weights keep the JAX
+    package's stacked layout (``w_l``, ``w_r`` [D+1, fin, out], ``b_l``
+    [D+1, out]) and its init (``variance_scaling(1/3, fan_in, uniform)``
+    per degree, torch-style uniform bias).
+
+    The degree dispatch is one product per degree present, over the
+    nodes grouped by degree (``degree_groups``: one sort per forward),
+    not a per-node gather of the weights — at hidden 128 on the flagship
+    batch ``w_l[deg]`` alone would be [32,752, 128, 128] f32, 2.1 GB."""
+
+    def __init__(
+        self, in_dim: int, out_dim: int, max_degree: int, generator: Optional[torch.Generator] = None
+    ):
+        super().__init__()
+        self.max_degree = int(max_degree)
+        ndeg = self.max_degree + 1
+        self.w_l = nn.Parameter(torch.empty(ndeg, in_dim, out_dim))
+        self.b_l = nn.Parameter(torch.empty(ndeg, out_dim))
+        self.w_r = nn.Parameter(torch.empty(ndeg, in_dim, out_dim))
+        for t in (self.w_l, self.b_l, self.w_r):  # per degree, fan_in = in_dim
+            uniform_(t, 1.0 / math.sqrt(in_dim), generator)
+
+    @staticmethod
+    def degree_groups(in_degree: torch.Tensor, max_degree: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+        """(node order sorted by clamped degree, count per degree 0..D).
+        The counts are read to the host once (one synchronisation)."""
+        deg = torch.clamp(in_degree.long(), 0, int(max_degree))
+        order = torch.argsort(deg, stable=True)
+        counts = torch.bincount(deg, minlength=int(max_degree) + 1)
+        return order, tuple(int(c) for c in counts.tolist())
+
+    def forward(self, x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
+        n = x.shape[0]
+        agg = _gather_scatter(x, ctx, n)
+        order, counts = ctx.degree_groups or self.degree_groups(ctx.in_degree, self.max_degree)
+        xs, aggs = x.index_select(0, order), agg.index_select(0, order)
+        parts, start = [], 0
+        for d, c in enumerate(counts):
+            if c:
+                sl = slice(start, start + c)
+                parts.append(aggs[sl] @ self.w_l[d] + self.b_l[d] + xs[sl] @ self.w_r[d])
+                start += c
+        out_sorted = torch.cat(parts, dim=0)
+        return torch.empty_like(out_sorted).index_copy(0, order, out_sorted)
+
+
+class CGConv(nn.Module):
+    """Crystal-graph conv, aggr "add", width-preserving:
+    ``out_i = x_i + Σ_j sigmoid(W_f z_ij + b_f) · softplus(W_s z_ij + b_s)``,
+    ``z_ij = [x_i, x_j, e_ij]``. The JAX package's fused form: each
+    Dense over the concatenation splits into a receiver part (a node-level
+    product with the bias folded in, ``rtab``), a sender part (the only
+    edge-level product, inside the kernel) and an edge-attribute part
+    (``eterm``); the [E, 2F + De] concatenation never exists.
+    ``dense_0`` is the gate and ``dense_1`` the core, each [2F + De] -> F."""
+
+    def __init__(
+        self, in_dim: int, out_dim: int, edge_dim: int = 0, generator: Optional[torch.Generator] = None
+    ):
+        super().__init__()
+        if out_dim != in_dim:
+            raise ValueError("CGConv preserves width: out_dim must equal in_dim")
+        self.in_dim, self.edge_dim = in_dim, int(edge_dim or 0)
+        zdim = 2 * in_dim + self.edge_dim
+        self.dense_0 = dense(zdim, out_dim, generator)
+        self.dense_1 = dense(zdim, out_dim, generator)
+
+    def forward(self, x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
+        n, fin = x.shape
+        wf, ws = self.dense_0.weight.T.to(x.dtype), self.dense_1.weight.T.to(x.dtype)  # [zdim, F]
+        af = x @ wf[:fin] + self.dense_0.bias.to(x.dtype)
+        ac = x @ ws[:fin] + self.dense_1.bias.to(x.dtype)
+        cf = cs = None
+        if self.edge_dim:
+            ea = ctx.edge_attr.to(x.dtype)
+            cf, cs = ea @ wf[2 * fin :], ea @ ws[2 * fin :]
+        agg = fused_aggregate(
+            x, ctx.senders, ctx.receivers, ctx.edge_mask, n,
+            branches=((wf[fin : 2 * fin], None, af, cf), (ws[fin : 2 * fin], None, ac, cs)),
+            acts=("sigmoid", "softplus"), win=ctx.sender_win, real_edges=ctx.edge_occ,
+        ).to(x.dtype)
+        return x + agg
+
+
+class CFConv(nn.Module):
+    """SchNet continuous-filter conv:
+    ``W_ij = filter_mlp(gaussian(d_ij)) · cosine_cutoff(d_ij)``,
+    ``out_i = W2(Σ_j W1(x_j) · W_ij)``. Expects ``ctx.edge_weight``
+    (distances) and ``ctx.edge_attr`` (their Gaussian smearing) from the
+    chassis. ``dense_0``/``dense_1`` are the filter MLP (torch Linear
+    init), ``dense_2`` (no bias) and ``dense_3`` are lin1/lin2 (xavier,
+    zero bias); the per-edge filter is the kernel's ``scale``."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        out_dim: int,
+        num_filters: int,
+        num_gaussians: int,
+        cutoff: float,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.cutoff = float(cutoff)
+        self.dense_0 = dense(num_gaussians, num_filters, generator, init="torch")
+        self.dense_1 = dense(num_filters, num_filters, generator, init="torch")
+        self.dense_2 = dense(in_dim, num_filters, generator, bias=False, init="xavier")
+        self.dense_3 = dense(num_filters, out_dim, generator, init="xavier")
+
+    def forward(self, x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
+        if ctx.edge_weight is None or ctx.edge_attr is None:
+            raise ValueError("CFConv requires edge_weight and edge_attr")
+        d = ctx.edge_weight
+        w = self.dense_1(shifted_softplus(self.dense_0(ctx.edge_attr)))
+        c = 0.5 * (torch.cos(d * math.pi / self.cutoff) + 1.0)
+        c = torch.where(d <= self.cutoff, c, torch.zeros((), dtype=c.dtype, device=c.device))
+        w = w * c[:, None]
+        h = self.dense_2(x)
+        agg = _gather_scatter(h, ctx, x.shape[0], scale=w).to(x.dtype)
+        return self.dense_3(agg)
+
+
+def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
+    """``softplus(x) - log 2`` with the JAX package's softplus
+    (``max(x, 0) + log1p(exp(-|x|))``)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs())) - math.log(2.0)
+
+
+def gaussian_smearing(d: torch.Tensor, start: float, stop: float, num_gaussians: int) -> torch.Tensor:
+    """PyG GaussianSmearing: the RBF expansion of distances [E] -> [E, G]."""
+    offset = torch.linspace(start, stop, num_gaussians, dtype=d.dtype, device=d.device)
+    coeff = -0.5 / float((stop - start) / (num_gaussians - 1)) ** 2
+    diff = d[:, None] - offset[None, :]
+    return torch.exp(coeff * diff * diff)
 
 
 def avg_degree_stats(deg_histogram) -> Tuple[float, float]:

@@ -28,10 +28,14 @@ def model_config_from_dict(config: Dict[str, Any]) -> ModelConfig:
     pna_lin, pna_log = 1.0, 1.0
     if arch.get("pna_deg") is not None:
         pna_lin, pna_log = avg_degree_stats(arch["pna_deg"])
+    model_type = arch["model_type"]
+    input_dim = int(arch["input_dim"])
+    # CGCNN preserves width: hidden = input
+    hidden_dim = input_dim if model_type == "CGCNN" else int(arch["hidden_dim"])
     return ModelConfig(
-        model_type=arch["model_type"],
-        input_dim=int(arch["input_dim"]),
-        hidden_dim=int(arch["hidden_dim"]),
+        model_type=model_type,
+        input_dim=input_dim,
+        hidden_dim=hidden_dim,
         output_dim=tuple(int(d) for d in arch["output_dim"]),
         output_type=tuple(arch["output_type"]),
         output_names=tuple(config["Variables_of_interest"]["output_names"])
@@ -49,8 +53,15 @@ def model_config_from_dict(config: Dict[str, Any]) -> ModelConfig:
         node_head_type=node_cfg.get("type", "mlp"),
         num_nodes=arch.get("num_nodes"),
         edge_dim=arch.get("edge_dim"),
+        max_neighbours=arch.get("max_neighbours"),
         pna_avg_deg_lin=pna_lin,
         pna_avg_deg_log=pna_log,
+        num_gaussians=arch.get("num_gaussians"),
+        num_filters=arch.get("num_filters"),
+        radius=arch.get("radius"),
+        inforward_radius=bool(arch.get("radius_graph_in_forward", False)),
+        fused_conv=bool(arch.get("fused_conv", True)),
+        conv_bf16=bool(arch.get("conv_bf16", False)),
     )
 
 

@@ -3,9 +3,13 @@
 The port's counterpart of ``hydragnn_tpu/models/layers.py``. Parameters
 are initialized as flax initializes them (lecun-normal kernels, zero
 biases, BatchNorm scale 1 and bias 0, running mean 0 and variance 1)
-from an explicit ``torch.Generator``. The numbers differ from the JAX
-package's for the same seed (different generators); the tests copy
-weights across with ``convert.py`` instead.
+from an explicit ``torch.Generator``; the conv stacks that carry the
+reference's torch initialization (MFC, SchNet) use the same
+distributions as the JAX package: ``variance_scaling(1/3, fan_in,
+uniform)`` kernels, the torch-style uniform bias and
+``xavier_uniform``. The numbers differ from the JAX package's for the
+same seed (different generators); the tests copy weights across with
+``convert.py`` instead.
 """
 
 from __future__ import annotations
@@ -27,15 +31,42 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
         return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def uniform_(w: torch.Tensor, limit: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """U(±limit) in place. ``limit = 1/sqrt(fan_in)`` is torch Linear's
+    init of weights and biases, which the JAX package writes as
+    ``variance_scaling(1/3, "fan_in", "uniform")`` and its torch-style
+    bias; ``sqrt(6/(fan_in + fan_out))`` is ``xavier_uniform``."""
+    with torch.no_grad():
+        return w.uniform_(-limit, limit, generator=generator)
+
+
 def dense(
-    in_dim: int, out_dim: int, generator: Optional[torch.Generator] = None
+    in_dim: int,
+    out_dim: int,
+    generator: Optional[torch.Generator] = None,
+    bias: bool = True,
+    init: str = "lecun",
 ) -> nn.Linear:
     """``nn.Linear`` initialized like flax's ``nn.Dense`` (weight stored
-    [out, in]; ``convert.py`` transposes flax's [in, out] kernels)."""
-    lin = torch.nn.utils.skip_init(nn.Linear, in_dim, out_dim)
-    lecun_normal_(lin.weight, in_dim, generator)
-    with torch.no_grad():
-        lin.bias.zero_()
+    [out, in]; ``convert.py`` transposes flax's [in, out] kernels).
+    ``init``: "lecun" (flax's default, zero bias), "torch" (the
+    reference's torch Linear: weight and bias U(±1/sqrt(in_dim))) or
+    "xavier" (``xavier_uniform``, zero bias)."""
+    lin = torch.nn.utils.skip_init(nn.Linear, in_dim, out_dim, bias=bias)
+    if init == "lecun":
+        lecun_normal_(lin.weight, in_dim, generator)
+    elif init == "torch":
+        uniform_(lin.weight, 1.0 / math.sqrt(in_dim), generator)
+    elif init == "xavier":
+        uniform_(lin.weight, math.sqrt(6.0 / (in_dim + out_dim)), generator)
+    else:
+        raise ValueError(f"unknown init {init!r}")
+    if bias:
+        if init == "torch":
+            uniform_(lin.bias, 1.0 / math.sqrt(in_dim), generator)
+        else:
+            with torch.no_grad():
+                lin.bias.zero_()
     return lin
 
 

@@ -10,6 +10,8 @@ launches (``launches``) and names the TPU kernel it replaces
   segment_sum.py        B2 ``_sum_kernel``
   gather_rows.py        B3 ``_bcast_kernel``
   segment_sum_local.py  B4 ``_sum_local_kernel``
+  fused_conv.py         B8 ``_make_fused_kernel`` (autograd op
+                        ``fused_aggregate``, its backward on B2-B4)
 
 Kernels are built at first use (``_build.py``), never at import.
 """

@@ -1,0 +1,387 @@
+// fused_conv.cu — the fused gather -> edge network -> masked scatter for
+// Hopper (sm_90a).
+//
+// Replaces hydragnn_tpu/ops/fused_conv.py:_make_fused_kernel (reached
+// through _fused_kernel_call and fused_conv). For receivers sorted
+// ascending it gives, per output row r and column o,
+//
+//   out[r, o] = Σ msg_e[o]   over the edges e of row r with mask[e] set
+//
+//   msg_e[o] = Π_k act_k(Σ_i x[send_e, i]·W[i, k·Hout + o] + b[k·Hout + o]
+//                        + rtab[r, k·Hout + o] + eterm[e, k·Hout + o])
+//              for K = 1 or 2 branches (W, b f32; rtab, eterm optional), or
+//            = x[send_e, o] for K = 0 (identity, Hout = Hin),
+//   times scale[e, o] when a scale is given,
+//
+// computed in float32 for float32 and bfloat16 inputs and summed in float32.
+// Rows with no such edge are 0. A masked edge is skipped (a select, not a
+// product by 0): its sender is never read and its message never formed, so
+// an inf in its eterm or a self-loop filler cannot reach the output. Edges
+// at or past *real_edges (the batch's occupancy bound, every one of them
+// masked) are not visited; the bound is clamped to [0, E].
+//
+// What bounds it on this card: bytes for every variant the conv stacks run
+// (identity, per-edge scale, the width-1 CGCNN gate). The least time is
+// (E·4 senders + E·4 receivers + E·1 mask + N·Hin·sizeof(x) [+ E·Hout·sizeof
+// (scale)] [+ the tables] + S·Hout·4) / 3.35 TB/s. A gate at width 128 does
+// E·Hin·K·Hout multiply-adds and is bound by operations instead.
+//
+// What the design does:
+//   - CSR row pointers from one pass over the sorted receivers
+//     (common.cuh:csr_row_ptr_kernel): no search, no atomics.
+//   - Each output element has one owner thread that walks its row's edges
+//     in order with __fadd_rn / __fmul_rn: two launches are bitwise equal.
+//     Lanes run along the output columns in groups of a power of two
+//     (common.cuh:lanes_log2), so narrow rows pack many rows per warp.
+//   - Identity and scale (K = 0): each lane reads its own column of the
+//     gathered row; a warp reads consecutive values of it.
+//   - Narrow branches (K = 1, 2 with Hout < 32: the width-1 CGCNN gate):
+//     lanes as in the identity kernel, W and b in shared memory, and each
+//     lane reads its edges' gathered rows itself (Hin values each), so no
+//     lane of a warp waits on a barrier for a row it has no column of.
+//   - Wide branches (K = 1, 2): a block of 128 threads holds W and b in shared
+//     memory (128 KB at Hin = 128, K·Hout = 256, hence the raised dynamic
+//     limit; W stays in global memory when it does not fit). A group of
+//     32-128 lanes (one row at a time) stages the gathered rows of 8 edges
+//     in shared memory behind a named barrier of its own, then each lane
+//     forms its column's pre-activations with fmaf over Hin. The receiver
+//     table's row is the output row, so it is read once per row. The
+//     per-edge product runs on the CUDA cores, not the tensor cores
+//     (wgmma is later work).
+// The TPU mechanics of the original (128-lane padding, one-hot MXU gather
+// and scatter, the 3-term bf16 split, the CE/BN/BW window plan) have no
+// counterpart here.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBranchThreads = 128;
+constexpr int kStage = 8;  // edges staged per group barrier
+constexpr int kMaxSmem = 200 * 1024;
+constexpr int kNarrowSmem = 48 * 1024;  // the default limit: no attribute to raise
+
+enum ActCode { kNone = 0, kRelu = 1, kSigmoid = 2, kSoftplus = 3, kTanh = 4, kSilu = 5 };
+
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+
+// the reference's _ACTS, in float32 (softplus = max(x, 0) + log1p(exp(-|x|)))
+__device__ __forceinline__ float act_f(int act, float x) {
+  switch (act) {
+    case kRelu:
+      return x < 0.f ? 0.f : x;
+    case kSigmoid:
+      return sigmoid_f(x);
+    case kSoftplus:
+      return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+    case kTanh:
+      return tanhf(x);
+    case kSilu:
+      return x * sigmoid_f(x);
+    default:
+      return x;
+  }
+}
+
+__device__ __forceinline__ long long edge_bound(const int32_t* real_edges, long long n_edges) {
+  if (real_edges == nullptr) return n_edges;
+  const long long r = *real_edges;
+  return r < 0 ? 0 : (r > n_edges ? n_edges : r);
+}
+
+// A barrier over the `lanes` threads of group g only (lanes a multiple of
+// 32); barrier 0 stays __syncthreads'.
+__device__ __forceinline__ void group_sync(int g, int lanes) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(lanes) : "memory");
+}
+
+template <typename T>
+__global__ void fused_identity_kernel(const T* __restrict__ x, const int32_t* __restrict__ send,
+                                      const uint8_t* __restrict__ mask,
+                                      const int32_t* __restrict__ ptr,
+                                      const int32_t* __restrict__ real_edges, long long n_edges,
+                                      long long n_x_rows, long long n_rows, int h,
+                                      const T* __restrict__ scale, int lpr_log2,
+                                      float* __restrict__ out) {
+  const int lpr = 1 << lpr_log2;
+  const int lane = threadIdx.x & (lpr - 1);
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> lpr_log2) + (threadIdx.x >> lpr_log2);
+  if (row >= n_rows) return;
+  const long long lo = ptr[row];
+  long long hi = ptr[row + 1];
+  const long long bound = edge_bound(real_edges, n_edges);
+  hi = hi > bound ? bound : hi;
+  for (int f = lane; f < h; f += lpr) {
+    float s = 0.f;
+    for (long long e = lo; e < hi; ++e) {
+      if (!mask[e]) continue;
+      const long long j = send[e];
+      if (j < 0 || j >= n_x_rows) continue;
+      float m = to_f32<T>(x[j * h + f]);
+      if (scale != nullptr) m = __fmul_rn(m, to_f32<T>(scale[e * h + f]));
+      s = __fadd_rn(s, m);
+    }
+    out[row * h + f] = s;
+  }
+}
+
+// One edge's message from its pre-activations p0 (and p1), accumulated
+// over Hin already: adds b, the receiver row's table entries and the edge
+// term, applies the activations, multiplies the branches and the scale.
+template <typename T, int KBR>
+__device__ __forceinline__ float branch_message(float p0, float p1, int o, int hout, long long e,
+                                                int kh, int act0, int act1,
+                                                const float* __restrict__ b_s, float r0, float r1,
+                                                bool has_rtab, const T* __restrict__ eterm,
+                                                const T* __restrict__ scale) {
+  p0 = __fadd_rn(p0, b_s[o]);
+  if (has_rtab) p0 = __fadd_rn(p0, r0);
+  if (eterm != nullptr) p0 = __fadd_rn(p0, to_f32<T>(eterm[e * kh + o]));
+  float m = act_f(act0, p0);
+  if (KBR == 2) {
+    p1 = __fadd_rn(p1, b_s[hout + o]);
+    if (has_rtab) p1 = __fadd_rn(p1, r1);
+    if (eterm != nullptr) p1 = __fadd_rn(p1, to_f32<T>(eterm[e * kh + hout + o]));
+    m = __fmul_rn(m, act_f(act1, p1));
+  }
+  if (scale != nullptr) m = __fmul_rn(m, to_f32<T>(scale[e * hout + o]));
+  return m;
+}
+
+template <typename T, int KBR>
+__global__ void fused_narrow_kernel(const T* __restrict__ x, const int32_t* __restrict__ send,
+                                    const uint8_t* __restrict__ mask,
+                                    const int32_t* __restrict__ ptr,
+                                    const int32_t* __restrict__ real_edges, long long n_edges,
+                                    long long n_x_rows, long long n_rows, int hin, int hout,
+                                    int act0, int act1, const float* __restrict__ w,
+                                    const float* __restrict__ b, const T* __restrict__ rtab,
+                                    const T* __restrict__ eterm, const T* __restrict__ scale,
+                                    int lpr_log2, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int kh = KBR * hout;
+  float* w_s = smem;
+  float* b_s = smem + hin * kh;
+  for (int i = threadIdx.x; i < hin * kh; i += blockDim.x) w_s[i] = w[i];
+  for (int i = threadIdx.x; i < kh; i += blockDim.x) b_s[i] = b != nullptr ? b[i] : 0.f;
+  __syncthreads();
+  const int lpr = 1 << lpr_log2;
+  const int lane = threadIdx.x & (lpr - 1);
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> lpr_log2) + (threadIdx.x >> lpr_log2);
+  if (row >= n_rows) return;
+  const long long lo = ptr[row];
+  long long hi = ptr[row + 1];
+  const long long bound = edge_bound(real_edges, n_edges);
+  hi = hi > bound ? bound : hi;
+  for (int o = lane; o < hout; o += lpr) {
+    float r0 = 0.f, r1 = 0.f;  // the receiver table's row is this row
+    if (rtab != nullptr) {
+      r0 = to_f32<T>(rtab[row * kh + o]);
+      if (KBR == 2) r1 = to_f32<T>(rtab[row * kh + hout + o]);
+    }
+    float acc = 0.f;
+    for (long long e = lo; e < hi; ++e) {
+      if (!mask[e]) continue;
+      const long long j = send[e];
+      float p0 = 0.f, p1 = 0.f;
+      if (j >= 0 && j < n_x_rows) {
+        for (int i = 0; i < hin; ++i) {
+          const float vi = to_f32<T>(x[j * hin + i]);
+          p0 = fmaf(vi, w_s[i * kh + o], p0);
+          if (KBR == 2) p1 = fmaf(vi, w_s[i * kh + hout + o], p1);
+        }
+      }
+      acc = __fadd_rn(acc, branch_message<T, KBR>(p0, p1, o, hout, e, kh, act0, act1, b_s, r0, r1,
+                                                  rtab != nullptr, eterm, scale));
+    }
+    out[row * hout + o] = acc;
+  }
+}
+
+template <typename T, int KBR>
+__global__ void fused_branch_kernel(const T* __restrict__ x, const int32_t* __restrict__ send,
+                                    const uint8_t* __restrict__ mask,
+                                    const int32_t* __restrict__ ptr,
+                                    const int32_t* __restrict__ real_edges, long long n_edges,
+                                    long long n_x_rows, long long n_rows, int hin, int hout,
+                                    int act0, int act1, const float* __restrict__ w,
+                                    const float* __restrict__ b, const T* __restrict__ rtab,
+                                    const T* __restrict__ eterm, const T* __restrict__ scale,
+                                    int w_in_smem, int lpr_log2, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int kh = KBR * hout;
+  float* w_s = smem;
+  float* b_s = smem + (w_in_smem ? hin * kh : 0);
+  const int lpr = 1 << lpr_log2;
+  const int groups = blockDim.x >> lpr_log2;
+  const int g = threadIdx.x >> lpr_log2;
+  const int lane = threadIdx.x & (lpr - 1);
+  float* v_s = b_s + kh + g * kStage * hin;
+
+  if (w_in_smem)
+    for (int i = threadIdx.x; i < hin * kh; i += blockDim.x) w_s[i] = w[i];
+  for (int i = threadIdx.x; i < kh; i += blockDim.x) b_s[i] = b != nullptr ? b[i] : 0.f;
+  __syncthreads();
+  const float* wt = w_in_smem ? w_s : w;
+  const long long bound = edge_bound(real_edges, n_edges);
+
+  for (long long row = (long long)blockIdx.x * groups + g; row < n_rows;
+       row += (long long)gridDim.x * groups) {
+    const long long lo = ptr[row];
+    long long hi = ptr[row + 1];
+    hi = hi > bound ? bound : hi;
+    for (int f0 = 0; f0 < hout; f0 += lpr) {
+      const int o = f0 + lane;
+      const bool live = o < hout;
+      float r0 = 0.f, r1 = 0.f;  // the receiver table's row is this row
+      if (live && rtab != nullptr) {
+        r0 = to_f32<T>(rtab[row * kh + o]);
+        if (KBR == 2) r1 = to_f32<T>(rtab[row * kh + hout + o]);
+      }
+      float acc = 0.f;
+      for (long long e0 = lo; e0 < hi; e0 += kStage) {
+        const int ne = (int)((hi - e0) < kStage ? (hi - e0) : kStage);
+        group_sync(g, lpr);  // the previous chunk's rows are read
+        for (int idx = lane; idx < ne * hin; idx += lpr) {
+          const int u = idx / hin;
+          const int i = idx - u * hin;
+          const long long e = e0 + u;
+          float val = 0.f;
+          if (mask[e]) {
+            const long long j = send[e];
+            if (j >= 0 && j < n_x_rows) val = to_f32<T>(x[j * hin + i]);
+          }
+          v_s[u * hin + i] = val;
+        }
+        group_sync(g, lpr);
+        if (!live) continue;
+        for (int u = 0; u < ne; ++u) {
+          const long long e = e0 + u;
+          if (!mask[e]) continue;
+          const float* v = v_s + u * hin;
+          float p0 = 0.f, p1 = 0.f;
+          for (int i = 0; i < hin; ++i) {
+            const float vi = v[i];
+            p0 = fmaf(vi, wt[i * kh + o], p0);
+            if (KBR == 2) p1 = fmaf(vi, wt[i * kh + hout + o], p1);
+          }
+          acc = __fadd_rn(acc, branch_message<T, KBR>(p0, p1, o, hout, e, kh, act0, act1, b_s, r0,
+                                                      r1, rtab != nullptr, eterm, scale));
+        }
+      }
+      if (live) out[row * hout + o] = acc;
+    }
+  }
+}
+
+inline int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 132;
+  }
+  return count;
+}
+
+template <typename T, int KBR>
+int launch_branch(const void* x, const void* send, const void* mask, const void* real_edges,
+                  long long n_edges, long long n_x_rows, long long n_rows, int hin, int hout,
+                  int act0, int act1, const void* w, const void* b, const void* rtab,
+                  const void* eterm, const void* scale, const void* row_ptr, void* out,
+                  cudaStream_t stream) {
+  // raise the dynamic shared memory limit once, at the first launch (never
+  // inside a CUDA graph capture, which replays launches only)
+  static bool limit_set = false;
+  if (!limit_set) {
+    cudaError_t err = cudaFuncSetAttribute(fused_branch_kernel<T, KBR>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    limit_set = true;
+  }
+  int lpr_log2 = lanes_log2(hout);
+  const long long kh = (long long)KBR * hout;
+  const long long w_bytes = (long long)hin * kh * 4;
+  if (lpr_log2 < 5 && w_bytes + kh * 4 <= kNarrowSmem) {
+    const long long rows_per_block = kThreads >> lpr_log2;
+    const long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+    fused_narrow_kernel<T, KBR><<<(unsigned)blocks, kThreads, (size_t)(w_bytes + kh * 4), stream>>>(
+        (const T*)x, (const int32_t*)send, (const uint8_t*)mask, (const int32_t*)row_ptr,
+        (const int32_t*)real_edges, n_edges, n_x_rows, n_rows, hin, hout, act0, act1,
+        (const float*)w, (const float*)b, (const T*)rtab, (const T*)eterm, (const T*)scale,
+        lpr_log2, (float*)out);
+    return (int)cudaGetLastError();
+  }
+  if (lpr_log2 < 5) lpr_log2 = 5;  // whole warps per group (named barriers)
+  const int groups = kBranchThreads >> lpr_log2;
+  const long long stage_bytes = (kh + (long long)groups * kStage * hin) * 4;
+  if (stage_bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int w_in_smem = stage_bytes + w_bytes <= kMaxSmem;
+  const long long smem = stage_bytes + (w_in_smem ? w_bytes : 0);
+  long long blocks = (n_rows + groups - 1) / groups;
+  // a large W is staged once per block: a few blocks per SM walk all rows
+  if (w_bytes > 16 * 1024 && blocks > 4LL * sm_count()) blocks = 4LL * sm_count();
+  fused_branch_kernel<T, KBR><<<(unsigned)blocks, kBranchThreads, (size_t)smem, stream>>>(
+      (const T*)x, (const int32_t*)send, (const uint8_t*)mask, (const int32_t*)row_ptr,
+      (const int32_t*)real_edges, n_edges, n_x_rows, n_rows, hin, hout, act0, act1,
+      (const float*)w, (const float*)b, (const T*)rtab, (const T*)eterm, (const T*)scale,
+      w_in_smem, lpr_log2, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* x, const void* send, const void* recv, const void* mask,
+           const void* real_edges, long long n_edges, long long n_x_rows, long long n_rows,
+           int hin, int hout, int k_br, int act0, int act1, const void* w, const void* b,
+           const void* rtab, const void* eterm, const void* scale, void* row_ptr, void* out,
+           cudaStream_t stream) {
+  launch_row_ptr(recv, n_edges, n_rows, row_ptr, stream);
+  if (k_br == 0) {
+    const int lpr_log2 = lanes_log2(hout);
+    const long long rows_per_block = kThreads >> lpr_log2;
+    const long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+    fused_identity_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        (const T*)x, (const int32_t*)send, (const uint8_t*)mask, (const int32_t*)row_ptr,
+        (const int32_t*)real_edges, n_edges, n_x_rows, n_rows, hout, (const T*)scale, lpr_log2,
+        (float*)out);
+    return (int)cudaGetLastError();
+  }
+  if (k_br == 1)
+    return launch_branch<T, 1>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows, hin, hout,
+                               act0, act1, w, b, rtab, eterm, scale, row_ptr, out, stream);
+  return launch_branch<T, 2>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows, hin, hout,
+                             act0, act1, w, b, rtab, eterm, scale, row_ptr, out, stream);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16, for x, rtab, eterm and scale alike; w
+// ([Hin, K·Hout]) and b ([K·Hout], may be null) are float32. rtab
+// ([n_rows, K·Hout]), eterm ([E, K·Hout]), scale ([E, Hout]) and
+// real_edges (one int32 on the card) may be null. K = k_br in 0..2, and
+// K = 0 needs Hin = Hout. act0/act1: 0 none, 1 relu, 2 sigmoid, 3 softplus,
+// 4 tanh, 5 silu. row_ptr: n_rows + 1 int32 of scratch, zero-filled by the
+// caller. Returns a cudaError_t (0 = success).
+extern "C" int hg_fused_conv(const void* x, int dtype, const void* send, const void* recv,
+                             const void* mask, const void* real_edges, long long n_edges,
+                             long long n_x_rows, long long n_rows, int hin, int hout, int k_br,
+                             int act0, int act1, const void* w, const void* b, const void* rtab,
+                             const void* eterm, const void* scale, void* row_ptr, void* out,
+                             void* stream) {
+  if (n_rows <= 0 || n_edges < 0 || n_x_rows <= 0 || hin <= 0 || hout <= 0 || k_br < 0 ||
+      k_br > 2 || act0 < 0 || act0 > 5 || act1 < 0 || act1 > 5)
+    return (int)cudaErrorInvalidValue;
+  if ((k_br == 0 && hin != hout) || (k_br > 0 && w == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(x, send, recv, mask, real_edges, n_edges, n_x_rows, n_rows, hin, hout,
+                         k_br, act0, act1, w, b, rtab, eterm, scale, row_ptr, out, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, send, recv, mask, real_edges, n_edges, n_x_rows, n_rows, hin,
+                                 hout, k_br, act0, act1, w, b, rtab, eterm, scale, row_ptr, out,
+                                 s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -5,9 +5,9 @@ schema and the same ``update_config`` contract — after the data is
 prepared, the config is completed from it (output dimensions,
 input_dim, max_neighbours = max in-degree over the train split, the PNA
 degree histogram, edge_dim). It resolves every key the JAX package
-resolves except that package's own runtime knobs (``fused_conv``,
-``diagnostics``, ``diag_every``, ``Parallel``), which select TPU code
-paths the port does not have.
+resolves, ``Architecture.fused_conv`` (default on) included, except that
+package's own runtime knobs (``diagnostics``, ``diag_every``,
+``Parallel``), which select TPU code paths the port does not have.
 """
 
 from __future__ import annotations
@@ -127,6 +127,9 @@ def update_config(
 
     arch.setdefault("freeze_conv_layers", False)
     arch.setdefault("initial_bias", None)
+    # the conv layers' gather -> edge network -> scatter runs as one
+    # kernel (ops/fused_conv.py); off is the composed path, not ported
+    arch.setdefault("fused_conv", True)
     nn["Training"].setdefault("Optimizer", {"type": "AdamW", "learning_rate": 1e-3})
     nn["Training"].setdefault("loss_function_type", "mse")
     arch.setdefault("SyncBatchNorm", False)

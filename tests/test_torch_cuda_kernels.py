@@ -1,13 +1,20 @@
-"""The training path's CUDA kernels (B1–B4) against their plain PyTorch
-versions, and ``pna_aggregate``'s refusal of autograd on the card. Every
-test here needs a card and skips without one; this file imports no JAX,
-so it runs on the card machine:
+"""The training path's CUDA kernels (B1–B4, B8) against their plain
+PyTorch versions, B8's autograd op on the card against the CPU, and
+``pna_aggregate``'s refusal of autograd on the card. Every test here
+needs a card and skips without one; this file imports no JAX, so it runs
+on the card machine:
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest``.
 
 Tolerances: sums ``rtol=1e-6, atol=1e-6`` (the inputs are on a 1/4 grid,
 so every order sums them exactly and the kernels match bit for bit in
 practice); gathers and maxima bit-equal; two launches bitwise equal (no
-atomics).
+atomics). B8's branch variants ``rtol=atol=1e-5``: each edge's
+pre-activation is a dot product taken in another order than the host's
+matrix product, and expf/log1pf on the card round differently from the
+host's. Its backward on the card against the CPU: each gradient within
+a relative L2 norm of 1e-5 (the weight gradients are sums over every
+edge, taken by cuBLAS on one side and the host's BLAS on the other, so
+entries near 0 carry the rounding of the large ones).
 """
 
 import numpy as np
@@ -21,6 +28,8 @@ from hydragnn_tpu_torch.ops import segment_sum_local as sl_mod
 from hydragnn_tpu_torch.ops.gather_stats import gather_stats, gather_stats_plain
 
 SUM_TOL = dict(rtol=1e-6, atol=1e-6)
+GATE_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_REL_L2 = 1e-5
 K = 8
 
 
@@ -97,3 +106,101 @@ def test_cuda_pna_aggregate_refuses_autograd():
         pna_aggregate(v, recv, 4)
     with torch.no_grad():
         pna_aggregate(v, recv, 4)
+
+
+def _b8_inputs(b, variant, dtype, seed):
+    """(x, branches, acts, scale) of one B8 variant, on the host, in
+    ``dtype`` (W and b f32); identity and scale on the 1/4 grid."""
+    rng = np.random.default_rng(seed)
+    n, e = b.num_nodes, b.num_edges
+
+    def f32(*shape, s=0.3):
+        return torch.from_numpy((rng.normal(size=shape) * s).astype(np.float32))
+
+    if variant.startswith("identity"):
+        h = int(variant.split("_h")[1])
+        return _grid((n, h), seed, dtype), (), (), None
+    if variant == "scale_f126":
+        return _grid((n, 126), seed, dtype), (), (), _grid((e, 126), seed + 1, dtype)
+    if variant == "gate_w1":
+        branches = ((f32(1, 1), None, f32(n, 1).to(dtype), None), (f32(1, 1), None, f32(n, 1).to(dtype), None))
+        return f32(n, 1, s=1.0).to(dtype), branches, ("sigmoid", "softplus"), None
+    w = int(variant.split("_w")[1])  # 16: the narrow kernel; 128: the staged one
+    branches = (
+        (f32(w, w, s=0.1), f32(w), f32(n, w).to(dtype), f32(e, w).to(dtype)),
+        (f32(w, w, s=0.1), None, f32(n, w).to(dtype), f32(e, w).to(dtype)),
+    )
+    return f32(n, w, s=1.0).to(dtype), branches, ("sigmoid", "softplus"), None
+
+
+def _on(dev, branches):
+    return tuple(tuple(None if t is None else t.to(dev) for t in br) for br in branches)
+
+
+def _f32(branches):
+    return tuple(tuple(None if t is None else t.float() for t in br) for br in branches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["identity_h1", "identity_h128", "scale_f126", "gate_w1", "gate_w16", "gate_w128"])
+def test_cuda_fused_conv_matches_plain(variant, dtype):
+    """B8 against its plain version on the f32 values of the same inputs
+    (the kernel computes in f32), with run-aligned fillers, empty rows,
+    +inf in the masked slots' edge terms, and the occupancy bound below
+    E and at E."""
+    from hydragnn_tpu_torch.ops import fused_conv as fc
+
+    dev = _cuda()
+    b, mask = _aligned_batch(3)
+    x, branches, acts, scale = _b8_inputs(b, variant, dtype, 11)
+    if variant in ("gate_w16", "gate_w128"):  # +inf edge terms on masked slots never reach a sum
+        for br in branches:
+            br[3][~mask] = float("inf")
+    args = (b.senders, b.receivers, mask, b.num_nodes)
+    ref = fc.fused_conv_plain(x.float(), *args, _f32(branches), acts, None if scale is None else scale.float())
+    assert torch.isfinite(ref).all()
+    tol = SUM_TOL if not branches else GATE_TOL
+    occ = b.edge_occupancy
+    assert int(occ) < b.num_edges
+    for real in (occ, torch.tensor(b.num_edges, dtype=torch.int32)):
+        d_args = [t.to(dev) for t in args[:3]] + [b.num_nodes]
+        run = lambda: fc.fused_conv(  # noqa: E731
+            x.to(dev), *d_args, _on(dev, branches), acts, None if scale is None else scale.to(dev), real.to(dev)
+        )
+        before = fc.launches.value
+        out1, out2 = run(), run()
+        torch.cuda.synchronize()
+        assert fc.launches.value == before + 2
+        assert torch.equal(out1, out2)
+        np.testing.assert_allclose(out1.cpu().numpy(), ref.numpy(), err_msg=variant, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["identity_h128", "scale_f126", "gate_w16", "gate_w128"])
+def test_cuda_fused_aggregate_backward_matches_cpu(variant):
+    """B8's autograd op on the card (B8, then B3, B2, B4 in the
+    backward) against the same op on the CPU: every gradient."""
+    from hydragnn_tpu_torch.ops.fused_conv import fused_aggregate
+
+    dev = _cuda()
+    b, mask = _aligned_batch(4)
+    x, branches, acts, scale = _b8_inputs(b, variant, torch.float32, 12)
+    hout = branches[0][0].shape[1] if branches else x.shape[1]
+    g = torch.from_numpy(np.random.default_rng(2).normal(size=(b.num_nodes, hout)).astype(np.float32))
+    grads = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device(where) if where == "cpu" else dev
+        # detach: on the CPU .to() returns the host tensor itself
+        leaves = [x.detach().to(d).requires_grad_(True)]
+        br = tuple(tuple(None if t is None else t.detach().to(d).requires_grad_(True) for t in bb) for bb in branches)
+        sc = None if scale is None else scale.detach().to(d).requires_grad_(True)
+        out = fused_aggregate(leaves[0], b.senders.to(d), b.receivers.to(d), mask.to(d), b.num_nodes, br, acts, sc,
+                              win=b.sender_win.to(d), real_edges=b.edge_occupancy.to(d))
+        out.backward(g.to(d))
+        tensors = leaves + [t for bb in br for t in bb if t is not None] + ([sc] if sc is not None else [])
+        grads[where] = [out.detach().cpu()] + [t.grad.cpu() for t in tensors]
+    np.testing.assert_allclose(grads["cuda"][0].numpy(), grads["cpu"][0].numpy(), err_msg=variant, **GATE_TOL)
+    for i, (a, r) in enumerate(zip(grads["cuda"][1:], grads["cpu"][1:])):
+        rel = float((a - r).norm() / r.norm().clamp_min(1e-30))
+        assert rel <= GRAD_REL_L2, f"{variant} gradient #{i}: relative L2 {rel}"

@@ -30,7 +30,7 @@ from hydragnn_tpu_torch.models.convs import avg_degree_stats as t_avg_degree_sta
 from hydragnn_tpu_torch.utils import config as t_config
 
 # the runtime knobs of the JAX package that the port does not resolve
-_JAX_ONLY_KEYS = {"fused_conv", "diagnostics", "diag_every", "Parallel"}
+_JAX_ONLY_KEYS = {"diagnostics", "diag_every", "Parallel"}
 
 
 def _samples(mod, n=24, seed=3):

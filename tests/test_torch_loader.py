@@ -20,6 +20,7 @@ from hydragnn_tpu_torch.data.loader import GraphLoader
 from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
 from hydragnn_tpu_torch.flagship import flagship_config
 from hydragnn_tpu_torch.graph.batch import batch_graphs
+from hydragnn_tpu_torch.models.create import create_model_config
 
 
 def _assert_batches_equal(ours, ref):
@@ -129,8 +130,10 @@ def test_graph_loader_batches_equal_jax(train_splits, shuffle, drop_last):
 
 def test_graph_loader_dense_auto_raises():
     """A dataset whose degrees are tight enough for the JAX loader's dense
-    slot map makes the port raise (the dense branch is ROADMAP A2): one
-    ring of equal-degree nodes per sample."""
+    slot map (one ring of equal-degree nodes per sample): the port's
+    loader picks the same map, its batches equal the JAX loader's, and
+    PNA on such a batch raises, since its dense branch is not ported
+    (ROADMAP A4)."""
 
     class Ring:
         def __init__(self, n):
@@ -142,8 +145,19 @@ def test_graph_loader_dense_auto_raises():
             self.graph_targets, self.node_targets = {}, {}
 
     rings = [Ring(10) for _ in range(4)]
-    assert JaxGraphLoader(rings, 2, prefetch=0).dense_slots == 2
-    with pytest.raises(NotImplementedError, match="A2"):
-        GraphLoader(rings, 2)
+    jloader = JaxGraphLoader(rings, 2, prefetch=0)
+    loader = GraphLoader(rings, 2)
+    assert jloader.dense_slots == loader.dense_slots == 2 and loader.run_align == 0
+    for ours, ref in zip(loader, jloader):
+        _assert_batches_equal(ours, ref)
+    batch = next(iter(loader))
+    assert batch.dense_senders.shape == (batch.num_nodes, 2)
+    cfg = flagship_config(hidden_dim=4, num_conv_layers=1)["NeuralNetwork"]
+    cfg["Architecture"].update(input_dim=1, output_dim=[1], output_type=["graph"], pna_deg=[0, 0, 40])
+    cfg["Variables_of_interest"] = {"output_names": ["e"]}
+    cfg["Architecture"]["task_weights"] = [1.0]
+    model = create_model_config(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        model(batch)
     loader = GraphLoader(rings, 2, dense_slots=False)
-    assert loader.run_align == 8 and len(loader) == 2
+    assert loader.run_align == 8 and loader.dense_slots is None and len(loader) == 2
