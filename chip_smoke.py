@@ -19,9 +19,16 @@ raises; nothing is caught):
                    of overlapping blocks; the backward of every autograd op
                    against the same op on the CPU; two launches bitwise
                    equal.
+  4b. check-pna-bwd — pna_bwd_count (B6) and pna_bwd_grad (B7) against
+                   their plain versions at the flagship's unaligned
+                   training shapes (H=1 and H=128, f32 and bf16), with
+                   ties, masked edges, empty and all-masked rows and the
+                   padding node; two launches bitwise equal; the autograd
+                   pna_aggregate backward on the card against the CPU.
   5. serve       — the flagship at full width (hidden 128, 6 PNA layers,
                    4 heads) served on the card: every answer equal to the
-                   CPU forward; pna_aggregate launches = 6 x forwards.
+                   CPU forward; pna_aggregate and the sender gather (B3)
+                   launch 6 x forwards each.
   6. train       — run_training on the flagship at full width, batch 1024,
                    1,280 samples (one train step per epoch), 3 epochs:
                    finite, falling loss; kernel launches equal to the
@@ -44,11 +51,26 @@ raises; nothing is caught):
                    for 2 epochs each; finite, falling losses and the
                    documented launch counts; each stack's train step at 64
                    graphs on the card against the CPU.
+ 9b. train-pna-layouts — the flagship at full width through
+                   train_with_loaders on its two other layouts and with
+                   edge features: the unaligned CSR layout (B5 forward,
+                   B6/B7 backward) for 2 epochs, then its train step at 64
+                   graphs on the card against the CPU; the flagship with
+                   edge lengths on its AUTO layout (run-aligned) for 2
+                   epochs; the dense slot map (46 slots) for 2 epochs.
+                   Finite, falling losses and the documented launch counts.
+ 9c. accuracy    — run_training -> run_prediction on the PNA config of
+                   tests/test_train_e2e.py (300 samples, 40 epochs, the
+                   dense map), single-head and multi-head: RMSE and MAE
+                   below the reference bar of 0.20 on every head.
  10. timing      — each kernel at the main path's shapes: ms eager, ms in
                    a CUDA graph, plain ms, library ms, beside its bound;
-                   the PNA, GIN and SchNet train steps broken into their
-                   stages, and the PNA and GIN steps' device time by
-                   kernel (torch.profiler).
+                   the sender gather's backward pairs (permuted, masked
+                   on the dense map, and the JAX package's windowed one)
+                   on each PNA layout; the PNA (every layout), GIN and
+                   SchNet train steps
+                   broken into their stages, and the PNA and GIN steps'
+                   device time by kernel (torch.profiler).
  11. summary     — the kernels line, the card line, then the result line.
 
 Without a card (torch.cuda.is_available() false), or outside a checkout
@@ -62,6 +84,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -116,6 +139,15 @@ CONV_BWD_TOL = 1e-5
 # largest entry on the CPU: a conv bias that feeds a BatchNorm) is held,
 # on both sides, to 1e-4 of that largest entry.
 STACK_GRAD_TOL, STACK_SPREAD_FACTOR, STACK_ZERO_TOL = 1e-3, 10.0, 1e-4
+# the flagship's unaligned train step at 64 graphs, card against CPU:
+# the run-aligned step's tiers for the conv and BatchNorm gradients
+# (STEP_CONV_TOL) and the BatchNorm-fed biases (STEP_ZERO_TOL); the heads
+# and graph trunk as the stacks' gradients above, within the larger of
+# 1e-3 and 10 x their rounding spread on the CPU (the same graphs in three
+# other orders). On this layout a rounding-level change flips the sign of
+# a node head's ReLU pre-activations near 0, moving that head's gradient
+# by a unit's share, more than the run-aligned step's head tier of 1e-4
+# allows (measured on the card: 6.2e-4 in heads.2.layers.0.weight).
 N_SAMPLES, UNIT_CELLS, SEED = 64, (2, 4), 0  # the serving phase's data
 TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_EPOCHS, STEP_GRAPHS = 1280, 1024, 3, 64
 TRAIN_UNIT_CELLS = (2, 4)  # 2 or 3 unit cells per axis, as the bench's flagship
@@ -123,6 +155,54 @@ K = 8  # the loader's run alignment
 STACKS = ("GIN", "SAGE", "MFC", "SchNet", "CGCNN")
 STACK_EPOCHS = 2  # SAGE, MFC, SchNet and CGCNN
 MOLECULE_SAMPLES, MOLECULE_BATCH = 300, 64  # tests/test_train_e2e.py's data
+LAYOUT_EPOCHS = 2  # the flagship on its unaligned and dense layouts, and with edge lengths
+# B7 in bf16: the plain version combines in bf16 op by op (the JAX
+# package's unfused backward), the kernel in f32 rounding once (its
+# Pallas K2); f32 must be bit-equal
+PNA_BWD_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# the reference accuracy bar per head (tests/test_train_e2e.py:26-34): the
+# test error run_prediction returns, which that test calls RMSE, and the MAE
+E2E_THRESHOLDS, E2E_SAMPLES, E2E_EPOCHS = (0.20, 0.20), 300, 40
+
+
+def e2e_config(multihead):
+    """``tests/test_train_e2e.py:make_config("PNA", multihead)``, the
+    reference's unit-test config: hidden 8, 2 conv layers, batch 16,
+    40 epochs, AdamW at lr 0.01."""
+    if multihead:
+        voi = {"input_node_features": [0], "output_names": ["sum_x_x2_x3", "x", "x2", "x3"],
+               "output_index": [0, 0, 1, 2], "type": ["graph", "node", "node", "node"]}
+        weights = [4.0, 2.0, 2.0, 2.0]
+    else:
+        voi = {"input_node_features": [0], "output_names": ["sum_x_x2_x3"], "output_index": [0],
+               "type": ["graph"]}
+        weights = [1.0]
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {
+            "name": "unit_test", "format": "unit_test", "compositional_stratified_splitting": True,
+            "rotational_invariance": False,
+            "node_features": {"name": ["x", "x2", "x3"], "dim": [1, 1, 1], "column_index": [0, 6, 7]},
+            "graph_features": {"name": ["sum_x_x2_x3"], "dim": [1], "column_index": [0]},
+        },
+        "NeuralNetwork": {
+            "Architecture": {
+                "model_type": "PNA", "radius": 2.0, "max_neighbours": 100,
+                "periodic_boundary_conditions": False, "hidden_dim": 8, "num_conv_layers": 2,
+                "output_heads": {
+                    "graph": {"num_sharedlayers": 2, "dim_sharedlayers": 5, "num_headlayers": 2,
+                              "dim_headlayers": [50, 25]},
+                    "node": {"num_headlayers": 2, "dim_headlayers": [50, 25], "type": "mlp"},
+                },
+                "task_weights": weights,
+            },
+            "Variables_of_interest": voi,
+            "Training": {"num_epoch": E2E_EPOCHS, "perc_train": 0.7, "loss_function_type": "mse",
+                         "batch_size": 16, "EarlyStopping": False,
+                         "Optimizer": {"type": "AdamW", "learning_rate": 0.01}},
+        },
+        "Visualization": {"create_plots": False},
+    }
 
 
 def stack_launches(model_type, n_layers):
@@ -243,6 +323,7 @@ def main():
     from hydragnn_tpu_torch.ops import gather_rows as b3
     from hydragnn_tpu_torch.ops import gather_stats as b1
     from hydragnn_tpu_torch.ops import pna_aggregate as agg
+    from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd
     from hydragnn_tpu_torch.ops import segment_sum as b2
     from hydragnn_tpu_torch.ops import segment_sum_local as b4
     from hydragnn_tpu_torch.ops import fused_conv as b8
@@ -250,7 +331,7 @@ def main():
     from hydragnn_tpu_torch.serve import ServeConfig, build_bucket_ladder, request_to_dict
     from hydragnn_tpu_torch.train.loop import test_epoch
     from hydragnn_tpu_torch.train.state import train_step
-    from hydragnn_tpu_torch.utils.config import update_config
+    from hydragnn_tpu_torch.utils.config import max_in_degree, update_config
 
     def stack_config(model_type, batch_size=TRAIN_BATCH, num_epoch=TRAIN_EPOCHS):
         """The flagship chassis with ``model_type`` swapped, as a user
@@ -271,7 +352,11 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda,
          tf32=torch.backends.cuda.matmul.allow_tf32)
     mods = {"pna_aggregate_fwd": agg, "gather_stats": b1, "segment_sum": b2,
-            "gather_rows": b3, "segment_sum_local": b4, "fused_conv": b8}
+            "gather_rows": b3, "segment_sum_local": b4, "fused_conv": b8,
+            "pna_bwd_count": types.SimpleNamespace(launches=bwd.count_launches, SOURCE=bwd.SOURCE,
+                                                   REPLACES=bwd.COUNT_REPLACES),
+            "pna_bwd_grad": types.SimpleNamespace(launches=bwd.grad_launches, SOURCE=bwd.SOURCE,
+                                                  REPLACES=bwd.GRAD_REPLACES)}
     sources = {name: os.path.basename(m.SOURCE) for name, m in mods.items()}
 
     def reset_counts():
@@ -284,11 +369,11 @@ def main():
     # ---- 2. build --------------------------------------------------------
     t0 = time.time()
     logs = build_all(list(sources.values()))
-    line("build", kernels=len(logs), parallel_nvcc=len(logs), seconds=round(time.time() - t0, 2))
-    for name, src in sources.items():
-        for ln in logs[src].splitlines():
+    line("build", kernels=len(mods), sources=len(logs), parallel_nvcc=len(logs), seconds=round(time.time() - t0, 2))
+    for src, log in logs.items():
+        for ln in log.splitlines():
             if "Used" in ln or "Compiling entry" in ln or "spill" in ln:
-                print(f"  ptxas[{name}]:", ln.strip())
+                print(f"  ptxas[{src}]:", ln.strip())
 
     # ---- 3. check: pna_aggregate_fwd at serving shapes -------------------
     cfg = flagship_config()
@@ -434,6 +519,66 @@ def main():
         line("check-train", case=f"autograd_backward_f32_h{h}", ops="gather_presum_stats,segment_sum_sorted,segment_max",
              max_abs_err_grad_table=err, grad_norm=float(grads["cuda"][0].norm()))
 
+    # ---- 4b. check-pna-bwd: B6 and B7 at the flagship's unaligned shapes --
+    def unaligned_loader(samples, shuffle=False):
+        return GraphLoader(samples, TRAIN_BATCH, shuffle=shuffle, dense_slots=False, run_align=False)
+
+    uhost = next(iter(unaligned_loader(train_loader.samples)))
+    un, ue = uhost.num_nodes, uhost.num_edges
+    urecv = uhost.receivers.to(dev)
+    # rows 0, 5 and 17 all masked; the padding node's masked edges carry
+    # v = 0, equal to its cleaned max (they must not tie)
+    u_dead = torch.isin(uhost.receivers, torch.tensor([0, 5, 17], dtype=torch.int32))
+    u_mask = uhost.edge_mask & ~u_dead
+    u_pad = ~uhost.edge_mask
+    line("check-pna-bwd", batch="flagship_unaligned", node_pad=un, edge_pad=ue,
+         real_edges=int(uhost.edge_mask.sum()), padding_node_edges=int(u_pad.sum()),
+         max_in_degree=int(torch.bincount(uhost.receivers[uhost.edge_mask].long()).max()))
+    max_err["pna_bwd_count"] = max_err["pna_bwd_grad"] = 0.0
+    u_mask_d = u_mask.to(dev)
+    uptr = bwd.csr_row_ptr(urecv, un)
+    for h in (1, hidden):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{'conv0' if h == 1 else 'conv1-5'}_{str(dtype)[6:]}_h{h}"
+            v = quarter_grid((ue, h), 60 + h)
+            v[u_pad] = 0.0
+            vd = v.to(dtype).to(dev)
+            both = agg.pna_aggregate(vd, urecv, un, u_mask_d)[3]
+            g_sum = quarter_grid((un, h), 61 + h, scale=1.0).to(dev)
+            g_sumsq = quarter_grid((un, h), 62 + h, scale=1.0).to(dev)
+            g_both = quarter_grid((un, 2 * h), 63 + h, scale=1.0).to(dtype).to(dev)
+            cnt_ref = bwd.pna_bwd_count_plain(vd, urecv, u_mask_d, both, un)
+            cnt = twice("pna_bwd_count " + tag, bwd.pna_bwd_count, vd, urecv, u_mask_d, both, un, uptr)
+            compare(cnt, cnt_ref, "pna_bwd_count " + tag, exact=True)
+            grad_ref = bwd.pna_bwd_grad_plain(vd, urecv, u_mask_d, both, g_sum, g_sumsq, g_both, cnt_ref)
+            grad = twice("pna_bwd_grad " + tag, bwd.pna_bwd_grad, vd, urecv, u_mask_d, both, g_sum, g_sumsq,
+                         g_both, cnt, uptr)
+            f32 = dtype == torch.float32
+            err = compare(grad, grad_ref, "pna_bwd_grad " + tag, exact=f32, tol=PNA_BWD_BF16_TOL)
+            if bool((grad[~u_mask_d] != 0).any()):
+                raise AssertionError(f"pna_bwd_grad {tag}: a masked edge got a gradient")
+            max_err["pna_bwd_grad"] = max(max_err["pna_bwd_grad"], err)
+            line("check-pna-bwd", kernel="pna_bwd_count", case=tag, E=ue, N=un, H=h, max_abs_err=0.0,
+                 max_ties=int(cnt.max()), deterministic=True)
+            line("check-pna-bwd", kernel="pna_bwd_grad", case=tag, E=ue, N=un, H=h, max_abs_err=err,
+                 bit_equal=f32, tol="exact" if f32 else json.dumps(PNA_BWD_BF16_TOL), deterministic=True)
+    # the autograd pna_aggregate (B5, then B6 and B7) on the card against
+    # the same op on the CPU (plain versions), f32
+    for h in (1, hidden):
+        v = quarter_grid((ue, h), 70 + h)
+        cots = (quarter_grid((un, h), 71 + h, scale=1.0), quarter_grid((un, h), 72 + h, scale=1.0),
+                quarter_grid((un, 2 * h), 73 + h, scale=1.0))
+        grads = {}
+        for where in ("cuda", "cpu"):
+            d = dev if where == "cuda" else torch.device("cpu")
+            vt = v.detach().to(d).requires_grad_(True)
+            s_, sq_, _, both_ = agg.pna_aggregate(vt, uhost.receivers.to(d), un, u_mask.to(d))
+            torch.autograd.backward((s_, sq_, both_), tuple(c.to(d) for c in cots))
+            grads[where] = vt.grad.cpu()
+        compare(grads["cuda"], grads["cpu"], f"pna_aggregate backward h{h}", exact=True)
+        line("check-pna-bwd", case=f"autograd_backward_f32_h{h}", ops="pna_aggregate", bit_equal=True,
+             grad_norm=float(grads["cuda"].norm()))
+
     # ---- 5. serve --------------------------------------------------------
     raw = deterministic_graph_data(
         number_configurations=N_SAMPLES, unit_cell_x_range=UNIT_CELLS,
@@ -477,7 +622,7 @@ def main():
         if None in results:
             raise AssertionError("serve: a request got no answer")
         want = {name: 0 for name in mods}
-        want["pna_aggregate_fwd"] = n_layers * batches
+        want["pna_aggregate_fwd"] = want["gather_rows"] = n_layers * batches
         if forwards != batches or serve_counts != want:
             raise AssertionError(f"serve: launches {serve_counts}, {forwards} forwards, {batches} batches; want {want}")
 
@@ -551,48 +696,70 @@ def main():
          max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=repr(card))
 
     # one train step at STEP_GRAPHS graphs: card (kernels) against CPU (plain)
+    def pna_step_vs_cpu(label, nn_cfg_, batch_, step_want, reordered=()):
+        """The train step at ``batch_`` on the card against the CPU, held to
+        the STEP_* tiers; with ``reordered`` (the same graphs batched in other
+        orders) the head tier is the stacks' spread rule instead."""
+        results = {}
+        orders = [f"order{j}" for j in range(len(reordered))]
+        for where in ["cpu", "cuda"] + orders:
+            m = create_model_config(nn_cfg_, seed=SEED + 1, device="cuda" if where == "cuda" else "cpu")
+            b = (reordered[orders.index(where)] if where in orders else batch_).to(next(m.parameters()).device)
+            reset_counts()
+            m.zero_grad(set_to_none=True)
+            loss, tasks = model_loss(m.cfg, m(b, train=True), b)
+            loss.backward()
+            counts = read_counts()
+            results[where] = (
+                loss.item(), {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}, counts,
+            )
+        step_want = {name: step_want.get(name, 0) for name in mods}
+        if results["cuda"][3] != step_want or any(results[w][3][n] for w in ["cpu"] + orders for n in mods):
+            raise AssertionError(f"{label} step launches card {results['cuda'][3]}, cpu {results['cpu'][3]}; "
+                                 f"want {step_want}")
+        rel = {}  # relative L2 difference, card against CPU, per gradient
+        worst = {"head": ("", 0.0), "conv": ("", 0.0), "zero": ("", 0.0)}
+        gc_all, gp_all = results["cuda"][1], results["cpu"][1]
+        head_bad, head_limit = {}, {}
+        for k, g in gp_all.items():
+            if k.startswith("convs.") and k.endswith("post.bias"):
+                ref_w = max(float(gp_all[k[:-4] + "weight"].abs().max()), 1e-30)
+                r = max(float(g.abs().max()), float(gc_all[k].abs().max())) / ref_w
+                tier = "zero"
+            else:
+                r = rel_l2(gc_all[k], g)
+                tier = "conv" if k.startswith(("convs.", "norms.")) else "head"
+            if tier == "head" and orders:
+                spread = max(rel_l2(results[o][1][k], g) for o in orders)
+                head_limit[k] = max(STACK_GRAD_TOL, STACK_SPREAD_FACTOR * spread)
+                if r > head_limit[k]:
+                    head_bad[k] = (r, spread)
+            rel[k] = r
+            if r >= worst[tier][1]:
+                worst[tier] = (k, r)
+        bn_ok = all(torch.allclose(results["cuda"][2][k], v, **STEP_BN_TOL) for k, v in results["cpu"][2].items())
+        worst_spread = (max(rel_l2(results[o][1][worst["head"][0]], gp_all[worst["head"][0]]) for o in orders)
+                        if orders else "not measured")
+        line(label, graphs=batch_.num_graphs - 1, edge_pad=batch_.num_edges, loss_card=results["cuda"][0],
+             loss_cpu=results["cpu"][0], head_rule="spread" if orders else "tier",
+             head_grad_rel_l2_and_spread_above_tol=json.dumps(head_bad), worst_head_spread=worst_spread,
+             worst_head_limit=head_limit.get(worst["head"][0], STEP_HEAD_TOL),
+             head_limit_min_max=json.dumps([min(head_limit.values()), max(head_limit.values())])
+             if head_limit else json.dumps([STEP_HEAD_TOL] * 2),
+             worst_head_grad_rel_l2=json.dumps(worst["head"]),
+             worst_conv_grad_rel_l2=json.dumps(worst["conv"]), worst_bn_fed_bias_grad=json.dumps(worst["zero"]),
+             bn_stats_close=bn_ok, params=len(rel), kernel_launches=json.dumps(results["cuda"][3], separators=(",", ":")))
+        np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=STEP_LOSS_RTOL, err_msg=f"{label} loss")
+        # with the spread rule the heads are held by head_bad instead
+        limits = {"head": float("inf") if orders else STEP_HEAD_TOL, "conv": STEP_CONV_TOL, "zero": STEP_ZERO_TOL}
+        if not bn_ok or head_bad or any(worst[t][1] > limits[t] for t in worst):
+            raise AssertionError(f"{label}: card and CPU differ beyond the tolerance: {rel}, BN close {bn_ok}")
+
     step_loader = GraphLoader(train_loader.samples[:STEP_GRAPHS], STEP_GRAPHS)
     step_batch = next(iter(step_loader))
     nn_cfg = done["NeuralNetwork"]
-    results = {}
-    for where in ("cpu", "cuda"):
-        m = create_model_config(nn_cfg, seed=SEED + 1, device=where)
-        b = step_batch.to(next(m.parameters()).device)
-        reset_counts()
-        m.zero_grad(set_to_none=True)
-        loss, tasks = model_loss(m.cfg, m(b, train=True), b)
-        loss.backward()
-        counts = read_counts()
-        results[where] = (
-            loss.item(), {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
-            {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}, counts,
-        )
-    step_want = {name: per_step.get(name, 0) for name in mods}
-    if results["cuda"][3] != step_want or any(results["cpu"][3].values()):
-        raise AssertionError(f"train step launches card {results['cuda'][3]}, cpu {results['cpu'][3]}; want {step_want}")
-    rel = {}  # relative L2 difference, card against CPU, per gradient
-    worst = {"head": ("", 0.0), "conv": ("", 0.0), "zero": ("", 0.0)}
-    gc_all, gp_all = results["cuda"][1], results["cpu"][1]
-    for k, g in gp_all.items():
-        if k.startswith("convs.") and k.endswith("post.bias"):
-            ref_w = max(float(gp_all[k[:-4] + "weight"].abs().max()), 1e-30)
-            r = max(float(g.abs().max()), float(gc_all[k].abs().max())) / ref_w
-            tier = "zero"
-        else:
-            r = float((gc_all[k] - g).norm() / max(float(g.norm()), 1e-30))
-            tier = "conv" if k.startswith(("convs.", "norms.")) else "head"
-        rel[k] = r
-        if r >= worst[tier][1]:
-            worst[tier] = (k, r)
-    bn_ok = all(torch.allclose(results["cuda"][2][k], v, **STEP_BN_TOL) for k, v in results["cpu"][2].items())
-    line("train-step-vs-cpu", graphs=STEP_GRAPHS, edge_pad=step_batch.num_edges, loss_card=results["cuda"][0],
-         loss_cpu=results["cpu"][0], worst_head_grad_rel_l2=json.dumps(worst["head"]),
-         worst_conv_grad_rel_l2=json.dumps(worst["conv"]), worst_bn_fed_bias_grad=json.dumps(worst["zero"]),
-         bn_stats_close=bn_ok, params=len(rel), kernel_launches=json.dumps(results["cuda"][3], separators=(",", ":")))
-    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=STEP_LOSS_RTOL, err_msg="step loss")
-    limits = {"head": STEP_HEAD_TOL, "conv": STEP_CONV_TOL, "zero": STEP_ZERO_TOL}
-    if not bn_ok or any(worst[t][1] > limits[t] for t in worst):
-        raise AssertionError(f"train step: card and CPU differ beyond the tolerance: {rel}, BN close {bn_ok}")
+    pna_step_vs_cpu("train-step-vs-cpu", nn_cfg, step_batch, per_step)
 
     # ---- 7. predict ------------------------------------------------------
     in_memory = test_epoch(test_loader, model)
@@ -860,6 +1027,132 @@ def main():
         if bad or not bn_ok:
             raise AssertionError(f"{mt} train step: card and CPU differ beyond the tolerance: {bad}, BN close {bn_ok}")
 
+    # ---- 9b. train-pna-layouts: the flagship on its other layouts -------
+    layout_models, layout_counts, layout_batches = {}, {}, {}
+
+    def layout_run(label, cfg_, loaders, per_step_, per_fwd_):
+        """train_with_loaders for ``LAYOUT_EPOCHS`` epochs: finite, falling
+        losses, and the launches of every kernel equal to the per-step and
+        per-forward counts; keeps the model, its optimizer and the counts
+        under ``label``."""
+        cfg_["NeuralNetwork"]["Training"]["num_epoch"] = LAYOUT_EPOCHS
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        m_, o_, h_ = train_with_loaders(cfg_, *loaders, log_dir=tempfile.mkdtemp(prefix=f"chip_smoke_{label}_"),
+                                        device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        losses = h_["train_loss"]
+        if not all(np.isfinite(h_[k]).all() for k in ("train_loss", "val_loss", "test_loss")):
+            raise AssertionError(f"train-pna-layouts {label}: a loss is not finite: {h_}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train-pna-layouts {label}: the train loss did not fall: {losses}")
+        tr_, va_, te_ = loaders
+        steps_ = LAYOUT_EPOCHS * len(tr_)
+        fwds = LAYOUT_EPOCHS * (len(va_) + len(te_)) + 2 * len(tr_)
+        want_ = {name: steps_ * per_step_.get(name, 0) + fwds * per_fwd_.get(name, 0) for name in mods}
+        if counts != want_:
+            raise AssertionError(f"train-pna-layouts {label}: launches {counts}, want {want_}")
+        hb = next(iter(tr_))
+        line("train-pna-layouts", layout=label, epochs=LAYOUT_EPOCHS, steps=steps_, eval_and_bn_forwards=fwds,
+             batch=TRAIN_BATCH, node_pad=hb.num_nodes, edge_pad=hb.num_edges, run_align=hb.run_align,
+             dense_slots=None if hb.dense_senders is None else hb.dense_senders.shape[1],
+             edge_features=m_.cfg.use_edge_attr, train_loss=json.dumps(losses),
+             val_loss=json.dumps(h_["val_loss"]), test_loss=json.dumps(h_["test_loss"]),
+             kernel_launches=json.dumps(counts, separators=(",", ":")),
+             per_step=json.dumps(per_step_, separators=(",", ":")),
+             per_forward=json.dumps(per_fwd_, separators=(",", ":")), wall_s=round(wall, 3),
+             max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=repr(card))
+        layout_models[label], layout_counts[label] = (m_, o_), counts
+
+    def completed(edge_lengths=False):
+        cfg_ = flagship_config(batch_size=TRAIN_BATCH, num_epoch=LAYOUT_EPOCHS)
+        if edge_lengths:
+            cfg_["NeuralNetwork"]["Architecture"]["edge_features"] = ["lengths"]
+        cfg_["NeuralNetwork"]["Variables_of_interest"].update(minmax)
+        return update_config(cfg_, train_loader.samples, val_loader.samples, test_loader.samples)
+
+    # the unaligned CSR layout: the sender gather (B3; its backward the
+    # permuted pair, B3 then B2), B5 forward, B6 and B7 backward, per layer
+    u_loaders = (unaligned_loader(train_loader.samples, shuffle=True), unaligned_loader(val_loader.samples),
+                 unaligned_loader(test_loader.samples))
+    per_u = {"pna_aggregate_fwd": n_layers, "pna_bwd_count": n_layers, "pna_bwd_grad": n_layers,
+             "gather_rows": 2 * n_layers, "segment_sum": n_layers}
+    fwd_u = {"pna_aggregate_fwd": n_layers, "gather_rows": n_layers}
+    layout_run("unaligned", completed(), u_loaders, per_u, fwd_u)
+    layout_batches["unaligned"] = (u_loaders[0], uhost.to(dev))
+    # its train step at STEP_GRAPHS graphs against the CPU
+    u_step = next(iter(GraphLoader(train_loader.samples[:STEP_GRAPHS], STEP_GRAPHS, dense_slots=False,
+                                   run_align=False)))
+    u_step_samples = train_loader.samples[:STEP_GRAPHS]
+    u_reordered = [next(iter(GraphLoader([u_step_samples[i] for i in order], STEP_GRAPHS, dense_slots=False,
+                                         run_align=False)))
+                   for order in [np.arange(STEP_GRAPHS)[::-1]]
+                   + [np.random.default_rng(SEED + k).permutation(STEP_GRAPHS) for k in (1, 2)]]
+    pna_step_vs_cpu("train-pna-layouts-step-vs-cpu", completed()["NeuralNetwork"], u_step, per_u,
+                    reordered=u_reordered)
+    # edge lengths on the AUTO layout (run-aligned): v = gather (B3; its
+    # backward B3 and B2) + the edge term, K-group statistics in plain
+    # PyTorch, then B2 (its backward B3) and the E/K segment max (its
+    # backward B2 and B3)
+    per_e = {"gather_rows": 5 * n_layers, "segment_sum": 3 * n_layers}
+    fwd_e = {"gather_rows": n_layers, "segment_sum": n_layers}
+    layout_run("edge_lengths", completed(edge_lengths=True), (train_loader, val_loader, test_loader), per_e, fwd_e)
+    layout_batches["edge_lengths"] = (train_loader, bd)
+    # the dense slot map: D = the largest in-degree of the data
+    d_slots = max(max_in_degree(ld.samples) for ld in (train_loader, val_loader, test_loader))
+
+    def dense_loader(samples, shuffle=False):
+        return GraphLoader(samples, TRAIN_BATCH, shuffle=shuffle, dense_slots=d_slots, run_align=False)
+
+    d_loaders = (dense_loader(train_loader.samples, shuffle=True), dense_loader(val_loader.samples),
+                 dense_loader(test_loader.samples))
+    # the dense slot map: the slot gather (B3; its backward B3 and B2 over
+    # the real slots), then the slot reductions in plain PyTorch
+    layout_run("dense", completed(), d_loaders, {"gather_rows": 2 * n_layers, "segment_sum": n_layers},
+               {"gather_rows": n_layers})
+    layout_batches["dense"] = (d_loaders[0], next(iter(dense_loader(train_loader.samples))).to(dev))
+
+    # ---- 9c. accuracy: the reference bar on tests/test_train_e2e.py's PNA config
+    acc_counts = {}
+    for multihead in (False, True):
+        label = "multihead" if multihead else "singlehead"
+        acc_log = tempfile.mkdtemp(prefix=f"chip_smoke_acc_{label}_")
+        reset_counts()
+        t0 = time.perf_counter()
+        _, _, acc_hist, _ = hydragnn_tpu_torch.run_training(
+            e2e_config(multihead), deterministic_graph_data(number_configurations=E2E_SAMPLES, seed=SEED),
+            log_dir=acc_log, device="cuda",
+        )
+        torch.cuda.synchronize()
+        acc_wall = time.perf_counter() - t0
+        acc_counts[label] = read_counts()
+        acc_train, _, _, _ = prepare_loaders_and_config(
+            e2e_config(multihead), deterministic_graph_data(number_configurations=E2E_SAMPLES, seed=SEED))
+        _, err_h, trues, preds = hydragnn_tpu_torch.run_prediction(
+            e2e_config(multihead), deterministic_graph_data(number_configurations=E2E_SAMPLES, seed=SEED),
+            log_dir=acc_log, device="cuda",
+        )
+        # per head: the test error run_prediction returns (what
+        # tests/test_train_e2e.py holds to its "RMSE" bar: the per-head test
+        # loss, an MSE under this config), the MAE, and sqrt(MSE) beside them
+        heads = [(float(err_h[i]), float(np.mean(np.abs(t - p_))), float(np.sqrt(np.mean((t - p_) ** 2))))
+                 for i, (t, p_) in enumerate(zip(trues, preds))]
+        line("accuracy", case=label, epochs=len(acc_hist["train_loss"]), dense_slots=acc_train.dense_slots,
+             run_align=acc_train.run_align, heads=len(heads), error_mae_sqrtmse=json.dumps(heads),
+             thresholds=json.dumps(E2E_THRESHOLDS), train_loss_first_last=json.dumps(
+                 [acc_hist["train_loss"][0], acc_hist["train_loss"][-1]]), wall_s=round(acc_wall, 3),
+             kernel_launches=json.dumps(acc_counts[label], separators=(",", ":")), card=repr(card))
+        if acc_train.dense_slots != 7 or acc_train.run_align:
+            raise AssertionError(f"accuracy {label}: the loader did not pick the dense map of 7 slots")
+        if not (acc_counts[label]["gather_rows"] and acc_counts[label]["segment_sum"]):
+            raise AssertionError(f"accuracy {label}: the permuted gather's kernels did not run")
+        for i, (r, mae, _) in enumerate(heads):
+            if not (np.isfinite(r) and r < E2E_THRESHOLDS[0] and mae < E2E_THRESHOLDS[1]):
+                raise AssertionError(f"accuracy {label} head {i}: error {r}, MAE {mae} not below {E2E_THRESHOLDS}")
+
     # ---- 10. timing ------------------------------------------------------
     h = hidden
     table = torch.randn(n, h, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
@@ -939,6 +1232,101 @@ def main():
     line("timing", kernel="pna_aggregate_fwd", shape="serve_batch8", card=repr(card),
          **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing["pna_aggregate_fwd"].items()})
 
+    # B6 and B7 at the flagship's unaligned training shapes, H=128, f32,
+    # the batch's own mask (every column's ties on random values: 1)
+    gen_u = torch.Generator(device=dev).manual_seed(4)
+    vu = torch.randn(ue, hidden, device=dev, generator=gen_u)
+    mask_u = uhost.edge_mask.to(dev)
+    both_u = agg.pna_aggregate(vu, urecv, un, mask_u)[3]
+    gs_u, gsq_u = torch.randn(un, hidden, device=dev, generator=gen_u), torch.randn(un, hidden, device=dev, generator=gen_u)
+    gb_u = torch.randn(un, 2 * hidden, device=dev, generator=gen_u)
+    cnt_u = bwd.pna_bwd_count(vu, urecv, mask_u, both_u, un, uptr)
+    real_u = int(uhost.edge_mask.sum())
+    node_b = un * 2 * hidden * 4
+    ptr_b = (un + 1) * 4
+    specs_bwd = {
+        # v read on the real edges, the mask, the row pointers, both; cnt
+        # written; 2 compares and 2 adds per real element
+        "pna_bwd_count": (
+            lambda: bwd.pna_bwd_count(vu, urecv, mask_u, both_u, un, uptr),
+            lambda: bwd.pna_bwd_count_plain(vu, urecv, mask_u, both_u, un),
+            real_u * hidden * 4 + ue + ptr_b + 2 * node_b, real_u * hidden * 4),
+        # v on the real edges, the mask, the row pointers, g_sum, g_sumsq,
+        # both, g_both and cnt read; grad written on every edge; 7
+        # operations per real element
+        "pna_bwd_grad": (
+            lambda: bwd.pna_bwd_grad(vu, urecv, mask_u, both_u, gs_u, gsq_u, gb_u, cnt_u, uptr),
+            lambda: bwd.pna_bwd_grad_plain(vu, urecv, mask_u, both_u, gs_u, gsq_u, gb_u, cnt_u),
+            real_u * hidden * 4 + ue + ptr_b + un * hidden * 8 + 3 * node_b + ue * hidden * 4,
+            real_u * hidden * 7),
+    }
+    # B5 at the same shapes (its row above is the serving batch's)
+    b5_bytes = real_u * hidden * 4 + ue * 5 + un * hidden * 8 + un * 4 + node_b
+    b5_bound, _ = bound(b5_bytes, real_u * hidden * 5)
+    line("timing", kernel="pna_aggregate_fwd", shape="train_unaligned_batch1024", card=repr(card),
+         ms=round(cuda_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u), 50), 5),
+         graph_ms=round(graph_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u), 20), 5),
+         plain_ms=round(cuda_ms(lambda: agg.pna_aggregate_plain(vu, urecv, un, mask_u), 10), 5),
+         bound_ms=round(b5_bound, 5), E=ue, N=un, H=hidden)
+    for name, (kern, plain, nbytes, ops) in specs_bwd.items():
+        t_k = [cuda_ms(kern, 50)]
+        plain_ms = cuda_ms(plain, 10)
+        t_k.append(cuda_ms(kern, 50))
+        bms, by = bound(nbytes, ops)
+        timing[name] = {
+            "ms": float(np.mean(t_k)), "graph_ms": graph_ms(kern, 20), "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bms, "bound_by": by, "bytes": nbytes, "E": ue, "N": un, "H": hidden,
+        }
+        line("timing", kernel=name, shape="train_unaligned_batch1024", card=repr(card),
+             **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing[name].items()})
+
+    # the sender gather's backward pairs at each layout's flagship
+    # training shapes, H=128 and H=1, f32: the permuted pair PNAConv
+    # takes (B3, then B3 and B2; on the dense map over the real slots
+    # only, "permuted_masked") against the JAX package's windowed pair
+    # (B3, then B4), which it takes from 200,000 gathered rows on the
+    # TPU. The forward B3 is common to all; each backward is timed as the
+    # autograd Function runs it, eager and in a CUDA graph, and the
+    # autograd gradients of the pairs must agree. The dense map's
+    # cotangent is 0 on its empty slots, as in PNAConv.
+    dense_dev = layout_batches["dense"][1]
+    gather_ids = {
+        "unaligned": (uhost.senders.to(dev), uhost.sender_perm.to(dev), uhost.sender_win.to(dev), un, None),
+        "run_aligned": (send, bd.sender_perm, bd.sender_win, n, None),
+        "dense": (dense_dev.dense_senders.reshape(-1), dense_dev.dense_sender_perm, dense_dev.dense_sender_win,
+                  dense_dev.num_nodes, dense_dev.dense_mask.reshape(-1)),
+    }
+    for lay, (ids, perm, win, n_g, gmask) in gather_ids.items():
+        for h_g in (hidden, 1):
+            xg = torch.randn(n_g, h_g, device=dev, generator=torch.Generator(device=dev).manual_seed(7),
+                             requires_grad=True)
+            gg = torch.randn(ids.shape[0], h_g, device=dev, generator=torch.Generator(device=dev).manual_seed(8))
+            if gmask is not None:
+                gg = torch.where(gmask[:, None], gg, torch.zeros((), device=dev))
+            grads = [torch.autograd.grad(S.gather_rows_permuted(xg, ids, perm, n_g), xg, gg)[0],
+                     torch.autograd.grad(S.gather_rows_local(xg, ids, win, n_g), xg, gg)[0]]
+            bwd_pairs = {
+                "permuted": lambda: b2.segment_sum(b3.gather_rows(gg, perm), ids.index_select(0, perm), n_g),
+                "local": lambda: b4.segment_sum_local(gg, ids, win, n_g),
+            }
+            if gmask is not None:
+                grads.append(torch.autograd.grad(S.gather_rows_permuted(xg, ids, perm, n_g, mask=gmask), xg, gg)[0])
+                bwd_pairs["permuted_masked"] = lambda: b2.segment_sum(
+                    b3.gather_rows(gg, perm),
+                    torch.where(gmask.index_select(0, perm), ids.index_select(0, perm), n_g), n_g)
+            agree = max(rel_l2(gr, grads[0]) for gr in grads)
+            slow = lay == "dense"  # the unmasked pairs take 20-180 ms there
+            t = {k: [] for k in bwd_pairs}
+            for which in list(bwd_pairs) + list(bwd_pairs)[::-1]:
+                t[which].append(cuda_ms(bwd_pairs[which], 3 if slow and which != "permuted_masked" else 20))
+            g_ms = {k: graph_ms(fn, 2 if slow and k != "permuted_masked" else 10) for k, fn in bwd_pairs.items()}
+            line("timing-gather-pairs", layout=lay, rows=ids.shape[0], N=n_g, H=h_g, card=repr(card),
+                 **{f"{k}_bwd_ms": round(float(np.mean(v)), 5) for k, v in t.items()},
+                 **{f"{k}_bwd_graph_ms": round(v, 5) for k, v in g_ms.items()},
+                 grad_rel_l2_between_pairs=agree)
+            if agree > 1e-5:
+                raise AssertionError(f"gather pairs {lay} H={h_g}: the backwards differ ({agree})")
+
     # B8 per variant at the flagship training shapes, f32, with the
     # batch's own mask and occupancy bound (as the conv stacks call it)
     real_t = int(bd.edge_mask.sum())
@@ -988,12 +1376,12 @@ def main():
     # between stages, median of 5 steps at batch 1024), per stack
     order = np.arange(len(train_loader.samples))
 
-    def breakdown(label, model_, optimizer_):
+    def breakdown(label, model_, optimizer_, loader_=train_loader, bd_=bd):
         stages = {"batch_build": [], "h2d": [], "forward": [], "backward": [], "optimizer": []}
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            hb = train_loader.make_batch(order[:TRAIN_BATCH])
+            hb = loader_.make_batch(order[:TRAIN_BATCH])
             t1 = time.perf_counter()
             b = hb.to(dev)
             torch.cuda.synchronize()
@@ -1011,12 +1399,14 @@ def main():
             for k, a, z in (("batch_build", t0, t1), ("h2d", t1, t2), ("forward", t2, t3),
                             ("backward", t3, t4), ("optimizer", t4, t5)):
                 stages[k].append((z - a) * 1e3)
-        step_ms = cuda_ms(lambda: train_step(model_, optimizer_, bd), 5)
+        step_ms = cuda_ms(lambda: train_step(model_, optimizer_, bd_), 5)
         line("breakdown", stack=label, shape=f"train_batch{TRAIN_BATCH}", card=repr(card),
              device_step_ms=round(step_ms, 4), graphs_per_s=round(TRAIN_BATCH / step_ms * 1e3, 1),
              **{f"{k}_ms": round(float(np.median(v)), 4) for k, v in stages.items()})
 
     breakdown("PNA", model, optimizer)
+    for lay in ("unaligned", "edge_lengths", "dense"):
+        breakdown(f"PNA-{lay}", *layout_models[lay], *layout_batches[lay])
     breakdown("GIN", *stack_models["GIN"])
     breakdown("SchNet", *stack_models["SchNet"])
 
@@ -1025,12 +1415,13 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     ours = ("gather_stats_kernel", "segment_sum_kernel", "gather_rows_kernel", "segment_sum_local_kernel",
-            "csr_row_ptr_kernel", "fused_identity_kernel", "fused_branch_kernel")
+            "csr_row_ptr_kernel", "fused_identity_kernel", "fused_branch_kernel", "pna_aggregate_kernel",
+            "pna_bwd_count_kernel", "pna_bwd_grad_kernel")
 
-    def profile_step(label, model_, optimizer_):
+    def profile_step(label, model_, optimizer_, bd_=bd):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            train_step(model_, optimizer_, bd)
+            train_step(model_, optimizer_, bd_)
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
         kernel_rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
@@ -1048,14 +1439,21 @@ def main():
             print(f"  profile[{label}]: {ms:9.3f} ms {calls:5d} calls  {key[:110]}")
 
     profile_step("PNA", model, optimizer)
+    profile_step("PNA-unaligned", *layout_models["unaligned"], layout_batches["unaligned"][1])
+    profile_step("PNA-dense", *layout_models["dense"], layout_batches["dense"][1])
     profile_step("GIN", *stack_models["GIN"])
 
     # ---- 11. summary -----------------------------------------------------
     # each kernel's launches on its own main path (serve: B5; PNA
-    # training: B1-B4; GIN training: B8), and on every path
-    paths = {"serve": serve_counts, "train_pna": train_counts, "train_gin": stack_counts["GIN"]}
+    # training: B1-B4; GIN training: B8; unaligned PNA training: B6, B7),
+    # and on every path
+    paths = {"serve": serve_counts, "train_pna": train_counts, "train_gin": stack_counts["GIN"],
+             "train_pna_unaligned": layout_counts["unaligned"], "train_pna_edge_lengths": layout_counts["edge_lengths"],
+             "train_pna_dense": layout_counts["dense"], "accuracy_pna_dense_singlehead": acc_counts["singlehead"],
+             "accuracy_pna_dense_multihead": acc_counts["multihead"]}
     home = {name: "train_pna" for name in mods}
-    home.update(pna_aggregate_fwd="serve", fused_conv="train_gin")
+    home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",
+                pna_bwd_grad="train_pna_unaligned")
     kernels = []
     for name, m in mods.items():
         t = timing[name]

@@ -82,10 +82,13 @@ def build_flagship(
     seed: int = 0,
     edge_multiple: int = 8,
     device: Optional[str] = "cuda",
+    edge_lengths: bool = False,
 ):
     """Returns (config, model, train_loader): the completed flagship
     config, the seeded model on ``device`` and a shuffling, drop-last
-    train loader of run-aligned batches."""
+    train loader of run-aligned batches. ``edge_lengths`` adds the
+    reference's length edge feature (``Architecture.edge_features``,
+    edge_dim 1 through every conv)."""
     from hydragnn_tpu_torch.data.ingest import prepare_dataset
     from hydragnn_tpu_torch.data.loader import GraphLoader
     from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
@@ -93,6 +96,8 @@ def build_flagship(
     from hydragnn_tpu_torch.utils.config import update_config
 
     config = flagship_config(hidden_dim, num_conv_layers, batch_size)
+    if edge_lengths:
+        config["NeuralNetwork"]["Architecture"]["edge_features"] = ["lengths"]
     samples = deterministic_graph_data(
         number_configurations=n_samples,
         unit_cell_x_range=unit_cells,

@@ -26,8 +26,7 @@ Every field is emitted with the JAX package's values
 (``tests/test_torch_batch.py``, ``tests/test_torch_loader.py`` and
 ``tests/test_torch_conv_stacks.py`` hold them equal). The conv stacks
 that aggregate over the CSR edges never read the dense map; PNA's dense
-branch, its one consumer, is not ported yet (ROADMAP A4). Not ported
-yet (ROADMAP A2): ``pad_batch``.
+branch is its one consumer. Not ported yet (ROADMAP A2): ``pad_batch``.
 """
 
 from __future__ import annotations

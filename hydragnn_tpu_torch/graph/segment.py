@@ -18,6 +18,9 @@ same backward as the reference's ``custom_vjp``:
   - ``segment_sum_sorted``: forward B2, backward the sorted gather B3 of
     the cotangent in ``grad_dtype``.
   - ``gather_rows``: forward B3, backward B2 for sorted ids.
+  - ``gather_rows_permuted``: forward B3, backward B2 over the ids sorted
+    by a given permutation (the cotangent permuted by B3), optionally
+    over the unmasked positions only.
   - ``gather_rows_local``: forward B3, backward the windowed sum B4.
 
 On CPU tensors the kernels' plain versions run (``ops/``).
@@ -197,6 +200,50 @@ def gather_rows(
     """``x[ids]`` (B3) whose backward is a segment sum: the sorted kernel
     (B2) when ``indices_are_sorted``."""
     return _GatherRows.apply(x, ids, int(num_rows), bool(indices_are_sorted))
+
+
+class _GatherRowsPermuted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ids, perm, num_rows, mask):
+        ctx.save_for_backward(ids, perm, mask)
+        ctx.num_rows = num_rows
+        return _gather(x, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, perm, mask = ctx.saved_tensors
+        # ids[perm] == sort(ids) by the perm contract
+        sorted_ids = ids.index_select(0, perm)
+        if mask is not None:
+            # the masked positions sort last and carry a zero cotangent:
+            # the id num_rows puts them in no segment, so the sorted sum
+            # skips them instead of walking them
+            sorted_ids = torch.where(mask.index_select(0, perm), sorted_ids, ctx.num_rows)
+        grad = _sorted_sum(_gather(g.contiguous(), perm), sorted_ids, ctx.num_rows)
+        return grad.to(g.dtype), None, None, None, None
+
+
+def gather_rows_permuted(
+    x: torch.Tensor,
+    ids: torch.Tensor,
+    perm: torch.Tensor,
+    num_rows: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``x[ids]`` (B3) for unsorted ids, whose backward permutes the
+    cotangent into sorted order (B3) and sums it over the sorted ids
+    (B2); ``perm`` sorts ``ids`` ascending (the batch's stable argsort,
+    computed once per batch); only the backward reads it.
+
+    ``mask`` (bool, like ``ids``) names the positions whose cotangent
+    may be non-zero; the others must carry a zero cotangent and sort
+    after every unmasked position, as the dense slot map's empty slots
+    do (they all name the padding node, above every real sender). The
+    backward then sums the unmasked positions only: the empty slots
+    would otherwise form one segment walked by one thread."""
+    if perm is None and torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("gather_rows_permuted: the backward needs the ids' sort permutation")
+    return _GatherRowsPermuted.apply(x, ids, perm, int(num_rows), mask)
 
 
 class _GatherRowsLocal(torch.autograd.Function):

@@ -2,22 +2,22 @@
 
 The port's counterpart of ``hydragnn_tpu/models/base.py``: one conv stack
 with interleaved masked BatchNorm + ReLU, masked global mean pooling,
-then graph heads on a shared dense trunk and node ``mlp`` heads. The
-forward returns one output per head: [G, dim] for graph heads, [N, dim]
-for node heads.
+then graph heads on a shared dense trunk and node heads of the three
+kinds (``mlp``, ``mlp_per_node``, ``conv``). The forward returns one
+output per head: [G, dim] for graph heads, [N, dim] for node heads.
 
 The port builds the chassis for PNA, GIN, SAGE, MFC, SchNet and CGCNN
-with graph and node-``mlp`` heads and its weighted multi-task loss
-(``model_loss``); CGCNN and SchNet take edge features. These raise
-``NotImplementedError`` naming their ROADMAP item: GAT (A3, A7),
-``inforward_radius`` (A7), ``conv_bf16`` and ``fused_conv: false`` (A7),
-PNA's edge features and the ``mlp_per_node`` and ``conv`` node heads
-(A4).
+with its weighted multi-task loss (``model_loss``); PNA, CGCNN and
+SchNet take edge features. These raise ``NotImplementedError`` naming
+their ROADMAP item: GAT (A3, A7), ``inforward_radius`` (A7),
+``conv_bf16`` and ``fused_conv: false`` (A7).
 
 Parameter names mirror the flax tree so ``convert.py`` maps one onto
 the other: ``convs.{i}`` = ``conv_{i}``, ``norms.{i}`` =
 ``MaskedBatchNorm_{i}``, ``graph_shared``, ``heads.{i}`` =
-``graph_head_{i}`` / ``node_head_{i}``.
+``graph_head_{i}`` / ``node_head_{i}``; a ``conv`` node head's
+``heads.{i}.convs.{j}`` and ``heads.{i}.norms.{j}`` are flax's unnamed
+convs and the BatchNorms after the encoder's, in creation order.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from hydragnn_tpu_torch.graph import segment as S
 from hydragnn_tpu_torch.graph.batch import GraphBatch
 from hydragnn_tpu_torch.models import convs as C
 from hydragnn_tpu_torch.models.convs import EdgeContext
-from hydragnn_tpu_torch.models.layers import MLP, MaskedBatchNorm
+from hydragnn_tpu_torch.models.layers import MLP, MaskedBatchNorm, lecun_normal_
 
 KNOWN_MODELS = ("GIN", "PNA", "GAT", "MFC", "CGCNN", "SAGE", "SchNet")
 
@@ -119,14 +119,16 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise _not_ported("Architecture.conv_bf16", "A7")
     if not cfg.fused_conv:
         raise _not_ported("Architecture.fused_conv = false (the composed conv path)", "A7")
-    if cfg.model_type == "PNA" and cfg.use_edge_attr:
-        raise _not_ported("PNA edge features", "A4")
-    if "node" in cfg.output_type and cfg.node_head_type != "mlp":
-        raise _not_ported(f"node head type {cfg.node_head_type!r}", "A4")
+    if "node" in cfg.output_type and cfg.node_head_type not in ("mlp", "mlp_per_node", "conv"):
+        raise ValueError(
+            f"Unknown head NN structure for node features {cfg.node_head_type}; currently only "
+            "support 'mlp', 'mlp_per_node' or 'conv'"
+        )
 
 
 class HydraModel(nn.Module):
-    """Encoder + multi-head decoder (graph heads, node mlp heads)."""
+    """Encoder + multi-head decoder (graph heads; node heads ``mlp``,
+    ``mlp_per_node`` or ``conv``)."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -152,14 +154,25 @@ class HydraModel(nn.Module):
                 heads.append(MLP(trunk_out, dims, generator=generator))
             else:
                 dims = tuple(cfg.node_dim_headlayers[: cfg.node_num_headlayers]) + (out_dim,)
-                heads.append(MLP(h, dims, generator=generator))
+                if cfg.node_head_type == "mlp_per_node":
+                    heads.append(PerNodeMLP(cfg.num_nodes, h, dims, generator))
+                elif cfg.node_head_type == "conv":
+                    ins = (h,) + dims[:-1]
+                    heads.append(ConvHead(
+                        [self._make_conv(a, b, generator) for a, b in zip(ins, dims)], dims
+                    ))
+                else:
+                    heads.append(MLP(h, dims, generator=generator))
         self.heads = nn.ModuleList(heads)
 
     def _make_conv(self, fin: int, out: int, generator: Optional[torch.Generator]) -> nn.Module:
         cfg = self.cfg
         mt = cfg.model_type
         if mt == "PNA":
-            return C.PNAConv(fin, out, cfg.pna_avg_deg_lin, cfg.pna_avg_deg_log, generator)
+            return C.PNAConv(
+                fin, out, cfg.pna_avg_deg_lin, cfg.pna_avg_deg_log, generator,
+                edge_dim=cfg.edge_dim if cfg.use_edge_attr else 0,
+            )
         if mt == "GIN":
             return C.GINConv(fin, out, generator)
         if mt == "SAGE":
@@ -201,6 +214,9 @@ class HydraModel(nn.Module):
         degree_groups = None
         if cfg.model_type == "MFC":
             degree_groups = C.MFConv.degree_groups(in_degree, cfg.max_neighbours)
+        dense_edge_attr = None
+        if batch.dense_edge_attr is not None:
+            dense_edge_attr = batch.dense_edge_attr.reshape(-1, batch.dense_edge_attr.shape[-1])
         return EdgeContext(
             senders=batch.senders,
             receivers=batch.receivers,
@@ -209,10 +225,14 @@ class HydraModel(nn.Module):
             in_degree=in_degree,
             edge_attr=edge_attr,
             edge_weight=edge_weight,
+            sender_perm=batch.sender_perm,
             sender_win=batch.sender_win,
             edge_occ=batch.edge_occupancy,
             run_align=batch.run_align,
             dense_senders=batch.dense_senders,
+            dense_mask=batch.dense_mask,
+            dense_edge_attr=dense_edge_attr,
+            dense_sender_perm=batch.dense_sender_perm,
             degree_groups=degree_groups,
         )
 
@@ -236,9 +256,84 @@ class HydraModel(nn.Module):
         for ihead, head in enumerate(self.heads):
             if cfg.output_type[ihead] == "graph":
                 outputs.append(head(graph_shared))
+            elif isinstance(head, PerNodeMLP):
+                outputs.append(head(x, batch))
+            elif isinstance(head, ConvHead):
+                outputs.append(head(x, ctx, batch.node_mask, train))
             else:
                 outputs.append(head(x))
         return outputs
+
+
+class ConvHead(nn.Module):
+    """The ``conv`` node head (the JAX package's ``_node_head``): hidden
+    convs, each followed by a masked BatchNorm and ReLU, then the output
+    conv and a masked BatchNorm, chained (x -> h1 -> ... -> out)."""
+
+    def __init__(self, convs: Sequence[nn.Module], dims: Sequence[int]):
+        super().__init__()
+        self.convs = nn.ModuleList(convs)
+        self.norms = nn.ModuleList(MaskedBatchNorm(d) for d in dims)
+
+    def forward(self, x: torch.Tensor, ctx: EdgeContext, node_mask: torch.Tensor, train: bool):
+        last = len(self.convs) - 1
+        for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
+            x = norm(conv(x, ctx), mask=node_mask, train=train)
+            if i < last:
+                x = torch.relu(x)
+        return x
+
+
+class PerNodeMLP(nn.Module):
+    """One MLP per intra-graph node position (the JAX package's
+    ``PerNodeMLP``): stacked per-position weights ``w_{l}``
+    [num_nodes, in, out] and ``b_{l}`` [num_nodes, out], flax's
+    lecun-normal init (its fan-in of a 3-D kernel counts the stacked
+    axis: num_nodes x in) and zero biases. Positions past ``num_nodes``
+    (padding nodes) clip to the last.
+
+    The position dispatch is one product per position over the nodes
+    grouped by position (one sort, and one read of the counts to the
+    host, per forward), not a per-node gather of the weights, which at
+    hidden 128 would be [N, 128, 128]."""
+
+    def __init__(
+        self,
+        num_nodes: int,
+        in_dim: int,
+        layer_dims: Sequence[int],
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.num_nodes = int(num_nodes)
+        dims = (in_dim,) + tuple(layer_dims)
+        self.num_layers = len(dims) - 1
+        for li in range(self.num_layers):
+            w = nn.Parameter(torch.empty(self.num_nodes, dims[li], dims[li + 1]))
+            lecun_normal_(w, self.num_nodes * dims[li], generator)
+            self.register_parameter(f"w_{li}", w)
+            self.register_parameter(f"b_{li}", nn.Parameter(torch.zeros(self.num_nodes, dims[li + 1])))
+
+    def forward(self, x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+        n = x.shape[0]
+        counts = batch.n_node.long()
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.arange(n, device=x.device) - starts.index_select(0, batch.node_graph.long())
+        pos = torch.clamp(pos, 0, self.num_nodes - 1)
+        order = torch.argsort(pos, stable=True)
+        sizes = torch.bincount(pos, minlength=self.num_nodes).tolist()
+        h = x.index_select(0, order)
+        for li in range(self.num_layers):
+            w, b = getattr(self, f"w_{li}"), getattr(self, f"b_{li}")
+            parts, start = [], 0
+            for p, c in enumerate(sizes):
+                if c:
+                    parts.append(h[start : start + c] @ w[p] + b[p])
+                    start += c
+            h = torch.cat(parts, dim=0)
+            if li < self.num_layers - 1:
+                h = torch.relu(h)
+        return torch.empty_like(h).index_copy(0, order, h)
 
 
 def masked_loss(kind: str, pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,9 @@ The port's counterpart of ``hydragnn_tpu/models/convs.py``. Message
 direction matches PyG: sender j -> receiver i, aggregation grouped by
 receiver. The port has:
 
-  - ``PNAConv`` without edge features, in two branches: the run-aligned
-    branch (training batches, ``run_align=K``) and the unaligned CSR
-    branch (serving batches). Its dense branch (on batches that carry
-    the dense slot map) raises (ROADMAP A4).
+  - ``PNAConv``, with or without edge features, on the three batch
+    layouts of the loader: the dense slot map, the run-aligned CSR
+    layout and the unaligned CSR layout.
   - ``GINConv``, ``SAGEConv``, ``MFConv``, ``CFConv`` (SchNet) and
     ``CGConv`` (CGCNN, in the reference's fused form), whose gather ->
     edge network -> masked scatter runs through ``ops.fused_conv`` (B8),
@@ -30,9 +29,8 @@ from torch import nn
 from hydragnn_tpu_torch.graph import segment as S
 from hydragnn_tpu_torch.models.layers import dense, lecun_normal_, uniform_
 from hydragnn_tpu_torch.ops.fused_conv import fused_aggregate
-from hydragnn_tpu_torch.ops.gather_stats import gather_presum_stats
+from hydragnn_tpu_torch.ops.gather_stats import gather_presum_stats, presum_stats_plain
 from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate
-
 
 @dataclasses.dataclass(frozen=True)
 class EdgeContext:
@@ -45,6 +43,8 @@ class EdgeContext:
     in_degree: torch.Tensor  # [N] f32 count of REAL incoming edges
     edge_attr: Optional[torch.Tensor] = None  # [E, De]
     edge_weight: Optional[torch.Tensor] = None  # [E] distances (SchNet)
+    # stable argsort of the senders (the permuted gather's backward)
+    sender_perm: Optional[torch.Tensor] = None  # [E] int32
     # the senders' per-node-block edge windows (graph/batch.py)
     sender_win: Optional[torch.Tensor] = None  # [2, n_blocks] int32
     # index after the last slot that can hold a real edge (the fused
@@ -55,6 +55,9 @@ class EdgeContext:
     run_align: int = 0
     # the batch's dense slot map, when it carries one (graph/batch.py)
     dense_senders: Optional[torch.Tensor] = None  # [N, D] int32
+    dense_mask: Optional[torch.Tensor] = None  # [N, D] bool
+    dense_edge_attr: Optional[torch.Tensor] = None  # [N·D, De]
+    dense_sender_perm: Optional[torch.Tensor] = None  # [N·D] int32
     # MFC's nodes grouped by clamped degree, once per forward
     # (MFConv.degree_groups)
     degree_groups: Optional[Tuple[torch.Tensor, Tuple[int, ...]]] = None
@@ -75,21 +78,36 @@ class PNAConv(nn.Module):
     """Principal Neighbourhood Aggregation conv (aggregators mean, min,
     max, std; scalers identity, amplification, attenuation, linear;
     pre/post_layers=1), in the JAX package's message-free form: with one
-    pre-layer the message decomposes as ``a[recv] + bsend[send]``, so the
-    aggregators need only segment statistics of ``v = bsend[senders]``
-    (mean and the extrema shift by ``a``; std is shift-invariant). Those
-    statistics come from one of two branches:
+    pre-layer the message decomposes as ``a[recv] + bsend[send] + c_e``
+    (``c_e`` the edge term), so the aggregators need only segment
+    statistics of ``v = bsend[senders] + c`` (mean and the extrema shift
+    by ``a``; std is shift-invariant). The statistics come from one of
+    three branches, picked by the batch's layout. Where a branch gathers
+    ``v`` itself, the gather's backward is the permuted pair (B3, then
+    B3 and B2) on every layout, over the real slots only on the dense
+    map: the JAX package's windowed pair (B4) is slower on the H100 at
+    the flagship's sizes, and on the dense map both pairs would walk the
+    padding node's empty slots in one thread (PERF.md, gather pairs).
 
-      - run-aligned batches (``ctx.run_align = K``): ``gather_presum_stats``
-        (B1) gathers ``v`` and pre-reduces each K-group of slots without
-        writing ``v`` to memory, then a sorted segment sum (B2) and a
-        segment max over the E/K groups finish the statistics — every
-        layer, conv_0 (H = 1) included. This branch trains.
-      - unaligned batches: ``ops.pna_aggregate`` (B5), forward only.
+      - the dense slot map (``ctx.dense_senders``; with edge features
+        only when the batch carries ``dense_edge_attr``): ``v`` gathered
+        into [N, D] slots, then sum, sum of squares, max and min over
+        the slots in plain PyTorch (the JAX package's XLA reductions),
+        empty rows cleaned from the fill value.
+      - run-aligned batches (``ctx.run_align = K``): without edge
+        features ``gather_presum_stats`` (B1) gathers ``v`` and
+        pre-reduces each K-group of slots without writing ``v`` to
+        memory; with them ``v`` is gathered and the K-groups reduced in
+        plain PyTorch (``presum_stats_plain``). Then a sorted segment sum
+        (B2) and a segment max over the E/K groups.
+      - unaligned batches: ``ops.pna_aggregate`` (B5 forward, B6 and B7
+        backward).
 
-    ``pre_kernel`` stays one [2·fin, fin] parameter in flax's layout
-    (receiver half, then sender half), so ``convert.py`` copies it as it
-    is; ``post`` is the post-layer over ``[x, scaled]``."""
+    ``pre_kernel`` stays one [2·fin, fin] parameter ([3·fin, fin] with
+    edge features) in flax's layout (receiver part, sender part, edge
+    part), so ``convert.py`` copies it as it is; ``edge_proj`` is the
+    edge projection ``Dense(fin)`` of the edge features; ``post`` is the
+    post-layer over ``[x, scaled]``."""
 
     def __init__(
         self,
@@ -98,45 +116,80 @@ class PNAConv(nn.Module):
         avg_deg_lin: float,
         avg_deg_log: float,
         generator: Optional[torch.Generator] = None,
+        edge_dim: int = 0,
     ):
         super().__init__()
         self.in_dim = in_dim
+        self.edge_dim = int(edge_dim or 0)
         self.avg_deg_lin = float(avg_deg_lin)
         self.avg_deg_log = float(avg_deg_log)
-        zdim = 2 * in_dim
+        zdim = (3 if self.edge_dim else 2) * in_dim
         self.pre_kernel = nn.Parameter(torch.empty(zdim, in_dim))
         lecun_normal_(self.pre_kernel, zdim, generator)
         self.pre_bias = nn.Parameter(torch.zeros(in_dim))
+        # flax creates the edge projection before the post-layer
+        self.edge_proj = dense(self.edge_dim, in_dim, generator) if self.edge_dim else None
         self.post = dense(17 * in_dim, out_dim, generator)
 
+    def _edge_term(self, edge_attr: Optional[torch.Tensor], w: torch.Tensor, fin: int) -> torch.Tensor:
+        if edge_attr is None:
+            raise ValueError("PNAConv with edge features needs the batch's edge_attr")
+        return self.edge_proj(edge_attr.to(w.dtype)) @ w[2 * fin :]
+
     def forward(self, x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
-        if ctx.dense_senders is not None:
-            raise NotImplementedError(
-                "hydragnn_tpu_torch: PNA's dense branch (batches with the dense slot map) "
-                "is not ported yet (ROADMAP A4); build the loader with dense_slots=False"
-            )
         n, fin = x.shape
+        use_edge = bool(self.edge_dim)
         w = self.pre_kernel.to(x.dtype)
         a = x @ w[:fin] + self.pre_bias.to(x.dtype)  # receiver part [N, fin]
         bsend = x @ w[fin : 2 * fin]  # sender part [N, fin]
         v = bsend  # dtype source for the shared tail
-        if ctx.run_align:
-            k = ctx.run_align
-            stats8, both8 = gather_presum_stats(
-                bsend, ctx.senders, ctx.edge_mask, ctx.sender_win, n, k
-            )
-            recv8 = ctx.receivers[::k].contiguous()
-            pair = S.segment_sum_sorted(stats8, recv8, n, grad_dtype=bsend.dtype)
-            vsum, vsumsq = pair[:, :fin], pair[:, fin : 2 * fin]
-            # all-masked groups carry the type's lowest value: the max
-            # cleans rows at or below it to 0
-            both = S.segment_max(both8, recv8, n, indices_are_sorted=True, empty_value=0.0)
-        else:
-            v = bsend.index_select(0, ctx.senders)
-            vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask)
         cnt = ctx.in_degree
-        max_v = both[:, :fin]
-        min_v = -both[:, fin:]
+        if ctx.dense_senders is not None and (not use_edge or ctx.dense_edge_attr is not None):
+            nslots = ctx.dense_senders.shape[1]
+            flat = ctx.dense_senders.reshape(-1)
+            # the empty slots (all naming the padding node) take no part
+            # in the gather's backward sum
+            v = S.gather_rows_permuted(bsend, flat, ctx.dense_sender_perm, n, mask=ctx.dense_mask.reshape(-1))
+            if use_edge:
+                v = v + self._edge_term(ctx.dense_edge_attr, w, fin)
+            v3 = v.view(n, nslots, fin)
+            m3 = ctx.dense_mask[:, :, None]
+            # sums in f32; maxima with amax/amin, whose gradients split
+            # evenly among ties as JAX's reduce-max does
+            vf = torch.where(m3, v3, torch.zeros((), dtype=v.dtype, device=v.device)).float()
+            vsum = vf.sum(1)
+            vsumsq = (vf * vf).sum(1)
+            neg = torch.finfo(v.dtype).min
+            vmax = torch.where(m3, v3, torch.full((), neg, dtype=v.dtype, device=v.device)).amax(1)
+            vmin = torch.where(m3, v3, torch.full((), -neg, dtype=v.dtype, device=v.device)).amin(1)
+            # empty rows cleaned from the fill value itself: in_degree
+            # counts the padding node's masked edges
+            zero = torch.zeros((), dtype=v.dtype, device=v.device)
+            max_v = torch.where(vmax <= neg, zero, vmax)
+            min_v = torch.where(vmin >= -neg, zero, vmin)
+        else:
+            if ctx.run_align and not use_edge:
+                k = ctx.run_align
+                stats8, both8 = gather_presum_stats(
+                    bsend, ctx.senders, ctx.edge_mask, ctx.sender_win, n, k
+                )
+            else:
+                v = S.gather_rows_permuted(bsend, ctx.senders, ctx.sender_perm, n)
+                if use_edge:
+                    v = v + self._edge_term(ctx.edge_attr, w, fin)
+                if ctx.run_align:
+                    stats8, both8 = presum_stats_plain(v, ctx.edge_mask, ctx.run_align)
+            if ctx.run_align:
+                recv8 = ctx.receivers[:: ctx.run_align].contiguous()
+                pair = S.segment_sum_sorted(stats8, recv8, n, grad_dtype=v.dtype)
+                vsum, vsumsq = pair[:, :fin], pair[:, fin : 2 * fin]
+                # all-masked groups carry the type's lowest value: the max
+                # cleans rows at or below it to 0
+                both = S.segment_max(both8, recv8, n, indices_are_sorted=True, empty_value=0.0)
+            else:
+                vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask)
+            max_v = both[:, :fin]
+            min_v = -both[:, fin:]
 
         # mean/var formed in f32, cast back only after the cancellation
         safe_cnt = torch.clamp(cnt, min=1.0)[:, None]

@@ -5,7 +5,9 @@ CUDA tensor and runs the plain version on a CPU tensor, counts its
 launches (``launches``) and names the TPU kernel it replaces
 (``REPLACES``):
 
-  pna_aggregate.py      B5 ``_family_kernel`` (+ the XLA max over [v, -v])
+  pna_aggregate.py      B5 ``_family_kernel`` (+ the XLA max over [v, -v]);
+                        autograd op ``pna_aggregate``, its backward on B6/B7
+  pna_aggregate_bwd.py  B6 ``_pna_bwd_count_kernel``, B7 ``_pna_bwd_grad_kernel``
   gather_stats.py       B1 ``_gather_stats_kernel``
   segment_sum.py        B2 ``_sum_kernel``
   gather_rows.py        B3 ``_bcast_kernel``

@@ -20,7 +20,8 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  // exact where used: x is 0, the type's lowest value, or came from a bf16
+  // round to nearest even, as PyTorch casts; exact where x is 0, the type's
+  // lowest value, or came from a bf16
   return __float2bfloat16_rn(x);
 }
 

@@ -7,7 +7,8 @@
 //   out[n, f] = Σ data[e, f]   over the edges e of row n with mask[e] set
 //
 // accumulated in float32 for float32 and bfloat16 data alike; rows with no
-// such edge are 0. Masked edges are skipped, not multiplied by 0.
+// such edge are 0. Masked edges are skipped, not multiplied by 0. Ids
+// outside [0, n_rows) belong to no row: their edges are never walked.
 //
 // What bounds it on this card: bytes. Each data element is read once and
 // takes one add; the least time is

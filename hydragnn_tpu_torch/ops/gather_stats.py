@@ -70,13 +70,14 @@ def _kernel():
         return _fn
 
 
-def gather_stats_plain(
-    table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, k: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference composition (``_presum_stats_ref`` over
-    ``table[ids]``) in plain PyTorch."""
-    h = table.shape[1]
-    v = table.index_select(0, ids.long())
+def presum_stats_plain(v: torch.Tensor, mask: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(stats, both)`` of ``v`` [E, H] per K-group of slots (module
+    docstring), in plain PyTorch and differentiable by autograd: the
+    reference's ``_presum_stats_ref`` (reshape sums in f32, reshape
+    maxima with ``amax``, whose gradient splits evenly among ties, as a
+    JAX reduce-max's does). The run-aligned layout's PNA statistics when
+    ``v`` is not a pure gather (edge features), which B1 cannot take."""
+    h = v.shape[1]
     m = mask[:, None]
     vf = torch.where(m, v, torch.zeros((), dtype=v.dtype, device=v.device)).float()
     stats = torch.cat(
@@ -88,6 +89,14 @@ def gather_stats_plain(
         dim=-1,
     )
     return stats, both
+
+
+def gather_stats_plain(
+    table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference composition (``_presum_stats_ref`` over
+    ``table[ids]``) in plain PyTorch."""
+    return presum_stats_plain(table.index_select(0, ids.long()), mask, k)
 
 
 def gather_stats(

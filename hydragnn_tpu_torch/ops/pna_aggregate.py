@@ -1,5 +1,6 @@
 """PNA aggregation statistics over sorted receivers: the CUDA kernel
-``pna_aggregate_fwd`` and its plain PyTorch version.
+``pna_aggregate_fwd`` and its plain PyTorch version, and the trainable
+``pna_aggregate`` built on it.
 
 Port of ``hydragnn_tpu/ops/segment_pallas.py:pna_aggregate`` (forward):
 the Pallas ``_family_kernel`` (masked Σv, Σv² per receiver, f32
@@ -15,11 +16,13 @@ reads ``v`` once and emits all four outputs:
 
 ``receivers`` must be sorted ascending (``graph/batch.py`` emits them
 so); this is not checked on the card, where a check would cost a host
-sync. The wrapper dispatches on the tensor's device: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel or raises — there
-is no fallback from one to the other. The kernel has no backward yet
-(B6/B7): a CUDA ``v`` that requires grad raises ``NotImplementedError``
-rather than taking the plain version's autograd on the card.
+sync. ``pna_aggregate`` is differentiable in ``v``, as the reference's
+custom VJP: the backward is B6 then B7 (``pna_aggregate_bwd.py``) on a
+CUDA tensor, walking the CSR row pointers this forward built, and their
+plain version on a CPU tensor; ``cnt`` takes no gradient. The wrapper
+dispatches on the tensor's device: a CPU tensor takes the plain
+versions, a CUDA tensor launches the kernels or raises — there is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from hydragnn_tpu_torch.ops._build import (
     cuda_args,
     stream_of,
 )
+from hydragnn_tpu_torch.ops.pna_aggregate_bwd import pna_aggregate_bwd
 
 SOURCE = "hydragnn_tpu_torch/ops/csrc/pna_aggregate.cu"
 REPLACES = "hydragnn_tpu/ops/segment_pallas.py:219"
@@ -111,27 +115,13 @@ def _check(v, receivers, num_segments, mask) -> None:
         raise ValueError("pna_aggregate: num_segments must be >= 1")
 
 
-def pna_aggregate(
-    v: torch.Tensor,
-    receivers: torch.Tensor,
-    num_segments: int,
-    mask: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(sum, sumsq, cnt, both)`` of ``v`` grouped by sorted
-    ``receivers`` (module docstring). CPU tensors take the plain
-    version; CUDA tensors launch ``pna_aggregate_fwd``."""
-    _check(v, receivers, num_segments, mask)
+def _forward(v, receivers, num_segments, mask):
+    """The four statistics and, on the card, the receivers' CSR row
+    pointers the kernel built (None on the CPU)."""
     if v.device.type == "cpu":
-        return pna_aggregate_plain(v, receivers, num_segments, mask)
+        return pna_aggregate_plain(v, receivers, num_segments, mask) + (None,)
     if v.device.type != "cuda":
         raise ValueError(f"pna_aggregate: unsupported device {v.device}")
-    if torch.is_grad_enabled() and v.requires_grad:
-        raise NotImplementedError(
-            "pna_aggregate: the backward of the unaligned aggregation runs on the "
-            "kernels B6/B7 (_pna_bwd_count_kernel, _pna_bwd_grad_kernel), which are "
-            "not ported yet (ROADMAP B6, B7); train on run-aligned batches "
-            "(GraphLoader run_align) instead"
-        )
     dev = cuda_args("pna_aggregate", v, receivers, mask)
     if receivers.dtype != torch.int32:
         raise TypeError(f"pna_aggregate: receivers must be int32 on CUDA, got {receivers.dtype}")
@@ -154,4 +144,39 @@ def pna_aggregate(
         )
     check_launch("pna_aggregate_fwd", rc)
     launches.add()
-    return s, sq, cnt, both
+    return s, sq, cnt, both, row_ptr
+
+
+class _PnaAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, receivers, num_segments, mask):
+        s, sq, cnt, both, row_ptr = _forward(v, receivers, num_segments, mask)
+        ctx.save_for_backward(v, receivers, mask, both, row_ptr)
+        ctx.num_segments = num_segments
+        ctx.mark_non_differentiable(cnt)
+        return s, sq, cnt, both
+
+    @staticmethod
+    def backward(ctx, g_sum, g_sumsq, g_cnt, g_both):
+        v, receivers, mask, both, row_ptr = ctx.saved_tensors
+        grad = pna_aggregate_bwd(
+            v, receivers, mask, both, g_sum.float().contiguous(), g_sumsq.float().contiguous(),
+            g_both.to(v.dtype).contiguous(), ctx.num_segments, row_ptr,
+        )
+        return grad, None, None, None
+
+
+def pna_aggregate(
+    v: torch.Tensor,
+    receivers: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(sum, sumsq, cnt, both)`` of ``v`` grouped by sorted
+    ``receivers`` (module docstring), differentiable in ``v``. CPU
+    tensors take the plain versions; CUDA tensors launch
+    ``pna_aggregate_fwd`` and, in the backward, B6 and B7."""
+    _check(v, receivers, num_segments, mask)
+    if torch.is_grad_enabled() and v.requires_grad:
+        return _PnaAggregate.apply(v, receivers, int(num_segments), mask)
+    return _forward(v, receivers, int(num_segments), mask)[:4]

@@ -1,0 +1,251 @@
+"""The backward of the PNA aggregation: the CUDA kernels B6
+(``pna_bwd_count``) and B7 (``pna_bwd_grad``) and their plain PyTorch
+versions.
+
+Port of the custom VJP of ``hydragnn_tpu/ops/segment_pallas.py:
+pna_aggregate``: its kernel pair ``_pna_bwd_count_kernel`` (K1) and
+``_pna_bwd_grad_kernel`` (K2), and the unfused composition
+``_pna_bwd_unfused`` of the same math. With ``both = [max v | max -v]``
+per receiver (the forward's output, empty rows cleaned to 0) and the
+cotangents ``g_sum``, ``g_sumsq`` (f32) and ``g_both`` (v's type) — the
+count's cotangent is ignored, the count does not depend on ``v``:
+
+  cnt  [N, 2H] f32   ties per receiver and column: unmasked edges with
+                     v == max v, and with -v == max -v         (B6)
+  grad [E, H]        g_sum + 2·v·g_sumsq + [v == max]·share_max
+                     − [−v == −min]·share_min on unmasked edges, 0 on
+                     masked ones, share = g_both / max(cnt, 1) cast to
+                     v's type                                   (B7)
+
+Types, as in the JAX package: the kernel (its K2) forms the sum in f32
+on values cast to v's type and casts once at the end; the plain version
+(``_pna_bwd_unfused``) combines in v's type. So the two are bit-equal
+in f32 and differ by bfloat16 rounding in bf16. The plain version adds
+the two tie terms one after the other, as K2 does.
+
+``receivers`` must be sorted ascending; masked edges never tie (they
+are skipped, not tested by value). A CPU tensor takes the plain
+version; a CUDA tensor launches the kernels (``csrc/pna_aggregate_bwd.cu``)
+or raises. On the card both kernels walk the receivers' CSR row
+pointers ``row_ptr``: ``pna_aggregate``'s forward keeps the ones it
+built, so its backward builds none; other callers make them with
+``csr_row_ptr``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from hydragnn_tpu_torch.ops._build import (
+    FLOAT_CODE,
+    LaunchCount,
+    bind,
+    check_launch,
+    cuda_args,
+    stream_of,
+)
+
+SOURCE = "hydragnn_tpu_torch/ops/csrc/pna_aggregate_bwd.cu"
+COUNT_REPLACES = "hydragnn_tpu/ops/segment_pallas.py:1477"
+GRAD_REPLACES = "hydragnn_tpu/ops/segment_pallas.py:1573"
+
+# launches of B6 and of B7 (never the plain path)
+count_launches = LaunchCount()
+grad_launches = LaunchCount()
+
+_lock = threading.Lock()
+_fns = {}  # symbol -> bound C entry point; guarded by _lock
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "hg_pna_bwd_count": [_P, _I, _P, _L, _I, _P, _P, _P, _P],
+    "hg_pna_bwd_grad": [_P, _I, _P, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+}
+
+
+def _kernel(symbol: str):
+    with _lock:
+        if symbol not in _fns:
+            _fns[symbol] = bind("pna_aggregate_bwd.cu", symbol, _ARGTYPES[symbol])
+        return _fns[symbol]
+
+
+def csr_row_ptr(receivers: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """[N + 1] int32 CSR row pointers of sorted receivers: ``ptr[r]`` is
+    the first edge whose receiver is >= r (what the forward kernel builds,
+    ``common.cuh:csr_row_ptr_kernel``)."""
+    rows = torch.arange(int(num_segments) + 1, dtype=receivers.dtype, device=receivers.device)
+    return torch.searchsorted(receivers, rows).to(torch.int32)
+
+
+def pna_bwd_count_plain(
+    v: torch.Tensor,
+    receivers: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    both: torch.Tensor,
+    num_segments: int,
+) -> torch.Tensor:
+    """B6's function: the [N, 2H] f32 tie counts (``_pna_bwd_unfused``'s
+    ``cnt_both``)."""
+    idx = receivers.long()
+    sel = torch.cat([v, -v], dim=1) == both.to(v.dtype).index_select(0, idx)
+    if mask is not None:
+        sel = sel & mask[:, None]
+    out = torch.zeros(int(num_segments), 2 * v.shape[1], dtype=torch.float32, device=v.device)
+    return out.index_add_(0, idx, sel.to(torch.float32))
+
+
+def pna_bwd_grad_plain(
+    v: torch.Tensor,
+    receivers: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    both: torch.Tensor,
+    g_sum: torch.Tensor,
+    g_sumsq: torch.Tensor,
+    g_both: torch.Tensor,
+    cnt: torch.Tensor,
+) -> torch.Tensor:
+    """B7's function, combined in v's type (``_pna_bwd_unfused``)."""
+    vd, h = v.dtype, v.shape[1]
+    share = (g_both.float() / torch.clamp(cnt, min=1.0)).to(vd)
+    table = torch.cat([g_sum.to(vd), g_sumsq.to(vd), both.to(vd), share], dim=1)
+    t = table.index_select(0, receivers.long())
+    gs, gss, bx, bn, shx, shn = (t[:, i * h : (i + 1) * h] for i in range(6))
+    zero = torch.zeros((), dtype=vd, device=v.device)
+    grad = gs + 2.0 * v * gss
+    grad = grad + torch.where(v == bx, shx, zero)
+    grad = grad - torch.where(-v == bn, shn, zero)
+    if mask is not None:
+        grad = torch.where(mask[:, None], grad, zero)
+    return grad
+
+
+def pna_aggregate_bwd_plain(
+    v: torch.Tensor,
+    receivers: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    both: torch.Tensor,
+    g_sum: torch.Tensor,
+    g_sumsq: torch.Tensor,
+    g_both: torch.Tensor,
+    num_segments: int,
+) -> torch.Tensor:
+    """The whole backward in plain PyTorch (``_pna_bwd_unfused`` for a
+    bool mask or none): ``grad_v`` [E, H] in v's type."""
+    cnt = pna_bwd_count_plain(v, receivers, mask, both, num_segments)
+    return pna_bwd_grad_plain(v, receivers, mask, both, g_sum, g_sumsq, g_both, cnt)
+
+
+def _check(v, receivers, mask, both, num_segments) -> None:
+    if v.dim() != 2 or v.dtype not in FLOAT_CODE:
+        raise ValueError(f"pna_aggregate_bwd: v must be [E, H] float32 or bfloat16, got {tuple(v.shape)} {v.dtype}")
+    e, h = v.shape
+    if receivers.shape != (e,):
+        raise ValueError("pna_aggregate_bwd: receivers must be [E] matching v")
+    if mask is not None and (mask.shape != (e,) or mask.dtype != torch.bool):
+        raise ValueError("pna_aggregate_bwd: mask must be a bool [E] matching v")
+    if both.shape != (int(num_segments), 2 * h) or both.dtype != v.dtype:
+        raise ValueError(f"pna_aggregate_bwd: both must be [N, 2H] in v's type, got {tuple(both.shape)} {both.dtype}")
+
+
+def _cuda_common(name, v, receivers, mask, row_ptr, n, *tensors):
+    if row_ptr is None:
+        raise ValueError(f"{name}: the receivers' row pointers are needed on CUDA (csr_row_ptr)")
+    dev = cuda_args(name, v, receivers, mask, row_ptr, *tensors)
+    if receivers.dtype != torch.int32:
+        raise TypeError(f"{name}: receivers must be int32 on CUDA, got {receivers.dtype}")
+    if row_ptr.shape != (n + 1,) or row_ptr.dtype != torch.int32:
+        raise ValueError(f"{name}: row_ptr must be [N + 1] int32, got {tuple(row_ptr.shape)} {row_ptr.dtype}")
+    if v.shape[0] >= 2**31:
+        raise ValueError(f"{name}: more than 2^31 - 1 edges")
+    return dev
+
+
+def pna_bwd_count(
+    v: torch.Tensor,
+    receivers: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    both: torch.Tensor,
+    num_segments: int,
+    row_ptr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """B6: the [N, 2H] f32 tie counts. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, which walks ``row_ptr``."""
+    _check(v, receivers, mask, both, num_segments)
+    if v.device.type == "cpu":
+        return pna_bwd_count_plain(v, receivers, mask, both, num_segments)
+    n = int(num_segments)
+    dev = _cuda_common("pna_bwd_count", v, receivers, mask, row_ptr, n, both)
+    h = v.shape[1]
+    fn = _kernel("hg_pna_bwd_count")
+    with torch.cuda.device(dev):
+        cnt = torch.empty(n, 2 * h, dtype=torch.float32, device=dev)
+        rc = fn(
+            v.data_ptr(), FLOAT_CODE[v.dtype], None if mask is None else mask.data_ptr(), n, h,
+            both.data_ptr(), row_ptr.data_ptr(), cnt.data_ptr(), stream_of(dev),
+        )
+    check_launch("pna_bwd_count", rc)
+    count_launches.add()
+    return cnt
+
+
+def pna_bwd_grad(
+    v: torch.Tensor,
+    receivers: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    both: torch.Tensor,
+    g_sum: torch.Tensor,
+    g_sumsq: torch.Tensor,
+    g_both: torch.Tensor,
+    cnt: torch.Tensor,
+    row_ptr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """B7: ``grad_v`` [E, H] in v's type from B6's counts. CPU tensors
+    take the plain version; CUDA tensors launch the kernel, which walks
+    ``row_ptr``."""
+    n = both.shape[0]
+    _check(v, receivers, mask, both, n)
+    h = v.shape[1]
+    for name, t, shape, dtype in (("g_sum", g_sum, (n, h), torch.float32),
+                                  ("g_sumsq", g_sumsq, (n, h), torch.float32),
+                                  ("g_both", g_both, (n, 2 * h), v.dtype),
+                                  ("cnt", cnt, (n, 2 * h), torch.float32)):
+        if t.shape != shape or t.dtype != dtype:
+            raise ValueError(f"pna_bwd_grad: {name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    if v.device.type == "cpu":
+        return pna_bwd_grad_plain(v, receivers, mask, both, g_sum, g_sumsq, g_both, cnt)
+    dev = _cuda_common("pna_bwd_grad", v, receivers, mask, row_ptr, n, both, g_sum, g_sumsq, g_both, cnt)
+    e = v.shape[0]
+    fn = _kernel("hg_pna_bwd_grad")
+    with torch.cuda.device(dev):
+        grad = torch.empty_like(v)
+        rc = fn(
+            v.data_ptr(), FLOAT_CODE[v.dtype], None if mask is None else mask.data_ptr(), e, n, h,
+            g_sum.data_ptr(), g_sumsq.data_ptr(), both.data_ptr(), g_both.data_ptr(), cnt.data_ptr(),
+            row_ptr.data_ptr(), grad.data_ptr(), stream_of(dev),
+        )
+    check_launch("pna_bwd_grad", rc)
+    grad_launches.add()
+    return grad
+
+
+def pna_aggregate_bwd(
+    v: torch.Tensor,
+    receivers: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    both: torch.Tensor,
+    g_sum: torch.Tensor,
+    g_sumsq: torch.Tensor,
+    g_both: torch.Tensor,
+    num_segments: int,
+    row_ptr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``grad_v``: B6 then B7 on CUDA tensors, both walking ``row_ptr``,
+    the plain backward on CPU tensors (no fallback from one to the
+    other)."""
+    cnt = pna_bwd_count(v, receivers, mask, both, num_segments, row_ptr)
+    return pna_bwd_grad(v, receivers, mask, both, g_sum, g_sumsq, g_both, cnt, row_ptr)

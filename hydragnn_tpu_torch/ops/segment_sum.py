@@ -8,10 +8,11 @@ Port of the Pallas ``_sum_kernel`` in
   out [N, W] f32   out[n] = Σ_{e: ids[e] = n, mask[e]} data[e]
 
 accumulated in float32 whatever the input type (f32 or bf16). Rows with
-no edge are 0. On the training path it reduces the run-aligned K-group
-statistics into the nodes (``graph/segment.py:segment_sum_sorted``),
-counts the tied maxima in the extremum backward, and is the backward of
-every sorted gather.
+no edge are 0; ids outside [0, N) belong to no row and are dropped, as
+the kernel's row pointers drop them. On the training path it reduces
+the run-aligned K-group statistics into the nodes
+(``graph/segment.py:segment_sum_sorted``), counts the tied maxima in the
+extremum backward, and is the backward of every sorted gather.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (``csrc/segment_sum.cu``) or raises. The sorted order is the caller's
@@ -64,11 +65,15 @@ def segment_sum_plain(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``index_add_`` of the masked rows into f32 zeros (the order of the
-    edges, as the kernel sums them)."""
+    edges, as the kernel sums them); ids outside [0, N) are dropped."""
     vals = data.float()
     if mask is not None:
         vals = torch.where(mask[:, None], vals, torch.zeros((), device=data.device))
-    out = torch.zeros(int(num_segments), data.shape[1], dtype=torch.float32, device=data.device)
+    n = int(num_segments)
+    keep = (ids >= 0) & (ids < n)
+    if not bool(keep.all()):
+        vals, ids = vals[keep], ids[keep]
+    out = torch.zeros(n, data.shape[1], dtype=torch.float32, device=data.device)
     return out.index_add_(0, ids.long(), vals)
 
 

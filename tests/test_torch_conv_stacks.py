@@ -116,14 +116,28 @@ def _jax_grad_fn(jmodel):
     return fn
 
 
-@pytest.mark.parametrize("model_type", STACKS)
+@pytest.mark.parametrize("model_type", STACKS + ["PNA-edge", "PNA-conv", "PNA-mlp_per_node"])
 def test_update_config_matches_jax_key_for_key(model_type):
     """The completed configs are equal, ``fused_conv`` (default on)
-    included; only the JAX package's runtime knobs stay out."""
-    tr, cfg = _splits(deterministic_graph_data, prepare_dataset, update_config,
-                      stack_config(flagship_config, model_type), 16)
-    jtr, jcfg = _splits(jax_data, jax_prepare_dataset, jax_update_config,
-                        stack_config(jax_flagship_config, model_type), 16)
+    included; only the JAX package's runtime knobs stay out. The PNA
+    cases add edge features and the two other node head types."""
+    model_type, _, option = model_type.partition("-")
+
+    def make(mod):
+        cfg = stack_config(mod, model_type, edge_features=option == "edge")
+        if option in ("conv", "mlp_per_node"):
+            cfg["NeuralNetwork"]["Architecture"]["output_heads"]["node"]["type"] = option
+        return cfg
+
+    # mlp_per_node needs graphs of one size: 2 unit cells a side
+    unit = dict.fromkeys(UNIT, (2, 3)) if option == "mlp_per_node" else UNIT
+    done = []
+    for data, prep, update, mod in ((deterministic_graph_data, prepare_dataset, update_config, flagship_config),
+                                    (jax_data, jax_prepare_dataset, jax_update_config, jax_flagship_config)):
+        cfg = make(mod)
+        tr, va, te, _, _ = prep(data(number_configurations=16, seed=2, **unit), cfg)
+        done.append(update(cfg, tr, va, te))
+    cfg, jcfg = done
 
     def strip(d):
         if isinstance(d, dict):
@@ -132,6 +146,8 @@ def test_update_config_matches_jax_key_for_key(model_type):
 
     assert cfg["NeuralNetwork"]["Architecture"]["fused_conv"] is True
     assert strip(copy.deepcopy(cfg)) == strip(copy.deepcopy(jcfg))
+    if option == "edge":
+        assert cfg["NeuralNetwork"]["Architecture"]["edge_dim"] == 1
 
 
 @pytest.mark.parametrize("model_type", STACKS)

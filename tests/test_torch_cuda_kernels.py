@@ -1,6 +1,6 @@
-"""The training path's CUDA kernels (B1–B4, B8) against their plain
-PyTorch versions, B8's autograd op on the card against the CPU, and
-``pna_aggregate``'s refusal of autograd on the card. Every test here
+"""The training path's CUDA kernels (B1–B4, B6–B8) against their plain
+PyTorch versions, and the autograd ops of B8 and of ``pna_aggregate``
+(B5 forward, B6 and B7 backward) on the card against the CPU. Every test here
 needs a card and skips without one; this file imports no JAX, so it runs
 on the card machine:
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest``.
@@ -14,7 +14,11 @@ matrix product, and expf/log1pf on the card round differently from the
 host's. Its backward on the card against the CPU: each gradient within
 a relative L2 norm of 1e-5 (the weight gradients are sums over every
 edge, taken by cuBLAS on one side and the host's BLAS on the other, so
-entries near 0 carry the rounding of the large ones).
+entries near 0 carry the rounding of the large ones). B6's tie counts
+exact; B7 bit-equal to its plain version in f32 and within
+``rtol=atol=2e-2`` in bf16 (the plain version combines in bf16 op by op,
+as the JAX package's unfused backward does; the kernel in f32, rounding
+once, as its Pallas kernel does).
 """
 
 import numpy as np
@@ -95,17 +99,78 @@ def test_cuda_kernels_match_plain(h, dtype):
                 assert torch.equal(a.cpu(), r), name
 
 
+def _pna_case(h, dtype, seed, n=400, e=6000):
+    """Sorted receivers with empty rows (odd ids), two all-masked rows, a
+    padding row whose masked edges carry v = 0 (its cleaned max), random
+    masked edges, values and cotangents on the 1/4 grid (ties)."""
+    rng = np.random.default_rng(seed)
+    recv = np.sort(rng.choice(np.arange(0, n, 2), size=e)).astype(np.int32)
+    v = _grid((e, h), seed, dtype)
+    mask = rng.random(e) > 0.25
+    for dead in (4, 10, n - 2):
+        mask[recv == dead] = False
+    v[torch.from_numpy(recv == n - 2)] = 0.0
+    cots = (_grid((n, h), seed + 1, torch.float32), _grid((n, h), seed + 2, torch.float32),
+            _grid((n, 2 * h), seed + 3, dtype))
+    return v, torch.from_numpy(recv), n, torch.from_numpy(mask), cots
+
+
 @pytest.mark.cuda
-def test_cuda_pna_aggregate_refuses_autograd():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 5, 128])
+def test_cuda_pna_bwd_kernels_match_plain(h, dtype):
+    """B6 counts exact; B7 bit-equal to the plain version in f32 and
+    within bf16 rounding (rtol=atol=2e-2) in bf16, where the plain version
+    combines in bf16 and the kernel in f32; two launches bitwise equal;
+    one launch counted per call."""
     dev = _cuda()
+    from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd
+    from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate_plain
+
+    v, recv, n, mask, (g_sum, g_sumsq, g_both) = _pna_case(h, dtype, 50 + h)
+    both = pna_aggregate_plain(v, recv, n, mask)[3]
+    cnt_ref = bwd.pna_bwd_count_plain(v, recv, mask, both, n)
+    grad_ref = bwd.pna_bwd_grad_plain(v, recv, mask, both, g_sum, g_sumsq, g_both, cnt_ref)
+    d = [t.to(dev) for t in (v, recv, mask, both, g_sum, g_sumsq, g_both)]
+    c0, g0 = bwd.count_launches.value, bwd.grad_launches.value
+    ptr = bwd.csr_row_ptr(d[1], n)
+    cnt1, cnt2 = (bwd.pna_bwd_count(d[0], d[1], d[2], d[3], n, ptr) for _ in range(2))
+    grad1 = bwd.pna_bwd_grad(*d, cnt1, ptr)
+    grad2 = bwd.pna_bwd_grad(*d, cnt1, ptr)
+    torch.cuda.synchronize()
+    assert (bwd.count_launches.value - c0, bwd.grad_launches.value - g0) == (2, 2)
+    assert torch.equal(cnt1, cnt2) and torch.equal(grad1, grad2)
+    assert torch.equal(cnt1.cpu(), cnt_ref) and float(cnt_ref.max()) >= 2
+    if dtype == torch.float32:
+        assert torch.equal(grad1.cpu(), grad_ref)
+    else:
+        np.testing.assert_allclose(grad1.cpu().float().numpy(), grad_ref.float().numpy(), rtol=2e-2, atol=2e-2)
+    assert (grad1.cpu()[~mask] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_pna_aggregate_backward_matches_cpu():
+    """The autograd ``pna_aggregate`` on the card (B5, then B6 and B7)
+    against the same op on the CPU (plain versions), f32: bit-equal; the
+    row pointers B5 builds for B6 and B7 equal ``csr_row_ptr``."""
+    dev = _cuda()
+    from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd
     from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate
 
-    v = torch.randn(16, 4, device=dev, requires_grad=True)
-    recv = torch.arange(16, dtype=torch.int32, device=dev) // 4
-    with pytest.raises(NotImplementedError, match="B6"):
-        pna_aggregate(v, recv, 4)
-    with torch.no_grad():
-        pna_aggregate(v, recv, 4)
+    v, recv, n, mask, cots = _pna_case(128, torch.float32, 7)
+    grads = {}
+    for where in ("cpu", dev):
+        vt = v.detach().to(where).requires_grad_(True)  # on the CPU .to() returns v itself
+        s, sq, _, both = pna_aggregate(vt, recv.to(where), n, mask.to(where))
+        torch.autograd.backward((s, sq, both), tuple(c.to(where) for c in cots))
+        grads[str(where)] = vt.grad.cpu()
+    assert torch.equal(grads["cpu"], grads[str(dev)])
+    assert bwd.count_launches.value >= 1 and bwd.grad_launches.value >= 1
+    # the row pointers the forward kernel built, which B6 and B7 walk
+    from hydragnn_tpu_torch.ops.pna_aggregate import _forward
+
+    recv_d = recv.to(dev)
+    assert torch.equal(_forward(v.to(dev), recv_d, n, mask.to(dev))[4], bwd.csr_row_ptr(recv_d, n))
 
 
 def _b8_inputs(b, variant, dtype, seed):

@@ -132,8 +132,8 @@ def test_graph_loader_dense_auto_raises():
     """A dataset whose degrees are tight enough for the JAX loader's dense
     slot map (one ring of equal-degree nodes per sample): the port's
     loader picks the same map, its batches equal the JAX loader's, and
-    PNA on such a batch raises, since its dense branch is not ported
-    (ROADMAP A4)."""
+    PNA's dense branch runs on such a batch (it raised until that branch
+    was ported) and gives what its CSR branch gives on the same graphs."""
 
     class Ring:
         def __init__(self, n):
@@ -157,7 +157,11 @@ def test_graph_loader_dense_auto_raises():
     cfg["Variables_of_interest"] = {"output_names": ["e"]}
     cfg["Architecture"]["task_weights"] = [1.0]
     model = create_model_config(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        model(batch)
+    with torch.no_grad():
+        dense_out = model(batch)[0]
     loader = GraphLoader(rings, 2, dense_slots=False)
     assert loader.run_align == 8 and loader.dense_slots is None and len(loader) == 2
+    with torch.no_grad():
+        csr_out = model(next(iter(loader)))[0]
+    assert torch.isfinite(dense_out).all()
+    torch.testing.assert_close(dense_out, csr_out, rtol=1e-5, atol=1e-6)
