@@ -63,12 +63,32 @@ raises; nothing is caught):
                    tests/test_train_e2e.py (300 samples, 40 epochs, the
                    dense map), single-head and multi-head: RMSE and MAE
                    below the reference bar of 0.20 on every head.
+ 8b. stack       — fused_conv_stack (B9) at full width (hidden 128, 6
+                   layers, sigmoid edge activation, relu between layers) on
+                   the flagship batch's unaligned and run-aligned layouts:
+                   the op forward and backward (its main path, counted),
+                   then B9 against its plain version on the card and
+                   against the loop of B8 launches it replaces, the
+                   gradients for x, W and b against the plain version's,
+                   two launches bitwise equal; times eager and in a CUDA
+                   graph for the forward, the B8 loop and the backward.
+ 9d. train-gat   — GAT at hidden 128 x 6 heads, 6 layers, on the flagship
+                   data through run_training -> run_prediction (finite,
+                   falling loss; prediction equal to the in-memory test
+                   pass; peak memory); the e2e GAT config to its bar (0.60
+                   / 0.70, single-head).
+ 9e. knobs       — fused_conv: false for GIN and SchNet (the composed
+                   gather and sorted sum: B3, B2) at 64 graphs, card
+                   against CPU; conv_bf16 for GIN and CGCNN against f32
+                   on the card within the JAX package's bound; SchNet with
+                   radius_graph_in_forward on the e2e molecular config
+                   against precomputed edges.
  10. timing      — each kernel at the main path's shapes: ms eager, ms in
                    a CUDA graph, plain ms, library ms, beside its bound;
                    the sender gather's backward pairs (permuted, masked
                    on the dense map, and the JAX package's windowed one)
                    on each PNA layout; the PNA (every layout), GIN and
-                   SchNet train steps
+                   SchNet train steps (and GAT's)
                    broken into their stages, and the PNA and GIN steps'
                    device time by kernel (torch.profiler).
  11. summary     — the kernels line, the card line, then the result line.
@@ -77,6 +97,8 @@ Without a card (torch.cuda.is_available() false), or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
 
+import copy
+import importlib
 import json
 import os
 import subprocess
@@ -163,6 +185,21 @@ PNA_BWD_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # the reference accuracy bar per head (tests/test_train_e2e.py:26-34): the
 # test error run_prediction returns, which that test calls RMSE, and the MAE
 E2E_THRESHOLDS, E2E_SAMPLES, E2E_EPOCHS = (0.20, 0.20), 300, 40
+GAT_THRESHOLDS = (0.60, 0.70)  # tests/test_train_e2e.py THRESHOLDS["GAT"]
+# B9 against its plain version on the card: the largest difference at most
+# 1e-5 of the output's largest magnitude (each of the 6 layers' products
+# sums in another order than cuBLAS, and its rounding feeds the next
+# layer); B9's autograd gradients (recomputed through B8) against autograd
+# through the plain version: relative L2 within 1e-4 per tensor
+STACK_TOL_REL, STACK_GRAD_TOL = 1e-5, 1e-4
+# conv_bf16 against f32 on the card: the JAX package's own bound
+# (tests/test_conv_traffic.py): loss within 5e-2 relative (of max(|loss|,
+# 1)), every gradient within 8e-2 of the largest
+BF16_LOSS_TOL, BF16_GRAD_TOL = 5e-2, 8e-2
+# SchNet on the in-forward radius graph against the host-built one: the
+# same edges in another slot order; every output, the loss and every
+# gradient within a relative L2 of 1e-4
+INFORWARD_TOL = 1e-4
 
 
 def e2e_config(multihead):
@@ -223,6 +260,18 @@ def stack_launches(model_type, n_layers):
     }
     per["SAGE"] = per["MFC"] = per["GIN"]
     return per[model_type]
+
+
+def composed_launches(model_type, n_layers):
+    """Kernel launches of one train step of a conv stack on the composed
+    path (``fused_conv: false``) on a batch with sender permutations: per
+    layer the forward gathers the senders (B3) and sums the K-group
+    pre-reduced messages by receiver (B2); the backward gathers that
+    sum's cotangent (B3) and, where the gathered input needs a gradient,
+    runs the permuted pair (B3, then B2): in every layer for SchNet (its
+    input is a linear layer's output), in all but conv_0 for GIN."""
+    grad_layers = n_layers if model_type == "SchNet" else n_layers - 1
+    return {"gather_rows": n_layers + 2 * grad_layers, "segment_sum": n_layers + grad_layers}
 
 
 def line(phase, **kw):
@@ -307,6 +356,122 @@ def quarter_grid(shape, seed, scale=4.0):
     return torch.from_numpy((np.round(rng.normal(size=shape) * scale) / 4.0 + 0.0).astype(np.float32))
 
 
+def stack_phase(dev, layouts, hidden, n_layers, mods, card):
+    """Phase 8b: ``fused_conv_stack`` (B9) at full width on each layout
+    of ``layouts`` (label -> host batch). Per layout the op runs forward
+    and backward once with every launch count at 0 before it (the main
+    path; its counts are returned), then is held against its plain
+    version and the B8 loop, and timed. Returns (counts by layout,
+    timing by layout, the largest error against the plain version)."""
+    from hydragnn_tpu_torch.ops import fused_conv as b8
+
+    b9 = importlib.import_module("hydragnn_tpu_torch.ops.fused_conv_stack")
+    rng = np.random.default_rng(SEED + 9)
+    h, n_l = hidden, n_layers
+    acts = ("sigmoid", "relu")
+    w = torch.from_numpy((rng.normal(size=(n_l, h, h)) / np.sqrt(h)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy((rng.normal(size=(n_l, h)) * 0.1).astype(np.float32)).to(dev)
+    counts, timing, worst = {}, {}, 0.0
+    for k, (label, hb) in enumerate(layouts.items()):
+        bd_ = hb.to(dev)
+        n, e = bd_.num_nodes, bd_.num_edges
+        x = quarter_grid((n, h), 95 + k).to(dev)
+        g = torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32)).to(dev)
+        args = (bd_.senders, bd_.receivers, bd_.edge_mask, n)
+        kw = dict(edge_act=acts[0], inter_act=acts[1], win=bd_.sender_win, real_edges=bd_.edge_occupancy)
+
+        def op(xx, ww, bb):
+            return b9.fused_conv_stack(xx, *args, ww, bb, **kw)
+
+        # the main path: the op forward and backward, launches counted
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, bias)]
+        for m in mods.values():
+            m.launches.reset()
+        out = op(*leaves)
+        out.backward(g)
+        torch.cuda.synchronize()
+        counts[label] = {name: m.launches.value for name, m in mods.items()}
+        grads = [t.grad for t in leaves]
+
+        # B9 against its plain version on the card, and the B8 loop
+        out = out.detach()
+        with torch.no_grad():
+            plain = b9.fused_conv_stack_plain(x, *args, w, bias, *acts)
+            again = op(x, w, bias)
+
+            def b8_loop():
+                hh, lo = x, None
+                for layer in range(n_l):
+                    lo = b8.fused_conv(hh, *args, ((w[layer], bias[layer], None, None),), (acts[0],),
+                                       real_edges=bd_.edge_occupancy)
+                    hh = torch.relu(lo)
+                return lo
+
+            loop = b8_loop()
+        torch.cuda.synchronize()
+        if not torch.equal(bits(out), bits(again)):
+            raise AssertionError(f"stack {label}: two launches differ")
+        scale = float(plain.abs().max())
+        err = float((out - plain).abs().max())
+        loop_err = float((out - loop).abs().max())
+        if not (np.isfinite(scale) and err <= STACK_TOL_REL * scale and loop_err <= STACK_TOL_REL * scale):
+            raise AssertionError(f"stack {label}: B9 differs from plain by {err}, from the B8 loop by {loop_err} "
+                                 f"(output scale {scale})")
+        worst = max(worst, err)
+        # the gradients against autograd through the plain version
+        pleaves = [t.detach().clone().requires_grad_(True) for t in (x, w, bias)]
+        b9.fused_conv_stack_plain(pleaves[0], *args, pleaves[1], pleaves[2], *acts).backward(g)
+        grad_rel = {nm: rel_l2(a, p.grad) for nm, a, p in zip(("x", "W", "b"), grads, pleaves)}
+        if max(grad_rel.values()) > STACK_GRAD_TOL:
+            raise AssertionError(f"stack {label}: gradients differ from the plain version's: {grad_rel}")
+
+        # times: B9 forward, the B8 loop, forward + backward, plain
+        xg, wg, bg = (t.detach().clone().requires_grad_(True) for t in (x, w, bias))
+        fwd = lambda: op(x, w, bias)  # noqa: E731
+        fwd_bwd = lambda: torch.autograd.grad(op(xg, wg, bg), (xg, wg, bg), g)  # noqa: E731
+        t_fwd = [cuda_ms(fwd, 20)]
+        plain_ms = cuda_ms(lambda: b9.fused_conv_stack_plain(x, *args, w, bias, *acts), 3)
+        loop_ms = cuda_ms(b8_loop, 3)
+        fwd_bwd_ms = cuda_ms(fwd_bwd, 3)
+        t_fwd.append(cuda_ms(fwd, 20))
+        graphs = {"ms": graph_ms(fwd, 10), "b8_loop_ms": graph_ms(b8_loop, 2), "fwd_bwd_ms": graph_ms(fwd_bwd, 2)}
+        # the forward's device time by kernel: the node products, the walks
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fwd()
+            torch.cuda.synchronize()
+        split = {key: 0.0 for key in ("stack_product_kernel", "stack_walk_kernel", "csr_row_ptr_kernel")}
+        for ev in prof.key_averages():
+            for key in split:
+                if key in ev.key:
+                    split[key] += ev.self_device_time_total / 1e3
+        real = int(hb.edge_mask.sum())
+        # each input read once (x, the ids and mask, W, b), the output
+        # written once; the node-level products and the masked adds
+        nbytes = n * h * 4 + e * 9 + n_l * (h * h + h) * 4 + n * h * 4
+        ops = 2 * n * h * h * n_l + real * h * n_l
+        bms, by = bound(nbytes, ops)
+        timing[label] = {
+            "ms": float(np.mean(t_fwd)), "graph_ms": graphs["ms"], "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bms, "bound_by": by, "b8_loop_ms": loop_ms, "b8_loop_graph_ms": graphs["b8_loop_ms"],
+            "backward_ms": fwd_bwd_ms - float(np.mean(t_fwd)),
+            "backward_graph_ms": graphs["fwd_bwd_ms"] - graphs["ms"], "product_ms": split["stack_product_kernel"],
+            "walk_ms": split["stack_walk_kernel"], "row_ptr_ms": split["csr_row_ptr_kernel"],
+            "bytes": nbytes, "ops": ops,
+            "E": e, "N": n, "H": h, "L": n_l,
+        }
+        line("stack", layout=label, E=e, N=n, H=h, L=n_l, acts="/".join(acts), real_edges=real,
+             edge_occupancy=int(hb.edge_occupancy), max_abs_err_vs_plain=err, output_scale=scale,
+             tol_rel=STACK_TOL_REL, max_abs_err_vs_b8_loop=loop_err,
+             equal_to_b8_loop=bool(torch.equal(out, loop)), grad_rel_l2_vs_plain=json.dumps(grad_rel),
+             grad_tol=STACK_GRAD_TOL, deterministic=True, card_kernels_per_call=2 * n_l + 1,
+             kernel_launches_fwd_bwd=json.dumps(counts[label], separators=(",", ":")), card=repr(card),
+             **{k: (round(v, 5) if isinstance(v, float) else v) for k, v in timing[label].items()
+                if k not in ("E", "N", "H", "L")})
+    return counts, timing, worst
+
+
 def main():
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -356,7 +521,8 @@ def main():
             "pna_bwd_count": types.SimpleNamespace(launches=bwd.count_launches, SOURCE=bwd.SOURCE,
                                                    REPLACES=bwd.COUNT_REPLACES),
             "pna_bwd_grad": types.SimpleNamespace(launches=bwd.grad_launches, SOURCE=bwd.SOURCE,
-                                                  REPLACES=bwd.GRAD_REPLACES)}
+                                                  REPLACES=bwd.GRAD_REPLACES),
+            "fused_conv_stack": importlib.import_module("hydragnn_tpu_torch.ops.fused_conv_stack")}
     sources = {name: os.path.basename(m.SOURCE) for name, m in mods.items()}
 
     def reset_counts():
@@ -904,6 +1070,18 @@ def main():
         check_b8_backward(f"{variant}_f32", variant, host, mask_h, 82)
     check_b8_backward("molecular_identity_h128_f32", "identity_h128", mhost, mhost.edge_mask, 83)
 
+    # ---- 8b. stack: fused_conv_stack (B9) at full width ----------------
+    stack_counts_by_layout, stack_timing, max_err["fused_conv_stack"] = stack_phase(
+        dev, {"unaligned": uhost, "run_aligned": host}, hidden, n_layers, mods, card)
+    for label, counts in stack_counts_by_layout.items():
+        # per call: B9 once; the backward recomputes each layer through B8
+        # and, per layer, gathers the cotangent and the layer's input (B3)
+        # and scatters grad_x through the window plan (B4)
+        want_ = {name: 0 for name in mods}
+        want_.update(fused_conv_stack=1, fused_conv=n_layers, gather_rows=2 * n_layers, segment_sum_local=n_layers)
+        if counts != want_:
+            raise AssertionError(f"stack {label}: launches {counts}, want {want_}")
+
     # ---- 9. train-stacks: GIN, SAGE, MFC, SchNet, CGCNN -------------------
     gin_log = tempfile.mkdtemp(prefix="chip_smoke_gin_")
     torch.cuda.reset_peak_memory_stats()
@@ -978,10 +1156,15 @@ def main():
     shuffles = [np.random.default_rng(SEED + k).permutation(STEP_GRAPHS) for k in (1, 2)]
     reordered = [next(iter(GraphLoader([step_samples[i] for i in order], STEP_GRAPHS)))
                  for order in [np.arange(STEP_GRAPHS)[::-1]] + shuffles]
-    for mt in STACKS:
+    def stack_step_vs_cpu(mt, nn_cfg_, per_step_, phase="train-stacks", part="step-vs-cpu"):
+        """One train step of ``nn_cfg_`` at STEP_GRAPHS graphs on the card
+        (kernels) against the CPU (plain versions), each gradient held to
+        max(STACK_GRAD_TOL, STACK_SPREAD_FACTOR x its spread over three
+        other batch orders on the CPU); the card's launches must equal
+        ``per_step_``. Returns them."""
         res = {}
         for where in ("cpu", "cuda", "order1", "order2", "order3"):
-            m = create_model_config(stack_cfgs[mt], seed=SEED + 1, device="cuda" if where == "cuda" else "cpu")
+            m = create_model_config(nn_cfg_, seed=SEED + 1, device="cuda" if where == "cuda" else "cpu")
             b = reordered[int(where[-1]) - 1] if where.startswith("order") else step_batch
             b = b.to(next(m.parameters()).device)
             reset_counts()
@@ -991,9 +1174,9 @@ def main():
             counts = read_counts()
             res[where] = (loss.item(), {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
                           {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}, counts)
-        want_ = {name: stack_launches(mt, n_layers).get(name, 0) for name in mods}
+        want_ = {name: per_step_.get(name, 0) for name in mods}
         if res["cuda"][3] != want_ or any(res["cpu"][3].values()):
-            raise AssertionError(f"{mt} step launches card {res['cuda'][3]}, cpu {res['cpu'][3]}; want {want_}")
+            raise AssertionError(f"{mt} {part} launches card {res['cuda'][3]}, cpu {res['cpu'][3]}; want {want_}")
         gcpu, gcard = res["cpu"][1], res["cuda"][1]
         g_max = max(float(g.abs().max()) for g in gcpu.values())
         worst_rel, worst_zero, worst_share = ("", 0.0, 0.0), ("", 0.0), ("", 0.0)
@@ -1018,14 +1201,18 @@ def main():
             if r > tol:
                 bad[k] = (r, spread)
         bn_ok = all(torch.allclose(res["cuda"][2][k], v, **STEP_BN_TOL) for k, v in res["cpu"][2].items())
-        line("train-stacks", stack=mt, part="step-vs-cpu", graphs=STEP_GRAPHS, loss_card=res["cuda"][0],
+        line(phase, stack=mt, part=part, graphs=STEP_GRAPHS, loss_card=res["cuda"][0],
              loss_cpu=res["cpu"][0], worst_grad_rel_l2_and_spread=json.dumps(worst_rel),
              worst_share_of_tol=json.dumps(worst_share), tensors_held_by_spread=spread_above_tol,
              worst_zero_grad=json.dumps(worst_zero), bn_stats_close=bn_ok, params=len(gcpu),
              kernel_launches=json.dumps(res["cuda"][3], separators=(",", ":")))
-        np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=STEP_LOSS_RTOL, err_msg=f"{mt} step loss")
+        np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=STEP_LOSS_RTOL, err_msg=f"{mt} {part} loss")
         if bad or not bn_ok:
-            raise AssertionError(f"{mt} train step: card and CPU differ beyond the tolerance: {bad}, BN close {bn_ok}")
+            raise AssertionError(f"{mt} {part}: card and CPU differ beyond the tolerance: {bad}, BN close {bn_ok}")
+        return res["cuda"][3]
+
+    for mt in STACKS:
+        stack_step_vs_cpu(mt, stack_cfgs[mt], stack_launches(mt, n_layers))
 
     # ---- 9b. train-pna-layouts: the flagship on its other layouts -------
     layout_models, layout_counts, layout_batches = {}, {}, {}
@@ -1152,6 +1339,156 @@ def main():
         for i, (r, mae, _) in enumerate(heads):
             if not (np.isfinite(r) and r < E2E_THRESHOLDS[0] and mae < E2E_THRESHOLDS[1]):
                 raise AssertionError(f"accuracy {label} head {i}: error {r}, MAE {mae} not below {E2E_THRESHOLDS}")
+
+    # ---- 9d. train-gat: GAT at full width, and the e2e GAT bar ----------
+    gat_log = tempfile.mkdtemp(prefix="chip_smoke_gat_")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    gat_model, gat_opt, gat_hist, _ = hydragnn_tpu_torch.run_training(
+        stack_config("GAT"), train_samples(), log_dir=gat_log, device="cuda", seed=SEED,
+    )
+    torch.cuda.synchronize()
+    gat_wall = time.perf_counter() - t0
+    gat_counts = read_counts()
+    gat_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = gat_hist["train_loss"]
+    if not all(np.isfinite(gat_hist[k]).all() for k in ("train_loss", "val_loss", "test_loss")):
+        raise AssertionError(f"train-gat: a loss is not finite: {gat_hist}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train-gat: the train loss did not fall: {losses}")
+    # GAT's gathers, softmax and sums are plain PyTorch (XLA ops in the JAX
+    # package, which has no Pallas kernel for them)
+    if any(gat_counts.values()):
+        raise AssertionError(f"train-gat: port kernels launched: {gat_counts}")
+    gat_mem = test_epoch(test_loader, gat_model)
+    err, tasks, trues, preds = hydragnn_tpu_torch.run_prediction(
+        stack_config("GAT"), train_samples(), log_dir=gat_log, device="cuda",
+    )
+    np.testing.assert_allclose(err, gat_mem[0], err_msg="GAT predict loss", **PREDICT_TOL)
+    for a, b in zip(preds + trues, gat_mem[3] + gat_mem[2]):
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError("GAT predict: shape or non-finite")
+        np.testing.assert_allclose(a, b, err_msg="GAT predict values", **PREDICT_TOL)
+    gcfg = gat_model.cfg
+    line("train-gat", epochs=TRAIN_EPOCHS, batch=TRAIN_BATCH, hidden=gcfg.hidden_dim, heads=gcfg.gat_heads,
+         conv_layers=gcfg.num_conv_layers, dropout=gcfg.dropout, node_pad=host.num_nodes,
+         edge_slots_with_self_loops=host.num_edges + host.num_nodes, train_loss=json.dumps(losses),
+         val_loss=json.dumps(gat_hist["val_loss"]), test_loss=json.dumps(gat_hist["test_loss"]),
+         predict_test_loss=err, kernel_launches=json.dumps(gat_counts, separators=(",", ":")),
+         wall_s=round(gat_wall, 3), max_memory_allocated_gib=round(gat_peak_gib, 3), card=repr(card))
+
+    def gat_e2e_config():
+        cfg_ = e2e_config(False)
+        cfg_["NeuralNetwork"]["Architecture"]["model_type"] = "GAT"
+        return cfg_
+
+    gat_e2e_log = tempfile.mkdtemp(prefix="chip_smoke_gat_e2e_")
+    t0 = time.perf_counter()
+    _, _, gat_e2e_hist, _ = hydragnn_tpu_torch.run_training(
+        gat_e2e_config(), deterministic_graph_data(number_configurations=E2E_SAMPLES, seed=SEED),
+        log_dir=gat_e2e_log, device="cuda",
+    )
+    torch.cuda.synchronize()
+    gat_e2e_wall = time.perf_counter() - t0
+    _, err_h, trues, preds = hydragnn_tpu_torch.run_prediction(
+        gat_e2e_config(), deterministic_graph_data(number_configurations=E2E_SAMPLES, seed=SEED),
+        log_dir=gat_e2e_log, device="cuda",
+    )
+    heads = [(float(err_h[i]), float(np.mean(np.abs(t - p_)))) for i, (t, p_) in enumerate(zip(trues, preds))]
+    line("train-gat", case="e2e_singlehead", epochs=len(gat_e2e_hist["train_loss"]), error_mae=json.dumps(heads),
+         thresholds=json.dumps(GAT_THRESHOLDS), train_loss_first_last=json.dumps(
+             [gat_e2e_hist["train_loss"][0], gat_e2e_hist["train_loss"][-1]]), wall_s=round(gat_e2e_wall, 3),
+         card=repr(card))
+    for i, (r, mae) in enumerate(heads):
+        if not (np.isfinite(r) and r < GAT_THRESHOLDS[0] and mae < GAT_THRESHOLDS[1]):
+            raise AssertionError(f"train-gat e2e head {i}: error {r}, MAE {mae} not below {GAT_THRESHOLDS}")
+
+    # ---- 9e. knobs: fused_conv false, conv_bf16, the in-forward radius graph
+    knob_counts = {}
+
+    def with_arch(nn_cfg_, **arch):
+        out = copy.deepcopy(nn_cfg_)
+        out["Architecture"].update(arch)
+        return out
+
+    # the composed path at STEP_GRAPHS graphs, card against CPU
+    for mt in ("GIN", "SchNet"):
+        knob_counts[f"composed_{mt}"] = stack_step_vs_cpu(
+            mt, with_arch(stack_cfgs[mt], fused_conv=False), composed_launches(mt, n_layers),
+            phase="knobs", part="fused_conv_false_step_vs_cpu")
+    # conv_bf16 against f32 on the card, the same weights, BatchNorm on
+    # batch statistics. (The JAX package's test runs its 2-layer model on
+    # running statistics; at 6 layers with the initial statistics GIN's
+    # eps = 100 grows the activations ~100x a layer, to a loss of 6.6e19
+    # on the H100, a regime no trained model is in.)
+    b_step = step_batch.to(dev)
+    for mt in ("GIN", "CGCNN"):
+        res = {}
+        for bf16 in (False, True):
+            m = create_model_config(with_arch(stack_cfgs[mt], conv_bf16=bf16), seed=SEED + 1, device="cuda")
+            reset_counts()
+            loss, _ = model_loss(m.cfg, m(b_step, train=True), b_step)
+            loss.backward()
+            torch.cuda.synchronize()
+            res[bf16] = (loss.item(), {k: p.grad.detach().float() for k, p in m.named_parameters()}, read_counts())
+        (l0, g0, _), (l1, g1, c1) = res[False], res[True]
+        g_max = max(float(g.abs().max()) for g in g0.values())
+        g_err = max(float((g1[k] - g0[k]).abs().max()) for k in g0)
+        knob_counts[f"bf16_{mt}"] = c1
+        line("knobs", stack=mt, part="conv_bf16_vs_f32", graphs=STEP_GRAPHS, loss_f32=l0, loss_bf16=l1,
+             loss_rel=abs(l1 - l0) / max(abs(l0), 1.0), loss_tol=BF16_LOSS_TOL, grad_err_over_max=g_err / g_max,
+             grad_tol=BF16_GRAD_TOL, kernel_launches=json.dumps(c1, separators=(",", ":")))
+        if c1["fused_conv"] != n_layers:
+            raise AssertionError(f"knobs bf16 {mt}: B8 launched {c1['fused_conv']} times, want {n_layers}")
+        if not (np.isfinite(l1) and abs(l1 - l0) <= BF16_LOSS_TOL * max(abs(l0), 1.0)
+                and g_err / g_max < BF16_GRAD_TOL):
+            raise AssertionError(f"knobs bf16 {mt}: outside the JAX package's bound")
+    # SchNet on the in-forward radius graph against the host-built edges:
+    # tests/test_train_e2e.py's molecular config (126 filters, 50
+    # Gaussians, radius 2.0), one train-split batch, the same weights
+    sch_cfg = e2e_config(False)
+    sch_cfg["NeuralNetwork"]["Architecture"].update(model_type="SchNet", num_filters=126, num_gaussians=50)
+    sch_tr, _, _, sch_done = prepare_loaders_and_config(
+        sch_cfg, deterministic_graph_data(number_configurations=E2E_SAMPLES, seed=SEED))
+    sch_b = next(iter(sch_tr)).to(dev)
+    res = {}
+    for inforward in (False, True):
+        m = create_model_config(with_arch(sch_done["NeuralNetwork"], radius_graph_in_forward=inforward),
+                                seed=SEED + 1, device="cuda")
+        reset_counts()
+        outs = m(sch_b, train=True)
+        loss, _ = model_loss(m.cfg, outs, sch_b)
+        loss.backward()
+        torch.cuda.synchronize()
+        res[inforward] = ([o.detach() for o in outs], loss.item(),
+                          {k: p.grad.detach() for k, p in m.named_parameters()}, read_counts(),
+                          m.edge_context(sch_b).edge_mask)
+    (o0, l0, g0, _, m0), (o1, l1, g1, c1, m1) = res[False], res[True]
+    rels = [rel_l2(a, b) for a, b in zip(o1, o0)] + [abs(l1 - l0) / max(abs(l0), 1e-30)]
+    # a conv bias that feeds a BatchNorm (SchNet's dense_3.bias) has a
+    # gradient that is 0 up to rounding (about 1e-7 of the largest entry;
+    # relative L2 above 1 between the two edge orders on the H100):
+    # it, and any gradient at most 1e-6 of the largest entry, is held within
+    # STACK_ZERO_TOL of the largest entry on both sides, as the stacks' step
+    # holds such gradients; every other gradient by relative L2
+    g_max = max(float(g.abs().max()) for g in g0.values())
+    zero_worst = 0.0
+    for k in g0:
+        if k.endswith("dense_3.bias") or float(g0[k].abs().max()) <= 1e-6 * g_max:
+            zero_worst = max(zero_worst, max(float(g0[k].abs().max()), float(g1[k].abs().max())) / g_max)
+        else:
+            rels.append(rel_l2(g1[k], g0[k]))
+    knob_counts["inforward_SchNet"] = c1
+    line("knobs", stack="SchNet", part="inforward_vs_precomputed", graphs=sch_b.num_graphs - 1,
+         node_pad=sch_b.num_nodes, slots_inforward=int(m1.numel()), real_edges_inforward=int(m1.sum()),
+         real_edges_host=int(m0.sum()), max_neighbours=sch_done["NeuralNetwork"]["Architecture"]["max_neighbours"],
+         loss_inforward=l1, loss_host=l0, worst_rel_l2=max(rels), tol=INFORWARD_TOL, worst_zero_grad=zero_worst,
+         zero_tol=STACK_ZERO_TOL, kernel_launches=json.dumps(c1, separators=(",", ":")))
+    if (int(m1.sum()) != int(m0.sum()) or max(rels) > INFORWARD_TOL or zero_worst > STACK_ZERO_TOL
+            or c1["fused_conv"] == 0):
+        raise AssertionError(f"knobs inforward SchNet: {int(m1.sum())} vs {int(m0.sum())} edges, rel {max(rels)}, "
+                             f"launches {c1}")
 
     # ---- 10. timing ------------------------------------------------------
     h = hidden
@@ -1409,6 +1746,10 @@ def main():
         breakdown(f"PNA-{lay}", *layout_models[lay], *layout_batches[lay])
     breakdown("GIN", *stack_models["GIN"])
     breakdown("SchNet", *stack_models["SchNet"])
+    torch.cuda.reset_peak_memory_stats()
+    breakdown("GAT", gat_model, gat_opt)
+    line("breakdown", stack="GAT", max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+         card=repr(card))
 
     # the device time of one train step by kernel (torch.profiler), and
     # the share of the step's wall time the card was busy
@@ -1416,7 +1757,7 @@ def main():
 
     ours = ("gather_stats_kernel", "segment_sum_kernel", "gather_rows_kernel", "segment_sum_local_kernel",
             "csr_row_ptr_kernel", "fused_identity_kernel", "fused_branch_kernel", "pna_aggregate_kernel",
-            "pna_bwd_count_kernel", "pna_bwd_grad_kernel")
+            "pna_bwd_count_kernel", "pna_bwd_grad_kernel", "stack_product_kernel", "stack_walk_kernel")
 
     def profile_step(label, model_, optimizer_, bd_=bd):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1442,18 +1783,23 @@ def main():
     profile_step("PNA-unaligned", *layout_models["unaligned"], layout_batches["unaligned"][1])
     profile_step("PNA-dense", *layout_models["dense"], layout_batches["dense"][1])
     profile_step("GIN", *stack_models["GIN"])
+    profile_step("GAT", gat_model, gat_opt)
 
     # ---- 11. summary -----------------------------------------------------
     # each kernel's launches on its own main path (serve: B5; PNA
-    # training: B1-B4; GIN training: B8; unaligned PNA training: B6, B7),
-    # and on every path
-    paths = {"serve": serve_counts, "train_pna": train_counts, "train_gin": stack_counts["GIN"],
+    # training: B1-B4; GIN training: B8; unaligned PNA training: B6, B7;
+    # the stack op forward and backward on both layouts: B9), and on every
+    # path
+    stack_op = {name: sum(c[name] for c in stack_counts_by_layout.values()) for name in mods}
+    timing["fused_conv_stack"] = dict(stack_timing["unaligned"])
+    paths = {"stack_op": stack_op, "train_gat": gat_counts, **{f"knobs_{k}": c for k, c in knob_counts.items()},
+             "serve": serve_counts, "train_pna": train_counts, "train_gin": stack_counts["GIN"],
              "train_pna_unaligned": layout_counts["unaligned"], "train_pna_edge_lengths": layout_counts["edge_lengths"],
              "train_pna_dense": layout_counts["dense"], "accuracy_pna_dense_singlehead": acc_counts["singlehead"],
              "accuracy_pna_dense_multihead": acc_counts["multihead"]}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",
-                pna_bwd_grad="train_pna_unaligned")
+                pna_bwd_grad="train_pna_unaligned", fused_conv_stack="stack_op")
     kernels = []
     for name, m in mods.items():
         t = timing[name]
@@ -1467,6 +1813,11 @@ def main():
         if name == "fused_conv":
             entry["variants"] = {v: {k: b8_timing[v][k] for k in ("ms", "graph_ms", "plain_ms", "library_ms",
                                                                   "bound_ms", "bound_by")} for v in b8_timing}
+        if name == "fused_conv_stack":
+            # the yardstick: the loop of B8 launches B9 replaces; and the
+            # op's backward (recomputed through B8, B3, B4), per layout
+            entry["layouts"] = {lay: {k: v for k, v in t_.items() if k not in ("bytes", "ops")}
+                                for lay, t_ in stack_timing.items()}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,7 +15,10 @@ Flax names submodules by creation order, which the names here follow:
   - a PNA conv (one that holds ``pre_kernel``) creates its edge
     projection before its post-layer: with edge features ``Dense_0`` is
     ``edge_proj`` and ``Dense_1`` is ``post``, without them ``Dense_0``
-    is ``post``. Every other conv's ``Dense_j`` is ``dense_j``.
+    is ``post``. A GAT conv (one that holds ``att``) creates its source
+    transform first: ``Dense_0`` is ``x_l`` and ``Dense_1`` is ``x_r``;
+    its ``att`` and ``bias`` are copied as they are. Every other conv's
+    ``Dense_j`` is ``dense_j``.
   - a ``conv`` node head's convs are unnamed (``PNAConv_k``,
     ``GINConv_k``, ...: k counts them over the heads in order) and its
     BatchNorms continue the encoder's numbering (``MaskedBatchNorm_k``
@@ -34,7 +37,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-_CONV_ARRAYS = ("pre_kernel", "pre_bias", "eps", "w_l", "b_l", "w_r")
+_CONV_ARRAYS = ("pre_kernel", "pre_bias", "eps", "w_l", "b_l", "w_r", "att", "bias")
 _AUTO_CONV = re.compile(r"^[A-Za-z0-9]*Conv_(\d+)$")
 
 
@@ -55,9 +58,10 @@ def _index(name: str, prefix: str) -> int:
     return int(name[len(prefix):])
 
 
-def _module_map(flat: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, str], Dict[str, Tuple[str, bool, bool]]]:
+def _module_map(flat: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, str], Dict[str, Tuple[str, Optional[Tuple[str, ...]]]]]:
     """(flax BatchNorm module -> port prefix, flax conv module -> (port
-    prefix, is a PNA conv, has an edge projection))."""
+    prefix, the port names of its ``Dense_j`` in order, None for
+    ``dense_j``))."""
     mods = {p.split("/")[1] for p in flat}
     n_enc = sum(1 for m in mods if re.fullmatch(r"conv_\d+", m))
     if not n_enc:  # a tree of BatchNorm statistics alone
@@ -80,12 +84,18 @@ def _module_map(flat: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, str], Dict[
         if int(_AUTO_CONV.match(mod).group(1)) != k:
             raise KeyError(f"unexpected flax module {mod!r}")
         convs[mod] = slots[k].format(kind="convs")
-    pna = {m: (f"params/{m}/pre_kernel" in flat) for m in convs}
-    edge = {m: pna[m] and f"params/{m}/Dense_1/kernel" in flat for m in convs}
-    return norms, {m: (convs[m], pna[m], edge[m]) for m in convs}
+    subs: Dict[str, Optional[Tuple[str, ...]]] = {}
+    for m in convs:
+        if f"params/{m}/pre_kernel" in flat:  # PNA
+            subs[m] = ("edge_proj", "post") if f"params/{m}/Dense_1/kernel" in flat else ("post",)
+        elif f"params/{m}/att" in flat:  # GAT
+            subs[m] = ("x_l", "x_r")
+        else:
+            subs[m] = None
+    return norms, {m: (convs[m], subs[m]) for m in convs}
 
 
-def _torch_name(path: str, norms: Dict[str, str], convs: Dict[str, Tuple[str, bool, bool]]) -> str:
+def _torch_name(path: str, norms: Dict[str, str], convs: Dict[str, Tuple[str, Optional[Tuple[str, ...]]]]) -> str:
     """Port parameter/buffer name for one flax leaf path."""
     parts = path.split("/")
     coll, mod = parts[0], parts[1]
@@ -96,17 +106,16 @@ def _torch_name(path: str, norms: Dict[str, str], convs: Dict[str, Tuple[str, bo
             return f"{norms[mod]}." + {"mean": "running_mean", "var": "running_var"}[parts[2]]
         return f"{norms[mod]}." + {"scale": "weight", "bias": "bias"}[parts[2]]
     if mod in convs:
-        prefix, is_pna, has_edge = convs[mod]
+        prefix, subs = convs[mod]
         if parts[2] in _CONV_ARRAYS and len(parts) == 3:
             return f"{prefix}.{parts[2]}"
         j = _index(parts[2], "Dense_")
-        if is_pna:
-            subs = ("edge_proj", "post") if has_edge else ("post",)
-            if j >= len(subs):
-                raise KeyError(f"no port counterpart for flax leaf {path!r}")
+        if subs is None:
+            sub = f"dense_{j}"
+        elif j < len(subs):
             sub = subs[j]
         else:
-            sub = f"dense_{j}"
+            raise KeyError(f"no port counterpart for flax leaf {path!r}")
         return f"{prefix}.{sub}." + {"kernel": "weight", "bias": "bias"}[parts[3]]
     if mod.startswith("node_head_") and len(parts) == 3 and re.fullmatch(r"[wb]_\d+", parts[2]):
         return f"heads.{_index(mod, 'node_head_')}.{parts[2]}"  # PerNodeMLP

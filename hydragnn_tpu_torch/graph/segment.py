@@ -4,10 +4,12 @@ The port's counterpart of ``hydragnn_tpu/graph/segment.py``. Every op
 is mask-aware (padding entries contribute the reduction identity) and
 safe on empty segments (mean, max and min return 0 there).
 
-The plain ops (sum, count, mean) were XLA ops in the JAX package and
-are plain torch here, differentiated by torch. The ops that reach a
-Pallas kernel there are ``torch.autograd.Function``s here, with the
-same backward as the reference's ``custom_vjp``:
+The plain ops (sum, count, mean, std, softmax) were XLA ops in the JAX
+package and are plain torch here, differentiated by torch; sum (and so
+softmax's denominator) is ``index_add_``, which assumes no sorted
+order. The ops that reach a Pallas kernel there are
+``torch.autograd.Function``s here, with the same backward as the
+reference's ``custom_vjp``:
 
   - ``segment_max`` / ``segment_min``: XLA's scatter-max forward
     (``scatter_reduce``), and a backward that splits each segment's
@@ -77,6 +79,48 @@ def segment_mean(
     count = segment_count(segment_ids, num_segments, mask)
     count = _expand_mask(count, total)
     return total / torch.clamp(count, min=1.0)
+
+
+def segment_std(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Biased per-segment standard deviation, PyG's PNA ``std``:
+    ``sqrt(relu(mean(x^2) - mean(x)^2) + eps)``."""
+    mean = segment_mean(data, segment_ids, num_segments, mask)
+    mean_sq = segment_mean(data * data, segment_ids, num_segments, mask)
+    return torch.sqrt(torch.relu(mean_sq - mean * mean) + eps)
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Softmax of ``logits`` [E, ...] within each segment (GAT's
+    attention), shifted by the segment max taken without a gradient (the
+    shift cancels in the softmax); an empty segment's max is 0. Masked
+    entries get exactly 0, and the denominator is at least 1e-16. The ids
+    need not be sorted: the max is a scatter and the sum ``index_add_``."""
+    m = _expand_mask(mask, logits)
+    neg = torch.finfo(logits.dtype).min
+    if m is not None:
+        logits = torch.where(m, logits, torch.full((), neg, dtype=logits.dtype, device=logits.device))
+    ids = segment_ids.long()
+    with torch.no_grad():
+        idx = ids.view((-1,) + (1,) * (logits.dim() - 1)).expand_as(logits)
+        seg_max = torch.full((num_segments,) + tuple(logits.shape[1:]), float("-inf"), dtype=logits.dtype,
+                             device=logits.device).scatter_reduce(0, idx, logits, "amax", include_self=True)
+        seg_max = torch.where(seg_max <= neg, torch.zeros((), dtype=logits.dtype, device=logits.device), seg_max)
+    e = torch.exp(logits - seg_max.index_select(0, ids))
+    if m is not None:
+        e = torch.where(m, e, torch.zeros((), dtype=e.dtype, device=e.device))
+    denom = segment_sum(e, segment_ids, num_segments)
+    return e / torch.clamp(denom.index_select(0, ids), min=1e-16)
 
 
 class _SegmentExtremum(torch.autograd.Function):

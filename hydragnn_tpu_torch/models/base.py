@@ -6,11 +6,14 @@ then graph heads on a shared dense trunk and node heads of the three
 kinds (``mlp``, ``mlp_per_node``, ``conv``). The forward returns one
 output per head: [G, dim] for graph heads, [N, dim] for node heads.
 
-The port builds the chassis for PNA, GIN, SAGE, MFC, SchNet and CGCNN
-with its weighted multi-task loss (``model_loss``); PNA, CGCNN and
-SchNet take edge features. These raise ``NotImplementedError`` naming
-their ROADMAP item: GAT (A3, A7), ``inforward_radius`` (A7),
-``conv_bf16`` and ``fused_conv: false`` (A7).
+The port builds the chassis for every model type of the JAX package
+(PNA, GIN, SAGE, MFC, SchNet, CGCNN and GAT) with its weighted
+multi-task loss (``model_loss``); PNA, CGCNN and SchNet take edge
+features, SchNet can rebuild its radius graph in the forward
+(``inforward_radius``), and the conv knobs ``fused_conv`` and
+``conv_bf16`` select the conv stacks' paths as in the JAX package.
+``freeze_conv`` raises ``NotImplementedError`` naming its ROADMAP item
+(A5).
 
 Parameter names mirror the flax tree so ``convert.py`` maps one onto
 the other: ``convs.{i}`` = ``conv_{i}``, ``norms.{i}`` =
@@ -23,6 +26,7 @@ convs and the BatchNorms after the encoder's, in creation order.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -33,6 +37,7 @@ from hydragnn_tpu_torch.graph.batch import GraphBatch
 from hydragnn_tpu_torch.models import convs as C
 from hydragnn_tpu_torch.models.convs import EdgeContext
 from hydragnn_tpu_torch.models.layers import MLP, MaskedBatchNorm, lecun_normal_
+from hydragnn_tpu_torch.ops.dynamic_radius import radius_graph_in_forward
 
 KNOWN_MODELS = ("GIN", "PNA", "GAT", "MFC", "CGCNN", "SAGE", "SchNet")
 
@@ -60,6 +65,9 @@ class ModelConfig:
     node_head_type: str = "mlp"
     num_nodes: Optional[int] = None
     edge_dim: Optional[int] = None
+    gat_heads: int = 6
+    gat_negative_slope: float = 0.05
+    dropout: float = 0.25  # GAT's attention dropout
     max_neighbours: Optional[int] = None  # MFC max_degree
     pna_avg_deg_lin: float = 1.0
     pna_avg_deg_log: float = 1.0
@@ -67,8 +75,12 @@ class ModelConfig:
     num_filters: Optional[int] = None
     radius: Optional[float] = None
     inforward_radius: bool = False
+    freeze_conv: bool = False
     fused_conv: bool = True
     conv_bf16: bool = False
+    # accepted and recorded; nothing in the chassis reads it (BatchNorm
+    # sits between the conv layers), as in the JAX package
+    conv_residency: bool = False
 
     def __post_init__(self):
         if self.model_type not in KNOWN_MODELS:
@@ -111,14 +123,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise for every configuration the port does not run yet."""
-    if cfg.model_type == "GAT":
-        raise _not_ported("model_type 'GAT' (segment_softmax)", "A3, A7")
-    if cfg.inforward_radius:
-        raise _not_ported("radius_graph_in_forward (ops/dynamic_radius.py)", "A7")
-    if cfg.conv_bf16:
-        raise _not_ported("Architecture.conv_bf16", "A7")
-    if not cfg.fused_conv:
-        raise _not_ported("Architecture.fused_conv = false (the composed conv path)", "A7")
+    if cfg.freeze_conv:
+        raise _not_ported("Architecture.freeze_conv_layers", "A5")
     if "node" in cfg.output_type and cfg.node_head_type not in ("mlp", "mlp_per_node", "conv"):
         raise ValueError(
             f"Unknown head NN structure for node features {cfg.node_head_type}; currently only "
@@ -128,19 +134,28 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 class HydraModel(nn.Module):
     """Encoder + multi-head decoder (graph heads; node heads ``mlp``,
-    ``mlp_per_node`` or ``conv``)."""
+    ``mlp_per_node`` or ``conv``). GAT widens each encoder layer but the
+    last by its heads (``concat``), as the JAX package does. Its
+    attention dropout draws from a generator on the model's device,
+    seeded once from ``dropout_seed``."""
 
-    def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
+    def __init__(
+        self, cfg: ModelConfig, generator: Optional[torch.Generator] = None, dropout_seed: int = 1
+    ):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        self.dropout_seed = int(dropout_seed)
+        self._dropout_gen: Optional[torch.Generator] = None
         h = cfg.hidden_dim
+        wide = h * cfg.gat_heads if cfg.model_type == "GAT" else h
         self.convs = nn.ModuleList()
         self.norms = nn.ModuleList()
         for layer in range(cfg.num_conv_layers):
-            fin = cfg.input_dim if layer == 0 else h
-            self.convs.append(self._make_conv(fin, h, generator))
-            self.norms.append(MaskedBatchNorm(h))
+            last = layer == cfg.num_conv_layers - 1
+            fin = cfg.input_dim if layer == 0 else wide
+            self.convs.append(self._make_conv(fin, h, generator, concat=not last))
+            self.norms.append(MaskedBatchNorm(h if last else wide))
         self.graph_shared = None
         if "graph" in cfg.output_type:
             dims = (cfg.graph_dim_sharedlayers,) * cfg.graph_num_sharedlayers
@@ -157,15 +172,20 @@ class HydraModel(nn.Module):
                 if cfg.node_head_type == "mlp_per_node":
                     heads.append(PerNodeMLP(cfg.num_nodes, h, dims, generator))
                 elif cfg.node_head_type == "conv":
-                    ins = (h,) + dims[:-1]
-                    heads.append(ConvHead(
-                        [self._make_conv(a, b, generator) for a, b in zip(ins, dims)], dims
-                    ))
+                    # a GAT head's hidden convs concatenate their heads
+                    k = cfg.gat_heads if cfg.model_type == "GAT" else 1
+                    widths = tuple(d * k for d in dims[:-1]) + dims[-1:]
+                    ins = (h,) + widths[:-1]
+                    convs = [self._make_conv(a, b, generator, concat=j < len(dims) - 1)
+                             for j, (a, b) in enumerate(zip(ins, dims))]
+                    heads.append(ConvHead(convs, widths))
                 else:
                     heads.append(MLP(h, dims, generator=generator))
         self.heads = nn.ModuleList(heads)
 
-    def _make_conv(self, fin: int, out: int, generator: Optional[torch.Generator]) -> nn.Module:
+    def _make_conv(
+        self, fin: int, out: int, generator: Optional[torch.Generator], concat: bool = True
+    ) -> nn.Module:
         cfg = self.cfg
         mt = cfg.model_type
         if mt == "PNA":
@@ -173,6 +193,8 @@ class HydraModel(nn.Module):
                 fin, out, cfg.pna_avg_deg_lin, cfg.pna_avg_deg_log, generator,
                 edge_dim=cfg.edge_dim if cfg.use_edge_attr else 0,
             )
+        if mt == "GAT":
+            return C.GATv2Conv(fin, out, cfg.gat_heads, cfg.gat_negative_slope, cfg.dropout, concat, generator)
         if mt == "GIN":
             return C.GINConv(fin, out, generator)
         if mt == "SAGE":
@@ -189,12 +211,46 @@ class HydraModel(nn.Module):
             return C.CFConv(fin, out, cfg.num_filters, cfg.num_gaussians, cfg.radius, generator)
         raise ValueError(mt)
 
+    def _inforward_context(self, batch: GraphBatch) -> EdgeContext:
+        """SchNet's interaction graph rebuilt from the positions
+        (nearest ``max_neighbours`` within the radius, [N·K] slots), its
+        distances and their Gaussian smearing; no occupancy bound, window
+        plan or sender permutation applies to it."""
+        cfg = self.cfg
+        if batch.pos is None:
+            raise ValueError("radius_graph_in_forward requires node positions; this batch has pos=None")
+        n = batch.pos.shape[0]
+        if n > 20_000:
+            warnings.warn(
+                f"radius_graph_in_forward is O(N_pad^2): node pad {n} implies ~{n ** 2 * 12 / 1e9:.1f} GB of "
+                "pairwise temporaries (the [N,N,3] displacement tensor dominates); precompute edges on host "
+                "for graphs this large (Architecture.radius_graph_in_forward=false)",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        senders, receivers, dist, edge_mask = radius_graph_in_forward(
+            batch.pos, batch.node_graph, batch.node_mask, cfg.radius, cfg.max_neighbours
+        )
+        return EdgeContext(
+            senders=senders,
+            receivers=receivers,
+            edge_mask=edge_mask,
+            node_mask=batch.node_mask,
+            in_degree=S.segment_count(receivers, n, edge_mask),
+            edge_attr=C.gaussian_smearing(dist, 0.0, cfg.radius, cfg.num_gaussians),
+            edge_weight=dist,
+            fused_conv=cfg.fused_conv,
+            conv_bf16=cfg.conv_bf16,
+        )
+
     def edge_context(self, batch: GraphBatch) -> EdgeContext:
         """The layers' EdgeContext (the JAX package's ``_conv_args``,
-        with SchNet's hook: distances from the edge features when the
-        model takes them, else from the positions, then their Gaussian
-        smearing)."""
+        with SchNet's hook: the in-forward radius graph when configured;
+        else distances from the edge features when the model takes them,
+        or from the positions, then their Gaussian smearing)."""
         cfg = self.cfg
+        if cfg.model_type == "SchNet" and cfg.inforward_radius:
+            return self._inforward_context(batch)
         in_degree = batch.in_degree
         if in_degree is None:
             in_degree = S.segment_count(batch.receivers, batch.num_nodes, batch.edge_mask)
@@ -234,18 +290,35 @@ class HydraModel(nn.Module):
             dense_edge_attr=dense_edge_attr,
             dense_sender_perm=batch.dense_sender_perm,
             degree_groups=degree_groups,
+            fused_conv=cfg.fused_conv,
+            conv_bf16=cfg.conv_bf16,
         )
 
-    def forward(self, batch: GraphBatch, train: bool = False) -> List[torch.Tensor]:
-        """``train`` selects masked batch statistics (True, which also
+    def _dropout_generator(self, device: torch.device) -> torch.Generator:
+        if self._dropout_gen is None or self._dropout_gen.device != device:
+            self._dropout_gen = torch.Generator(device=device).manual_seed(self.dropout_seed)
+        return self._dropout_gen
+
+    def _apply_conv(self, conv: nn.Module, x: torch.Tensor, ctx: EdgeContext, train: bool) -> torch.Tensor:
+        if isinstance(conv, C.GATv2Conv):
+            gen = self._dropout_generator(x.device) if train and conv.dropout > 0.0 else None
+            return conv(x, ctx, train=train, generator=gen)
+        return conv(x, ctx)
+
+    def forward(
+        self, batch: GraphBatch, train: bool = False, bn_train: Optional[bool] = None
+    ) -> List[torch.Tensor]:
+        """``train`` drives GAT's dropout; ``bn_train`` (default
+        ``train``) selects masked batch statistics (True, which also
         updates the running statistics) or running statistics (False) in
-        BatchNorm; none of the ported stacks has dropout."""
+        BatchNorm, so the statistics pass runs without dropout."""
         cfg = self.cfg
+        bn = train if bn_train is None else bn_train
         ctx = self.edge_context(batch)
         x = batch.nodes
         for conv, norm in zip(self.convs, self.norms):
-            x = conv(x, ctx)
-            x = norm(x, mask=batch.node_mask, train=train)
+            x = self._apply_conv(conv, x, ctx, train)
+            x = norm(x, mask=batch.node_mask, train=bn)
             x = torch.relu(x)
 
         outputs: List[torch.Tensor] = []
@@ -259,7 +332,7 @@ class HydraModel(nn.Module):
             elif isinstance(head, PerNodeMLP):
                 outputs.append(head(x, batch))
             elif isinstance(head, ConvHead):
-                outputs.append(head(x, ctx, batch.node_mask, train))
+                outputs.append(head(x, lambda c, h_: self._apply_conv(c, h_, ctx, train), batch.node_mask, bn))
             else:
                 outputs.append(head(x))
         return outputs
@@ -267,18 +340,21 @@ class HydraModel(nn.Module):
 
 class ConvHead(nn.Module):
     """The ``conv`` node head (the JAX package's ``_node_head``): hidden
-    convs, each followed by a masked BatchNorm and ReLU, then the output
-    conv and a masked BatchNorm, chained (x -> h1 -> ... -> out)."""
+    convs, each followed by a masked BatchNorm (``widths``: a GAT head's
+    hidden convs concatenate their heads) and ReLU, then the output conv
+    and a masked BatchNorm, chained (x -> h1 -> ... -> out)."""
 
-    def __init__(self, convs: Sequence[nn.Module], dims: Sequence[int]):
+    def __init__(self, convs: Sequence[nn.Module], widths: Sequence[int]):
         super().__init__()
         self.convs = nn.ModuleList(convs)
-        self.norms = nn.ModuleList(MaskedBatchNorm(d) for d in dims)
+        self.norms = nn.ModuleList(MaskedBatchNorm(d) for d in widths)
 
-    def forward(self, x: torch.Tensor, ctx: EdgeContext, node_mask: torch.Tensor, train: bool):
+    def forward(self, x: torch.Tensor, apply_conv, node_mask: torch.Tensor, bn_train: bool):
+        """``apply_conv(conv, x)`` runs one conv on the chassis' edge
+        context."""
         last = len(self.convs) - 1
         for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
-            x = norm(conv(x, ctx), mask=node_mask, train=train)
+            x = norm(apply_conv(conv, x), mask=node_mask, train=bn_train)
             if i < last:
                 x = torch.relu(x)
         return x

@@ -10,10 +10,13 @@ receiver. The port has:
   - ``GINConv``, ``SAGEConv``, ``MFConv``, ``CFConv`` (SchNet) and
     ``CGConv`` (CGCNN, in the reference's fused form), whose gather ->
     edge network -> masked scatter runs through ``ops.fused_conv`` (B8),
-    with the JAX package's parameters and initializers.
+    with the JAX package's parameters and initializers. With
+    ``Architecture.fused_conv: false`` they take the composed path
+    instead (the sender gather, then the masked sorted segment sum), and
+    ``Architecture.conv_bf16`` streams their operands in bfloat16 on
+    either path.
+  - ``GATv2Conv`` (GAT), over ``segment_softmax``.
   - the ``EdgeContext`` the chassis hands every layer.
-
-GAT (``segment_softmax``) follows (ROADMAP A3, A7).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from torch import nn
 
 from hydragnn_tpu_torch.graph import segment as S
 from hydragnn_tpu_torch.models.layers import dense, lecun_normal_, uniform_
-from hydragnn_tpu_torch.ops.fused_conv import fused_aggregate
+from hydragnn_tpu_torch.ops.fused_conv import ACTS, fused_aggregate
 from hydragnn_tpu_torch.ops.gather_stats import gather_presum_stats, presum_stats_plain
 from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate
 
@@ -61,17 +64,57 @@ class EdgeContext:
     # MFC's nodes grouped by clamped degree, once per forward
     # (MFConv.degree_groups)
     degree_groups: Optional[Tuple[torch.Tensor, Tuple[int, ...]]] = None
+    # Architecture.fused_conv: the fused kernel (B8) for the gather ->
+    # edge network -> scatter chain, else the composed path
+    fused_conv: bool = True
+    # Architecture.conv_bf16: the conv stacks' streamed operands in
+    # bfloat16 (sums in f32), the result cast back to the incoming dtype
+    conv_bf16: bool = False
+
+
+def _gather_senders(x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
+    """``x[senders]`` on the composed path (B3). Its backward is the
+    permuted pair (B3, then B2) when the batch carries the senders' sort
+    permutation, the pair PNAConv takes (faster than the JAX package's
+    windowed pair on the H100, PERF.md); an unsorted scatter-add without
+    one (in-forward radius graphs)."""
+    if ctx.sender_perm is not None:
+        return S.gather_rows_permuted(x, ctx.senders, ctx.sender_perm, x.shape[0])
+    return S.gather_rows(x, ctx.senders, x.shape[0])
+
+
+def _segment_sum_edges(vals: torch.Tensor, ctx: EdgeContext, n: int) -> torch.Tensor:
+    """The masked sum of per-edge values into their receivers, in the
+    values' dtype: on run-aligned batches each K-group pre-reduced in f32
+    first, then the sorted segment sum (B2 forward, f32; B3 backward)."""
+    vm = torch.where(ctx.edge_mask[:, None], vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+    if ctx.run_align:
+        k = ctx.run_align
+        v8 = vm.float().view(-1, k, vals.shape[1]).sum(1)
+        return S.segment_sum_sorted(v8, ctx.receivers[::k].contiguous(), n, grad_dtype=vals.dtype).to(vals.dtype)
+    return S.segment_sum_sorted(vm, ctx.receivers, n)
 
 
 def _gather_scatter(
     x: torch.Tensor, ctx: EdgeContext, n: int, scale: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """``Σ_e mask_e · x[send_e] (· scale_e)`` grouped by receiver through
-    the fused kernel (B8), in x's dtype."""
-    return fused_aggregate(
-        x, ctx.senders, ctx.receivers, ctx.edge_mask, n,
-        scale=scale, win=ctx.sender_win, real_edges=ctx.edge_occ,
-    ).to(x.dtype)
+    """``Σ_e mask_e · x[send_e] (· scale_e)`` grouped by receiver, in x's
+    dtype: the fused kernel (B8), or the composed gather and masked
+    sorted segment sum (``ctx.fused_conv`` false). ``ctx.conv_bf16``
+    rounds x and the scale to bfloat16 on both paths."""
+    xd = x.dtype
+    if ctx.conv_bf16:
+        x = x.to(torch.bfloat16)
+        scale = None if scale is None else scale.to(torch.bfloat16)
+    if ctx.fused_conv:
+        return fused_aggregate(
+            x, ctx.senders, ctx.receivers, ctx.edge_mask, n,
+            scale=scale, win=ctx.sender_win, real_edges=ctx.edge_occ,
+        ).to(xd)
+    vals = _gather_senders(x, ctx)
+    if scale is not None:
+        vals = vals * scale
+    return _segment_sum_edges(vals, ctx, n).to(xd)
 
 
 class PNAConv(nn.Module):
@@ -305,7 +348,10 @@ class CGConv(nn.Module):
     Dense over the concatenation splits into a receiver part (a node-level
     product with the bias folded in, ``rtab``), a sender part (the only
     edge-level product, inside the kernel) and an edge-attribute part
-    (``eterm``); the [E, 2F + De] concatenation never exists.
+    (``eterm``); the [E, 2F + De] concatenation never exists. With
+    ``ctx.fused_conv`` false it takes the composed form over that
+    concatenation instead (the receiver gather B3, the sender gather, two
+    edge-level products, the masked sorted sum).
     ``dense_0`` is the gate and ``dense_1`` the core, each [2F + De] -> F."""
 
     def __init__(
@@ -321,19 +367,114 @@ class CGConv(nn.Module):
 
     def forward(self, x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
         n, fin = x.shape
-        wf, ws = self.dense_0.weight.T.to(x.dtype), self.dense_1.weight.T.to(x.dtype)  # [zdim, F]
-        af = x @ wf[:fin] + self.dense_0.bias.to(x.dtype)
-        ac = x @ ws[:fin] + self.dense_1.bias.to(x.dtype)
+        # conv_bf16: x, the receiver tables, the edge features and both
+        # Dense layers in bfloat16; the parameters stay f32
+        xc = x.to(torch.bfloat16) if ctx.conv_bf16 else x
+        wf, ws = self.dense_0.weight.T.to(xc.dtype), self.dense_1.weight.T.to(xc.dtype)  # [zdim, F]
+        bf, bs = self.dense_0.bias.to(xc.dtype), self.dense_1.bias.to(xc.dtype)
+        ea = ctx.edge_attr.to(xc.dtype) if self.edge_dim else None
+        if not ctx.fused_conv:
+            # the composed form over the [E, 2F + De] concatenation
+            xi = S.gather_rows(xc, ctx.receivers, n, indices_are_sorted=True)
+            z = torch.cat([xi, _gather_senders(xc, ctx)] + ([ea] if ea is not None else []), dim=-1)
+            msg = torch.sigmoid(z @ wf + bf) * ACTS["softplus"][0](z @ ws + bs)
+            return x + _segment_sum_edges(msg, ctx, n).to(x.dtype)
+        af = xc @ wf[:fin] + bf
+        ac = xc @ ws[:fin] + bs
         cf = cs = None
-        if self.edge_dim:
-            ea = ctx.edge_attr.to(x.dtype)
+        if ea is not None:
             cf, cs = ea @ wf[2 * fin :], ea @ ws[2 * fin :]
         agg = fused_aggregate(
-            x, ctx.senders, ctx.receivers, ctx.edge_mask, n,
+            xc, ctx.senders, ctx.receivers, ctx.edge_mask, n,
             branches=((wf[fin : 2 * fin], None, af, cf), (ws[fin : 2 * fin], None, ac, cs)),
             acts=("sigmoid", "softplus"), win=ctx.sender_win, real_edges=ctx.edge_occ,
         ).to(x.dtype)
         return x + agg
+
+
+class _LeakyReLU(torch.autograd.Function):
+    """``jax.nn.leaky_relu``: ``x`` where ``x >= 0``, else ``slope·x``, with
+    slope 1 at 0 (torch's ``leaky_relu`` takes the negative slope there,
+    which moves the gradient wherever the input is exactly 0, as on zero
+    features with zero biases). It saves only its output, whose sign is
+    the input's (slope > 0): the [E, heads, d] input of GAT's attention
+    is not kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        y = torch.where(x >= 0, x, x * slope)
+        ctx.save_for_backward(y)
+        ctx.slope = slope
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y >= 0, g, g * ctx.slope), None
+
+
+class GATv2Conv(nn.Module):
+    """GATv2 multi-head attention (the JAX package's ``GATv2Conv``, PyG
+    GATv2Conv with ``add_self_loops``): a self-loop for every node row
+    (masked with the node mask) is appended after the batch's edges, so
+    the receivers are not sorted; ``x_l`` (the source transform) and
+    ``x_r`` (the target transform) are ``Dense(heads·d)``,
+    ``att`` [1, heads, d] lecun-normal (fan-in = heads, as flax counts
+    it), ``bias`` zeros. Per edge ``leaky_relu(x_l[s] + x_r[r]) · att``
+    summed over d gives the logits; ``segment_softmax`` by receiver;
+    dropout on the attention when training (from an explicit generator,
+    flax's form: keep with probability 1 - p, scale by 1/(1 - p)); the
+    masked sum of ``x_l[s] · alpha`` by receiver. ``concat`` gives
+    [N, heads·d], else the mean over the heads [N, d]. For its backward a
+    layer keeps two [E + N, heads, d] tensors (``x_l[s]`` and the
+    leaky-relu output), 2.6 GB each in f32 on the flagship's batch of
+    1024 at hidden 128 and 6 heads."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        out_dim: int,
+        heads: int = 6,
+        negative_slope: float = 0.05,
+        dropout: float = 0.25,
+        concat: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.heads, self.out_dim = int(heads), int(out_dim)
+        self.negative_slope, self.dropout, self.concat = float(negative_slope), float(dropout), bool(concat)
+        self.x_l = dense(in_dim, self.heads * self.out_dim, generator)
+        self.x_r = dense(in_dim, self.heads * self.out_dim, generator)
+        self.att = nn.Parameter(torch.empty(1, self.heads, self.out_dim))
+        lecun_normal_(self.att, self.heads, generator)
+        self.bias = nn.Parameter(torch.zeros(self.heads * self.out_dim if concat else self.out_dim))
+
+    def forward(
+        self, x: torch.Tensor, ctx: EdgeContext, train: bool = False, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        n = x.shape[0]
+        h, d = self.heads, self.out_dim
+        loops = torch.arange(n, dtype=ctx.senders.dtype, device=x.device)
+        senders = torch.cat([ctx.senders, loops]).long()
+        receivers = torch.cat([ctx.receivers, loops]).long()
+        emask = torch.cat([ctx.edge_mask, ctx.node_mask])
+        x_l = self.x_l(x).view(n, h, d)
+        x_r = self.x_r(x).view(n, h, d)
+        xs = x_l.index_select(0, senders)  # [E + N, h, d]
+        feat = _LeakyReLU.apply(xs + x_r.index_select(0, receivers), self.negative_slope)
+        logits = (feat * self.att).sum(-1)  # [E + N, h]
+        alpha = S.segment_softmax(logits, receivers, n, mask=emask[:, None])
+        if train and self.dropout > 0.0:
+            keep = torch.rand(alpha.shape, generator=generator, device=alpha.device) >= self.dropout
+            alpha = torch.where(keep, alpha / (1.0 - self.dropout), torch.zeros((), dtype=alpha.dtype, device=alpha.device))
+        msg = torch.where(emask[:, None, None], xs * alpha[..., None], torch.zeros((), dtype=xs.dtype, device=xs.device))
+        # S.segment_sum's index_add_ would keep the [E + N, h, d] messages
+        # for its backward; scatter_add keeps only the (expanded) ids
+        out = torch.zeros(n, h, d, dtype=msg.dtype, device=msg.device).scatter_add(
+            0, receivers[:, None, None].expand_as(msg), msg
+        )
+        out = out.reshape(n, h * d) if self.concat else out.mean(1)
+        return out + self.bias
 
 
 class CFConv(nn.Module):
@@ -376,8 +517,8 @@ class CFConv(nn.Module):
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
     """``softplus(x) - log 2`` with the JAX package's softplus
-    (``max(x, 0) + log1p(exp(-|x|))``)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs())) - math.log(2.0)
+    (``logaddexp(x, 0)``, whose derivative at 0 is 1/2)."""
+    return ACTS["softplus"][0](x) - math.log(2.0)
 
 
 def gaussian_smearing(d: torch.Tensor, start: float, stop: float, num_gaussians: int) -> torch.Tensor:

@@ -4,7 +4,9 @@ The port's counterpart of ``hydragnn_tpu/models/create.py``: the same
 ``ModelConfig`` from the same (``update_config``-completed)
 ``NeuralNetwork`` section, and parameters initialized from a fixed seed
 through a ``torch.Generator`` (the analog of the reference's
-``torch.manual_seed(0)``).
+``torch.manual_seed(0)``). Like the JAX package, it reads no GAT keys
+from the config: ``gat_heads`` 6, ``gat_negative_slope`` 0.05 and
+``dropout`` 0.25 are ``ModelConfig``'s defaults.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ def model_config_from_dict(config: Dict[str, Any]) -> ModelConfig:
     if arch.get("pna_deg") is not None:
         pna_lin, pna_log = avg_degree_stats(arch["pna_deg"])
     model_type = arch["model_type"]
+    if arch.get("radius_graph_in_forward") and arch.get("periodic_boundary_conditions"):
+        raise ValueError(
+            "radius_graph_in_forward does not support periodic_boundary_conditions; "
+            "use host-precomputed edges for PBC datasets"
+        )
     input_dim = int(arch["input_dim"])
     # CGCNN preserves width: hidden = input
     hidden_dim = input_dim if model_type == "CGCNN" else int(arch["hidden_dim"])
@@ -60,8 +67,10 @@ def model_config_from_dict(config: Dict[str, Any]) -> ModelConfig:
         num_filters=arch.get("num_filters"),
         radius=arch.get("radius"),
         inforward_radius=bool(arch.get("radius_graph_in_forward", False)),
+        freeze_conv=bool(arch.get("freeze_conv_layers", False)),
         fused_conv=bool(arch.get("fused_conv", True)),
         conv_bf16=bool(arch.get("conv_bf16", False)),
+        conv_residency=bool(arch.get("conv_residency", False)),
     )
 
 
@@ -69,12 +78,13 @@ def create_model(
     cfg: ModelConfig, seed: int = 0, device: Optional[str] = "cuda"
 ) -> HydraModel:
     """A ``HydraModel`` initialized from ``seed`` (on the CPU), then moved
-    to ``device``, in eval mode."""
+    to ``device``, in eval mode; GAT's dropout draws from ``seed + 1``
+    (the JAX package's dropout key)."""
     dev = resolve_device(device)
     if cfg.model_type == "PNA" and cfg.pna_avg_deg_lin <= 0:
         raise ValueError("PNA requires degree input.")
     gen = torch.Generator().manual_seed(int(seed))
-    return HydraModel(cfg, generator=gen).to(dev).eval()
+    return HydraModel(cfg, generator=gen, dropout_seed=int(seed) + 1).to(dev).eval()
 
 
 def create_model_config(

@@ -14,6 +14,15 @@ launches (``launches``) and names the TPU kernel it replaces
   segment_sum_local.py  B4 ``_sum_local_kernel``
   fused_conv.py         B8 ``_make_fused_kernel`` (autograd op
                         ``fused_aggregate``, its backward on B2-B4)
+  fused_conv_stack.py   B9 ``_make_stack_kernel`` (autograd op
+                        ``fused_conv_stack``, exported here; its backward
+                        the per-layer composition on B8, B3 and B4)
 
-Kernels are built at first use (``_build.py``), never at import.
+``dynamic_radius.py`` (SchNet's in-forward radius graph) has no kernel:
+it is plain PyTorch, as the JAX package's is XLA. Kernels are built at
+first use (``_build.py``), never at import.
 """
+
+from hydragnn_tpu_torch.ops.fused_conv_stack import fused_conv_stack  # noqa: E402
+
+__all__ = ["fused_conv_stack"]

@@ -51,6 +51,50 @@ __global__ void csr_row_ptr_kernel(const int32_t* __restrict__ recv, long long n
   for (long long r = prev + 1; r <= cur; ++r) ptr[r] = (int32_t)e;
 }
 
+// The edge-network activations of hydragnn_tpu/ops/fused_conv.py:_ACTS in
+// float32, by code (the Python wrappers' ACT_CODE order); softplus =
+// max(x, 0) + log1p(exp(-|x|)).
+enum ActCode { kNone = 0, kRelu = 1, kSigmoid = 2, kSoftplus = 3, kTanh = 4, kSilu = 5 };
+
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+
+__device__ __forceinline__ float act_f(int act, float x) {
+  switch (act) {
+    case kRelu:
+      return x < 0.f ? 0.f : x;
+    case kSigmoid:
+      return sigmoid_f(x);
+    case kSoftplus:
+      return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+    case kTanh:
+      return tanhf(x);
+    case kSilu:
+      return x * sigmoid_f(x);
+    default:
+      return x;
+  }
+}
+
+// The edge walk's occupancy bound: *real_edges clamped to [0, n_edges], or
+// n_edges without one.
+__device__ __forceinline__ long long edge_bound(const int32_t* real_edges, long long n_edges) {
+  if (real_edges == nullptr) return n_edges;
+  const long long r = *real_edges;
+  return r < 0 ? 0 : (r > n_edges ? n_edges : r);
+}
+
+// The card's SM count (132 when it cannot be read).
+inline int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 132;
+  }
+  return count;
+}
+
 constexpr int kThreads = 256;
 
 inline void launch_row_ptr(const void* recv, long long n_edges, long long n_rows, void* row_ptr,

@@ -61,34 +61,6 @@ constexpr int kStage = 8;  // edges staged per group barrier
 constexpr int kMaxSmem = 200 * 1024;
 constexpr int kNarrowSmem = 48 * 1024;  // the default limit: no attribute to raise
 
-enum ActCode { kNone = 0, kRelu = 1, kSigmoid = 2, kSoftplus = 3, kTanh = 4, kSilu = 5 };
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
-
-// the reference's _ACTS, in float32 (softplus = max(x, 0) + log1p(exp(-|x|)))
-__device__ __forceinline__ float act_f(int act, float x) {
-  switch (act) {
-    case kRelu:
-      return x < 0.f ? 0.f : x;
-    case kSigmoid:
-      return sigmoid_f(x);
-    case kSoftplus:
-      return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-    case kTanh:
-      return tanhf(x);
-    case kSilu:
-      return x * sigmoid_f(x);
-    default:
-      return x;
-  }
-}
-
-__device__ __forceinline__ long long edge_bound(const int32_t* real_edges, long long n_edges) {
-  if (real_edges == nullptr) return n_edges;
-  const long long r = *real_edges;
-  return r < 0 ? 0 : (r > n_edges ? n_edges : r);
-}
-
 // A barrier over the `lanes` threads of group g only (lanes a multiple of
 // 32); barrier 0 stays __syncthreads'.
 __device__ __forceinline__ void group_sync(int g, int lanes) {
@@ -274,17 +246,6 @@ __global__ void fused_branch_kernel(const T* __restrict__ x, const int32_t* __re
       if (live) out[row * hout + o] = acc;
     }
   }
-}
-
-inline int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      count = 132;
-  }
-  return count;
 }
 
 template <typename T, int KBR>

@@ -72,8 +72,10 @@ Branch = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], Opt
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``max(x, 0) + log1p(exp(-|x|))`` (jax.nn.softplus, no threshold)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    """``logaddexp(x, 0)``, jax.nn.softplus itself (no threshold); its
+    autograd derivative is sigmoid(x), 1/2 at 0, where the composed form
+    ``max(x, 0) + log1p(exp(-|x|))`` would differentiate to 1."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 # edge-network activations: (f, df) with df taking (pre, f(pre)) — the

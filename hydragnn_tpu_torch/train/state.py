@@ -44,6 +44,6 @@ def eval_step(
 @torch.no_grad()
 def stats_step(model: HydraModel, batch: GraphBatch) -> None:
     """A batch-statistics forward that only updates the BatchNorm running
-    statistics (the JAX package's ``make_stats_step``; PNA has no
-    dropout, so this is the training forward without a gradient)."""
-    model(batch, train=True)
+    statistics (the JAX package's ``make_stats_step``): BatchNorm in
+    batch-statistics mode, dropout off."""
+    model(batch, train=False, bn_train=True)

@@ -22,6 +22,16 @@ Tolerances and why:
     feeds it;
   - the dense slot map: every field equal;
   - CPU round trip: exact (the same computation twice).
+
+The port's side of every JAX comparison here runs on one intra-op
+thread (``one_thread``). In about one pytest process in ten that also
+runs the JAX package, the first multi-threaded ``torch.exp`` of the
+process returned one thread's chunk (1/8 of the elements) off by up to
+1.06e-4, SchNet's Gaussian smearing being the first such call; the
+second identical call, and the same call on one thread, agree with each
+other. Changing the rounding mode moves ``exp`` by at most 1.8e-7, so it
+is not that; bare processes never showed it (0 of 80). One thread takes
+the intra-op pool out of the comparison; the tolerances are unchanged.
 """
 
 import copy
@@ -51,13 +61,25 @@ from hydragnn_tpu_torch.data.ingest import prepare_dataset
 from hydragnn_tpu_torch.data.loader import GraphLoader
 from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
 from hydragnn_tpu_torch.flagship import flagship_config
+from hydragnn_tpu_torch.models import convs as C
 from hydragnn_tpu_torch.models.base import model_loss
-from hydragnn_tpu_torch.models.create import create_model_config
+from hydragnn_tpu_torch.models.create import create_model_config, model_config_from_dict
 from hydragnn_tpu_torch.train import loop as t_loop
 from hydragnn_tpu_torch.train.optimizer import select_optimizer
 from hydragnn_tpu_torch.utils.config import update_config
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def one_thread():
+    """The port's CPU ops on one intra-op thread for one test (module
+    docstring), the thread count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 UNIT = dict(unit_cell_x_range=(2, 4), unit_cell_y_range=(2, 4), unit_cell_z_range=(2, 4))
 STACKS = ["GIN", "SAGE", "MFC", "SchNet", "CGCNN"]
 JAX_ONLY_KEYS = {"diagnostics", "diag_every", "Parallel"}
@@ -116,17 +138,27 @@ def _jax_grad_fn(jmodel):
     return fn
 
 
-@pytest.mark.parametrize("model_type", STACKS + ["PNA-edge", "PNA-conv", "PNA-mlp_per_node"])
+KNOBS = {"inforward": {"radius_graph_in_forward": True}, "bf16": {"conv_bf16": True},
+         "residency": {"conv_residency": True}, "composed": {"fused_conv": False}}
+
+
+@pytest.mark.parametrize("model_type", STACKS + ["PNA-edge", "PNA-conv", "PNA-mlp_per_node", "GAT", "GAT-conv",
+                                                 "SchNet-inforward", "GIN-bf16", "CGCNN-bf16", "GIN-residency",
+                                                 "GIN-composed"])
 def test_update_config_matches_jax_key_for_key(model_type):
     """The completed configs are equal, ``fused_conv`` (default on)
     included; only the JAX package's runtime knobs stay out. The PNA
-    cases add edge features and the two other node head types."""
+    cases add edge features and the two other node head types; GAT, the
+    in-forward radius graph and the conv knobs (``conv_bf16``,
+    ``conv_residency``, ``fused_conv: false``) are set as a user sets
+    them, and both packages' ``ModelConfig`` read them alike."""
     model_type, _, option = model_type.partition("-")
 
     def make(mod):
         cfg = stack_config(mod, model_type, edge_features=option == "edge")
         if option in ("conv", "mlp_per_node"):
             cfg["NeuralNetwork"]["Architecture"]["output_heads"]["node"]["type"] = option
+        cfg["NeuralNetwork"]["Architecture"].update(KNOBS.get(option, {}))
         return cfg
 
     # mlp_per_node needs graphs of one size: 2 unit cells a side
@@ -144,10 +176,24 @@ def test_update_config_matches_jax_key_for_key(model_type):
             return {k: strip(v) for k, v in d.items() if k not in JAX_ONLY_KEYS}
         return d
 
-    assert cfg["NeuralNetwork"]["Architecture"]["fused_conv"] is True
+    assert cfg["NeuralNetwork"]["Architecture"]["fused_conv"] is (option != "composed")
     assert strip(copy.deepcopy(cfg)) == strip(copy.deepcopy(jcfg))
     if option == "edge":
         assert cfg["NeuralNetwork"]["Architecture"]["edge_dim"] == 1
+    ours, ref = model_config_from_dict(cfg["NeuralNetwork"]), jax_model_config(jcfg["NeuralNetwork"])
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+
+
+def test_gaussian_smearing_on_one_thread_matches_float64(one_thread):
+    """SchNet's smearing at the parity tests' size on one intra-op thread
+    (module docstring): every entry within 1e-6 of the float64 value."""
+    d = torch.rand(6000, generator=torch.Generator().manual_seed(0)) * 2.5
+    out = C.gaussian_smearing(d, 0.0, 2.0, 50)
+    offs = np.linspace(0.0, 2.0, 50)
+    coeff = -0.5 / (2.0 / 49) ** 2
+    ref = np.exp(coeff * (d.numpy().astype(np.float64)[:, None] - offs[None, :]) ** 2)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("model_type", STACKS)
@@ -173,7 +219,7 @@ def test_init_distributions_match_jax(model_type):
 
 
 @pytest.mark.parametrize("model_type,edge_features", [(m, False) for m in STACKS] + [("CGCNN", True), ("SchNet", True)])
-def test_stack_forward_losses_and_grads_match_jax(model_type, edge_features):
+def test_stack_forward_losses_and_grads_match_jax(model_type, edge_features, one_thread):
     cfg, jcfg, loader, jloader = _both(model_type, edge_features)
     batch, jbatch = next(iter(loader)), next(iter(jloader))
     assert batch.run_align == 8
@@ -201,7 +247,7 @@ def test_stack_forward_losses_and_grads_match_jax(model_type, edge_features):
 
 
 @pytest.mark.parametrize("model_type", ["GIN", "SchNet", "CGCNN"])
-def test_three_step_training_trajectory_matches_jax(model_type):
+def test_three_step_training_trajectory_matches_jax(model_type, one_thread):
     """Two input features: with one, GIN's conv_0 feeds its BatchNorm an
     affine function of a single scalar per node, which the BatchNorm
     normalizes away, and Adam turns the rounding-level gradients of
@@ -291,18 +337,32 @@ def test_dense_slot_map_equals_jax_and_gin_runs_on_it():
         np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL)
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("model_type", "GAT", "A3, A7"),
-    ("radius_graph_in_forward", True, "A7"),
-    ("conv_bf16", True, "A7"),
-    ("fused_conv", False, "A7"),
-])
+@pytest.mark.parametrize("key,value,item", [("freeze_conv_layers", True, "A5")])
 def test_unported_options_raise(key, value, item):
     tr, cfg = _splits(deterministic_graph_data, prepare_dataset, update_config,
                       stack_config(flagship_config, "GIN"), 12)
     cfg["NeuralNetwork"]["Architecture"][key] = value
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         create_model_config(cfg["NeuralNetwork"], device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("model_type", "GAT"),
+    ("radius_graph_in_forward", True),
+    ("conv_bf16", True),
+    ("fused_conv", False),
+])
+def test_formerly_unported_options_build_and_run(key, value):
+    """GAT, the in-forward radius graph (on SchNet), ``conv_bf16`` and
+    ``fused_conv: false`` build and run a finite forward."""
+    model_type = "SchNet" if key == "radius_graph_in_forward" else "GIN"
+    tr, cfg = _splits(deterministic_graph_data, prepare_dataset, update_config,
+                      stack_config(flagship_config, model_type), 12)
+    cfg["NeuralNetwork"]["Architecture"][key] = value
+    model = create_model_config(cfg["NeuralNetwork"], device="cpu")
+    with torch.no_grad():
+        outs = model(next(iter(GraphLoader(tr, 8))), train=False)
+    assert all(torch.isfinite(o).all() for o in outs)
 
 
 @pytest.mark.parametrize("model_type", STACKS)

@@ -1,5 +1,5 @@
-"""The training path's CUDA kernels (B1–B4, B6–B8) against their plain
-PyTorch versions, and the autograd ops of B8 and of ``pna_aggregate``
+"""The training path's CUDA kernels (B1–B4, B6–B9) against their plain
+PyTorch versions, and the autograd ops of B8, B9 and of ``pna_aggregate``
 (B5 forward, B6 and B7 backward) on the card against the CPU. Every test here
 needs a card and skips without one; this file imports no JAX, so it runs
 on the card machine:
@@ -18,7 +18,10 @@ entries near 0 carry the rounding of the large ones). B6's tie counts
 exact; B7 bit-equal to its plain version in f32 and within
 ``rtol=atol=2e-2`` in bf16 (the plain version combines in bf16 op by op,
 as the JAX package's unfused backward does; the kernel in f32, rounding
-once, as its Pallas kernel does).
+once, as its Pallas kernel does). B9 within 1e-5 of its output's largest
+magnitude against its plain version over 3 layers (each layer's product
+in another order than the host's BLAS, the rounding carried into the
+next layer), and equal to the loop of B8 launches it replaces.
 """
 
 import numpy as np
@@ -269,3 +272,80 @@ def test_cuda_fused_aggregate_backward_matches_cpu(variant):
     for i, (a, r) in enumerate(zip(grads["cuda"][1:], grads["cpu"][1:])):
         rel = float((a - r).norm() / r.norm().clamp_min(1e-30))
         assert rel <= GRAD_REL_L2, f"{variant} gradient #{i}: relative L2 {rel}"
+
+
+def _stack_inputs(b, mask, h, layers, seed):
+    """B9's inputs on the host: x on a 1/4 grid (ties), W ~ N(0, 1/h)
+    (the product keeps the scale), b ~ N(0, 0.1^2)."""
+    rng = np.random.default_rng(seed)
+    x = _grid((b.num_nodes, h), seed, torch.float32)
+    w = torch.from_numpy((rng.normal(size=(layers, h, h)) / np.sqrt(h)).astype(np.float32))
+    bias = torch.from_numpy((rng.normal(size=(layers, h)) * 0.1).astype(np.float32))
+    return x, w, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acts", [("sigmoid", "relu"), ("none", "relu")])
+@pytest.mark.parametrize("h", [6, 16, 128])  # 6: the staging copies' path for widths not a multiple of 4
+def test_cuda_fused_conv_stack_matches_plain(h, acts):
+    """B9 against its plain version on the host (every entry within 1e-5
+    of the output's largest magnitude: each layer's product sums in
+    another order than the host's BLAS, and the rounding feeds the next
+    layer), and equal, value for value, to the loop of B8 launches with
+    relu between them; run-aligned fillers, a receiver whose every edge is
+    masked, empty rows, the occupancy bound below E and at E; two
+    launches bitwise equal; one count per call."""
+    from hydragnn_tpu_torch.ops import fused_conv as fc
+    from hydragnn_tpu_torch.ops.fused_conv_stack import fused_conv_stack, fused_conv_stack_plain
+    import importlib
+
+    b9 = importlib.import_module("hydragnn_tpu_torch.ops.fused_conv_stack")
+    dev = _cuda()
+    b, mask = _aligned_batch(5)
+    layers = 3
+    x, w, bias = _stack_inputs(b, mask, h, layers, 13)
+    args = (b.senders, b.receivers, mask, b.num_nodes)
+    ref = fused_conv_stack_plain(x, *args, w, bias, *acts)
+    scale = float(ref.abs().max())
+    assert torch.isfinite(ref).all() and scale > 0
+    d_args = [t.to(dev) for t in args[:3]] + [b.num_nodes]
+    xd, wd, bd = x.to(dev), w.to(dev), bias.to(dev)
+    for real in (b.edge_occupancy, torch.tensor(b.num_edges, dtype=torch.int32)):
+        rd = real.to(dev)
+        before = b9.launches.value
+        out1 = fused_conv_stack(xd, *d_args, wd, bd, *acts, real_edges=rd)
+        out2 = fused_conv_stack(xd, *d_args, wd, bd, *acts, real_edges=rd)
+        torch.cuda.synchronize()
+        assert b9.launches.value == before + 2
+        assert torch.equal(out1.view(torch.int32), out2.view(torch.int32))
+        err = float((out1.cpu() - ref).abs().max())
+        assert err <= 1e-5 * scale, f"max abs err {err} at output scale {scale}"
+        hh, loop = xd, None
+        for layer in range(layers):
+            loop = fc.fused_conv(hh, *d_args, ((wd[layer], bd[layer], None, None),), (acts[0],), real_edges=rd)
+            hh = torch.relu(loop)
+        assert torch.equal(out1, loop)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_conv_stack_backward_matches_cpu():
+    """The autograd op on the card (B9 forward; the backward recomputes
+    through B8, B3 and B4) against the same op on the CPU: x, W and b."""
+    from hydragnn_tpu_torch.ops.fused_conv_stack import fused_conv_stack
+
+    dev = _cuda()
+    b, mask = _aligned_batch(6)
+    x, w, bias = _stack_inputs(b, mask, 128, 3, 14)
+    g = torch.from_numpy(np.random.default_rng(3).normal(size=(b.num_nodes, 128)).astype(np.float32))
+    grads = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device(where) if where == "cpu" else dev
+        leaves = [t.detach().to(d).requires_grad_(True) for t in (x, w, bias)]
+        out = fused_conv_stack(leaves[0], b.senders.to(d), b.receivers.to(d), mask.to(d), b.num_nodes,
+                               leaves[1], leaves[2], "sigmoid", "relu", win=b.sender_win.to(d),
+                               real_edges=b.edge_occupancy.to(d))
+        out.backward(g.to(d))
+        grads[where] = [t.grad.cpu() for t in leaves]
+    for name, a, r in zip(("x", "W", "b"), grads["cuda"], grads["cpu"]):
+        rel = float((a - r).norm() / r.norm().clamp_min(1e-30))
+        assert rel <= GRAD_REL_L2, f"grad {name}: relative L2 {rel}"
