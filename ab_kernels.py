@@ -1,0 +1,222 @@
+#!/usr/bin/env python3
+"""ab_kernels.py — time the port's B4 (``segment_sum_local``) and B8
+(``fused_conv``, K = 0) walks, and the train steps that carry them, from
+one checkout of the repository, so that two commits can be compared on
+one card in one run.
+
+    python3 ab_kernels.py [--root DIR] [--tag NAME]   # on a CUDA machine
+
+``--root`` (default: this file's directory) is the checkout whose
+``hydragnn_tpu_torch`` is imported; its kernels are built from its own
+sources. To compare a parent commit with a change, unpack the parent
+into a gitignored directory (``git archive``) and run both in turns on
+one card: parent, change, change, parent.
+
+Prints one ``[ab]`` line per measurement (ms per call between CUDA
+events, eager and in a CUDA graph) and, last, one JSON object with all
+of them. The inputs are made from seed 0 as ``chip_smoke.py`` makes
+them:
+  - the flagship's run-aligned training batch (1,024 BCC graphs: 32,752
+    node rows, 810,888 edge slots) for B8 identity at H = 1 and 128, B8
+    scale at F = 126, B8's row-pointer pass alone, B4 at H = 1 and 128;
+    ``torch.sparse.mm`` and ``index_add_`` beside them;
+  - the molecular data's dense-map batch (``tests/test_train_e2e.py``'s
+    data, 64 graphs): B8 and B4 on its edge list and on its dense slots;
+  - a synthetic batch of 4,096 rows of 24 slots with one row of 60,000
+    slots (5 real, the rest masked) for B8, and one row of 60,000 edges
+    for B4;
+  - one device train step (batch on the card) of the run-aligned PNA
+    flagship, GIN and SchNet at batch 1024.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def cuda_ms(fn, iters):
+    """Mean ms per call over ``iters`` warm calls, between CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(fn, iters):
+    """ms per call of ``iters`` calls captured in one CUDA graph."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def long_row_inputs(dev, h, seed=0, rows=4096, slots=24, long_slots=60_000):
+    """B8's synthetic skew batch: ``rows`` rows of ``slots`` slots (about
+    3/4 real) and row 100 of ``long_slots`` slots, 5 of them real; sorted
+    receivers; x [rows, h] normal. B4's: the same receivers as ids, so
+    row 100 has ``long_slots`` edges, with their window plan."""
+    rng = np.random.default_rng(seed)
+    counts = np.full(rows, slots)
+    counts[100] = long_slots
+    recv = np.repeat(np.arange(rows), counts).astype(np.int32)
+    mask = rng.random(recv.size) > 0.25
+    row100 = np.flatnonzero(recv == 100)
+    mask[row100] = False
+    mask[row100[[0, 1, 2, -2, -1]]] = True
+    send = rng.integers(0, rows, recv.size).astype(np.int32)
+    x = torch.from_numpy(rng.normal(size=(rows, h)).astype(np.float32)).to(dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return x, t(send), t(recv), t(mask), rows
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--tag", default="change")
+    ap.add_argument("--no-steps", action="store_true", help="kernels only")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernels: needs a CUDA card")
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.api import prepare_loaders_and_config
+    from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.graph.batch import _block_windows
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.ops import fused_conv as b8
+    from hydragnn_tpu_torch.ops import segment_sum_local as b4
+    from hydragnn_tpu_torch.ops._build import build_all
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import train_step
+
+    if not os.path.abspath(hydragnn_tpu_torch.__file__).startswith(root):
+        raise SystemExit(f"ab_kernels: imported {hydragnn_tpu_torch.__file__}, not from {root}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    dev = hydragnn_tpu_torch.resolve_device("cuda")
+    build_all(["fused_conv.cu", "segment_sum_local.cu"])
+    results = {}
+
+    def record(name, **kw):
+        results[name] = kw
+        print(f"[ab] tag={args.tag} name={name} " + " ".join(
+            f"{k}={round(v, 5) if isinstance(v, float) else v}" for k, v in kw.items()), flush=True)
+
+    def both(name, fn, iters=50, g_iters=20, **extra):
+        record(name, ms=cuda_ms(fn, iters), graph_ms=graph_ms(fn, g_iters), **extra)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    # the flagship's run-aligned training batch
+    def stack_config(model_type, batch_size=1024):
+        cfg = flagship_config(batch_size=batch_size, num_epoch=1)
+        arch = cfg["NeuralNetwork"]["Architecture"]
+        arch["model_type"] = model_type
+        if model_type == "SchNet":
+            arch["num_filters"], arch["num_gaussians"] = 126, 50
+        return cfg
+
+    def samples():  # made anew for each config: preparing them normalises in place
+        return deterministic_graph_data(number_configurations=1280, unit_cell_x_range=(2, 4),
+                                        unit_cell_y_range=(2, 4), unit_cell_z_range=(2, 4), seed=0)
+
+    loaders = {mt: prepare_loaders_and_config(stack_config(mt), samples()) for mt in ("PNA", "GIN", "SchNet")}
+    host = next(iter(loaders["PNA"][0]))
+    bd = host.to(dev)
+    n, e = host.num_nodes, host.num_edges
+    send, recv, mask, occ, win = bd.senders, bd.receivers, bd.edge_mask, bd.edge_occupancy, bd.sender_win
+    shape = dict(E=e, N=n, real=int(host.edge_mask.sum()))
+    x128, x1, x126 = randn(n, 128), randn(n, 1), randn(n, 126)
+    s126 = randn(e, 126)
+    both("b8_identity_h128", lambda: b8.fused_conv(x128, send, recv, mask, n, real_edges=occ), **shape)
+    both("b8_identity_h1", lambda: b8.fused_conv(x1, send, recv, mask, n, real_edges=occ), **shape)
+    both("b8_scale_f126", lambda: b8.fused_conv(x126, send, recv, mask, n, scale=s126, real_edges=occ), **shape)
+    if hasattr(b8, "row_pointers"):
+        both("b8_row_pointers", lambda: b8.row_pointers(recv, n), **shape)
+    crow = torch.zeros(n + 1, dtype=torch.int64)
+    crow[1:] = torch.cumsum(torch.bincount(host.receivers.long(), minlength=n), 0)
+    adj = torch.sparse_csr_tensor(crow, host.senders.long(), host.edge_mask.float(), size=(n, n)).to(dev)
+    both("sparse_mm_h128", lambda: torch.sparse.mm(adj, x128), **shape)
+    both("sparse_mm_h1", lambda: torch.sparse.mm(adj, x1), **shape)
+    g128, g1 = randn(e, 128), randn(e, 1)
+    send_l = send.long()
+    both("b4_h128", lambda: b4.segment_sum_local(g128, send, win, n), blocks=int(win.shape[1]), **shape)
+    both("b4_h1", lambda: b4.segment_sum_local(g1, send, win, n), blocks=int(win.shape[1]), **shape)
+    both("index_add_h128", lambda: torch.zeros(n, 128, device=dev).index_add_(0, send_l, g128), **shape)
+
+    # the molecular data's dense-map batch: its edge list and its dense slots
+    mcfg = stack_config("GIN", batch_size=64)
+    mcfg["Dataset"]["compositional_stratified_splitting"] = True
+    mcfg["NeuralNetwork"]["Training"]["perc_train"] = 0.7
+    mol = prepare_loaders_and_config(mcfg, deterministic_graph_data(number_configurations=300, seed=0))[0]
+    mh = next(iter(mol))
+    if not (mol.dense_slots and mh.sender_win is not None and mh.dense_sender_win is not None):
+        raise SystemExit("ab_kernels: the molecular loader did not pick the dense map")
+    md = mh.to(dev)
+    mn, d_slots = mh.num_nodes, mh.dense_senders.shape[1]
+    dsend = md.dense_senders.reshape(-1).contiguous()
+    drecv = torch.arange(mn, dtype=torch.int32, device=dev).repeat_interleave(d_slots)
+    dmask = md.dense_mask.reshape(-1).contiguous()
+    mx = randn(mn, 128)
+    mol_shape = dict(N=mn, E=mh.num_edges, slots=dsend.numel())
+    both("mol_b8_identity_h128_edges", lambda: b8.fused_conv(mx, md.senders, md.receivers, md.edge_mask, mn,
+                                                             real_edges=md.edge_occupancy), **mol_shape)
+    both("mol_b8_identity_h128_slots", lambda: b8.fused_conv(mx, dsend, drecv, dmask, mn), **mol_shape)
+    ms126 = randn(mh.num_edges, 126)
+    mx126 = randn(mn, 126)
+    both("mol_b8_scale_f126_edges", lambda: b8.fused_conv(mx126, md.senders, md.receivers, md.edge_mask, mn,
+                                                          scale=ms126, real_edges=md.edge_occupancy), **mol_shape)
+    mg, dg = randn(mh.num_edges, 128), randn(dsend.numel(), 128)
+    both("mol_b4_h128_edges", lambda: b4.segment_sum_local(mg, md.senders, md.sender_win, mn), **mol_shape)
+    both("mol_b4_h128_slots", lambda: b4.segment_sum_local(dg, dsend, md.dense_sender_win, mn), **mol_shape)
+
+    # one long row
+    lx, lsend, lrecv, lmask, ln = long_row_inputs(dev, 128)
+    both("long_b8_identity_h128", lambda: b8.fused_conv(lx, lsend, lrecv, lmask, ln), 10, 5,
+         slots=int(lrecv.numel()))
+    ids_np = lrecv.cpu().numpy()
+    lwin = torch.from_numpy(_block_windows(ids_np, np.argsort(ids_np, kind="stable"), ln, 128)).to(dev)
+    lg = randn(lrecv.numel(), 128)
+    both("long_b4_h128", lambda: b4.segment_sum_local(lg, lrecv, lwin, ln), 10, 5, edges=int(lrecv.numel()))
+
+    if not args.no_steps:
+        for mt, (tl, _, _, done) in loaders.items():
+            model = create_model_config(done["NeuralNetwork"], seed=1, device="cuda")
+            opt = select_optimizer(model, done["NeuralNetwork"]["Training"])
+            b = next(iter(tl)).to(dev)
+            record(f"step_{mt}", ms=cuda_ms(lambda: train_step(model, opt, b), 5), run_align=b.run_align)
+    print(card)
+    print(json.dumps({"tag": args.tag, "card": card, "results": results}))
+
+
+if __name__ == "__main__":
+    t0 = time.time()
+    main()
+    print(f"[ab] seconds={time.time() - t0:.1f}", file=sys.stderr)

@@ -16,9 +16,10 @@ raises; nothing is caught):
                    at the flagship training batch's shapes (batch 1024,
                    conv_0 H=1 and conv_1..5 H=128, f32 and bf16), with
                    ties, all-masked K-groups, empty rows and a window plan
-                   of overlapping blocks; the backward of every autograd op
-                   against the same op on the CPU; two launches bitwise
-                   equal.
+                   of overlapping blocks (B4 bit-equal to its plain version
+                   on the host, also on normal values); the backward of
+                   every autograd op against the same op on the CPU; two
+                   launches bitwise equal.
   4b. check-pna-bwd — pna_bwd_count (B6) and pna_bwd_grad (B7) against
                    their plain versions at the flagship's unaligned
                    training shapes (H=1 and H=128, f32 and bf16), with
@@ -43,7 +44,9 @@ raises; nothing is caught):
                    terms; f32 and bf16; run-aligned fillers, empty rows,
                    +inf edge terms on masked slots, the occupancy bound
                    below E and at E; an unaligned dense-map batch of the
-                   molecular data; two launches bitwise equal; the
+                   molecular data; the identity and scale walks bit-equal
+                   to the plain version on the host, also on normal
+                   values; two launches bitwise equal; the
                    autograd backward on the card against the CPU.
   9. train-stacks — run_training on GIN at full width (batch 1024, 6
                    layers, 3 epochs), run_prediction from its checkpoint;
@@ -85,6 +88,11 @@ raises; nothing is caught):
                    against precomputed edges.
  10. timing      — each kernel at the main path's shapes: ms eager, ms in
                    a CUDA graph, plain ms, library ms, beside its bound;
+                   B8's row-pointer pass alone, its identity and scale
+                   walks' gather rate, and torch.sparse.mm in a CUDA graph
+                   beside them; B5's library calls at the unaligned
+                   training shape; B8 and B4 on the molecular dense-map
+                   batch (its edge list and its dense slots);
                    the sender gather's backward pairs (permuted, masked
                    on the dense map, and the JAX package's windowed one)
                    on each PNA layout; the PNA (every layout), GIN and
@@ -347,6 +355,11 @@ def compare(out, ref, label, exact=False, tol=SUM_TOL):
 
 def rel_l2(a, b):
     return float((a.float() - b.float()).norm() / max(float(b.float().norm()), 1e-30))
+
+
+def normal_values(shape, seed):
+    """Standard normal f32 values (only sums in the same order agree)."""
+    return torch.from_numpy(np.random.default_rng(seed).normal(size=shape).astype(np.float32))
 
 
 def quarter_grid(shape, seed, scale=4.0):
@@ -651,15 +664,20 @@ def main():
                 compare(out, b3.gather_rows_plain(src, ids), f"gather_rows {label} {tag}", exact=True)
                 line("check-train", kernel="gather_rows", case=f"{label}_{tag}", rows=ids.shape[0], W=src.shape[1],
                      max_abs_err=0.0, deterministic=True)
-            # B4: the windowed scatter into the senders, tight and overlapping windows
-            data = quarter_grid((e, h), h + 3).to(dtype).to(dev)
-            ref = b4.segment_sum_local_plain(data, send, n)
-            for label, win in (("tight", bd.sender_win), ("overlapping", win_wide)):
-                out = twice("segment_sum_local " + tag, b4.segment_sum_local, data, send, win, n)
-                err = compare(out, ref, f"segment_sum_local {label} {tag}")
-                max_err["segment_sum_local"] = max(max_err["segment_sum_local"], err)
-                line("check-train", kernel="segment_sum_local", case=f"{label}_{tag}", E=e, N=n, H=h,
-                     max_abs_err=err, deterministic=True)
+            # B4: the windowed scatter into the senders, tight and overlapping
+            # windows; bit-equal to the plain version on the host (both sum
+            # each element in edge order), on the 1/4 grid and on normal values
+            for values in ("grid", "normal"):
+                data_h = quarter_grid((e, h), h + 3) if values == "grid" else normal_values((e, h), h + 4)
+                data_h = data_h.to(dtype)
+                ref = b4.segment_sum_local_plain(data_h, host.senders, n)
+                data = data_h.to(dev)
+                for label, win in (("tight", bd.sender_win), ("overlapping", win_wide)):
+                    out = twice("segment_sum_local " + tag, b4.segment_sum_local, data, send, win, n)
+                    err = compare(out, ref, f"segment_sum_local {label} {values} {tag}", exact=True)
+                    max_err["segment_sum_local"] = max(max_err["segment_sum_local"], err)
+                    line("check-train", kernel="segment_sum_local", case=f"{label}_{values}_{tag}", E=e, N=n, H=h,
+                         max_abs_err=err, bit_equal=True, deterministic=True)
 
     # the backward of every autograd op on the path, card (kernels) against
     # CPU (plain versions), at the training shapes, f32
@@ -949,15 +967,17 @@ def main():
     def normal(shape, scale=0.3):
         return torch.from_numpy((rng8.normal(size=shape) * scale).astype(np.float32))
 
-    def b8_case(variant, rows, edges, seed):
+    def b8_case(variant, rows, edges, seed, values="grid"):
         """(x, branches, acts, scale) of one B8 variant on the host, f32;
-        identity and scale on the 1/4 grid (every order sums exactly)."""
+        identity and scale on the 1/4 grid (every order sums exactly), or
+        on normal values (``values="normal"``)."""
+        walk = quarter_grid if values == "grid" else (lambda shape, sd, scale=4.0: normal_values(shape, sd))
         if variant == "identity_h1":
-            return quarter_grid((rows, 1), seed), (), (), None
+            return walk((rows, 1), seed), (), (), None
         if variant == "identity_h128":
-            return quarter_grid((rows, hidden), seed), (), (), None
+            return walk((rows, hidden), seed), (), (), None
         if variant == "scale_f126":
-            return quarter_grid((rows, 126), seed), (), (), quarter_grid((edges, 126), seed + 1, scale=2.0)
+            return walk((rows, 126), seed), (), (), walk((edges, 126), seed + 1, scale=2.0)
         if variant == "gate_w1":  # CGCNN at the flagship's input width
             return normal((rows, 1), 1.0), tuple(
                 (normal((1, 1)), None, normal((rows, 1)), None) for _ in range(2)
@@ -985,11 +1005,13 @@ def main():
     e_all = torch.tensor(e, dtype=torch.int32, device=dev)
     max_err["fused_conv"] = 0.0
 
-    def check_b8(tag, variant, hb, mask_host, dtype, reals, seed):
+    def check_b8(tag, variant, hb, mask_host, dtype, reals, seed, values="grid"):
         """B8 on the card against its plain version on the host, on the
-        f32 values of the same inputs; two launches bitwise equal."""
+        f32 values of the same inputs; two launches bitwise equal; the
+        identity and scale walks bit-equal (each element summed in edge
+        order, as index_add_ on the host)."""
         rows, edges = hb.num_nodes, hb.num_edges
-        x, branches, acts, scale = b8_case(variant, rows, edges, seed)
+        x, branches, acts, scale = b8_case(variant, rows, edges, seed, values)
         if variant == "gate_w128":  # +inf edge terms on the masked slots
             for br in branches:
                 br[3][~mask_host] = float("inf")
@@ -1005,16 +1027,20 @@ def main():
         err = 0.0
         for real in reals:
             out = twice(f"fused_conv {tag}", b8.fused_conv, xd, *args_d, bd_, acts, sd_, real)
-            err = max(err, compare(out, ref, f"fused_conv {tag} real_edges={int(real)}", tol=tol))
+            err = max(err, compare(out, ref, f"fused_conv {tag} real_edges={int(real)}", exact=not branches,
+                                   tol=tol))
         max_err["fused_conv"] = max(max_err["fused_conv"], err)
         empty = int((hb.receivers[mask_host].bincount(minlength=rows) == 0).sum())
         line("check-conv", kernel="fused_conv", case=tag, E=edges, N=rows, H_out=ref.shape[1],
              dtype=str(dtype)[6:], real_edges=json.dumps([int(r) for r in reals]), empty_rows=empty,
-             max_abs_err=err, tol=json.dumps(tol), deterministic=True)
+             max_abs_err=err, tol="bit-equal" if not branches else json.dumps(tol), deterministic=True)
 
     for variant in B8_VARIANTS:
         for dtype in (torch.float32, torch.bfloat16):
             check_b8(f"{variant}_{str(dtype)[6:]}", variant, host, mask_h, dtype, (occ, e_all), 80)
+    for variant in ("identity_h1", "identity_h128", "scale_f126"):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_b8(f"{variant}_normal_{str(dtype)[6:]}", variant, host, mask_h, dtype, (occ, e_all), 84, "normal")
 
     # an unaligned batch of the molecular data (tests/test_train_e2e.py):
     # the loader picks the dense slot map, and still emits sender windows
@@ -1600,11 +1626,21 @@ def main():
     # B5 at the same shapes (its row above is the serving batch's)
     b5_bytes = real_u * hidden * 4 + ue * 5 + un * hidden * 8 + un * 4 + node_b
     b5_bound, _ = bound(b5_bytes, real_u * hidden * 5)
+    # the library's two calls, as at the serving shape: a sum and a max
+    # over the masked [E, 2H] pairs by receiver
+    lengths_u = torch.bincount(urecv.long(), minlength=un)
+    vum = torch.where(mask_u[:, None], vu, 0.0)
+    pair_sum_u = torch.cat([vum, vum * vum], dim=1)
+    pair_max_u = torch.where(mask_u[:, None], torch.cat([vu, -vu], dim=1), float("-inf"))
     line("timing", kernel="pna_aggregate_fwd", shape="train_unaligned_batch1024", card=repr(card),
          ms=round(cuda_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u), 50), 5),
          graph_ms=round(graph_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u), 20), 5),
          plain_ms=round(cuda_ms(lambda: agg.pna_aggregate_plain(vu, urecv, un, mask_u), 10), 5),
+         library_ms=round(cuda_ms(lambda: (torch.segment_reduce(pair_sum_u, "sum", lengths=lengths_u, axis=0),
+                                           torch.segment_reduce(pair_max_u, "max", lengths=lengths_u, axis=0)),
+                                  50), 5),
          bound_ms=round(b5_bound, 5), E=ue, N=un, H=hidden)
+    del vum, pair_sum_u, pair_max_u
     for name, (kern, plain, nbytes, ops) in specs_bwd.items():
         t_k = [cuda_ms(kern, 50)]
         plain_ms = cuda_ms(plain, 10)
@@ -1699,13 +1735,52 @@ def main():
             if fn is not None:
                 t[which].append(cuda_ms(fn, 20))
         bms, by = bound(nbytes, ops)
+        g_ms = graph_ms(kern, 10)
         b8_timing[variant] = {
-            "ms": float(np.mean(t["kernel"])), "graph_ms": graph_ms(kern, 10), "plain_ms": t["plain"][0],
-            "library_ms": t["library"][0] if t["library"] else None, "bound_ms": bms, "bound_by": by,
-            "bytes": nbytes, "ops": ops, "E": e, "N": n, "H_in": hin, "H_out": hout, "branches": kb,
+            "ms": float(np.mean(t["kernel"])), "graph_ms": g_ms, "plain_ms": t["plain"][0],
+            "library_ms": t["library"][0] if t["library"] else None,
+            "library_graph_ms": graph_ms(library, 10) if library is not None else None,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops,
+            "E": e, "N": n, "H_in": hin, "H_out": hout, "branches": kb,
         }
+        if not branches:
+            # the rate of the gather itself: each real edge's row of x (and
+            # of the scale) over the time in a CUDA graph
+            rows_b = real_t * hin * s4 * (2 if scale is not None else 1)
+            b8_timing[variant]["gather_tb_per_s"] = rows_b / (g_ms * 1e-3) / 1e12
         line("timing", kernel="fused_conv", variant=variant, card=repr(card),
              **{k: (round(v, 5) if isinstance(v, float) else v) for k, v in b8_timing[variant].items()})
+    # the row-pointer pass each B8 call makes before its walk (a zero fill
+    # and csr_row_ptr_kernel), alone, and its share of the identity call
+    rp_ms, rp_graph_ms = cuda_ms(lambda: b8.row_pointers(bd.receivers, n), 50), \
+        graph_ms(lambda: b8.row_pointers(bd.receivers, n), 20)
+    line("timing", kernel="fused_conv", part="row_pointers", card=repr(card), ms=round(rp_ms, 5),
+         graph_ms=round(rp_graph_ms, 5), bound_ms=round(bound(e * 4 + (n + 1) * 4, 0)[0], 5),
+         share_of_identity_h128_graph=round(rp_graph_ms / b8_timing["identity_h128"]["graph_ms"], 4),
+         share_of_identity_h1_graph=round(rp_graph_ms / b8_timing["identity_h1"]["graph_ms"], 4))
+    # B8 and B4 on the molecular data's dense-map batch (phase 8's): on its
+    # edge list (the conv stacks' call and their grad_x scatter) and on its
+    # dense slots, whose padding node's empty slots make one long row
+    md = mhost.to(dev)
+    mn, d_slots = mhost.num_nodes, mhost.dense_senders.shape[1]
+    dsend, dmask = md.dense_senders.reshape(-1).contiguous(), md.dense_mask.reshape(-1).contiguous()
+    drecv = torch.arange(mn, dtype=torch.int32, device=dev).repeat_interleave(d_slots)
+    mol_calls = {
+        "b8_identity_h128_edges": lambda xx=quarter_grid((mn, hidden), 91).to(dev): b8.fused_conv(
+            xx, md.senders, md.receivers, md.edge_mask, mn, real_edges=md.edge_occupancy),
+        "b8_identity_h128_slots": lambda xx=quarter_grid((mn, hidden), 92).to(dev): b8.fused_conv(
+            xx, dsend, drecv, dmask, mn),
+        "b8_scale_f126_edges": lambda xx=quarter_grid((mn, 126), 93).to(dev),
+        ss=quarter_grid((mhost.num_edges, 126), 94).to(dev): b8.fused_conv(
+            xx, md.senders, md.receivers, md.edge_mask, mn, scale=ss, real_edges=md.edge_occupancy),
+        "b4_h128_edges": lambda gg=quarter_grid((mhost.num_edges, hidden), 95).to(dev): b4.segment_sum_local(
+            gg, md.senders, md.sender_win, mn),
+        "b4_h128_slots": lambda gg=quarter_grid((mn * d_slots, hidden), 96).to(dev): b4.segment_sum_local(
+            gg, dsend, md.dense_sender_win, mn),
+    }
+    for label, fn in mol_calls.items():
+        line("timing", batch="molecular_dense_map", call=label, N=mn, E=mhost.num_edges, slots=mn * d_slots,
+             card=repr(card), ms=round(cuda_ms(fn, 50), 5), graph_ms=round(graph_ms(fn, 20), 5))
     # the main path's B8 call: the GIN/SAGE/MFC layers 1-5 (identity, H=128)
     timing["fused_conv"] = dict(b8_timing["identity_h128"])
 
@@ -1756,7 +1831,8 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     ours = ("gather_stats_kernel", "segment_sum_kernel", "gather_rows_kernel", "segment_sum_local_kernel",
-            "csr_row_ptr_kernel", "fused_identity_kernel", "fused_branch_kernel", "pna_aggregate_kernel",
+            "csr_row_ptr_kernel", "fused_identity_kernel", "fused_identity_warp_kernel", "fused_branch_kernel",
+            "pna_aggregate_kernel",
             "pna_bwd_count_kernel", "pna_bwd_grad_kernel", "stack_product_kernel", "stack_walk_kernel")
 
     def profile_step(label, model_, optimizer_, bd_=bd):

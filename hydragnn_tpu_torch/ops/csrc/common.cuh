@@ -114,4 +114,49 @@ inline int lanes_log2(int width) {
   return l;
 }
 
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The bytes one lane loads of a row at a time: the widest of 16, 8, 4, 2
+// or 1 that divides the row's bytes and every base pointer's address
+// (`align` is their bitwise or), as gather_rows.cu picks it; narrowed
+// while 32 lanes would not cover the row (bf16 at H = 128: 8 bytes, so a
+// warp reads the 256-byte row at once), but never below the element.
+inline int row_vector_bytes(long long row_bytes, uintptr_t align, int elem_bytes) {
+  int v = 16;
+  while (v > 1 && (row_bytes % v != 0 || align % v != 0)) v >>= 1;
+  while (v > elem_bytes && row_bytes / v < 32) v >>= 1;
+  return v;
+}
+
+// One lane's vector of V bytes of a row, as float32: V / sizeof(T)
+// elements, bf16 widened exactly (its bits in the float's top half).
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const char* p, float (&f)[V / sizeof(T)]) {
+  static_assert(V >= (int)sizeof(T), "a vector holds whole elements");
+  uint32_t w[V >= 4 ? V / 4 : 1];
+  if constexpr (V == 16) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+  } else if constexpr (V == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    w[0] = r.x, w[1] = r.y;
+  } else if constexpr (V == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = (uint32_t)(*reinterpret_cast<const uint16_t*>(p));
+  }
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) f[i] = __uint_as_float(w[i]);
+  } else if constexpr (V == 2) {
+    f[0] = __uint_as_float(w[0] << 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
 }  // namespace

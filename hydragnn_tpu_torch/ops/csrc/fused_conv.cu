@@ -18,7 +18,8 @@
 // product by 0): its sender is never read and its message never formed, so
 // an inf in its eterm or a self-loop filler cannot reach the output. Edges
 // at or past *real_edges (the batch's occupancy bound, every one of them
-// masked) are not visited; the bound is clamped to [0, E].
+// masked) are not visited; the bound is clamped to [0, E]. A sender
+// outside [0, n_x_rows) drops its edge.
 //
 // What bounds it on this card: bytes for every variant the conv stacks run
 // (identity, per-edge scale, the width-1 CGCNN gate). The least time is
@@ -28,17 +29,31 @@
 //
 // What the design does:
 //   - CSR row pointers from one pass over the sorted receivers
-//     (common.cuh:csr_row_ptr_kernel): no search, no atomics.
-//   - Each output element has one owner thread that walks its row's edges
-//     in order with __fadd_rn / __fmul_rn: two launches are bitwise equal.
-//     Lanes run along the output columns in groups of a power of two
-//     (common.cuh:lanes_log2), so narrow rows pack many rows per warp.
-//   - Identity and scale (K = 0): each lane reads its own column of the
-//     gathered row; a warp reads consecutive values of it.
+//     (common.cuh:csr_row_ptr_kernel, after a zero fill; hg_fused_conv_row_ptr
+//     runs the pass alone): no search, no atomics.
+//   - Every output element is summed over its row's edges in edge order
+//     with __fadd_rn / __fmul_rn, by one lane: two launches are bitwise
+//     equal, and f32 equals index_add_ on the host bit for bit.
+//   - Identity and scale (K = 0), rows of 32 columns or more: one warp per
+//     output row. The warp loads 32 slots' mask and sender with one
+//     coalesced load each, keeps the live ones by __ballot_sync (masked,
+//     out-of-range and past-the-bound slots drop out) and hands each
+//     sender to every lane by __shfl_sync, in edge order. Each lane owns a
+//     vector of columns (16 bytes at H = 128 f32, 8 at SchNet's 504-byte
+//     F = 126 rows and at bf16 H = 128; common.cuh:row_vector_bytes checks
+//     the row's bytes and every base pointer) and issues U row loads (8,
+//     or 4 for wide vectors and the scale) before it adds any of them.
+//     So a warp has U x 512 bytes of the gather in flight where the old
+//     one-column-a-thread walk had one 4-byte load, and no lane reads an
+//     index twice. x (16.8 MB at the flagship) stays in the 50 MB L2, so
+//     the gather is bound by L2's rate, not HBM's.
+//   - Identity under 32 columns (conv_0, H = 1): lanes run along the
+//     columns in groups of a power of two (common.cuh:lanes_log2), many
+//     rows a warp, and each lane walks its row's edges itself.
 //   - Narrow branches (K = 1, 2 with Hout < 32: the width-1 CGCNN gate):
-//     lanes as in the identity kernel, W and b in shared memory, and each
-//     lane reads its edges' gathered rows itself (Hin values each), so no
-//     lane of a warp waits on a barrier for a row it has no column of.
+//     lanes as in the narrow identity kernel, W and b in shared memory, and
+//     each lane reads its edges' gathered rows itself (Hin values each), so
+//     no lane of a warp waits on a barrier for a row it has no column of.
 //   - Wide branches (K = 1, 2): a block of 128 threads holds W and b in shared
 //     memory (128 KB at Hin = 128, K·Hout = 256, hence the raised dynamic
 //     limit; W stays in global memory when it does not fit). A group of
@@ -95,6 +110,91 @@ __global__ void fused_identity_kernel(const T* __restrict__ x, const int32_t* __
       s = __fadd_rn(s, m);
     }
     out[row * h + f] = s;
+  }
+}
+
+// K = 0 at 32 columns or more: one warp per output row (the design notes
+// above). nv: the row's vectors of V bytes; a lane owns vectors lane,
+// lane + 32, ..., VPL of them a pass, and wider rows take further passes
+// over the same edges.
+template <typename T, int V, int VPL, bool SCALE>
+__global__ void __launch_bounds__(kThreads)
+    fused_identity_warp_kernel(const T* __restrict__ x, const int32_t* __restrict__ send,
+                               const uint8_t* __restrict__ mask, const int32_t* __restrict__ ptr,
+                               const int32_t* __restrict__ real_edges, long long n_edges,
+                               long long n_x_rows, long long n_rows, int h, int nv,
+                               const T* __restrict__ scale, float* __restrict__ out) {
+  constexpr int EPV = V / (int)sizeof(T);
+  constexpr int U = VPL * EPV * (SCALE ? 2 : 1) <= 4 ? 8 : 4;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp
+  const long long lo = ptr[row];
+  long long hi = ptr[row + 1];
+  const long long bound = edge_bound(real_edges, n_edges);
+  hi = hi > bound ? bound : hi;
+  const size_t row_bytes = (size_t)h * sizeof(T);
+  const char* xb = reinterpret_cast<const char*>(x);
+  const char* sb = reinterpret_cast<const char*>(scale);
+  for (int c0 = 0; c0 < nv; c0 += 32 * VPL) {
+    float acc[VPL][EPV];
+#pragma unroll
+    for (int p = 0; p < VPL; ++p)
+#pragma unroll
+      for (int i = 0; i < EPV; ++i) acc[p][i] = 0.f;
+    for (long long base = lo; base < hi; base += 32) {
+      const long long e = base + lane;
+      int j = -1;
+      if (e < hi && mask[e]) {
+        const int s = send[e];
+        if (s >= 0 && s < n_x_rows) j = s;
+      }
+      unsigned live = __ballot_sync(kFullWarp, j >= 0);  // the same in every lane
+      while (live) {
+        int k[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          k[u] = live ? __ffs(live) - 1 : -1;
+          live &= live - 1u;
+        }
+        long long src[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) src[u] = __shfl_sync(kFullWarp, j, k[u] < 0 ? 0 : k[u]);
+        float v[U][VPL][EPV], sc[U][VPL][EPV];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int p = 0; p < VPL; ++p) {
+            const int col = c0 + p * 32 + lane;
+#pragma unroll
+            for (int i = 0; i < EPV; ++i) v[u][p][i] = sc[u][p][i] = 0.f;
+            if (k[u] >= 0 && col < nv) {
+              load_vec<T, V>(xb + (size_t)src[u] * row_bytes + (size_t)col * V, v[u][p]);
+              if constexpr (SCALE)
+                load_vec<T, V>(sb + (size_t)(base + k[u]) * row_bytes + (size_t)col * V, sc[u][p]);
+            }
+          }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (k[u] < 0) continue;
+#pragma unroll
+          for (int p = 0; p < VPL; ++p)
+#pragma unroll
+            for (int i = 0; i < EPV; ++i) {
+              const float m = SCALE ? __fmul_rn(v[u][p][i], sc[u][p][i]) : v[u][p][i];
+              acc[p][i] = __fadd_rn(acc[p][i], m);
+            }
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < VPL; ++p) {
+      const int col = c0 + p * 32 + lane;
+      if (col >= nv) continue;
+      float* dst = out + (size_t)row * h + (size_t)col * EPV;
+#pragma unroll
+      for (int i = 0; i < EPV; ++i) dst[i] = acc[p][i];
+    }
   }
 }
 
@@ -293,13 +393,65 @@ int launch_branch(const void* x, const void* send, const void* mask, const void*
   return (int)cudaGetLastError();
 }
 
+template <typename T, int V, int VPL>
+int launch_identity_warp(const void* x, const void* send, const void* mask, const void* real_edges,
+                         long long n_edges, long long n_x_rows, long long n_rows, int h, int nv,
+                         const void* scale, const void* row_ptr, void* out, cudaStream_t stream) {
+  const long long rows_per_block = kThreads / 32;
+  const unsigned blocks = (unsigned)((n_rows + rows_per_block - 1) / rows_per_block);
+  if (scale != nullptr)
+    fused_identity_warp_kernel<T, V, VPL, true><<<blocks, kThreads, 0, stream>>>(
+        (const T*)x, (const int32_t*)send, (const uint8_t*)mask, (const int32_t*)row_ptr,
+        (const int32_t*)real_edges, n_edges, n_x_rows, n_rows, h, nv, (const T*)scale,
+        (float*)out);
+  else
+    fused_identity_warp_kernel<T, V, VPL, false><<<blocks, kThreads, 0, stream>>>(
+        (const T*)x, (const int32_t*)send, (const uint8_t*)mask, (const int32_t*)row_ptr,
+        (const int32_t*)real_edges, n_edges, n_x_rows, n_rows, h, nv, nullptr, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch_identity_v(const void* x, const void* send, const void* mask, const void* real_edges,
+                      long long n_edges, long long n_x_rows, long long n_rows, int h,
+                      const void* scale, const void* row_ptr, void* out, cudaStream_t stream) {
+  if constexpr (V < (int)sizeof(T)) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int nv = (int)((long long)h * sizeof(T) / V);
+    if (nv <= 32)
+      return launch_identity_warp<T, V, 1>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows,
+                                           h, nv, scale, row_ptr, out, stream);
+    return launch_identity_warp<T, V, 2>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows, h,
+                                         nv, scale, row_ptr, out, stream);
+  }
+}
+
 template <typename T>
-int launch(const void* x, const void* send, const void* recv, const void* mask,
-           const void* real_edges, long long n_edges, long long n_x_rows, long long n_rows,
-           int hin, int hout, int k_br, int act0, int act1, const void* w, const void* b,
-           const void* rtab, const void* eterm, const void* scale, void* row_ptr, void* out,
-           cudaStream_t stream) {
-  launch_row_ptr(recv, n_edges, n_rows, row_ptr, stream);
+int launch(const void* x, const void* send, const void* mask, const void* real_edges,
+           long long n_edges, long long n_x_rows, long long n_rows, int hin, int hout, int k_br,
+           int act0, int act1, const void* w, const void* b, const void* rtab, const void* eterm,
+           const void* scale, const void* row_ptr, void* out, cudaStream_t stream) {
+  if (k_br == 0 && hout >= 32) {
+    const uintptr_t align = (uintptr_t)x | (uintptr_t)scale;
+    const int v = row_vector_bytes((long long)hout * sizeof(T), align, (int)sizeof(T));
+    switch (v) {
+      case 16:
+        return launch_identity_v<T, 16>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows,
+                                        hout, scale, row_ptr, out, stream);
+      case 8:
+        return launch_identity_v<T, 8>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows,
+                                       hout, scale, row_ptr, out, stream);
+      case 4:
+        return launch_identity_v<T, 4>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows,
+                                       hout, scale, row_ptr, out, stream);
+      case 2:
+        return launch_identity_v<T, 2>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows,
+                                       hout, scale, row_ptr, out, stream);
+      default:
+        return (int)cudaErrorMisalignedAddress;
+    }
+  }
   if (k_br == 0) {
     const int lpr_log2 = lanes_log2(hout);
     const long long rows_per_block = kThreads >> lpr_log2;
@@ -317,15 +469,41 @@ int launch(const void* x, const void* send, const void* recv, const void* mask,
                              act0, act1, w, b, rtab, eterm, scale, row_ptr, out, stream);
 }
 
+__global__ void zero_kernel(int32_t* __restrict__ p, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) p[i] = 0;
+}
+
+// The n_rows + 1 int32 row pointers of the sorted receivers recv
+// [n_edges] into row_ptr: a zero fill, then common.cuh:csr_row_ptr_kernel.
+// (A kernel, not cudaMemsetAsync: a memset node replays slower in a CUDA
+// graph.)
+int fill_row_ptr(const void* recv, long long n_edges, long long n_rows, void* row_ptr,
+                 cudaStream_t stream) {
+  zero_kernel<<<(unsigned)((n_rows + kThreads) / kThreads), kThreads, 0, stream>>>((int32_t*)row_ptr,
+                                                                                 n_rows + 1);
+  launch_row_ptr(recv, n_edges, n_rows, row_ptr, stream);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The row-pointer pass of hg_fused_conv alone (fill_row_ptr). Returns a
+// cudaError_t (0 = success).
+extern "C" int hg_fused_conv_row_ptr(const void* recv, long long n_edges, long long n_rows,
+                                     void* row_ptr, void* stream) {
+  if (n_rows <= 0 || n_edges < 0) return (int)cudaErrorInvalidValue;
+  return fill_row_ptr(recv, n_edges, n_rows, row_ptr, (cudaStream_t)stream);
+}
 
 // dtype: 0 = float32, 1 = bfloat16, for x, rtab, eterm and scale alike; w
 // ([Hin, K·Hout]) and b ([K·Hout], may be null) are float32. rtab
 // ([n_rows, K·Hout]), eterm ([E, K·Hout]), scale ([E, Hout]) and
 // real_edges (one int32 on the card) may be null. K = k_br in 0..2, and
 // K = 0 needs Hin = Hout. act0/act1: 0 none, 1 relu, 2 sigmoid, 3 softplus,
-// 4 tanh, 5 silu. row_ptr: n_rows + 1 int32 of scratch, zero-filled by the
-// caller. Returns a cudaError_t (0 = success).
+// 4 tanh, 5 silu. row_ptr: n_rows + 1 int32 of scratch for the sorted
+// receivers' row pointers, filled here first (fill_row_ptr). Returns a
+// cudaError_t (0 = success).
 extern "C" int hg_fused_conv(const void* x, int dtype, const void* send, const void* recv,
                              const void* mask, const void* real_edges, long long n_edges,
                              long long n_x_rows, long long n_rows, int hin, int hout, int k_br,
@@ -337,12 +515,13 @@ extern "C" int hg_fused_conv(const void* x, int dtype, const void* send, const v
     return (int)cudaErrorInvalidValue;
   if ((k_br == 0 && hin != hout) || (k_br > 0 && w == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int rc = fill_row_ptr(recv, n_edges, n_rows, row_ptr, s);
+  if (rc != 0) return rc;
   if (dtype == 0)
-    return launch<float>(x, send, recv, mask, real_edges, n_edges, n_x_rows, n_rows, hin, hout,
-                         k_br, act0, act1, w, b, rtab, eterm, scale, row_ptr, out, s);
+    return launch<float>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows, hin, hout, k_br,
+                         act0, act1, w, b, rtab, eterm, scale, row_ptr, out, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, send, recv, mask, real_edges, n_edges, n_x_rows, n_rows, hin,
-                                 hout, k_br, act0, act1, w, b, rtab, eterm, scale, row_ptr, out,
-                                 s);
+    return launch<__nv_bfloat16>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows, hin, hout,
+                                 k_br, act0, act1, w, b, rtab, eterm, scale, row_ptr, out, s);
   return (int)cudaErrorInvalidValue;
 }

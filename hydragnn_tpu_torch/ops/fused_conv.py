@@ -67,6 +67,7 @@ launches = LaunchCount()
 
 _lock = threading.Lock()
 _fn = None  # guarded by _lock
+_row_ptr_fn = None  # guarded by _lock
 
 Branch = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]
 
@@ -103,6 +104,36 @@ def _kernel():
                 p, i, p, p, p, p, ll, ll, ll, i, i, i, i, i, p, p, p, p, p, p, p, p,
             ])
         return _fn
+
+
+def _row_ptr_kernel():
+    global _row_ptr_fn
+    with _lock:
+        if _row_ptr_fn is None:
+            p, ll = ctypes.c_void_p, ctypes.c_longlong
+            _row_ptr_fn = bind("fused_conv.cu", "hg_fused_conv_row_ptr", [p, ll, ll, p, p])
+        return _row_ptr_fn
+
+
+def row_pointers(receivers: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The ``[num_segments + 1]`` int32 CSR row pointers of the sorted
+    int32 ``receivers``: ``ptr[r]`` is the first edge whose receiver is
+    >= r. On the card it is the pass ``fused_conv`` makes before its walk
+    (a zero fill, then ``common.cuh:csr_row_ptr_kernel``), run alone; a
+    CPU tensor takes ``torch.searchsorted``."""
+    s = int(num_segments)
+    if receivers.device.type == "cpu":
+        rows = torch.arange(s + 1, dtype=receivers.dtype)
+        return torch.searchsorted(receivers, rows).to(torch.int32)
+    dev = cuda_args("row_pointers", receivers)
+    if receivers.dtype != torch.int32 or receivers.dim() != 1:
+        raise TypeError("row_pointers: receivers must be int32 [E] on CUDA")
+    fn = _row_ptr_kernel()
+    with torch.cuda.device(dev):
+        row_ptr = torch.empty(s + 1, dtype=torch.int32, device=dev)
+        rc = fn(receivers.data_ptr(), receivers.shape[0], s, row_ptr.data_ptr(), stream_of(dev))
+    check_launch("row_pointers", rc)
+    return row_ptr
 
 
 def _check(x, senders, receivers, mask, num_segments, branches, acts, scale) -> int:
@@ -244,7 +275,7 @@ def fused_conv(
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _kernel()
     with torch.cuda.device(dev):
-        row_ptr = torch.zeros(s + 1, dtype=torch.int32, device=dev)
+        row_ptr = torch.empty(s + 1, dtype=torch.int32, device=dev)
         out = torch.empty(s, hout, dtype=torch.float32, device=dev)
         codes = [ACT_CODE[a] for a in acts] + [0, 0]
         rc = fn(

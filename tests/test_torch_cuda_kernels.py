@@ -22,6 +22,16 @@ once, as its Pallas kernel does). B9 within 1e-5 of its output's largest
 magnitude against its plain version over 3 layers (each layer's product
 in another order than the host's BLAS, the rounding carried into the
 next layer), and equal to the loop of B8 launches it replaces.
+
+B4 and B8's identity and scale variants sum each output element in edge
+order, as ``index_add_`` does on the host, so they must equal their plain
+versions bit for bit on random normal inputs too, in f32 and on bf16
+inputs (the plain version on their f32 values), on the edge cases of
+``b4_edge_case`` and ``b8_edge_case``: overlapping windows, an empty
+block, a row with 20,000 edges; 50,000 masked slots in one row, the
+occupancy bound below E, out-of-range senders, inputs at an odd offset.
+``tests/test_torch_segment_ops.py`` and ``tests/test_torch_fused_conv.py``
+hold the same inputs' plain versions to the JAX package.
 """
 
 import numpy as np
@@ -66,40 +76,143 @@ def _grid(shape, seed, dtype):
     return torch.from_numpy((np.round(rng.normal(size=shape) * 4.0) / 4.0 + 0.0).astype(np.float32)).to(dtype)
 
 
+def _bits(t):
+    """The raw bits of a float tensor (so -0.0 differs from 0.0)."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+
+def _values(shape, rng, values):
+    """numpy f32: "grid" on the 1/4 grid (every order sums exactly),
+    "normal" standard normal (only the same order sums alike)."""
+    v = rng.normal(size=shape)
+    return ((np.round(v * 4.0) / 4.0 + 0.0) if values == "grid" else v).astype(np.float32)
+
+
+def b4_edge_case(h, seed, values="normal"):
+    """B4's edge cases as numpy: (data [E, h] f32, ids [E] int32, win
+    [2, 5] int32, num_segments 300). Five blocks of 64 rows; block 2 has
+    no edge (an empty window); row 70 has 20,000 edges; neighbouring
+    blocks' edges interleave, so windows overlap and hold other blocks'
+    ids; blocks 0 and 3 get windows widened by 50 positions both ways."""
+    from hydragnn_tpu_torch.graph.batch import _block_windows
+
+    rng = np.random.default_rng(seed)
+    n, b = 300, 64
+    ids = [np.full(20_000, 70)]
+    for blk in (0, 1, 3, 4):
+        rows = np.arange(blk * b, min(n, (blk + 1) * b))
+        ids.append(rng.choice(rows, size=int(rng.integers(300, 700))))
+    ids = np.concatenate(ids)
+    key = ids // b + rng.uniform(0.0, 1.5, ids.size)  # neighbouring blocks interleave
+    ids = ids[np.argsort(key, kind="stable")].astype(np.int32)
+    win = _block_windows(ids, np.argsort(ids, kind="stable"), n, b).astype(np.int64)
+    assert win.shape == (2, 5) and win[0, 2] == win[1, 2]
+    for blk in (0, 3):
+        win[:, blk] = np.clip(win[:, blk] + [-50, 50], 0, ids.size)
+    return _values((ids.size, h), rng, values), ids, win.astype(np.int32), n
+
+
+def b8_edge_case(h, seed, values="normal", with_scale=False):
+    """B8 (K = 0) edge cases as numpy: (x [n, h], senders, receivers
+    (sorted), mask, num_segments, real_edges, scale [E, h] or None,
+    clean_mask, clean_senders). Row 7 holds 3 real slots, 50,000 masked
+    ones and 2 more real slots; other rows 0-12 slots, about a quarter
+    masked; two real slots carry senders out of range (n + 5 and -1),
+    which the kernel drops; 300 masked slots at the padding row past the
+    occupancy bound. ``clean_*``: the same edges with the dropped ones
+    masked and their senders set to 0, for the plain version and JAX,
+    which would index out of range."""
+    rng = np.random.default_rng(seed)
+    n = 1_500
+    recv, mask = [], []
+    for r in range(n - 1):
+        if r == 7:
+            k = 50_005
+            m = np.zeros(k, bool)
+            m[[0, 1, 2, k - 2, k - 1]] = True
+        else:
+            k = int(rng.integers(0, 13))
+            m = rng.random(k) > 0.25
+        recv.append(np.full(k, r))
+        mask.append(m)
+    real_edges = sum(len(r) for r in recv)
+    recv.append(np.full(300, n - 1))
+    mask.append(np.zeros(300, bool))
+    recv, mask = np.concatenate(recv).astype(np.int32), np.concatenate(mask)
+    send = rng.integers(0, n - 1, recv.size).astype(np.int32)
+    real = np.flatnonzero(mask)
+    send[real[len(real) // 3]] = n + 5
+    send[real[2 * len(real) // 3]] = -1
+    clean = mask & (send >= 0) & (send < n)
+    clean_send = np.where(clean, send, 0).astype(np.int32)
+    x = _values((n, h), rng, values)
+    scale = _values((recv.size, h), rng, values) if with_scale else None
+    return x, send, recv, mask, n, real_edges, scale, clean, clean_send
+
+
+def _at_odd_offset(t, dev):
+    """``t`` copied to the card one element past an allocation's start
+    (a contiguous view whose address is only element-aligned)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    return flat[1:].view(t.shape).copy_(t)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["grid", "normal", "edges"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [1, 128])
-def test_cuda_kernels_match_plain(h, dtype):
+@pytest.mark.parametrize("h", [1, 3, 126, 128, 256])
+def test_cuda_kernels_match_plain(h, dtype, case):
+    """B1-B4 on the run-aligned batch's 1/4 grid ("grid"); B4 alone on
+    random normal data ("normal") and on ``b4_edge_case`` with the data
+    at an odd offset ("edges"), where it must equal its plain version bit
+    for bit."""
     dev = _cuda()
-    b, mask = _aligned_batch(h)
-    n, e = b.num_nodes, b.num_edges
-    send, recv8, win = b.senders, b.receivers[::K].contiguous(), b.sender_win
-    table = _grid((n, h), h, dtype)
-    data = _grid((e, h), h + 1, dtype)
-    stats8 = _grid((e // K, 2 * h), h + 2, torch.float32)
-    cases = [
-        ("gather_stats", lambda d: gather_stats(*d(table, send, mask), K), gather_stats_plain(table, send, mask, K)),
-        ("segment_sum", lambda d: ss_mod.segment_sum(*d(stats8, recv8), n), ss_mod.segment_sum_plain(stats8, recv8, n)),
-        ("gather_rows", lambda d: gr_mod.gather_rows(*d(table, send)), gr_mod.gather_rows_plain(table, send)),
-        ("segment_sum_local", lambda d: sl_mod.segment_sum_local(*d(data, send, win), n),
-         sl_mod.segment_sum_local_plain(data, send, n)),
-    ]
 
     def on_card(*ts):
         return [t.to(dev) for t in ts]
 
+    if case == "edges":
+        data_np, ids_np, win_np, n = b4_edge_case(h, h)
+        data, ids, win = torch.from_numpy(data_np).to(dtype), torch.from_numpy(ids_np), torch.from_numpy(win_np)
+        cases = [("segment_sum_local",
+                  lambda d: sl_mod.segment_sum_local(_at_odd_offset(data, dev), *d(ids, win), n),
+                  sl_mod.segment_sum_local_plain(data, ids, n))]
+    else:
+        b, mask = _aligned_batch(h)
+        n, e = b.num_nodes, b.num_edges
+        send, recv8, win = b.senders, b.receivers[::K].contiguous(), b.sender_win
+        if case == "normal":
+            data = torch.from_numpy(_values((e, h), np.random.default_rng(h), "normal")).to(dtype)
+            cases = []
+        else:
+            table = _grid((n, h), h, dtype)
+            data = _grid((e, h), h + 1, dtype)
+            stats8 = _grid((e // K, 2 * h), h + 2, torch.float32)
+            cases = [
+                ("gather_stats", lambda d: gather_stats(*d(table, send, mask), K),
+                 gather_stats_plain(table, send, mask, K)),
+                ("segment_sum", lambda d: ss_mod.segment_sum(*d(stats8, recv8), n),
+                 ss_mod.segment_sum_plain(stats8, recv8, n)),
+                ("gather_rows", lambda d: gr_mod.gather_rows(*d(table, send)), gr_mod.gather_rows_plain(table, send)),
+            ]
+        cases.append(("segment_sum_local", lambda d: sl_mod.segment_sum_local(*d(data, send, win), n),
+                      sl_mod.segment_sum_local_plain(data, send, n)))
+
     for name, run, ref in cases:
         ref = ref if isinstance(ref, tuple) else (ref,)
+        before = sl_mod.launches.value
         out1, out2 = run(on_card), run(on_card)
         torch.cuda.synchronize()
+        if name == "segment_sum_local":
+            assert sl_mod.launches.value == before + 2
         out1 = out1 if isinstance(out1, tuple) else (out1,)
         out2 = out2 if isinstance(out2, tuple) else (out2,)
         for a, c, r in zip(out1, out2, ref):
             assert torch.equal(a, c), name
-            if r.dtype == torch.float32 and name != "gather_rows":
+            if r.dtype == torch.float32 and name not in ("gather_rows", "segment_sum_local"):
                 np.testing.assert_allclose(a.cpu().numpy(), r.numpy(), err_msg=name, **SUM_TOL)
             else:
-                assert torch.equal(a.cpu(), r), name
+                assert torch.equal(_bits(a.cpu()), _bits(r)), name
 
 
 def _pna_case(h, dtype, seed, n=400, e=6000):
@@ -188,8 +301,9 @@ def _b8_inputs(b, variant, dtype, seed):
     if variant.startswith("identity"):
         h = int(variant.split("_h")[1])
         return _grid((n, h), seed, dtype), (), (), None
-    if variant == "scale_f126":
-        return _grid((n, 126), seed, dtype), (), (), _grid((e, 126), seed + 1, dtype)
+    if variant.startswith("scale"):
+        h = int(variant.split("_")[1][1:])
+        return _grid((n, h), seed, dtype), (), (), _grid((e, h), seed + 1, dtype)
     if variant == "gate_w1":
         branches = ((f32(1, 1), None, f32(n, 1).to(dtype), None), (f32(1, 1), None, f32(n, 1).to(dtype), None))
         return f32(n, 1, s=1.0).to(dtype), branches, ("sigmoid", "softplus"), None
@@ -209,19 +323,52 @@ def _f32(branches):
     return tuple(tuple(None if t is None else t.float() for t in br) for br in branches)
 
 
+B8_WALKS = [f"identity_h{h}" for h in (1, 3, 64, 126, 128, 256)] + [
+    f"scale_h{h}" for h in (1, 3, 64, 128, 256)] + ["scale_f126"]
+B8_CASES = [(v, c) for v in B8_WALKS for c in ("grid", "normal", "edges")] + [
+    (v, "grid") for v in ("gate_w1", "gate_w16", "gate_w128")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("variant", ["identity_h1", "identity_h128", "scale_f126", "gate_w1", "gate_w16", "gate_w128"])
-def test_cuda_fused_conv_matches_plain(variant, dtype):
+@pytest.mark.parametrize("variant,case", B8_CASES)
+def test_cuda_fused_conv_matches_plain(variant, case, dtype):
     """B8 against its plain version on the f32 values of the same inputs
-    (the kernel computes in f32), with run-aligned fillers, empty rows,
-    +inf in the masked slots' edge terms, and the occupancy bound below
-    E and at E."""
+    (the kernel computes in f32). "grid": the run-aligned batch with its
+    fillers, empty rows, +inf in the masked slots' edge terms, the
+    occupancy bound below E and at E, values on the 1/4 grid. "normal":
+    the same batch on random normal values, and "edges": ``b8_edge_case``
+    with x and the scale at an odd offset; both bit-equal (K = 0 sums in
+    edge order, as ``index_add_``)."""
     from hydragnn_tpu_torch.ops import fused_conv as fc
 
     dev = _cuda()
+    if case == "edges":
+        h = int(variant.split("_")[1][1:])
+        x_np, send, recv, mask, n, real, sc_np, clean, clean_send = b8_edge_case(
+            h, 11, with_scale=variant.startswith("scale"))
+        x = torch.from_numpy(x_np).to(dtype)
+        scale = None if sc_np is None else torch.from_numpy(sc_np).to(dtype)
+        ref = fc.fused_conv_plain(x.float(), torch.from_numpy(clean_send), torch.from_numpy(recv),
+                                  torch.from_numpy(clean), n, (), (), None if scale is None else scale.float())
+        d_args = [torch.from_numpy(t).to(dev) for t in (send, recv, mask)] + [n]
+        for real_d in (torch.tensor(real, dtype=torch.int32, device=dev),
+                       torch.tensor(recv.size, dtype=torch.int32, device=dev)):
+            run = lambda: fc.fused_conv(  # noqa: E731
+                _at_odd_offset(x, dev), *d_args, (), (), None if scale is None else _at_odd_offset(scale, dev), real_d)
+            before = fc.launches.value
+            out1, out2 = run(), run()
+            torch.cuda.synchronize()
+            assert fc.launches.value == before + 2
+            assert torch.equal(_bits(out1), _bits(out2))
+            assert torch.equal(_bits(out1.cpu()), _bits(ref)), variant
+        return
     b, mask = _aligned_batch(3)
     x, branches, acts, scale = _b8_inputs(b, variant, dtype, 11)
+    if case == "normal":
+        rng = np.random.default_rng(12)
+        x = torch.from_numpy(_values(tuple(x.shape), rng, "normal")).to(dtype)
+        scale = None if scale is None else torch.from_numpy(_values(tuple(scale.shape), rng, "normal")).to(dtype)
     if variant in ("gate_w16", "gate_w128"):  # +inf edge terms on masked slots never reach a sum
         for br in branches:
             br[3][~mask] = float("inf")
@@ -241,7 +388,10 @@ def test_cuda_fused_conv_matches_plain(variant, dtype):
         torch.cuda.synchronize()
         assert fc.launches.value == before + 2
         assert torch.equal(out1, out2)
-        np.testing.assert_allclose(out1.cpu().numpy(), ref.numpy(), err_msg=variant, **tol)
+        if case == "normal":
+            assert torch.equal(_bits(out1.cpu()), _bits(ref)), variant
+        else:
+            np.testing.assert_allclose(out1.cpu().numpy(), ref.numpy(), err_msg=variant, **tol)
 
 
 @pytest.mark.cuda

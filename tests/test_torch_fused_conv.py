@@ -26,6 +26,8 @@ from hydragnn_tpu.ops.fused_conv import fused_conv as jax_fused_conv
 from hydragnn_tpu_torch.graph.batch import batch_graphs
 from hydragnn_tpu_torch.ops import fused_conv as fc
 
+from test_torch_cuda_kernels import b8_edge_case
+
 SUM_TOL = dict(rtol=1e-6, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
 H = 8
@@ -147,6 +149,28 @@ def test_plain_matches_jax_pallas_interpret(case, monkeypatch):
     xt, bt, st = _torch_args(x, branches, scale)
     out = fc.fused_conv_plain(xt, b.senders, b.receivers, b.edge_mask, b.num_nodes, bt, acts, st)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **SUM_TOL)
+
+
+@pytest.mark.parametrize("h", [3, 126])
+@pytest.mark.parametrize("variant", ["identity", "scale"])
+@pytest.mark.parametrize("pallas", ["0", "interpret"])
+def test_plain_matches_jax_on_walk_edge_cases(pallas, variant, h, monkeypatch):
+    """The card tests' B8 walk edge cases (``b8_edge_case``: 50,000
+    masked slots in one row between real ones, the occupancy bound below
+    E, 300 masked slots past it) through the plain version and the JAX
+    package's XLA path and Pallas kernel (interpret mode), on the 1/4
+    grid. The two out-of-range senders, which the card's kernel drops,
+    go to both as masked slots with sender 0."""
+    monkeypatch.setenv("HYDRAGNN_PALLAS", pallas)
+    x, _, recv, mask, n, real, scale, clean, clean_send = b8_edge_case(
+        h, 11, values="grid", with_scale=variant == "scale")
+    assert (recv == 7).sum() == 50_005 and real < recv.size and (mask & ~clean).sum() == 2
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    out = fc.fused_conv_plain(t(x), t(clean_send), t(recv), t(clean), n, (), (), t(scale))
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    ref = jax_fused_conv(j(x), j(clean_send), j(recv), j(clean), n, scale=j(scale), real_edges=jnp.int32(real))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **SUM_TOL)
+    assert out[7].abs().sum() > 0
 
 
 def test_masked_slots_never_reach_the_output():

@@ -34,6 +34,8 @@ from hydragnn_tpu_torch.ops import segment_sum as ss_mod
 from hydragnn_tpu_torch.ops import segment_sum_local as sl_mod
 from hydragnn_tpu_torch.ops.gather_stats import gather_presum_stats, gather_stats
 
+from test_torch_cuda_kernels import b4_edge_case
+
 SUM_TOL = dict(rtol=1e-6, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
 K = 8
@@ -195,6 +197,23 @@ def test_segment_sum_local_plain_matches_jax(dtype):
     xla = jax.ops.segment_sum(jd.astype(jnp.float32), jb.senders, b.num_nodes)
     for ref in (pallas, xla):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **SUM_TOL)
+
+
+@pytest.mark.parametrize("h", [3, 24])
+def test_segment_sum_local_edge_cases_match_jax(h):
+    """The card tests' B4 edge cases (``b4_edge_case``: overlapping
+    windows holding other blocks' ids, an empty block, a row with 20,000
+    edges) through the plain version, the Pallas kernel in interpret
+    mode and XLA's segment sum, on the 1/4 grid."""
+    data, ids, win, n = b4_edge_case(h, h, values="grid")
+    out = sl_mod.segment_sum_local(torch.from_numpy(data), torch.from_numpy(ids), torch.from_numpy(win), n)
+    jd, jids = jnp.asarray(data), jnp.asarray(ids)
+    pallas = jsp.segment_sum_local_pallas(jd, jids, jnp.asarray(win), n, interpret=True)
+    xla = jax.ops.segment_sum(jd, jids, n)
+    for ref in (pallas, xla):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **SUM_TOL)
+    assert (ids == 70).sum() >= 20_000 and out[70].abs().sum() > 0
+    assert not out[128:192].any()  # the empty block
 
 
 def test_segment_sum_local_rejects_a_foreign_window_plan():
