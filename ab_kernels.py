@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""ab_kernels.py — time the port's B4 (``segment_sum_local``) and B8
-(``fused_conv``, K = 0) walks, and the train steps that carry them, from
-one checkout of the repository, so that two commits can be compared on
-one card in one run.
+"""ab_kernels.py — time the port's B1 (``gather_stats``) and the backward
+of its autograd op (``gather_presum_stats``), B4 (``segment_sum_local``)
+and B8 (``fused_conv``, K = 0) walks, and the train steps that carry
+them, from one checkout of the repository, so that two commits can be
+compared on one card in one run.
 
     python3 ab_kernels.py [--root DIR] [--tag NAME]   # on a CUDA machine
 
@@ -19,7 +20,10 @@ them:
   - the flagship's run-aligned training batch (1,024 BCC graphs: 32,752
     node rows, 810,888 edge slots) for B8 identity at H = 1 and 128, B8
     scale at F = 126, B8's row-pointer pass alone, B4 at H = 1 and 128;
-    ``torch.sparse.mm`` and ``index_add_`` beside them;
+    ``torch.sparse.mm`` and ``index_add_`` beside them; B1 forward at H =
+    128 and 1 (eager and in a CUDA graph) and the op's backward through
+    ``torch.autograd.grad`` (eager: autograd replays on the forward's
+    stream, outside a graph's capture), both through the public API;
   - the molecular data's dense-map batch (``tests/test_train_e2e.py``'s
     data, 64 graphs): B8 and B4 on its edge list and on its dense slots;
   - a synthetic batch of 4,096 rows of 24 slots with one row of 60,000
@@ -108,6 +112,7 @@ def main():
     from hydragnn_tpu_torch.graph.batch import _block_windows
     from hydragnn_tpu_torch.models.create import create_model_config
     from hydragnn_tpu_torch.ops import fused_conv as b8
+    from hydragnn_tpu_torch.ops import gather_stats as b1
     from hydragnn_tpu_torch.ops import segment_sum_local as b4
     from hydragnn_tpu_torch.ops._build import build_all
     from hydragnn_tpu_torch.train.optimizer import select_optimizer
@@ -118,7 +123,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = hydragnn_tpu_torch.resolve_device("cuda")
-    build_all(["fused_conv.cu", "segment_sum_local.cu"])
+    build_all(["fused_conv.cu", "segment_sum_local.cu", "gather_stats.cu", "gather_rows.cu"])
     results = {}
 
     def record(name, **kw):
@@ -170,6 +175,17 @@ def main():
     both("b4_h128", lambda: b4.segment_sum_local(g128, send, win, n), blocks=int(win.shape[1]), **shape)
     both("b4_h1", lambda: b4.segment_sum_local(g1, send, win, n), blocks=int(win.shape[1]), **shape)
     both("index_add_h128", lambda: torch.zeros(n, 128, device=dev).index_add_(0, send_l, g128), **shape)
+    # B1: the forward kernel, and the autograd op's backward (the op's
+    # backward kernel or chain, then B4)
+    k = host.run_align
+    for hh in (128, 1):
+        tab = randn(n, hh)
+        both(f"b1_forward_h{hh}", lambda: b1.gather_stats(tab, send, mask, k), K=k, **shape)
+        t = tab.clone().requires_grad_(True)
+        outs = b1.gather_presum_stats(t, send, mask, win, n, k)
+        cots = (randn(e // k, 2 * hh), randn(e // k, 2 * hh))
+        record(f"b1_op_backward_h{hh}", ms=cuda_ms(lambda: torch.autograd.grad(outs, t, cots, retain_graph=True), 20),
+               K=k, **shape)
 
     # the molecular data's dense-map batch: its edge list and its dense slots
     mcfg = stack_config("GIN", batch_size=64)

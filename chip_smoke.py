@@ -11,15 +11,17 @@ raises; nothing is caught):
                    ptxas registers / spills / shared memory.
   3. check       — pna_aggregate_fwd (B5) against its plain version at
                    the shapes of a full flagship serving batch.
-  4. check-train — gather_stats (B1), segment_sum (B2), gather_rows (B3)
+  4. check-train — gather_stats (B1), its backward kernel
+                   gather_stats_bwd, segment_sum (B2), gather_rows (B3)
                    and segment_sum_local (B4) against their plain versions
                    at the flagship training batch's shapes (batch 1024,
                    conv_0 H=1 and conv_1..5 H=128, f32 and bf16), with
                    ties, all-masked K-groups, empty rows and a window plan
-                   of overlapping blocks (B4 bit-equal to its plain version
-                   on the host, also on normal values); the backward of
-                   every autograd op against the same op on the CPU; two
-                   launches bitwise equal.
+                   of overlapping blocks (B1, its backward kernel and B4
+                   bit-equal to their plain versions on the host, also on
+                   normal values); the backward of every autograd op
+                   against the same op on the CPU; two launches bitwise
+                   equal.
   4b. check-pna-bwd — pna_bwd_count (B6) and pna_bwd_grad (B7) against
                    their plain versions at the flagship's unaligned
                    training shapes (H=1 and H=128, f32 and bf16), with
@@ -87,7 +89,10 @@ raises; nothing is caught):
                    radius_graph_in_forward on the e2e molecular config
                    against precomputed edges.
  10. timing      — each kernel at the main path's shapes: ms eager, ms in
-                   a CUDA graph, plain ms, library ms, beside its bound;
+                   a CUDA graph, plain ms, library ms (eager and in a
+                   graph), beside its bound; B1's backward kernel beside
+                   the chain it replaced (B3's regather and the
+                   elementwise block) and the op's whole backward with B4;
                    B8's row-pointer pass alone, its identity and scale
                    walks' gather rate, and torch.sparse.mm in a CUDA graph
                    beside them; B5's library calls at the unaligned
@@ -529,7 +534,10 @@ def main():
     line("device", kind=repr(kind), count=count, nvidia_smi=repr(card),
          torch=torch.__version__, cuda=torch.version.cuda,
          tf32=torch.backends.cuda.matmul.allow_tf32)
-    mods = {"pna_aggregate_fwd": agg, "gather_stats": b1, "segment_sum": b2,
+    mods = {"pna_aggregate_fwd": agg, "gather_stats": b1,
+            "gather_stats_bwd": types.SimpleNamespace(launches=b1.bwd_launches, SOURCE=b1.SOURCE,
+                                                      REPLACES=b1.BWD_REPLACES),
+            "segment_sum": b2,
             "gather_rows": b3, "segment_sum_local": b4, "fused_conv": b8,
             "pna_bwd_count": types.SimpleNamespace(launches=bwd.count_launches, SOURCE=bwd.SOURCE,
                                                    REPLACES=bwd.COUNT_REPLACES),
@@ -636,19 +644,39 @@ def main():
             raise AssertionError(f"{label}: two launches differ")
         return out1
 
+    cpu_send, cpu_adv = host.senders, adv_mask.cpu()
     for h in (1, hidden):
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"{'conv0' if h == 1 else 'conv1-5'}_{str(dtype)[6:]}_h{h}"
+            # B1 and its backward kernel (adversarial mask), bit-equal to
+            # their plain versions on the host: the forward adds each group
+            # in slot order, the backward follows the plain chain op for op
+            for values in ("grid", "normal"):
+                table_h = (quarter_grid((n, h), h) if values == "grid" else normal_values((n, h), h + 50)).to(dtype)
+                table = table_h.to(dev)
+                stats, both = twice("gather_stats " + tag, b1.gather_stats, table, send, adv_mask, K)
+                rs, rb = b1.gather_stats_plain(table_h, cpu_send, cpu_adv, K)
+                err = max(compare(stats, rs, f"gather_stats stats {values} {tag}", exact=True),
+                          compare(both, rb, f"gather_stats both {values} {tag}", exact=True))
+                lowest = torch.finfo(dtype).min
+                if not bool((both[extra_dead.reshape(-1, K)[:, 0].to(dev)] == lowest).all()):
+                    raise AssertionError("gather_stats: an all-masked group lost its fill value")
+                max_err["gather_stats"] = max(max_err["gather_stats"], err)
+                line("check-train", kernel="gather_stats", case=f"{values}_{tag}", E=e, N=n, H=h, max_abs_err=err,
+                     bit_equal=True, deterministic=True)
+                g_st = normal_values((e // K, 2 * h), h + 51)
+                g_bo = normal_values((e // K, 2 * h), h + 52).to(dtype)
+                grad_v = twice("gather_stats_bwd " + tag, b1.gather_presum_bwd, table, send, adv_mask, both,
+                               g_st.to(dev), g_bo.to(dev), K)
+                ref_g = b1.gather_presum_bwd_plain(table_h, cpu_send, cpu_adv, rb, g_st, g_bo, K)
+                err = compare(grad_v, ref_g, f"gather_stats_bwd {values} {tag}", exact=True)
+                if bool((grad_v[~adv_mask] != 0).any()):
+                    raise AssertionError("gather_stats_bwd: a masked slot got a gradient")
+                max_err["gather_stats_bwd"] = max(max_err["gather_stats_bwd"], err)
+                line("check-train", kernel="gather_stats_bwd", case=f"{values}_{tag}", E=e, N=n, H=h,
+                     max_abs_err=err, bit_equal=True, deterministic=True)
             table = quarter_grid((n, h), h).to(dtype).to(dev)
-            # B1: gather + K-group statistics (adversarial mask)
-            stats, both = twice("gather_stats " + tag, b1.gather_stats, table, send, adv_mask, K)
-            rs, rb = b1.gather_stats_plain(table, send, adv_mask, K)
-            err = max(compare(stats, rs, "gather_stats stats " + tag), compare(both, rb, "gather_stats both " + tag, exact=True))
-            lowest = torch.finfo(dtype).min
-            if not bool((both[extra_dead.reshape(-1, K)[:, 0].to(dev)] == lowest).all()):
-                raise AssertionError("gather_stats: an all-masked group lost its fill value")
-            max_err["gather_stats"] = max(max_err["gather_stats"], err)
-            line("check-train", kernel="gather_stats", case=tag, E=e, N=n, H=h, max_abs_err=err, deterministic=True)
+            stats, both = b1.gather_stats(table, send, adv_mask, K)
             # B2: the E/K sum of the statistics (and a 0/1 tie mask in the data's dtype)
             for label, data in (("stats", stats), ("ties", (both == both.roll(1, 0)).to(dtype))):
                 out = twice("segment_sum " + tag, b2.segment_sum, data, recv8, n)
@@ -698,7 +726,7 @@ def main():
             torch.autograd.backward((st, bo, pair, mx), (g_stats.to(d), g_both.to(d), g_node.to(d), g_node.to(d)))
             grads[where] = (t.grad.cpu(), pair.detach().cpu(), mx.detach().cpu())
         err = max(compare(a, b, f"backward h{h}") for a, b in zip(grads["cuda"], grads["cpu"]))
-        for name in ("gather_stats", "segment_sum", "gather_rows", "segment_sum_local"):
+        for name in ("gather_stats", "gather_stats_bwd", "segment_sum", "gather_rows", "segment_sum_local"):
             max_err[name] = max(max_err[name], err)
         line("check-train", case=f"autograd_backward_f32_h{h}", ops="gather_presum_stats,segment_sum_sorted,segment_max",
              max_abs_err_grad_table=err, grad_norm=float(grads["cuda"][0].norm()))
@@ -860,14 +888,14 @@ def main():
         raise AssertionError(f"train: a loss is not finite: {history}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: the train loss did not fall: {losses}")
-    # per train step: B1 6 (forward), B2 12 (forward E/K sum, backward tie
-    # counts), B3 24 (backward: the max's two gathers, the E/K sum's
-    # cotangent, the regather of v), B4 6 (backward into bsend); per eval
-    # or BatchNorm-statistics forward: B1 6, B2 6
+    # per train step: B1 6 (forward), its backward kernel 6, B2 12 (forward
+    # E/K sum, backward tie counts), B3 18 (backward: the max's two gathers,
+    # the E/K sum's cotangent), B4 6 (backward into bsend); per eval or
+    # BatchNorm-statistics forward: B1 6, B2 6
     steps = TRAIN_EPOCHS * len(train_loader)
     forwards = TRAIN_EPOCHS * (len(val_loader) + len(test_loader)) + 2 * len(train_loader)
-    per_step = {"gather_stats": n_layers, "segment_sum": 2 * n_layers,
-                "gather_rows": 4 * n_layers, "segment_sum_local": n_layers}
+    per_step = {"gather_stats": n_layers, "gather_stats_bwd": n_layers, "segment_sum": 2 * n_layers,
+                "gather_rows": 3 * n_layers, "segment_sum_local": n_layers}
     per_fwd = {"gather_stats": n_layers, "segment_sum": n_layers}
     want = {name: steps * per_step.get(name, 0) + forwards * per_fwd.get(name, 0) for name in mods}
     if train_counts != want:
@@ -1520,6 +1548,9 @@ def main():
     h = hidden
     table = torch.randn(n, h, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     stats, both = b1.gather_stats(table, send, bd.edge_mask, K)
+    g_stats = torch.randn(e // K, 2 * h, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    g_both = torch.randn(e // K, 2 * h, device=dev, generator=torch.Generator(device=dev).manual_seed(6))
+    bwd_args = (table, send, bd.edge_mask, both, g_stats, g_both, K)
     gsend = torch.randn(e, h, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
     node_w = torch.randn(n, 2 * h, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
     lengths = torch.bincount(recv8.long(), minlength=n)
@@ -1532,6 +1563,13 @@ def main():
             lambda: b1.gather_stats(table, send, bd.edge_mask, K),
             lambda: b1.gather_stats_plain(table, send, bd.edge_mask, K), None,
             e * 4 + e * 1 + n * h * s4 + (e // K) * 2 * h * s4 * 2, real * h * 5,
+            dict(E=e, N=n, H=h, K=K)),
+        # reads the table, ids, mask and three [E/K, 2H] rows; writes grad_v
+        # [E, H]; per real element 2 compares, 2 count adds, 6 products and sums
+        "gather_stats_bwd": (
+            lambda: b1.gather_presum_bwd(*bwd_args),
+            lambda: b1.gather_presum_bwd_plain(*bwd_args), None,
+            n * h * s4 + e * 4 + e * 1 + 3 * (e // K) * 2 * h * s4 + e * h * s4, real * h * 10,
             dict(E=e, N=n, H=h, K=K)),
         "segment_sum": (
             lambda: b2.segment_sum(stats, recv8, n),
@@ -1563,17 +1601,31 @@ def main():
         timing[name] = {
             "ms": float(np.mean(t["kernel"])), "graph_ms": graph_ms(kern, 20),
             "plain_ms": t["plain"][0], "library_ms": t["library"][0] if t["library"] else None,
+            # torch.segment_reduce cannot be captured: it invalidates the capture
+            "library_graph_ms": graph_ms(library, 20) if library is not None and name != "segment_sum" else None,
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, **shape,
         }
         line("timing", kernel=name, card=repr(card),
              **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing[name].items()})
-    # the E-level regather of the B1 backward, and pna_aggregate_fwd at the serving shape
+    # B1's backward: the chain the kernel replaced (B3's E-level regather,
+    # then the elementwise block op by op), the regather alone, and the
+    # op's whole backward (the kernel, then B4's scatter)
+    def replaced_chain():
+        return b1.presum_bwd_plain(b3.gather_rows(table, send), bd.edge_mask, both, g_stats, g_both, K)
+
+    def whole_backward():
+        return b4.segment_sum_local(b1.gather_presum_bwd(*bwd_args), send, bd.sender_win, n)
+
     regather_ms = cuda_ms(lambda: b3.gather_rows(table, send), 50)
     regather_bound, _ = bound(n * h * s4 + e * 4 + e * h * s4, 0)
     line("timing", kernel="gather_rows", case="regather_E", rows=e, W=h, ms=round(regather_ms, 5),
          graph_ms=round(graph_ms(lambda: b3.gather_rows(table, send), 20), 5),
          library_ms=round(cuda_ms(lambda: torch.index_select(table, 0, send), 50), 5),
          bound_ms=round(regather_bound, 5))
+    line("timing", kernel="gather_stats_bwd", case="replaced_chain", E=e, H=h, card=repr(card),
+         ms=round(cuda_ms(replaced_chain, 10), 5), kernel_ms=round(timing["gather_stats_bwd"]["ms"], 5))
+    line("timing", kernel="gather_stats_bwd", case="op_backward_with_b4", E=e, H=h, card=repr(card),
+         ms=round(cuda_ms(whole_backward, 20), 5), graph_ms=round(graph_ms(whole_backward, 10), 5))
     v = torch.randn(serve_batch.num_edges, hidden, generator=torch.Generator().manual_seed(1)).to(dev)
     recv_d, mask_d, ns = serve_batch.receivers.to(dev), serve_batch.edge_mask.to(dev), serve_batch.num_nodes
     lengths_s = torch.bincount(serve_batch.receivers.long(), minlength=ns).to(dev)
@@ -1830,7 +1882,8 @@ def main():
     # the share of the step's wall time the card was busy
     from torch.profiler import ProfilerActivity, profile
 
-    ours = ("gather_stats_kernel", "segment_sum_kernel", "gather_rows_kernel", "segment_sum_local_kernel",
+    ours = ("gather_stats_warp_kernel", "gather_stats_narrow_kernel", "gather_stats_bwd_warp_kernel",
+            "gather_stats_bwd_narrow_kernel", "segment_sum_kernel", "gather_rows_kernel", "segment_sum_local_kernel",
             "csr_row_ptr_kernel", "fused_identity_kernel", "fused_identity_warp_kernel", "fused_branch_kernel",
             "pna_aggregate_kernel",
             "pna_bwd_count_kernel", "pna_bwd_grad_kernel", "stack_product_kernel", "stack_walk_kernel")
@@ -1863,9 +1916,9 @@ def main():
 
     # ---- 11. summary -----------------------------------------------------
     # each kernel's launches on its own main path (serve: B5; PNA
-    # training: B1-B4; GIN training: B8; unaligned PNA training: B6, B7;
-    # the stack op forward and backward on both layouts: B9), and on every
-    # path
+    # training: B1, its backward kernel, B2-B4; GIN training: B8;
+    # unaligned PNA training: B6, B7; the stack op forward and backward on
+    # both layouts: B9), and on every path
     stack_op = {name: sum(c[name] for c in stack_counts_by_layout.values()) for name in mods}
     timing["fused_conv_stack"] = dict(stack_timing["unaligned"])
     paths = {"stack_op": stack_op, "train_gat": gat_counts, **{f"knobs_{k}": c for k, c in knob_counts.items()},
@@ -1883,7 +1936,8 @@ def main():
             "name": name, "route": "cuda", "source": m.SOURCE, "replaces": m.REPLACES,
             "launches": paths[home[name]][name], "max_abs_err": max_err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "graph_ms": t["graph_ms"], "path": home[name],
+            "library_ms": t["library_ms"], "graph_ms": t["graph_ms"],
+            "library_graph_ms": t.get("library_graph_ms"), "path": home[name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
         }
         if name == "fused_conv":

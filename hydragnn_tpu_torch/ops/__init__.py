@@ -8,7 +8,10 @@ launches (``launches``) and names the TPU kernel it replaces
   pna_aggregate.py      B5 ``_family_kernel`` (+ the XLA max over [v, -v]);
                         autograd op ``pna_aggregate``, its backward on B6/B7
   pna_aggregate_bwd.py  B6 ``_pna_bwd_count_kernel``, B7 ``_pna_bwd_grad_kernel``
-  gather_stats.py       B1 ``_gather_stats_kernel``
+  gather_stats.py       B1 ``_gather_stats_kernel``; autograd op
+                        ``gather_presum_stats``, its backward on a kernel
+                        of its own (``_gather_presum_bwd``'s regather and
+                        elementwise block, XLA on the TPU) and B4
   segment_sum.py        B2 ``_sum_kernel``
   gather_rows.py        B3 ``_bcast_kernel``
   segment_sum_local.py  B4 ``_sum_local_kernel``

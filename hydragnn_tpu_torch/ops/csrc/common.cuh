@@ -159,4 +159,64 @@ __device__ __forceinline__ void load_vec(const char* p, float (&f)[V / sizeof(T)
   }
 }
 
+// The counterpart of load_vec: f rounded to T (round to nearest even, as
+// PyTorch casts) and stored as one vector of V bytes.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(char* p, const float (&f)[V / sizeof(T)]) {
+  static_assert(V >= (int)sizeof(T), "a vector holds whole elements");
+  uint32_t w[V >= 4 ? V / 4 : 1];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) w[i] = __float_as_uint(f[i]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<uint16_t*>(p) = __bfloat16_as_ushort(__float2bfloat16_rn(f[0]));
+    return;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i)
+      w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i])) |
+             ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1])) << 16);
+  }
+  if constexpr (V == 16) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (V == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  }
+}
+
+// N consecutive float32 values as 16-byte vectors (or one 8- or 4-byte
+// access below 4 values); p is aligned to min(N, 4) floats.
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float (&f)[N]) {
+  if constexpr (N >= 4) {
+    static_assert(N % 4 == 0, "whole 16-byte vectors");
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 r = *reinterpret_cast<const float4*>(p + i);
+      f[i] = r.x, f[i + 1] = r.y, f[i + 2] = r.z, f[i + 3] = r.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 r = *reinterpret_cast<const float2*>(p);
+    f[0] = r.x, f[1] = r.y;
+  } else {
+    f[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_f32(float* p, const float (&f)[N]) {
+  if constexpr (N >= 4) {
+    static_assert(N % 4 == 0, "whole 16-byte vectors");
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(f[0], f[1]);
+  } else {
+    *p = f[0];
+  }
+}
+
 }  // namespace

@@ -8,8 +8,8 @@ each row, for a 2-D table of any dtype. The TPU kernel had two window
 plans, for sorted and for local ids; on the card both are the same
 kernel. On the training path it is every widening gather of the
 backward (the extremum's ``out[ids]`` and ``share[ids]``, the
-cotangent of ``segment_sum_sorted``) and the regather of ``v`` in the
-backward of ``gather_presum_stats``.
+cotangent of ``segment_sum_sorted``); the backward of
+``gather_presum_stats`` regathers ``v`` inside its own kernel.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (``csrc/gather_rows.cu``) or raises.

@@ -1,14 +1,18 @@
-"""The training path's CUDA kernels (B1–B4, B6–B9) against their plain
-PyTorch versions, and the autograd ops of B8, B9 and of ``pna_aggregate``
-(B5 forward, B6 and B7 backward) on the card against the CPU. Every test here
+"""The training path's CUDA kernels (B1 and its backward kernel, B2–B4,
+B6–B9) against their plain PyTorch versions, and the autograd ops of B1,
+B8, B9 and of ``pna_aggregate`` (B5 forward, B6 and B7 backward) on the
+card against the CPU. Every test here
 needs a card and skips without one; this file imports no JAX, so it runs
 on the card machine:
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest``.
 
-Tolerances: sums ``rtol=1e-6, atol=1e-6`` (the inputs are on a 1/4 grid,
-so every order sums them exactly and the kernels match bit for bit in
-practice); gathers and maxima bit-equal; two launches bitwise equal (no
-atomics). B8's branch variants ``rtol=atol=1e-5``: each edge's
+Tolerances: B2's sums ``rtol=1e-6, atol=1e-6`` (the inputs are on a 1/4
+grid, so every order sums them exactly and the kernel matches bit for
+bit in practice); gathers and maxima bit-equal; two launches bitwise
+equal (no atomics). B1 adds each K-group in slot order, as its plain
+version does, and its backward kernel follows the plain chain op for
+op: both bit-equal, f32 and bf16, on normal values too, and so is the
+autograd op's table gradient on the card against the CPU. B8's branch variants ``rtol=atol=1e-5``: each edge's
 pre-activation is a dot product taken in another order than the host's
 matrix product, and expf/log1pf on the card round differently from the
 host's. Its backward on the card against the CPU: each gradient within
@@ -40,6 +44,7 @@ import torch
 
 from hydragnn_tpu_torch.graph.batch import batch_graphs
 from hydragnn_tpu_torch.ops import gather_rows as gr_mod
+from hydragnn_tpu_torch.ops import gather_stats as gs_mod
 from hydragnn_tpu_torch.ops import segment_sum as ss_mod
 from hydragnn_tpu_torch.ops import segment_sum_local as sl_mod
 from hydragnn_tpu_torch.ops.gather_stats import gather_stats, gather_stats_plain
@@ -56,7 +61,7 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _aligned_batch(seed):
+def _aligned_batch(seed, k=K):
     rng = np.random.default_rng(seed)
     graphs = []
     for _ in range(40):
@@ -65,9 +70,9 @@ def _aligned_batch(seed):
         s, r = rng.integers(0, n, e), rng.integers(0, n, e)
         order = np.lexsort((s, r))
         graphs.append({"x": np.zeros((n, 1), np.float32), "senders": s[order], "receivers": r[order]})
-    b = batch_graphs(graphs, n_node_pad=1200, n_edge_pad=12000, n_graph_pad=41, run_align=K, win_block_rows=128)
+    b = batch_graphs(graphs, n_node_pad=1200, n_edge_pad=12000, n_graph_pad=41, run_align=k, win_block_rows=128)
     mask = b.edge_mask.clone()
-    mask[8:16] = False  # a whole K-group masked
+    mask[8:16] = False  # whole K-groups masked
     return b, mask
 
 
@@ -157,20 +162,59 @@ def _at_odd_offset(t, dev):
     return flat[1:].view(t.shape).copy_(t)
 
 
+def _b1_case(h, dtype, k, dev):
+    """B1's forward (``gather_stats``) and backward kernel
+    (``gather_presum_bwd``) against their plain versions on the host, bit
+    for bit: the run-aligned batch (K = ``k``) with whole K-groups
+    masked, the table on the 1/4 grid (ties) and normal, each on a fresh
+    allocation and at an odd offset with the cotangents there too; two
+    launches bitwise equal; one count per launch."""
+    b, mask = _aligned_batch(h + k, k=k)
+    n, e = b.num_nodes, b.num_edges
+    rng = np.random.default_rng(h + 100 * k)
+    ids, m = b.senders.to(dev), mask.to(dev)
+    for values in ("grid", "normal"):
+        table = torch.from_numpy(_values((n, h), rng, values)).to(dtype)
+        g_stats = torch.from_numpy(_values((e // k, 2 * h), rng, "normal"))
+        g_both = torch.from_numpy(_values((e // k, 2 * h), rng, "normal")).to(dtype)
+        ref = gather_stats_plain(table, b.senders, mask, k)
+        ref_g = gs_mod.gather_presum_bwd_plain(table, b.senders, mask, ref[1], g_stats, g_both, k)
+        if values == "grid":  # ties in some group, and a group all masked
+            v = table.float()[b.senders.long()].view(-1, k, h)
+            assert ((v == v.amax(1, keepdim=True)) & mask.view(-1, k, 1)).sum(1).max() > 1
+            assert bool((ref[1][(~mask).view(-1, k).all(1)] == torch.finfo(dtype).min).all())
+        for place in (lambda t: t.to(dev), lambda t: _at_odd_offset(t, dev)):
+            t_d, gs_d, gb_d = place(table), place(g_stats), place(g_both)
+            f0, b0 = gs_mod.launches.value, gs_mod.bwd_launches.value
+            outs = [gather_stats(t_d, ids, m, k) for _ in range(2)]
+            grads = [gs_mod.gather_presum_bwd(t_d, ids, m, outs[0][1], gs_d, gb_d, k) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert (gs_mod.launches.value - f0, gs_mod.bwd_launches.value - b0) == (2, 2)
+            for out in outs:
+                for a, r in zip(out, ref):
+                    assert torch.equal(_bits(a.cpu()), _bits(r)), f"gather_stats {values}"
+            for gv in grads:
+                assert torch.equal(_bits(gv.cpu()), _bits(ref_g)), f"gather_presum_bwd {values}"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["grid", "normal", "edges"])
+@pytest.mark.parametrize("case", ["grid", "normal", "edges", "b1_k8", "b1_k4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h", [1, 3, 126, 128, 256])
 def test_cuda_kernels_match_plain(h, dtype, case):
     """B1-B4 on the run-aligned batch's 1/4 grid ("grid"); B4 alone on
     random normal data ("normal") and on ``b4_edge_case`` with the data
     at an odd offset ("edges"), where it must equal its plain version bit
-    for bit."""
+    for bit; B1's forward and backward kernels bit-equal to their plain
+    versions at K = 8 and 4 (``_b1_case``)."""
     dev = _cuda()
 
     def on_card(*ts):
         return [t.to(dev) for t in ts]
 
+    if case.startswith("b1_"):
+        _b1_case(h, dtype, int(case[4:]), dev)
+        return
     if case == "edges":
         data_np, ids_np, win_np, n = b4_edge_case(h, h)
         data, ids, win = torch.from_numpy(data_np).to(dtype), torch.from_numpy(ids_np), torch.from_numpy(win_np)
@@ -209,10 +253,69 @@ def test_cuda_kernels_match_plain(h, dtype, case):
         out2 = out2 if isinstance(out2, tuple) else (out2,)
         for a, c, r in zip(out1, out2, ref):
             assert torch.equal(a, c), name
-            if r.dtype == torch.float32 and name not in ("gather_rows", "segment_sum_local"):
+            if r.dtype == torch.float32 and name == "segment_sum":
                 np.testing.assert_allclose(a.cpu().numpy(), r.numpy(), err_msg=name, **SUM_TOL)
             else:
                 assert torch.equal(_bits(a.cpu()), _bits(r)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gather_presum_backward_matches_cpu(dtype, k):
+    """The autograd ``gather_presum_stats`` on the card (B1, then its
+    backward kernel and B4; no regather by B3) against the same op on the
+    CPU: the outputs and the table's gradient bit for bit."""
+    dev = _cuda()
+    b, mask = _aligned_batch(70 + k, k=k)
+    h = 128
+    rng = np.random.default_rng(k)
+    table = _grid((b.num_nodes, h), 71 + k, dtype)
+    cots = (torch.from_numpy(_values((b.num_edges // k, 2 * h), rng, "normal")),
+            torch.from_numpy(_values((b.num_edges // k, 2 * h), rng, "normal")).to(dtype))
+    res = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device(where) if where == "cpu" else dev
+        t = table.detach().to(d).requires_grad_(True)  # detach: on the CPU .to() returns table itself
+        b3, bw = gr_mod.launches.value, gs_mod.bwd_launches.value
+        out = gs_mod.gather_presum_stats(t, b.senders.to(d), mask.to(d), b.sender_win.to(d), b.num_nodes, k)
+        torch.autograd.backward(out, tuple(c.to(d) for c in cots))
+        res[where] = [o.detach().cpu() for o in out] + [t.grad.cpu()]
+        if where == "cuda":
+            assert (gr_mod.launches.value - b3, gs_mod.bwd_launches.value - bw) == (0, 1)
+    for a, r in zip(res["cuda"], res["cpu"]):
+        assert torch.equal(_bits(a), _bits(r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [1, 128])
+def test_cuda_gather_stats_out_of_range_ids(h):
+    """An unmasked slot whose id is out of range (N + 5, -1) reads
+    nothing and counts as masked: the forward equals the plain version
+    with those slots masked, and the backward writes +0 there."""
+    dev = _cuda()
+    b, mask = _aligned_batch(80 + h)
+    n = b.num_nodes
+    live = torch.nonzero(mask).view(-1)
+    bad = live[torch.tensor([3, len(live) // 2])]
+    ids = b.senders.clone()
+    ids[bad[0]], ids[bad[1]] = n + 5, -1
+    clean_mask, clean_ids = mask.clone(), ids.clone()
+    clean_mask[bad], clean_ids[bad] = False, 0
+    rng = np.random.default_rng(h)
+    table = _grid((n, h), 81 + h, torch.float32)
+    g_stats = torch.from_numpy(_values((b.num_edges // K, 2 * h), rng, "normal"))
+    g_both = torch.from_numpy(_values((b.num_edges // K, 2 * h), rng, "normal"))
+    ref = gather_stats_plain(table, clean_ids, clean_mask, K)
+    ref_g = gs_mod.gather_presum_bwd_plain(table, clean_ids, clean_mask, ref[1], g_stats, g_both, K)
+    d = [t.to(dev) for t in (table, ids, mask)]
+    out = gather_stats(*d, K)
+    grad_v = gs_mod.gather_presum_bwd(*d, out[1], g_stats.to(dev), g_both.to(dev), K)
+    torch.cuda.synchronize()
+    for a, r in zip(out, ref):
+        assert torch.equal(_bits(a.cpu()), _bits(r))
+    assert torch.equal(_bits(grad_v.cpu()), _bits(ref_g))
+    assert torch.equal(_bits(grad_v.cpu()[bad]), torch.zeros(2, h, dtype=torch.int32))
 
 
 def _pna_case(h, dtype, seed, n=400, e=6000):

@@ -54,10 +54,11 @@ def _tbits(t: torch.Tensor):
     return t.numpy().view(np.uint32)
 
 
-def _aligned_batch(seed, n_edge_pad=1024):
-    """A run-aligned (K=8) batch of small graphs: local unsorted senders,
-    sorted receivers, empty (padding) rows; the group at slots 8..15 is
-    masked whole on top of the layout's own masked groups."""
+def _aligned_batch(seed, n_edge_pad=1024, k=K):
+    """A run-aligned (K=8, or ``k``) batch of small graphs: local unsorted
+    senders, sorted receivers, empty (padding) rows; slots 8..15 (one or
+    two whole groups) are masked on top of the layout's own masked
+    groups."""
     rng = np.random.default_rng(seed)
     graphs = []
     for _ in range(8):
@@ -66,7 +67,7 @@ def _aligned_batch(seed, n_edge_pad=1024):
         s, r = rng.integers(0, n, e), rng.integers(0, n, e)
         order = np.lexsort((s, r))
         graphs.append({"x": np.zeros((n, 1), np.float32), "senders": s[order], "receivers": r[order]})
-    kw = dict(n_node_pad=128, n_edge_pad=n_edge_pad, n_graph_pad=9, run_align=K, win_block_rows=32)
+    kw = dict(n_node_pad=128, n_edge_pad=n_edge_pad, n_graph_pad=9, run_align=k, win_block_rows=32)
     b = batch_graphs(graphs, **kw)
     mask = b.edge_mask.numpy().copy()
     mask[8:16] = False
@@ -144,6 +145,97 @@ def test_gather_presum_vjp_matches_jax(h):
     # the ties were real: some group has a tied maximum
     v = table[b.senders.numpy()].reshape(-1, K, h)
     assert ((v == v.max(1, keepdims=True)).sum(1) > 1).any()
+
+
+# bf16 gradients of the table: grad_v is the same chain on both sides, but
+# the scatter sums it in f32 in another order and rounds once to bf16
+BF16_GRAD_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("values", ["grid", "normal"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [8, 4])
+def test_gather_presum_bwd_plain_matches_jax_vjp_interpret(k, dtype, values, monkeypatch):
+    """B1's backward kernel's plain version, ``gather_presum_bwd_plain``,
+    then the scatter's (``segment_sum_local_plain``), against ``jax.vjp``
+    of the JAX ``gather_presum_stats`` with ``_gather_stats_kernel`` in
+    interpret mode: tables on the 1/4 grid (ties in many groups) or
+    normal, whole K-groups masked, K = 8 and 4, f32 and bf16."""
+    monkeypatch.setenv("HYDRAGNN_PALLAS", "interpret")
+    monkeypatch.setenv("HYDRAGNN_LOCAL_MIN_ROWS", "0")
+    b, jb, mask = _aligned_batch(30 + k, n_edge_pad=2048, k=k)
+    h, g = 128, 2048 // k
+    rng = np.random.default_rng(31 + k)
+    table = _table(32 + k, b.num_nodes, h)
+    if values == "normal":
+        table = rng.normal(size=table.shape).astype(np.float32)
+    g_stats = rng.normal(size=(g, 2 * h)).astype(np.float32)
+    g_both = rng.normal(size=(g, 2 * h)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def fwd(t):
+        return jsp.gather_presum_stats(t, jb.senders, jnp.asarray(mask), jb.sender_win, b.num_nodes, k)
+
+    (js, jm), vjp = jax.vjp(fwd, jnp.asarray(table).astype(jdt))
+    (jg,) = vjp((jnp.asarray(g_stats), jnp.asarray(g_both).astype(jdt)))
+    tt, tm = torch.from_numpy(table).to(tdt), torch.from_numpy(mask)
+    stats, both = gather_stats(tt, b.senders, tm, k)
+    np.testing.assert_array_equal(_tbits(both), _bits(jm))
+    np.testing.assert_allclose(stats.numpy(), np.asarray(js), **SUM_TOL)
+    grad_v = gs_mod.gather_presum_bwd_plain(tt, b.senders, tm, both, torch.from_numpy(g_stats),
+                                            torch.from_numpy(g_both).to(tdt), k)
+    assert grad_v.dtype == tdt and grad_v.shape == (b.num_edges, h)
+    assert (grad_v[~tm] == 0).all() and not torch.signbit(grad_v[~tm]).any()
+    grad = sl_mod.segment_sum_local_plain(grad_v, b.senders, b.num_nodes).to(tdt)
+    tol = GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL
+    np.testing.assert_allclose(grad.float().numpy(), np.asarray(jg).astype(np.float32), **tol)
+    if values == "grid":  # the ties were real, and some group is all masked
+        v = table[b.senders.numpy()].reshape(-1, k, h)
+        assert ((v == v.max(1, keepdims=True)).sum(1) > 1).any()
+        assert (~mask.reshape(-1, k)).all(1).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 4])
+def test_gather_presum_autograd_is_plain_bwd_then_scatter(k, dtype):
+    """On the CPU the autograd op's table gradient is, bit for bit,
+    ``gather_presum_bwd_plain`` scattered by ``segment_sum_local_plain``;
+    ``gather_presum_bwd`` on a CPU tensor is its plain version."""
+    b, _, mask = _aligned_batch(40 + k, k=k)
+    h = 24
+    rng = np.random.default_rng(k)
+    table = torch.from_numpy(_table(41 + k, b.num_nodes, h)).to(dtype)
+    tm = torch.from_numpy(mask)
+    g_stats = torch.from_numpy(rng.normal(size=(b.num_edges // k, 2 * h)).astype(np.float32))
+    g_both = torch.from_numpy(rng.normal(size=(b.num_edges // k, 2 * h)).astype(np.float32)).to(dtype)
+    t = table.clone().requires_grad_(True)
+    s, m = gather_presum_stats(t, b.senders, tm, b.sender_win, b.num_nodes, k)
+    torch.autograd.backward((s, m), (g_stats, g_both))
+    args = (table, b.senders, tm, m.detach(), g_stats, g_both, k)
+    grad_v = gs_mod.gather_presum_bwd_plain(*args)
+    assert torch.equal(gs_mod.gather_presum_bwd(*args), grad_v)
+    ref = sl_mod.segment_sum_local_plain(grad_v, b.senders, b.num_nodes).to(dtype)
+    assert t.grad.dtype == dtype
+    np.testing.assert_array_equal(_tbits(t.grad), _tbits(ref))
+
+
+@pytest.mark.parametrize("k", [8, 4])
+@pytest.mark.parametrize("h", [1, 3, 126, 128])
+def test_gather_stats_plain_sums_in_slot_order(h, k):
+    """``gather_stats_plain`` adds each group's slots in slot order from
+    +0 (what the kernel does), bit for bit against a numpy loop on normal
+    values, and its maxima equal ``presum_stats_plain``'s."""
+    b, _, mask = _aligned_batch(50 + h, k=k)
+    rng = np.random.default_rng(h)
+    table = rng.normal(size=(b.num_nodes, h)).astype(np.float32)
+    stats, both = gather_stats(torch.from_numpy(table), b.senders, torch.from_numpy(mask), k)
+    vf = np.where(mask[:, None], table[b.senders.numpy()], np.float32(0)).reshape(-1, k, h)
+    s, sq = np.zeros(vf[:, 0].shape, np.float32), np.zeros(vf[:, 0].shape, np.float32)
+    for j in range(k):
+        s, sq = s + vf[:, j], sq + vf[:, j] * vf[:, j]
+    np.testing.assert_array_equal(_tbits(stats), np.concatenate([s, sq], -1).view(np.uint32))
+    _, ref_both = gs_mod.presum_stats_plain(torch.from_numpy(table)[b.senders.long()], torch.from_numpy(mask), k)
+    np.testing.assert_array_equal(_tbits(both), _tbits(ref_both))
 
 
 def _sorted_case(seed, n=40, e=600, w=6):
