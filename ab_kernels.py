@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """ab_kernels.py — time the port's B1 (``gather_stats``) and the backward
-of its autograd op (``gather_presum_stats``), B4 (``segment_sum_local``)
-and B8 (``fused_conv``, K = 0) walks, and the train steps that carry
-them, from one checkout of the repository, so that two commits can be
-compared on one card in one run.
+of its autograd op (``gather_presum_stats``), B4 (``segment_sum_local``),
+B5 (``pna_aggregate``) and B8 (``fused_conv``, K = 0) walks, the
+receivers' row-pointer pass, and the train steps and the served forward
+that carry them, from one checkout of the repository, so that two
+commits can be compared on one card in one run.
 
     python3 ab_kernels.py [--root DIR] [--tag NAME]   # on a CUDA machine
 
@@ -14,12 +15,16 @@ into a gitignored directory (``git archive``) and run both in turns on
 one card: parent, change, change, parent.
 
 Prints one ``[ab]`` line per measurement (ms per call between CUDA
-events, eager and in a CUDA graph) and, last, one JSON object with all
-of them. The inputs are made from seed 0 as ``chip_smoke.py`` makes
+events, eager and in a CUDA graph; eager times are the median, and
+``ms_min`` the least, of three timings, five for the served forward)
+and, last, one JSON object with all of them. The inputs are made from seed 0 as ``chip_smoke.py`` makes
 them:
   - the flagship's run-aligned training batch (1,024 BCC graphs: 32,752
     node rows, 810,888 edge slots) for B8 identity at H = 1 and 128, B8
-    scale at F = 126, B8's row-pointer pass alone, B4 at H = 1 and 128;
+    scale at F = 126, B8 identity at H = 1 with the shared row pointers
+    (``b8_identity_h1_row_ptr``, where the checkout's ``fused_conv``
+    takes them), the row-pointer pass alone (``row_pointers``), B4 at H
+    = 1 and 128;
     ``torch.sparse.mm`` and ``index_add_`` beside them; B1 forward at H =
     128 and 1 (eager and in a CUDA graph) and the op's backward through
     ``torch.autograd.grad`` (eager: autograd replays on the forward's
@@ -29,11 +34,24 @@ them:
   - a synthetic batch of 4,096 rows of 24 slots with one row of 60,000
     slots (5 real, the rest masked) for B8, and one row of 60,000 edges
     for B4;
+  - B5 (``b5_{train,serve}_h{128,1}_{f32,bf16}``, and ``_row_ptr``
+    with the shared row pointers where the checkout's ``pna_aggregate``
+    takes them) on random v at the flagship's unaligned training batch
+    ([699,368 x H] into 32,752 rows) and at the largest serving bucket
+    of ``chip_smoke.py``'s 64 graphs ([11,528 x H] into 448 rows), with
+    the two ``torch.segment_reduce`` calls that compute the same
+    statistics beside them (``segment_reduce_pair_*``, eager: they
+    cannot be captured in a CUDA graph);
   - one device train step (batch on the card) of the run-aligned PNA
-    flagship, GIN and SchNet at batch 1024.
+    flagship, GIN and SchNet at batch 1024, and of the flagship on the
+    unaligned layout (``step_PNA_unaligned``); one eval forward of the
+    flagship on the largest serving bucket (``serve_forward_bucket8``,
+    eager, the batch on the card).
 """
 
 import argparse
+import glob
+import inspect
 import json
 import os
 import subprocess
@@ -106,15 +124,19 @@ def main():
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import hydragnn_tpu_torch
-    from hydragnn_tpu_torch.api import prepare_loaders_and_config
+    from hydragnn_tpu_torch.api import prepare_config_and_samples, prepare_loaders_and_config
+    from hydragnn_tpu_torch.data.loader import GraphLoader
+    from hydragnn_tpu_torch.graph.batch import batch_graphs
     from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
     from hydragnn_tpu_torch.flagship import flagship_config
     from hydragnn_tpu_torch.graph.batch import _block_windows
     from hydragnn_tpu_torch.models.create import create_model_config
     from hydragnn_tpu_torch.ops import fused_conv as b8
     from hydragnn_tpu_torch.ops import gather_stats as b1
+    from hydragnn_tpu_torch.ops import pna_aggregate as b5
     from hydragnn_tpu_torch.ops import segment_sum_local as b4
-    from hydragnn_tpu_torch.ops._build import build_all
+    from hydragnn_tpu_torch.ops._build import CSRC_DIR, build_all
+    from hydragnn_tpu_torch.serve import ServeConfig, build_bucket_ladder, request_to_dict
     from hydragnn_tpu_torch.train.optimizer import select_optimizer
     from hydragnn_tpu_torch.train.state import train_step
 
@@ -123,7 +145,13 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = hydragnn_tpu_torch.resolve_device("cuda")
-    build_all(["fused_conv.cu", "segment_sum_local.cu", "gather_stats.cu", "gather_rows.cu"])
+    build_all(sorted(os.path.basename(p) for p in glob.glob(os.path.join(CSRC_DIR, "*.cu"))))
+    try:  # one shared pass since the row pointers moved into the chassis
+        from hydragnn_tpu_torch.ops.row_pointers import row_pointers
+    except ImportError:  # before: B8's own pass, run alone
+        row_pointers = b8.row_pointers
+    b8_takes_ptr = "row_ptr" in inspect.signature(b8.fused_conv).parameters
+    b5_takes_ptr = "row_ptr" in inspect.signature(b5.pna_aggregate).parameters
     results = {}
 
     def record(name, **kw):
@@ -131,8 +159,15 @@ def main():
         print(f"[ab] tag={args.tag} name={name} " + " ".join(
             f"{k}={round(v, 5) if isinstance(v, float) else v}" for k, v in kw.items()), flush=True)
 
+    def eager(fn, iters, reps=3):
+        """(median, min) of ``reps`` eager timings: the host's noise
+        lands on single timings, the minimum shows the host's best."""
+        t = [cuda_ms(fn, iters) for _ in range(reps)]
+        return float(np.median(t)), min(t)
+
     def both(name, fn, iters=50, g_iters=20, **extra):
-        record(name, ms=cuda_ms(fn, iters), graph_ms=graph_ms(fn, g_iters), **extra)
+        ms, ms_min = eager(fn, iters)
+        record(name, ms=ms, ms_min=ms_min, graph_ms=graph_ms(fn, g_iters), **extra)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -163,8 +198,11 @@ def main():
     both("b8_identity_h128", lambda: b8.fused_conv(x128, send, recv, mask, n, real_edges=occ), **shape)
     both("b8_identity_h1", lambda: b8.fused_conv(x1, send, recv, mask, n, real_edges=occ), **shape)
     both("b8_scale_f126", lambda: b8.fused_conv(x126, send, recv, mask, n, scale=s126, real_edges=occ), **shape)
-    if hasattr(b8, "row_pointers"):
-        both("b8_row_pointers", lambda: b8.row_pointers(recv, n), **shape)
+    both("row_pointers", lambda: row_pointers(recv, n), **shape)
+    if b8_takes_ptr:
+        ptr = row_pointers(recv, n)
+        both("b8_identity_h1_row_ptr", lambda: b8.fused_conv(x1, send, recv, mask, n, real_edges=occ, row_ptr=ptr),
+             **shape)
     crow = torch.zeros(n + 1, dtype=torch.int64)
     crow[1:] = torch.cumsum(torch.bincount(host.receivers.long(), minlength=n), 0)
     adj = torch.sparse_csr_tensor(crow, host.senders.long(), host.edge_mask.float(), size=(n, n)).to(dev)
@@ -213,6 +251,41 @@ def main():
     both("mol_b4_h128_edges", lambda: b4.segment_sum_local(mg, md.senders, md.sender_win, mn), **mol_shape)
     both("mol_b4_h128_slots", lambda: b4.segment_sum_local(dg, dsend, md.dense_sender_win, mn), **mol_shape)
 
+    # B5 at the unaligned training batch and at the largest serving bucket
+    u_tl = GraphLoader(loaders["PNA"][0].samples, 1024, dense_slots=False, run_align=False)
+    u_host = next(iter(u_tl))
+    scfg = flagship_config()
+    raw = deterministic_graph_data(number_configurations=64, unit_cell_x_range=(2, 4), unit_cell_y_range=(2, 4),
+                                   unit_cell_z_range=(2, 4), seed=0)
+    s_tr, s_va, s_te, scfg = prepare_config_and_samples(scfg, raw)
+    prepared = list(s_tr) + list(s_va) + list(s_te)
+    top = build_bucket_ladder(prepared, ServeConfig().max_batch)[-1]
+    biggest = sorted(prepared, key=lambda sm: -sm.num_edges)[: top.max_batch]
+    s_host = batch_graphs([request_to_dict(sm) for sm in biggest], n_node_pad=top.node_pad, n_edge_pad=top.edge_pad,
+                          n_graph_pad=top.graph_pad)
+    for where, hb in (("train", u_host), ("serve", s_host)):
+        rn, re_ = hb.num_nodes, hb.num_edges
+        r_recv, r_mask = hb.receivers.to(dev), hb.edge_mask.to(dev)
+        r_ptr = row_pointers(r_recv, rn)
+        lengths = torch.bincount(hb.receivers.long(), minlength=rn).to(dev)
+        b5_shape = dict(E=re_, N=rn, real=int(hb.edge_mask.sum()))
+        for hh in (128, 1):
+            for dt in (torch.float32, torch.bfloat16):
+                tag = f"{where}_h{hh}_{str(dt)[6:]}"
+                vv = randn(re_, hh).to(dt)
+                both(f"b5_{tag}", lambda: b5.pna_aggregate(vv, r_recv, rn, r_mask), **b5_shape)
+                if b5_takes_ptr:
+                    both(f"b5_{tag}_row_ptr", lambda: b5.pna_aggregate(vv, r_recv, rn, r_mask, row_ptr=r_ptr),
+                         **b5_shape)
+                if dt == torch.float32:
+                    vm = torch.where(r_mask[:, None], vv, 0.0)
+                    pair_sum = torch.cat([vm, vm * vm], dim=1)
+                    pair_max = torch.where(r_mask[:, None], torch.cat([vv, -vv], dim=1), float("-inf"))
+                    record(f"segment_reduce_pair_{tag}", ms=cuda_ms(lambda: (
+                        torch.segment_reduce(pair_sum, "sum", lengths=lengths, axis=0),
+                        torch.segment_reduce(pair_max, "max", lengths=lengths, axis=0)), 50), **b5_shape)
+                    del vm, pair_sum, pair_max
+
     # one long row
     lx, lsend, lrecv, lmask, ln = long_row_inputs(dev, 128)
     both("long_b8_identity_h128", lambda: b8.fused_conv(lx, lsend, lrecv, lmask, ln), 10, 5,
@@ -227,7 +300,22 @@ def main():
             model = create_model_config(done["NeuralNetwork"], seed=1, device="cuda")
             opt = select_optimizer(model, done["NeuralNetwork"]["Training"])
             b = next(iter(tl)).to(dev)
-            record(f"step_{mt}", ms=cuda_ms(lambda: train_step(model, opt, b), 5), run_align=b.run_align)
+            ms, ms_min = eager(lambda: train_step(model, opt, b), 5)
+            record(f"step_{mt}", ms=ms, ms_min=ms_min, run_align=b.run_align)
+        model = create_model_config(loaders["PNA"][3]["NeuralNetwork"], seed=1, device="cuda")
+        opt = select_optimizer(model, loaders["PNA"][3]["NeuralNetwork"]["Training"])
+        b = u_host.to(dev)
+        ms, ms_min = eager(lambda: train_step(model, opt, b), 5)
+        record("step_PNA_unaligned", ms=ms, ms_min=ms_min, run_align=b.run_align)
+        model = create_model_config(scfg["NeuralNetwork"], seed=1, device="cuda").eval()
+        b = s_host.to(dev)
+
+        def serve_forward():
+            with torch.no_grad():
+                return model(b, train=False)
+
+        ms, ms_min = eager(serve_forward, 20, reps=5)
+        record("serve_forward_bucket8", ms=ms, ms_min=ms_min, N=b.num_nodes, E=b.num_edges)
     print(card)
     print(json.dumps({"tag": args.tag, "card": card, "results": results}))
 

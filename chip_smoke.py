@@ -10,7 +10,11 @@ raises; nothing is caught):
   2. build       — one nvcc per kernel source, all started together;
                    ptxas registers / spills / shared memory.
   3. check       — pna_aggregate_fwd (B5) against its plain version at
-                   the shapes of a full flagship serving batch.
+                   the shapes of a full flagship serving batch, at H = 1,
+                   3, 31, 32 and 128, f32 and bf16, with the receivers'
+                   shared row pointers and without them (the wrapper's own
+                   pass): bit-equal on the host; the pass (row_pointers)
+                   equal to the host's searchsorted.
   4. check-train — gather_stats (B1), its backward kernel
                    gather_stats_bwd, segment_sum (B2), gather_rows (B3)
                    and segment_sum_local (B4) against their plain versions
@@ -24,14 +28,16 @@ raises; nothing is caught):
                    equal.
   4b. check-pna-bwd — pna_bwd_count (B6) and pna_bwd_grad (B7) against
                    their plain versions at the flagship's unaligned
-                   training shapes (H=1 and H=128, f32 and bf16), with
+                   training shapes (H=1 and H=128, f32 and bf16), B5
+                   there too (bit-equal on the host), with
                    ties, masked edges, empty and all-masked rows and the
                    padding node; two launches bitwise equal; the autograd
                    pna_aggregate backward on the card against the CPU.
   5. serve       — the flagship at full width (hidden 128, 6 PNA layers,
                    4 heads) served on the card: every answer equal to the
                    CPU forward; pna_aggregate and the sender gather (B3)
-                   launch 6 x forwards each.
+                   launch 6 x forwards each, the row-pointer pass once a
+                   forward.
   6. train       — run_training on the flagship at full width, batch 1024,
                    1,280 samples (one train step per epoch), 3 epochs:
                    finite, falling loss; kernel launches equal to the
@@ -40,7 +46,8 @@ raises; nothing is caught):
   7. predict     — run_prediction from the run's checkpoint equals the
                    in-memory model's test pass.
   8. check-conv  — fused_conv (B8) against its plain version at the
-                   flagship training shapes: identity at H=1 and H=128,
+                   flagship training shapes: identity at H=1, 3, 31, 32
+                   and 128 (with the shared row pointers and without),
                    the SchNet scale at F=126, the CGCNN gate at width 1
                    and a gate at width 128 with receiver tables and edge
                    terms; f32 and bf16; run-aligned fillers, empty rows,
@@ -54,7 +61,8 @@ raises; nothing is caught):
                    layers, 3 epochs), run_prediction from its checkpoint;
                    SAGE, MFC, SchNet and CGCNN through train_with_loaders
                    for 2 epochs each; finite, falling losses and the
-                   documented launch counts; each stack's train step at 64
+                   documented launch counts (one row-pointer pass a
+                   forward); each stack's train step at 64
                    graphs on the card against the CPU.
  9b. train-pna-layouts — the flagship at full width through
                    train_with_loaders on its two other layouts and with
@@ -93,8 +101,8 @@ raises; nothing is caught):
                    graph), beside its bound; B1's backward kernel beside
                    the chain it replaced (B3's regather and the
                    elementwise block) and the op's whole backward with B4;
-                   B8's row-pointer pass alone, its identity and scale
-                   walks' gather rate, and torch.sparse.mm in a CUDA graph
+                   the shared row-pointer pass alone, B8's identity and
+                   scale walks' gather rate, and torch.sparse.mm in a CUDA graph
                    beside them; B5's library calls at the unaligned
                    training shape; B8 and B4 on the molecular dense-map
                    batch (its edge list and its dense slots);
@@ -105,6 +113,10 @@ raises; nothing is caught):
                    broken into their stages, and the PNA and GIN steps'
                    device time by kernel (torch.profiler).
  11. summary     — the kernels line, the card line, then the result line.
+
+B5 and B8 are timed as the chassis calls them: with the receivers' row
+pointers that edge_context builds once per forward; the pass itself is
+its own entry (row_pointers).
 
 Without a card (torch.cuda.is_available() false), or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -257,7 +269,8 @@ def e2e_config(multihead):
 
 def stack_launches(model_type, n_layers):
     """Kernel launches of one train step of a conv stack (its forward
-    launches fused_conv once per layer; an eval forward only that):
+    builds the receivers' row pointers once and launches fused_conv once
+    per layer on them; an eval forward only that):
     the backward gathers the cotangent (B3) and scatters grad_x (B4) in
     every layer whose input needs a gradient — all but conv_0 where the
     input is the batch's nodes; SchNet also regathers x for the filter's
@@ -266,10 +279,10 @@ def stack_launches(model_type, n_layers):
     tables' gradients (B2 x 2)."""
     lyr = n_layers
     per = {
-        "GIN": {"fused_conv": lyr, "gather_rows": lyr - 1, "segment_sum_local": lyr - 1},
-        "SchNet": {"fused_conv": lyr, "gather_rows": 2 * lyr, "segment_sum_local": lyr},
+        "GIN": {"fused_conv": lyr, "gather_rows": lyr - 1, "segment_sum_local": lyr - 1, "row_pointers": 1},
+        "SchNet": {"fused_conv": lyr, "gather_rows": 2 * lyr, "segment_sum_local": lyr, "row_pointers": 1},
         "CGCNN": {"fused_conv": lyr, "gather_rows": 4 * lyr, "segment_sum": 2 * lyr,
-                  "segment_sum_local": lyr - 1},
+                  "segment_sum_local": lyr - 1, "row_pointers": 1},
     }
     per["SAGE"] = per["MFC"] = per["GIN"]
     return per[model_type]
@@ -483,7 +496,7 @@ def stack_phase(dev, layouts, hidden, n_layers, mods, card):
              edge_occupancy=int(hb.edge_occupancy), max_abs_err_vs_plain=err, output_scale=scale,
              tol_rel=STACK_TOL_REL, max_abs_err_vs_b8_loop=loop_err,
              equal_to_b8_loop=bool(torch.equal(out, loop)), grad_rel_l2_vs_plain=json.dumps(grad_rel),
-             grad_tol=STACK_GRAD_TOL, deterministic=True, card_kernels_per_call=2 * n_l + 1,
+             grad_tol=STACK_GRAD_TOL, deterministic=True, card_kernels_per_call=2 * n_l + 2,
              kernel_launches_fwd_bwd=json.dumps(counts[label], separators=(",", ":")), card=repr(card),
              **{k: (round(v, 5) if isinstance(v, float) else v) for k, v in timing[label].items()
                 if k not in ("E", "N", "H", "L")})
@@ -510,6 +523,7 @@ def main():
     from hydragnn_tpu_torch.ops import segment_sum as b2
     from hydragnn_tpu_torch.ops import segment_sum_local as b4
     from hydragnn_tpu_torch.ops import fused_conv as b8
+    from hydragnn_tpu_torch.ops import row_pointers as rp
     from hydragnn_tpu_torch.ops._build import build_all
     from hydragnn_tpu_torch.serve import ServeConfig, build_bucket_ladder, request_to_dict
     from hydragnn_tpu_torch.train.loop import test_epoch
@@ -543,7 +557,8 @@ def main():
                                                    REPLACES=bwd.COUNT_REPLACES),
             "pna_bwd_grad": types.SimpleNamespace(launches=bwd.grad_launches, SOURCE=bwd.SOURCE,
                                                   REPLACES=bwd.GRAD_REPLACES),
-            "fused_conv_stack": importlib.import_module("hydragnn_tpu_torch.ops.fused_conv_stack")}
+            "fused_conv_stack": importlib.import_module("hydragnn_tpu_torch.ops.fused_conv_stack"),
+            "row_pointers": rp}
     sources = {name: os.path.basename(m.SOURCE) for name, m in mods.items()}
 
     def reset_counts():
@@ -580,31 +595,39 @@ def main():
     )
     rng = np.random.default_rng(SEED)
     recv, n_rows = serve_batch.receivers, serve_batch.num_nodes
+    recv_dev = recv.to(dev)
     dead = torch.isin(recv, torch.tensor([0, 5, 17], dtype=torch.int32))  # all-masked rows
     max_err = {name: 0.0 for name in mods}
-    for label, h, dtype, mask, ties in [
+    # the shared row pointers (the chassis builds them once per forward)
+    serve_ptr = rp.row_pointers(recv_dev, n_rows)
+    compare(serve_ptr, rp.row_pointers_plain(recv, n_rows), "row_pointers serve", exact=True)
+    line("check", kernel="row_pointers", case="serve_batch8", E=serve_batch.num_edges, N=n_rows, max_abs_err=0.0)
+    b5_cases = [
         ("conv0_f32_h1", 1, torch.float32, serve_batch.edge_mask, False),
         ("conv1-5_f32_h128", hidden, torch.float32, serve_batch.edge_mask, False),
         ("conv1-5_bf16_h128", hidden, torch.bfloat16, serve_batch.edge_mask, False),
         ("adversarial_f32_h128", hidden, torch.float32, serve_batch.edge_mask & ~dead, True),
         ("adversarial_bf16_h1", 1, torch.bfloat16, serve_batch.edge_mask & ~dead, True),
-    ]:
+    ] + [(f"width_{str(dt)[6:]}_h{w}", w, dt, serve_batch.edge_mask & ~dead, False)
+         for w in (3, 31, 32) for dt in (torch.float32, torch.bfloat16)]
+    for label, h, dtype, mask, ties in b5_cases:
         vals = rng.normal(size=(serve_batch.num_edges, h)).astype(np.float32)
         if ties:
             vals = np.round(vals * 2.0) / 2.0 + 0.0
         v = torch.from_numpy(vals).to(dtype)
         ref = agg.pna_aggregate_plain(v, recv, n_rows, mask)  # host copy, sequential f32 order
-        args = (v.to(dev), recv.to(dev), n_rows, mask.to(dev))
-        out1, out2 = agg.pna_aggregate(*args), agg.pna_aggregate(*args)
+        args = (v.to(dev), recv_dev, n_rows, mask.to(dev))
+        out1, out2 = agg.pna_aggregate(*args, row_ptr=serve_ptr), agg.pna_aggregate(*args, row_ptr=serve_ptr)
+        own = agg.pna_aggregate(*args)  # the wrapper's own pass
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(out1, out2)):
-            raise AssertionError(f"{label}: two launches differ")
-        err = max(compare(out1[0], ref[0], label + " sum"), compare(out1[1], ref[1], label + " sumsq"),
-                  compare(out1[2], ref[2], label + " cnt", exact=True),
-                  compare(out1[3], ref[3], label + " both", exact=True))
+        if not all(torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c)) for a, b, c in zip(out1, out2, own)):
+            raise AssertionError(f"{label}: two launches, or the call with its own row pointers, differ")
+        # every output bit-equal: both sides sum the same f32 values in edge order
+        err = max(compare(a, r, f"{label} {nm}", exact=True)
+                  for nm, a, r in zip(("sum", "sumsq", "cnt", "both"), out1, ref))
         max_err["pna_aggregate_fwd"] = max(max_err["pna_aggregate_fwd"], err)
         line("check", kernel="pna_aggregate_fwd", case=label, E=serve_batch.num_edges, N=n_rows, H=h,
-             dtype=str(dtype)[6:], max_abs_err=err, deterministic=True)
+             dtype=str(dtype)[6:], max_abs_err=err, bit_equal=True, row_ptr="shared_and_own", deterministic=True)
 
     # ---- 4. check-train: B1-B4 at the flagship training shapes ------------
     tcfg = flagship_config(batch_size=TRAIN_BATCH, num_epoch=TRAIN_EPOCHS)
@@ -748,14 +771,22 @@ def main():
          max_in_degree=int(torch.bincount(uhost.receivers[uhost.edge_mask].long()).max()))
     max_err["pna_bwd_count"] = max_err["pna_bwd_grad"] = 0.0
     u_mask_d = u_mask.to(dev)
-    uptr = bwd.csr_row_ptr(urecv, un)
+    uptr = rp.row_pointers(urecv, un)
+    compare(uptr, rp.row_pointers_plain(uhost.receivers, un), "row_pointers unaligned", exact=True)
     for h in (1, hidden):
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"{'conv0' if h == 1 else 'conv1-5'}_{str(dtype)[6:]}_h{h}"
             v = quarter_grid((ue, h), 60 + h)
             v[u_pad] = 0.0
             vd = v.to(dtype).to(dev)
-            both = agg.pna_aggregate(vd, urecv, un, u_mask_d)[3]
+            # B5 at the training shapes, bit-equal to its plain version on the host
+            b5_out = twice("pna_aggregate " + tag, agg.pna_aggregate, vd, urecv, un, u_mask_d, uptr)
+            b5_ref = agg.pna_aggregate_plain(v.to(dtype), uhost.receivers, un, u_mask)
+            for nm, a, r in zip(("sum", "sumsq", "cnt", "both"), b5_out, b5_ref):
+                compare(a, r, f"pna_aggregate train {nm} {tag}", exact=True)
+            line("check-pna-bwd", kernel="pna_aggregate_fwd", case=tag, E=ue, N=un, H=h, max_abs_err=0.0,
+                 bit_equal=True, deterministic=True)
+            both = b5_out[3]
             g_sum = quarter_grid((un, h), 61 + h, scale=1.0).to(dev)
             g_sumsq = quarter_grid((un, h), 62 + h, scale=1.0).to(dev)
             g_both = quarter_grid((un, 2 * h), 63 + h, scale=1.0).to(dtype).to(dev)
@@ -835,6 +866,7 @@ def main():
             raise AssertionError("serve: a request got no answer")
         want = {name: 0 for name in mods}
         want["pna_aggregate_fwd"] = want["gather_rows"] = n_layers * batches
+        want["row_pointers"] = batches  # once a forward, shared by its 6 B5 calls
         if forwards != batches or serve_counts != want:
             raise AssertionError(f"serve: launches {serve_counts}, {forwards} forwards, {batches} batches; want {want}")
 
@@ -1000,10 +1032,8 @@ def main():
         identity and scale on the 1/4 grid (every order sums exactly), or
         on normal values (``values="normal"``)."""
         walk = quarter_grid if values == "grid" else (lambda shape, sd, scale=4.0: normal_values(shape, sd))
-        if variant == "identity_h1":
-            return walk((rows, 1), seed), (), (), None
-        if variant == "identity_h128":
-            return walk((rows, hidden), seed), (), (), None
+        if variant.startswith("identity_h"):  # H = 1 (conv_0), 3, 31 (under a warp), 32, 128
+            return walk((rows, int(variant[len("identity_h"):])), seed), (), (), None
         if variant == "scale_f126":
             return walk((rows, 126), seed), (), (), walk((edges, 126), seed + 1, scale=2.0)
         if variant == "gate_w1":  # CGCNN at the flagship's input width
@@ -1028,6 +1058,7 @@ def main():
         return tuple(tuple(None if t is None else t.float() for t in br) for br in branches)
 
     B8_VARIANTS = ("identity_h1", "identity_h128", "scale_f126", "gate_w1", "gate_w128")
+    B8_WIDTHS = ("identity_h3", "identity_h31", "identity_h32")  # checked, not timed
     mask_h = adv_mask.cpu()
     occ = bd.edge_occupancy
     e_all = torch.tensor(e, dtype=torch.int32, device=dev)
@@ -1037,7 +1068,8 @@ def main():
         """B8 on the card against its plain version on the host, on the
         f32 values of the same inputs; two launches bitwise equal; the
         identity and scale walks bit-equal (each element summed in edge
-        order, as index_add_ on the host)."""
+        order, as index_add_ on the host); with the receivers' shared row
+        pointers and with the wrapper's own pass alike."""
         rows, edges = hb.num_nodes, hb.num_edges
         x, branches, acts, scale = b8_case(variant, rows, edges, seed, values)
         if variant == "gate_w128":  # +inf edge terms on the masked slots
@@ -1053,20 +1085,24 @@ def main():
         xd, bd_, sd_ = x.to(dev), on_dev(branches, dev), None if scale is None else scale.to(dev)
         tol = GATE_TOL if branches else SUM_TOL
         err = 0.0
+        ptr = rp.row_pointers(args_d[1], rows)
         for real in reals:
-            out = twice(f"fused_conv {tag}", b8.fused_conv, xd, *args_d, bd_, acts, sd_, real)
+            out = twice(f"fused_conv {tag}", b8.fused_conv, xd, *args_d, bd_, acts, sd_, real, ptr)
+            if not torch.equal(bits(out), bits(b8.fused_conv(xd, *args_d, bd_, acts, sd_, real))):
+                raise AssertionError(f"fused_conv {tag}: the shared row pointers and the wrapper's own differ")
             err = max(err, compare(out, ref, f"fused_conv {tag} real_edges={int(real)}", exact=not branches,
                                    tol=tol))
         max_err["fused_conv"] = max(max_err["fused_conv"], err)
         empty = int((hb.receivers[mask_host].bincount(minlength=rows) == 0).sum())
         line("check-conv", kernel="fused_conv", case=tag, E=edges, N=rows, H_out=ref.shape[1],
              dtype=str(dtype)[6:], real_edges=json.dumps([int(r) for r in reals]), empty_rows=empty,
-             max_abs_err=err, tol="bit-equal" if not branches else json.dumps(tol), deterministic=True)
+             max_abs_err=err, tol="bit-equal" if not branches else json.dumps(tol), row_ptr="shared_and_own",
+             deterministic=True)
 
-    for variant in B8_VARIANTS:
+    for variant in B8_VARIANTS + B8_WIDTHS:
         for dtype in (torch.float32, torch.bfloat16):
             check_b8(f"{variant}_{str(dtype)[6:]}", variant, host, mask_h, dtype, (occ, e_all), 80)
-    for variant in ("identity_h1", "identity_h128", "scale_f126"):
+    for variant in ("identity_h1", "identity_h128", "scale_f126") + B8_WIDTHS:
         for dtype in (torch.float32, torch.bfloat16):
             check_b8(f"{variant}_normal_{str(dtype)[6:]}", variant, host, mask_h, dtype, (occ, e_all), 84, "normal")
 
@@ -1128,11 +1164,14 @@ def main():
     stack_counts_by_layout, stack_timing, max_err["fused_conv_stack"] = stack_phase(
         dev, {"unaligned": uhost, "run_aligned": host}, hidden, n_layers, mods, card)
     for label, counts in stack_counts_by_layout.items():
-        # per call: B9 once; the backward recomputes each layer through B8
-        # and, per layer, gathers the cotangent and the layer's input (B3)
-        # and scatters grad_x through the window plan (B4)
+        # per call: the row pointers once, walked by B9 and by the
+        # backward, which recomputes each layer through B8 on them and,
+        # per layer, gathers
+        # the cotangent and the layer's input (B3) and scatters grad_x
+        # through the window plan (B4)
         want_ = {name: 0 for name in mods}
-        want_.update(fused_conv_stack=1, fused_conv=n_layers, gather_rows=2 * n_layers, segment_sum_local=n_layers)
+        want_.update(fused_conv_stack=1, fused_conv=n_layers, gather_rows=2 * n_layers, segment_sum_local=n_layers,
+                     row_pointers=1)
         if counts != want_:
             raise AssertionError(f"stack {label}: launches {counts}, want {want_}")
 
@@ -1157,13 +1196,15 @@ def main():
         steps_ = epochs * len(train_loader)
         fwds = epochs * (len(val_loader) + len(test_loader)) + 2 * len(train_loader)
         per = stack_launches(mt, n_layers)
-        want_ = {name: steps_ * per.get(name, 0) + fwds * (n_layers if name == "fused_conv" else 0) for name in mods}
+        per_fwd = {"fused_conv": n_layers, "row_pointers": 1}
+        want_ = {name: steps_ * per.get(name, 0) + fwds * per_fwd.get(name, 0) for name in mods}
         if counts != want_:
             raise AssertionError(f"train-stacks {mt}: launches {counts}, want {want_}")
         line("train-stacks", stack=mt, epochs=epochs, steps=steps_, eval_and_bn_forwards=fwds, batch=TRAIN_BATCH,
              hidden=hidden, conv_layers=n_layers, train_loss=json.dumps(losses),
              val_loss=json.dumps(history["val_loss"]), test_loss=json.dumps(history["test_loss"]),
              kernel_launches=json.dumps(counts, separators=(",", ":")),
+             row_pointer_passes_per_forward=counts["row_pointers"] / (steps_ + fwds),
              per_step=json.dumps(per, separators=(",", ":")), wall_s=round(wall, 3),
              max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=repr(card))
 
@@ -1304,7 +1345,8 @@ def main():
              val_loss=json.dumps(h_["val_loss"]), test_loss=json.dumps(h_["test_loss"]),
              kernel_launches=json.dumps(counts, separators=(",", ":")),
              per_step=json.dumps(per_step_, separators=(",", ":")),
-             per_forward=json.dumps(per_fwd_, separators=(",", ":")), wall_s=round(wall, 3),
+             per_forward=json.dumps(per_fwd_, separators=(",", ":")),
+             row_pointer_passes_per_forward=counts["row_pointers"] / (steps_ + fwds), wall_s=round(wall, 3),
              max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=repr(card))
         layout_models[label], layout_counts[label] = (m_, o_), counts
 
@@ -1320,8 +1362,8 @@ def main():
     u_loaders = (unaligned_loader(train_loader.samples, shuffle=True), unaligned_loader(val_loader.samples),
                  unaligned_loader(test_loader.samples))
     per_u = {"pna_aggregate_fwd": n_layers, "pna_bwd_count": n_layers, "pna_bwd_grad": n_layers,
-             "gather_rows": 2 * n_layers, "segment_sum": n_layers}
-    fwd_u = {"pna_aggregate_fwd": n_layers, "gather_rows": n_layers}
+             "gather_rows": 2 * n_layers, "segment_sum": n_layers, "row_pointers": 1}
+    fwd_u = {"pna_aggregate_fwd": n_layers, "gather_rows": n_layers, "row_pointers": 1}
     layout_run("unaligned", completed(), u_loaders, per_u, fwd_u)
     layout_batches["unaligned"] = (u_loaders[0], uhost.to(dev))
     # its train step at STEP_GRAPHS graphs against the CPU
@@ -1634,11 +1676,15 @@ def main():
     pair_max = torch.where(mask_d[:, None], torch.cat([v, -v], dim=1), float("-inf"))
     real_s = int(serve_batch.edge_mask.sum())
     es, sv = serve_batch.num_edges, 4
-    pna_bytes = real_s * hidden * sv + es * 4 + es + ns * hidden * 8 + ns * 4 + ns * 2 * hidden * sv
+    # v on the real edges, the mask, the row pointers; sum, sumsq, cnt, both written
+    pna_bytes = real_s * hidden * sv + es + (ns + 1) * 4 + ns * hidden * 8 + ns * 4 + ns * 2 * hidden * sv
     bms, by = bound(pna_bytes, real_s * hidden * 5)
+    ptr_s = rp.row_pointers(recv_d, ns)
     timing["pna_aggregate_fwd"] = {
-        "ms": float(np.mean([cuda_ms(lambda: agg.pna_aggregate(v, recv_d, ns, mask_d), 200) for _ in range(2)])),
-        "graph_ms": graph_ms(lambda: agg.pna_aggregate(v, recv_d, ns, mask_d), 50),
+        "ms": float(np.mean([cuda_ms(lambda: agg.pna_aggregate(v, recv_d, ns, mask_d, ptr_s), 200)
+                             for _ in range(2)])),
+        "graph_ms": graph_ms(lambda: agg.pna_aggregate(v, recv_d, ns, mask_d, ptr_s), 50),
+        "graph_ms_own_row_ptr": graph_ms(lambda: agg.pna_aggregate(v, recv_d, ns, mask_d), 50),
         "plain_ms": cuda_ms(lambda: agg.pna_aggregate_plain(v, recv_d, ns, mask_d), 200),
         "library_ms": cuda_ms(lambda: (torch.segment_reduce(pair_sum, "sum", lengths=lengths_s, axis=0),
                                        torch.segment_reduce(pair_max, "max", lengths=lengths_s, axis=0)), 200),
@@ -1676,7 +1722,7 @@ def main():
             real_u * hidden * 7),
     }
     # B5 at the same shapes (its row above is the serving batch's)
-    b5_bytes = real_u * hidden * 4 + ue * 5 + un * hidden * 8 + un * 4 + node_b
+    b5_bytes = real_u * hidden * 4 + ue + ptr_b + un * hidden * 8 + un * 4 + node_b
     b5_bound, _ = bound(b5_bytes, real_u * hidden * 5)
     # the library's two calls, as at the serving shape: a sum and a max
     # over the masked [E, 2H] pairs by receiver
@@ -1685,8 +1731,9 @@ def main():
     pair_sum_u = torch.cat([vum, vum * vum], dim=1)
     pair_max_u = torch.where(mask_u[:, None], torch.cat([vu, -vu], dim=1), float("-inf"))
     line("timing", kernel="pna_aggregate_fwd", shape="train_unaligned_batch1024", card=repr(card),
-         ms=round(cuda_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u), 50), 5),
-         graph_ms=round(graph_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u), 20), 5),
+         ms=round(cuda_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u, uptr), 50), 5),
+         graph_ms=round(graph_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u, uptr), 20), 5),
+         graph_ms_own_row_ptr=round(graph_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u), 20), 5),
          plain_ms=round(cuda_ms(lambda: agg.pna_aggregate_plain(vu, urecv, un, mask_u), 10), 5),
          library_ms=round(cuda_ms(lambda: (torch.segment_reduce(pair_sum_u, "sum", lengths=lengths_u, axis=0),
                                            torch.segment_reduce(pair_max_u, "max", lengths=lengths_u, axis=0)),
@@ -1761,6 +1808,7 @@ def main():
     # library's one call for the identity variant
     adj = torch.sparse_csr_tensor(crow, host.senders.long(), host.edge_mask.float(), size=(n, n)).to(dev)
     b8_timing = {}
+    ptr_t = rp.row_pointers(bd.receivers, n)
     for variant in B8_VARIANTS:
         x, branches, acts, scale = b8_case(variant, n, e, 90)
         xd, brd, scd = x.to(dev), on_dev(branches, dev), None if scale is None else scale.to(dev)
@@ -1768,11 +1816,13 @@ def main():
         hout = branches[0][0].shape[1] if branches else hin
         kb = len(branches)
         args_d = (xd, send, bd.receivers, bd.edge_mask, n, brd, acts, scd)
-        kern = lambda a=args_d: b8.fused_conv(*a, real_edges=occ)  # noqa: E731
+        # as the chassis calls it: on the forward's shared row pointers
+        kern = lambda a=args_d: b8.fused_conv(*a, real_edges=occ, row_ptr=ptr_t)  # noqa: E731
         plain = lambda a=args_d: b8.fused_conv_plain(*a)  # noqa: E731
         # one library call computes the identity variant; none the others
         library = (lambda xx=xd: torch.sparse.mm(adj, xx)) if variant.startswith("identity") else None
-        nbytes = e * 9 + n * hin * s4 + n * hout * s4
+        # senders and mask, the row pointers, x; the output
+        nbytes = e * 5 + (n + 1) * 4 + n * hin * s4 + n * hout * s4
         ops = real_t * hout
         if scale is not None:
             nbytes += e * hout * s4
@@ -1792,6 +1842,7 @@ def main():
             "ms": float(np.mean(t["kernel"])), "graph_ms": g_ms, "plain_ms": t["plain"][0],
             "library_ms": t["library"][0] if t["library"] else None,
             "library_graph_ms": graph_ms(library, 10) if library is not None else None,
+            "graph_ms_own_row_ptr": graph_ms(lambda a=args_d: b8.fused_conv(*a, real_edges=occ), 10),
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops,
             "E": e, "N": n, "H_in": hin, "H_out": hout, "branches": kb,
         }
@@ -1802,14 +1853,24 @@ def main():
             b8_timing[variant]["gather_tb_per_s"] = rows_b / (g_ms * 1e-3) / 1e12
         line("timing", kernel="fused_conv", variant=variant, card=repr(card),
              **{k: (round(v, 5) if isinstance(v, float) else v) for k, v in b8_timing[variant].items()})
-    # the row-pointer pass each B8 call makes before its walk (a zero fill
-    # and csr_row_ptr_kernel), alone, and its share of the identity call
-    rp_ms, rp_graph_ms = cuda_ms(lambda: b8.row_pointers(bd.receivers, n), 50), \
-        graph_ms(lambda: b8.row_pointers(bd.receivers, n), 20)
-    line("timing", kernel="fused_conv", part="row_pointers", card=repr(card), ms=round(rp_ms, 5),
-         graph_ms=round(rp_graph_ms, 5), bound_ms=round(bound(e * 4 + (n + 1) * 4, 0)[0], 5),
-         share_of_identity_h128_graph=round(rp_graph_ms / b8_timing["identity_h128"]["graph_ms"], 4),
-         share_of_identity_h1_graph=round(rp_graph_ms / b8_timing["identity_h1"]["graph_ms"], 4))
+    # the receivers' row-pointer pass (a zero fill and csr_row_ptr_kernel),
+    # once per forward, alone; its plain version (searchsorted with the row
+    # ids made anew) and the one library call (searchsorted) beside it
+    rows_t = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    t_rp = [cuda_ms(lambda: rp.row_pointers(bd.receivers, n), 50)]
+    rp_plain_ms = cuda_ms(lambda: rp.row_pointers_plain(bd.receivers, n), 50)
+    rp_lib_ms = cuda_ms(lambda: torch.searchsorted(bd.receivers, rows_t), 50)
+    t_rp.append(cuda_ms(lambda: rp.row_pointers(bd.receivers, n), 50))
+    rp_bms, rp_by = bound(e * 4 + (n + 1) * 4, 0)
+    timing["row_pointers"] = {
+        "ms": float(np.mean(t_rp)), "graph_ms": graph_ms(lambda: rp.row_pointers(bd.receivers, n), 20),
+        "plain_ms": rp_plain_ms, "library_ms": rp_lib_ms,
+        "library_graph_ms": graph_ms(lambda: torch.searchsorted(bd.receivers, rows_t), 20),
+        "bound_ms": rp_bms, "bound_by": rp_by, "E": e, "N": n,
+    }
+    line("timing", kernel="row_pointers", card=repr(card),
+         share_of_identity_h1_graph=round(timing["row_pointers"]["graph_ms"] / b8_timing["identity_h1"]["graph_ms"], 4),
+         **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing["row_pointers"].items()})
     # B8 and B4 on the molecular data's dense-map batch (phase 8's): on its
     # edge list (the conv stacks' call and their grad_x scatter) and on its
     # dense slots, whose padding node's empty slots make one long row
@@ -1884,8 +1945,9 @@ def main():
 
     ours = ("gather_stats_warp_kernel", "gather_stats_narrow_kernel", "gather_stats_bwd_warp_kernel",
             "gather_stats_bwd_narrow_kernel", "segment_sum_kernel", "gather_rows_kernel", "segment_sum_local_kernel",
-            "csr_row_ptr_kernel", "fused_identity_kernel", "fused_identity_warp_kernel", "fused_branch_kernel",
-            "pna_aggregate_kernel",
+            "csr_row_ptr_kernel", "zero_kernel", "fused_identity_warp_kernel",
+            "fused_identity_h1_kernel", "fused_branch_kernel", "fused_narrow_kernel", "pna_aggregate_warp_kernel",
+            "pna_aggregate_h1_kernel",
             "pna_bwd_count_kernel", "pna_bwd_grad_kernel", "stack_product_kernel", "stack_walk_kernel")
 
     def profile_step(label, model_, optimizer_, bd_=bd):
@@ -1918,7 +1980,7 @@ def main():
     # each kernel's launches on its own main path (serve: B5; PNA
     # training: B1, its backward kernel, B2-B4; GIN training: B8;
     # unaligned PNA training: B6, B7; the stack op forward and backward on
-    # both layouts: B9), and on every path
+    # both layouts: B9; GIN training: the row-pointer pass), and on every path
     stack_op = {name: sum(c[name] for c in stack_counts_by_layout.values()) for name in mods}
     timing["fused_conv_stack"] = dict(stack_timing["unaligned"])
     paths = {"stack_op": stack_op, "train_gat": gat_counts, **{f"knobs_{k}": c for k, c in knob_counts.items()},
@@ -1928,7 +1990,7 @@ def main():
              "accuracy_pna_dense_multihead": acc_counts["multihead"]}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",
-                pna_bwd_grad="train_pna_unaligned", fused_conv_stack="stack_op")
+                pna_bwd_grad="train_pna_unaligned", fused_conv_stack="stack_op", row_pointers="train_gin")
     kernels = []
     for name, m in mods.items():
         t = timing[name]

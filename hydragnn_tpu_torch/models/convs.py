@@ -22,6 +22,7 @@ receiver. The port has:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -34,6 +35,7 @@ from hydragnn_tpu_torch.models.layers import dense, lecun_normal_, uniform_
 from hydragnn_tpu_torch.ops.fused_conv import ACTS, fused_aggregate
 from hydragnn_tpu_torch.ops.gather_stats import gather_presum_stats, presum_stats_plain
 from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate
+from hydragnn_tpu_torch.ops.row_pointers import row_pointers
 
 @dataclasses.dataclass(frozen=True)
 class EdgeContext:
@@ -70,6 +72,14 @@ class EdgeContext:
     # Architecture.conv_bf16: the conv stacks' streamed operands in
     # bfloat16 (sums in f32), the result cast back to the incoming dtype
     conv_bf16: bool = False
+
+    @functools.cached_property
+    def row_ptr(self) -> torch.Tensor:
+        """The receivers' CSR row pointers (ops/row_pointers.py), [N + 1]
+        int32: built at the first read and shared by every later one, so
+        a forward makes them once, and only when a layer's kernel walks
+        them (B5, B8)."""
+        return row_pointers(self.receivers, self.node_mask.shape[0])
 
 
 def _gather_senders(x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
@@ -109,7 +119,7 @@ def _gather_scatter(
     if ctx.fused_conv:
         return fused_aggregate(
             x, ctx.senders, ctx.receivers, ctx.edge_mask, n,
-            scale=scale, win=ctx.sender_win, real_edges=ctx.edge_occ,
+            scale=scale, win=ctx.sender_win, real_edges=ctx.edge_occ, row_ptr=ctx.row_ptr,
         ).to(xd)
     vals = _gather_senders(x, ctx)
     if scale is not None:
@@ -230,7 +240,7 @@ class PNAConv(nn.Module):
                 # cleans rows at or below it to 0
                 both = S.segment_max(both8, recv8, n, indices_are_sorted=True, empty_value=0.0)
             else:
-                vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask)
+                vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask, row_ptr=ctx.row_ptr)
             max_v = both[:, :fin]
             min_v = -both[:, fin:]
 
@@ -387,7 +397,7 @@ class CGConv(nn.Module):
         agg = fused_aggregate(
             xc, ctx.senders, ctx.receivers, ctx.edge_mask, n,
             branches=((wf[fin : 2 * fin], None, af, cf), (ws[fin : 2 * fin], None, ac, cs)),
-            acts=("sigmoid", "softplus"), win=ctx.sender_win, real_edges=ctx.edge_occ,
+            acts=("sigmoid", "softplus"), win=ctx.sender_win, real_edges=ctx.edge_occ, row_ptr=ctx.row_ptr,
         ).to(x.dtype)
         return x + agg
 

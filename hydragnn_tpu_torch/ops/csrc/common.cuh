@@ -219,4 +219,46 @@ __device__ __forceinline__ void store_f32(float* p, const float (&f)[N]) {
   }
 }
 
+// The one-column walk (B5 and B8 at H = 1, conv_0 of every stack): a group
+// of kGroup = 8 lanes per row, four rows a warp. A pass covers 32 slots of
+// each row: lane g of a group holds slots g, g + 8, g + 16 and g + 24, so
+// it has four index loads, then four value loads, in flight. load(e, m)
+// fills m with slot e's value and says whether the slot takes part (false
+// past hi). The group's 32 values reach every lane of the group by
+// __shfl_sync in slot order, and take(x) runs on each lane for each live
+// slot, so the row's sums run in edge order. Passes repeat while any row
+// of the warp has slots left (a warp-uniform count, for the shuffles).
+// Returns the number of live slots of the lane's row.
+constexpr int kGroup = 8;
+
+template <typename Load, typename Take>
+__device__ __forceinline__ int group_walk(long long lo, long long hi, Load&& load, Take&& take) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (kGroup - 1);
+  const int first = lane & ~(kGroup - 1);  // the group's first lane
+  const int passes = __reduce_max_sync(kFullWarp, (int)((hi - lo + 31) / 32));
+  int count = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const long long base = lo + (long long)pass * 32;
+    float m[4];
+    bool ok[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      m[t] = 0.f;
+      ok[t] = load(base + t * kGroup + g, m[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const unsigned live = (__ballot_sync(kFullWarp, ok[t]) >> first) & 0xffu;
+      count += __popc(live);
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const float x = __shfl_sync(kFullWarp, m[t], k, kGroup);
+        if ((live >> k) & 1u) take(x);
+      }
+    }
+  }
+  return count;
+}
+
 }  // namespace

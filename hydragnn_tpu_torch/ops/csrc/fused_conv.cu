@@ -28,13 +28,13 @@
 // E·Hin·K·Hout multiply-adds and is bound by operations instead.
 //
 // What the design does:
-//   - CSR row pointers from one pass over the sorted receivers
-//     (common.cuh:csr_row_ptr_kernel, after a zero fill; hg_fused_conv_row_ptr
-//     runs the pass alone): no search, no atomics.
+//   - CSR row pointers of the sorted receivers come in from the caller
+//     (row_pointers.cu, built once per forward by the chassis and shared
+//     by every layer): no search, no atomics, no pass of its own.
 //   - Every output element is summed over its row's edges in edge order
 //     with __fadd_rn / __fmul_rn, by one lane: two launches are bitwise
 //     equal, and f32 equals index_add_ on the host bit for bit.
-//   - Identity and scale (K = 0), rows of 32 columns or more: one warp per
+//   - Identity and scale (K = 0), rows of 2 columns or more: one warp per
 //     output row. The warp loads 32 slots' mask and sender with one
 //     coalesced load each, keeps the live ones by __ballot_sync (masked,
 //     out-of-range and past-the-bound slots drop out) and hands each
@@ -46,12 +46,19 @@
 //     So a warp has U x 512 bytes of the gather in flight where the old
 //     one-column-a-thread walk had one 4-byte load, and no lane reads an
 //     index twice. x (16.8 MB at the flagship) stays in the 50 MB L2, so
-//     the gather is bound by L2's rate, not HBM's.
-//   - Identity under 32 columns (conv_0, H = 1): lanes run along the
-//     columns in groups of a power of two (common.cuh:lanes_log2), many
-//     rows a warp, and each lane walks its row's edges itself.
+//     the gather is bound by L2's rate, not HBM's. Rows under 32 columns
+//     (on no shipped path) take one element a lane, lanes past the row's
+//     width idle.
+//   - Identity and scale at one column (conv_0 of GIN, SAGE and MFC):
+//     a group of 8 lanes per row, four rows a warp (common.cuh:
+//     group_walk). Each lane loads four slots' mask and sender together,
+//     then gathers their x itself, so a row has 32 gathers in flight, and
+//     a warp covers four rows: the flagship batch's 32,752 rows fit on the
+//     card at once. The group's values are handed round by __shfl_sync in
+//     edge order.
 //   - Narrow branches (K = 1, 2 with Hout < 32: the width-1 CGCNN gate):
-//     lanes as in the narrow identity kernel, W and b in shared memory, and
+//     lanes run along the columns in groups of a power of two
+//     (common.cuh:lanes_log2), many rows a warp, W and b in shared memory, and
 //     each lane reads its edges' gathered rows itself (Hin values each), so
 //     no lane of a warp waits on a barrier for a row it has no column of.
 //   - Wide branches (K = 1, 2): a block of 128 threads holds W and b in shared
@@ -82,38 +89,42 @@ __device__ __forceinline__ void group_sync(int g, int lanes) {
   asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(lanes) : "memory");
 }
 
-template <typename T>
-__global__ void fused_identity_kernel(const T* __restrict__ x, const int32_t* __restrict__ send,
-                                      const uint8_t* __restrict__ mask,
-                                      const int32_t* __restrict__ ptr,
-                                      const int32_t* __restrict__ real_edges, long long n_edges,
-                                      long long n_x_rows, long long n_rows, int h,
-                                      const T* __restrict__ scale, int lpr_log2,
-                                      float* __restrict__ out) {
-  const int lpr = 1 << lpr_log2;
-  const int lane = threadIdx.x & (lpr - 1);
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x >> lpr_log2) + (threadIdx.x >> lpr_log2);
-  if (row >= n_rows) return;
-  const long long lo = ptr[row];
-  long long hi = ptr[row + 1];
-  const long long bound = edge_bound(real_edges, n_edges);
-  hi = hi > bound ? bound : hi;
-  for (int f = lane; f < h; f += lpr) {
-    float s = 0.f;
-    for (long long e = lo; e < hi; ++e) {
-      if (!mask[e]) continue;
-      const long long j = send[e];
-      if (j < 0 || j >= n_x_rows) continue;
-      float m = to_f32<T>(x[j * h + f]);
-      if (scale != nullptr) m = __fmul_rn(m, to_f32<T>(scale[e * h + f]));
-      s = __fadd_rn(s, m);
-    }
-    out[row * h + f] = s;
+// K = 0 at one column (the design notes above): a group of 8 lanes per
+// row (common.cuh:group_walk). The mask and the sender of a slot are
+// loaded together, then x (and the scale).
+template <typename T, bool SCALE>
+__global__ void __launch_bounds__(kThreads)
+    fused_identity_h1_kernel(const T* __restrict__ x, const int32_t* __restrict__ send,
+                             const uint8_t* __restrict__ mask, const int32_t* __restrict__ ptr,
+                             const int32_t* __restrict__ real_edges, long long n_edges,
+                             long long n_x_rows, long long n_rows, const T* __restrict__ scale,
+                             float* __restrict__ out) {
+  const long long row = ((long long)blockIdx.x * kThreads + threadIdx.x) / kGroup;
+  const bool own = row < n_rows;  // the warp's other rows still shuffle
+  long long lo = 0, hi = 0;
+  if (own) {
+    lo = ptr[row];
+    hi = ptr[row + 1];
+    const long long bound = edge_bound(real_edges, n_edges);
+    hi = hi > bound ? bound : hi;
   }
+  float acc = 0.f;
+  group_walk(
+      lo, hi,
+      [&](long long e, float& m) -> bool {
+        if (e >= hi) return false;
+        const uint8_t live = mask[e];
+        const int j = send[e];
+        if (!live || j < 0 || j >= n_x_rows) return false;
+        m = to_f32<T>(x[j]);
+        if constexpr (SCALE) m = __fmul_rn(m, to_f32<T>(scale[e]));
+        return true;
+      },
+      [&](float v) { acc = __fadd_rn(acc, v); });
+  if (own && (threadIdx.x & (kGroup - 1)) == 0) out[row] = acc;
 }
 
-// K = 0 at 32 columns or more: one warp per output row (the design notes
+// K = 0 at 2 columns or more: one warp per output row (the design notes
 // above). nv: the row's vectors of V bytes; a lane owns vectors lane,
 // lane + 32, ..., VPL of them a pass, and wider rows take further passes
 // over the same edges.
@@ -411,6 +422,17 @@ int launch_identity_warp(const void* x, const void* send, const void* mask, cons
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool SCALE>
+int launch_identity_h1(const void* x, const void* send, const void* mask, const void* real_edges,
+                       long long n_edges, long long n_x_rows, long long n_rows, const void* scale,
+                       const void* row_ptr, void* out, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((n_rows + kThreads / kGroup - 1) / (kThreads / kGroup));
+  fused_identity_h1_kernel<T, SCALE><<<blocks, kThreads, 0, stream>>>(
+      (const T*)x, (const int32_t*)send, (const uint8_t*)mask, (const int32_t*)row_ptr,
+      (const int32_t*)real_edges, n_edges, n_x_rows, n_rows, (const T*)scale, (float*)out);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int V>
 int launch_identity_v(const void* x, const void* send, const void* mask, const void* real_edges,
                       long long n_edges, long long n_x_rows, long long n_rows, int h,
@@ -432,7 +454,7 @@ int launch(const void* x, const void* send, const void* mask, const void* real_e
            long long n_edges, long long n_x_rows, long long n_rows, int hin, int hout, int k_br,
            int act0, int act1, const void* w, const void* b, const void* rtab, const void* eterm,
            const void* scale, const void* row_ptr, void* out, cudaStream_t stream) {
-  if (k_br == 0 && hout >= 32) {
+  if (k_br == 0 && hout >= 2) {
     const uintptr_t align = (uintptr_t)x | (uintptr_t)scale;
     const int v = row_vector_bytes((long long)hout * sizeof(T), align, (int)sizeof(T));
     switch (v) {
@@ -453,14 +475,11 @@ int launch(const void* x, const void* send, const void* mask, const void* real_e
     }
   }
   if (k_br == 0) {
-    const int lpr_log2 = lanes_log2(hout);
-    const long long rows_per_block = kThreads >> lpr_log2;
-    const long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-    fused_identity_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        (const T*)x, (const int32_t*)send, (const uint8_t*)mask, (const int32_t*)row_ptr,
-        (const int32_t*)real_edges, n_edges, n_x_rows, n_rows, hout, (const T*)scale, lpr_log2,
-        (float*)out);
-    return (int)cudaGetLastError();
+    if (scale != nullptr)
+      return launch_identity_h1<T, true>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows,
+                                         scale, row_ptr, out, stream);
+    return launch_identity_h1<T, false>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows,
+                                        nullptr, row_ptr, out, stream);
   }
   if (k_br == 1)
     return launch_branch<T, 1>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows, hin, hout,
@@ -469,54 +488,25 @@ int launch(const void* x, const void* send, const void* mask, const void* real_e
                              act0, act1, w, b, rtab, eterm, scale, row_ptr, out, stream);
 }
 
-__global__ void zero_kernel(int32_t* __restrict__ p, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) p[i] = 0;
-}
-
-// The n_rows + 1 int32 row pointers of the sorted receivers recv
-// [n_edges] into row_ptr: a zero fill, then common.cuh:csr_row_ptr_kernel.
-// (A kernel, not cudaMemsetAsync: a memset node replays slower in a CUDA
-// graph.)
-int fill_row_ptr(const void* recv, long long n_edges, long long n_rows, void* row_ptr,
-                 cudaStream_t stream) {
-  zero_kernel<<<(unsigned)((n_rows + kThreads) / kThreads), kThreads, 0, stream>>>((int32_t*)row_ptr,
-                                                                                 n_rows + 1);
-  launch_row_ptr(recv, n_edges, n_rows, row_ptr, stream);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
-
-// The row-pointer pass of hg_fused_conv alone (fill_row_ptr). Returns a
-// cudaError_t (0 = success).
-extern "C" int hg_fused_conv_row_ptr(const void* recv, long long n_edges, long long n_rows,
-                                     void* row_ptr, void* stream) {
-  if (n_rows <= 0 || n_edges < 0) return (int)cudaErrorInvalidValue;
-  return fill_row_ptr(recv, n_edges, n_rows, row_ptr, (cudaStream_t)stream);
-}
 
 // dtype: 0 = float32, 1 = bfloat16, for x, rtab, eterm and scale alike; w
 // ([Hin, K·Hout]) and b ([K·Hout], may be null) are float32. rtab
 // ([n_rows, K·Hout]), eterm ([E, K·Hout]), scale ([E, Hout]) and
 // real_edges (one int32 on the card) may be null. K = k_br in 0..2, and
 // K = 0 needs Hin = Hout. act0/act1: 0 none, 1 relu, 2 sigmoid, 3 softplus,
-// 4 tanh, 5 silu. row_ptr: n_rows + 1 int32 of scratch for the sorted
-// receivers' row pointers, filled here first (fill_row_ptr). Returns a
-// cudaError_t (0 = success).
-extern "C" int hg_fused_conv(const void* x, int dtype, const void* send, const void* recv,
-                             const void* mask, const void* real_edges, long long n_edges,
-                             long long n_x_rows, long long n_rows, int hin, int hout, int k_br,
-                             int act0, int act1, const void* w, const void* b, const void* rtab,
-                             const void* eterm, const void* scale, void* row_ptr, void* out,
-                             void* stream) {
+// 4 tanh, 5 silu. row_ptr: the n_rows + 1 int32 row pointers of the
+// sorted receivers (row_pointers.cu). Returns a cudaError_t (0 = success).
+extern "C" int hg_fused_conv(const void* x, int dtype, const void* send, const void* mask,
+                             const void* real_edges, long long n_edges, long long n_x_rows,
+                             long long n_rows, int hin, int hout, int k_br, int act0, int act1,
+                             const void* w, const void* b, const void* rtab, const void* eterm,
+                             const void* scale, const void* row_ptr, void* out, void* stream) {
   if (n_rows <= 0 || n_edges < 0 || n_x_rows <= 0 || hin <= 0 || hout <= 0 || k_br < 0 ||
       k_br > 2 || act0 < 0 || act0 > 5 || act1 < 0 || act1 > 5)
     return (int)cudaErrorInvalidValue;
   if ((k_br == 0 && hin != hout) || (k_br > 0 && w == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int rc = fill_row_ptr(recv, n_edges, n_rows, row_ptr, s);
-  if (rc != 0) return rc;
   if (dtype == 0)
     return launch<float>(x, send, mask, real_edges, n_edges, n_x_rows, n_rows, hin, hout, k_br,
                          act0, act1, w, b, rtab, eterm, scale, row_ptr, out, s);

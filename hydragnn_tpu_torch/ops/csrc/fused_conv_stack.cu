@@ -24,9 +24,10 @@
 //      products on the flagship batch), and
 //   2. the masked sum of Q_l[send] by receiver: B8's identity walk (one
 //      owner thread per (row, column) over its CSR row, edges in order).
-// Both are computed here, 2L + 1 launches on the caller's stream with no
-// host synchronisation (the CSR row pointers once, then the product and
-// the walk per layer). Between layers the two [N, H] f32 buffers (Q and
+// Both are computed here, 2L launches on the caller's stream with no
+// host synchronisation (the product and the walk per layer), over the
+// CSR row pointers of the receivers that the caller built once
+// (row_pointers.cu). Between layers the two [N, H] f32 buffers (Q and
 // out, 16.8 MB each at the flagship's N = 32,752, H = 128) stay in the
 // card's 50 MB L2: the counterpart of the TPU kernel's VMEM residency.
 //
@@ -208,18 +209,18 @@ __global__ void stack_walk_kernel(const float* __restrict__ q, const int32_t* __
 }  // namespace
 
 // x [n_rows, h] f32; w [n_layers, h, h] f32; b [n_layers, h] f32 or null;
-// send, recv [n_edges] int32 (recv sorted ascending); mask [n_edges] bool;
-// real_edges one int32 on the card or null. act_e, act_i: 0 none, 1 relu,
-// 2 sigmoid, 3 softplus, 4 tanh, 5 silu. row_ptr: n_rows + 1 int32 of
-// scratch, zero-filled by the caller; q: [n_rows, h] f32 scratch; out:
+// send [n_edges] int32; mask [n_edges] bool; real_edges one int32 on the
+// card or null. act_e, act_i: 0 none, 1 relu, 2 sigmoid, 3 softplus,
+// 4 tanh, 5 silu. row_ptr: the n_rows + 1 int32 row pointers of the
+// sorted receivers (row_pointers.cu); q: [n_rows, h] f32 scratch; out:
 // [n_rows, h] f32. Returns a cudaError_t (0 = success).
-extern "C" int hg_fused_conv_stack(const void* x, const void* send, const void* recv,
-                                   const void* mask, const void* real_edges, long long n_edges,
-                                   long long n_rows, int h, int n_layers, int act_e, int act_i,
-                                   const void* w, const void* b, void* row_ptr, void* q,
-                                   void* out, void* stream) {
+extern "C" int hg_fused_conv_stack(const void* x, const void* send, const void* mask,
+                                   const void* real_edges, long long n_edges, long long n_rows,
+                                   int h, int n_layers, int act_e, int act_i, const void* w,
+                                   const void* b, const void* row_ptr, void* q, void* out,
+                                   void* stream) {
   if (n_rows <= 0 || n_edges < 0 || h <= 0 || n_layers <= 0 || act_e < 0 || act_e > 5 ||
-      act_i < 0 || act_i > 5 || x == nullptr || w == nullptr)
+      act_i < 0 || act_i > 5 || x == nullptr || w == nullptr || row_ptr == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   // raise the dynamic shared memory limit once, at the first launch (never
@@ -252,9 +253,6 @@ extern "C" int hg_fused_conv_stack(const void* x, const void* send, const void* 
   const int lpr_log2 = lanes_log2(h);
   const long long rows_per_block = kThreads >> lpr_log2;
   const long long walk_blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  launch_row_ptr(recv, n_edges, n_rows, row_ptr, s);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   for (int l = 0; l < n_layers; ++l) {
     const float* wl = (const float*)w + (long long)l * h * h;
     const float* bl = b != nullptr ? (const float*)b + (long long)l * h : nullptr;

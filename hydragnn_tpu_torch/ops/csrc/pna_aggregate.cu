@@ -22,23 +22,34 @@
 // part in 2 adds, 1 multiply and 2 comparisons; even at H = 128 that is
 // about one operation per byte read, far below the H100's ~20 float32
 // operations per byte of its 3.35 TB/s. The least time is
-// (E·H·sizeof(v) + E·4 + E·1 + N·H·8 + N·4 + N·2H·sizeof(v)) / 3.35 TB/s.
+// (E·H·sizeof(v) + E·1 + (N + 1)·4 + N·H·8 + N·4 + N·2H·sizeof(v)) / 3.35 TB/s.
 //
 // What the design does about it:
 //   - v is read once, for all four statistics (the TPU read it twice: once
 //     in the kernel, once in XLA's scatter-max).
-//   - Each receiver row belongs to one group of LPR lanes (LPR = the power
-//     of two at or above H, at most 128). Lanes run along the feature axis,
-//     so one warp reads 32 consecutive values of one edge row: coalesced.
-//     Narrow rows (conv_0 has H = 1) pack many receiver rows per warp
-//     instead of idling lanes.
-//   - CSR row pointers come from a one-thread-per-edge pass over the sorted
-//     receivers (no search, no atomics). Each output element has one owner
-//     thread that walks its row's edges in order, so two runs are bitwise
-//     equal and the sums are the plain sequential float32 sums.
-//   - Sums are written with __fadd_rn/__fmul_rn so the compiler does not
-//     contract them into fused multiply-adds: the kernel then does the same
-//     roundings as the plain PyTorch version.
+//   - The CSR row pointers of the sorted receivers come in from the caller
+//     (row_pointers.cu; the chassis builds them once per forward and B6 and
+//     B7 walk the same ones), so a call is one launch.
+//   - One warp per receiver row (a group of 8 lanes at H = 1). The warp
+//     reads the row's mask 32 slots at a time with one coalesced load and
+//     keeps the live slots by __ballot_sync; cnt is the sum of their
+//     popcounts, with no serial loop.
+//   - Rows of 2 columns or more: each lane owns a vector of columns (16
+//     bytes at f32 H = 128, 8 at bf16 H = 128; common.cuh:row_vector_bytes
+//     checks the row's bytes and every pointer) and issues U row loads (8,
+//     or 4 for wide vectors) before it adds any of them, so a warp has U x
+//     512 bytes of v in flight; sum, sumsq and both leave as vector stores.
+//     Rows under 32 columns (on no shipped path) take one element a lane,
+//     lanes past the row's width idle.
+//   - Rows of one column (conv_0): common.cuh:group_walk, a group of 8
+//     lanes per row and four rows a warp, each lane with four slots' loads
+//     in flight and the values handed round by shuffle in edge order; the
+//     flagship's 32,752 rows fit on the card at once.
+//   - Every output element is formed by one lane in edge order with
+//     __fadd_rn/__fmul_rn (never contracted into fused multiply-adds), so
+//     two runs are bitwise equal and f32 equals the plain PyTorch version
+//     (index_add_ and scatter_reduce on the host) bit for bit. NaN is
+//     sticky in the maxima, as in the reference's max.
 // The TPU mechanics of the original (one-hot MXU matmuls, the 3-term bf16
 // split, 128-lane padding, double-buffered DMA) have no counterpart here.
 
@@ -46,78 +57,206 @@
 
 namespace {
 
-template <typename T>
-__global__ void pna_aggregate_kernel(const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                                     const int32_t* __restrict__ ptr, long long n_rows, int h,
-                                     int lpr_log2, float lowest, float* __restrict__ sum,
-                                     float* __restrict__ sumsq, float* __restrict__ cnt,
-                                     T* __restrict__ both) {
-  const int lpr = 1 << lpr_log2;
-  const int lane = threadIdx.x & (lpr - 1);
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x >> lpr_log2) + (threadIdx.x >> lpr_log2);
-  if (row >= n_rows) return;
-  const int32_t lo = ptr[row];
-  const int32_t hi = ptr[row + 1];
-  if (lane == 0) {
-    int c = 0;
-    for (int32_t e = lo; e < hi; ++e) c += (mask == nullptr || mask[e]) ? 1 : 0;
-    cnt[row] = (float)c;
+constexpr int kWarps = kThreads / 32;
+
+// The four running statistics of one column, set by reset(). (With
+// default member initializers instead, the warp kernel's [2][EPV] array
+// of them started its second row's maxima at 0 on the card, CUDA 12.8:
+// the maxima of all-negative columns came out 0.)
+struct Stats {
+  float s, sq, mx, mn;
+  __device__ __forceinline__ void reset() {
+    s = 0.f, sq = 0.f, mx = -INFINITY, mn = -INFINITY;
   }
-  for (int f = lane; f < h; f += lpr) {
-    float s = 0.f, sq = 0.f;
-    float mx = -INFINITY, mn = -INFINITY;
-    for (int32_t e = lo; e < hi; ++e) {
-      if (mask != nullptr && !mask[e]) continue;
-      const float x = to_f32<T>(v[(size_t)e * h + f]);
-      const float nx = -x;
-      s = __fadd_rn(s, x);
-      sq = __fadd_rn(sq, __fmul_rn(x, x));
-      // NaN is sticky, as in the reference's max
-      if (x > mx || x != x) mx = x;
-      if (nx > mn || nx != nx) mn = nx;
+  __device__ __forceinline__ void take(float x) {
+    const float nx = -x;
+    s = __fadd_rn(s, x);
+    sq = __fadd_rn(sq, __fmul_rn(x, x));
+    // NaN is sticky, as in the reference's max
+    if (x > mx || x != x) mx = x;
+    if (nx > mn || nx != nx) mn = nx;
+  }
+};
+
+__device__ __forceinline__ float cleaned(float m, float lowest) { return m <= lowest ? 0.f : m; }
+
+// Rows of 2 columns or more: a lane owns vectors lane, lane + 32, ...
+// (VPL of them a pass) of V bytes; wider rows take further passes over the
+// same slots.
+template <typename T, int V, int VPL>
+__global__ void __launch_bounds__(kThreads)
+    pna_aggregate_warp_kernel(const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                              const int32_t* __restrict__ ptr, long long n_rows, int h, int nv,
+                              float lowest, float* __restrict__ sum, float* __restrict__ sumsq,
+                              float* __restrict__ cnt, T* __restrict__ both) {
+  constexpr int EPV = V / (int)sizeof(T);
+  constexpr int U = VPL * EPV <= 4 ? 8 : 4;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp
+  const long long lo = ptr[row];
+  const long long hi = ptr[row + 1];
+  const size_t row_bytes = (size_t)h * sizeof(T);
+  const char* vb = reinterpret_cast<const char*>(v);
+  int count = 0;
+  for (int c0 = 0; c0 < nv; c0 += 32 * VPL) {
+    Stats st[VPL][EPV];
+#pragma unroll
+    for (int p = 0; p < VPL; ++p)
+#pragma unroll
+      for (int i = 0; i < EPV; ++i) st[p][i].reset();
+    for (long long base = lo; base < hi; base += 32) {
+      const long long e = base + lane;
+      unsigned live = __ballot_sync(kFullWarp, e < hi && (mask == nullptr || mask[e]));
+      if (c0 == 0) count += __popc(live);
+      while (live) {
+        int k[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          k[u] = live ? __ffs(live) - 1 : -1;
+          live &= live - 1u;
+        }
+        float x[U][VPL][EPV];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int p = 0; p < VPL; ++p) {
+            const int col = c0 + p * 32 + lane;
+#pragma unroll
+            for (int i = 0; i < EPV; ++i) x[u][p][i] = 0.f;
+            if (k[u] >= 0 && col < nv)
+              load_vec<T, V>(vb + (size_t)(base + k[u]) * row_bytes + (size_t)col * V, x[u][p]);
+          }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (k[u] < 0) continue;
+#pragma unroll
+          for (int p = 0; p < VPL; ++p)
+#pragma unroll
+            for (int i = 0; i < EPV; ++i) st[p][i].take(x[u][p][i]);
+        }
+      }
     }
-    const size_t o = (size_t)row * h + f;
-    sum[o] = s;
-    sumsq[o] = sq;
-    const size_t ob = (size_t)row * 2 * h + f;
-    both[ob] = from_f32<T>(mx <= lowest ? 0.f : mx);
-    both[ob + h] = from_f32<T>(mn <= lowest ? 0.f : mn);
+    char* bb = reinterpret_cast<char*>(both) + (size_t)row * 2 * row_bytes;
+#pragma unroll
+    for (int p = 0; p < VPL; ++p) {
+      const int col = c0 + p * 32 + lane;
+      if (col >= nv) continue;
+      float s[EPV], sq[EPV], mx[EPV], mn[EPV];
+#pragma unroll
+      for (int i = 0; i < EPV; ++i) {
+        s[i] = st[p][i].s, sq[i] = st[p][i].sq;
+        mx[i] = cleaned(st[p][i].mx, lowest), mn[i] = cleaned(st[p][i].mn, lowest);
+      }
+      const size_t o = (size_t)row * h + (size_t)col * EPV;
+      store_f32<EPV>(sum + o, s);
+      store_f32<EPV>(sumsq + o, sq);
+      store_vec<T, V>(bb + (size_t)col * V, mx);
+      store_vec<T, V>(bb + row_bytes + (size_t)col * V, mn);
+    }
+  }
+  if (lane == 0) cnt[row] = (float)count;
+}
+
+// Rows of one column (the design notes above): a group of 8 lanes per
+// row (common.cuh:group_walk). A slot's value is loaded with its mask
+// byte (v is read for every slot of the row; a masked slot's value is
+// dropped, never added).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    pna_aggregate_h1_kernel(const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                            const int32_t* __restrict__ ptr, long long n_rows, float lowest,
+                            float* __restrict__ sum, float* __restrict__ sumsq,
+                            float* __restrict__ cnt, T* __restrict__ both) {
+  const long long row = ((long long)blockIdx.x * kThreads + threadIdx.x) / kGroup;
+  const bool own = row < n_rows;  // the warp's other rows still shuffle
+  long long lo = 0, hi = 0;
+  if (own) {
+    lo = ptr[row];
+    hi = ptr[row + 1];
+  }
+  Stats st;
+  st.reset();
+  const int count = group_walk(
+      lo, hi,
+      [&](long long e, float& m) -> bool {
+        if (e >= hi) return false;
+        m = to_f32<T>(v[e]);
+        return mask == nullptr || mask[e];
+      },
+      [&](float x) { st.take(x); });
+  if (own && (threadIdx.x & (kGroup - 1)) == 0) {
+    sum[row] = st.s;
+    sumsq[row] = st.sq;
+    cnt[row] = (float)count;
+    both[2 * row] = from_f32<T>(cleaned(st.mx, lowest));
+    both[2 * row + 1] = from_f32<T>(cleaned(st.mn, lowest));
+  }
+}
+
+template <typename T, int V>
+int launch_warp(const void* v, const void* mask, const void* row_ptr, long long n_rows, int h,
+                float lowest, void* sum, void* sumsq, void* cnt, void* both, cudaStream_t stream) {
+  if constexpr (V < (int)sizeof(T)) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int nv = (int)((long long)h * sizeof(T) / V);
+    const unsigned blocks = (unsigned)((n_rows + kWarps - 1) / kWarps);
+    if (nv <= 32)
+      pna_aggregate_warp_kernel<T, V, 1><<<blocks, kThreads, 0, stream>>>(
+          (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, n_rows, h, nv, lowest,
+          (float*)sum, (float*)sumsq, (float*)cnt, (T*)both);
+    else
+      pna_aggregate_warp_kernel<T, V, 2><<<blocks, kThreads, 0, stream>>>(
+          (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, n_rows, h, nv, lowest,
+          (float*)sum, (float*)sumsq, (float*)cnt, (T*)both);
+    return (int)cudaGetLastError();
   }
 }
 
 template <typename T>
-void launch(const void* v, const void* recv, const void* mask, long long n_edges,
-            long long n_rows, int h, void* row_ptr, void* sum, void* sumsq, void* cnt,
-            void* both, float lowest, cudaStream_t stream) {
-  launch_row_ptr(recv, n_edges, n_rows, row_ptr, stream);
-  const int lpr_log2 = lanes_log2(h);
-  const long long rows_per_block = kThreads >> lpr_log2;
-  const long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  pna_aggregate_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, n_rows, h, lpr_log2, lowest,
-      (float*)sum, (float*)sumsq, (float*)cnt, (T*)both);
+int launch(const void* v, const void* mask, long long n_rows, int h, const void* row_ptr,
+           void* sum, void* sumsq, void* cnt, void* both, float lowest, cudaStream_t stream) {
+  if (h == 1) {
+    const unsigned blocks = (unsigned)((n_rows + kThreads / kGroup - 1) / (kThreads / kGroup));
+    pna_aggregate_h1_kernel<T><<<blocks, kThreads, 0, stream>>>(
+        (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, n_rows, lowest, (float*)sum,
+        (float*)sumsq, (float*)cnt, (T*)both);
+    return (int)cudaGetLastError();
+  }
+  // sum and sumsq take vector stores of EPV floats (16 bytes at most):
+  // the wrapper's own allocations, aligned far beyond that
+  if (((uintptr_t)sum | (uintptr_t)sumsq) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const uintptr_t align = (uintptr_t)v | (uintptr_t)both;
+  switch (row_vector_bytes((long long)h * sizeof(T), align, (int)sizeof(T))) {
+    case 16:
+      return launch_warp<T, 16>(v, mask, row_ptr, n_rows, h, lowest, sum, sumsq, cnt, both, stream);
+    case 8:
+      return launch_warp<T, 8>(v, mask, row_ptr, n_rows, h, lowest, sum, sumsq, cnt, both, stream);
+    case 4:
+      return launch_warp<T, 4>(v, mask, row_ptr, n_rows, h, lowest, sum, sumsq, cnt, both, stream);
+    case 2:
+      return launch_warp<T, 2>(v, mask, row_ptr, n_rows, h, lowest, sum, sumsq, cnt, both, stream);
+    default:
+      return (int)cudaErrorMisalignedAddress;
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. mask may be null (every edge valid).
-// row_ptr: n_rows + 1 int32 of scratch, zero-filled by the caller.
-// Returns cudaGetLastError() after the launches (0 = success).
-extern "C" int hg_pna_aggregate_fwd(const void* v, int dtype, const void* recv,
-                                    const void* mask, long long n_edges, long long n_rows,
-                                    int h, void* row_ptr, void* sum, void* sumsq, void* cnt,
+// row_ptr: the n_rows + 1 int32 row pointers of the sorted receivers
+// (row_pointers.cu). Returns cudaGetLastError() after the launch (0 =
+// success).
+extern "C" int hg_pna_aggregate_fwd(const void* v, int dtype, const void* mask, long long n_rows,
+                                    int h, const void* row_ptr, void* sum, void* sumsq, void* cnt,
                                     void* both, void* stream) {
-  if (n_rows <= 0 || h <= 0 || n_edges < 0) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    launch<float>(v, recv, mask, n_edges, n_rows, h, row_ptr, sum, sumsq, cnt, both,
-                  lowest_of(0), s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(v, recv, mask, n_edges, n_rows, h, row_ptr, sum, sumsq, cnt, both,
-                          lowest_of(1), s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch<float>(v, mask, n_rows, h, row_ptr, sum, sumsq, cnt, both, lowest_of(0), s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(v, mask, n_rows, h, row_ptr, sum, sumsq, cnt, both,
+                                 lowest_of(1), s);
+  return (int)cudaErrorInvalidValue;
 }

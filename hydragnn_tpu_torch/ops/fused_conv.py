@@ -26,7 +26,12 @@ message in float32 whatever the input type (f32 or bf16) and sums in
 float32, so for bf16 inputs it equals the plain version run on their
 float32 values. ``real_edges`` (the batch's ``edge_occupancy``, an int32
 scalar tensor) bounds the kernel's edge walk: every slot at or past it
-must be masked, so the bound changes nothing but the work.
+must be masked, so the bound changes nothing but the work. ``row_ptr``
+is the receivers' CSR row pointers (``row_pointers.py``), which the
+chassis builds once per forward; given them, a call is one launch, and
+without them the wrapper builds them first. They are checked for shape,
+type and device, not for their contents; the plain version does not
+read them.
 
 ``fused_aggregate`` is the autograd op, with the reference's
 ``_fused_conv_bwd`` as it stands: it recomputes ``v`` (B3 regather) and
@@ -56,6 +61,7 @@ from hydragnn_tpu_torch.ops._build import (
     stream_of,
 )
 from hydragnn_tpu_torch.ops.gather_rows import gather_rows
+from hydragnn_tpu_torch.ops.row_pointers import check_row_ptr, row_pointers
 from hydragnn_tpu_torch.ops.segment_sum import segment_sum
 from hydragnn_tpu_torch.ops.segment_sum_local import segment_sum_local
 
@@ -67,7 +73,6 @@ launches = LaunchCount()
 
 _lock = threading.Lock()
 _fn = None  # guarded by _lock
-_row_ptr_fn = None  # guarded by _lock
 
 Branch = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]
 
@@ -101,39 +106,9 @@ def _kernel():
         if _fn is None:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             _fn = bind("fused_conv.cu", "hg_fused_conv", [
-                p, i, p, p, p, p, ll, ll, ll, i, i, i, i, i, p, p, p, p, p, p, p, p,
+                p, i, p, p, p, ll, ll, ll, i, i, i, i, i, p, p, p, p, p, p, p, p,
             ])
         return _fn
-
-
-def _row_ptr_kernel():
-    global _row_ptr_fn
-    with _lock:
-        if _row_ptr_fn is None:
-            p, ll = ctypes.c_void_p, ctypes.c_longlong
-            _row_ptr_fn = bind("fused_conv.cu", "hg_fused_conv_row_ptr", [p, ll, ll, p, p])
-        return _row_ptr_fn
-
-
-def row_pointers(receivers: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """The ``[num_segments + 1]`` int32 CSR row pointers of the sorted
-    int32 ``receivers``: ``ptr[r]`` is the first edge whose receiver is
-    >= r. On the card it is the pass ``fused_conv`` makes before its walk
-    (a zero fill, then ``common.cuh:csr_row_ptr_kernel``), run alone; a
-    CPU tensor takes ``torch.searchsorted``."""
-    s = int(num_segments)
-    if receivers.device.type == "cpu":
-        rows = torch.arange(s + 1, dtype=receivers.dtype)
-        return torch.searchsorted(receivers, rows).to(torch.int32)
-    dev = cuda_args("row_pointers", receivers)
-    if receivers.dtype != torch.int32 or receivers.dim() != 1:
-        raise TypeError("row_pointers: receivers must be int32 [E] on CUDA")
-    fn = _row_ptr_kernel()
-    with torch.cuda.device(dev):
-        row_ptr = torch.empty(s + 1, dtype=torch.int32, device=dev)
-        rc = fn(receivers.data_ptr(), receivers.shape[0], s, row_ptr.data_ptr(), stream_of(dev))
-    check_launch("row_pointers", rc)
-    return row_ptr
 
 
 def _check(x, senders, receivers, mask, num_segments, branches, acts, scale) -> int:
@@ -248,6 +223,7 @@ def fused_conv(
     acts: Sequence[str] = (),
     scale: Optional[torch.Tensor] = None,
     real_edges: Optional[torch.Tensor] = None,
+    row_ptr: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``[num_segments, Hout]`` float32 aggregate of the edge messages
     (module docstring). Not differentiated itself: see
@@ -257,6 +233,8 @@ def fused_conv(
     hout = _check(x, senders, receivers, mask, num_segments, branches, acts, scale)
     if x.dtype not in FLOAT_CODE:
         raise TypeError(f"fused_conv: x must be float32 or bfloat16, got {x.dtype}")
+    if row_ptr is not None:
+        check_row_ptr("fused_conv", row_ptr, num_segments, x.device)
     if x.device.type == "cpu":
         return fused_conv_plain(x, senders, receivers, mask, num_segments, branches, acts, scale)
     s = int(num_segments)
@@ -273,13 +251,14 @@ def fused_conv(
     if real_edges is not None and (real_edges.dtype != torch.int32 or real_edges.numel() != 1):
         raise TypeError("fused_conv: real_edges must be one int32")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    if row_ptr is None:
+        row_ptr = row_pointers(receivers, s)
     fn = _kernel()
     with torch.cuda.device(dev):
-        row_ptr = torch.empty(s + 1, dtype=torch.int32, device=dev)
         out = torch.empty(s, hout, dtype=torch.float32, device=dev)
         codes = [ACT_CODE[a] for a in acts] + [0, 0]
         rc = fn(
-            x.data_ptr(), FLOAT_CODE[x.dtype], senders.data_ptr(), receivers.data_ptr(), mask.data_ptr(),
+            x.data_ptr(), FLOAT_CODE[x.dtype], senders.data_ptr(), mask.data_ptr(),
             ptr(real_edges), e, x.shape[0], s, hin, hout, len(branches), codes[0], codes[1],
             ptr(w_cat), ptr(b_cat), ptr(rtab), ptr(eterm), ptr(scale), row_ptr.data_ptr(), out.data_ptr(),
             stream_of(dev),
@@ -291,9 +270,9 @@ def fused_conv(
 
 class _FusedAggregate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, acts, num_segments, x, senders, receivers, mask, win, real_edges, scale, *flat):
+    def forward(ctx, acts, num_segments, x, senders, receivers, mask, win, real_edges, row_ptr, scale, *flat):
         branches = tuple(tuple(flat[i : i + 4]) for i in range(0, len(flat), 4))
-        out = fused_conv(x, senders, receivers, mask, num_segments, branches, acts, scale, real_edges)
+        out = fused_conv(x, senders, receivers, mask, num_segments, branches, acts, scale, real_edges, row_ptr)
         ctx.save_for_backward(x, senders, receivers, mask, win, scale, *flat)
         ctx.acts = acts
         return out
@@ -302,7 +281,7 @@ class _FusedAggregate(torch.autograd.Function):
     def backward(ctx, g):
         x, senders, receivers, mask, win, scale, *flat = ctx.saved_tensors
         needs = ctx.needs_input_grad
-        need_x, need_scale, need_flat = needs[2], needs[8], needs[9:]
+        need_x, need_scale, need_flat = needs[2], needs[9], needs[10:]
         branches = [tuple(flat[i : i + 4]) for i in range(0, len(flat), 4)]
         dt, n = x.dtype, x.shape[0]
 
@@ -357,7 +336,7 @@ class _FusedAggregate(torch.autograd.Function):
             else:
                 zero = torch.zeros(n, grad_v.shape[1], dtype=torch.float32, device=grad_v.device)
                 grad_x = zero.index_add_(0, senders.long(), grad_v.float()).to(dt)
-        return (None, None, grad_x, None, None, None, None, None, g_scale, *g_flat)
+        return (None, None, grad_x, None, None, None, None, None, None, g_scale, *g_flat)
 
 
 def fused_aggregate(
@@ -371,13 +350,15 @@ def fused_aggregate(
     scale: Optional[torch.Tensor] = None,
     win: Optional[torch.Tensor] = None,
     real_edges: Optional[torch.Tensor] = None,
+    row_ptr: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Differentiable ``fused_conv`` (module docstring): gradients for
     ``x``, ``scale`` and every branch tensor. ``win`` is the senders'
-    window plan for ``grad_x`` (B4); the result is float32."""
+    window plan for ``grad_x`` (B4), ``row_ptr`` the receivers' row
+    pointers; the result is float32."""
     flat = [t for br in branches for t in tuple(br)]
     if any(len(tuple(br)) != 4 for br in branches):
         raise ValueError("fused_aggregate: each branch is (W, b, rtab, eterm)")
     return _FusedAggregate.apply(
-        tuple(acts), int(num_segments), x, senders, receivers, mask, win, real_edges, scale, *flat
+        tuple(acts), int(num_segments), x, senders, receivers, mask, win, real_edges, row_ptr, scale, *flat
     )

@@ -42,12 +42,13 @@ import torch
 
 from hydragnn_tpu_torch.ops._build import LaunchCount, bind, check_launch, cuda_args, stream_of
 from hydragnn_tpu_torch.ops.fused_conv import ACT_CODE, ACTS, fused_aggregate, fused_conv_plain
+from hydragnn_tpu_torch.ops.row_pointers import row_pointers
 
 SOURCE = "hydragnn_tpu_torch/ops/csrc/fused_conv_stack.cu"
 REPLACES = "hydragnn_tpu/ops/fused_conv.py:977"
 
 # launches of the CUDA kernel (never the plain path); one per call, which
-# runs 2L + 1 kernels on the card
+# runs 2L kernels on the card over the row pointers the op builds once
 launches = LaunchCount()
 
 _lock = threading.Lock()
@@ -60,7 +61,7 @@ def _kernel():
         if _fn is None:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             _fn = bind("fused_conv_stack.cu", "hg_fused_conv_stack", [
-                p, p, p, p, p, ll, ll, i, i, i, i, p, p, p, p, p, p,
+                p, p, p, p, ll, ll, i, i, i, i, p, p, p, p, p, p,
             ])
         return _fn
 
@@ -123,15 +124,16 @@ def fused_conv_stack_plain(
     return _loop(layer, x, weights, biases, edge_act, inter_act)
 
 
-def _stack_kernel(x, senders, receivers, mask, weights, biases, edge_act, inter_act, real_edges) -> torch.Tensor:
-    """B9 on the card: f32 x [N, H], W [L, H, H] and b [L, H] (as f32)."""
+def _stack_kernel(x, senders, row_ptr, mask, weights, biases, edge_act, inter_act, real_edges) -> torch.Tensor:
+    """B9 on the card: f32 x [N, H], W [L, H, H] and b [L, H] (as f32),
+    walking the receivers' ``row_ptr`` (``ops/row_pointers.py``)."""
     w = weights.float().contiguous()
     b = None if biases is None else biases.float().contiguous()
-    dev = cuda_args("fused_conv_stack", x, senders, receivers, mask, real_edges, w, b)
+    dev = cuda_args("fused_conv_stack", x, senders, row_ptr, mask, real_edges, w, b)
     if x.dtype != torch.float32:
         raise TypeError(f"fused_conv_stack: B9 takes float32 x, got {x.dtype}")
-    if senders.dtype != torch.int32 or receivers.dtype != torch.int32:
-        raise TypeError("fused_conv_stack: senders and receivers must be int32 on CUDA")
+    if senders.dtype != torch.int32:
+        raise TypeError("fused_conv_stack: senders must be int32 on CUDA")
     if mask.dtype != torch.bool:
         raise TypeError(f"fused_conv_stack: mask must be bool, got {mask.dtype}")
     if real_edges is not None and (real_edges.dtype != torch.int32 or real_edges.numel() != 1):
@@ -140,11 +142,10 @@ def _stack_kernel(x, senders, receivers, mask, weights, biases, edge_act, inter_
     e = senders.shape[0]
     fn = _kernel()
     with torch.cuda.device(dev):
-        row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
         q = torch.empty(n, h, dtype=torch.float32, device=dev)
         out = torch.empty(n, h, dtype=torch.float32, device=dev)
         rc = fn(
-            x.data_ptr(), senders.data_ptr(), receivers.data_ptr(), mask.data_ptr(),
+            x.data_ptr(), senders.data_ptr(), mask.data_ptr(),
             None if real_edges is None else real_edges.data_ptr(), e, n, h, w.shape[0],
             ACT_CODE[edge_act], ACT_CODE[inter_act], w.data_ptr(), None if b is None else b.data_ptr(),
             row_ptr.data_ptr(), q.data_ptr(), out.data_ptr(), stream_of(dev),
@@ -154,14 +155,18 @@ def _stack_kernel(x, senders, receivers, mask, weights, biases, edge_act, inter_
     return out
 
 
-def _aggregate_loop(x, senders, receivers, mask, num_segments, weights, biases, edge_act, inter_act, win, real_edges):
+def _aggregate_loop(x, senders, receivers, mask, num_segments, weights, biases, edge_act, inter_act, win, real_edges,
+                    row_ptr=None):
     """The per-layer composition on ``fused_aggregate`` (differentiable;
-    B8 on the card)."""
+    B8 on the card, every layer walking one set of row pointers: ``row_ptr``,
+    or those built here)."""
+    if row_ptr is None and x.device.type == "cuda":
+        row_ptr = row_pointers(receivers, num_segments)
 
     def layer(h, w, b):
         return fused_aggregate(
             h, senders, receivers, mask, num_segments, ((w, b, None, None),), (edge_act,),
-            win=win, real_edges=real_edges,
+            win=win, real_edges=real_edges, row_ptr=row_ptr,
         )
 
     return _loop(layer, x, weights, biases, edge_act, inter_act)
@@ -170,24 +175,27 @@ def _aggregate_loop(x, senders, receivers, mask, num_segments, weights, biases, 
 class _FusedStack(torch.autograd.Function):
     @staticmethod
     def forward(ctx, edge_act, inter_act, num_segments, x, senders, receivers, mask, win, real_edges, weights, biases):
+        row_ptr = None
         if x.device.type == "cpu":
             out = fused_conv_stack_plain(x, senders, receivers, mask, num_segments, weights, biases, edge_act, inter_act)
         else:
-            out = _stack_kernel(x, senders, receivers, mask, weights, biases, edge_act, inter_act, real_edges)
-        ctx.save_for_backward(x, senders, receivers, mask, win, real_edges, weights, biases)
+            row_ptr = row_pointers(receivers, num_segments)
+            out = _stack_kernel(x, senders, row_ptr, mask, weights, biases, edge_act, inter_act, real_edges)
+        ctx.save_for_backward(x, senders, receivers, mask, win, real_edges, weights, biases, row_ptr)
         ctx.acts, ctx.num_segments = (edge_act, inter_act), num_segments
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, senders, receivers, mask, win, real_edges, weights, biases = ctx.saved_tensors
+        x, senders, receivers, mask, win, real_edges, weights, biases, row_ptr = ctx.saved_tensors
         needs = ctx.needs_input_grad
         # the gradient of the per-layer composition, recomputed through B8
         with torch.enable_grad():
             xs = x.detach().requires_grad_(needs[3])
             ws = weights.detach().requires_grad_(needs[9])
             bs = None if biases is None else biases.detach().requires_grad_(needs[10])
-            out = _aggregate_loop(xs, senders, receivers, mask, ctx.num_segments, ws, bs, *ctx.acts, win, real_edges)
+            out = _aggregate_loop(xs, senders, receivers, mask, ctx.num_segments, ws, bs, *ctx.acts, win, real_edges,
+                                  row_ptr)
             wrt = [t for t in (xs, ws, bs) if t is not None and t.requires_grad]
             grads = iter(torch.autograd.grad(out, wrt, g)) if wrt else iter(())
         gx = next(grads) if needs[3] else None

@@ -18,11 +18,18 @@ reads ``v`` once and emits all four outputs:
 so); this is not checked on the card, where a check would cost a host
 sync. ``pna_aggregate`` is differentiable in ``v``, as the reference's
 custom VJP: the backward is B6 then B7 (``pna_aggregate_bwd.py``) on a
-CUDA tensor, walking the CSR row pointers this forward built, and their
-plain version on a CPU tensor; ``cnt`` takes no gradient. The wrapper
-dispatches on the tensor's device: a CPU tensor takes the plain
-versions, a CUDA tensor launches the kernels or raises — there is no
-fallback from one to the other.
+CUDA tensor, walking the same CSR row pointers as this forward, and
+their plain version on a CPU tensor; ``cnt`` takes no gradient.
+
+``row_ptr`` is the receivers' CSR row pointers
+(``row_pointers.py``), which the chassis builds once per forward; given
+them, a call is one launch. Without them the wrapper builds them first
+(``row_pointers``). They are checked for shape, type and device, not
+for their contents. The plain versions do not read them.
+
+The wrapper dispatches on the tensor's device: a CPU tensor takes the
+plain versions, a CUDA tensor launches the kernels or raises — there is
+no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from hydragnn_tpu_torch.ops._build import (
     stream_of,
 )
 from hydragnn_tpu_torch.ops.pna_aggregate_bwd import pna_aggregate_bwd
+from hydragnn_tpu_torch.ops.row_pointers import check_row_ptr, row_pointers
 
 SOURCE = "hydragnn_tpu_torch/ops/csrc/pna_aggregate.cu"
 REPLACES = "hydragnn_tpu/ops/segment_pallas.py:219"
@@ -91,16 +99,12 @@ def _kernel():
     global _fn
     with _lib_lock:
         if _fn is None:
-            _fn = bind("pna_aggregate.cu", "hg_pna_aggregate_fwd", [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
-            ])
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            _fn = bind("pna_aggregate.cu", "hg_pna_aggregate_fwd", [p, i, p, ll, i, p, p, p, p, p, p])
         return _fn
 
 
-def _check(v, receivers, num_segments, mask) -> None:
+def _check(v, receivers, num_segments, mask, row_ptr) -> None:
     if v.dim() != 2:
         raise ValueError(f"pna_aggregate: v must be [E, H], got shape {tuple(v.shape)}")
     if v.dtype not in FLOAT_CODE:
@@ -113,11 +117,13 @@ def _check(v, receivers, num_segments, mask) -> None:
         raise TypeError(f"pna_aggregate: mask must be bool, got {mask.dtype}")
     if int(num_segments) < 1:
         raise ValueError("pna_aggregate: num_segments must be >= 1")
+    if row_ptr is not None:
+        check_row_ptr("pna_aggregate", row_ptr, num_segments, v.device)
 
 
-def _forward(v, receivers, num_segments, mask):
+def _forward(v, receivers, num_segments, mask, row_ptr):
     """The four statistics and, on the card, the receivers' CSR row
-    pointers the kernel built (None on the CPU)."""
+    pointers the kernel walked (None on the CPU)."""
     if v.device.type == "cpu":
         return pna_aggregate_plain(v, receivers, num_segments, mask) + (None,)
     if v.device.type != "cuda":
@@ -129,18 +135,18 @@ def _forward(v, receivers, num_segments, mask):
     if e >= 2**31:
         raise ValueError("pna_aggregate: more than 2^31 - 1 edges")
     n = int(num_segments)
+    if row_ptr is None:
+        row_ptr = row_pointers(receivers, n)
     fn = _kernel()
     with torch.cuda.device(dev):
-        row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
         s = torch.empty(n, h, dtype=torch.float32, device=dev)
         sq = torch.empty(n, h, dtype=torch.float32, device=dev)
         cnt = torch.empty(n, dtype=torch.float32, device=dev)
         both = torch.empty(n, 2 * h, dtype=v.dtype, device=dev)
         rc = fn(
-            v.data_ptr(), FLOAT_CODE[v.dtype], receivers.data_ptr(),
-            None if mask is None else mask.data_ptr(), e, n, h,
-            row_ptr.data_ptr(), s.data_ptr(), sq.data_ptr(), cnt.data_ptr(),
-            both.data_ptr(), stream_of(dev),
+            v.data_ptr(), FLOAT_CODE[v.dtype], None if mask is None else mask.data_ptr(), n, h,
+            row_ptr.data_ptr(), s.data_ptr(), sq.data_ptr(), cnt.data_ptr(), both.data_ptr(),
+            stream_of(dev),
         )
     check_launch("pna_aggregate_fwd", rc)
     launches.add()
@@ -149,8 +155,8 @@ def _forward(v, receivers, num_segments, mask):
 
 class _PnaAggregate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, v, receivers, num_segments, mask):
-        s, sq, cnt, both, row_ptr = _forward(v, receivers, num_segments, mask)
+    def forward(ctx, v, receivers, num_segments, mask, row_ptr):
+        s, sq, cnt, both, row_ptr = _forward(v, receivers, num_segments, mask, row_ptr)
         ctx.save_for_backward(v, receivers, mask, both, row_ptr)
         ctx.num_segments = num_segments
         ctx.mark_non_differentiable(cnt)
@@ -163,7 +169,7 @@ class _PnaAggregate(torch.autograd.Function):
             v, receivers, mask, both, g_sum.float().contiguous(), g_sumsq.float().contiguous(),
             g_both.to(v.dtype).contiguous(), ctx.num_segments, row_ptr,
         )
-        return grad, None, None, None
+        return grad, None, None, None, None
 
 
 def pna_aggregate(
@@ -171,12 +177,14 @@ def pna_aggregate(
     receivers: torch.Tensor,
     num_segments: int,
     mask: Optional[torch.Tensor] = None,
+    row_ptr: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(sum, sumsq, cnt, both)`` of ``v`` grouped by sorted
     ``receivers`` (module docstring), differentiable in ``v``. CPU
     tensors take the plain versions; CUDA tensors launch
-    ``pna_aggregate_fwd`` and, in the backward, B6 and B7."""
-    _check(v, receivers, num_segments, mask)
+    ``pna_aggregate_fwd`` and, in the backward, B6 and B7, all three
+    walking ``row_ptr`` (built here when not given)."""
+    _check(v, receivers, num_segments, mask, row_ptr)
     if torch.is_grad_enabled() and v.requires_grad:
-        return _PnaAggregate.apply(v, receivers, int(num_segments), mask)
-    return _forward(v, receivers, int(num_segments), mask)[:4]
+        return _PnaAggregate.apply(v, receivers, int(num_segments), mask, row_ptr)
+    return _forward(v, receivers, int(num_segments), mask, row_ptr)[:4]

@@ -27,9 +27,8 @@ the two tie terms one after the other, as K2 does.
 are skipped, not tested by value). A CPU tensor takes the plain
 version; a CUDA tensor launches the kernels (``csrc/pna_aggregate_bwd.cu``)
 or raises. On the card both kernels walk the receivers' CSR row
-pointers ``row_ptr``: ``pna_aggregate``'s forward keeps the ones it
-built, so its backward builds none; other callers make them with
-``csr_row_ptr``.
+pointers ``row_ptr`` (``row_pointers.py``): ``pna_aggregate``'s
+backward hands them the ones its forward walked, so it builds none.
 """
 
 from __future__ import annotations
@@ -48,6 +47,7 @@ from hydragnn_tpu_torch.ops._build import (
     cuda_args,
     stream_of,
 )
+from hydragnn_tpu_torch.ops.row_pointers import check_row_ptr
 
 SOURCE = "hydragnn_tpu_torch/ops/csrc/pna_aggregate_bwd.cu"
 COUNT_REPLACES = "hydragnn_tpu/ops/segment_pallas.py:1477"
@@ -72,14 +72,6 @@ def _kernel(symbol: str):
         if symbol not in _fns:
             _fns[symbol] = bind("pna_aggregate_bwd.cu", symbol, _ARGTYPES[symbol])
         return _fns[symbol]
-
-
-def csr_row_ptr(receivers: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """[N + 1] int32 CSR row pointers of sorted receivers: ``ptr[r]`` is
-    the first edge whose receiver is >= r (what the forward kernel builds,
-    ``common.cuh:csr_row_ptr_kernel``)."""
-    rows = torch.arange(int(num_segments) + 1, dtype=receivers.dtype, device=receivers.device)
-    return torch.searchsorted(receivers, rows).to(torch.int32)
 
 
 def pna_bwd_count_plain(
@@ -152,14 +144,12 @@ def _check(v, receivers, mask, both, num_segments) -> None:
         raise ValueError(f"pna_aggregate_bwd: both must be [N, 2H] in v's type, got {tuple(both.shape)} {both.dtype}")
 
 
-def _cuda_common(name, v, receivers, mask, row_ptr, n, *tensors):
+def _cuda_common(name, v, receivers, mask, row_ptr, *tensors):
     if row_ptr is None:
-        raise ValueError(f"{name}: the receivers' row pointers are needed on CUDA (csr_row_ptr)")
-    dev = cuda_args(name, v, receivers, mask, row_ptr, *tensors)
+        raise ValueError(f"{name}: the receivers' row pointers are needed on CUDA (row_pointers)")
+    dev = cuda_args(name, v, receivers, mask, *tensors)
     if receivers.dtype != torch.int32:
         raise TypeError(f"{name}: receivers must be int32 on CUDA, got {receivers.dtype}")
-    if row_ptr.shape != (n + 1,) or row_ptr.dtype != torch.int32:
-        raise ValueError(f"{name}: row_ptr must be [N + 1] int32, got {tuple(row_ptr.shape)} {row_ptr.dtype}")
     if v.shape[0] >= 2**31:
         raise ValueError(f"{name}: more than 2^31 - 1 edges")
     return dev
@@ -174,12 +164,15 @@ def pna_bwd_count(
     row_ptr: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """B6: the [N, 2H] f32 tie counts. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, which walks ``row_ptr``."""
+    version (which does not read ``row_ptr``); CUDA tensors launch the
+    kernel, which walks ``row_ptr``."""
     _check(v, receivers, mask, both, num_segments)
+    n = int(num_segments)
+    if row_ptr is not None:
+        check_row_ptr("pna_bwd_count", row_ptr, n, v.device)
     if v.device.type == "cpu":
         return pna_bwd_count_plain(v, receivers, mask, both, num_segments)
-    n = int(num_segments)
-    dev = _cuda_common("pna_bwd_count", v, receivers, mask, row_ptr, n, both)
+    dev = _cuda_common("pna_bwd_count", v, receivers, mask, row_ptr, both)
     h = v.shape[1]
     fn = _kernel("hg_pna_bwd_count")
     with torch.cuda.device(dev):
@@ -216,9 +209,11 @@ def pna_bwd_grad(
                                   ("cnt", cnt, (n, 2 * h), torch.float32)):
         if t.shape != shape or t.dtype != dtype:
             raise ValueError(f"pna_bwd_grad: {name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    if row_ptr is not None:
+        check_row_ptr("pna_bwd_grad", row_ptr, n, v.device)
     if v.device.type == "cpu":
         return pna_bwd_grad_plain(v, receivers, mask, both, g_sum, g_sumsq, g_both, cnt)
-    dev = _cuda_common("pna_bwd_grad", v, receivers, mask, row_ptr, n, both, g_sum, g_sumsq, g_both, cnt)
+    dev = _cuda_common("pna_bwd_grad", v, receivers, mask, row_ptr, both, g_sum, g_sumsq, g_both, cnt)
     e = v.shape[0]
     fn = _kernel("hg_pna_bwd_grad")
     with torch.cuda.device(dev):

@@ -45,9 +45,11 @@ import torch
 from hydragnn_tpu_torch.graph.batch import batch_graphs
 from hydragnn_tpu_torch.ops import gather_rows as gr_mod
 from hydragnn_tpu_torch.ops import gather_stats as gs_mod
+from hydragnn_tpu_torch.ops import row_pointers as rp_mod
 from hydragnn_tpu_torch.ops import segment_sum as ss_mod
 from hydragnn_tpu_torch.ops import segment_sum_local as sl_mod
 from hydragnn_tpu_torch.ops.gather_stats import gather_stats, gather_stats_plain
+from hydragnn_tpu_torch.ops.row_pointers import row_pointers
 
 SUM_TOL = dict(rtol=1e-6, atol=1e-6)
 GATE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -352,7 +354,7 @@ def test_cuda_pna_bwd_kernels_match_plain(h, dtype):
     grad_ref = bwd.pna_bwd_grad_plain(v, recv, mask, both, g_sum, g_sumsq, g_both, cnt_ref)
     d = [t.to(dev) for t in (v, recv, mask, both, g_sum, g_sumsq, g_both)]
     c0, g0 = bwd.count_launches.value, bwd.grad_launches.value
-    ptr = bwd.csr_row_ptr(d[1], n)
+    ptr = row_pointers(d[1], n)
     cnt1, cnt2 = (bwd.pna_bwd_count(d[0], d[1], d[2], d[3], n, ptr) for _ in range(2))
     grad1 = bwd.pna_bwd_grad(*d, cnt1, ptr)
     grad2 = bwd.pna_bwd_grad(*d, cnt1, ptr)
@@ -371,7 +373,8 @@ def test_cuda_pna_bwd_kernels_match_plain(h, dtype):
 def test_cuda_pna_aggregate_backward_matches_cpu():
     """The autograd ``pna_aggregate`` on the card (B5, then B6 and B7)
     against the same op on the CPU (plain versions), f32: bit-equal; the
-    row pointers B5 builds for B6 and B7 equal ``csr_row_ptr``."""
+    row pointers B5 walks and hands B6 and B7 equal ``row_pointers``'
+    on the host."""
     dev = _cuda()
     from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd
     from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate
@@ -389,7 +392,115 @@ def test_cuda_pna_aggregate_backward_matches_cpu():
     from hydragnn_tpu_torch.ops.pna_aggregate import _forward
 
     recv_d = recv.to(dev)
-    assert torch.equal(_forward(v.to(dev), recv_d, n, mask.to(dev))[4], bwd.csr_row_ptr(recv_d, n))
+    assert torch.equal(_forward(v.to(dev), recv_d, n, mask.to(dev), None)[4].cpu(), row_pointers(recv, n))
+
+
+def b5_edge_case(h, seed, values="normal"):
+    """B5's edge cases as numpy: (v [E, h] f32, receivers (sorted), mask,
+    num_segments). 400 rows: the odd ones empty; rows 4 and 10 all
+    masked; row 9 of 60,000 slots, 5 of them real (the first three and
+    the last two); the padding row n - 2, all masked, with v = 0 there;
+    other rows 0-40 slots, about a quarter masked."""
+    rng = np.random.default_rng(seed)
+    n = 400
+    counts = np.where(np.arange(n) % 2 == 1, 0, rng.integers(0, 41, n))
+    counts[9] = 60_000
+    recv = np.repeat(np.arange(n), counts).astype(np.int32)
+    mask = rng.random(recv.size) > 0.25
+    row9 = np.flatnonzero(recv == 9)
+    mask[row9] = False
+    mask[row9[[0, 1, 2, -2, -1]]] = True
+    for dead in (4, 10, n - 2):
+        mask[recv == dead] = False
+    v = _values((recv.size, h), rng, values)
+    v[recv == n - 2] = 0.0
+    return v, recv, mask, n
+
+
+def _graph_replay(fn):
+    """``fn()``'s outputs from one capture into a CUDA graph, replayed
+    twice (the outputs are the graph's own tensors)."""
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["grid", "normal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 3, 31, 32, 126, 128])
+def test_cuda_pna_aggregate_bit_equal_with_and_without_row_ptr(h, dtype, values):
+    """B5 on ``b5_edge_case`` (all-masked and empty rows, a 60,000-slot
+    row), v on a fresh allocation and at an odd offset: all four outputs
+    bit-equal to the plain version on the host, f32 and bf16 (the kernel
+    and the plain version both sum the same f32 values in edge order);
+    with the shared ``row_ptr`` (one launch) and without it (the wrapper
+    builds its own, one more pass counted); two launches bitwise equal;
+    a CUDA graph's capture of the call replays to the same bits."""
+    from hydragnn_tpu_torch.ops import pna_aggregate as pna_mod
+
+    dev = _cuda()
+    v_np, recv_np, mask_np, n = b5_edge_case(h, 30 + h, values)
+    v, recv, mask = torch.from_numpy(v_np).to(dtype), torch.from_numpy(recv_np), torch.from_numpy(mask_np)
+    ref = pna_mod.pna_aggregate_plain(v, recv, n, mask)
+    recv_d, mask_d = recv.to(dev), mask.to(dev)
+    r0 = rp_mod.launches.value
+    ptr = row_pointers(recv_d, n)
+    assert rp_mod.launches.value == r0 + 1
+    assert torch.equal(ptr.cpu(), row_pointers(recv, n))
+    for place in (lambda t: t.to(dev), lambda t: _at_odd_offset(t, dev)):
+        v_d = place(v)
+        r0, k0 = rp_mod.launches.value, pna_mod.launches.value
+        outs = [pna_mod.pna_aggregate(v_d, recv_d, n, mask_d, row_ptr=ptr) for _ in range(2)]
+        outs.append(pna_mod.pna_aggregate(v_d, recv_d, n, mask_d))
+        outs.append(_graph_replay(lambda: pna_mod.pna_aggregate(v_d, recv_d, n, mask_d, row_ptr=ptr)))
+        torch.cuda.synchronize()
+        assert (rp_mod.launches.value - r0, pna_mod.launches.value - k0) == (1, 4)
+        for out in outs:
+            for name, a, r in zip(("sum", "sumsq", "cnt", "both"), out, ref):
+                assert torch.equal(_bits(a.cpu()), _bits(r)), f"{name} h={h} {dtype}"
+    assert float(ref[2][9]) == 5.0 and float(ref[2][4]) == 0.0 and (ref[3][4] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["identity", "scale"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 3, 31, 32, 126, 128])
+def test_cuda_fused_conv_walk_with_and_without_row_ptr(h, dtype, variant):
+    """B8's K = 0 walks (the group walk at one column, the warp walk
+    from two) on ``b8_edge_case`` (a row of 50,005 slots, out-of-range
+    senders, the occupancy bound below E), x and the scale at an odd
+    offset: bit-equal to the plain version with the shared ``row_ptr``
+    and without it, two launches bitwise equal, and a CUDA graph's
+    capture replays to the same bits."""
+    from hydragnn_tpu_torch.ops import fused_conv as fc
+
+    dev = _cuda()
+    x_np, send, recv, mask, n, real, sc_np, clean, clean_send = b8_edge_case(h, 21 + h, with_scale=variant == "scale")
+    x = torch.from_numpy(x_np).to(dtype)
+    scale = None if sc_np is None else torch.from_numpy(sc_np).to(dtype)
+    ref = fc.fused_conv_plain(x.float(), torch.from_numpy(clean_send), torch.from_numpy(recv),
+                              torch.from_numpy(clean), n, (), (), None if scale is None else scale.float())
+    send_d, recv_d, mask_d = (torch.from_numpy(t).to(dev) for t in (send, recv, mask))
+    real_d = torch.tensor(real, dtype=torch.int32, device=dev)
+    x_d = _at_odd_offset(x, dev)
+    sc_d = None if scale is None else _at_odd_offset(scale, dev)
+    ptr = row_pointers(recv_d, n)
+
+    def call(row_ptr):
+        return fc.fused_conv(x_d, send_d, recv_d, mask_d, n, (), (), sc_d, real_d, row_ptr)
+
+    r0, k0 = rp_mod.launches.value, fc.launches.value
+    outs = [call(ptr), call(ptr), call(None), _graph_replay(lambda: call(ptr))]
+    torch.cuda.synchronize()
+    assert (rp_mod.launches.value - r0, fc.launches.value - k0) == (1, 4)
+    for out in outs:
+        assert torch.equal(_bits(out.cpu()), _bits(ref)), f"{variant} h={h} {dtype}"
 
 
 def _b8_inputs(b, variant, dtype, seed):
@@ -426,8 +537,8 @@ def _f32(branches):
     return tuple(tuple(None if t is None else t.float() for t in br) for br in branches)
 
 
-B8_WALKS = [f"identity_h{h}" for h in (1, 3, 64, 126, 128, 256)] + [
-    f"scale_h{h}" for h in (1, 3, 64, 128, 256)] + ["scale_f126"]
+B8_WALKS = [f"identity_h{h}" for h in (1, 3, 31, 32, 64, 126, 128, 256)] + [
+    f"scale_h{h}" for h in (1, 3, 31, 64, 128, 256)] + ["scale_f126"]
 B8_CASES = [(v, c) for v in B8_WALKS for c in ("grid", "normal", "edges")] + [
     (v, "grid") for v in ("gate_w1", "gate_w16", "gate_w128")]
 

@@ -21,7 +21,8 @@ Tolerances and why:
     (f32 sums in another order);
   - ``presum_stats_plain``: sums ``rtol=1e-6, atol=1e-6``, maxima exact,
     gradients ``rtol=1e-5, atol=1e-6``;
-  - ``csr_row_ptr`` (the row pointers B6 and B7 walk on the card) exact.
+  - ``row_pointers`` (the row pointers B5, B6 and B7 walk on the card)
+    exact.
 """
 
 import numpy as np
@@ -39,6 +40,7 @@ from hydragnn_tpu_torch.graph import segment as S
 from hydragnn_tpu_torch.ops import pna_aggregate as pna_mod
 from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd_mod
 from hydragnn_tpu_torch.ops.gather_stats import presum_stats_plain
+from hydragnn_tpu_torch.ops.row_pointers import row_pointers
 from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate
 from hydragnn_tpu_torch.ops.pna_aggregate_bwd import (
     pna_aggregate_bwd,
@@ -199,9 +201,10 @@ def test_presum_stats_plain_matches_jax(h):
 
 @pytest.mark.parametrize("ids", ["in_range", "padding_tail", "out_of_range"])
 def test_csr_row_ptr_is_first_edge_at_or_above_each_row(ids):
-    """``csr_row_ptr`` gives what the forward kernel builds and B6/B7
-    walk: ``ptr[r]`` = the first edge whose receiver is >= r, for r in
-    [0, N]; ids below 0 or at or above N belong to no row."""
+    """``row_pointers`` on the CPU gives what the pass on the card builds
+    and B5, B6 and B7 walk: ``ptr[r]`` = the first edge whose receiver
+    is >= r, for r in [0, N]; ids below 0 or at or above N belong to no
+    row."""
     rng = np.random.default_rng(40)
     n = 30
     recv = np.sort(rng.integers(0, n, 200)).astype(np.int32)
@@ -210,7 +213,7 @@ def test_csr_row_ptr_is_first_edge_at_or_above_each_row(ids):
         recv[-20:] = n - 1
     elif ids == "out_of_range":
         recv = np.sort(np.concatenate([recv, [-3, -1, n, n + 5]])).astype(np.int32)
-    ptr = bwd_mod.csr_row_ptr(torch.from_numpy(recv), n)
+    ptr = row_pointers(torch.from_numpy(recv), n)
     want = np.array([(recv < r).sum() for r in range(n + 1)], dtype=np.int32)
     assert ptr.dtype == torch.int32
     np.testing.assert_array_equal(ptr.numpy(), want)
