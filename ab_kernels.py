@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """ab_kernels.py — time the port's B1 (``gather_stats``) and the backward
 of its autograd op (``gather_presum_stats``), B4 (``segment_sum_local``),
-B5 (``pna_aggregate``) and B8 (``fused_conv``, K = 0) walks, the
+B5 (``pna_aggregate``), B8 (``fused_conv``, K = 0) walks and B9
+(``fused_conv_stack``), the
 receivers' row-pointer pass, and the train steps and the served forward
 that carry them, from one checkout of the repository, so that two
 commits can be compared on one card in one run.
@@ -46,11 +47,17 @@ them:
     flagship, GIN and SchNet at batch 1024, and of the flagship on the
     unaligned layout (``step_PNA_unaligned``); one eval forward of the
     flagship on the largest serving bucket (``serve_forward_bucket8``,
-    eager, the batch on the card).
+    eager, the batch on the card);
+  - B9 (``fused_conv_stack``, hidden 128, 6 layers) on both flagship
+    layouts: the forward (``b9_forward_{run_aligned,unaligned}``), its
+    node products' and walks' device time (``b9_split_*``, by
+    torch.profiler) and the per-layer library composition
+    (``b9_library_*``: torch.addmm, the sigmoid, torch.sparse.mm).
 """
 
 import argparse
 import glob
+import importlib
 import inspect
 import json
 import os
@@ -60,6 +67,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 
 def cuda_ms(fn, iters):
@@ -285,6 +293,48 @@ def main():
                         torch.segment_reduce(pair_sum, "sum", lengths=lengths, axis=0),
                         torch.segment_reduce(pair_max, "max", lengths=lengths, axis=0)), 50), **b5_shape)
                     del vm, pair_sum, pair_max
+
+    # B9 (fused_conv_stack) at hidden 128, 6 layers (sigmoid edge
+    # activation, relu between layers) on both flagship layouts: the
+    # forward, its node products' and walks' device time a layer
+    # (torch.profiler over three calls), and the per-layer library
+    # composition (torch.addmm, the activation, torch.sparse.mm on the
+    # masked adjacency) beside it
+    b9 = importlib.import_module("hydragnn_tpu_torch.ops.fused_conv_stack")
+    w9, bias9 = randn(6, 128, 128) / 128 ** 0.5, randn(6, 128) * 0.1
+    for lay, hb in (("run_aligned", host), ("unaligned", u_host)):
+        sd, sn = hb.to(dev), hb.num_nodes
+        xs = randn(sn, 128)
+        stack_shape = dict(E=hb.num_edges, N=sn, L=6)
+
+        def fwd():
+            return b9.fused_conv_stack(xs, sd.senders, sd.receivers, sd.edge_mask, sn, w9, bias9, "sigmoid", "relu",
+                                       real_edges=sd.edge_occupancy)
+
+        both(f"b9_forward_{lay}", fwd, 20, 10, **stack_shape)
+        fwd()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fwd()
+            torch.cuda.synchronize()
+        split = {key: sum(ev.self_device_time_total for ev in prof.key_averages() if key in ev.key) / 1e3 / 3
+                 for key in ("stack_product", "stack_walk")}
+        record(f"b9_split_{lay}", product_ms=split["stack_product"], walk_ms=split["stack_walk"],
+               product_layer_ms=split["stack_product"] / 6, walk_layer_ms=split["stack_walk"] / 6, **stack_shape)
+        crow9 = torch.zeros(sn + 1, dtype=torch.int64)
+        crow9[1:] = torch.cumsum(torch.bincount(hb.receivers.long(), minlength=sn), 0)
+        adj9 = torch.sparse_csr_tensor(crow9, hb.senders.long(), hb.edge_mask.float(), size=(sn, sn)).to(dev)
+
+        def lib_stack():
+            hh, lo = xs, None
+            for layer in range(6):
+                lo = torch.sparse.mm(adj9, torch.sigmoid(torch.addmm(bias9[layer], hh, w9[layer])))
+                if layer < 5:
+                    hh = torch.relu(lo)
+            return lo
+
+        both(f"b9_library_{lay}", lib_stack, 10, 3, **stack_shape)
 
     # one long row
     lx, lsend, lrecv, lmask, ln = long_row_inputs(dev, 128)

@@ -84,7 +84,12 @@ raises; nothing is caught):
                    against the loop of B8 launches it replaces, the
                    gradients for x, W and b against the plain version's,
                    two launches bitwise equal; times eager and in a CUDA
-                   graph for the forward, the B8 loop and the backward.
+                   graph for the forward, the B8 loop and the backward;
+                   the node products' and the walks' device time a layer
+                   (torch.profiler) beside their bounds; the library
+                   yardsticks (torch.addmm and the edge activation,
+                   torch.sparse.mm on the masked adjacency, and their
+                   per-layer composition for the whole stack).
  9d. train-gat   — GAT at hidden 128 x 6 heads, 6 layers, on the flagship
                    data through run_training -> run_prediction (finite,
                    falling loss; prediction equal to the in-memory test
@@ -392,7 +397,8 @@ def stack_phase(dev, layouts, hidden, n_layers, mods, card):
     of ``layouts`` (label -> host batch). Per layout the op runs forward
     and backward once with every launch count at 0 before it (the main
     path; its counts are returned), then is held against its plain
-    version and the B8 loop, and timed. Returns (counts by layout,
+    version and the B8 loop, and timed beside the library calls that
+    compute the same layers. Returns (counts by layout,
     timing by layout, the largest error against the plain version)."""
     from hydragnn_tpu_torch.ops import fused_conv as b8
 
@@ -456,6 +462,35 @@ def stack_phase(dev, layouts, hidden, n_layers, mods, card):
         if max(grad_rel.values()) > STACK_GRAD_TOL:
             raise AssertionError(f"stack {label}: gradients differ from the plain version's: {grad_rel}")
 
+        # the library yardsticks: one layer's node product (torch.addmm, then
+        # the edge activation), one walk (torch.sparse.mm on the masked
+        # adjacency), and their per-layer composition for the whole stack
+        act_fn = b8.ACTS[acts[0]][0]
+        crow = torch.zeros(n + 1, dtype=torch.int64)
+        crow[1:] = torch.cumsum(torch.bincount(hb.receivers.long(), minlength=n), 0)
+        adj = torch.sparse_csr_tensor(crow, hb.senders.long(), hb.edge_mask.float(), size=(n, n)).to(dev)
+        q0 = act_fn(torch.addmm(bias[0], x, w[0]))
+
+        def lib_stack():
+            hh, lo = x, None
+            for layer in range(n_l):
+                lo = torch.sparse.mm(adj, act_fn(torch.addmm(bias[layer], hh, w[layer])))
+                if layer + 1 < n_l:
+                    hh = torch.relu(lo)
+            return lo
+
+        with torch.no_grad():
+            lib_err = float((lib_stack() - plain).abs().max())
+        if not lib_err <= STACK_TOL_REL * scale:
+            raise AssertionError(f"stack {label}: the library composition differs from plain by {lib_err}")
+        lib = {
+            "addmm_act_ms": cuda_ms(lambda: act_fn(torch.addmm(bias[0], x, w[0])), 20),
+            "addmm_act_graph_ms": graph_ms(lambda: act_fn(torch.addmm(bias[0], x, w[0])), 10),
+            "sparse_mm_ms": cuda_ms(lambda: torch.sparse.mm(adj, q0), 20),
+            "sparse_mm_graph_ms": graph_ms(lambda: torch.sparse.mm(adj, q0), 10),
+            "library_ms": cuda_ms(lib_stack, 10), "library_graph_ms": graph_ms(lib_stack, 3),
+        }
+
         # times: B9 forward, the B8 loop, forward + backward, plain
         xg, wg, bg = (t.detach().clone().requires_grad_(True) for t in (x, w, bias))
         fwd = lambda: op(x, w, bias)  # noqa: E731
@@ -472,7 +507,7 @@ def stack_phase(dev, layouts, hidden, n_layers, mods, card):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fwd()
             torch.cuda.synchronize()
-        split = {key: 0.0 for key in ("stack_product_kernel", "stack_walk_kernel", "csr_row_ptr_kernel")}
+        split = {key: 0.0 for key in ("stack_product", "stack_walk", "csr_row_ptr_kernel")}
         for ev in prof.key_averages():
             for key in split:
                 if key in ev.key:
@@ -483,17 +518,24 @@ def stack_phase(dev, layouts, hidden, n_layers, mods, card):
         nbytes = n * h * 4 + e * 9 + n_l * (h * h + h) * 4 + n * h * 4
         ops = 2 * n * h * h * n_l + real * h * n_l
         bms, by = bound(nbytes, ops)
+        # a layer's product (its operations) and walk (Q and the senders,
+        # mask and row pointers read once, h written once)
+        product_bound = bound(0, 2 * n * h * h)[0]
+        walk_bound = bound(2 * n * h * 4 + e * 5 + (n + 1) * 4, 0)[0]
         timing[label] = {
-            "ms": float(np.mean(t_fwd)), "graph_ms": graphs["ms"], "plain_ms": plain_ms, "library_ms": None,
+            "ms": float(np.mean(t_fwd)), "graph_ms": graphs["ms"], "plain_ms": plain_ms, **lib,
             "bound_ms": bms, "bound_by": by, "b8_loop_ms": loop_ms, "b8_loop_graph_ms": graphs["b8_loop_ms"],
             "backward_ms": fwd_bwd_ms - float(np.mean(t_fwd)),
-            "backward_graph_ms": graphs["fwd_bwd_ms"] - graphs["ms"], "product_ms": split["stack_product_kernel"],
-            "walk_ms": split["stack_walk_kernel"], "row_ptr_ms": split["csr_row_ptr_kernel"],
+            "backward_graph_ms": graphs["fwd_bwd_ms"] - graphs["ms"], "product_ms": split["stack_product"],
+            "walk_ms": split["stack_walk"], "row_ptr_ms": split["csr_row_ptr_kernel"],
+            "product_layer_ms": split["stack_product"] / n_l, "product_layer_bound_ms": product_bound,
+            "walk_layer_ms": split["stack_walk"] / n_l, "walk_layer_bound_ms": walk_bound,
             "bytes": nbytes, "ops": ops,
             "E": e, "N": n, "H": h, "L": n_l,
         }
         line("stack", layout=label, E=e, N=n, H=h, L=n_l, acts="/".join(acts), real_edges=real,
              edge_occupancy=int(hb.edge_occupancy), max_abs_err_vs_plain=err, output_scale=scale,
+             library_max_abs_err_vs_plain=lib_err,
              tol_rel=STACK_TOL_REL, max_abs_err_vs_b8_loop=loop_err,
              equal_to_b8_loop=bool(torch.equal(out, loop)), grad_rel_l2_vs_plain=json.dumps(grad_rel),
              grad_tol=STACK_GRAD_TOL, deterministic=True, card_kernels_per_call=2 * n_l + 2,
@@ -1948,7 +1990,7 @@ def main():
             "csr_row_ptr_kernel", "zero_kernel", "fused_identity_warp_kernel",
             "fused_identity_h1_kernel", "fused_branch_kernel", "fused_narrow_kernel", "pna_aggregate_warp_kernel",
             "pna_aggregate_h1_kernel",
-            "pna_bwd_count_kernel", "pna_bwd_grad_kernel", "stack_product_kernel", "stack_walk_kernel")
+            "pna_bwd_count_kernel", "pna_bwd_grad_kernel", "stack_product", "stack_walk")
 
     def profile_step(label, model_, optimizer_, bd_=bd):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

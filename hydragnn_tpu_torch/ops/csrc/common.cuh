@@ -219,6 +219,84 @@ __device__ __forceinline__ void store_f32(float* p, const float (&f)[N]) {
   }
 }
 
+// The warp walk of one receiver row (B8's identity and scale walks, B9's
+// walk), for rows of 2 columns or more: the whole warp walks the row's
+// slots [lo, hi) and lane `lane` owns the vectors c0 + p·32 + lane (p <
+// VPL, below nv) of V bytes of it. A pass loads 32 slots' mask and sender
+// with one coalesced load each and keeps the live slots by __ballot_sync:
+// the mask set and the sender in [0, n_x_rows). With OOB, a masked-in slot
+// whose sender lies outside that range is live too and reads row n_x_rows
+// of x, which the caller provides. The live senders reach every lane by
+// __shfl_sync in edge order, U at a time, and each lane issues its U row
+// loads (and, with SCALE, the slots' scale rows) before it adds any of
+// them, with __fadd_rn (after __fmul_rn by the scale) in edge order into
+// acc, which starts at 0.
+template <typename T, int V, int VPL, bool SCALE, bool OOB>
+__device__ __forceinline__ void warp_walk(const T* __restrict__ x, const int32_t* __restrict__ send,
+                                          const uint8_t* __restrict__ mask, long long lo,
+                                          long long hi, long long n_x_rows, int h, int c0, int nv,
+                                          const T* __restrict__ scale,
+                                          float (&acc)[VPL][V / sizeof(T)]) {
+  constexpr int EPV = V / (int)sizeof(T);
+  constexpr int U = VPL * EPV * (SCALE ? 2 : 1) <= 4 ? 8 : 4;
+  const int lane = threadIdx.x & 31;
+  const size_t row_bytes = (size_t)h * sizeof(T);
+  const char* xb = reinterpret_cast<const char*>(x);
+  const char* sb = reinterpret_cast<const char*>(scale);
+#pragma unroll
+  for (int p = 0; p < VPL; ++p)
+#pragma unroll
+    for (int i = 0; i < EPV; ++i) acc[p][i] = 0.f;
+  for (long long base = lo; base < hi; base += 32) {
+    const long long e = base + lane;
+    int j = -1;  // the row to gather, -1 for none
+    if (e < hi && mask[e]) {
+      const int s = send[e];
+      if (s >= 0 && s < n_x_rows)
+        j = s;
+      else if (OOB)
+        j = (int)n_x_rows;
+    }
+    unsigned live = __ballot_sync(kFullWarp, j >= 0);  // the same in every lane
+    while (live) {
+      int k[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        k[u] = live ? __ffs(live) - 1 : -1;
+        live &= live - 1u;
+      }
+      long long src[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) src[u] = __shfl_sync(kFullWarp, j, k[u] < 0 ? 0 : k[u]);
+      float v[U][VPL][EPV], sc[U][VPL][EPV];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int p = 0; p < VPL; ++p) {
+          const int col = c0 + p * 32 + lane;
+#pragma unroll
+          for (int i = 0; i < EPV; ++i) v[u][p][i] = sc[u][p][i] = 0.f;
+          if (k[u] >= 0 && col < nv) {
+            load_vec<T, V>(xb + (size_t)src[u] * row_bytes + (size_t)col * V, v[u][p]);
+            if constexpr (SCALE)
+              load_vec<T, V>(sb + (size_t)(base + k[u]) * row_bytes + (size_t)col * V, sc[u][p]);
+          }
+        }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (k[u] < 0) continue;
+#pragma unroll
+        for (int p = 0; p < VPL; ++p)
+#pragma unroll
+          for (int i = 0; i < EPV; ++i) {
+            const float m = SCALE ? __fmul_rn(v[u][p][i], sc[u][p][i]) : v[u][p][i];
+            acc[p][i] = __fadd_rn(acc[p][i], m);
+          }
+      }
+    }
+  }
+}
+
 // The one-column walk (B5 and B8 at H = 1, conv_0 of every stack): a group
 // of kGroup = 8 lanes per row, four rows a warp. A pass covers 32 slots of
 // each row: lane g of a group holds slots g, g + 8, g + 16 and g + 24, so

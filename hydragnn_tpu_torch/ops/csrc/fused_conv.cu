@@ -35,7 +35,8 @@
 //     with __fadd_rn / __fmul_rn, by one lane: two launches are bitwise
 //     equal, and f32 equals index_add_ on the host bit for bit.
 //   - Identity and scale (K = 0), rows of 2 columns or more: one warp per
-//     output row. The warp loads 32 slots' mask and sender with one
+//     output row (common.cuh:warp_walk, which B9 shares). The warp loads
+//     32 slots' mask and sender with one
 //     coalesced load each, keeps the live ones by __ballot_sync (masked,
 //     out-of-range and past-the-bound slots drop out) and hands each
 //     sender to every lane by __shfl_sync, in edge order. Each lane owns a
@@ -125,9 +126,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K = 0 at 2 columns or more: one warp per output row (the design notes
-// above). nv: the row's vectors of V bytes; a lane owns vectors lane,
-// lane + 32, ..., VPL of them a pass, and wider rows take further passes
-// over the same edges.
+// above; common.cuh:warp_walk). nv: the row's vectors of V bytes; a lane
+// owns vectors lane, lane + 32, ..., VPL of them a pass, and wider rows
+// take further passes over the same edges.
 template <typename T, int V, int VPL, bool SCALE>
 __global__ void __launch_bounds__(kThreads)
     fused_identity_warp_kernel(const T* __restrict__ x, const int32_t* __restrict__ send,
@@ -136,7 +137,6 @@ __global__ void __launch_bounds__(kThreads)
                                long long n_x_rows, long long n_rows, int h, int nv,
                                const T* __restrict__ scale, float* __restrict__ out) {
   constexpr int EPV = V / (int)sizeof(T);
-  constexpr int U = VPL * EPV * (SCALE ? 2 : 1) <= 4 ? 8 : 4;
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= n_rows) return;  // the whole warp
@@ -144,60 +144,10 @@ __global__ void __launch_bounds__(kThreads)
   long long hi = ptr[row + 1];
   const long long bound = edge_bound(real_edges, n_edges);
   hi = hi > bound ? bound : hi;
-  const size_t row_bytes = (size_t)h * sizeof(T);
-  const char* xb = reinterpret_cast<const char*>(x);
-  const char* sb = reinterpret_cast<const char*>(scale);
   for (int c0 = 0; c0 < nv; c0 += 32 * VPL) {
     float acc[VPL][EPV];
-#pragma unroll
-    for (int p = 0; p < VPL; ++p)
-#pragma unroll
-      for (int i = 0; i < EPV; ++i) acc[p][i] = 0.f;
-    for (long long base = lo; base < hi; base += 32) {
-      const long long e = base + lane;
-      int j = -1;
-      if (e < hi && mask[e]) {
-        const int s = send[e];
-        if (s >= 0 && s < n_x_rows) j = s;
-      }
-      unsigned live = __ballot_sync(kFullWarp, j >= 0);  // the same in every lane
-      while (live) {
-        int k[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          k[u] = live ? __ffs(live) - 1 : -1;
-          live &= live - 1u;
-        }
-        long long src[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) src[u] = __shfl_sync(kFullWarp, j, k[u] < 0 ? 0 : k[u]);
-        float v[U][VPL][EPV], sc[U][VPL][EPV];
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-#pragma unroll
-          for (int p = 0; p < VPL; ++p) {
-            const int col = c0 + p * 32 + lane;
-#pragma unroll
-            for (int i = 0; i < EPV; ++i) v[u][p][i] = sc[u][p][i] = 0.f;
-            if (k[u] >= 0 && col < nv) {
-              load_vec<T, V>(xb + (size_t)src[u] * row_bytes + (size_t)col * V, v[u][p]);
-              if constexpr (SCALE)
-                load_vec<T, V>(sb + (size_t)(base + k[u]) * row_bytes + (size_t)col * V, sc[u][p]);
-            }
-          }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (k[u] < 0) continue;
-#pragma unroll
-          for (int p = 0; p < VPL; ++p)
-#pragma unroll
-            for (int i = 0; i < EPV; ++i) {
-              const float m = SCALE ? __fmul_rn(v[u][p][i], sc[u][p][i]) : v[u][p][i];
-              acc[p][i] = __fadd_rn(acc[p][i], m);
-            }
-        }
-      }
-    }
+    // a sender outside [0, n_x_rows) drops its slot
+    warp_walk<T, V, VPL, SCALE, false>(x, send, mask, lo, hi, n_x_rows, h, c0, nv, scale, acc);
 #pragma unroll
     for (int p = 0; p < VPL; ++p) {
       const int col = c0 + p * 32 + lane;

@@ -19,190 +19,352 @@
 // The design rests on one observation: an edge's pre-activation
 // h_l[send_e]·W_l + b_l, and edge_act of it, depend on its sender alone.
 // So each layer is
-//   1. a node-level dense layer, Q_l = edge_act(inter_act(out_{l-1})·W_l + b_l)
-//      over the N node rows instead of the E edge slots (21x fewer
-//      products on the flagship batch), and
-//   2. the masked sum of Q_l[send] by receiver: B8's identity walk (one
-//      owner thread per (row, column) over its CSR row, edges in order).
+//   1. a node-level dense layer, Q_l = edge_act(h_l·W_l + b_l) over the N
+//      node rows instead of the E edge slots (21x fewer products on the
+//      flagship batch), and
+//   2. the masked sum of Q_l[send] by receiver, which writes
+//      h_{l+1} = inter_act(out_l) (out_{L-1} itself after the last layer).
 // Both are computed here, 2L launches on the caller's stream with no
-// host synchronisation (the product and the walk per layer), over the
-// CSR row pointers of the receivers that the caller built once
-// (row_pointers.cu). Between layers the two [N, H] f32 buffers (Q and
-// out, 16.8 MB each at the flagship's N = 32,752, H = 128) stay in the
-// card's 50 MB L2: the counterpart of the TPU kernel's VMEM residency.
+// allocation or host synchronisation (a product and a walk per layer), over
+// the CSR row pointers of the receivers that the caller built once
+// (row_pointers.cu). Between layers the two [N, H] f32 buffers (Q and h,
+// 16.8 MB each at the flagship's N = 32,752, H = 128) stay in the card's
+// 50 MB L2: the counterpart of the TPU kernel's VMEM residency.
 //
-// Numbers: the product sums over i in ascending order with fmaf from 0,
-// adds b with __fadd_rn and applies edge_act as fused_conv.cu's per-edge
-// branch does, and the walk adds the messages in edge order with
-// __fadd_rn as B8 does. So every message equals the one B8 forms for the
-// same edge, and with inter_act "none" or "relu" the stack equals a loop of
-// B8 launches with relu applied between them, value for value. A sender
-// outside [0, N) gets the message of a zero row, edge_act(b), as in B8.
+// Numbers (the contract): the product sums over i in ascending order with
+// fmaf from 0, adds b with __fadd_rn and applies edge_act, as
+// fused_conv.cu's per-edge branch does, and the walk adds the messages in
+// edge order with __fadd_rn as B8 does. So every message equals the one B8
+// forms for the same edge, and with inter_act "none" or "relu" the stack
+// equals a loop of B8 launches with relu applied between them, value for
+// value. A live slot whose sender lies outside [0, N) gets the message of a
+// zero row, edge_act(b), as B8's per-edge branch gives it (B8's identity
+// walk, which has no bias, drops such a slot instead): the product also
+// writes Q's row N from a zero row of x, and the walk reads that row for
+// such a slot. No split of the sum over i, no reordering, no tensor cores:
+// each would end that equality.
 //
-// What bounds it on this card: per layer it reads h (N·H·4 bytes), the
-// sender and receiver ids and the mask (9 bytes an edge slot), W and b, and
-// writes out (N·H·4); the product is 2·N·H² operations. At the flagship's
-// shapes and L = 6 the operations (6.4 GFLOP of products and 0.5 G adds,
-// 0.104 ms at 67 TFLOP/s) outweigh the bytes (0.012 ms at 3.35 TB/s, each
-// input read once). The
-// product runs on the CUDA cores in a simple tiled form (W in shared
-// memory, 32 rows a tile, 8 rows x 4 columns a thread); tensor cores
-// (wgmma) are later work. The TPU mechanics of the original (the ping-pong
-// VMEM pair, one-hot MXU window gathers and scatters, the 3-term bf16
-// split, 128-lane padding, the window plan) have no counterpart here.
+// What bounds it on this card: per layer the product is 2·N·H² operations
+// and the walk reads Q (N·H·4 bytes), the senders and the mask (5 bytes an
+// edge slot) and the row pointers and writes h (N·H·4). At the flagship's
+// shapes (N = 32,752, H = 128, 810,888 slots) a layer's product is 1.07
+// GFLOP, 0.0160 ms at the card's 67 TFLOP/s of f32 FMA, and its walk
+// 37.7 MB, 0.01126 ms at 3.35 TB/s; the whole op (6 layers, each input
+// read once) is bound by operations.
+//
+// The node product (stack_product_kernel), for H a multiple of 32 whose W
+// column slab fits in shared memory (H ≤ 256):
+//   - Persistent blocks of 256 threads, one an SM (121 KB of shared memory
+//     at H = 128, 187 KB at 256); blockIdx.y picks a slab of 128 output
+//     columns. A block stages its slab of W_l ([H, 128], 64 KB at H = 128)
+//     and of b_l once, then walks tiles of 128 rows, the grid's stride
+//     apart. At N = 32,752 that is 256 tiles on 132 SMs, two a block.
+//   - The rows of x come through a ring of 3 stages of [128 rows × 32 k]
+//     (18 KB each, rows padded to 36 floats) filled by 16-byte cp.async
+//     (zero-filled past N), two stages ahead of the FMAs: the loads of the
+//     next chunk overlap this chunk's products, one barrier a chunk.
+//   - A thread holds an 8 × 8 register tile: rows 4t..4t+3 and 64 + 4t..,
+//     columns 4c..4c+3 and 64 + 4c.. (t = thread / 16, c = thread % 16).
+//     Per 4 k it reads its 8 rows' 4 values (8 LDS.128; the 16 lanes of a
+//     half-warp read one address, the two halves rows 4 apart, 16 banks
+//     apart) and per k the two 16-byte quads of W (2 LDS.128; 16 lanes on
+//     256 contiguous bytes): 64 FMAs for 4 shared loads, conflict-free.
+//     The chunk's 32 k are unrolled whole.
+//   - Epilogue: __fadd_rn(b), edge_act, two 16-byte stores a row. edge_act
+//     is a template parameter: a runtime switch there made the kernel
+//     several times slower on the card.
+//   - Tile shape: 128-row tiles at one block an SM and 64-row tiles at two
+//     (the same 8 warps an SM, the same wave count) timed alike on the
+//     card; with 128 rows W is staged once an SM, not twice.
+// Other widths, and wider W, take stack_product_simple_kernel: a thread an
+// output, the same fmaf chain, W read from global memory (on no shipped
+// path).
+//
+// The walk (stack_walk_kernel) is B8's warp walk (common.cuh:warp_walk): a
+// warp a receiver row, a 16-byte vector of columns a lane at H = 128, the
+// mask and sender of 32 slots at once by ballot, 8 row loads in flight;
+// its epilogue applies inter_act (once an element, rather than 16 times in
+// the next product's inner loop) and stores 16-byte vectors. At H = 1,
+// stack_walk_h1_kernel: a group of 8 lanes a row (common.cuh:group_walk).
+//
+// The TPU mechanics of the original (the ping-pong VMEM pair, one-hot MXU
+// window gathers and scatters, the 3-term bf16 split, 128-lane padding,
+// the window plan) have no counterpart here.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kRowTile = 32;               // node rows per product tile
-constexpr int kTileStride = kRowTile + 4;  // float4-aligned, fewer bank conflicts
-constexpr int kThreadRows = 8;             // rows a thread accumulates
-constexpr int kThreadCols = 4;             // consecutive columns a thread accumulates
-constexpr int kColThreads = 32;            // a warp spans 128 columns, one row group
-constexpr int kProductThreads = kColThreads * (kRowTile / kThreadRows);  // 128
-constexpr int kMaxSmem = 200 * 1024;
+constexpr int kTileRows = 128;              // node rows a product tile
+constexpr int kSlabCols = 128;              // output columns a block owns
+constexpr int kKc = 32;                     // k a ring stage
+constexpr int kXStride = kKc + 4;           // a stage row, in floats (16-byte aligned)
+constexpr int kStages = 3;                  // the ring's stages
+constexpr int kProductThreads = 256;        // 16 row groups x 16 column groups
+constexpr int kStageFloats = kTileRows * kXStride;
+constexpr int kMaxSmem = 227 * 1024;        // the most a block may ask for
 
-// q[r, o] = edge_act(Σ_i h[r, i]·w[i, o] + b[o]) for the rows of the tiles
-// this block walks; h[r, i] = src[r, i], or inter_act(src[r, i]) when
-// apply_inter (the previous layer's output). A tile is 32 rows; a warp
-// takes 8 of them and 128 columns (4 consecutive a thread), in steps of
-// 128 columns: per i a thread reads its 8 rows' values (two broadcast
-// 16-byte loads) and its 4 columns of W (one 16-byte load) for 32 FMAs.
-// W sits in shared memory with its rows padded to ``wp`` (a multiple of 4)
-// columns of zeros when it fits, else it is read from global memory.
-template <bool kSmemW>
-__global__ void stack_product_kernel(const float* __restrict__ src, int apply_inter, int act_i,
-                                     const float* __restrict__ w, const float* __restrict__ b,
-                                     int act_e, long long n_rows, int h, int wp,
-                                     float* __restrict__ q) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* h_s = smem;                              // [h][kTileStride], rows along the fast axis
-  float* b_s = h_s + (long long)h * kTileStride;  // [wp]
-  float* w_s = b_s + wp;                          // [h][wp] when kSmemW
-  // The staging copies are latency-bound (8 warps an SM): with H a
-  // multiple of 4 each thread keeps 8 independent 16-byte loads in flight.
-  const bool vec = (h & 3) == 0;  // then wp == h and every row is 16-byte aligned
-  if (kSmemW && vec) {
-    const int n4 = h * h / 4;
-#pragma unroll 8
-    for (int k = threadIdx.x; k < n4; k += blockDim.x)
-      reinterpret_cast<float4*>(w_s)[k] = reinterpret_cast<const float4*>(w)[k];
-  } else if (kSmemW) {
-    for (int i = 0; i < h; ++i)
-      for (int o = threadIdx.x; o < wp; o += blockDim.x)
-        w_s[i * wp + o] = o < h ? w[(long long)i * h + o] : 0.f;
-  }
-  for (int o = threadIdx.x; o < wp; o += blockDim.x) b_s[o] = (b != nullptr && o < h) ? b[o] : 0.f;
-  const int lane = threadIdx.x % kColThreads;
-  const int r_base = (threadIdx.x / kColThreads) * kThreadRows;
-  const long long n_tiles = (n_rows + kRowTile - 1) / kRowTile;
-
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long r0 = tile * kRowTile;
-    __syncthreads();  // W and b staged; the previous tile's rows read
-    if (vec) {
-      const int per_row = h / 4;
-#pragma unroll 8
-      for (int k = threadIdx.x; k < kRowTile * per_row; k += blockDim.x) {
-        const int r = k / per_row;
-        const int i = 4 * (k - r * per_row);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r0 + r < n_rows) {
-          v = reinterpret_cast<const float4*>(src + (r0 + r) * h)[i / 4];
-          if (apply_inter)
-            v = make_float4(act_f(act_i, v.x), act_f(act_i, v.y), act_f(act_i, v.z), act_f(act_i, v.w));
-        }
-        h_s[(i + 0) * kTileStride + r] = v.x;
-        h_s[(i + 1) * kTileStride + r] = v.y;
-        h_s[(i + 2) * kTileStride + r] = v.z;
-        h_s[(i + 3) * kTileStride + r] = v.w;
-      }
-    } else {
-      for (int r = 0; r < kRowTile; ++r) {
-        const bool live = r0 + r < n_rows;
-        for (int i = threadIdx.x; i < h; i += blockDim.x) {
-          float v = 0.f;
-          if (live) {
-            v = src[(r0 + r) * h + i];
-            if (apply_inter) v = act_f(act_i, v);
-          }
-          h_s[i * kTileStride + r] = v;
-        }
-      }
-    }
-    __syncthreads();
-    for (int c0 = 0; c0 < h; c0 += kColThreads * kThreadCols) {
-      const int col = c0 + lane * kThreadCols;
-      if (col >= h) continue;
-      float acc[kThreadRows][kThreadCols];
-#pragma unroll
-      for (int r = 0; r < kThreadRows; ++r)
-#pragma unroll
-        for (int c = 0; c < kThreadCols; ++c) acc[r][c] = 0.f;
-      for (int i = 0; i < h; ++i) {
-        float wv[kThreadCols];
-        if (kSmemW) {
-          const float4 w4 = *reinterpret_cast<const float4*>(w_s + (long long)i * wp + col);
-          wv[0] = w4.x, wv[1] = w4.y, wv[2] = w4.z, wv[3] = w4.w;
-        } else {
-#pragma unroll
-          for (int c = 0; c < kThreadCols; ++c) wv[c] = col + c < h ? w[(long long)i * h + col + c] : 0.f;
-        }
-        const float4* hv = reinterpret_cast<const float4*>(h_s + i * kTileStride + r_base);
-#pragma unroll
-        for (int r4 = 0; r4 < kThreadRows / 4; ++r4) {
-          const float4 v = hv[r4];
-          const float vr[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-            for (int c = 0; c < kThreadCols; ++c)
-              acc[4 * r4 + rr][c] = fmaf(vr[rr], wv[c], acc[4 * r4 + rr][c]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kThreadRows; ++r) {
-        const long long row = r0 + r_base + r;
-        if (row >= n_rows) continue;
-#pragma unroll
-        for (int c = 0; c < kThreadCols; ++c)
-          if (col + c < h) q[row * h + col + c] = act_f(act_e, __fadd_rn(acc[r][c], b_s[col + c]));
-      }
-    }
-  }
+long long product_smem_bytes(int h) {
+  return ((long long)h * kSlabCols + kSlabCols + (long long)kStages * kStageFloats) * 4;
 }
 
-// out[r, o] = Σ q[send_e, o] over the edges e of row r with mask[e] set, in
-// edge order (fused_conv.cu's identity walk); a sender outside [0, n_rows)
-// contributes edge_act(b[o]).
-__global__ void stack_walk_kernel(const float* __restrict__ q, const int32_t* __restrict__ send,
-                                  const uint8_t* __restrict__ mask,
-                                  const int32_t* __restrict__ ptr,
-                                  const int32_t* __restrict__ real_edges, long long n_edges,
-                                  long long n_rows, int h, const float* __restrict__ b, int act_e,
-                                  int lpr_log2, float* __restrict__ out) {
-  const int lpr = 1 << lpr_log2;
-  const int lane = threadIdx.x & (lpr - 1);
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x >> lpr_log2) + (threadIdx.x >> lpr_log2);
-  if (row >= n_rows) return;
+// A 16-byte global -> shared copy, zero-filled (nothing read) when !live.
+__device__ __forceinline__ void copy16_async(float* dst, const float* src, bool live) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// q[r, o] = edge_act(__fadd_rn(Σ_i x[r, i]·w[i, o], b[o])) for r in [0,
+// n_rows], x's row n_rows read as zeros (the design notes above), with
+// edge_act = ACT. h is a multiple of kKc; blockIdx.y is the column slab.
+template <int ACT>
+__global__ void __launch_bounds__(kProductThreads, 1)
+    stack_product_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ b, long long n_rows, int h,
+                         float* __restrict__ q) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);  // [h][kSlabCols]
+  float* b_s = w_s + (long long)h * kSlabCols;   // [kSlabCols]
+  float* x_s = b_s + kSlabCols;                  // kStages x [kTileRows][kXStride]
+  const int tid = threadIdx.x;
+  const int tc = tid & 15, tr = tid >> 4;
+  const int slab0 = blockIdx.y * kSlabCols;
+  const long long tile_stride = gridDim.x;
+  const long long n_tiles = (n_rows + kTileRows) / kTileRows;  // n_rows + 1 rows
+  const long long first = blockIdx.x;
+  const int n_kc = h / kKc;
+  const long long my_tiles = first < n_tiles ? (n_tiles - first + tile_stride - 1) / tile_stride : 0;
+  const long long n_steps = my_tiles * n_kc;
+
+  // the slab of W and b (columns past h zero-filled), with the first stage
+  for (int k = tid; k < h * (kSlabCols / 4); k += kProductThreads) {
+    const int i = k / (kSlabCols / 4), c = 4 * (k % (kSlabCols / 4));
+    const bool live = slab0 + c < h;
+    copy16_async(w_s + i * kSlabCols + c, live ? w + (long long)i * h + slab0 + c : w, live);
+  }
+  for (int c = tid; c < kSlabCols; c += kProductThreads)
+    b_s[c] = (b != nullptr && slab0 + c < h) ? b[slab0 + c] : 0.f;
+
+  // stage s: rows of tile first + (s / n_kc)·tile_stride, k chunk s % n_kc
+  auto load_stage = [&](long long s) {
+    const long long r0 = (first + (s / n_kc) * tile_stride) * kTileRows;
+    const int k0 = (int)(s % n_kc) * kKc;
+    float* dst = x_s + (s % kStages) * kStageFloats;
+#pragma unroll
+    for (int t = 0; t < kTileRows * kKc / 4 / kProductThreads; ++t) {
+      const int id = tid + t * kProductThreads;
+      const int r = id / (kKc / 4), c = 4 * (id % (kKc / 4));
+      const bool live = r0 + r < n_rows;
+      copy16_async(dst + r * kXStride + c, live ? x + (r0 + r) * h + k0 + c : x, live);
+    }
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) load_stage(s);
+    copy_commit();
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
+
+  for (long long s = 0; s < n_steps; ++s) {
+    copy_wait<kStages - 2>();  // stage s (and, at s = 0, W and b) has landed
+    __syncthreads();           // for every thread; stage s - 1 is read
+    if (s + kStages - 1 < n_steps) load_stage(s + kStages - 1);
+    copy_commit();
+
+    const float* xs = x_s + (s % kStages) * kStageFloats;
+    const float* ws = w_s + (long long)(s % n_kc) * kKc * kSlabCols;
+#pragma unroll
+    for (int kk = 0; kk < kKc; kk += 4) {
+      float xr[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = (j < 4 ? 0 : 64) + 4 * tr + (j & 3);
+        load_f32<4>(xs + r * kXStride + kk, xr[j]);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float wv[2][4];
+        load_f32<4>(ws + (kk + t) * kSlabCols + 4 * tc, wv[0]);
+        load_f32<4>(ws + (kk + t) * kSlabCols + 64 + 4 * tc, wv[1]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[j][c] = fmaf(xr[j][t], wv[c >> 2][c & 3], acc[j][c]);
+      }
+    }
+
+    if (s % n_kc == n_kc - 1) {  // the tile's last chunk: the epilogue
+      const long long r0 = (first + (s / n_kc) * tile_stride) * kTileRows;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const long long row = r0 + (j < 4 ? 0 : 64) + 4 * tr + (j & 3);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int c = half * 64 + 4 * tc;
+          float o[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            o[i] = act_f(ACT, __fadd_rn(acc[j][4 * half + i], b_s[c + i]));
+            acc[j][4 * half + i] = 0.f;
+          }
+          if (row <= n_rows && slab0 + c < h) store_f32<4>(q + row * h + slab0 + c, o);
+        }
+      }
+    }
+  }
+  copy_wait<0>();  // no copy outlives the block
+}
+
+// The same q for any width: a thread an output, W from global memory.
+__global__ void __launch_bounds__(kThreads)
+    stack_product_simple_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                                const float* __restrict__ b, int act_e, long long n_rows, int h,
+                                float* __restrict__ q) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (n_rows + 1) * h) return;
+  const long long r = idx / h;
+  const int o = (int)(idx - r * h);
+  float acc = 0.f;
+  if (r < n_rows)
+    for (int i = 0; i < h; ++i) acc = fmaf(x[r * h + i], w[(long long)i * h + o], acc);
+  q[idx] = act_f(act_e, __fadd_rn(acc, b != nullptr ? b[o] : 0.f));
+}
+
+// out[r, o] = act_out(Σ q[send_e, o] over the edges e of row r with
+// mask[e] set, in edge order): the warp walk (the design notes above); a
+// sender outside [0, n_rows) reads q's row n_rows.
+template <int V, int VPL>
+__global__ void __launch_bounds__(kThreads)
+    stack_walk_kernel(const float* __restrict__ q, const int32_t* __restrict__ send,
+                      const uint8_t* __restrict__ mask, const int32_t* __restrict__ ptr,
+                      const int32_t* __restrict__ real_edges, long long n_edges, long long n_rows,
+                      int h, int nv, int act_out, float* __restrict__ out) {
+  constexpr int EPV = V / 4;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp
   const long long lo = ptr[row];
   long long hi = ptr[row + 1];
   const long long bound = edge_bound(real_edges, n_edges);
   hi = hi > bound ? bound : hi;
-  for (int f = lane; f < h; f += lpr) {
-    float s = 0.f;
-    for (long long e = lo; e < hi; ++e) {
-      if (!mask[e]) continue;
-      const long long j = send[e];
-      const float m = (j >= 0 && j < n_rows)
-                          ? q[j * h + f]
-                          : act_f(act_e, __fadd_rn(0.f, b != nullptr ? b[f] : 0.f));
-      s = __fadd_rn(s, m);
+  for (int c0 = 0; c0 < nv; c0 += 32 * VPL) {
+    float acc[VPL][EPV];
+    warp_walk<float, V, VPL, false, true>(q, send, mask, lo, hi, n_rows, h, c0, nv, nullptr, acc);
+#pragma unroll
+    for (int p = 0; p < VPL; ++p) {
+      const int col = c0 + p * 32 + lane;
+      if (col >= nv) continue;
+      float o[EPV];
+#pragma unroll
+      for (int i = 0; i < EPV; ++i) o[i] = act_f(act_out, acc[p][i]);
+      store_f32<EPV>(out + row * h + (long long)col * EPV, o);
     }
-    out[row * h + f] = s;
+  }
+}
+
+// The same at one column: a group of 8 lanes a row (common.cuh:group_walk).
+__global__ void __launch_bounds__(kThreads)
+    stack_walk_h1_kernel(const float* __restrict__ q, const int32_t* __restrict__ send,
+                         const uint8_t* __restrict__ mask, const int32_t* __restrict__ ptr,
+                         const int32_t* __restrict__ real_edges, long long n_edges,
+                         long long n_rows, int act_out, float* __restrict__ out) {
+  const long long row = ((long long)blockIdx.x * kThreads + threadIdx.x) / kGroup;
+  const bool own = row < n_rows;  // the warp's other rows still shuffle
+  long long lo = 0, hi = 0;
+  if (own) {
+    lo = ptr[row];
+    hi = ptr[row + 1];
+    const long long bound = edge_bound(real_edges, n_edges);
+    hi = hi > bound ? bound : hi;
+  }
+  float acc = 0.f;
+  group_walk(
+      lo, hi,
+      [&](long long e, float& m) -> bool {
+        if (e >= hi || !mask[e]) return false;
+        const int j = send[e];
+        m = q[(j >= 0 && j < n_rows) ? j : n_rows];
+        return true;
+      },
+      [&](float v) { acc = __fadd_rn(acc, v); });
+  if (own && (threadIdx.x & (kGroup - 1)) == 0) out[row] = act_f(act_out, acc);
+}
+
+// The product kernel of each edge activation (ActCode order).
+const void* const kProducts[] = {
+    (const void*)stack_product_kernel<kNone>, (const void*)stack_product_kernel<kRelu>,
+    (const void*)stack_product_kernel<kSigmoid>, (const void*)stack_product_kernel<kSoftplus>,
+    (const void*)stack_product_kernel<kTanh>, (const void*)stack_product_kernel<kSilu>};
+
+template <int ACT>
+int launch_product(dim3 grid, size_t smem, cudaStream_t s, const float* x, const float* w,
+                   const float* b, long long n_rows, int h, float* q) {
+  stack_product_kernel<ACT><<<grid, kProductThreads, smem, s>>>(x, w, b, n_rows, h, q);
+  return (int)cudaGetLastError();
+}
+
+int product(int act_e, dim3 grid, size_t smem, cudaStream_t s, const float* x, const float* w,
+            const float* b, long long n_rows, int h, float* q) {
+  switch (act_e) {
+    case kRelu:
+      return launch_product<kRelu>(grid, smem, s, x, w, b, n_rows, h, q);
+    case kSigmoid:
+      return launch_product<kSigmoid>(grid, smem, s, x, w, b, n_rows, h, q);
+    case kSoftplus:
+      return launch_product<kSoftplus>(grid, smem, s, x, w, b, n_rows, h, q);
+    case kTanh:
+      return launch_product<kTanh>(grid, smem, s, x, w, b, n_rows, h, q);
+    case kSilu:
+      return launch_product<kSilu>(grid, smem, s, x, w, b, n_rows, h, q);
+    default:
+      return launch_product<kNone>(grid, smem, s, x, w, b, n_rows, h, q);
+  }
+}
+
+template <int V>
+int launch_walk(const float* q, const int32_t* send, const uint8_t* mask, const int32_t* ptr,
+                const int32_t* real_edges, long long n_edges, long long n_rows, int h, int act_out,
+                float* out, cudaStream_t s) {
+  const int nv = h * 4 / V;
+  const unsigned blocks = (unsigned)((n_rows + kThreads / 32 - 1) / (kThreads / 32));
+  if (nv <= 32)
+    stack_walk_kernel<V, 1><<<blocks, kThreads, 0, s>>>(q, send, mask, ptr, real_edges, n_edges, n_rows,
+                                                        h, nv, act_out, out);
+  else
+    stack_walk_kernel<V, 2><<<blocks, kThreads, 0, s>>>(q, send, mask, ptr, real_edges, n_edges, n_rows,
+                                                        h, nv, act_out, out);
+  return (int)cudaGetLastError();
+}
+
+int walk(const float* q, const int32_t* send, const uint8_t* mask, const int32_t* ptr,
+         const int32_t* real_edges, long long n_edges, long long n_rows, int h, int act_out,
+         float* out, cudaStream_t s) {
+  if (h == 1) {
+    const unsigned blocks = (unsigned)((n_rows + kThreads / kGroup - 1) / (kThreads / kGroup));
+    stack_walk_h1_kernel<<<blocks, kThreads, 0, s>>>(q, send, mask, ptr, real_edges, n_edges, n_rows,
+                                                     act_out, out);
+    return (int)cudaGetLastError();
+  }
+  const uintptr_t align = (uintptr_t)q | (uintptr_t)out;
+  switch (row_vector_bytes((long long)h * 4, align, 4)) {
+    case 16:
+      return launch_walk<16>(q, send, mask, ptr, real_edges, n_edges, n_rows, h, act_out, out, s);
+    case 8:
+      return launch_walk<8>(q, send, mask, ptr, real_edges, n_edges, n_rows, h, act_out, out, s);
+    case 4:
+      return launch_walk<4>(q, send, mask, ptr, real_edges, n_edges, n_rows, h, act_out, out, s);
+    default:
+      return (int)cudaErrorMisalignedAddress;
   }
 }
 
@@ -212,8 +374,9 @@ __global__ void stack_walk_kernel(const float* __restrict__ q, const int32_t* __
 // send [n_edges] int32; mask [n_edges] bool; real_edges one int32 on the
 // card or null. act_e, act_i: 0 none, 1 relu, 2 sigmoid, 3 softplus,
 // 4 tanh, 5 silu. row_ptr: the n_rows + 1 int32 row pointers of the
-// sorted receivers (row_pointers.cu); q: [n_rows, h] f32 scratch; out:
-// [n_rows, h] f32. Returns a cudaError_t (0 = success).
+// sorted receivers (row_pointers.cu); q: [n_rows + 1, h] f32 scratch; out:
+// [n_rows, h] f32, which also holds each intermediate h_{l+1}. Returns a
+// cudaError_t (0 = success).
 extern "C" int hg_fused_conv_stack(const void* x, const void* send, const void* mask,
                                    const void* real_edges, long long n_edges, long long n_rows,
                                    int h, int n_layers, int act_e, int act_i, const void* w,
@@ -223,53 +386,42 @@ extern "C" int hg_fused_conv_stack(const void* x, const void* send, const void* 
       act_i < 0 || act_i > 5 || x == nullptr || w == nullptr || row_ptr == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // raise the dynamic shared memory limit once, at the first launch (never
+  // raise the dynamic shared memory limit once, at the first call (never
   // inside a CUDA graph capture, which replays launches only)
   static bool limit_set = false;
   if (!limit_set) {
-    for (const void* fn : {(const void*)stack_product_kernel<true>, (const void*)stack_product_kernel<false>}) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    for (const void* fn : kProducts) {
+      const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
       if (err != cudaSuccess) return (int)err;
     }
     limit_set = true;
   }
-  const int wp = (h + 3) & ~3;
-  const long long stage_bytes = ((long long)h * kTileStride + wp) * 4;
-  if (stage_bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const long long w_bytes = (long long)h * wp * 4;
-  const bool w_in_smem = stage_bytes + w_bytes <= kMaxSmem;
-  const size_t smem = (size_t)(stage_bytes + (w_in_smem ? w_bytes : 0));
-  const long long n_tiles = (n_rows + kRowTile - 1) / kRowTile;
-  // W is staged once per block: as many blocks as fit on the card at once
-  // (2 an SM with W at H = 128 in shared memory) walk all the tiles
-  int per_sm = 1;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, w_in_smem ? stack_product_kernel<true> : stack_product_kernel<false>, kProductThreads,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sm_count();
-  const long long blocks = n_tiles < resident ? n_tiles : resident;
-  const int lpr_log2 = lanes_log2(h);
-  const long long rows_per_block = kThreads >> lpr_log2;
-  const long long walk_blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  const uintptr_t align = (uintptr_t)x | (uintptr_t)q | (uintptr_t)out | (uintptr_t)w;
+  const bool tiled = h % kKc == 0 && align % 16 == 0 && product_smem_bytes(h) <= kMaxSmem;
+  // persistent blocks: one an SM, spread over the column slabs
+  const unsigned n_slabs = (unsigned)((h + kSlabCols - 1) / kSlabCols);
+  const long long n_tiles = (n_rows + kTileRows) / kTileRows;  // n_rows + 1 rows
+  long long per_slab = (sm_count() + n_slabs - 1) / n_slabs;
+  per_slab = per_slab < n_tiles ? per_slab : n_tiles;
+  const dim3 product_grid((unsigned)per_slab, n_slabs);
+  const unsigned simple_blocks = (unsigned)(((n_rows + 1) * h + kThreads - 1) / kThreads);
   for (int l = 0; l < n_layers; ++l) {
     const float* wl = (const float*)w + (long long)l * h * h;
     const float* bl = b != nullptr ? (const float*)b + (long long)l * h : nullptr;
     const float* src = l == 0 ? (const float*)x : (const float*)out;
-    if (w_in_smem)
-      stack_product_kernel<true><<<(unsigned)blocks, kProductThreads, smem, s>>>(
-          src, l > 0, act_i, wl, bl, act_e, n_rows, h, wp, (float*)q);
-    else
-      stack_product_kernel<false><<<(unsigned)blocks, kProductThreads, smem, s>>>(
-          src, l > 0, act_i, wl, bl, act_e, n_rows, h, wp, (float*)q);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    stack_walk_kernel<<<(unsigned)walk_blocks, kThreads, 0, s>>>(
-        (const float*)q, (const int32_t*)send, (const uint8_t*)mask, (const int32_t*)row_ptr,
-        (const int32_t*)real_edges, n_edges, n_rows, h, bl, act_e, lpr_log2, (float*)out);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    int rc;
+    if (tiled) {
+      rc = product(act_e, product_grid, (size_t)product_smem_bytes(h), s, src, wl, bl, n_rows, h, (float*)q);
+    } else {
+      stack_product_simple_kernel<<<simple_blocks, kThreads, 0, s>>>(src, wl, bl, act_e, n_rows, h, (float*)q);
+      rc = (int)cudaGetLastError();
+    }
+    if (rc != 0) return rc;
+    // every layer but the last writes h_{l+1} = inter_act(out_l)
+    const int act_out = l + 1 < n_layers ? act_i : 0;
+    rc = walk((const float*)q, (const int32_t*)send, (const uint8_t*)mask, (const int32_t*)row_ptr,
+              (const int32_t*)real_edges, n_edges, n_rows, h, act_out, (float*)out, s);
+    if (rc != 0) return rc;
   }
   return 0;
 }

@@ -142,7 +142,7 @@ def _stack_kernel(x, senders, row_ptr, mask, weights, biases, edge_act, inter_ac
     e = senders.shape[0]
     fn = _kernel()
     with torch.cuda.device(dev):
-        q = torch.empty(n, h, dtype=torch.float32, device=dev)
+        q = torch.empty(n + 1, h, dtype=torch.float32, device=dev)  # row n: a zero row's message
         out = torch.empty(n, h, dtype=torch.float32, device=dev)
         rc = fn(
             x.data_ptr(), senders.data_ptr(), mask.data_ptr(),
