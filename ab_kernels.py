@@ -45,7 +45,11 @@ them:
     cannot be captured in a CUDA graph);
   - one device train step (batch on the card) of the run-aligned PNA
     flagship, GIN and SchNet at batch 1024, and of the flagship on the
-    unaligned layout (``step_PNA_unaligned``); one eval forward of the
+    unaligned layout (``step_PNA_unaligned``); for PNA and GIN also the
+    step's train-mode forward alone (``forward_*``), its forward and
+    backward without the optimizer (``forward_backward_*``) and the
+    optimizer's step alone on the step's gradients (``optimizer_*``) and
+    the card's busy time a step (``step_device_*``); ``--steps-only`` times just these, 15 repetitions each; one eval forward of the
     flagship on the largest serving bucket (``serve_forward_bucket8``,
     eager, the batch on the card);
   - B9 (``fused_conv_stack``, hidden 128, 6 layers) on both flagship
@@ -126,6 +130,8 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--tag", default="change")
     ap.add_argument("--no-steps", action="store_true", help="kernels only")
+    ap.add_argument("--steps-only", action="store_true",
+                    help="only the batch-1024 PNA and GIN steps and their parts (more repetitions)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels: needs a CUDA card")
@@ -196,6 +202,45 @@ def main():
                                         unit_cell_y_range=(2, 4), unit_cell_z_range=(2, 4), seed=0)
 
     loaders = {mt: prepare_loaders_and_config(stack_config(mt), samples()) for mt in ("PNA", "GIN", "SchNet")}
+
+    def model_steps(kinds, reps):
+        """The train step of each model type at batch 1024, and for PNA
+        and GIN its train-mode forward, its forward and backward without
+        the optimizer, and the optimizer alone on the step's gradients."""
+        from hydragnn_tpu_torch.models.base import model_loss
+
+        for mt in kinds:
+            tl, done = loaders[mt][0], loaders[mt][3]
+            model = create_model_config(done["NeuralNetwork"], seed=1, device="cuda")
+            opt = select_optimizer(model, done["NeuralNetwork"]["Training"])
+            b = next(iter(tl)).to(dev)
+            ms, ms_min = eager(lambda: train_step(model, opt, b), 5, reps=reps)
+            record(f"step_{mt}", ms=ms, ms_min=ms_min, run_align=b.run_align)
+            if mt in ("PNA", "GIN"):
+                def fwd_bwd():
+                    opt.zero_grad(set_to_none=True)
+                    model_loss(model.cfg, model(b, train=True), b)[0].backward()
+
+                ms, ms_min = eager(lambda: model(b, train=True), 5, reps=reps)
+                record(f"forward_{mt}", ms=ms, ms_min=ms_min)
+                ms, ms_min = eager(fwd_bwd, 5, reps=reps)
+                record(f"forward_backward_{mt}", ms=ms, ms_min=ms_min)
+                ms, ms_min = eager(opt.step, 20, reps=reps)
+                record(f"optimizer_{mt}", ms=ms, ms_min=ms_min, params=sum(p.numel() for p in model.parameters()))
+                # the card's busy time a step (torch.profiler over 3 steps)
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        train_step(model, opt, b)
+                    torch.cuda.synchronize()
+                busy = [ev for ev in prof.key_averages() if ev.self_device_time_total > 0]
+                record(f"step_device_{mt}", ms=sum(ev.self_device_time_total for ev in busy) / 3e3 if busy
+                       else "not measured", launches=sum(ev.count for ev in busy) // 3)
+
+    if args.steps_only:
+        model_steps(("PNA", "GIN"), 15)
+        print(card)
+        print(json.dumps({"tag": args.tag, "card": card, "results": results}))
+        return
     host = next(iter(loaders["PNA"][0]))
     bd = host.to(dev)
     n, e = host.num_nodes, host.num_edges
@@ -346,16 +391,11 @@ def main():
     both("long_b4_h128", lambda: b4.segment_sum_local(lg, lrecv, lwin, ln), 10, 5, edges=int(lrecv.numel()))
 
     if not args.no_steps:
-        for mt, (tl, _, _, done) in loaders.items():
-            model = create_model_config(done["NeuralNetwork"], seed=1, device="cuda")
-            opt = select_optimizer(model, done["NeuralNetwork"]["Training"])
-            b = next(iter(tl)).to(dev)
-            ms, ms_min = eager(lambda: train_step(model, opt, b), 5)
-            record(f"step_{mt}", ms=ms, ms_min=ms_min, run_align=b.run_align)
+        model_steps(("PNA", "GIN", "SchNet"), 7)
         model = create_model_config(loaders["PNA"][3]["NeuralNetwork"], seed=1, device="cuda")
         opt = select_optimizer(model, loaders["PNA"][3]["NeuralNetwork"]["Training"])
         b = u_host.to(dev)
-        ms, ms_min = eager(lambda: train_step(model, opt, b), 5)
+        ms, ms_min = eager(lambda: train_step(model, opt, b), 5, reps=7)
         record("step_PNA_unaligned", ms=ms, ms_min=ms_min, run_align=b.run_align)
         model = create_model_config(scfg["NeuralNetwork"], seed=1, device="cuda").eval()
         b = s_host.to(dev)

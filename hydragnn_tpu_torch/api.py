@@ -5,7 +5,7 @@ The port's counterpart of ``hydragnn_tpu/api.py``. Every entry point
 takes ``device=`` and runs on the CUDA card unless given ``"cpu"``;
 without a card a CUDA request raises. The dataset comes from an
 in-memory ``samples`` list; reading ``Dataset.path`` raw files is not
-ported yet (ROADMAP A8).
+ported yet (ROADMAP A-3).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from hydragnn_tpu_torch.models.create import create_model_config
 from hydragnn_tpu_torch.postprocess import output_denormalize
 from hydragnn_tpu_torch.train.loop import test_epoch, train_validate_test
 from hydragnn_tpu_torch.train.optimizer import select_optimizer
-from hydragnn_tpu_torch.utils.checkpoint import load_existing_model, save_model
+from hydragnn_tpu_torch.utils.checkpoint import load_existing_model, load_existing_model_config, save_model
 from hydragnn_tpu_torch.utils.config import get_log_name_config, load_config, save_config, update_config
 
 
@@ -32,7 +32,7 @@ def prepare_config_and_samples(
     """Data preparation + split + config inference: (train, val, test,
     completed config). ``samples`` are raw in-memory samples and are
     prepared in place. Reading raw datasets from ``Dataset.path`` comes
-    with the data-breadth slice (ROADMAP A8)."""
+    with the data-breadth slice (ROADMAP A-3)."""
     train, val, test, mm_g, mm_n = prepare_dataset(samples, config)
     voi = config["NeuralNetwork"]["Variables_of_interest"]
     voi["minmax_graph_feature"] = mm_g.tolist()
@@ -45,16 +45,30 @@ def _require_samples(samples) -> None:
     if samples is None:
         raise NotImplementedError(
             "hydragnn_tpu_torch: reading Dataset.path is not ported yet "
-            "(ROADMAP A8); pass samples="
+            "(ROADMAP A-3); pass samples="
         )
 
 
 def create_dataloaders(
     train: List, val: List, test: List, config: Dict[str, Any]
 ) -> Tuple[GraphLoader, GraphLoader, GraphLoader]:
-    """Per-split loaders: the train split reshuffles every epoch."""
-    bs = int(config["NeuralNetwork"]["Training"]["batch_size"])
-    return GraphLoader(train, bs, shuffle=True), GraphLoader(val, bs), GraphLoader(test, bs)
+    """Per-split loaders: the train split reshuffles every epoch;
+    ``Training.cache_device_batches`` and ``scan_reshuffle_every`` reach
+    every loader."""
+    training = config["NeuralNetwork"]["Training"]
+    bs = int(training["batch_size"])
+    kw = dict(
+        cache_device_batches=bool(training.get("cache_device_batches", False)),
+        scan_reshuffle_every=int(training.get("scan_reshuffle_every", 0)),
+    )
+    return GraphLoader(train, bs, shuffle=True, **kw), GraphLoader(val, bs, **kw), GraphLoader(test, bs, **kw)
+
+
+def _optimizer_for(model, nn_config: Dict[str, Any]):
+    """The optimizer chain of the config: the same one for training and
+    for restoring a run's checkpoint."""
+    freeze = bool(nn_config["Architecture"].get("freeze_conv_layers", False))
+    return select_optimizer(model, nn_config["Training"], freeze_conv=freeze)
 
 
 def prepare_loaders_and_config(
@@ -76,17 +90,21 @@ def train_with_loaders(
     seed: int = 0,
 ):
     """Model (seeded init) + optimizer + epoch loop + checkpoint, on
-    loaders whose config went through ``update_config``. Returns
-    (model, optimizer, history)."""
+    loaders whose config went through ``update_config``. With
+    ``Training.continue = 1`` the model and optimizer start from
+    ``Training.startfrom``'s checkpoint. Returns (model, optimizer,
+    history)."""
     dev = resolve_device(device)
     verbosity = config.get("Verbosity", {}).get("level", 0)
     log_name = get_log_name_config(config)
     save_config(config, log_name, log_dir)
     nn_config = config["NeuralNetwork"]
     model = create_model_config(nn_config, seed=seed, device=dev)
-    optimizer = select_optimizer(model, nn_config["Training"])
+    optimizer = _optimizer_for(model, nn_config)
+    load_existing_model_config(model, nn_config["Training"], log_dir, optimizer=optimizer)
     history = train_validate_test(
-        model, optimizer, train_loader, val_loader, test_loader, nn_config, verbosity=verbosity
+        model, optimizer, train_loader, val_loader, test_loader, nn_config, verbosity=verbosity,
+        log_name=log_name, log_dir=log_dir,
     )
     save_model(model, log_name, log_dir, optimizer=optimizer, epoch=len(history["train_loss"]))
     return model, optimizer, history
@@ -125,7 +143,7 @@ def run_prediction(
     _, _, test_loader, config = prepare_loaders_and_config(config, samples)
     nn_config = config["NeuralNetwork"]
     model = create_model_config(nn_config, device=dev)
-    load_existing_model(model, get_log_name_config(config), log_dir)
+    load_existing_model(model, get_log_name_config(config), log_dir, optimizer=_optimizer_for(model, nn_config))
     error, error_tasks, true_values, predicted_values = test_epoch(test_loader, model)
     voi = nn_config["Variables_of_interest"]
     if voi.get("denormalize_output"):

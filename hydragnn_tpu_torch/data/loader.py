@@ -3,21 +3,37 @@
 The port's counterpart of ``hydragnn_tpu/data/loader.py``:
 ``pad_plan_for`` (one plan covering any batch of ``batch_size``
 samples), ``bucket_pad_plans`` (the serving ladder) and ``GraphLoader``,
-which yields fixed-shape host batches (CPU tensors; the train loop moves
-them to the card) with the JAX loader's shuffle order, pad plan,
-run-aligned layout and sender windows.
+which yields fixed-shape batches with the JAX loader's shuffle order,
+pad plan, run-aligned layout and sender windows:
 
-Not ported yet (ROADMAP A2): the prefetch thread, multi-host sharding,
-``device_stack > 1`` with its ``_mask_out`` filler batches, and
-device-cached batches.
+  - iterating builds each batch on the host, in a producer thread
+    ``prefetch`` batches ahead (``HGTORCH_NUM_PREFETCH``, default 2; 0
+    builds inline), into pinned memory when the loader's device is a
+    card, so the consumer's ``batch.to(dev, non_blocking=True)`` is an
+    asynchronous copy;
+  - ``cache_device_batches`` builds every batch once, with fixed
+    membership, keeps it on the device and permutes only the order;
+  - ``device_batches(epoch)`` / ``epoch_order(epoch)`` are what the
+    JAX package's whole-epoch scan trains on
+    (``stacked_device_batches``): batch b is ``samples[b·bs:(b+1)·bs]``
+    on the device, rebuilt from an epoch-seeded sample permutation every
+    ``scan_reshuffle_every`` epochs, and each epoch visits them in the
+    order ``default_rng(seed + epoch).permutation(n_batches)``.
+
+Not ported yet (ROADMAP A-5): multi-host sharding and ``device_stack >
+1`` with its ``_mask_out`` filler batches.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import queue
+import threading
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from hydragnn_tpu_torch.data.dataset import samples_to_graph_dicts
 from hydragnn_tpu_torch.graph.batch import GraphBatch, batch_graphs
@@ -132,6 +148,17 @@ class GraphLoader:
         map), False/0 disables it. The edge pad widens to the aligned
         worst case, a multiple of lcm(edge_multiple, K).
 
+      cache_device_batches: build every batch once (fixed membership) on
+        the loader's device and permute only the batch order each epoch.
+      prefetch: batches the producer thread builds ahead; None reads
+        ``HGTORCH_NUM_PREFETCH`` (default 2), 0 builds inline.
+      scan_reshuffle_every: rebuild ``device_batches``' membership every
+        k epochs (0 = never).
+
+    ``set_device`` says where ``device_batches`` and the cached batches
+    live and, for a card, that host batches are pinned (the train loop
+    sets the model's device).
+
     The JAX loader also rounds the aligned edge pad up to its Pallas
     kernels' chunk sizes (CE, _BCAST_CE) once it reaches 32,768 slots;
     that is TPU tiling, and this loader does not (the batches are equal
@@ -148,12 +175,27 @@ class GraphLoader:
         drop_last: bool = False,
         dense_slots=True,
         run_align=True,
+        cache_device_batches: bool = False,
+        prefetch: Optional[int] = None,
+        scan_reshuffle_every: int = 0,
     ):
         self.samples = list(samples)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.cache_device_batches = cache_device_batches
+        self.scan_reshuffle_every = int(scan_reshuffle_every)
+        if prefetch is None:
+            raw = os.environ.get("HGTORCH_NUM_PREFETCH", "2")
+            try:
+                prefetch = int(raw)
+            except ValueError:
+                raise ValueError(f"HGTORCH_NUM_PREFETCH must be an integer, got {raw!r}") from None
+        self.prefetch = prefetch
+        self.device: Optional[torch.device] = None
+        self._resident: Optional[List[GraphBatch]] = None
+        self._resident_key = None
         self._epoch = 0
         self.pad_nodes, self.pad_edges, self.pad_graphs = pad_plan_for(
             self.samples, batch_size, node_multiple, edge_multiple
@@ -192,6 +234,14 @@ class GraphLoader:
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
 
+    def set_device(self, device) -> None:
+        """Where resident batches live and whether host batches are pinned;
+        a change drops the batches already resident."""
+        device = None if device is None else torch.device(device)
+        if device != self.device:
+            self._resident = self._resident_key = None
+        self.device = device
+
     def __len__(self) -> int:
         n = len(self.samples)
         if self.drop_last:
@@ -203,6 +253,14 @@ class GraphLoader:
         if not self.shuffle:
             return np.arange(n)
         return np.random.default_rng(self.seed + self._epoch).permutation(n)
+
+    def epoch_order(self, epoch: int) -> np.ndarray:
+        """The order the batches of ``device_batches`` are visited in at
+        ``epoch``."""
+        nb = len(self)
+        if not self.shuffle:
+            return np.arange(nb)
+        return np.random.default_rng(self.seed + epoch).permutation(nb)
 
     def make_batch(self, idx: Sequence[int]) -> GraphBatch:
         """The batch of the samples at ``idx``, on this loader's pad plan
@@ -217,8 +275,77 @@ class GraphLoader:
             dense_slots=self.dense_slots,
         )
 
+    def device_batches(self, epoch: int = 0, reshuffle: bool = True) -> List[GraphBatch]:
+        """Every batch of ``epoch`` on the loader's device, membership
+        fixed (batch b holds ``samples[b·bs:(b+1)·bs]``) unless
+        ``scan_reshuffle_every = k`` and ``reshuffle``, which re-form it
+        from ``default_rng(seed + epoch // k)``'s sample permutation
+        every k epochs. Built once per membership and kept (one
+        membership at a time)."""
+        k = self.scan_reshuffle_every
+        key = (epoch // k) if (reshuffle and self.shuffle and k > 0) else None
+        if self._resident is None or key != self._resident_key:
+            self._resident = None  # free the old membership before the new one is built
+            n = len(self.samples)
+            base = np.arange(n) if key is None else np.random.default_rng(self.seed + key).permutation(n)
+            bs, dev = self.batch_size, self.device or torch.device("cpu")
+            self._resident = [self.make_batch(base[b * bs : (b + 1) * bs]).to(dev) for b in range(len(self))]
+            self._resident_key = key
+        return self._resident
+
+    def _host_batch(self, idx: Sequence[int]) -> GraphBatch:
+        batch = self.make_batch(idx)
+        if self.device is not None and self.device.type == "cuda":
+            batch = batch.pin_memory()
+        return batch
+
     def __iter__(self) -> Iterator[GraphBatch]:
-        bs = self.batch_size
+        bs, nb = self.batch_size, len(self)
+        if self.cache_device_batches:  # the fixed membership, as the JAX loader's cache
+            batches = self.device_batches(self._epoch, reshuffle=False)
+            for b in self.epoch_order(self._epoch):
+                yield batches[b]
+            return
         order = self._order()
-        for b in range(len(self)):
-            yield self.make_batch(order[b * bs : (b + 1) * bs])
+        if self.prefetch <= 0:
+            for b in range(nb):
+                yield self._host_batch(order[b * bs : (b + 1) * bs])
+            return
+        # the producer builds batches ahead into a bounded queue; an
+        # abandoned generator sets ``stop`` (its finally), which ends the
+        # producer at its next put; a producer error is raised here
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        done = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for b in range(nb):
+                    if not put(self._host_batch(order[b * bs : (b + 1) * bs])):
+                        return
+                put(done)
+            except BaseException as exc:  # handed to the consumer, which raises it
+                put(exc)
+
+        thread = threading.Thread(target=producer, name="GraphLoader-prefetch", daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            thread.join()

@@ -26,7 +26,7 @@ Every field is emitted with the JAX package's values
 (``tests/test_torch_batch.py``, ``tests/test_torch_loader.py`` and
 ``tests/test_torch_conv_stacks.py`` hold them equal). The conv stacks
 that aggregate over the CSR edges never read the dense map; PNA's dense
-branch is its one consumer. Not ported yet (ROADMAP A2): ``pad_batch``.
+branch is its one consumer. Not ported yet (ROADMAP A-5): ``pad_batch``.
 """
 
 from __future__ import annotations
@@ -141,19 +141,26 @@ class GraphBatch:
     def num_graphs(self) -> int:
         return self.n_node.shape[0]
 
-    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
-        """The same batch with every tensor on ``device``."""
-
+    def _map(self, fn) -> "GraphBatch":
         def move(v):
             if isinstance(v, dict):
-                return {k: t.to(device, non_blocking=non_blocking) for k, t in v.items()}
+                return {k: fn(t) for k, t in v.items()}
             if isinstance(v, torch.Tensor):
-                return v.to(device, non_blocking=non_blocking)
+                return fn(v)
             return v
 
         return dataclasses.replace(
             self, **{f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)}
         )
+
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        """The same batch with every tensor on ``device``; from pinned
+        host memory, ``non_blocking`` makes the copy asynchronous."""
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "GraphBatch":
+        """The same host batch in page-locked memory."""
+        return self._map(lambda t: t.pin_memory())
 
 
 def batch_graphs(

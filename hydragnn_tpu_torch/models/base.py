@@ -12,8 +12,8 @@ multi-task loss (``model_loss``); PNA, CGCNN and SchNet take edge
 features, SchNet can rebuild its radius graph in the forward
 (``inforward_radius``), and the conv knobs ``fused_conv`` and
 ``conv_bf16`` select the conv stacks' paths as in the JAX package.
-``freeze_conv`` raises ``NotImplementedError`` naming its ROADMAP item
-(A5).
+``freeze_conv`` changes no module: the optimizer masks the encoder
+convs' updates (``train/optimizer.py``).
 
 Parameter names mirror the flax tree so ``convert.py`` maps one onto
 the other: ``convs.{i}`` = ``conv_{i}``, ``norms.{i}`` =
@@ -117,14 +117,8 @@ class ModelConfig:
         return tuple(w / total for w in self.task_weights)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"hydragnn_tpu_torch: {what} is not ported yet (ROADMAP {item})")
-
-
 def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for every configuration the port does not run yet."""
-    if cfg.freeze_conv:
-        raise _not_ported("Architecture.freeze_conv_layers", "A5")
+    """Raise for a node head structure the chassis does not have."""
     if "node" in cfg.output_type and cfg.node_head_type not in ("mlp", "mlp_per_node", "conv"):
         raise ValueError(
             f"Unknown head NN structure for node features {cfg.node_head_type}; currently only "
@@ -294,14 +288,21 @@ class HydraModel(nn.Module):
             conv_bf16=cfg.conv_bf16,
         )
 
-    def _dropout_generator(self, device: torch.device) -> torch.Generator:
+    @property
+    def uses_dropout(self) -> bool:
+        return self.cfg.model_type == "GAT" and self.cfg.dropout > 0.0
+
+    def dropout_generator(self, device: torch.device) -> torch.Generator:
+        """The dropout generator on ``device``, seeded from
+        ``dropout_seed`` at its first use there (its state is part of a
+        checkpoint, ``utils/checkpoint.py``)."""
         if self._dropout_gen is None or self._dropout_gen.device != device:
             self._dropout_gen = torch.Generator(device=device).manual_seed(self.dropout_seed)
         return self._dropout_gen
 
     def _apply_conv(self, conv: nn.Module, x: torch.Tensor, ctx: EdgeContext, train: bool) -> torch.Tensor:
         if isinstance(conv, C.GATv2Conv):
-            gen = self._dropout_generator(x.device) if train and conv.dropout > 0.0 else None
+            gen = self.dropout_generator(x.device) if train and conv.dropout > 0.0 else None
             return conv(x, ctx, train=train, generator=gen)
         return conv(x, ctx)
 

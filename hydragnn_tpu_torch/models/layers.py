@@ -40,19 +40,33 @@ def uniform_(w: torch.Tensor, limit: float, generator: Optional[torch.Generator]
         return w.uniform_(-limit, limit, generator=generator)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax ``nn.Dense``'s type rule: the input and the
+    parameters are promoted to their common type (under mixed precision a
+    float32 input, such as the pooled graph features, meets bf16 weights
+    and the product is taken in float32, as in the JAX package)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return nn.functional.linear(x, self.weight, self.bias)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return nn.functional.linear(x.to(dt), self.weight.to(dt), bias)
+
+
 def dense(
     in_dim: int,
     out_dim: int,
     generator: Optional[torch.Generator] = None,
     bias: bool = True,
     init: str = "lecun",
-) -> nn.Linear:
-    """``nn.Linear`` initialized like flax's ``nn.Dense`` (weight stored
+) -> Dense:
+    """A ``Dense`` initialized like flax's ``nn.Dense`` (weight stored
     [out, in]; ``convert.py`` transposes flax's [in, out] kernels).
     ``init``: "lecun" (flax's default, zero bias), "torch" (the
     reference's torch Linear: weight and bias U(±1/sqrt(in_dim))) or
     "xavier" (``xavier_uniform``, zero bias)."""
-    lin = torch.nn.utils.skip_init(nn.Linear, in_dim, out_dim, bias=bias)
+    lin = torch.nn.utils.skip_init(Dense, in_dim, out_dim, bias=bias)
     if init == "lecun":
         lecun_normal_(lin.weight, in_dim, generator)
     elif init == "torch":

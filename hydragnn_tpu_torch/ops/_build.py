@@ -26,7 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,24 +45,34 @@ _loaded: Dict[str, Tuple[ctypes.CDLL, str]] = {}
 
 class LaunchCount:
     """Thread-safe count of kernel launches (the dispatch thread adds,
-    callers read and reset)."""
+    callers read and reset); a wrapper that names its input's type also
+    counts the launches of each type (``by_dtype``)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._n = 0
+        self._by: Dict[torch.dtype, int] = {}
 
-    def add(self) -> None:
+    def add(self, dtype: Optional[torch.dtype] = None) -> None:
         with self._lock:
             self._n += 1
+            if dtype is not None:
+                self._by[dtype] = self._by.get(dtype, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._by = {}
 
     @property
     def value(self) -> int:
         with self._lock:
             return self._n
+
+    @property
+    def by_dtype(self) -> Dict[torch.dtype, int]:
+        with self._lock:
+            return dict(self._by)
 
 
 def nvcc_path() -> str:

@@ -70,5 +70,5 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         rc = fn(table.data_ptr(), ids.data_ptr(), e, n, w * table.element_size(),
                 out.data_ptr(), stream_of(dev))
     check_launch("gather_rows", rc)
-    launches.add()
+    launches.add(table.dtype)
     return out

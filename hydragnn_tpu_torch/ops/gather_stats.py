@@ -156,7 +156,7 @@ def gather_stats(
             groups, n, h, k, stats.data_ptr(), both.data_ptr(), stream_of(dev),
         )
     check_launch("gather_stats", rc)
-    launches.add()
+    launches.add(table.dtype)
     return stats, both
 
 
@@ -247,7 +247,7 @@ def gather_presum_bwd(
             grad_v.data_ptr(), stream_of(dev),
         )
     check_launch("gather_presum_bwd", rc)
-    bwd_launches.add()
+    bwd_launches.add(table.dtype)
     return grad_v
 
 

@@ -110,5 +110,5 @@ def segment_sum(
             row_ptr.data_ptr(), out.data_ptr(), stream_of(dev),
         )
     check_launch("segment_sum", rc)
-    launches.add()
+    launches.add(data.dtype)
     return out

@@ -116,5 +116,5 @@ def segment_sum_local(
             e, int(win.shape[1]), block_rows, n, h, out.data_ptr(), stream_of(dev),
         )
     check_launch("segment_sum_local", rc)
-    launches.add()
+    launches.add(data.dtype)
     return out

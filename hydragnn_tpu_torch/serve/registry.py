@@ -3,9 +3,9 @@
 The port's counterpart of ``hydragnn_tpu/serve/registry.py``. Two
 admission paths: :meth:`ModelRegistry.register` adopts an in-memory
 state dict, and :meth:`ModelRegistry.load` reads one saved with
-``torch.save(model.state_dict(), path)`` — the port's own format.
-Reading the JAX package's checkpoints comes with the training slice
-(ROADMAP A5).
+``torch.save(model.state_dict(), path)`` — the port's own format. A
+checkpoint the JAX package wrote is read into a model by
+``convert.load_jax_checkpoint``; register its ``state_dict()``.
 """
 
 from __future__ import annotations

@@ -1,34 +1,59 @@
 """Epoch driver: train, validate and test with plateau LR and early stop
-(the core of ``hydragnn_tpu/train/loop.py:train_validate_test``).
+(the port's counterpart of ``hydragnn_tpu/train/loop.py:train_validate_test``).
 
 Semantics kept from the JAX package:
 
-  - the loaders reshuffle per epoch (``set_epoch``);
+  - **Dispatch.** ``Training.scan_epoch`` true/false wins; unset, the
+    epoch trains on fixed-membership batches resident on the device
+    (``GraphLoader.device_batches``, the JAX package's whole-epoch scan
+    over ``stacked_device_batches``: the same batches in the same order,
+    step for step), unless a ``Profile`` section or a hang watchdog asks
+    for per-step streaming, or the split does not fit on the device
+    (then it streams, and says why). The port launches the fixed epoch
+    step by step; ``history["dispatch_mode"]`` says which mode ran and
+    why (printed at verbosity > 0).
   - losses are averaged weighted by each batch's real graph count
     (``graph_mask``), so padding never dilutes them; per-batch losses
     stay on the device and are read once per epoch;
   - ``ReduceLROnPlateau(factor=0.5, patience=5, min_lr=1e-5,
     threshold=1e-4)`` steps on the validation loss;
   - ``EarlyStopping(patience=10)`` when ``Training.EarlyStopping`` is set;
+  - ``Training.mixed_precision`` and ``remat`` (``train/state.py``);
+  - **the non-finite guard** (``Training.nonfinite_guard``, on by
+    default): a bad batch is skipped on the device; an epoch that ends on
+    ``nonfinite_patience`` consecutive bad steps rolls back to the last
+    good checkpoint at lr × ``nonfinite_rollback_lr_factor``, and past
+    ``nonfinite_max_rollbacks`` raises ``NonFiniteRollbackExhausted``;
+  - **checkpoints**: every ``checkpoint_every`` epochs, the model file
+    (``checkpoint_keep_last`` versions) and the meta sidecar;
+    ``Training.continue``/``startfrom`` resumes from the meta's epoch
+    with its scheduler, stopper and history (the caller restores the
+    weights), re-derives the epoch from the weights' step when the two
+    disagree, and makes an early-stopped run's resume a no-op;
   - after the last epoch, unless ``Training.bn_recalibration`` is false,
     two batch-statistics passes over the train split re-estimate the
     BatchNorm running statistics with the final parameters.
 
-Not ported yet: telemetry and flight records (ROADMAP A11); preemption,
-the non-finite sentry, per-epoch checkpoints and continue/startfrom
-(ROADMAP A5, A12).
+Not ported yet: telemetry and flight records (ROADMAP A-6); preemption,
+the watchdog and fault injection (A-7); the visualizer (queued).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from hydragnn_tpu_torch.models.base import HydraModel
+from hydragnn_tpu_torch.resilience import NonFiniteRollbackExhausted, NonFiniteSentry
 from hydragnn_tpu_torch.train.optimizer import current_learning_rate, set_learning_rate
-from hydragnn_tpu_torch.train.state import eval_step, stats_step, train_step
+from hydragnn_tpu_torch.train.state import eval_step, make_train_step, stats_step
+from hydragnn_tpu_torch.utils import checkpoint as ckpt
+
+# the per-epoch history the meta sidecar carries (the JAX package's keys)
+EPOCH_KEYS = ("train_loss", "val_loss", "test_loss", "train_tasks", "val_tasks", "test_tasks", "lr")
 
 
 class EarlyStopping:
@@ -75,17 +100,19 @@ class ReduceLROnPlateau:
 
 class _MetricAccum:
     """Per-batch (loss, tasks, real graph count) kept on the device; one
-    read at ``finalize``."""
+    read at ``finalize``. A guarded step's bad flag zeroes its count."""
 
     def __init__(self):
         self._losses: List[torch.Tensor] = []
         self._tasks: List[torch.Tensor] = []
         self._counts: List[torch.Tensor] = []
 
-    def add(self, loss: torch.Tensor, tasks: torch.Tensor, graph_mask: torch.Tensor) -> None:
+    def add(self, loss: torch.Tensor, tasks: torch.Tensor, graph_mask: torch.Tensor,
+            bad: Optional[torch.Tensor] = None) -> None:
+        count = graph_mask.sum().float()
         self._losses.append(loss)
         self._tasks.append(tasks)
-        self._counts.append(graph_mask.sum().float())
+        self._counts.append(count if bad is None else count * (1.0 - bad))
 
     def finalize(self) -> Tuple[float, np.ndarray]:
         if not self._counts:
@@ -101,21 +128,60 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def train_epoch(loader, model: HydraModel, optimizer) -> Tuple[float, np.ndarray]:
+def _timed(batches, timing: Optional[Dict[str, float]]):
+    """Yield from ``batches``, adding the time spent waiting for each
+    batch to ``timing["data_wait_s"]``."""
+    it = iter(batches)
+    try:
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            if timing is not None:
+                timing["data_wait_s"] = timing.get("data_wait_s", 0.0) + time.perf_counter() - t0
+            yield batch
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()  # ends an abandoned loader's prefetch thread now
+
+
+def _epoch_batches(loader, epoch: int, fixed: bool):
+    if fixed:
+        resident = loader.device_batches(epoch)
+        return (resident[i] for i in loader.epoch_order(epoch))
+    return loader
+
+
+def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool = False,
+                sentry: Optional[NonFiniteSentry] = None,
+                timing: Optional[Dict[str, float]] = None) -> Tuple[float, np.ndarray]:
+    """One training epoch of ``step_fn`` (``make_train_step``; guarded when
+    ``sentry`` is given) over the loader's streamed batches, or over its
+    resident fixed-membership batches in the epoch's order (``fixed``)."""
     dev = _device_of(model)
     acc = _MetricAccum()
-    for batch in loader:
-        batch = batch.to(dev)
-        loss, tasks = train_step(model, optimizer, batch)
-        acc.add(loss, tasks, batch.graph_mask)
+    for batch in _timed(_epoch_batches(loader, epoch, fixed), timing):
+        batch = batch.to(dev, non_blocking=True)
+        if sentry is not None:
+            loss, tasks, consec, bad = step_fn(batch, sentry.consec)
+            sentry.observe(consec, bad)
+            acc.add(loss, tasks, batch.graph_mask, bad)
+        else:
+            loss, tasks = step_fn(batch)
+            acc.add(loss, tasks, batch.graph_mask)
     return acc.finalize()
 
 
-def evaluate_epoch(loader, model: HydraModel) -> Tuple[float, np.ndarray]:
+def evaluate_epoch(loader, model: HydraModel, batches=None) -> Tuple[float, np.ndarray]:
+    """The weighted loss over ``loader`` (or over ``batches``, its
+    resident batches) with the running statistics."""
     dev = _device_of(model)
     acc = _MetricAccum()
-    for batch in loader:
-        batch = batch.to(dev)
+    for batch in (loader if batches is None else batches):
+        batch = batch.to(dev, non_blocking=True)
         loss, tasks, _ = eval_step(model, batch)
         acc.add(loss, tasks, batch.graph_mask)
     return acc.finalize()
@@ -132,11 +198,12 @@ def test_epoch(
     trues: List[List[np.ndarray]] = [[] for _ in range(cfg.num_heads)]
     preds: List[List[np.ndarray]] = [[] for _ in range(cfg.num_heads)]
     for host in loader:
-        batch = host.to(dev)
+        batch = host.to(dev, non_blocking=True)
         loss, tasks, outputs = eval_step(model, batch)
         acc.add(loss, tasks, batch.graph_mask)
         if not return_samples:
             continue
+        host = host.to("cpu")
         for ihead, name in enumerate(cfg.output_names):
             if cfg.output_type[ihead] == "graph":
                 mask, target = host.graph_mask, host.graph_targets[name]
@@ -150,22 +217,97 @@ def test_epoch(
     return loss, tasks, true_values, pred_values
 
 
+def _fixed_auto_eligible(loader) -> Tuple[bool, str]:
+    """Is the fixed-membership epoch the right default for ``loader``?"""
+    if not hasattr(loader, "device_batches") or not hasattr(loader, "shuffle"):
+        return False, "loader cannot stack device-resident batches"
+    try:
+        if len(loader) < 1:
+            return False, "empty loader"
+    except TypeError:
+        return False, "unsized loader"
+    return True, "single-device run + device-resident fixed-membership batches"
+
+
+def resolve_dispatch(training: Dict[str, Any], config: Dict[str, Any], train_loader) -> Dict[str, Any]:
+    """The JAX package's dispatch resolution (``loop.py:563-595``):
+    ``{"mode": "fixed_epoch" | "per_step", "auto": bool, "reason": str}``.
+    In auto mode it builds the train split's resident batches, and falls
+    back to streaming when that fails (the split does not fit)."""
+    scan_cfg = training.get("scan_epoch")
+    if scan_cfg is None:
+        fixed, reason = _fixed_auto_eligible(train_loader)
+        if fixed and "Profile" in config:
+            fixed, reason = False, "per-step profiler configured"
+        if fixed and float(training.get("watchdog_stall_s", 0) or 0) > 0:
+            fixed, reason = False, "hang watchdog active"
+        if fixed:
+            try:
+                train_loader.device_batches(0)
+            except RuntimeError as exc:  # torch.cuda.OutOfMemoryError among them
+                fixed, reason = False, f"stacking failed: {type(exc).__name__}"
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+    elif scan_cfg:
+        fixed, reason = True, "Training.scan_epoch=true"
+    else:
+        fixed, reason = False, "Training.scan_epoch=false"
+    return {"mode": "fixed_epoch" if fixed else "per_step", "auto": scan_cfg is None, "reason": reason}
+
+
+def _resume_meta(training, num_epoch, steps, steps_per_epoch, log_name, log_dir, verbosity):
+    """The meta sidecar of ``Training.startfrom``, repaired when its step
+    disagrees with the restored weights' (a crash between the weight and
+    meta writes): the epoch re-derived from the weights' step, the
+    history cut to it, the counters reset, and the sidecar rewritten."""
+    meta = ckpt.load_train_meta(training["startfrom"], log_dir)
+    if meta is None:
+        return None
+    meta_step = meta.get("step")
+    if meta_step is not None and int(meta_step) != steps:
+        derived = min(num_epoch, steps // max(steps_per_epoch, 1))
+        if verbosity > 0:
+            print(f"WARNING: checkpoint meta (step {meta_step}) does not match restored weights (step {steps}); "
+                  f"resuming from epoch {derived} derived from the weights, not meta epoch {meta['epoch']}",
+                  flush=True)
+        hist = meta.get("history", {})
+        for k, v in hist.items():
+            v = v[:derived]
+            while v and len(v) < derived:
+                v.append(v[-1])  # unknown epochs: carry the last
+            hist[k] = v
+        meta = {
+            "epoch": derived, "step": steps, "early_stopped": False,
+            "scheduler": {"best": float("inf"), "num_bad_epochs": 0},
+            "stopper": {"count": 0, "min_loss": float("inf")},
+            "history": hist,
+        }
+        ckpt.save_train_meta(meta, training["startfrom"], log_dir)
+        if log_name != training["startfrom"]:
+            ckpt.save_train_meta(meta, log_name, log_dir)
+    return meta
+
+
 def train_validate_test(
     model: HydraModel,
-    optimizer: torch.optim.Optimizer,
+    optimizer,
     train_loader,
     val_loader,
     test_loader,
     config: Dict[str, Any],
     verbosity: int = 0,
-) -> Dict[str, List]:
-    """Train for ``Training.num_epoch`` epochs with validation-driven LR
-    plateau and early stopping; ``config`` is the ``NeuralNetwork``
-    section. Returns the history: per-epoch train/val/test losses, the
-    per-head losses and the learning rate."""
+    log_name: str = "run",
+    log_dir: str = "./logs/",
+) -> Dict[str, Any]:
+    """Train for ``Training.num_epoch`` epochs (module docstring);
+    ``config`` is the ``NeuralNetwork`` section. The model and optimizer
+    are trained in place (a ``continue`` run restores them first,
+    ``utils/checkpoint.py:load_existing_model_config``). Returns the
+    history: the per-epoch ``EPOCH_KEYS`` (with a resumed run's earlier
+    epochs), and for this run's epochs ``dispatch_mode``, ``data_wait_s``
+    and ``train_wall_s`` (host clock), ``nonfinite_skipped`` and the
+    epochs it ``rollbacks``'d."""
     training = config["Training"]
-    if training.get("continue") == 1:
-        raise NotImplementedError("hydragnn_tpu_torch: Training.continue is not ported yet (ROADMAP A5)")
     num_epoch = int(training["num_epoch"])
     stopper = (
         EarlyStopping(patience=int(training.get("patience", 10)))
@@ -174,13 +316,113 @@ def train_validate_test(
     )
     scheduler = ReduceLROnPlateau()
     names: Sequence[str] = model.cfg.output_names
-    history: Dict[str, List] = {k: [] for k in (
-        "train_loss", "val_loss", "test_loss", "train_tasks", "val_tasks", "test_tasks", "lr")}
-    for epoch in range(num_epoch):
+    dev = _device_of(model)
+    for loader in (train_loader, val_loader, test_loader):
+        if hasattr(loader, "set_device"):
+            loader.set_device(dev)
+
+    dispatch = resolve_dispatch(training, config, train_loader)
+    fixed = dispatch["mode"] == "fixed_epoch"
+    val_resident = None
+    if fixed and hasattr(val_loader, "device_batches"):
+        try:
+            val_resident = val_loader.device_batches(0)
+        except RuntimeError:
+            if not dispatch["auto"]:
+                raise
+    if verbosity > 0:
+        print(f"dispatch: {dispatch['mode']} ({'auto' if dispatch['auto'] else 'config'}: {dispatch['reason']})",
+              flush=True)
+    guard = bool(training.get("nonfinite_guard", True))
+    step_fn = make_train_step(
+        model, optimizer,
+        compute_dtype=torch.bfloat16 if training.get("mixed_precision") else None,
+        remat=bool(training.get("remat", False)),
+        guard_nonfinite=guard,
+    )
+    sentry = (
+        NonFiniteSentry(
+            patience=int(training.get("nonfinite_patience", 16)),
+            max_rollbacks=int(training.get("nonfinite_max_rollbacks", 2)),
+            lr_factor=float(training.get("nonfinite_rollback_lr_factor", 0.5)),
+            device=dev,
+        )
+        if guard
+        else None
+    )
+
+    history: Dict[str, Any] = {k: [] for k in EPOCH_KEYS}
+    ckpt_every = int(training.get("checkpoint_every", 0))
+    keep_last = int(training.get("checkpoint_keep_last", 3))
+    start_epoch = 0
+    if training.get("continue") == 1:
+        if "startfrom" not in training:
+            raise ValueError("Training.continue=1 requires Training.startfrom")
+        meta = _resume_meta(training, num_epoch, int(optimizer.steps), len(train_loader), log_name, log_dir,
+                            verbosity)
+        if meta is not None:
+            start_epoch = num_epoch if meta.get("early_stopped") else int(meta["epoch"])
+            scheduler.best = float(meta["scheduler"]["best"])
+            scheduler.num_bad_epochs = int(meta["scheduler"]["num_bad_epochs"])
+            if stopper is not None and "stopper" in meta:
+                stopper.count = int(meta["stopper"]["count"])
+                stopper.min_loss = float(meta["stopper"]["min_loss"])
+            history = {k: meta["history"].get(k, []) for k in EPOCH_KEYS}
+    history.update(dispatch_mode=dispatch, data_wait_s=[], train_wall_s=[], nonfinite_skipped=[], rollbacks=[])
+
+    def write_checkpoint(epoch_next: int, early_stopped: bool) -> None:
+        ckpt.save_model(model, log_name, log_dir, optimizer=optimizer, epoch=epoch_next, keep_last=keep_last)
+        ckpt.save_train_meta(
+            {
+                "epoch": epoch_next,
+                "step": int(optimizer.steps),  # ties the sidecar to the weights written with it
+                "early_stopped": early_stopped,
+                "scheduler": {"best": scheduler.best, "num_bad_epochs": scheduler.num_bad_epochs},
+                "stopper": {"count": stopper.count if stopper else 0,
+                            "min_loss": stopper.min_loss if stopper else float("inf")},
+                "history": {k: history[k] for k in EPOCH_KEYS},
+            },
+            log_name, log_dir,
+        )
+
+    def rollback(epoch: int, consec_end: int) -> None:
+        """Restore the last good checkpoint at a reduced learning rate, or
+        give up when the budget is spent or there is nothing to restore."""
+        exists = ckpt.checkpoint_exists(log_name, log_dir)
+        if sentry.exhausted or not exists:
+            raise NonFiniteRollbackExhausted(
+                f"epoch {epoch} ended with {consec_end} consecutive non-finite steps; rollbacks used "
+                f"{sentry.rollbacks}/{sentry.max_rollbacks}"
+                + ("" if exists else " and no checkpoint exists to roll back to")
+            )
+        ckpt.load_existing_model(model, log_name, log_dir, optimizer=optimizer)
+        lr = max(current_learning_rate(optimizer) * sentry.lr_factor, 1e-8)
+        set_learning_rate(optimizer, lr)
+        sentry.on_rollback()
+        history["rollbacks"].append(epoch)
+        if verbosity > 0:
+            print(f"non-finite sentry: epoch {epoch} ended with {consec_end} consecutive bad steps; rolled back "
+                  f"to the last good checkpoint (lr -> {lr:g})", flush=True)
+
+    epochs_done = start_epoch
+    for epoch in range(start_epoch, num_epoch):
         for loader in (train_loader, val_loader, test_loader):
             loader.set_epoch(epoch)
-        train_loss, train_tasks = train_epoch(train_loader, model, optimizer)
-        val_loss, val_tasks = evaluate_epoch(val_loader, model)
+        if sentry is not None:
+            sentry.epoch_start()
+        timing: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        train_loss, train_tasks = train_epoch(train_loader, model, step_fn, epoch, fixed, sentry, timing)
+        history["train_wall_s"].append(time.perf_counter() - t0)  # finalize read the losses: the steps are done
+        history["data_wait_s"].append(timing.get("data_wait_s", 0.0))
+        if sentry is not None:
+            skipped, consec_end = sentry.epoch_finalize()
+            history["nonfinite_skipped"].append(skipped)
+            if sentry.needs_rollback(consec_end):
+                rollback(epoch, consec_end)
+                epochs_done = epoch + 1
+                continue  # the rolled-back epoch consumed its slot
+        val_loss, val_tasks = evaluate_epoch(val_loader, model, val_resident)
         test_loss, test_tasks, _, _ = test_epoch(test_loader, model, return_samples=False)
         scheduler.step(optimizer, val_loss)
         for key, val in (("train_loss", train_loss), ("val_loss", val_loss), ("test_loss", test_loss),
@@ -191,12 +433,22 @@ def train_validate_test(
             per_head = ", ".join(f"{n}={v:.6f}" for n, v in zip(names, train_tasks))
             print(f"Epoch: {epoch:02d}, Train Loss: {train_loss:.8f}, Val Loss: {val_loss:.8f}, "
                   f"Test Loss: {test_loss:.8f} ({per_head})", flush=True)
-        if stopper is not None and stopper(val_loss):
+        stop = stopper is not None and stopper(val_loss)
+        epochs_done = epoch + 1
+        if ckpt_every and (epoch + 1) % ckpt_every == 0:
+            write_checkpoint(epoch + 1, early_stopped=False)
+        if stop:
             if verbosity > 0:
                 print(f"Early stopping at epoch {epoch}", flush=True)
             break
-    if training.get("bn_recalibration", True):
+
+    # a resume that trained no epoch (a completed or early-stopped run) is
+    # a no-op: no recalibration, no checkpoint rewrite
+    resumed_noop = training.get("continue") == 1 and epochs_done == start_epoch
+    if training.get("bn_recalibration", True) and not resumed_noop:
         for _ in range(2):
             for batch in train_loader:
-                stats_step(model, batch.to(_device_of(model)))
+                stats_step(model, batch.to(dev, non_blocking=True))
+    if ckpt_every and not resumed_noop:
+        write_checkpoint(epochs_done, early_stopped=bool(stopper and stopper.count >= stopper.patience))
     return history

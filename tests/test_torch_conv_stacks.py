@@ -337,24 +337,18 @@ def test_dense_slot_map_equals_jax_and_gin_runs_on_it():
         np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL)
 
 
-@pytest.mark.parametrize("key,value,item", [("freeze_conv_layers", True, "A5")])
-def test_unported_options_raise(key, value, item):
-    tr, cfg = _splits(deterministic_graph_data, prepare_dataset, update_config,
-                      stack_config(flagship_config, "GIN"), 12)
-    cfg["NeuralNetwork"]["Architecture"][key] = value
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        create_model_config(cfg["NeuralNetwork"], device="cpu")
-
-
 @pytest.mark.parametrize("key,value", [
+    ("freeze_conv_layers", True),
     ("model_type", "GAT"),
     ("radius_graph_in_forward", True),
     ("conv_bf16", True),
     ("fused_conv", False),
 ])
 def test_formerly_unported_options_build_and_run(key, value):
-    """GAT, the in-forward radius graph (on SchNet), ``conv_bf16`` and
-    ``fused_conv: false`` build and run a finite forward."""
+    """``freeze_conv_layers`` (the optimizer's mask, held to optax in
+    test_torch_optimizers.py), GAT, the in-forward radius graph (on
+    SchNet), ``conv_bf16`` and ``fused_conv: false`` build and run a
+    finite forward."""
     model_type = "SchNet" if key == "radius_graph_in_forward" else "GIN"
     tr, cfg = _splits(deterministic_graph_data, prepare_dataset, update_config,
                       stack_config(flagship_config, model_type), 12)
