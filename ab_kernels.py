@@ -56,7 +56,17 @@ them:
     layouts: the forward (``b9_forward_{run_aligned,unaligned}``), its
     node products' and walks' device time (``b9_split_*``, by
     torch.profiler) and the per-layer library composition
-    (``b9_library_*``: torch.addmm, the sigmoid, torch.sparse.mm).
+    (``b9_library_*``: torch.addmm, the sigmoid, torch.sparse.mm);
+  - the training loop's batch (the flagship's first run-aligned train
+    batch at batch 128, whose masked tail runs past its edge
+    occupancy): B2 on B1's K-group statistics (``b2_b128``) and B4 on
+    B1's backward's grad_v (``b4_b128``), each also with the occupancy
+    bound (``_bound``) where the checkout's kernels take it; B2 at the
+    batch-1024 shape (``b2_b1024``, ``_bound``); the guarded train step
+    at batch 128 (``step_guarded_b128``: ms, the card's busy ms and
+    launches, B2's and B4's device ms and calls by torch.profiler);
+    B5, B6 and B7 at H = 128 on the same graphs' unaligned batch of 128
+    (``b{5,6,7}_b128_unaligned``), beside their tail's bound.
 """
 
 import argparse
@@ -148,11 +158,13 @@ def main():
     from hydragnn_tpu_torch.ops import fused_conv as b8
     from hydragnn_tpu_torch.ops import gather_stats as b1
     from hydragnn_tpu_torch.ops import pna_aggregate as b5
+    from hydragnn_tpu_torch.ops import pna_aggregate_bwd as b67
+    from hydragnn_tpu_torch.ops import segment_sum as b2
     from hydragnn_tpu_torch.ops import segment_sum_local as b4
     from hydragnn_tpu_torch.ops._build import CSRC_DIR, build_all
     from hydragnn_tpu_torch.serve import ServeConfig, build_bucket_ladder, request_to_dict
     from hydragnn_tpu_torch.train.optimizer import select_optimizer
-    from hydragnn_tpu_torch.train.state import train_step
+    from hydragnn_tpu_torch.train.state import make_train_step, train_step
 
     if not os.path.abspath(hydragnn_tpu_torch.__file__).startswith(root):
         raise SystemExit(f"ab_kernels: imported {hydragnn_tpu_torch.__file__}, not from {root}")
@@ -166,6 +178,8 @@ def main():
         row_pointers = b8.row_pointers
     b8_takes_ptr = "row_ptr" in inspect.signature(b8.fused_conv).parameters
     b5_takes_ptr = "row_ptr" in inspect.signature(b5.pna_aggregate).parameters
+    b2_takes_bound = "real_rows" in inspect.signature(b2.segment_sum).parameters
+    b4_takes_bound = "real_edges" in inspect.signature(b4.segment_sum_local).parameters
     results = {}
 
     def record(name, **kw):
@@ -236,8 +250,43 @@ def main():
                 record(f"step_device_{mt}", ms=sum(ev.self_device_time_total for ev in busy) / 3e3 if busy
                        else "not measured", launches=sum(ev.count for ev in busy) // 3)
 
+    def loop_batch():
+        """The training loop's batch: the flagship's first run-aligned
+        train batch at batch 128, on the card; its host copy; and its
+        completed config."""
+        tl128, _, _, done128 = prepare_loaders_and_config(stack_config("PNA", batch_size=128), samples())
+        h128 = next(iter(tl128))
+        return h128.to(dev), h128, done128, tl128
+
+    def guarded_step_b128(reps):
+        """The guarded train step at batch 128: ms, and by torch.profiler
+        (3 steps) the card's busy ms, launches, and B2's and B4's device
+        ms and calls a step."""
+        b, _, done128, _ = loop_batch()
+        model = create_model_config(done128["NeuralNetwork"], seed=1, device="cuda")
+        step = make_train_step(model, select_optimizer(model, done128["NeuralNetwork"]["Training"]),
+                               guard_nonfinite=True)
+        consec = torch.zeros((), dtype=torch.int32, device=dev)
+        ms, ms_min = eager(lambda: step(b, consec), 5, reps=reps)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step(b, consec)
+            torch.cuda.synchronize()
+        busy = [ev for ev in prof.key_averages() if ev.self_device_time_total > 0]
+
+        def kernel(key):
+            evs = [ev for ev in busy if key in ev.key]
+            return sum(ev.self_device_time_total for ev in evs) / 3e3, sum(ev.count for ev in evs) // 3
+
+        (b2_ms, b2_calls), (b4_ms, b4_calls) = kernel("segment_sum_kernel"), kernel("segment_sum_local_kernel")
+        record("step_guarded_b128", ms=ms, ms_min=ms_min,
+               device_busy_ms=sum(ev.self_device_time_total for ev in busy) / 3e3 if busy else "not measured",
+               launches=sum(ev.count for ev in busy) // 3, b2_device_ms=b2_ms, b2_calls=b2_calls,
+               b4_device_ms=b4_ms, b4_calls=b4_calls, E=b.num_edges, occupancy=int(b.edge_occupancy))
+
     if args.steps_only:
         model_steps(("PNA", "GIN"), 15)
+        guarded_step_b128(15)
         print(card)
         print(json.dumps({"tag": args.tag, "card": card, "results": results}))
         return
@@ -277,6 +326,49 @@ def main():
         cots = (randn(e // k, 2 * hh), randn(e // k, 2 * hh))
         record(f"b1_op_backward_h{hh}", ms=cuda_ms(lambda: torch.autograd.grad(outs, t, cots, retain_graph=True), 20),
                K=k, **shape)
+
+    # B2 on B1's K-group statistics at the batch-1024 and the training
+    # loop's batch-128 shapes, B4 on B1's backward's grad_v at batch 128;
+    # each with the occupancy bound where the checkout's kernels take it
+    b128, h128, _, tl128 = loop_batch()
+    for tag, bb in (("b1024", bd), ("b128", b128)):
+        nn_, ee, kk = bb.num_nodes, bb.num_edges, bb.run_align
+        r8 = bb.receivers[::kk].contiguous()
+        gocc = torch.div(bb.edge_occupancy + (kk - 1), kk, rounding_mode="floor")
+        tab = randn(nn_, 128)
+        st, bo = b1.gather_stats(tab, bb.senders, bb.edge_mask, kk)
+        dims = dict(rows=ee // kk, real_rows=int(gocc), N=nn_, W=st.shape[1])
+        both(f"b2_{tag}", lambda: b2.segment_sum(st, r8, nn_), **dims)
+        if b2_takes_bound:
+            both(f"b2_{tag}_bound", lambda: b2.segment_sum(st, r8, nn_, real_rows=gocc), **dims)
+        if tag == "b128":
+            gst = randn(ee // kk, 256)
+            gv = b1.gather_presum_bwd(tab, bb.senders, bb.edge_mask, bo, gst, gst, kk)
+            dims = dict(E=ee, real_edges=int(bb.edge_occupancy), N=nn_, H=128)
+            both("b4_b128", lambda: b4.segment_sum_local(gv, bb.senders, bb.sender_win, nn_), 10, 5, **dims)
+            if b4_takes_bound:
+                both("b4_b128_bound", lambda: b4.segment_sum_local(gv, bb.senders, bb.sender_win, nn_,
+                                                                   real_edges=bb.edge_occupancy), **dims)
+        del st, bo
+
+    # B5, B6 and B7 at H = 128 on the unaligned batch of the same 128
+    # graphs: the masked tail is one row at the padding node
+    u128 = next(iter(GraphLoader(tl128.samples, 128, dense_slots=False, run_align=False)))
+    ud = u128.to(dev)
+    un, ue = u128.num_nodes, u128.num_edges
+    uptr = row_pointers(ud.receivers, un)
+    uv = randn(ue, 128)
+    ub = b5.pna_aggregate(uv, ud.receivers, un, ud.edge_mask, row_ptr=uptr)[3]
+    ugs, ugq, ugb = randn(un, 128), randn(un, 128), randn(un, 256)
+    ucnt = b67.pna_bwd_count(uv, ud.receivers, ud.edge_mask, ub, un, uptr)
+    udims = dict(E=ue, real_edges=int(u128.edge_occupancy), tail=ue - int(u128.edge_occupancy), N=un, H=128)
+    both("b5_b128_unaligned", lambda: b5.pna_aggregate(uv, ud.receivers, un, ud.edge_mask, row_ptr=uptr), 10, 5,
+         **udims)
+    both("b6_b128_unaligned", lambda: b67.pna_bwd_count(uv, ud.receivers, ud.edge_mask, ub, un, uptr), 10, 5,
+         **udims)
+    both("b7_b128_unaligned", lambda: b67.pna_bwd_grad(uv, ud.receivers, ud.edge_mask, ub, ugs, ugq, ugb, ucnt, uptr),
+         10, 5, **udims)
+    del uv, ucnt
 
     # the molecular data's dense-map batch: its edge list and its dense slots
     mcfg = stack_config("GIN", batch_size=64)
@@ -392,6 +484,7 @@ def main():
 
     if not args.no_steps:
         model_steps(("PNA", "GIN", "SchNet"), 7)
+        guarded_step_b128(7)
         model = create_model_config(loaders["PNA"][3]["NeuralNetwork"], seed=1, device="cuda")
         opt = select_optimizer(model, loaders["PNA"][3]["NeuralNetwork"]["Training"])
         b = u_host.to(dev)

@@ -59,6 +59,12 @@ raises; nothing is caught):
                    eight optimizers, freeze_conv and grad_accum, 3 steps
                    each on the card against the CPU; mixed precision for 3
                    epochs (finite, falling, each of B1-B4 launched on bf16 inputs).
+                   On the flagship's first batch at 128 (a masked tail
+                   past its edge occupancy, which bounds B2 and B4): the
+                   guarded step synchronises 0 times; one forward and
+                   backward bit-equal with the bound and without it; the
+                   step's profile with B2's and B4's device ms and calls
+                   and the card's busy share.
   8. check-conv  — fused_conv (B8) against its plain version at the
                    flagship training shapes: identity at H=1, 3, 31, 32
                    and 128 (with the shared row pointers and without),
@@ -130,7 +136,11 @@ raises; nothing is caught):
                    batch (its edge list and its dense slots);
                    the sender gather's backward pairs (permuted, masked
                    on the dense map, and the JAX package's windowed one)
-                   on each PNA layout; the PNA (every layout), GIN and
+                   on each PNA layout; B2 and B4 at the training loop's
+                   batch-128 shapes and B2 at batch 1024, with the
+                   occupancy bound and without it (f32 and bf16 held
+                   bit-equal to their plain versions, eager and on a CUDA
+                   graph's replay), and B2 on a row of 60,000 real slots; the PNA (every layout), GIN and
                    SchNet train steps (and GAT's)
                    broken into their stages, and the PNA and GIN steps'
                    device time by kernel (torch.profiler).
@@ -466,8 +476,13 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     precision for 3 epochs. ``counts`` = (reset, read) of the kernels'
     launch counters, ``launches_per(epochs, loaders, bn_recal)`` the
     launches a run should make, ``step_batch`` a host batch of
-    STEP_GRAPHS graphs. Returns the launch counts of each path. The
-    bit-equality runs (prefetch 0 against 2, the resume) run under
+    STEP_GRAPHS graphs. Also: the guarded step on the flagship's first
+    batch at LOOP_BATCH (its masked tail past the edge occupancy, which
+    bounds B2 and B4) synchronises 0 times; one forward and backward on
+    it is bit-equal with the bound and without it; its profile gives
+    B2's and B4's device time and calls. Returns the launch counts of
+    each path and that batch. The bit-equality runs (prefetch 0 against
+    2, the resume, the bound) run under
     ``torch.use_deterministic_algorithms``, the timed runs without it."""
     import contextlib
     import warnings
@@ -611,6 +626,11 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     nan_batch = dataclasses.replace(batch, nodes=torch.full_like(batch.nodes, float("nan")))
     guarded, plain = (make_train_step(model, optimizer, guard_nonfinite=g) for g in (True, False))
     consec = torch.zeros((), dtype=torch.int32, device=dev)
+    # the flagship's first fixed-membership batch at LOOP_BATCH: its masked
+    # tail runs past its edge occupancy, which bounds B2 and B4
+    resident = create_dataloaders(tr, va, te, done)[0]
+    resident.set_device(dev)
+    big = resident.device_batches(0)[0]
     before = state(model, optimizer)
     loss, _, consec, bad = guarded(nan_batch, consec)
     if not (float(bad) == 1.0 and int(consec) == 1 and float(loss) == 0.0 and same(before, state(model, optimizer))):
@@ -618,6 +638,7 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     syncs = {}
     # the control reads a loss on the host, which must count as a sync
     for label, fn in (("guarded", lambda: guarded(batch, consec)), ("plain", lambda: plain(batch)),
+                      ("guarded_batch128", lambda: guarded(big, consec)),
                       ("control_item", lambda: float(plain(batch)[0]))):
         fn()
         torch.cuda.synchronize()
@@ -629,8 +650,24 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         syncs[label] = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
-    if syncs["guarded"] != syncs["plain"] or not syncs["control_item"]:
+    if syncs["guarded"] != syncs["plain"] or syncs["guarded_batch128"] or not syncs["control_item"]:
         raise AssertionError(f"train-loop: the guard synchronises, or the count sees nothing: {syncs}")
+    # the bound changes nothing: one forward and backward at LOOP_BATCH
+    # with the batch's occupancy and without it, bit-equal (deterministic
+    # algorithms: the pooling's index_add_ adds with atomics otherwise)
+    sides = {}
+    with deterministic("bound_vs_none"):
+        for label, b in (("bound", big), ("none", dataclasses.replace(big, edge_occupancy=None))):
+            m = create_model_config(done["NeuralNetwork"], seed=SEED + 2, device=dev)
+            loss, _ = model_loss(m.cfg, m(b, train=True), b)
+            loss.backward()
+            sides[label] = [loss.detach()] + [p.grad.detach() for p in m.parameters()]
+    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(sides["bound"], sides["none"])):
+        raise AssertionError("train-loop: the occupancy bound changed the batch-128 loss or a gradient")
+    occ = int(big.edge_occupancy)
+    line("train-loop", part="bound_vs_none", batch=LOOP_BATCH, edge_slots=big.num_edges, edge_occupancy=occ,
+         masked_tail=big.num_edges - occ, loss=float(sides["bound"][0]), loss_and_grads_bit_equal=True,
+         tensors=len(sides["bound"]), card=repr(card))
     # in turns (plain, guarded, guarded, plain; f32, bf16, bf16, f32): the
     # steps are host-bound at this size and the host's pace drifts
     mixed = make_train_step(model, optimizer, compute_dtype=torch.bfloat16)
@@ -646,9 +683,6 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     # time (torch.profiler) against the step's wall time
     from torch.profiler import ProfilerActivity, profile
 
-    resident = create_dataloaders(tr, va, te, done)[0]
-    resident.set_device(dev)
-    big = resident.device_batches(0)[0]
     guarded(big, consec)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -659,15 +693,24 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     rows = [(ev.self_device_time_total, ev.count) for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
     busy_ms = sum(t for t, _ in rows) / 1e3
+    # B2's and B4's device time and calls in the step (B2's own row-pointer
+    # pass is csr_row_ptr_kernel, counted among the rest)
+    by_kernel = {name: [(ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.key]
+                 for name, key in (("b2", "segment_sum_kernel"), ("b4", "segment_sum_local_kernel"))}
     line("train-loop", part="profile", batch=LOOP_BATCH, guarded_step_wall_ms=round(wall_ms, 3),
          device_busy_ms=round(busy_ms, 3) if rows else "not measured",
          device_busy_share=round(busy_ms / wall_ms, 4) if rows else "not measured",
-         kernel_launches=sum(c for _, c in rows), card=repr(card))
+         kernel_launches=sum(c for _, c in rows),
+         **{f"{name}_{what}": (round(sum(r[i] for r in v), 4) if rows else "not measured")
+            for name, v in by_kernel.items() for i, what in ((0, "device_ms"), (1, "calls"))},
+         card=repr(card))
     for ev in sorted((ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA
                       and ev.self_device_time_total > 0), key=lambda ev: -ev.self_device_time_total)[:10]:
         print(f"  profile[train-loop]: {ev.self_device_time_total / 1e3:9.3f} ms {ev.count:5d} calls  {ev.key[:110]}")
     line("train-loop", part="guard", nan_batch_state_bit_unchanged=True, syncs_guarded=syncs["guarded"],
-         syncs_plain=syncs["plain"], syncs_control_item=syncs["control_item"], step_graphs=STEP_GRAPHS,
+         syncs_plain=syncs["plain"], syncs_guarded_batch128=syncs["guarded_batch128"],
+         syncs_control_item=syncs["control_item"], step_graphs=STEP_GRAPHS,
          guarded_step_ms=round(guarded_ms, 4), plain_step_ms=round(plain_ms, 4),
          mixed_precision_step_ms=round(mixed_ms, 4), turns_ms=json.dumps(turns), card=repr(card))
     nan_cfg = dict(checkpoint_every=1, nonfinite_patience=2, scan_epoch=False)
@@ -781,7 +824,133 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
         raise AssertionError(f"train-loop: mixed precision ran a kernel on no bf16 input: {by_dtype}")
     os.environ.pop("HGTORCH_NUM_PREFETCH", None)
     shutil.rmtree(root, ignore_errors=True)
-    return paths
+    return paths, big
+
+
+def bound_timing(dev, card, b128, b1024, hidden, b1, b2, b4):
+    """Part of phase 10: B2 (``segment_sum``) and B4 (``segment_sum_local``)
+    at the training loop's batch-128 shapes (``b128``: the flagship's first
+    batch at LOOP_BATCH, whose masked tail runs past its edge occupancy)
+    and B2 at the batch-1024 shape (``b1024``), each with the occupancy
+    bound and without it, on the data of the main path (B1's K-group
+    statistics and the tie mask of their segment max for B2, B1's
+    backward kernel's grad_v for B4), f32 and bf16: bit-equal to the
+    plain version with the same bound, and so to the unbounded result
+    where the tail's data are zero, and bit-equal again on the replay of
+    a CUDA graph's capture. Then B2 on a row of 60,000 real slots (a hub,
+    streamed through the CTA's ring). Times in f32: ms eager and in a
+    graph, with and without the bound; plain ms; the library call's ms
+    (``torch.segment_reduce``, ``index_add_``); the bound of the bounded
+    work. Returns the timing entries by name; raises on any mismatch."""
+    def replayed(fn):
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn()
+        g.replay()
+        torch.cuda.synchronize()
+        return out
+
+    def held(label, fn, ref):
+        compare(fn(), ref, label, exact=True)
+        compare(replayed(fn), ref, label + " graph", exact=True)
+
+    out = {}
+    for shape, bd in (("batch128", b128), ("batch1024", b1024)):
+        n, e, k = bd.num_nodes, bd.num_edges, bd.run_align
+        send, mask, win, occ = bd.senders, bd.edge_mask, bd.sender_win, bd.edge_occupancy
+        recv8 = bd.receivers[::k].contiguous()
+        gocc = torch.div(occ + (k - 1), k, rounding_mode="floor")
+        rows, real_e, nb = int(gocc), int(occ), int(win.shape[1])
+        gen = torch.Generator(device=dev).manual_seed(11)
+        cpu = {name: t.cpu() for name, t in (("send", send), ("recv8", recv8), ("gocc", gocc), ("occ", occ))}
+        data = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype)[6:]
+            table = torch.randn(n, hidden, device=dev, generator=gen).to(dtype)
+            stats, both = b1.gather_stats(table, send, mask, k)
+            # the tie mask of the sorted segment max's backward, against
+            # its raw maximum: the tail's all-masked groups tie the
+            # padding node's fill value, so the bound changes that row
+            idx = recv8.long()[:, None].expand(-1, both.shape[1])
+            raw = torch.full((n, both.shape[1]), float("-inf"), dtype=dtype, device=dev).scatter_reduce(
+                0, idx, both, "amax", include_self=True)
+            ties = (both == raw.index_select(0, recv8.long())).to(dtype)
+            g_stats = torch.randn(e // k, 2 * hidden, device=dev, generator=gen)
+            grad_v = b1.gather_presum_bwd(table, send, mask, both, g_stats, g_stats.to(dtype), k)
+            for label, d in (("stats", stats), ("ties", ties)):
+                dh = d.cpu()
+                ref_bound = b2.segment_sum_plain(dh, cpu["recv8"], n, real_rows=cpu["gocc"])
+                ref_none = b2.segment_sum_plain(dh, cpu["recv8"], n)
+                if label == "stats":  # a zero tail: the bound changes nothing
+                    compare(ref_bound, ref_none, f"segment_sum {shape} plain bound", exact=True)
+                held(f"segment_sum {shape} {label} {tag} bound", lambda: b2.segment_sum(d, recv8, n, real_rows=gocc),
+                     ref_bound)
+                held(f"segment_sum {shape} {label} {tag}", lambda: b2.segment_sum(d, recv8, n), ref_none)
+            ref = b4.segment_sum_local_plain(grad_v.cpu(), cpu["send"], n)
+            compare(b4.segment_sum_local_plain(grad_v.cpu(), cpu["send"], n, cpu["occ"]), ref,
+                    f"segment_sum_local {shape} plain bound", exact=True)
+            held(f"segment_sum_local {shape} {tag} bound",
+                 lambda: b4.segment_sum_local(grad_v, send, win, n, real_edges=occ), ref)
+            held(f"segment_sum_local {shape} {tag}", lambda: b4.segment_sum_local(grad_v, send, win, n), ref)
+            line("check-train", kernel="segment_sum,segment_sum_local", case=f"{shape}_{tag}_bound_and_none", E=e,
+                 rows=e // k, real_rows=rows, real_edges=real_e, N=n, bit_equal=True, graph_replay=True)
+            if dtype == torch.float32:
+                data = dict(stats=stats, grad_v=grad_v)
+        stats, grad_v = data["stats"], data["grad_v"]
+        w = stats.shape[1]
+        lengths = torch.bincount(recv8.long(), minlength=n)
+        b2_bytes = lambda r: r * w * 4 + r * 4 + n * w * 4  # noqa: E731
+        b4_bytes = lambda r: r * hidden * 4 + r * 4 + 2 * nb * 4 + n * hidden * 4  # noqa: E731
+        specs = {
+            "segment_sum": (lambda: b2.segment_sum(stats, recv8, n, real_rows=gocc),
+                            lambda: b2.segment_sum(stats, recv8, n),
+                            lambda: b2.segment_sum_plain(stats, recv8, n, real_rows=gocc),
+                            lambda: torch.segment_reduce(stats, "sum", lengths=lengths, axis=0),
+                            b2_bytes(rows), rows * w, b2_bytes(e // k), dict(rows=e // k, real_rows=rows, N=n, W=w)),
+            "segment_sum_local": (lambda: b4.segment_sum_local(grad_v, send, win, n, real_edges=occ),
+                                  lambda: b4.segment_sum_local(grad_v, send, win, n),
+                                  lambda: b4.segment_sum_local_plain(grad_v, send, n, occ),
+                                  lambda: torch.zeros(n, hidden, device=dev).index_add_(0, send, grad_v),
+                                  b4_bytes(real_e), real_e * hidden, b4_bytes(e),
+                                  dict(E=e, real_edges=real_e, N=n, H=hidden, blocks=nb)),
+        }
+        for name, (kern, unbounded, plain, library, nbytes, ops, nbytes_all, dims) in specs.items():
+            if shape == "batch1024" and name == "segment_sum_local":
+                continue  # the main timing table's entry
+            t = {"kernel": [], "unbounded": [], "plain": [], "library": []}
+            for which, fn in (("kernel", kern), ("unbounded", unbounded), ("plain", plain), ("library", library),
+                              ("unbounded", unbounded), ("kernel", kern)):
+                t[which].append(cuda_ms(fn, 20 if which in ("kernel", "library") else 5))
+            bms, by = bound(nbytes, ops)
+            entry = {"ms": float(np.mean(t["kernel"])), "graph_ms": graph_ms(kern, 20),
+                     "ms_without_bound": float(np.mean(t["unbounded"])), "graph_ms_without_bound": graph_ms(unbounded, 5),
+                     "plain_ms": float(np.mean(t["plain"])), "library_ms": float(np.mean(t["library"])),
+                     "bound_ms": bms, "bound_by": by, "bound_ms_whole_pad": bound(nbytes_all, ops)[0], **dims}
+            out[f"{name}_{shape}"] = entry
+            line("timing", kernel=name, shape=f"{shape}_bound_vs_none", card=repr(card),
+                 **{kk: (round(x, 5) if isinstance(x, float) else x) for kk, x in entry.items()})
+
+    # a row of 60,000 real slots among 4,096 rows of 24 (B2's CTA ring)
+    counts = torch.full((4096,), 24, dtype=torch.long)
+    counts[100] = 60_000
+    ids = torch.repeat_interleave(torch.arange(4096, dtype=torch.int32), counts)
+    vals = normal_values((ids.shape[0], 256), 12)
+    ref = b2.segment_sum_plain(vals, ids, 4096)
+    ids_d, vals_d = ids.to(dev), vals.to(dev)
+    held("segment_sum long_row", lambda: b2.segment_sum(vals_d, ids_d, 4096), ref)
+    lengths = counts.to(dev)
+    nbytes = ids.shape[0] * 256 * 4 + ids.shape[0] * 4 + 4096 * 256 * 4
+    bms, by = bound(nbytes, ids.shape[0] * 256)
+    out["segment_sum_long_row"] = entry = {
+        "ms": cuda_ms(lambda: b2.segment_sum(vals_d, ids_d, 4096), 10),
+        "graph_ms": graph_ms(lambda: b2.segment_sum(vals_d, ids_d, 4096), 5),
+        "plain_ms": cuda_ms(lambda: b2.segment_sum_plain(vals_d, ids_d, 4096), 5),
+        "library_ms": cuda_ms(lambda: torch.segment_reduce(vals_d, "sum", lengths=lengths, axis=0), 10),
+        "bound_ms": bms, "bound_by": by, "rows": ids.shape[0], "long_row": 60_000, "N": 4096, "W": 256}
+    line("timing", kernel="segment_sum", shape="long_row_60000", card=repr(card), bit_equal=True,
+         **{kk: (round(x, 5) if isinstance(x, float) else x) for kk, x in entry.items()})
+    return out
 
 
 def stack_phase(dev, layouts, hidden, n_layers, mods, card):
@@ -1465,7 +1634,8 @@ def main():
         return {name: steps_ * per_step.get(name, 0) + fwds * per_fwd.get(name, 0) for name in mods}
 
     t0 = time.perf_counter()
-    loop_counts = train_loop_phase(dev, card, train_samples, (reset_counts, read_counts), launches_per, step_batch)
+    loop_counts, loop_batch = train_loop_phase(dev, card, train_samples, (reset_counts, read_counts), launches_per,
+                                               step_batch)
     line("train-loop", part="phase", seconds=round(time.perf_counter() - t0, 1))
 
     # ---- 8. check-conv: B8 at the flagship training shapes ----------------
@@ -2073,6 +2243,11 @@ def main():
     real = int(host.edge_mask.sum())
     s4 = 4
     nb = int(bd.sender_win.shape[1])
+    # B2 and B4 as the main path calls them: bounded by the batch's
+    # occupancy (in K-group rows for B2)
+    occ = bd.edge_occupancy
+    gocc = torch.div(occ + (K - 1), K, rounding_mode="floor")
+    rows_b, real_e = int(gocc), int(occ)
     specs = {
         # name: (kernel, plain, library or None, bytes, ops, shape)
         "gather_stats": (
@@ -2088,11 +2263,11 @@ def main():
             n * h * s4 + e * 4 + e * 1 + 3 * (e // K) * 2 * h * s4 + e * h * s4, real * h * 10,
             dict(E=e, N=n, H=h, K=K)),
         "segment_sum": (
-            lambda: b2.segment_sum(stats, recv8, n),
-            lambda: b2.segment_sum_plain(stats, recv8, n),
+            lambda: b2.segment_sum(stats, recv8, n, real_rows=gocc),
+            lambda: b2.segment_sum_plain(stats, recv8, n, real_rows=gocc),
             lambda: torch.segment_reduce(stats, "sum", lengths=lengths, axis=0),
-            (e // K) * 2 * h * s4 + (e // K) * 4 + n * 2 * h * s4, (e // K) * 2 * h,
-            dict(rows=e // K, N=n, W=2 * h)),
+            rows_b * 2 * h * s4 + rows_b * 4 + n * 2 * h * s4, rows_b * 2 * h,
+            dict(rows=e // K, real_rows=rows_b, N=n, W=2 * h)),
         "gather_rows": (
             lambda: b3.gather_rows(node_w, recv8),
             lambda: b3.gather_rows_plain(node_w, recv8),
@@ -2100,11 +2275,11 @@ def main():
             n * 2 * h * s4 + (e // K) * 4 + (e // K) * 2 * h * s4, 0,
             dict(rows=e // K, N=n, W=2 * h)),
         "segment_sum_local": (
-            lambda: b4.segment_sum_local(gsend, send, bd.sender_win, n),
-            lambda: b4.segment_sum_local_plain(gsend, send, n),
+            lambda: b4.segment_sum_local(gsend, send, bd.sender_win, n, real_edges=occ),
+            lambda: b4.segment_sum_local_plain(gsend, send, n, occ),
             lambda: torch.zeros(n, h, device=dev).index_add_(0, send, gsend),
-            e * h * s4 + e * 4 + 2 * nb * 4 + n * h * s4, e * h,
-            dict(E=e, N=n, H=h, blocks=nb)),
+            real_e * h * s4 + real_e * 4 + 2 * nb * 4 + n * h * s4, real_e * h,
+            dict(E=e, real_edges=real_e, N=n, H=h, blocks=nb)),
     }
     timing = {}
     for name, (kern, plain, library, nbytes, ops, shape) in specs.items():
@@ -2123,6 +2298,9 @@ def main():
         }
         line("timing", kernel=name, card=repr(card),
              **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing[name].items()})
+    # B2 and B4 at the training loop's batch-128 shapes, with the bound and
+    # without it; B2 at batch 1024 without it and on a 60,000-slot row
+    bound_timings = bound_timing(dev, card, loop_batch, bd, hidden, b1, b2, b4)
     # B1's backward: the chain the kernel replaced (B3's E-level regather,
     # then the elementwise block op by op), the regather alone, and the
     # op's whole backward (the kernel, then B4's scatter)
@@ -2480,6 +2658,12 @@ def main():
         if name == "fused_conv":
             entry["variants"] = {v: {k: b8_timing[v][k] for k in ("ms", "graph_ms", "plain_ms", "library_ms",
                                                                   "bound_ms", "bound_by")} for v in b8_timing}
+        if name in ("segment_sum", "segment_sum_local"):
+            # the training loop's batch-128 shape, with the occupancy bound
+            # and without it (and for B2 the batch-1024 shape without it
+            # and a 60,000-slot row)
+            shapes = ("batch128", "batch1024", "long_row") if name == "segment_sum" else ("batch128",)
+            entry["shapes"] = {sh: bound_timings[f"{name}_{sh}"] for sh in shapes}
         if name == "fused_conv_stack":
             # the yardstick: the loop of B8 launches B9 replaces; and the
             # op's backward (recomputed through B8, B3, B4), per layout

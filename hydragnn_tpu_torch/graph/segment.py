@@ -25,6 +25,18 @@ reference's ``custom_vjp``:
     over the unmasked positions only.
   - ``gather_rows_local``: forward B3, backward the windowed sum B4.
 
+The B2 and B4 calls take an optional bound (``real_rows`` /
+``real_edges``, an int32 scalar tensor on the data's device, read by the
+kernel on the device): the rows of the summed data at or past it belong
+to no segment. It is valid only where every such row adds nothing that
+is read: zero, or summed into a segment whose result is not used. The
+chassis passes the batch's edge occupancy (``models/convs.py``): past it
+lies the batch's masked tail, one run at the padding node, whose
+cotangent the masked consumers make exactly zero; in the sorted segment
+max's tie count the tail's all-masked groups do tie the padding node's
+fill value, but that node's cotangent is exactly zero, so its count
+(which falls to 0 with the bound, and is clamped to 1) changes nothing.
+
 On CPU tensors the kernels' plain versions run (``ops/``).
 """
 
@@ -128,7 +140,7 @@ class _SegmentExtremum(torch.autograd.Function):
     segments; the backward of the reference's ``_segment_extremum``."""
 
     @staticmethod
-    def forward(ctx, data, segment_ids, num_segments, indices_are_sorted, is_max):
+    def forward(ctx, data, segment_ids, num_segments, indices_are_sorted, is_max, real_rows):
         w = data.shape[1]
         idx = segment_ids.long()[:, None].expand(-1, w)
         init = torch.full(
@@ -137,7 +149,7 @@ class _SegmentExtremum(torch.autograd.Function):
         )
         out = init.scatter_reduce(0, idx, data, "amax" if is_max else "amin", include_self=True)
         ctx.save_for_backward(data, segment_ids, out)
-        ctx.num_segments, ctx.sorted = num_segments, indices_are_sorted
+        ctx.num_segments, ctx.sorted, ctx.real_rows = num_segments, indices_are_sorted, real_rows
         return out
 
     @staticmethod
@@ -148,15 +160,15 @@ class _SegmentExtremum(torch.autograd.Function):
         # accumulates in f32 (B2) and the share math stays f32
         ties = sel.to(data.dtype)
         if ctx.sorted:
-            cnt = _sorted_sum(ties, segment_ids, ctx.num_segments)
+            cnt = _sorted_sum(ties, segment_ids, ctx.num_segments, real_rows=ctx.real_rows)
         else:  # the reference's unsorted path is XLA's scatter-add
             cnt = segment_sum(ties.float(), segment_ids, ctx.num_segments)
         share = (g.float() / torch.clamp(cnt, min=1.0)).to(data.dtype)
         zero = torch.zeros((), dtype=data.dtype, device=data.device)
-        return torch.where(sel, _gather(share, segment_ids), zero), None, None, None, None
+        return torch.where(sel, _gather(share, segment_ids), zero), None, None, None, None, None
 
 
-def _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted, empty_value, is_max):
+def _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted, empty_value, is_max, real_rows):
     if data.dim() != 2:
         raise ValueError(f"segment_max/min: data must be [E, W], got {tuple(data.shape)}")
     finfo = torch.finfo(data.dtype)
@@ -164,7 +176,7 @@ def _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted,
     m = _expand_mask(mask, data)
     if m is not None:
         data = torch.where(m, data, torch.full((), fill, dtype=data.dtype, device=data.device))
-    out = _SegmentExtremum.apply(data, segment_ids, int(num_segments), bool(indices_are_sorted), is_max)
+    out = _SegmentExtremum.apply(data, segment_ids, int(num_segments), bool(indices_are_sorted), is_max, real_rows)
     empty = out <= fill if is_max else out >= fill
     return torch.where(empty, torch.full((), empty_value, dtype=data.dtype, device=data.device), out)
 
@@ -176,11 +188,14 @@ def segment_max(
     mask: Optional[torch.Tensor] = None,
     indices_are_sorted: bool = False,
     empty_value: float = 0.0,
+    real_rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Masked segment max of [E, W] data; empty segments give
     ``empty_value``. With ``indices_are_sorted`` the backward's tie count
-    runs on the sorted kernel (B2)."""
-    return _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted, empty_value, True)
+    runs on the sorted kernel (B2), bounded by ``real_rows`` (module
+    docstring; the unsorted count ignores it)."""
+    return _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted, empty_value, True,
+                             real_rows)
 
 
 def segment_min(
@@ -191,21 +206,21 @@ def segment_min(
     indices_are_sorted: bool = False,
     empty_value: float = 0.0,
 ) -> torch.Tensor:
-    return _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted, empty_value, False)
+    return _segment_extremum(data, segment_ids, num_segments, mask, indices_are_sorted, empty_value, False, None)
 
 
 class _SegmentSumSorted(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, segment_ids, num_segments, grad_dtype):
+    def forward(ctx, data, segment_ids, num_segments, grad_dtype, real_rows):
         ctx.save_for_backward(segment_ids)
         ctx.grad_dtype = grad_dtype
-        return _sorted_sum(data, segment_ids, num_segments).to(data.dtype)
+        return _sorted_sum(data, segment_ids, num_segments, real_rows=real_rows).to(data.dtype)
 
     @staticmethod
     def backward(ctx, g):
         (segment_ids,) = ctx.saved_tensors
         gd = g if ctx.grad_dtype is None else g.to(ctx.grad_dtype)
-        return _gather(gd.contiguous(), segment_ids).to(g.dtype), None, None, None
+        return _gather(gd.contiguous(), segment_ids).to(g.dtype), None, None, None, None
 
 
 def segment_sum_sorted(
@@ -213,18 +228,20 @@ def segment_sum_sorted(
     segment_ids: torch.Tensor,
     num_segments: int,
     grad_dtype: Optional[torch.dtype] = None,
+    real_rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Differentiable sum of [E, W] data over SORTED ids, accumulated in
-    f32 (B2) and returned in the data's dtype. The backward gathers the
-    cotangent (B3) in ``grad_dtype`` (None keeps its dtype)."""
-    return _SegmentSumSorted.apply(data, segment_ids, int(num_segments), grad_dtype)
+    f32 (B2, bounded by ``real_rows``: module docstring) and returned in
+    the data's dtype. The backward gathers the cotangent (B3) in
+    ``grad_dtype`` (None keeps its dtype)."""
+    return _SegmentSumSorted.apply(data, segment_ids, int(num_segments), grad_dtype, real_rows)
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ids, num_rows, indices_are_sorted):
+    def forward(ctx, x, ids, num_rows, indices_are_sorted, real_rows):
         ctx.save_for_backward(ids)
-        ctx.num_rows, ctx.sorted = num_rows, indices_are_sorted
+        ctx.num_rows, ctx.sorted, ctx.real_rows = num_rows, indices_are_sorted, real_rows
         return _gather(x, ids)
 
     @staticmethod
@@ -232,25 +249,30 @@ class _GatherRows(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         g = g.contiguous()
         if ctx.sorted:
-            grad = _sorted_sum(g, ids, ctx.num_rows)
+            grad = _sorted_sum(g, ids, ctx.num_rows, real_rows=ctx.real_rows)
         else:  # the reference's unsorted path is XLA's scatter-add
             grad = segment_sum(g.float(), ids, ctx.num_rows)
-        return grad.to(g.dtype), None, None, None
+        return grad.to(g.dtype), None, None, None, None
 
 
 def gather_rows(
-    x: torch.Tensor, ids: torch.Tensor, num_rows: int, indices_are_sorted: bool = False
+    x: torch.Tensor,
+    ids: torch.Tensor,
+    num_rows: int,
+    indices_are_sorted: bool = False,
+    real_rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x[ids]`` (B3) whose backward is a segment sum: the sorted kernel
-    (B2) when ``indices_are_sorted``."""
-    return _GatherRows.apply(x, ids, int(num_rows), bool(indices_are_sorted))
+    (B2, bounded by ``real_rows``: module docstring) when
+    ``indices_are_sorted``."""
+    return _GatherRows.apply(x, ids, int(num_rows), bool(indices_are_sorted), real_rows)
 
 
 class _GatherRowsPermuted(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ids, perm, num_rows, mask):
+    def forward(ctx, x, ids, perm, num_rows, mask, real_rows):
         ctx.save_for_backward(ids, perm, mask)
-        ctx.num_rows = num_rows
+        ctx.num_rows, ctx.real_rows = num_rows, real_rows
         return _gather(x, ids)
 
     @staticmethod
@@ -263,8 +285,8 @@ class _GatherRowsPermuted(torch.autograd.Function):
             # the id num_rows puts them in no segment, so the sorted sum
             # skips them instead of walking them
             sorted_ids = torch.where(mask.index_select(0, perm), sorted_ids, ctx.num_rows)
-        grad = _sorted_sum(_gather(g.contiguous(), perm), sorted_ids, ctx.num_rows)
-        return grad.to(g.dtype), None, None, None, None
+        grad = _sorted_sum(_gather(g.contiguous(), perm), sorted_ids, ctx.num_rows, real_rows=ctx.real_rows)
+        return grad.to(g.dtype), None, None, None, None, None
 
 
 def gather_rows_permuted(
@@ -273,6 +295,7 @@ def gather_rows_permuted(
     perm: torch.Tensor,
     num_rows: int,
     mask: Optional[torch.Tensor] = None,
+    real_rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x[ids]`` (B3) for unsorted ids, whose backward permutes the
     cotangent into sorted order (B3) and sums it over the sorted ids
@@ -284,28 +307,39 @@ def gather_rows_permuted(
     after every unmasked position, as the dense slot map's empty slots
     do (they all name the padding node, above every real sender). The
     backward then sums the unmasked positions only: the empty slots
-    would otherwise form one segment walked by one thread."""
+    would otherwise form one segment walked by one thread.
+
+    ``real_rows`` bounds the backward's sorted sum in the permuted
+    (sorted) order (module docstring): on the CSR layouts the batch's
+    edge occupancy, since exactly the slots past it name the padding
+    node, which sorts after every real sender."""
     if perm is None and torch.is_grad_enabled() and x.requires_grad:
         raise ValueError("gather_rows_permuted: the backward needs the ids' sort permutation")
-    return _GatherRowsPermuted.apply(x, ids, perm, int(num_rows), mask)
+    return _GatherRowsPermuted.apply(x, ids, perm, int(num_rows), mask, real_rows)
 
 
 class _GatherRowsLocal(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ids, win, num_rows):
+    def forward(ctx, x, ids, win, num_rows, real_edges):
         ctx.save_for_backward(ids, win)
-        ctx.num_rows = num_rows
+        ctx.num_rows, ctx.real_edges = num_rows, real_edges
         return _gather(x, ids)
 
     @staticmethod
     def backward(ctx, g):
         ids, win = ctx.saved_tensors
-        return _local_sum(g.contiguous(), ids, win, ctx.num_rows).to(g.dtype), None, None, None
+        grad = _local_sum(g.contiguous(), ids, win, ctx.num_rows, real_edges=ctx.real_edges)
+        return grad.to(g.dtype), None, None, None, None
 
 
 def gather_rows_local(
-    x: torch.Tensor, ids: torch.Tensor, win: torch.Tensor, num_rows: int
+    x: torch.Tensor,
+    ids: torch.Tensor,
+    win: torch.Tensor,
+    num_rows: int,
+    real_edges: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x[ids]`` for unsorted-but-local ids (B3), whose backward scatters
-    through the window plan ``win`` (B4) with no permute."""
-    return _GatherRowsLocal.apply(x, ids, win, int(num_rows))
+    through the window plan ``win`` (B4, bounded by ``real_edges``:
+    module docstring) with no permute."""
+    return _GatherRowsLocal.apply(x, ids, win, int(num_rows), real_edges)

@@ -52,8 +52,8 @@ class EdgeContext:
     sender_perm: Optional[torch.Tensor] = None  # [E] int32
     # the senders' per-node-block edge windows (graph/batch.py)
     sender_win: Optional[torch.Tensor] = None  # [2, n_blocks] int32
-    # index after the last slot that can hold a real edge (the fused
-    # kernel's edge-walk bound); None walks every slot
+    # index after the last slot that can hold a real edge: the bound of
+    # every edge walk and sum (B2, B4, B8, B9); None walks every slot
     edge_occ: Optional[torch.Tensor] = None  # [] int32
     # K > 0: every K-group of edge slots has one receiver (or is batch
     # tail), and masked slots may be self-loops at real nodes
@@ -81,28 +81,44 @@ class EdgeContext:
         them (B5, B8)."""
         return row_pointers(self.receivers, self.node_mask.shape[0])
 
+    @functools.cached_property
+    def group_occ(self) -> Optional[torch.Tensor]:
+        """The K-group rows that can hold a real edge on run-aligned
+        batches, ceil(edge_occ / K) as an int32 scalar on the device (no
+        host read): the bound of the sums over the K-group rows. Built at
+        the first read, once per forward."""
+        if self.edge_occ is None or not self.run_align:
+            return None
+        k = self.run_align
+        return torch.div(self.edge_occ + (k - 1), k, rounding_mode="floor")
+
 
 def _gather_senders(x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
     """``x[senders]`` on the composed path (B3). Its backward is the
     permuted pair (B3, then B2) when the batch carries the senders' sort
     permutation, the pair PNAConv takes (faster than the JAX package's
     windowed pair on the H100, PERF.md); an unsorted scatter-add without
-    one (in-forward radius graphs)."""
+    one (in-forward radius graphs). The pair's sum stops at the batch's
+    occupancy: every caller masks the gathered values, so the slots past
+    it carry a zero cotangent."""
     if ctx.sender_perm is not None:
-        return S.gather_rows_permuted(x, ctx.senders, ctx.sender_perm, x.shape[0])
+        return S.gather_rows_permuted(x, ctx.senders, ctx.sender_perm, x.shape[0], real_rows=ctx.edge_occ)
     return S.gather_rows(x, ctx.senders, x.shape[0])
 
 
 def _segment_sum_edges(vals: torch.Tensor, ctx: EdgeContext, n: int) -> torch.Tensor:
     """The masked sum of per-edge values into their receivers, in the
     values' dtype: on run-aligned batches each K-group pre-reduced in f32
-    first, then the sorted segment sum (B2 forward, f32; B3 backward)."""
+    first, then the sorted segment sum (B2 forward, f32; B3 backward),
+    which stops at the batch's occupancy: the masked values past it are
+    zero."""
     vm = torch.where(ctx.edge_mask[:, None], vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
     if ctx.run_align:
         k = ctx.run_align
         v8 = vm.float().view(-1, k, vals.shape[1]).sum(1)
-        return S.segment_sum_sorted(v8, ctx.receivers[::k].contiguous(), n, grad_dtype=vals.dtype).to(vals.dtype)
-    return S.segment_sum_sorted(vm, ctx.receivers, n)
+        return S.segment_sum_sorted(v8, ctx.receivers[::k].contiguous(), n, grad_dtype=vals.dtype,
+                                    real_rows=ctx.group_occ).to(vals.dtype)
+    return S.segment_sum_sorted(vm, ctx.receivers, n, real_rows=ctx.edge_occ)
 
 
 def _gather_scatter(
@@ -224,21 +240,26 @@ class PNAConv(nn.Module):
             if ctx.run_align and not use_edge:
                 k = ctx.run_align
                 stats8, both8 = gather_presum_stats(
-                    bsend, ctx.senders, ctx.edge_mask, ctx.sender_win, n, k
+                    bsend, ctx.senders, ctx.edge_mask, ctx.sender_win, n, k, real_edges=ctx.edge_occ
                 )
             else:
-                v = S.gather_rows_permuted(bsend, ctx.senders, ctx.sender_perm, n)
+                v = S.gather_rows_permuted(bsend, ctx.senders, ctx.sender_perm, n, real_rows=ctx.edge_occ)
                 if use_edge:
                     v = v + self._edge_term(ctx.edge_attr, w, fin)
                 if ctx.run_align:
                     stats8, both8 = presum_stats_plain(v, ctx.edge_mask, ctx.run_align)
             if ctx.run_align:
                 recv8 = ctx.receivers[:: ctx.run_align].contiguous()
-                pair = S.segment_sum_sorted(stats8, recv8, n, grad_dtype=v.dtype)
+                # both sums stop at the K-groups that can hold a real
+                # edge: past them the statistics are 0, and the tail's
+                # all-masked groups tie only the padding node's maximum,
+                # whose cotangent is 0
+                pair = S.segment_sum_sorted(stats8, recv8, n, grad_dtype=v.dtype, real_rows=ctx.group_occ)
                 vsum, vsumsq = pair[:, :fin], pair[:, fin : 2 * fin]
                 # all-masked groups carry the type's lowest value: the max
                 # cleans rows at or below it to 0
-                both = S.segment_max(both8, recv8, n, indices_are_sorted=True, empty_value=0.0)
+                both = S.segment_max(both8, recv8, n, indices_are_sorted=True, empty_value=0.0,
+                                     real_rows=ctx.group_occ)
             else:
                 vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask, row_ptr=ctx.row_ptr)
             max_v = both[:, :fin]
@@ -385,7 +406,7 @@ class CGConv(nn.Module):
         ea = ctx.edge_attr.to(xc.dtype) if self.edge_dim else None
         if not ctx.fused_conv:
             # the composed form over the [E, 2F + De] concatenation
-            xi = S.gather_rows(xc, ctx.receivers, n, indices_are_sorted=True)
+            xi = S.gather_rows(xc, ctx.receivers, n, indices_are_sorted=True, real_rows=ctx.edge_occ)
             z = torch.cat([xi, _gather_senders(xc, ctx)] + ([ea] if ea is not None else []), dim=-1)
             msg = torch.sigmoid(z @ wf + bf) * ACTS["softplus"][0](z @ ws + bs)
             return x + _segment_sum_edges(msg, ctx, n).to(x.dtype)

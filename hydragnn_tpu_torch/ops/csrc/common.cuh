@@ -116,6 +116,23 @@ inline int lanes_log2(int width) {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
+// Asynchronous global -> shared copies of B bytes (4, 8 or 16; 16 bypasses
+// L1), their commit and their wait, as PTX: the long-row rings of B2 and
+// B4.
+template <int B>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(B) : "memory");
+}
+__device__ __forceinline__ void copy_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The bytes one lane loads of a row at a time: the widest of 16, 8, 4, 2
 // or 1 that divides the row's bytes and every base pointer's address
 // (`align` is their bitwise or), as gather_rows.cu picks it; narrowed

@@ -10,11 +10,17 @@
 //   out[n, f] = Σ data[e, f]  over the edges e with ids[e] = n
 //
 // accumulated in float32 for float32 and bfloat16 data. Windows may overlap;
-// an edge of another block inside a window is skipped by its id.
+// an edge of another block inside a window is skipped by its id. An
+// optional bound (*real_edges, read on the device and clamped to
+// [0, n_edges], as common.cuh:edge_bound reads B8's) cuts every window at
+// it: the caller's promise that the edges at or past it add nothing (a
+// batch's masked tail past edge_occupancy, whose cotangent is zero), so
+// they belong to no row and are never scanned or read.
 //
 // What bounds it on this card: bytes. The least time is
 // (E·H·sizeof(data) + E·4 + N·H·4 [+ the window plan]) / 3.35 TB/s: every
-// edge row read once, every output row written once.
+// edge row read once, every output row written once; E is the bound where
+// one is given.
 //
 // What the design does:
 //   - Each row block's rows are split over CTAs of kRows = 32 rows (4 CTAs
@@ -62,22 +68,6 @@ constexpr int kStages = 4;                     // the long-row ring's tiles
 constexpr int kStageBytes = kChunk * 4;        // one tile: as large as `stage`, which is tile 0
 constexpr int kSmemBytes = (2 * kChunk + kWarps * kRows + kRows + 4) * 4 + (kStages - 1) * kStageBytes;
 
-// Asynchronous global -> shared copies of B bytes (4, 8 or 16; 16 bypasses
-// L1), their commit and their wait, as PTX.
-template <int B>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (B == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(B) : "memory");
-}
-__device__ __forceinline__ void copy_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Ring slot k % kStages of the long-row ring: `stage` is slot 0.
 __device__ __forceinline__ unsigned char* ring_slot(int* stage, unsigned char* rest, int k) {
   const int slot = k % kStages;
@@ -107,9 +97,9 @@ __device__ __forceinline__ void issue_tile(unsigned char* dst, const char* db, s
 template <typename T, int V, int VPL>
 __global__ void __launch_bounds__(kCtaThreads, 3)
     segment_sum_local_kernel(const T* __restrict__ data, const int32_t* __restrict__ ids,
-                             const int32_t* __restrict__ win, long long n_edges, int n_blocks,
-                             int block_rows, int ctas_per_block, long long n_rows, int h, int nv,
-                             int g_log2, float* __restrict__ out) {
+                             const int32_t* __restrict__ win, const int32_t* __restrict__ real_edges,
+                             long long n_edges, int n_blocks, int block_rows, int ctas_per_block,
+                             long long n_rows, int h, int nv, int g_log2, float* __restrict__ out) {
   constexpr int EPV = V / (int)sizeof(T);
   constexpr int U = VPL * EPV <= 4 ? 8 : 4;
   extern __shared__ __align__(16) int smem[];
@@ -131,10 +121,11 @@ __global__ void __launch_bounds__(kCtaThreads, 3)
   if (n_rows - row0 < rows_ll) rows_ll = n_rows - row0;
   if (rows_ll <= 0) return;  // the whole CTA
   const int rows = (int)rows_ll;
+  const long long bound = edge_bound(real_edges, n_edges);
   long long lo = win[blk];
   long long hi = win[n_blocks + blk];
   lo = lo < 0 ? 0 : lo;
-  hi = hi > n_edges ? n_edges : hi;
+  hi = hi > bound ? bound : hi;
 
   const int G = 1 << g_log2;
   const int groups = kWarps * (32 >> g_log2);
@@ -309,8 +300,8 @@ __global__ void __launch_bounds__(kCtaThreads, 3)
 }
 
 template <typename T, int V>
-int launch_v(const void* data, const void* ids, const void* win, long long n_edges, int n_blocks,
-             int block_rows, long long n_rows, int h, void* out, cudaStream_t stream) {
+int launch_v(const void* data, const void* ids, const void* win, const void* real_edges, long long n_edges,
+             int n_blocks, int block_rows, long long n_rows, int h, void* out, cudaStream_t stream) {
   if constexpr (V < (int)sizeof(T)) {
     return (int)cudaErrorInvalidValue;
   } else {
@@ -321,29 +312,33 @@ int launch_v(const void* data, const void* ids, const void* win, long long n_edg
     if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     if (nv <= 32)
       segment_sum_local_kernel<T, V, 1><<<(unsigned)grid, kCtaThreads, kSmemBytes, stream>>>(
-          (const T*)data, (const int32_t*)ids, (const int32_t*)win, n_edges, n_blocks, block_rows,
-          ctas_per_block, n_rows, h, nv, g_log2, (float*)out);
+          (const T*)data, (const int32_t*)ids, (const int32_t*)win, (const int32_t*)real_edges, n_edges,
+          n_blocks, block_rows, ctas_per_block, n_rows, h, nv, g_log2, (float*)out);
     else
       segment_sum_local_kernel<T, V, 2><<<(unsigned)grid, kCtaThreads, kSmemBytes, stream>>>(
-          (const T*)data, (const int32_t*)ids, (const int32_t*)win, n_edges, n_blocks, block_rows,
-          ctas_per_block, n_rows, h, nv, g_log2, (float*)out);
+          (const T*)data, (const int32_t*)ids, (const int32_t*)win, (const int32_t*)real_edges, n_edges,
+          n_blocks, block_rows, ctas_per_block, n_rows, h, nv, g_log2, (float*)out);
     return (int)cudaGetLastError();
   }
 }
 
 template <typename T>
-int launch(const void* data, const void* ids, const void* win, long long n_edges, int n_blocks,
-           int block_rows, long long n_rows, int h, void* out, cudaStream_t stream) {
+int launch(const void* data, const void* ids, const void* win, const void* real_edges, long long n_edges,
+           int n_blocks, int block_rows, long long n_rows, int h, void* out, cudaStream_t stream) {
   const int v = row_vector_bytes((long long)h * sizeof(T), (uintptr_t)data, (int)sizeof(T));
   switch (v) {
     case 16:
-      return launch_v<T, 16>(data, ids, win, n_edges, n_blocks, block_rows, n_rows, h, out, stream);
+      return launch_v<T, 16>(data, ids, win, real_edges, n_edges, n_blocks, block_rows, n_rows, h, out,
+                              stream);
     case 8:
-      return launch_v<T, 8>(data, ids, win, n_edges, n_blocks, block_rows, n_rows, h, out, stream);
+      return launch_v<T, 8>(data, ids, win, real_edges, n_edges, n_blocks, block_rows, n_rows, h, out,
+                              stream);
     case 4:
-      return launch_v<T, 4>(data, ids, win, n_edges, n_blocks, block_rows, n_rows, h, out, stream);
+      return launch_v<T, 4>(data, ids, win, real_edges, n_edges, n_blocks, block_rows, n_rows, h, out,
+                              stream);
     case 2:
-      return launch_v<T, 2>(data, ids, win, n_edges, n_blocks, block_rows, n_rows, h, out, stream);
+      return launch_v<T, 2>(data, ids, win, real_edges, n_edges, n_blocks, block_rows, n_rows, h, out,
+                              stream);
     default:
       return (int)cudaErrorMisalignedAddress;
   }
@@ -353,19 +348,20 @@ int launch(const void* data, const void* ids, const void* win, long long n_edges
 
 // dtype: 0 = float32, 1 = bfloat16. win: int32 [2, n_blocks] (row 0 the
 // window starts, row 1 the ends). block_rows x n_blocks >= n_rows.
+// real_edges: null (no bound), or one int32 on the device.
 // Returns a cudaError_t (0 = success).
 extern "C" int hg_segment_sum_local(const void* data, int dtype, const void* ids,
-                                    const void* win, long long n_edges, int n_blocks,
-                                    int block_rows, long long n_rows, int h, void* out,
+                                    const void* win, const void* real_edges, long long n_edges,
+                                    int n_blocks, int block_rows, long long n_rows, int h, void* out,
                                     void* stream) {
   if (n_rows <= 0 || h <= 0 || n_edges < 0 || n_blocks <= 0 || block_rows <= 0 ||
       (long long)n_blocks * block_rows < n_rows)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(data, ids, win, n_edges, n_blocks, block_rows, n_rows, h, out, s);
+    return launch<float>(data, ids, win, real_edges, n_edges, n_blocks, block_rows, n_rows, h, out, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(data, ids, win, n_edges, n_blocks, block_rows, n_rows, h, out,
-                                 s);
+    return launch<__nv_bfloat16>(data, ids, win, real_edges, n_edges, n_blocks, block_rows, n_rows, h,
+                                 out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -41,7 +41,8 @@ cotangent and the receiver tables along the edges (B3), sums the
 float32 products, and scatters ``grad_x`` into the senders through their
 window plan (B4), or with ``index_add_`` without one (the reference's
 XLA scatter-add). ``g_scale`` is taken before the message gradient is
-scaled.
+scaled. B2 and B4 stop at ``real_edges`` too: the message gradient is
+masked, so every slot past it carries a zero.
 """
 
 from __future__ import annotations
@@ -274,7 +275,7 @@ class _FusedAggregate(torch.autograd.Function):
         branches = tuple(tuple(flat[i : i + 4]) for i in range(0, len(flat), 4))
         out = fused_conv(x, senders, receivers, mask, num_segments, branches, acts, scale, real_edges, row_ptr)
         ctx.save_for_backward(x, senders, receivers, mask, win, scale, *flat)
-        ctx.acts = acts
+        ctx.acts, ctx.real_edges = acts, real_edges
         return out
 
     @staticmethod
@@ -319,7 +320,8 @@ class _FusedAggregate(torch.autograd.Function):
                 if b is not None and need_flat[4 * k + 1]:
                     g_flat[4 * k + 1] = g_pre.float().sum(0).to(b.dtype)
                 if rtab is not None and need_flat[4 * k + 2]:
-                    g_flat[4 * k + 2] = segment_sum(g_pre.contiguous(), receivers, n).to(rtab.dtype)
+                    g_flat[4 * k + 2] = segment_sum(g_pre.contiguous(), receivers, n,
+                                                    real_rows=ctx.real_edges).to(rtab.dtype)
                 if eterm is not None and need_flat[4 * k + 3]:
                     g_flat[4 * k + 3] = g_pre.to(eterm.dtype)
         elif scale is not None:
@@ -332,7 +334,7 @@ class _FusedAggregate(torch.autograd.Function):
         if need_x:
             grad_v = grad_v.contiguous()
             if win is not None:
-                grad_x = segment_sum_local(grad_v, senders, win, n).to(dt)
+                grad_x = segment_sum_local(grad_v, senders, win, n, real_edges=ctx.real_edges).to(dt)
             else:
                 zero = torch.zeros(n, grad_v.shape[1], dtype=torch.float32, device=grad_v.device)
                 grad_x = zero.index_add_(0, senders.long(), grad_v.float()).to(dt)

@@ -30,7 +30,9 @@ form of the reference's ``_gather_presum_bwd``: form ``grad_v`` [E, H] —
 the sum terms are linear plus ``2·v·g`` for the squares, and each
 group's max gradient is split evenly among its tied slots, ties taken on
 the filled values — then scatter it into the table through the sender
-windows (B4). ``gather_presum_bwd`` forms ``grad_v`` in one kernel that
+windows (B4), bounded by the optional ``real_edges`` (the batch's edge
+occupancy: ``grad_v`` is +0 on every masked slot, and every slot past it
+is masked). ``gather_presum_bwd`` forms ``grad_v`` in one kernel that
 regathers ``v`` itself; ``gather_presum_bwd_plain`` is the reference's
 chain (the regather, then the elementwise block that XLA fuses on the
 TPU, one PyTorch op at a time), which the kernel equals bit for bit.
@@ -40,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -253,18 +255,18 @@ def gather_presum_bwd(
 
 class _GatherPresumStats(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, ids, mask, win, num_rows, k):
+    def forward(ctx, table, ids, mask, win, num_rows, k, real_edges):
         stats, both = gather_stats(table, ids, mask, k)
         ctx.save_for_backward(table, ids, mask, win, both)
-        ctx.num_rows, ctx.k = num_rows, k
+        ctx.num_rows, ctx.k, ctx.real_edges = num_rows, k, real_edges
         return stats, both
 
     @staticmethod
     def backward(ctx, g_stats, g_both):
         table, ids, mask, win, both = ctx.saved_tensors
         grad_v = gather_presum_bwd(table, ids, mask, both, g_stats.contiguous(), g_both.contiguous(), ctx.k)
-        grad_table = segment_sum_local(grad_v, ids, win, ctx.num_rows).to(table.dtype)
-        return grad_table, None, None, None, None, None
+        grad_table = segment_sum_local(grad_v, ids, win, ctx.num_rows, real_edges=ctx.real_edges).to(table.dtype)
+        return grad_table, None, None, None, None, None, None
 
 
 def gather_presum_stats(
@@ -274,8 +276,10 @@ def gather_presum_stats(
     win: torch.Tensor,
     num_rows: int,
     k: int,
+    real_edges: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable ``(stats, both)`` of ``table[ids]`` (module
-    docstring); ``win`` is the ids' window plan, used by the backward's
-    scatter into ``table`` ([num_rows, H])."""
-    return _GatherPresumStats.apply(table, ids, mask, win, int(num_rows), int(k))
+    docstring); ``win`` is the ids' window plan and ``real_edges`` its
+    bound, used by the backward's scatter into ``table`` ([num_rows,
+    H])."""
+    return _GatherPresumStats.apply(table, ids, mask, win, int(num_rows), int(k), real_edges)

@@ -16,6 +16,12 @@ by the emitter and here. On the training path it scatters the gradient
 of ``v = bsend[senders]`` back into ``bsend`` (the backward of
 ``gather_presum_stats``) with no permute of the [E, H] cotangent.
 
+``real_edges`` (an int32 scalar tensor on the data's device, or None)
+bounds every window: the edges at or past it belong to no row. The kernel
+reads it on the device (no host synchronisation); the callers pass the
+batch's edge occupancy, past which every slot is masked and its cotangent
+zero.
+
 A CPU tensor takes the plain version (which needs no window); a CUDA
 tensor launches the kernel (``csrc/segment_sum_local.cu``) or raises.
 Both check that the window plan was made for this ``num_segments``.
@@ -28,6 +34,8 @@ import threading
 
 import torch
 
+from typing import Optional
+
 from hydragnn_tpu_torch.ops._build import (
     FLOAT_CODE,
     LaunchCount,
@@ -36,6 +44,7 @@ from hydragnn_tpu_torch.ops._build import (
     cuda_args,
     stream_of,
 )
+from hydragnn_tpu_torch.ops.segment_sum import bounded_rows, check_bound
 
 SOURCE = "hydragnn_tpu_torch/ops/csrc/segment_sum_local.cu"
 REPLACES = "hydragnn_tpu/ops/segment_pallas.py:248"
@@ -78,32 +87,42 @@ def _kernel():
     with _lock:
         if _fn is None:
             _fn = bind("segment_sum_local.cu", "hg_segment_sum_local", [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ])
         return _fn
 
 
-def segment_sum_local_plain(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``index_add_`` into f32 zeros, in edge order (the kernel's order)."""
+def segment_sum_local_plain(
+    data: torch.Tensor, ids: torch.Tensor, num_segments: int, real_edges: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """``index_add_`` into f32 zeros, in edge order (the kernel's order),
+    of the edges below ``real_edges`` (read on the host)."""
+    r = bounded_rows(real_edges, data.shape[0])
     out = torch.zeros(int(num_segments), data.shape[1], dtype=torch.float32, device=data.device)
-    return out.index_add_(0, ids.long(), data.float())
+    return out.index_add_(0, ids[:r].long(), data[:r].float())
 
 
 def segment_sum_local(
-    data: torch.Tensor, ids: torch.Tensor, win: torch.Tensor, num_segments: int
+    data: torch.Tensor,
+    ids: torch.Tensor,
+    win: torch.Tensor,
+    num_segments: int,
+    real_edges: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``[N, H]`` float32 sums of ``data`` [E, H] over local ``ids`` [E]
-    within the window plan ``win`` (module docstring)."""
+    within the window plan ``win``, bounded by ``real_edges`` (module
+    docstring)."""
     if data.dim() != 2 or ids.dim() != 1 or ids.shape[0] != data.shape[0]:
         raise ValueError(f"segment_sum_local: data [E, H] and ids [E], got {tuple(data.shape)}, {tuple(ids.shape)}")
     if data.dtype not in FLOAT_CODE:
         raise TypeError(f"segment_sum_local: data must be float32 or bfloat16, got {data.dtype}")
     n = int(num_segments)
     block_rows = check_window_plan(win, n)
+    check_bound("segment_sum_local", real_edges, data.device)
     if data.device.type == "cpu":
-        return segment_sum_local_plain(data, ids, n)
+        return segment_sum_local_plain(data, ids, n, real_edges)
     dev = cuda_args("segment_sum_local", data, ids, win)
     if ids.dtype != torch.int32 or win.dtype != torch.int32:
         raise TypeError("segment_sum_local: ids and win must be int32 on CUDA")
@@ -113,6 +132,7 @@ def segment_sum_local(
     with torch.cuda.device(dev):
         rc = fn(
             data.data_ptr(), FLOAT_CODE[data.dtype], ids.data_ptr(), win.data_ptr(),
+            None if real_edges is None else real_edges.data_ptr(),
             e, int(win.shape[1]), block_rows, n, h, out.data_ptr(), stream_of(dev),
         )
     check_launch("segment_sum_local", rc)

@@ -40,6 +40,13 @@ block, a row with 20,000 edges; 50,000 masked slots in one row, the
 occupancy bound below E, out-of-range senders, inputs at an odd offset.
 ``tests/test_torch_segment_ops.py`` and ``tests/test_torch_fused_conv.py``
 hold the same inputs' plain versions to the JAX package.
+
+B2 (redesigned for Hopper) also sums each element in edge order: on
+``b2_tail_case`` (a 60,000-slot hub row, a masked tail of 30,000 slots
+at the padding row, empty rows, out-of-range ids) it equals its plain
+version bit for bit, f32 and bf16, with the batch's occupancy bound and
+without it, in a CUDA graph too; B4 with a bound that falls inside its
+windows equals its plain version with that bound.
 """
 
 import importlib
@@ -434,6 +441,119 @@ def _graph_replay(fn):
     g.replay()
     torch.cuda.synchronize()
     return out
+
+
+def b2_tail_case(w, seed, values="normal"):
+    """B2's edge cases as numpy: (data [E, w] f32, ids (sorted), mask,
+    num_segments, occupancy). 500 rows: the odd ones empty; row 9 of
+    60,000 real slots (a hub, no mask); rows 0-40 slots otherwise, about
+    a quarter masked; ids -1 and 500 (out of range) at the two ends; then
+    the padding row 498's masked tail of 30,000 slots past the occupancy,
+    with data 0 there, as a batch's masked tail is."""
+    rng = np.random.default_rng(seed)
+    n = 500
+    counts = np.where(np.arange(n) % 2 == 1, 0, rng.integers(0, 41, n))
+    counts[9] = 60_000
+    counts[n - 2] = 0
+    ids = np.concatenate([[-1, -1], np.repeat(np.arange(n), counts), [n, n]]).astype(np.int32)
+    occ = ids.size
+    ids = np.concatenate([ids[:-2], np.full(30_000, n - 2), [n, n]]).astype(np.int32)
+    mask = rng.random(ids.size) > 0.25
+    mask[ids == 9] = True
+    mask[occ - 2:] = False
+    data = _values((ids.size, w), rng, values)
+    data[occ - 2:] = 0.0
+    return data, ids, mask, n, occ - 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [1, 2, 3, 31, 32, 128, 256])
+def test_cuda_segment_sum_tail_hub_and_bound(w, dtype, masked):
+    """B2 on ``b2_tail_case``, data on a fresh allocation and at an odd
+    offset: with the occupancy bound and without it (the whole tail
+    walked by the CTA's ring), bit-equal to the plain version on the host
+    (both sum each element in edge order in f32); NaN written past the
+    bound changes nothing; a bound of 0 gives zeros; two launches
+    bitwise equal; the 60,000-slot row is summed."""
+    dev = _cuda()
+    data_np, ids_np, mask_np, n, occ = b2_tail_case(w, 70 + w)
+    data, ids = torch.from_numpy(data_np).to(dtype), torch.from_numpy(ids_np)
+    mask = torch.from_numpy(mask_np) if masked else None
+    ref = ss_mod.segment_sum_plain(data, ids, n, mask)
+    bound = torch.tensor(occ, dtype=torch.int32)
+    assert torch.equal(_bits(ss_mod.segment_sum_plain(data, ids, n, mask, real_rows=bound)), _bits(ref))
+    poisoned = data.clone()
+    poisoned[occ:] = float("nan")
+    ids_d, mask_d, bound_d = ids.to(dev), None if mask is None else mask.to(dev), bound.to(dev)
+    for place in (lambda t: t.to(dev), lambda t: _at_odd_offset(t, dev)):
+        d, p = place(data), place(poisoned)
+        before = ss_mod.launches.value
+        outs = [ss_mod.segment_sum(d, ids_d, n, mask_d, real_rows=bound_d) for _ in range(2)]
+        outs += [ss_mod.segment_sum(d, ids_d, n, mask_d), ss_mod.segment_sum(p, ids_d, n, mask_d, real_rows=bound_d)]
+        zero = ss_mod.segment_sum(d, ids_d, n, mask_d, real_rows=torch.zeros((), dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        assert ss_mod.launches.value == before + 5
+        for out in outs:
+            assert torch.equal(_bits(out.cpu()), _bits(ref)), f"w={w} {dtype}"
+        assert not bool(zero.any())
+    assert bool(ref[9].any()) and not bool(ref[n - 2].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [2, 256])
+def test_cuda_segment_sum_graph_replay(w, dtype):
+    """B2 captured in a CUDA graph with the bound as a device scalar:
+    the replays equal the eager call; changing the bound's value between
+    replays changes the walk (the kernel reads it on the device)."""
+    dev = _cuda()
+    data_np, ids_np, mask_np, n, occ = b2_tail_case(w, 90 + w)
+    data, ids, mask = (torch.from_numpy(a).to(dev) for a in (data_np, ids_np, mask_np))
+    data = data.to(dtype)
+    bound = torch.tensor(occ, dtype=torch.int32, device=dev)
+    eager = ss_mod.segment_sum(data, ids, n, mask, real_rows=bound)
+    out = _graph_replay(lambda: ss_mod.segment_sum(data, ids, n, mask, real_rows=bound))
+    assert torch.equal(_bits(out), _bits(eager))
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ss_mod.segment_sum(data, ids, n, mask, real_rows=bound)
+    bound.fill_(1000)
+    g.replay()
+    torch.cuda.synchronize()
+    want = ss_mod.segment_sum_plain(data.cpu(), ids.cpu(), n, mask.cpu(), real_rows=bound.cpu())
+    assert torch.equal(_bits(out.cpu()), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 3, 128])
+def test_cuda_segment_sum_local_bound_inside_a_window(h, dtype):
+    """B4 on ``b4_edge_case`` with bounds that fall inside windows (block
+    0's, the 20,000-edge row's, an overlapping one's) and with NaN past
+    them: bit-equal to the plain version with the same bound; in a CUDA
+    graph too."""
+    dev = _cuda()
+    data_np, ids_np, win_np, n = b4_edge_case(h, 50 + h)
+    data, ids, win = torch.from_numpy(data_np).to(dtype), torch.from_numpy(ids_np), torch.from_numpy(win_np)
+    ids_d, win_d = ids.to(dev), win.to(dev)
+    row70 = np.flatnonzero(ids_np == 70)
+    for r in ((win_np[0, 0] + win_np[1, 0]) // 2, int(row70[len(row70) // 2]), int(win_np[1, 3]) - 7, 0):
+        bound = torch.tensor(int(r), dtype=torch.int32)
+        ref = sl_mod.segment_sum_local_plain(data, ids, n, bound)
+        poisoned = data.clone()
+        poisoned[int(r):] = float("nan")
+        d, p, b = data.to(dev), _at_odd_offset(poisoned, dev), bound.to(dev)
+        before = sl_mod.launches.value
+        outs = [sl_mod.segment_sum_local(d, ids_d, win_d, n, real_edges=b),
+                sl_mod.segment_sum_local(p, ids_d, win_d, n, real_edges=b),
+                _graph_replay(lambda: sl_mod.segment_sum_local(d, ids_d, win_d, n, real_edges=b))]
+        torch.cuda.synchronize()
+        assert sl_mod.launches.value == before + 3
+        for out in outs:
+            assert torch.equal(_bits(out.cpu()), _bits(ref)), f"bound {r}"
 
 
 @pytest.mark.cuda
