@@ -66,7 +66,15 @@ them:
     at batch 128 (``step_guarded_b128``: ms, the card's busy ms and
     launches, B2's and B4's device ms and calls by torch.profiler);
     B5, B6 and B7 at H = 128 on the same graphs' unaligned batch of 128
-    (``b{5,6,7}_b128_unaligned``), beside their tail's bound.
+    (``b{5,6,7}_b128_unaligned``, and ``_bound`` with the occupancy
+    bound where the checkout's kernels take it), B6 and B7 at the
+    unaligned batch of 1,024 (``b{6,7}_b1024_unaligned``, with the bound
+    where taken, as the main path calls them) and on a hub of 60,000
+    slots among 4,096 rows of 24 (``b{6,7}_hub``); the guarded train
+    step on that unaligned batch of 128 (``step_guarded_b128_unaligned``:
+    ms, the card's busy ms and launches, B5's, B6's and B7's device ms
+    and calls). Their bounds are ``chip_smoke.py``'s ``[timing]`` lines
+    at the same shapes.
 """
 
 import argparse
@@ -180,6 +188,7 @@ def main():
     b5_takes_ptr = "row_ptr" in inspect.signature(b5.pna_aggregate).parameters
     b2_takes_bound = "real_rows" in inspect.signature(b2.segment_sum).parameters
     b4_takes_bound = "real_edges" in inspect.signature(b4.segment_sum_local).parameters
+    pna_takes_bound = "real_edges" in inspect.signature(b67.pna_bwd_grad).parameters
     results = {}
 
     def record(name, **kw):
@@ -259,30 +268,38 @@ def main():
         return h128.to(dev), h128, done128, tl128
 
     def guarded_step_b128(reps):
-        """The guarded train step at batch 128: ms, and by torch.profiler
-        (3 steps) the card's busy ms, launches, and B2's and B4's device
-        ms and calls a step."""
-        b, _, done128, _ = loop_batch()
+        """The guarded train step at batch 128, on the run-aligned batch
+        and on the same graphs' unaligned batch: ms, and by torch.profiler
+        (3 steps) the card's busy ms, launches, and the device ms and
+        calls a step of B2 and B4 (run-aligned) or B5, B6 and B7
+        (unaligned)."""
+        b, _, done128, tl128 = loop_batch()
+        ub = next(iter(GraphLoader(tl128.samples, 128, dense_slots=False, run_align=False))).to(dev)
         model = create_model_config(done128["NeuralNetwork"], seed=1, device="cuda")
         step = make_train_step(model, select_optimizer(model, done128["NeuralNetwork"]["Training"]),
                                guard_nonfinite=True)
         consec = torch.zeros((), dtype=torch.int32, device=dev)
-        ms, ms_min = eager(lambda: step(b, consec), 5, reps=reps)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                step(b, consec)
-            torch.cuda.synchronize()
-        busy = [ev for ev in prof.key_averages() if ev.self_device_time_total > 0]
-
-        def kernel(key):
-            evs = [ev for ev in busy if key in ev.key]
-            return sum(ev.self_device_time_total for ev in evs) / 3e3, sum(ev.count for ev in evs) // 3
-
-        (b2_ms, b2_calls), (b4_ms, b4_calls) = kernel("segment_sum_kernel"), kernel("segment_sum_local_kernel")
-        record("step_guarded_b128", ms=ms, ms_min=ms_min,
-               device_busy_ms=sum(ev.self_device_time_total for ev in busy) / 3e3 if busy else "not measured",
-               launches=sum(ev.count for ev in busy) // 3, b2_device_ms=b2_ms, b2_calls=b2_calls,
-               b4_device_ms=b4_ms, b4_calls=b4_calls, E=b.num_edges, occupancy=int(b.edge_occupancy))
+        kernels = {"": {"b2": ("segment_sum_kernel",), "b4": ("segment_sum_local_kernel",)},
+                   "_unaligned": {"b5": ("pna_aggregate_warp_kernel", "pna_aggregate_h1_kernel"),
+                                  "b6": ("pna_bwd_count_kernel", "pna_bwd_count_h1_kernel",
+                                         "pna_bwd_count_long_kernel"),
+                                  "b7": ("pna_bwd_grad_kernel",)}}
+        for tag, bb in (("", b), ("_unaligned", ub)):
+            ms, ms_min = eager(lambda: step(bb, consec), 5, reps=reps)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step(bb, consec)
+                torch.cuda.synchronize()
+            busy = [ev for ev in prof.key_averages() if ev.self_device_time_total > 0]
+            per = {}
+            for name, keys in kernels[tag].items():
+                evs = [ev for ev in busy if any(k in ev.key for k in keys)]
+                per[f"{name}_device_ms"] = sum(ev.self_device_time_total for ev in evs) / 3e3
+                per[f"{name}_calls"] = sum(ev.count for ev in evs) // 3
+            record(f"step_guarded_b128{tag}", ms=ms, ms_min=ms_min,
+                   device_busy_ms=sum(ev.self_device_time_total for ev in busy) / 3e3 if busy else "not measured",
+                   launches=sum(ev.count for ev in busy) // 3, **per, E=bb.num_edges,
+                   occupancy=int(bb.edge_occupancy))
 
     if args.steps_only:
         model_steps(("PNA", "GIN"), 15)
@@ -352,23 +369,47 @@ def main():
         del st, bo
 
     # B5, B6 and B7 at H = 128 on the unaligned batch of the same 128
-    # graphs: the masked tail is one row at the padding node
+    # graphs (the masked tail is one row at the padding node), with the
+    # occupancy bound and without it; B6 and B7 also at the unaligned
+    # batch of 1,024 graphs and on a 60,000-slot hub among 4,096 rows of
+    # 24 (a quarter of the slots masked)
+    def pna_bwd_calls(recv, mask, n):
+        """B5, B6 and B7 as the checkout takes them on random v at H =
+        128: name -> a call with or without the bound."""
+        ptr = row_pointers(recv, n)
+        v = randn(recv.shape[0], 128)
+        bo = b5.pna_aggregate(v, recv, n, mask, row_ptr=ptr)[3]
+        gs, gq, gb = randn(n, 128), randn(n, 128), randn(n, 256)
+        cnt = b67.pna_bwd_count(v, recv, mask, bo, n, ptr)
+        if pna_takes_bound:
+            return {"b5": lambda b=None: b5.pna_aggregate(v, recv, n, mask, row_ptr=ptr, real_edges=b),
+                    "b6": lambda b=None: b67.pna_bwd_count(v, recv, mask, bo, n, ptr, real_edges=b),
+                    "b7": lambda b=None: b67.pna_bwd_grad(v, recv, mask, bo, gs, gq, gb, cnt, real_edges=b)}
+        return {"b5": lambda: b5.pna_aggregate(v, recv, n, mask, row_ptr=ptr),
+                "b6": lambda: b67.pna_bwd_count(v, recv, mask, bo, n, ptr),
+                "b7": lambda: b67.pna_bwd_grad(v, recv, mask, bo, gs, gq, gb, cnt, ptr)}
+
     u128 = next(iter(GraphLoader(tl128.samples, 128, dense_slots=False, run_align=False)))
-    ud = u128.to(dev)
-    un, ue = u128.num_nodes, u128.num_edges
-    uptr = row_pointers(ud.receivers, un)
-    uv = randn(ue, 128)
-    ub = b5.pna_aggregate(uv, ud.receivers, un, ud.edge_mask, row_ptr=uptr)[3]
-    ugs, ugq, ugb = randn(un, 128), randn(un, 128), randn(un, 256)
-    ucnt = b67.pna_bwd_count(uv, ud.receivers, ud.edge_mask, ub, un, uptr)
-    udims = dict(E=ue, real_edges=int(u128.edge_occupancy), tail=ue - int(u128.edge_occupancy), N=un, H=128)
-    both("b5_b128_unaligned", lambda: b5.pna_aggregate(uv, ud.receivers, un, ud.edge_mask, row_ptr=uptr), 10, 5,
-         **udims)
-    both("b6_b128_unaligned", lambda: b67.pna_bwd_count(uv, ud.receivers, ud.edge_mask, ub, un, uptr), 10, 5,
-         **udims)
-    both("b7_b128_unaligned", lambda: b67.pna_bwd_grad(uv, ud.receivers, ud.edge_mask, ub, ugs, ugq, ugb, ucnt, uptr),
-         10, 5, **udims)
-    del uv, ucnt
+    u1024 = next(iter(GraphLoader(loaders["PNA"][0].samples, 1024, dense_slots=False, run_align=False)))
+    hub_counts = torch.full((4096,), 24, dtype=torch.long)
+    hub_counts[100] = 60_000
+    hub_recv = torch.repeat_interleave(torch.arange(4096, dtype=torch.int32), hub_counts).to(dev)
+    hub_mask = torch.rand(hub_recv.shape[0], device=dev, generator=gen) > 0.25
+    cases = {"b128_unaligned": (u128, ("b5", "b6", "b7"), 10, 5), "b1024_unaligned": (u1024, ("b6", "b7"), 20, 10)}
+    for tag, (hb, names, iters, g_iters) in cases.items():
+        ud = hb.to(dev)
+        occ_u = ud.edge_occupancy
+        calls = pna_bwd_calls(ud.receivers, ud.edge_mask, hb.num_nodes)
+        udims = dict(E=hb.num_edges, real_edges=int(occ_u), tail=hb.num_edges - int(occ_u), N=hb.num_nodes, H=128)
+        for name in names:
+            both(f"{name}_{tag}", calls[name], iters, g_iters, **udims)
+            if pna_takes_bound:
+                both(f"{name}_{tag}_bound", lambda: calls[name](occ_u), iters, g_iters, **udims)
+        del calls
+    calls = pna_bwd_calls(hub_recv, hub_mask, 4096)
+    for name in ("b6", "b7"):
+        both(f"{name}_hub", calls[name], 20, 10, E=int(hub_recv.shape[0]), hub=60_000, N=4096, H=128)
+    del calls
 
     # the molecular data's dense-map batch: its edge list and its dense slots
     mcfg = stack_config("GIN", batch_size=64)

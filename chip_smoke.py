@@ -33,6 +33,11 @@ raises; nothing is caught):
                    ties, masked edges, empty and all-masked rows and the
                    padding node; two launches bitwise equal; the autograd
                    pna_aggregate backward on the card against the CPU.
+                   B5, B6 and B7 again on the unaligned batch of 128
+                   graphs (its masked tail one row past the edge
+                   occupancy) and on a hub of 60,000 slots among 4,096
+                   rows of 24, each with the occupancy bound and without
+                   it, against the plain versions.
   5. serve       — the flagship at full width (hidden 128, 6 PNA layers,
                    4 heads) served on the card: every answer equal to the
                    CPU forward; pna_aggregate and the sender gather (B3)
@@ -60,11 +65,14 @@ raises; nothing is caught):
                    each on the card against the CPU; mixed precision for 3
                    epochs (finite, falling, each of B1-B4 launched on bf16 inputs).
                    On the flagship's first batch at 128 (a masked tail
-                   past its edge occupancy, which bounds B2 and B4): the
+                   past its edge occupancy, which bounds B2 and B4) and
+                   on the same graphs' unaligned batch (whose tail, one
+                   row at the padding node, bounds B5, B6 and B7): the
                    guarded step synchronises 0 times; one forward and
                    backward bit-equal with the bound and without it; the
-                   step's profile with B2's and B4's device ms and calls
-                   and the card's busy share.
+                   step's profile with B2's and B4's (unaligned: B5's,
+                   B6's, B7's and B2's) device ms and calls and the
+                   card's busy share.
   8. check-conv  — fused_conv (B8) against its plain version at the
                    flagship training shapes: identity at H=1, 3, 31, 32
                    and 128 (with the shared row pointers and without),
@@ -140,7 +148,10 @@ raises; nothing is caught):
                    batch-128 shapes and B2 at batch 1024, with the
                    occupancy bound and without it (f32 and bf16 held
                    bit-equal to their plain versions, eager and on a CUDA
-                   graph's replay), and B2 on a row of 60,000 real slots; the PNA (every layout), GIN and
+                   graph's replay), and B2 on a row of 60,000 real slots;
+                   B5, B6 and B7 on the unaligned batches of 128 and
+                   1,024 graphs with the bound and without it and on the
+                   60,000-slot hub, each beside its bound; the PNA (every layout), GIN and
                    SchNet train steps (and GAT's)
                    broken into their stages, and the PNA and GIN steps'
                    device time by kernel (torch.profiler).
@@ -509,6 +520,7 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     reset_counts, read_counts = counts
 
     from hydragnn_tpu_torch.api import create_dataloaders, prepare_config_and_samples, train_with_loaders
+    from hydragnn_tpu_torch.data.loader import GraphLoader
     from hydragnn_tpu_torch.flagship import flagship_config
     from hydragnn_tpu_torch.models.base import model_loss
     from hydragnn_tpu_torch.models.create import create_model_config
@@ -631,6 +643,10 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     resident = create_dataloaders(tr, va, te, done)[0]
     resident.set_device(dev)
     big = resident.device_batches(0)[0]
+    # the same graphs' first streaming batch on the unaligned layout: its
+    # masked tail is one receiver row at the padding node, which B5, B6
+    # and B7 walk, and the occupancy bounds them
+    ubig = next(iter(GraphLoader(tr, LOOP_BATCH, dense_slots=False, run_align=False))).to(dev)
     before = state(model, optimizer)
     loss, _, consec, bad = guarded(nan_batch, consec)
     if not (float(bad) == 1.0 and int(consec) == 1 and float(loss) == 0.0 and same(before, state(model, optimizer))):
@@ -639,6 +655,7 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     # the control reads a loss on the host, which must count as a sync
     for label, fn in (("guarded", lambda: guarded(batch, consec)), ("plain", lambda: plain(batch)),
                       ("guarded_batch128", lambda: guarded(big, consec)),
+                      ("guarded_unaligned_batch128", lambda: guarded(ubig, consec)),
                       ("control_item", lambda: float(plain(batch)[0]))):
         fn()
         torch.cuda.synchronize()
@@ -650,24 +667,26 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         syncs[label] = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
-    if syncs["guarded"] != syncs["plain"] or syncs["guarded_batch128"] or not syncs["control_item"]:
+    if (syncs["guarded"] != syncs["plain"] or syncs["guarded_batch128"] or syncs["guarded_unaligned_batch128"]
+            or not syncs["control_item"]):
         raise AssertionError(f"train-loop: the guard synchronises, or the count sees nothing: {syncs}")
     # the bound changes nothing: one forward and backward at LOOP_BATCH
     # with the batch's occupancy and without it, bit-equal (deterministic
     # algorithms: the pooling's index_add_ adds with atomics otherwise)
-    sides = {}
-    with deterministic("bound_vs_none"):
-        for label, b in (("bound", big), ("none", dataclasses.replace(big, edge_occupancy=None))):
-            m = create_model_config(done["NeuralNetwork"], seed=SEED + 2, device=dev)
-            loss, _ = model_loss(m.cfg, m(b, train=True), b)
-            loss.backward()
-            sides[label] = [loss.detach()] + [p.grad.detach() for p in m.parameters()]
-    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(sides["bound"], sides["none"])):
-        raise AssertionError("train-loop: the occupancy bound changed the batch-128 loss or a gradient")
-    occ = int(big.edge_occupancy)
-    line("train-loop", part="bound_vs_none", batch=LOOP_BATCH, edge_slots=big.num_edges, edge_occupancy=occ,
-         masked_tail=big.num_edges - occ, loss=float(sides["bound"][0]), loss_and_grads_bit_equal=True,
-         tensors=len(sides["bound"]), card=repr(card))
+    for layout, bb in (("run_aligned", big), ("unaligned", ubig)):
+        sides = {}
+        with deterministic(f"bound_vs_none_{layout}"):
+            for label, b in (("bound", bb), ("none", dataclasses.replace(bb, edge_occupancy=None))):
+                m = create_model_config(done["NeuralNetwork"], seed=SEED + 2, device=dev)
+                loss, _ = model_loss(m.cfg, m(b, train=True), b)
+                loss.backward()
+                sides[label] = [loss.detach()] + [p.grad.detach() for p in m.parameters()]
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(sides["bound"], sides["none"])):
+            raise AssertionError(f"train-loop: the occupancy bound changed the {layout} batch-128 loss or a gradient")
+        occ = int(bb.edge_occupancy)
+        line("train-loop", part="bound_vs_none", layout=layout, batch=LOOP_BATCH, edge_slots=bb.num_edges,
+             edge_occupancy=occ, masked_tail=bb.num_edges - occ, loss=float(sides["bound"][0]),
+             loss_and_grads_bit_equal=True, tensors=len(sides["bound"]), card=repr(card))
     # in turns (plain, guarded, guarded, plain; f32, bf16, bf16, f32): the
     # steps are host-bound at this size and the host's pace drifts
     mixed = make_train_step(model, optimizer, compute_dtype=torch.bfloat16)
@@ -683,33 +702,45 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     # time (torch.profiler) against the step's wall time
     from torch.profiler import ProfilerActivity, profile
 
-    guarded(big, consec)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        guarded(big, consec)
+    def profile_guarded(layout, b, kernels):
+        """One guarded step on ``b`` under torch.profiler: its wall ms, the
+        card's busy ms and share, and the device ms and calls of each of
+        ``kernels`` (name -> substrings of its kernels' names)."""
+        guarded(b, consec)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(ev.self_device_time_total, ev.count) for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
-    busy_ms = sum(t for t, _ in rows) / 1e3
-    # B2's and B4's device time and calls in the step (B2's own row-pointer
-    # pass is csr_row_ptr_kernel, counted among the rest)
-    by_kernel = {name: [(ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
-                        if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.key]
-                 for name, key in (("b2", "segment_sum_kernel"), ("b4", "segment_sum_local_kernel"))}
-    line("train-loop", part="profile", batch=LOOP_BATCH, guarded_step_wall_ms=round(wall_ms, 3),
-         device_busy_ms=round(busy_ms, 3) if rows else "not measured",
-         device_busy_share=round(busy_ms / wall_ms, 4) if rows else "not measured",
-         kernel_launches=sum(c for _, c in rows),
-         **{f"{name}_{what}": (round(sum(r[i] for r in v), 4) if rows else "not measured")
-            for name, v in by_kernel.items() for i, what in ((0, "device_ms"), (1, "calls"))},
-         card=repr(card))
-    for ev in sorted((ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA
-                      and ev.self_device_time_total > 0), key=lambda ev: -ev.self_device_time_total)[:10]:
-        print(f"  profile[train-loop]: {ev.self_device_time_total / 1e3:9.3f} ms {ev.count:5d} calls  {ev.key[:110]}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            guarded(b, consec)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+        busy_ms = sum(ev.self_device_time_total for ev in evs) / 1e3
+        by_kernel = {name: [(ev.self_device_time_total / 1e3, ev.count) for ev in evs if any(k in ev.key for k in keys)]
+                     for name, keys in kernels.items()}
+        line("train-loop", part="profile", layout=layout, batch=LOOP_BATCH, edge_slots=b.num_edges,
+             edge_occupancy=int(b.edge_occupancy), guarded_step_wall_ms=round(wall_ms, 3),
+             device_busy_ms=round(busy_ms, 3) if evs else "not measured",
+             device_busy_share=round(busy_ms / wall_ms, 4) if evs else "not measured",
+             kernel_launches=sum(ev.count for ev in evs),
+             **{f"{name}_{what}": (round(sum(r[i] for r in v), 4) if evs else "not measured")
+                for name, v in by_kernel.items() for i, what in ((0, "device_ms"), (1, "calls"))},
+             card=repr(card))
+        for ev in sorted(evs, key=lambda ev: -ev.self_device_time_total)[:10]:
+            print(f"  profile[train-loop {layout}]: {ev.self_device_time_total / 1e3:9.3f} ms {ev.count:5d} calls  "
+                  f"{ev.key[:110]}")
+
+    # B2's own row-pointer pass is csr_row_ptr_kernel, counted among the
+    # rest; B5's kernels are pna_aggregate_{warp,h1}_kernel, B6's
+    # pna_bwd_count_{kernel,h1_kernel,long_kernel} (two a call)
+    profile_guarded("run_aligned", big, {"b2": ("segment_sum_kernel",), "b4": ("segment_sum_local_kernel",)})
+    profile_guarded("unaligned", ubig, {"b5": ("pna_aggregate_warp_kernel", "pna_aggregate_h1_kernel"),
+                                        "b6": ("pna_bwd_count_kernel", "pna_bwd_count_h1_kernel",
+                                               "pna_bwd_count_long_kernel"),
+                                        "b7": ("pna_bwd_grad_kernel",), "b2": ("segment_sum_kernel",)})
     line("train-loop", part="guard", nan_batch_state_bit_unchanged=True, syncs_guarded=syncs["guarded"],
          syncs_plain=syncs["plain"], syncs_guarded_batch128=syncs["guarded_batch128"],
+         syncs_guarded_unaligned_batch128=syncs["guarded_unaligned_batch128"],
          syncs_control_item=syncs["control_item"], step_graphs=STEP_GRAPHS,
          guarded_step_ms=round(guarded_ms, 4), plain_step_ms=round(plain_ms, 4),
          mixed_precision_step_ms=round(mixed_ms, 4), turns_ms=json.dumps(turns), card=repr(card))
@@ -950,6 +981,92 @@ def bound_timing(dev, card, b128, b1024, hidden, b1, b2, b4):
         "bound_ms": bms, "bound_by": by, "rows": ids.shape[0], "long_row": 60_000, "N": 4096, "W": 256}
     line("timing", kernel="segment_sum", shape="long_row_60000", card=repr(card), bit_equal=True,
          **{kk: (round(x, 5) if isinstance(x, float) else x) for kk, x in entry.items()})
+    return out
+
+
+def pna_hub_case():
+    """A hub of 60,000 slots (row 100) among 4,096 rows of 24: sorted
+    int32 receivers, a mask with about a quarter of the slots masked,
+    and the row count."""
+    counts = torch.full((4096,), 24, dtype=torch.long)
+    counts[100] = 60_000
+    recv = torch.repeat_interleave(torch.arange(4096, dtype=torch.int32), counts)
+    mask = torch.from_numpy(np.random.default_rng(SEED + 12).random(recv.shape[0]) > 0.25)
+    return recv, mask, 4096
+
+
+def pna_bound_timing(dev, card, batches, hidden, agg, bwd, rp):
+    """Part of phase 10: B5 (``pna_aggregate``), B6 (``pna_bwd_count``)
+    and B7 (``pna_bwd_grad``) at H = ``hidden``, f32, on random normal v
+    and cotangents over ``batches`` (label -> host receivers, mask, row
+    count and occupancy): the flagship's unaligned batches of LOOP_BATCH
+    and TRAIN_BATCH graphs, and a hub (its occupancy the whole array).
+    Each kernel with the occupancy bound, as the main path calls it, and
+    without it: held bit-equal to each other, then timed: ms eager and
+    in a CUDA graph with and without the bound, plain ms, the library's
+    ms (B5: the two ``torch.segment_reduce`` calls that give its sums and
+    maxima, eager, they cannot be captured; none for B6 and B7), and the
+    bound of the bounded work and of the whole pad (every input byte
+    read once and every output byte written once: v only on the
+    unmasked edges below the bound, the mask and B7's receivers up to
+    it, B7's whole [E, H] gradient). Returns the entries by
+    f"{kernel}_{label}"; raises on a mismatch."""
+    out = {}
+    for label, (recv_h, mask_h, n, occ_h) in batches.items():
+        e = recv_h.shape[0]
+        gen = torch.Generator(device=dev).manual_seed(13)
+        recv, mask, occ = recv_h.to(dev), mask_h.to(dev), occ_h.to(dev)
+        ptr = rp.row_pointers(recv, n)
+        v = torch.randn(e, hidden, device=dev, generator=gen)
+        g_sum, g_sumsq = (torch.randn(n, hidden, device=dev, generator=gen) for _ in range(2))
+        g_both = torch.randn(n, 2 * hidden, device=dev, generator=gen)
+        both = agg.pna_aggregate(v, recv, n, mask, ptr, occ)[3]
+        cnt = bwd.pna_bwd_count(v, recv, mask, both, n, ptr, occ)
+        lengths = torch.bincount(recv.long(), minlength=n)
+        vm = torch.where(mask[:, None], v, 0.0)
+        pair_sum = torch.cat([vm, vm * vm], dim=1)
+        pair_max = torch.where(mask[:, None], torch.cat([v, -v], dim=1), float("-inf"))
+        calls = {
+            "pna_aggregate_fwd": (lambda b: agg.pna_aggregate(v, recv, n, mask, ptr, b),
+                                  lambda: agg.pna_aggregate_plain(v, recv, n, mask, occ),
+                                  lambda: (torch.segment_reduce(pair_sum, "sum", lengths=lengths, axis=0),
+                                           torch.segment_reduce(pair_max, "max", lengths=lengths, axis=0))),
+            "pna_bwd_count": (lambda b: bwd.pna_bwd_count(v, recv, mask, both, n, ptr, b),
+                              lambda: bwd.pna_bwd_count_plain(v, recv, mask, both, n, occ), None),
+            "pna_bwd_grad": (lambda b: bwd.pna_bwd_grad(v, recv, mask, both, g_sum, g_sumsq, g_both, cnt, b),
+                             lambda: bwd.pna_bwd_grad_plain(v, recv, mask, both, g_sum, g_sumsq, g_both, cnt, occ),
+                             None),
+        }
+        r = min(max(int(occ_h), 0), e)
+        node = n * 2 * hidden * 4
+        # bytes for the edges up to `to` of which `real` are unmasked
+        nbytes = {
+            "pna_aggregate_fwd": lambda to, real: real * hidden * 4 + to + (n + 1) * 4 + n * hidden * 8 + n * 4 + node,
+            "pna_bwd_count": lambda to, real: real * hidden * 4 + to + (n + 1) * 4 + 2 * node,
+            "pna_bwd_grad": lambda to, real: real * hidden * 4 + to * 5 + n * hidden * 8 + 3 * node + e * hidden * 4,
+        }
+        ops = {"pna_aggregate_fwd": 5, "pna_bwd_count": 4, "pna_bwd_grad": 7}
+        real_r, real_e = int(mask_h[:r].sum()), int(mask_h.sum())
+        for name, (kern, plain, library) in calls.items():
+            a, b_ = kern(occ), kern(None)
+            for x, y in zip(a if isinstance(a, tuple) else (a,), b_ if isinstance(b_, tuple) else (b_,)):
+                compare(x, y, f"{name} {label} bound vs none", exact=True)
+            t = {"kernel": [], "unbounded": []}
+            for which in ("kernel", "unbounded", "unbounded", "kernel"):
+                t[which].append(cuda_ms(lambda: kern(occ if which == "kernel" else None), 20))
+            bms, by = bound(nbytes[name](r, real_r), real_r * hidden * ops[name])
+            entry = {"ms": float(np.mean(t["kernel"])), "graph_ms": graph_ms(lambda: kern(occ), 20),
+                     "ms_without_bound": float(np.mean(t["unbounded"])),
+                     "graph_ms_without_bound": graph_ms(lambda: kern(None), 20),
+                     "plain_ms": cuda_ms(plain, 3),
+                     "library_ms": None if library is None else cuda_ms(library, 10),
+                     "bound_ms": bms, "bound_by": by,
+                     "bound_ms_whole_pad": bound(nbytes[name](e, real_e), real_e * hidden * ops[name])[0],
+                     "E": e, "occupancy": r, "real_edges": real_r, "N": n, "H": hidden}
+            out[f"{name}_{label}"] = entry
+            line("timing", kernel=name, shape=f"{label}_bound_vs_none", card=repr(card), bit_equal=True,
+                 **{kk: (round(x, 5) if isinstance(x, float) else x) for kk, x in entry.items()})
+        del vm, pair_sum, pair_max
     return out
 
 
@@ -1398,7 +1515,7 @@ def main():
             compare(cnt, cnt_ref, "pna_bwd_count " + tag, exact=True)
             grad_ref = bwd.pna_bwd_grad_plain(vd, urecv, u_mask_d, both, g_sum, g_sumsq, g_both, cnt_ref)
             grad = twice("pna_bwd_grad " + tag, bwd.pna_bwd_grad, vd, urecv, u_mask_d, both, g_sum, g_sumsq,
-                         g_both, cnt, uptr)
+                         g_both, cnt)
             f32 = dtype == torch.float32
             err = compare(grad, grad_ref, "pna_bwd_grad " + tag, exact=f32, tol=PNA_BWD_BF16_TOL)
             if bool((grad[~u_mask_d] != 0).any()):
@@ -1424,6 +1541,52 @@ def main():
         compare(grads["cuda"], grads["cpu"], f"pna_aggregate backward h{h}", exact=True)
         line("check-pna-bwd", case=f"autograd_backward_f32_h{h}", ops="pna_aggregate", bit_equal=True,
              grad_norm=float(grads["cuda"].norm()))
+    # the flagship's unaligned batch of LOOP_BATCH graphs, whose masked
+    # tail is one receiver row at the padding node past the edge
+    # occupancy (the bound of B5, B6 and B7 on the main path), and a hub
+    # of 60,000 slots among 4,096 rows of 24 (B6's long-row kernel): each
+    # kernel with the bound and without it, bit-equal to its plain version
+    # on the host (B7 in bf16 within PNA_BWD_BF16_TOL), two launches
+    # bitwise equal
+    u128 = next(iter(GraphLoader(train_loader.samples, LOOP_BATCH, dense_slots=False, run_align=False)))
+    hub_recv, hub_mask, hub_n = pna_hub_case()
+    pna_cases = {"unaligned_batch128": (u128.receivers, u128.edge_mask, u128.num_nodes, u128.edge_occupancy),
+                 "hub_60000": (hub_recv, hub_mask, hub_n, torch.tensor(hub_recv.shape[0], dtype=torch.int32))}
+    for case, (rh, mh, nh, occ_h) in pna_cases.items():
+        eh = rh.shape[0]
+        rd, md, occ_d = rh.to(dev), mh.to(dev), occ_h.to(dev)
+        ptr_h = rp.row_pointers(rd, nh)
+        for h in (1, hidden):
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = f"{case}_{str(dtype)[6:]}_h{h}"
+                v = quarter_grid((eh, h), 80 + h)
+                v[~mh] = 0.0  # as gathered from the padding node's zero row
+                vh = v.to(dtype)
+                vd = vh.to(dev)
+                b5_ref = agg.pna_aggregate_plain(vh, rh, nh, mh)
+                for bl, bnd in (("bound", occ_d), ("none", None)):
+                    b5_out = twice(f"pna_aggregate {tag} {bl}", agg.pna_aggregate, vd, rd, nh, md, ptr_h, bnd)
+                    for nm, a, r in zip(("sum", "sumsq", "cnt", "both"), b5_out, b5_ref):
+                        compare(a, r, f"pna_aggregate {nm} {tag} {bl}", exact=True)
+                g_sum = quarter_grid((nh, h), 81 + h, scale=1.0)
+                g_sumsq = quarter_grid((nh, h), 82 + h, scale=1.0)
+                g_both = quarter_grid((nh, 2 * h), 83 + h, scale=1.0).to(dtype)
+                cnt_ref = bwd.pna_bwd_count_plain(vh, rh, mh, b5_ref[3], nh)
+                grad_ref = bwd.pna_bwd_grad_plain(vh, rh, mh, b5_ref[3], g_sum, g_sumsq, g_both, cnt_ref)
+                cots_d = [t.to(dev) for t in (b5_ref[3], g_sum, g_sumsq, g_both)]
+                f32 = dtype == torch.float32
+                for bl, bnd in (("bound", occ_d), ("none", None)):
+                    cnt = twice(f"pna_bwd_count {tag} {bl}", bwd.pna_bwd_count, vd, rd, md, cots_d[0], nh, ptr_h, bnd)
+                    compare(cnt, cnt_ref, f"pna_bwd_count {tag} {bl}", exact=True)
+                    grad = twice(f"pna_bwd_grad {tag} {bl}", bwd.pna_bwd_grad, vd, rd, md, *cots_d, cnt, bnd)
+                    err = compare(grad, grad_ref, f"pna_bwd_grad {tag} {bl}", exact=f32, tol=PNA_BWD_BF16_TOL)
+                    if bool(grad[~md].any()):
+                        raise AssertionError(f"pna_bwd_grad {tag} {bl}: a masked edge got a gradient")
+                    worst = max(worst, err) if bl == "none" else err
+                max_err["pna_bwd_grad"] = max(max_err["pna_bwd_grad"], worst)
+                line("check-pna-bwd", kernel="pna_aggregate_fwd,pna_bwd_count,pna_bwd_grad", case=tag, E=eh, N=nh, H=h,
+                     occupancy=int(occ_h), bound_and_none=True, count_bit_equal=True, grad_bit_equal=f32,
+                     max_abs_err_grad=worst, max_ties=int(cnt_ref.max()), deterministic=True)
 
     # ---- 5. serve --------------------------------------------------------
     raw = deterministic_graph_data(
@@ -2345,64 +2508,16 @@ def main():
     line("timing", kernel="pna_aggregate_fwd", shape="serve_batch8", card=repr(card),
          **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing["pna_aggregate_fwd"].items()})
 
-    # B6 and B7 at the flagship's unaligned training shapes, H=128, f32,
-    # the batch's own mask (every column's ties on random values: 1)
-    gen_u = torch.Generator(device=dev).manual_seed(4)
-    vu = torch.randn(ue, hidden, device=dev, generator=gen_u)
-    mask_u = uhost.edge_mask.to(dev)
-    both_u = agg.pna_aggregate(vu, urecv, un, mask_u)[3]
-    gs_u, gsq_u = torch.randn(un, hidden, device=dev, generator=gen_u), torch.randn(un, hidden, device=dev, generator=gen_u)
-    gb_u = torch.randn(un, 2 * hidden, device=dev, generator=gen_u)
-    cnt_u = bwd.pna_bwd_count(vu, urecv, mask_u, both_u, un, uptr)
-    real_u = int(uhost.edge_mask.sum())
-    node_b = un * 2 * hidden * 4
-    ptr_b = (un + 1) * 4
-    specs_bwd = {
-        # v read on the real edges, the mask, the row pointers, both; cnt
-        # written; 2 compares and 2 adds per real element
-        "pna_bwd_count": (
-            lambda: bwd.pna_bwd_count(vu, urecv, mask_u, both_u, un, uptr),
-            lambda: bwd.pna_bwd_count_plain(vu, urecv, mask_u, both_u, un),
-            real_u * hidden * 4 + ue + ptr_b + 2 * node_b, real_u * hidden * 4),
-        # v on the real edges, the mask, the row pointers, g_sum, g_sumsq,
-        # both, g_both and cnt read; grad written on every edge; 7
-        # operations per real element
-        "pna_bwd_grad": (
-            lambda: bwd.pna_bwd_grad(vu, urecv, mask_u, both_u, gs_u, gsq_u, gb_u, cnt_u, uptr),
-            lambda: bwd.pna_bwd_grad_plain(vu, urecv, mask_u, both_u, gs_u, gsq_u, gb_u, cnt_u),
-            real_u * hidden * 4 + ue + ptr_b + un * hidden * 8 + 3 * node_b + ue * hidden * 4,
-            real_u * hidden * 7),
-    }
-    # B5 at the same shapes (its row above is the serving batch's)
-    b5_bytes = real_u * hidden * 4 + ue + ptr_b + un * hidden * 8 + un * 4 + node_b
-    b5_bound, _ = bound(b5_bytes, real_u * hidden * 5)
-    # the library's two calls, as at the serving shape: a sum and a max
-    # over the masked [E, 2H] pairs by receiver
-    lengths_u = torch.bincount(urecv.long(), minlength=un)
-    vum = torch.where(mask_u[:, None], vu, 0.0)
-    pair_sum_u = torch.cat([vum, vum * vum], dim=1)
-    pair_max_u = torch.where(mask_u[:, None], torch.cat([vu, -vu], dim=1), float("-inf"))
-    line("timing", kernel="pna_aggregate_fwd", shape="train_unaligned_batch1024", card=repr(card),
-         ms=round(cuda_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u, uptr), 50), 5),
-         graph_ms=round(graph_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u, uptr), 20), 5),
-         graph_ms_own_row_ptr=round(graph_ms(lambda: agg.pna_aggregate(vu, urecv, un, mask_u), 20), 5),
-         plain_ms=round(cuda_ms(lambda: agg.pna_aggregate_plain(vu, urecv, un, mask_u), 10), 5),
-         library_ms=round(cuda_ms(lambda: (torch.segment_reduce(pair_sum_u, "sum", lengths=lengths_u, axis=0),
-                                           torch.segment_reduce(pair_max_u, "max", lengths=lengths_u, axis=0)),
-                                  50), 5),
-         bound_ms=round(b5_bound, 5), E=ue, N=un, H=hidden)
-    del vum, pair_sum_u, pair_max_u
-    for name, (kern, plain, nbytes, ops) in specs_bwd.items():
-        t_k = [cuda_ms(kern, 50)]
-        plain_ms = cuda_ms(plain, 10)
-        t_k.append(cuda_ms(kern, 50))
-        bms, by = bound(nbytes, ops)
-        timing[name] = {
-            "ms": float(np.mean(t_k)), "graph_ms": graph_ms(kern, 20), "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bms, "bound_by": by, "bytes": nbytes, "E": ue, "N": un, "H": hidden,
-        }
-        line("timing", kernel=name, shape="train_unaligned_batch1024", card=repr(card),
-             **{k: (round(x, 5) if isinstance(x, float) else x) for k, x in timing[name].items()})
+    # B5, B6 and B7 at the flagship's unaligned batches of LOOP_BATCH and
+    # TRAIN_BATCH graphs, with the occupancy bound and without it, and on
+    # the hub; the batch-1024 bounded calls are the main path's
+    pna_timings = pna_bound_timing(dev, card, {
+        "batch128": (u128.receivers, u128.edge_mask, u128.num_nodes, u128.edge_occupancy),
+        "batch1024": (uhost.receivers, uhost.edge_mask, un, uhost.edge_occupancy),
+        "hub": (hub_recv, hub_mask, hub_n, torch.tensor(hub_recv.shape[0], dtype=torch.int32)),
+    }, hidden, agg, bwd, rp)
+    for name in ("pna_bwd_count", "pna_bwd_grad"):
+        timing[name] = dict(pna_timings[f"{name}_batch1024"])
 
     # the sender gather's backward pairs at each layout's flagship
     # training shapes, H=128 and H=1, f32: the permuted pair PNAConv
@@ -2600,7 +2715,8 @@ def main():
             "csr_row_ptr_kernel", "zero_kernel", "fused_identity_warp_kernel",
             "fused_identity_h1_kernel", "fused_branch_kernel", "fused_narrow_kernel", "pna_aggregate_warp_kernel",
             "pna_aggregate_h1_kernel",
-            "pna_bwd_count_kernel", "pna_bwd_grad_kernel", "stack_product", "stack_walk")
+            "pna_bwd_count_kernel", "pna_bwd_count_h1_kernel", "pna_bwd_count_long_kernel", "pna_bwd_grad_kernel",
+            "stack_product", "stack_walk")
 
     def profile_step(label, model_, optimizer_, bd_=bd):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2664,6 +2780,10 @@ def main():
             # and a 60,000-slot row)
             shapes = ("batch128", "batch1024", "long_row") if name == "segment_sum" else ("batch128",)
             entry["shapes"] = {sh: bound_timings[f"{name}_{sh}"] for sh in shapes}
+        if name in ("pna_aggregate_fwd", "pna_bwd_count", "pna_bwd_grad"):
+            # the unaligned batches of 128 and 1024 graphs with the
+            # occupancy bound and without it, and the 60,000-slot hub
+            entry["shapes"] = {sh: pna_timings[f"{name}_{sh}"] for sh in ("batch128", "batch1024", "hub")}
         if name == "fused_conv_stack":
             # the yardstick: the loop of B8 launches B9 replaces; and the
             # op's backward (recomputed through B8, B3, B4), per layout

@@ -53,7 +53,7 @@ class EdgeContext:
     # the senders' per-node-block edge windows (graph/batch.py)
     sender_win: Optional[torch.Tensor] = None  # [2, n_blocks] int32
     # index after the last slot that can hold a real edge: the bound of
-    # every edge walk and sum (B2, B4, B8, B9); None walks every slot
+    # every edge walk and sum (B2, B4, B5-B9); None walks every slot
     edge_occ: Optional[torch.Tensor] = None  # [] int32
     # K > 0: every K-group of edge slots has one receiver (or is batch
     # tail), and masked slots may be self-loops at real nodes
@@ -170,7 +170,7 @@ class PNAConv(nn.Module):
         plain PyTorch (``presum_stats_plain``). Then a sorted segment sum
         (B2) and a segment max over the E/K groups.
       - unaligned batches: ``ops.pna_aggregate`` (B5 forward, B6 and B7
-        backward).
+        backward), bounded by the batch's edge occupancy.
 
     ``pre_kernel`` stays one [2·fin, fin] parameter ([3·fin, fin] with
     edge features) in flax's layout (receiver part, sender part, edge
@@ -261,7 +261,8 @@ class PNAConv(nn.Module):
                 both = S.segment_max(both8, recv8, n, indices_are_sorted=True, empty_value=0.0,
                                      real_rows=ctx.group_occ)
             else:
-                vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask, row_ptr=ctx.row_ptr)
+                vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask, row_ptr=ctx.row_ptr,
+                                                      real_edges=ctx.edge_occ)
             max_v = both[:, :fin]
             min_v = -both[:, fin:]
 

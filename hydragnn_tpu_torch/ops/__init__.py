@@ -22,8 +22,8 @@ launches (``launches``) and names the TPU kernel it replaces
                         the per-layer composition on B8, B3 and B4)
 
 ``row_pointers.py`` is the one source of the sorted receivers' CSR row
-pointers (``csrc/row_pointers.cu`` on the card) that B5, B6, B7, B8 and B9
-walk; the chassis builds them once per forward.
+pointers (``csrc/row_pointers.cu`` on the card) that B5, B6, B8 and B9
+walk (B7 is edge-parallel); the chassis builds them once per forward.
 
 ``dynamic_radius.py`` (SchNet's in-forward radius graph) has no kernel:
 it is plain PyTorch, as the JAX package's is XLA. Kernels are built at

@@ -16,13 +16,19 @@
 // with both = 0 where the row has no such edge (or where the maximum is at
 // or below the type's lowest finite value, as the reference's empty-clean
 // does). Masked edges are skipped, not multiplied by 0: padding edges point
-// at a padding node, and a masked value must not reach a maximum.
+// at a padding node, and a masked value must not reach a maximum. An
+// optional bound (*real_edges, read on the device and clamped to
+// [0, n_edges], common.cuh:edge_bound) cuts every row's walk at it: the
+// caller's promise that every edge at or past it is masked (a batch's
+// tail past its edge_occupancy), so the outputs are the same bits with it
+// and without it, and the tail is never scanned.
 //
 // What bounds it on this card: bytes. Each v element is read once and takes
 // part in 2 adds, 1 multiply and 2 comparisons; even at H = 128 that is
 // about one operation per byte read, far below the H100's ~20 float32
 // operations per byte of its 3.35 TB/s. The least time is
-// (E·H·sizeof(v) + E·1 + (N + 1)·4 + N·H·8 + N·4 + N·2H·sizeof(v)) / 3.35 TB/s.
+// (E·H·sizeof(v) + E·1 + (N + 1)·4 + N·H·8 + N·4 + N·2H·sizeof(v)) / 3.35 TB/s,
+// with E the bound where one is given.
 //
 // What the design does about it:
 //   - v is read once, for all four statistics (the TPU read it twice: once
@@ -80,14 +86,24 @@ struct Stats {
 
 __device__ __forceinline__ float cleaned(float m, float lowest) { return m <= lowest ? 0.f : m; }
 
+// The end of a row's walk: its end, cut at the bound, and not before lo.
+__device__ __forceinline__ long long bounded_end(long long hi, long long lo,
+                                                 const int32_t* real_edges, long long n_edges) {
+  const long long bound = edge_bound(real_edges, n_edges);
+  hi = hi < bound ? hi : bound;
+  return hi < lo ? lo : hi;
+}
+
 // Rows of 2 columns or more: a lane owns vectors lane, lane + 32, ...
 // (VPL of them a pass) of V bytes; wider rows take further passes over the
 // same slots.
 template <typename T, int V, int VPL>
 __global__ void __launch_bounds__(kThreads)
     pna_aggregate_warp_kernel(const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                              const int32_t* __restrict__ ptr, long long n_rows, int h, int nv,
-                              float lowest, float* __restrict__ sum, float* __restrict__ sumsq,
+                              const int32_t* __restrict__ ptr,
+                              const int32_t* __restrict__ real_edges, long long n_edges,
+                              long long n_rows, int h, int nv, float lowest,
+                              float* __restrict__ sum, float* __restrict__ sumsq,
                               float* __restrict__ cnt, T* __restrict__ both) {
   constexpr int EPV = V / (int)sizeof(T);
   constexpr int U = VPL * EPV <= 4 ? 8 : 4;
@@ -95,7 +111,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;  // the whole warp
   const long long lo = ptr[row];
-  const long long hi = ptr[row + 1];
+  const long long hi = bounded_end(ptr[row + 1], lo, real_edges, n_edges);
   const size_t row_bytes = (size_t)h * sizeof(T);
   const char* vb = reinterpret_cast<const char*>(v);
   int count = 0;
@@ -165,15 +181,17 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     pna_aggregate_h1_kernel(const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                            const int32_t* __restrict__ ptr, long long n_rows, float lowest,
-                            float* __restrict__ sum, float* __restrict__ sumsq,
-                            float* __restrict__ cnt, T* __restrict__ both) {
+                            const int32_t* __restrict__ ptr,
+                            const int32_t* __restrict__ real_edges, long long n_edges,
+                            long long n_rows, float lowest, float* __restrict__ sum,
+                            float* __restrict__ sumsq, float* __restrict__ cnt,
+                            T* __restrict__ both) {
   const long long row = ((long long)blockIdx.x * kThreads + threadIdx.x) / kGroup;
   const bool own = row < n_rows;  // the warp's other rows still shuffle
   long long lo = 0, hi = 0;
   if (own) {
     lo = ptr[row];
-    hi = ptr[row + 1];
+    hi = bounded_end(ptr[row + 1], lo, real_edges, n_edges);
   }
   Stats st;
   st.reset();
@@ -195,8 +213,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int V>
-int launch_warp(const void* v, const void* mask, const void* row_ptr, long long n_rows, int h,
-                float lowest, void* sum, void* sumsq, void* cnt, void* both, cudaStream_t stream) {
+int launch_warp(const void* v, const void* mask, const void* row_ptr, const void* real_edges,
+                long long n_edges, long long n_rows, int h, float lowest, void* sum, void* sumsq,
+                void* cnt, void* both, cudaStream_t stream) {
   if constexpr (V < (int)sizeof(T)) {
     return (int)cudaErrorInvalidValue;
   } else {
@@ -204,24 +223,25 @@ int launch_warp(const void* v, const void* mask, const void* row_ptr, long long 
     const unsigned blocks = (unsigned)((n_rows + kWarps - 1) / kWarps);
     if (nv <= 32)
       pna_aggregate_warp_kernel<T, V, 1><<<blocks, kThreads, 0, stream>>>(
-          (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, n_rows, h, nv, lowest,
-          (float*)sum, (float*)sumsq, (float*)cnt, (T*)both);
+          (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, (const int32_t*)real_edges,
+          n_edges, n_rows, h, nv, lowest, (float*)sum, (float*)sumsq, (float*)cnt, (T*)both);
     else
       pna_aggregate_warp_kernel<T, V, 2><<<blocks, kThreads, 0, stream>>>(
-          (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, n_rows, h, nv, lowest,
-          (float*)sum, (float*)sumsq, (float*)cnt, (T*)both);
+          (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, (const int32_t*)real_edges,
+          n_edges, n_rows, h, nv, lowest, (float*)sum, (float*)sumsq, (float*)cnt, (T*)both);
     return (int)cudaGetLastError();
   }
 }
 
 template <typename T>
-int launch(const void* v, const void* mask, long long n_rows, int h, const void* row_ptr,
-           void* sum, void* sumsq, void* cnt, void* both, float lowest, cudaStream_t stream) {
+int launch(const void* v, const void* mask, const void* real_edges, long long n_edges, long long n_rows,
+           int h, const void* row_ptr, void* sum, void* sumsq, void* cnt, void* both, float lowest,
+           cudaStream_t stream) {
   if (h == 1) {
     const unsigned blocks = (unsigned)((n_rows + kThreads / kGroup - 1) / (kThreads / kGroup));
     pna_aggregate_h1_kernel<T><<<blocks, kThreads, 0, stream>>>(
-        (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, n_rows, lowest, (float*)sum,
-        (float*)sumsq, (float*)cnt, (T*)both);
+        (const T*)v, (const uint8_t*)mask, (const int32_t*)row_ptr, (const int32_t*)real_edges, n_edges,
+        n_rows, lowest, (float*)sum, (float*)sumsq, (float*)cnt, (T*)both);
     return (int)cudaGetLastError();
   }
   // sum and sumsq take vector stores of EPV floats (16 bytes at most):
@@ -230,13 +250,17 @@ int launch(const void* v, const void* mask, long long n_rows, int h, const void*
   const uintptr_t align = (uintptr_t)v | (uintptr_t)both;
   switch (row_vector_bytes((long long)h * sizeof(T), align, (int)sizeof(T))) {
     case 16:
-      return launch_warp<T, 16>(v, mask, row_ptr, n_rows, h, lowest, sum, sumsq, cnt, both, stream);
+      return launch_warp<T, 16>(v, mask, row_ptr, real_edges, n_edges, n_rows, h, lowest, sum, sumsq, cnt,
+                                  both, stream);
     case 8:
-      return launch_warp<T, 8>(v, mask, row_ptr, n_rows, h, lowest, sum, sumsq, cnt, both, stream);
+      return launch_warp<T, 8>(v, mask, row_ptr, real_edges, n_edges, n_rows, h, lowest, sum, sumsq, cnt,
+                                  both, stream);
     case 4:
-      return launch_warp<T, 4>(v, mask, row_ptr, n_rows, h, lowest, sum, sumsq, cnt, both, stream);
+      return launch_warp<T, 4>(v, mask, row_ptr, real_edges, n_edges, n_rows, h, lowest, sum, sumsq, cnt,
+                                  both, stream);
     case 2:
-      return launch_warp<T, 2>(v, mask, row_ptr, n_rows, h, lowest, sum, sumsq, cnt, both, stream);
+      return launch_warp<T, 2>(v, mask, row_ptr, real_edges, n_edges, n_rows, h, lowest, sum, sumsq, cnt,
+                                  both, stream);
     default:
       return (int)cudaErrorMisalignedAddress;
   }
@@ -245,18 +269,20 @@ int launch(const void* v, const void* mask, long long n_rows, int h, const void*
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. mask may be null (every edge valid).
-// row_ptr: the n_rows + 1 int32 row pointers of the sorted receivers
-// (row_pointers.cu). Returns cudaGetLastError() after the launch (0 =
+// row_ptr: the n_rows + 1 int32 row pointers of the n_edges sorted
+// receivers (row_pointers.cu). real_edges: null (no bound), or one int32
+// on the device. Returns cudaGetLastError() after the launch (0 =
 // success).
-extern "C" int hg_pna_aggregate_fwd(const void* v, int dtype, const void* mask, long long n_rows,
-                                    int h, const void* row_ptr, void* sum, void* sumsq, void* cnt,
-                                    void* both, void* stream) {
-  if (n_rows <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+extern "C" int hg_pna_aggregate_fwd(const void* v, int dtype, const void* mask, const void* real_edges,
+                                    long long n_edges, long long n_rows, int h, const void* row_ptr,
+                                    void* sum, void* sumsq, void* cnt, void* both, void* stream) {
+  if (n_rows <= 0 || h <= 0 || n_edges < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(v, mask, n_rows, h, row_ptr, sum, sumsq, cnt, both, lowest_of(0), s);
+    return launch<float>(v, mask, real_edges, n_edges, n_rows, h, row_ptr, sum, sumsq, cnt, both, lowest_of(0),
+                         s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(v, mask, n_rows, h, row_ptr, sum, sumsq, cnt, both,
+    return launch<__nv_bfloat16>(v, mask, real_edges, n_edges, n_rows, h, row_ptr, sum, sumsq, cnt, both,
                                  lowest_of(1), s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,8 +17,8 @@ reads ``v`` once and emits all four outputs:
 ``receivers`` must be sorted ascending (``graph/batch.py`` emits them
 so); this is not checked on the card, where a check would cost a host
 sync. ``pna_aggregate`` is differentiable in ``v``, as the reference's
-custom VJP: the backward is B6 then B7 (``pna_aggregate_bwd.py``) on a
-CUDA tensor, walking the same CSR row pointers as this forward, and
+custom VJP: the backward is B6 (walking the same CSR row pointers as
+this forward) then B7 (``pna_aggregate_bwd.py``) on a CUDA tensor, and
 their plain version on a CPU tensor; ``cnt`` takes no gradient.
 
 ``row_ptr`` is the receivers' CSR row pointers
@@ -26,6 +26,15 @@ their plain version on a CPU tensor; ``cnt`` takes no gradient.
 them, a call is one launch. Without them the wrapper builds them first
 (``row_pointers``). They are checked for shape, type and device, not
 for their contents. The plain versions do not read them.
+
+``real_edges`` (an int32 scalar tensor on the data's device, or None)
+bounds the walk, forward and backward: the caller's promise that every
+edge at or past it is masked (``models/convs.py`` passes the batch's
+edge occupancy), so the outputs and the gradient are the same bits with
+it and without it, and no kernel walks the batch's masked tail. The
+kernels read it on the device (no host synchronisation; a CUDA graph's
+replay picks up a new value); the plain versions read it on the host
+and treat the edges past it as masked.
 
 The wrapper dispatches on the tensor's device: a CPU tensor takes the
 plain versions, a CUDA tensor launches the kernels or raises — there is
@@ -50,6 +59,7 @@ from hydragnn_tpu_torch.ops._build import (
 )
 from hydragnn_tpu_torch.ops.pna_aggregate_bwd import pna_aggregate_bwd
 from hydragnn_tpu_torch.ops.row_pointers import check_row_ptr, row_pointers
+from hydragnn_tpu_torch.ops.segment_sum import bounded_rows, check_bound
 
 SOURCE = "hydragnn_tpu_torch/ops/csrc/pna_aggregate.cu"
 REPLACES = "hydragnn_tpu/ops/segment_pallas.py:219"
@@ -64,12 +74,18 @@ def pna_aggregate_plain(
     receivers: torch.Tensor,
     num_segments: int,
     mask: Optional[torch.Tensor] = None,
+    real_edges: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reference arithmetic in plain PyTorch: masked products summed
     with ``index_add_`` in f32, the maxima with ``scatter_reduce(amax)``
     over ``where(mask, [v, -v], lowest)``, cleaned to 0 at or below the
     type's lowest value (``segment_pallas.py:segment_sum_family_xla`` and
-    ``_pna_aggregate``)."""
+    ``_pna_aggregate``), over the edges below ``real_edges`` (read on
+    the host)."""
+    r = bounded_rows(real_edges, v.shape[0])
+    if r < v.shape[0]:
+        v, receivers = v[:r], receivers[:r]
+        mask = None if mask is None else mask[:r]
     e, h = v.shape
     n = int(num_segments)
     idx = receivers.long()
@@ -100,11 +116,11 @@ def _kernel():
     with _lib_lock:
         if _fn is None:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            _fn = bind("pna_aggregate.cu", "hg_pna_aggregate_fwd", [p, i, p, ll, i, p, p, p, p, p, p])
+            _fn = bind("pna_aggregate.cu", "hg_pna_aggregate_fwd", [p, i, p, p, ll, ll, i, p, p, p, p, p, p])
         return _fn
 
 
-def _check(v, receivers, num_segments, mask, row_ptr) -> None:
+def _check(v, receivers, num_segments, mask, row_ptr, real_edges) -> None:
     if v.dim() != 2:
         raise ValueError(f"pna_aggregate: v must be [E, H], got shape {tuple(v.shape)}")
     if v.dtype not in FLOAT_CODE:
@@ -119,16 +135,17 @@ def _check(v, receivers, num_segments, mask, row_ptr) -> None:
         raise ValueError("pna_aggregate: num_segments must be >= 1")
     if row_ptr is not None:
         check_row_ptr("pna_aggregate", row_ptr, num_segments, v.device)
+    check_bound("pna_aggregate", real_edges, v.device)
 
 
-def _forward(v, receivers, num_segments, mask, row_ptr):
+def _forward(v, receivers, num_segments, mask, row_ptr, real_edges):
     """The four statistics and, on the card, the receivers' CSR row
     pointers the kernel walked (None on the CPU)."""
     if v.device.type == "cpu":
-        return pna_aggregate_plain(v, receivers, num_segments, mask) + (None,)
+        return pna_aggregate_plain(v, receivers, num_segments, mask, real_edges) + (None,)
     if v.device.type != "cuda":
         raise ValueError(f"pna_aggregate: unsupported device {v.device}")
-    dev = cuda_args("pna_aggregate", v, receivers, mask)
+    dev = cuda_args("pna_aggregate", v, receivers, mask, real_edges)
     if receivers.dtype != torch.int32:
         raise TypeError(f"pna_aggregate: receivers must be int32 on CUDA, got {receivers.dtype}")
     e, h = v.shape
@@ -144,9 +161,9 @@ def _forward(v, receivers, num_segments, mask, row_ptr):
         cnt = torch.empty(n, dtype=torch.float32, device=dev)
         both = torch.empty(n, 2 * h, dtype=v.dtype, device=dev)
         rc = fn(
-            v.data_ptr(), FLOAT_CODE[v.dtype], None if mask is None else mask.data_ptr(), n, h,
-            row_ptr.data_ptr(), s.data_ptr(), sq.data_ptr(), cnt.data_ptr(), both.data_ptr(),
-            stream_of(dev),
+            v.data_ptr(), FLOAT_CODE[v.dtype], None if mask is None else mask.data_ptr(),
+            None if real_edges is None else real_edges.data_ptr(), e, n, h, row_ptr.data_ptr(), s.data_ptr(),
+            sq.data_ptr(), cnt.data_ptr(), both.data_ptr(), stream_of(dev),
         )
     check_launch("pna_aggregate_fwd", rc)
     launches.add()
@@ -155,21 +172,21 @@ def _forward(v, receivers, num_segments, mask, row_ptr):
 
 class _PnaAggregate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, v, receivers, num_segments, mask, row_ptr):
-        s, sq, cnt, both, row_ptr = _forward(v, receivers, num_segments, mask, row_ptr)
-        ctx.save_for_backward(v, receivers, mask, both, row_ptr)
+    def forward(ctx, v, receivers, num_segments, mask, row_ptr, real_edges):
+        s, sq, cnt, both, row_ptr = _forward(v, receivers, num_segments, mask, row_ptr, real_edges)
+        ctx.save_for_backward(v, receivers, mask, both, row_ptr, real_edges)
         ctx.num_segments = num_segments
         ctx.mark_non_differentiable(cnt)
         return s, sq, cnt, both
 
     @staticmethod
     def backward(ctx, g_sum, g_sumsq, g_cnt, g_both):
-        v, receivers, mask, both, row_ptr = ctx.saved_tensors
+        v, receivers, mask, both, row_ptr, real_edges = ctx.saved_tensors
         grad = pna_aggregate_bwd(
             v, receivers, mask, both, g_sum.float().contiguous(), g_sumsq.float().contiguous(),
-            g_both.to(v.dtype).contiguous(), ctx.num_segments, row_ptr,
+            g_both.to(v.dtype).contiguous(), ctx.num_segments, row_ptr, real_edges,
         )
-        return grad, None, None, None, None
+        return grad, None, None, None, None, None
 
 
 def pna_aggregate(
@@ -178,13 +195,15 @@ def pna_aggregate(
     num_segments: int,
     mask: Optional[torch.Tensor] = None,
     row_ptr: Optional[torch.Tensor] = None,
+    real_edges: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(sum, sumsq, cnt, both)`` of ``v`` grouped by sorted
     ``receivers`` (module docstring), differentiable in ``v``. CPU
     tensors take the plain versions; CUDA tensors launch
-    ``pna_aggregate_fwd`` and, in the backward, B6 and B7, all three
-    walking ``row_ptr`` (built here when not given)."""
-    _check(v, receivers, num_segments, mask, row_ptr)
+    ``pna_aggregate_fwd`` and, in the backward, B6 and B7 (B5 and B6
+    walk ``row_ptr``, built here when not given), all three bounded by
+    ``real_edges``."""
+    _check(v, receivers, num_segments, mask, row_ptr, real_edges)
     if torch.is_grad_enabled() and v.requires_grad:
-        return _PnaAggregate.apply(v, receivers, int(num_segments), mask, row_ptr)
-    return _forward(v, receivers, int(num_segments), mask, row_ptr)[:4]
+        return _PnaAggregate.apply(v, receivers, int(num_segments), mask, row_ptr, real_edges)
+    return _forward(v, receivers, int(num_segments), mask, row_ptr, real_edges)[:4]

@@ -1,6 +1,6 @@
 """The CSR row pointers of sorted receivers: the port's one source of
 them, for every kernel that walks a receiver row's edges (B5's forward,
-B6 and B7, B8, B9).
+B6, B8, B9).
 
 ``ptr[r]`` is the first edge whose receiver is >= r, for r in
 ``[0, num_segments]``: ``num_segments + 1`` int32 entries. On the card

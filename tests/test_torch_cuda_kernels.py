@@ -47,6 +47,17 @@ at the padding row, empty rows, out-of-range ids) it equals its plain
 version bit for bit, f32 and bf16, with the batch's occupancy bound and
 without it, in a CUDA graph too; B4 with a bound that falls inside its
 windows equals its plain version with that bound.
+
+B6 and B7 (redesigned for Hopper: B6's long rows split over CTAs whose
+integer counts meet by atomicAdd, exact in any order; B7 edge-parallel)
+on ``b67_case`` (a 60,000-slot hub row, empty and all-masked rows, a
+masked tail of 30,000 slots at the padding row, receivers outside
+[0, N) at both ends): B6's counts and f32 B7 bit-equal to their plain
+versions, bf16 B7 within ``rtol=atol=2e-2`` as above, with the
+occupancy bound and without it, at H 1, 3, 32 and 128; two launches
+bitwise equal; a CUDA graph replayed with the bound moved into the hub
+row gives the plain versions' result with that bound. B5 with the bound
+is bit-equal to B5 without it on the same tail.
 """
 
 import importlib
@@ -369,8 +380,8 @@ def test_cuda_pna_bwd_kernels_match_plain(h, dtype):
     c0, g0 = bwd.count_launches.value, bwd.grad_launches.value
     ptr = row_pointers(d[1], n)
     cnt1, cnt2 = (bwd.pna_bwd_count(d[0], d[1], d[2], d[3], n, ptr) for _ in range(2))
-    grad1 = bwd.pna_bwd_grad(*d, cnt1, ptr)
-    grad2 = bwd.pna_bwd_grad(*d, cnt1, ptr)
+    grad1 = bwd.pna_bwd_grad(*d, cnt1)
+    grad2 = bwd.pna_bwd_grad(*d, cnt1)
     torch.cuda.synchronize()
     assert (bwd.count_launches.value - c0, bwd.grad_launches.value - g0) == (2, 2)
     assert torch.equal(cnt1, cnt2) and torch.equal(grad1, grad2)
@@ -405,7 +416,7 @@ def test_cuda_pna_aggregate_backward_matches_cpu():
     from hydragnn_tpu_torch.ops.pna_aggregate import _forward
 
     recv_d = recv.to(dev)
-    assert torch.equal(_forward(v.to(dev), recv_d, n, mask.to(dev), None)[4].cpu(), row_pointers(recv, n))
+    assert torch.equal(_forward(v.to(dev), recv_d, n, mask.to(dev), None, None)[4].cpu(), row_pointers(recv, n))
 
 
 def b5_edge_case(h, seed, values="normal"):
@@ -554,6 +565,184 @@ def test_cuda_segment_sum_local_bound_inside_a_window(h, dtype):
         assert sl_mod.launches.value == before + 3
         for out in outs:
             assert torch.equal(_bits(out.cpu()), _bits(ref)), f"bound {r}"
+
+
+def b67_case(h, seed):
+    """B6 and B7's edge cases as numpy: (v [E, h] f32 on the 1/4 grid,
+    receivers (sorted), mask, num_segments, occupancy). 500 rows: the
+    odd ones empty; rows 4 and 10 all masked; row 9 of 60,000 slots, a
+    quarter of them masked; rows 0-40 slots otherwise, about a quarter
+    masked; ids -1 (three unmasked slots) before them; then the padding
+    row 498's masked tail of 30,000 slots with v = 0 past the occupancy,
+    and ids 500 (out of range, unmasked) after it."""
+    rng = np.random.default_rng(seed)
+    n = 500
+    counts = np.where(np.arange(n) % 2 == 1, 0, rng.integers(0, 41, n))
+    counts[9] = 60_000
+    counts[n - 2] = 0
+    recv = np.concatenate([[-1, -1, -1], np.repeat(np.arange(n), counts)])
+    occ = recv.size
+    recv = np.concatenate([recv, np.full(30_000, n - 2), [n, n]]).astype(np.int32)
+    mask = rng.random(recv.size) > 0.25
+    mask[:3] = True
+    for dead in (4, 10):
+        mask[recv == dead] = False
+    mask[occ:] = False
+    mask[-2:] = True
+    v = _values((recv.size, h), rng, "grid")
+    v[occ:-2] = 0.0
+    return v, recv, mask, n, occ
+
+
+def _b67_inputs(h, dtype, seed):
+    """``b67_case`` as tensors with the forward's maxima over the edges
+    that take part and the backward's cotangents (on the 1/4 grid)."""
+    from hydragnn_tpu_torch.ops.pna_aggregate import pna_aggregate_plain
+
+    v_np, recv_np, mask_np, n, occ = b67_case(h, seed)
+    v, recv, mask = torch.from_numpy(v_np).to(dtype), torch.from_numpy(recv_np), torch.from_numpy(mask_np)
+    keep = (recv >= 0) & (recv < n)
+    both = pna_aggregate_plain(v[keep], recv[keep], n, mask[keep])[3]
+    cots = (_grid((n, h), seed + 1, torch.float32), _grid((n, h), seed + 2, torch.float32),
+            _grid((n, 2 * h), seed + 3, dtype))
+    return v, recv, mask, n, occ, both, cots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 3, 32, 128])
+def test_cuda_pna_bwd_tail_hub_and_bound(h, dtype):
+    """B6 and B7 on ``b67_case``, v on a fresh allocation and at an odd
+    offset: with the occupancy bound and without it, equal to the plain
+    versions (counts exact; B7 bit-equal in f32, within bf16 rounding in
+    bf16); two launches bitwise equal; one launch counted per call; the
+    hub's ties counted, the tail's and the out-of-range edges' gradient
+    exact zeros."""
+    from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd
+
+    dev = _cuda()
+    v, recv, mask, n, occ, both, (g_sum, g_sumsq, g_both) = _b67_inputs(h, dtype, 80 + h)
+    bound = torch.tensor(occ, dtype=torch.int32)
+    cnt_ref = bwd.pna_bwd_count_plain(v, recv, mask, both, n)
+    assert torch.equal(bwd.pna_bwd_count_plain(v, recv, mask, both, n, bound), cnt_ref)
+    grad_ref = bwd.pna_bwd_grad_plain(v, recv, mask, both, g_sum, g_sumsq, g_both, cnt_ref)
+    assert torch.equal(_bits(bwd.pna_bwd_grad_plain(v, recv, mask, both, g_sum, g_sumsq, g_both, cnt_ref, bound)),
+                       _bits(grad_ref))
+    assert float(cnt_ref.max()) >= 2 and float(cnt_ref[9].min()) >= 1 and not bool(cnt_ref[4].any())
+    recv_d, mask_d, both_d, bound_d = recv.to(dev), mask.to(dev), both.to(dev), bound.to(dev)
+    g_d = (g_sum.to(dev), g_sumsq.to(dev), g_both.to(dev))
+    ptr = row_pointers(recv_d, n)
+    for place in (lambda t: t.to(dev), lambda t: _at_odd_offset(t, dev)):
+        v_d = place(v)
+        c0, k0 = bwd.count_launches.value, bwd.grad_launches.value
+        cnts = [bwd.pna_bwd_count(v_d, recv_d, mask_d, both_d, n, ptr, real_edges=bound_d) for _ in range(2)]
+        cnts.append(bwd.pna_bwd_count(v_d, recv_d, mask_d, both_d, n, ptr))
+        grads = [bwd.pna_bwd_grad(v_d, recv_d, mask_d, both_d, *g_d, cnts[0], real_edges=bound_d) for _ in range(2)]
+        grads.append(bwd.pna_bwd_grad(v_d, recv_d, mask_d, both_d, *g_d, cnts[0]))
+        torch.cuda.synchronize()
+        assert (bwd.count_launches.value - c0, bwd.grad_launches.value - k0) == (3, 3)
+        for cnt in cnts:
+            assert torch.equal(_bits(cnt.cpu()), _bits(cnt_ref)), f"h={h} {dtype}"
+        for grad in grads:
+            assert torch.equal(_bits(grad), _bits(grads[0]))
+        got = grads[0].cpu()
+        if dtype == torch.float32:
+            assert torch.equal(_bits(got), _bits(grad_ref)), f"h={h}"
+        else:
+            np.testing.assert_allclose(got.float().numpy(), grad_ref.float().numpy(), rtol=2e-2, atol=2e-2)
+        dead = ~mask | (recv < 0) | (recv >= n)
+        dead[occ:] = True
+        assert not bool(got[dead].any()) and not bool(torch.signbit(got[dead].float()).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 128])
+def test_cuda_pna_bwd_graph_replay_with_the_bound_changed(h, dtype):
+    """B6 and B7 captured in one CUDA graph with the bound as a device
+    scalar: the replay equals the eager calls, and with the bound moved
+    into the hub row (so the hub's walk is cut, still longer than one
+    CTA's share) the replay equals the plain versions with that bound."""
+    from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd
+
+    dev = _cuda()
+    v, recv, mask, n, occ, both, cots = _b67_inputs(h, dtype, 90 + h)
+    v_d, recv_d, mask_d, both_d = v.to(dev), recv.to(dev), mask.to(dev), both.to(dev)
+    g_d = tuple(c.to(dev) for c in cots)
+    ptr = row_pointers(recv_d, n)
+    bound = torch.tensor(occ, dtype=torch.int32, device=dev)
+
+    def calls():
+        cnt = bwd.pna_bwd_count(v_d, recv_d, mask_d, both_d, n, ptr, real_edges=bound)
+        return cnt, bwd.pna_bwd_grad(v_d, recv_d, mask_d, both_d, *g_d, cnt, real_edges=bound)
+
+    eager = [t.clone() for t in calls()]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = calls()
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(_bits(a), _bits(b))
+    hub = np.flatnonzero(recv.numpy() == 9)
+    r = int(hub[len(hub) // 2])
+    bound.fill_(r)
+    g.replay()
+    torch.cuda.synchronize()
+    cut = torch.tensor(r, dtype=torch.int32)
+    cnt_ref = bwd.pna_bwd_count_plain(v, recv, mask, both, n, cut)
+    grad_ref = bwd.pna_bwd_grad_plain(v, recv, mask, both, *cots, cnt_ref, cut)
+    assert torch.equal(out[0].cpu(), cnt_ref) and not torch.equal(cnt_ref, eager[0].cpu())
+    if dtype == torch.float32:
+        assert torch.equal(_bits(out[1].cpu()), _bits(grad_ref))
+    else:
+        np.testing.assert_allclose(out[1].cpu().float().numpy(), grad_ref.float().numpy(), rtol=2e-2, atol=2e-2)
+    assert not bool(out[1][r:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 3, 32, 128])
+def test_cuda_pna_aggregate_bound_changes_no_bit(h, dtype):
+    """B5 on ``b67_case``'s edges in range (a 30,000-slot masked tail at
+    the padding row past the occupancy, a 60,000-slot hub): with the
+    bound bit-equal to B5 without it and to the plain version; the
+    padding row empty and cleaned to 0; a CUDA graph's replay with the
+    bound moved into the hub equals the plain version with that bound."""
+    from hydragnn_tpu_torch.ops import pna_aggregate as pna_mod
+
+    dev = _cuda()
+    v_np, recv_np, mask_np, n, occ = b67_case(h, 100 + h)
+    keep = (recv_np >= 0) & (recv_np < n)
+    occ -= int((~keep[:occ]).sum())
+    v, recv, mask = (torch.from_numpy(a[keep]) for a in (v_np, recv_np, mask_np))
+    v = v.to(dtype)
+    ref = pna_mod.pna_aggregate_plain(v, recv, n, mask)
+    v_d, recv_d, mask_d = v.to(dev), recv.to(dev), mask.to(dev)
+    ptr = row_pointers(recv_d, n)
+    bound = torch.tensor(occ, dtype=torch.int32, device=dev)
+    k0 = pna_mod.launches.value
+    outs = [pna_mod.pna_aggregate(v_d, recv_d, n, mask_d, row_ptr=ptr, real_edges=bound),
+            pna_mod.pna_aggregate(v_d, recv_d, n, mask_d, row_ptr=ptr)]
+    torch.cuda.synchronize()
+    assert pna_mod.launches.value - k0 == 2
+    for out in outs:
+        for name, a, r in zip(("sum", "sumsq", "cnt", "both"), out, ref):
+            assert torch.equal(_bits(a.cpu()), _bits(r)), f"{name} h={h} {dtype}"
+    assert float(ref[2][n - 2]) == 0.0 and not bool(ref[3][n - 2].any())
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = pna_mod.pna_aggregate(v_d, recv_d, n, mask_d, row_ptr=ptr, real_edges=bound)
+    hub = np.flatnonzero(recv.numpy() == 9)
+    r = int(hub[len(hub) // 2])
+    bound.fill_(r)
+    g.replay()
+    torch.cuda.synchronize()
+    want = pna_mod.pna_aggregate_plain(v, recv, n, mask, torch.tensor(r, dtype=torch.int32))
+    for name, a, w in zip(("sum", "sumsq", "cnt", "both"), out, want):
+        assert torch.equal(_bits(a.cpu()), _bits(w)), f"{name} h={h} {dtype} cut"
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
-"""The occupancy bound of the sorted segment sum (B2) and the windowed
-segment sum (B4), on the CPU: the plain versions with a bound, and the
-model's steps at batch 128 with the batch's ``edge_occupancy`` and
-without it.
+"""The occupancy bound of the sorted segment sum (B2), the windowed
+segment sum (B4) and the PNA aggregation forward and backward (B5, B6,
+B7), on the CPU: the plain versions with a bound, and the model's steps
+at batch 128 with the batch's ``edge_occupancy`` and without it.
 
 At batch 128 the loader's pad plan covers the 128 largest graphs, so a
 batch of smaller ones ends in a masked tail: one run of slots at the
@@ -16,11 +16,16 @@ data past the bound is not zero (the tail's all-masked K-groups tie the
 padding node's fill value); its gradient stays bit-equal because the
 padding node's cotangent is exactly zero.
 
-The flagship's batch-128 step is also held to the JAX package's step on
-the same batch and weights, within ``tests/test_torch_train.py``'s tiers
-(loss and per-head losses ``rtol=1e-4``; gradients and BatchNorm
+The flagship's batch-128 step, on the run-aligned layout and on the
+unaligned one (whose masked tail is one receiver row at the padding
+node, which B5, B6 and B7 walk), is also held to the JAX package's step
+on the same batch and weights, within ``tests/test_torch_train.py``'s
+tiers (loss and per-head losses ``rtol=1e-4``; gradients and BatchNorm
 statistics ``rtol=1e-4, atol=1e-5``: matrix products and sums
-accumulate in another order in the two frameworks).
+accumulate in another order in the two frameworks). The PNA plain
+versions are held bit for bit: a bound over a masked tail changes no
+bit, and with junk past the bound (unmasked, NaN, inf) they equal their
+results on the input cut at the bound.
 """
 
 import copy
@@ -50,6 +55,8 @@ from hydragnn_tpu_torch.flagship import flagship_config
 from hydragnn_tpu_torch.graph import segment as S
 from hydragnn_tpu_torch.models.base import model_loss
 from hydragnn_tpu_torch.models.create import create_model_config
+from hydragnn_tpu_torch.ops import pna_aggregate as pna_mod
+from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd_mod
 from hydragnn_tpu_torch.ops import segment_sum as ss_mod
 from hydragnn_tpu_torch.ops import segment_sum_local as sl_mod
 from hydragnn_tpu_torch.ops.gather_stats import gather_presum_stats
@@ -152,6 +159,126 @@ def test_bound_must_be_one_int32(bad):
                                  real_edges=bad)
 
 
+def _pna_tail_case(seed, dtype, h=5, n=60, e=700, tail=300):
+    """Sorted receivers over rows 0..n-2 (some empty), values on a 1/4
+    grid (ties) and random masked edges, then a masked tail of ``tail``
+    slots at the padding row n - 1 with v = 0 (its cleaned max), as a
+    batch's tail past its occupancy ``e``; the backward's cotangents."""
+    rng = np.random.default_rng(seed)
+    recv = np.concatenate([np.sort(rng.integers(0, n - 1, e)), np.full(tail, n - 1)]).astype(np.int32)
+    v = (np.round(rng.normal(size=(e + tail, h)) * 4.0) / 4.0 + 0.0).astype(np.float32)
+    v[e:] = 0.0
+    mask = rng.random(e + tail) > 0.2
+    mask[e:] = False
+    cots = [rng.normal(size=(n, h)).astype(np.float32), rng.normal(size=(n, h)).astype(np.float32),
+            rng.normal(size=(n, 2 * h)).astype(np.float32)]
+    t = torch.from_numpy
+    return (t(v).to(dtype), t(recv), t(mask), n, e,
+            (t(cots[0]), t(cots[1]), t(cots[2]).to(dtype)))
+
+
+def _pna_plain(v, recv, mask, n, cots, bound):
+    """B5's four outputs, B6's counts and B7's gradient from the plain
+    versions with ``bound``; B6 and B7 on the unbounded forward's maxima
+    (the backward's inputs)."""
+    fwd = pna_mod.pna_aggregate_plain(v, recv, n, mask, real_edges=bound)
+    both = pna_mod.pna_aggregate_plain(v, recv, n, mask)[3]
+    cnt = bwd_mod.pna_bwd_count_plain(v, recv, mask, both, n, real_edges=bound)
+    grad = bwd_mod.pna_bwd_grad_plain(v, recv, mask, both, *cots, cnt, real_edges=bound)
+    return list(fwd) + [cnt, grad]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pna_plain_bound_over_a_masked_tail_changes_no_bit(dtype):
+    v, recv, mask, n, occ, cots = _pna_tail_case(4, dtype)
+    want = _pna_plain(v, recv, mask, n, cots, None)
+    for r in (occ, occ + 1, occ + 299):
+        for a, b in zip(_pna_plain(v, recv, mask, n, cots, _bound(r)), want):
+            assert _same_bits(a, b)
+    # the padding row: no count, maxima cleaned to 0, no tie, no gradient
+    s, sq, cnt, both, ties, grad = want
+    assert float(cnt[n - 1]) == 0.0 and not bool(both[n - 1].any()) and not bool(ties[n - 1].any())
+    assert not bool(grad[occ:].any()) and float(ties.max()) >= 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 123, 699])
+def test_pna_plain_bound_ignores_junk_past_it(r, dtype):
+    """Unmasked junk (normal values, NaN, inf) past the bound: B5 and B6
+    equal their results on the input cut at the bound, and B7 equals its
+    result there on the first ``r`` edges and is 0 past them."""
+    v, recv, mask, n, _, cots = _pna_tail_case(5, dtype)
+    junk = v.clone()
+    junk[r:] = torch.randn(junk.shape[0] - r, junk.shape[1]).to(dtype)
+    junk[r::3] = float("nan")
+    junk[r + 1::5] = float("inf")
+    open_mask = mask.clone()
+    open_mask[r:] = True
+    bound = _bound(r)
+    fwd = pna_mod.pna_aggregate_plain(junk, recv, n, open_mask, real_edges=bound)
+    cut = pna_mod.pna_aggregate_plain(v[:r], recv[:r], n, mask[:r])
+    for a, b in zip(fwd, cut):
+        assert _same_bits(a, b)
+    both = cut[3]
+    cnt = bwd_mod.pna_bwd_count_plain(junk, recv, open_mask, both, n, real_edges=bound)
+    assert _same_bits(cnt, bwd_mod.pna_bwd_count_plain(v[:r], recv[:r], mask[:r], both, n))
+    grad = bwd_mod.pna_bwd_grad_plain(junk, recv, open_mask, both, *cots, cnt, real_edges=bound)
+    want = bwd_mod.pna_bwd_grad_plain(v[:r], recv[:r], mask[:r], both, *cots, cnt)
+    assert _same_bits(grad[:r], want)
+    assert _same_bits(grad[r:], torch.zeros(grad.shape[0] - r, grad.shape[1], dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pna_plain_bound_zero_gives_zeros_and_a_bound_past_the_end_changes_nothing(dtype):
+    v, recv, mask, n, _, cots = _pna_tail_case(6, dtype)
+    mask = torch.ones_like(mask)  # every slot real: the bound alone decides
+    zero = _pna_plain(v, recv, mask, n, cots, _bound(0))
+    for t in zero:
+        assert not bool(t.any()) and not bool(torch.signbit(t.float()).any())
+    want = _pna_plain(v, recv, mask, n, cots, None)
+    for r in (v.shape[0], v.shape[0] + 7, 2 ** 31 - 1):
+        for a, b in zip(_pna_plain(v, recv, mask, n, cots, _bound(r)), want):
+            assert _same_bits(a, b)
+    for a, b in zip(_pna_plain(v, recv, mask, n, cots, _bound(-5)), zero):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pna_bwd_plain_drops_receivers_out_of_range(dtype):
+    """B6 and B7's plain versions, as the kernels do: an edge whose
+    receiver lies outside [0, N) belongs to no row (no count) and gets a
+    zero gradient; the other edges are as without it."""
+    v, recv, mask, n, occ, cots = _pna_tail_case(7, dtype)
+    out = recv.clone()
+    out[:9] = -1
+    out[-9:] = n
+    keep = (out >= 0) & (out < n)
+    both = pna_mod.pna_aggregate_plain(v[keep], out[keep], n, mask[keep])[3]
+    cnt = bwd_mod.pna_bwd_count_plain(v, out, mask, both, n)
+    assert _same_bits(cnt, bwd_mod.pna_bwd_count_plain(v[keep], out[keep], mask[keep], both, n))
+    grad = bwd_mod.pna_bwd_grad_plain(v, out, mask, both, *cots, cnt)
+    assert _same_bits(grad[keep], bwd_mod.pna_bwd_grad_plain(v[keep], out[keep], mask[keep], both, *cots, cnt))
+    assert not bool(grad[~keep].any())
+
+
+@pytest.mark.parametrize("bad", [torch.tensor([3, 4], dtype=torch.int32), torch.tensor(3, dtype=torch.int64),
+                                 torch.tensor(3.0)])
+def test_pna_bound_must_be_one_int32(bad):
+    v, recv, mask, n, _, (g_sum, g_sumsq, g_both) = _pna_tail_case(8, torch.float32)
+    both = pna_mod.pna_aggregate_plain(v, recv, n, mask)[3]
+    cnt = bwd_mod.pna_bwd_count_plain(v, recv, mask, both, n)
+    calls = [
+        lambda: pna_mod.pna_aggregate(v, recv, n, mask, real_edges=bad),
+        lambda: pna_mod.pna_aggregate(v.clone().requires_grad_(True), recv, n, mask, real_edges=bad),
+        lambda: bwd_mod.pna_bwd_count(v, recv, mask, both, n, real_edges=bad),
+        lambda: bwd_mod.pna_bwd_grad(v, recv, mask, both, g_sum, g_sumsq, g_both, cnt, real_edges=bad),
+        lambda: bwd_mod.pna_aggregate_bwd(v, recv, mask, both, g_sum, g_sumsq, g_both, n, real_edges=bad),
+    ]
+    for call in calls:
+        with pytest.raises(TypeError, match="bound"):
+            call()
+
+
 # -- the model's steps at batch 128 ---------------------------------------------
 
 
@@ -245,18 +372,47 @@ def test_flagship_run_aligned_aggregates_and_padding_node_with_and_without_the_b
     assert bool(torch.isfinite(grad.float()).all())
 
 
-def test_flagship_step_at_batch_128_matches_jax(flagship_128):
-    """The port's batch-128 step with the bound against the JAX package's
-    step on the same batch and weights."""
-    tr, cfg = flagship_128
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flagship_unaligned_aggregates_and_padding_node_with_and_without_the_bound(flagship_128, dtype):
+    """``pna_aggregate`` (B5 forward, B6 and B7 backward) on the
+    flagship's unaligned batch of 128, as PNAConv calls it: the four
+    outputs and v's gradient bit-equal with the batch's occupancy and
+    without it; the padding node's row (the masked tail) empty and
+    cleaned to 0 either way, and the tail's gradient exact zeros."""
+    tr, _ = flagship_128
+    b = _first_batch(tr, run_align=False, dense_slots=False)
+    n, e, occ, pad = b.num_nodes, b.num_edges, int(b.edge_occupancy), int(b.n_real_nodes)
+    assert bool((b.receivers[occ:] == pad).all())
+    rng = np.random.default_rng(9)
+    v_np = (np.round(rng.normal(size=(e, 6)) * 4.0) / 4.0).astype(np.float32)  # ties
+    v_np[~b.edge_mask.numpy()] = 0.0  # gathered from the padding node's zero row
+    cots = [torch.from_numpy(rng.normal(size=(n, w)).astype(np.float32)) for w in (6, 6, 12)]
+    cots[2] = cots[2].to(dtype)
+    out = {}
+    for label, bound in (("bound", b.edge_occupancy), ("none", None)):
+        v = torch.from_numpy(v_np).to(dtype).requires_grad_(True)
+        s, sq, cnt, both = pna_mod.pna_aggregate(v, b.receivers, n, b.edge_mask, real_edges=bound)
+        torch.autograd.backward((s, sq, both), tuple(cots))
+        out[label] = (s.detach(), sq.detach(), cnt, both.detach(), v.grad)
+    for a, c in zip(out["bound"], out["none"]):
+        assert _same_bits(a, c)
+    s, sq, cnt, both, grad = out["bound"]
+    assert float(cnt[pad]) == 0.0 and not bool(both[pad].any()) and not bool(s[pad].any())
+    assert not bool(grad[occ:].any()) and bool(grad[:occ].any())
+
+
+def _step_matches_jax(tr, cfg, **layout):
+    """The port's batch-128 step with the bound (held bit-equal to the
+    step without it) against the JAX package's step on the same batch
+    and weights, on the loaders' ``layout``."""
     jcfg = jax_flagship_config(HIDDEN, LAYERS, BATCH)
     jsamples = jax_data(number_configurations=SAMPLES, seed=2, **UNIT)
     jtr, jva, jte, _, _ = jax_prepare_dataset(jsamples, jcfg)
     jcfg = jax_update_config(jcfg, jtr, jva, jte)
-    jbatch = next(iter(JaxGraphLoader(jtr, BATCH, prefetch=0)))
-    batch = _first_batch(tr)
+    jbatch = next(iter(JaxGraphLoader(jtr, BATCH, prefetch=0, **layout)))
+    batch = _first_batch(tr, **layout)
     # the same real slots (the JAX loader pads the tail further, to its
-    # TPU grid: 110,592 slots against the port's 108,840 here)
+    # TPU grid: 110,592 slots against the port's 108,840 run-aligned)
     occ = int(batch.edge_occupancy)
     assert occ == int(jbatch.edge_occupancy) and batch.num_edges <= jbatch.senders.shape[0]
     np.testing.assert_array_equal(batch.senders[:occ].numpy(), np.asarray(jbatch.senders)[:occ])
@@ -285,6 +441,22 @@ def test_flagship_step_at_batch_128_matches_jax(flagship_128):
     want_stats = variables_from_flax({"params": variables["params"], "batch_stats": jstats})
     for name, value in stats.items():
         np.testing.assert_allclose(value.numpy(), want_stats[name].numpy(), err_msg=name, **TOL)
+    return batch
+
+
+def test_flagship_step_at_batch_128_matches_jax(flagship_128):
+    """The port's run-aligned batch-128 step with the bound against the
+    JAX package's step on the same batch and weights."""
+    batch = _step_matches_jax(*flagship_128)
+    assert batch.run_align == 8
+
+
+def test_flagship_unaligned_step_at_batch_128_matches_jax(flagship_128):
+    """The same on the unaligned layout: PNAConv's B5 forward and B6/B7
+    backward take the bound (the masked tail is one row at the padding
+    node)."""
+    batch = _step_matches_jax(*flagship_128, run_align=False, dense_slots=False)
+    assert batch.run_align == 0 and batch.dense_senders is None
 
 
 @pytest.mark.parametrize("model_type,fused", [("GIN", True), ("GIN", False), ("CGCNN", True), ("CGCNN", False),
