@@ -132,6 +132,30 @@ raises; nothing is caught):
                    on the card within the JAX package's bound; SchNet with
                    radius_graph_in_forward on the e2e molecular config
                    against precomputed edges.
+ 9f. data-path   — the flagship at full width trained from files: the
+                   [train] phase's 1,280 graphs written as LSMS text and
+                   as an HGC container; HAVE_NATIVE (the host core built
+                   from native/*.cpp, required); read times (LSMS, HGC
+                   mmap/preload/shm and the native bulk gather), the
+                   radius graph native and numpy (the set, and a cloud of
+                   8,192 atoms where the cell grid runs), prepare_dataset;
+                   run_training from Dataset.path (HGC, then LSMS as
+                   unit_test), 2 epochs at batch 1024 under deterministic
+                   algorithms: the HGC history bit-equal to samples= on
+                   the samples as stored, the LSMS run's prepared
+                   features within rtol 1e-6 and losses within 1e-5 of the
+                   in-memory set in the files' lexical order, B1-B4
+                   launched; run_prediction from the container,
+                   denormalized, its per-head MAE.
+ 9g. data-eam    — examples/eam/NiNb_EAM_bulk_multitask.json read from
+                   disk at its published width (PNA, hidden 50, 10
+                   layers, edge lengths, PBC, rotation, 3 heads, batch
+                   16), only Dataset.path (1,280 synthetic NiNb BCC CFG
+                   files) and num_epoch (2) changed: finite, falling loss;
+                   the first batch's forward and backward against the CPU
+                   within the train step's tiers; the step on CUDA
+                   events, the card's busy share, launches a step, the
+                   kernels launched; run_prediction's per-head MAE.
  10. timing      — each kernel at the main path's shapes: ms eager, ms in
                    a CUDA graph, plain ms, library ms (eager and in a
                    graph), beside its bound; B1's backward kernel beside
@@ -165,6 +189,7 @@ Without a card (torch.cuda.is_available() false), or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
 
+import contextlib
 import copy
 import dataclasses
 import importlib
@@ -177,6 +202,7 @@ import tempfile
 import threading
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -1223,6 +1249,448 @@ def stack_phase(dev, layouts, hidden, n_layers, mods, card):
     return counts, timing, worst
 
 
+# the [data-path] phase: the flagship trained from files (the [train]
+# phase's 1,280 graphs written as LSMS text and as an HGC container)
+DATA_EPOCHS = 2
+# the LSMS text holds 10 significant digits: the prepared features within
+# rtol 1e-6 of the in-memory set, the losses within rtol 1e-5
+DATA_FEATURE_RTOL, DATA_LOSS_RTOL = 1e-6, 1e-5
+# one large cloud where the radius search takes the cell grid (the
+# flagship's graphs, at most 54 atoms, take the brute-force pairs)
+DATA_CLOUD_CELLS = 16
+# the [data-eam] phase: the NiNb EAM multitask example config, read from
+# disk, on synthetic CFG files (BCC, a = 3.30 A: 8 first-shell neighbours
+# at 2.86 A inside its radius of 3.0, the second shell at 3.30 outside)
+EAM_CONFIG, EAM_FILES, EAM_EPOCHS, EAM_LATTICE = "examples/eam/NiNb_EAM_bulk_multitask.json", 1280, 2, 3.30
+EAM_SPECIES = {"Ni": (28, 58.693), "Nb": (41, 92.906)}  # proton number, mass
+PORT_KERNELS = ("gather_stats", "gather_stats_bwd", "segment_sum", "gather_rows", "segment_sum_local")
+
+
+def write_cfg_files(path, n_files, seed, a=EAM_LATTICE, cells=(2, 4)):
+    """AtomEye CFG files as the EAM examples read them: BCC supercells of
+    2-3 unit cells a side at lattice constant ``a``, each atom Ni or Nb
+    (proton number and mass), seeded ``c_peratom``, ``fx``, ``fy``,
+    ``fz``, and a ``.bulk`` sidecar whose column 2 holds a seeded bulk
+    modulus. The same writer as ``tests/test_torch_cuda_kernels.py``."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for k in range(n_files):
+        reps = rng.integers(cells[0], cells[1], 3)
+        frac = np.array([[i, j, l] for i in range(reps[0]) for j in range(reps[1]) for l in range(reps[2])],
+                        dtype=np.float64)
+        frac = np.concatenate([frac, frac + 0.5]) / reps
+        names = np.where(rng.random(frac.shape[0]) < 0.5, "Ni", "Nb")
+        aux = rng.normal(size=(frac.shape[0], 4))
+        lines = [f"Number of particles = {frac.shape[0]}", "A = 1.0 Angstrom (basic length-scale)"]
+        for i in range(3):
+            for j in range(3):
+                lines.append(f"H0({i + 1},{j + 1}) = {float(a * reps[i]) if i == j else 0.0!r} A")
+        lines += [".NO_VELOCITY.", "entry_count = 7", "auxiliary[0] = c_peratom", "auxiliary[1] = fx",
+                  "auxiliary[2] = fy", "auxiliary[3] = fz"]
+        for name in ("Ni", "Nb"):
+            rows = np.nonzero(names == name)[0]
+            if rows.size == 0:
+                continue
+            lines += [repr(EAM_SPECIES[name][1]), name]
+            lines += [" ".join(repr(float(v)) for v in (*frac[r], *aux[r])) for r in rows]
+        stem = os.path.join(path, f"cfg{k:05d}")
+        with open(stem + ".cfg", "w") as f:
+            f.write("\n".join(lines) + "\n")
+        with open(stem + ".bulk", "w") as f:
+            f.write(" ".join(repr(float(v)) for v in (k, frac.shape[0], 150.0 + 40.0 * rng.random())) + "\n")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(phase, label):
+    """PyTorch's deterministic algorithms for bit-equal runs (the pooling's
+    ``index_add_`` adds with atomics otherwise); the warnings of ops
+    without a deterministic implementation are counted and printed."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message)[:160] for w in caught if "deterministic" in str(w.message)})
+    line(phase, part="determinism", runs=label, deterministic_algorithms=True,
+         nondeterministic_op_warnings=len(nondet), first=json.dumps(nondet[:3]))
+
+
+def pna_step_vs_cpu(label, nn_cfg_, batch_, step_want, counts, reordered=()):
+    """The train step at ``batch_`` on the card against the CPU, held to
+    the STEP_* tiers, the card's launches to ``step_want`` and the CPU's
+    to none; with ``reordered`` (the same graphs batched in other
+    orders) the head tier is the stacks' spread rule instead.
+    ``counts`` is the (reset, read) pair of the kernels' launch counts."""
+    from hydragnn_tpu_torch.models.base import model_loss
+    from hydragnn_tpu_torch.models.create import create_model_config
+
+    reset_counts, read_counts = counts
+    results = {}
+    orders = [f"order{j}" for j in range(len(reordered))]
+    for where in ["cpu", "cuda"] + orders:
+        m = create_model_config(nn_cfg_, seed=SEED + 1, device="cuda" if where == "cuda" else "cpu")
+        b = (reordered[orders.index(where)] if where in orders else batch_).to(next(m.parameters()).device)
+        reset_counts()
+        m.zero_grad(set_to_none=True)
+        loss, tasks = model_loss(m.cfg, m(b, train=True), b)
+        loss.backward()
+        results[where] = (
+            loss.item(), {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+            {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}, read_counts(),
+        )
+    step_want = {name: step_want.get(name, 0) for name in results["cpu"][3]}
+    if results["cuda"][3] != step_want or any(any(results[w][3].values()) for w in ["cpu"] + orders):
+        raise AssertionError(f"{label} step launches card {results['cuda'][3]}, cpu {results['cpu'][3]}; "
+                             f"want {step_want}")
+    rel = {}  # relative L2 difference, card against CPU, per gradient
+    worst = {"head": ("", 0.0), "conv": ("", 0.0), "zero": ("", 0.0)}
+    gc_all, gp_all = results["cuda"][1], results["cpu"][1]
+    head_bad, head_limit = {}, {}
+    for k, g in gp_all.items():
+        if k.startswith("convs.") and k.endswith("post.bias"):
+            ref_w = max(float(gp_all[k[:-4] + "weight"].abs().max()), 1e-30)
+            r = max(float(g.abs().max()), float(gc_all[k].abs().max())) / ref_w
+            tier = "zero"
+        else:
+            r = rel_l2(gc_all[k], g)
+            tier = "conv" if k.startswith(("convs.", "norms.")) else "head"
+        if tier == "head" and orders:
+            spread = max(rel_l2(results[o][1][k], g) for o in orders)
+            head_limit[k] = max(STACK_GRAD_TOL, STACK_SPREAD_FACTOR * spread)
+            if r > head_limit[k]:
+                head_bad[k] = (r, spread)
+        rel[k] = r
+        if r >= worst[tier][1]:
+            worst[tier] = (k, r)
+    bn_ok = all(torch.allclose(results["cuda"][2][k], v, **STEP_BN_TOL) for k, v in results["cpu"][2].items())
+    worst_spread = (max(rel_l2(results[o][1][worst["head"][0]], gp_all[worst["head"][0]]) for o in orders)
+                    if orders else "not measured")
+    line(label, graphs=batch_.num_graphs - 1, edge_pad=batch_.num_edges, loss_card=results["cuda"][0],
+         loss_cpu=results["cpu"][0], head_rule="spread" if orders else "tier",
+         head_grad_rel_l2_and_spread_above_tol=json.dumps(head_bad), worst_head_spread=worst_spread,
+         worst_head_limit=head_limit.get(worst["head"][0], STEP_HEAD_TOL),
+         head_limit_min_max=json.dumps([min(head_limit.values()), max(head_limit.values())])
+         if head_limit else json.dumps([STEP_HEAD_TOL] * 2),
+         worst_head_grad_rel_l2=json.dumps(worst["head"]),
+         worst_conv_grad_rel_l2=json.dumps(worst["conv"]), worst_bn_fed_bias_grad=json.dumps(worst["zero"]),
+         bn_stats_close=bn_ok, params=len(rel), kernel_launches=json.dumps(results["cuda"][3], separators=(",", ":")))
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=STEP_LOSS_RTOL, err_msg=f"{label} loss")
+    # with the spread rule the heads are held by head_bad instead
+    limits = {"head": float("inf") if orders else STEP_HEAD_TOL, "conv": STEP_CONV_TOL, "zero": STEP_ZERO_TOL}
+    if not bn_ok or head_bad or any(worst[t][1] > limits[t] for t in worst):
+        raise AssertionError(f"{label}: card and CPU differ beyond the tolerance: {rel}, BN close {bn_ok}")
+
+
+def data_path_phase(dev, card, counts):
+    """[data-path]: the flagship at full width trained from files. The
+    [train] phase's 1,280 graphs go to disk twice, as LSMS text
+    (``write_lsms_files``) and as an HGC container (``ContainerWriter``,
+    which stores float32 features and targets); their read times, the
+    radius graph native and numpy, ``prepare_dataset``; then
+    ``run_training`` from ``Dataset.path`` for each, under deterministic
+    algorithms: the HGC run's history bit-equal to ``samples=`` on the
+    samples as stored, the LSMS run's prepared features within
+    DATA_FEATURE_RTOL and its losses within DATA_LOSS_RTOL of the
+    in-memory set in the files' lexical order; ``run_prediction`` from the
+    container, denormalized. Returns the HGC run's launches."""
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch import native
+    from hydragnn_tpu_torch.api import prepare_config_and_samples
+    from hydragnn_tpu_torch.data.container import ContainerDataset, ContainerWriter
+    from hydragnn_tpu_torch.data.lsms import read_lsms_dir
+    from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data, write_lsms_files
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.train.loop import EPOCH_KEYS
+
+    rg = importlib.import_module("hydragnn_tpu_torch.data.radius_graph")
+    reset_counts, read_counts = counts
+    native._load()
+    line("data-path", part="native", have_native=native.HAVE_NATIVE,
+         library=os.path.relpath(os.path.join(native._BUILD_DIR, "libhgc.so"), os.path.dirname(os.path.abspath(__file__))))
+    if not native.HAVE_NATIVE:
+        raise AssertionError("data-path: the native host core (native/*.cpp) did not build or load")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    lsms_dir, hgc_dir = os.path.join(root, "lsms"), os.path.join(root, "flagship.hgc")
+    gen = dict(number_configurations=TRAIN_SAMPLES, unit_cell_x_range=TRAIN_UNIT_CELLS,
+               unit_cell_y_range=TRAIN_UNIT_CELLS, unit_cell_z_range=TRAIN_UNIT_CELLS, seed=SEED)
+
+    def stored():
+        """The set as the container stores it (float32 features, targets)."""
+        out = deterministic_graph_data(**gen)
+        for s in out:
+            s.x, s.graph_y = s.x.astype(np.float32), s.graph_y.astype(np.float32)
+        return out
+
+    def config(fmt=None, path=None):
+        cfg = flagship_config(batch_size=TRAIN_BATCH, num_epoch=DATA_EPOCHS)
+        cfg["NeuralNetwork"]["Variables_of_interest"]["denormalize_output"] = True
+        if fmt is not None:
+            cfg["Dataset"].update(format=fmt, path={"total": path})
+        return cfg
+
+    t0 = time.perf_counter()
+    write_lsms_files(lsms_dir, **gen)
+    t1 = time.perf_counter()
+    writer = ContainerWriter(hgc_dir)
+    writer.add(stored())
+    writer.save()
+    t2 = time.perf_counter()
+    hgc_mib = sum(os.path.getsize(os.path.join(hgc_dir, f)) for f in os.listdir(hgc_dir)) / 2**20
+    line("data-path", part="write", graphs=TRAIN_SAMPLES, lsms_files=len(os.listdir(lsms_dir)),
+         lsms_write_s=round(t1 - t0, 4), hgc_write_s=round(t2 - t1, 4), hgc_mib=round(hgc_mib, 3))
+
+    # read times: the LSMS text, the container in each mode (and its bulk gather)
+    reads = {}
+    t0 = time.perf_counter()
+    lsms = read_lsms_dir(lsms_dir, config()["Dataset"])
+    reads["lsms_text"] = time.perf_counter() - t0
+    want = stored()
+    for mode in ("mmap", "preload", "shm"):
+        t0 = time.perf_counter()
+        ds = ContainerDataset(hgc_dir, mode=mode, shm_dir=os.path.join(root, "shm") if mode == "shm" else None)
+        got = ds.samples()
+        reads[f"hgc_{mode}"] = time.perf_counter() - t0
+        if mode == "mmap":
+            t0 = time.perf_counter()
+            bulk = ds.fetch_samples(range(len(ds)))
+            reads["hgc_mmap_fetch_samples"] = time.perf_counter() - t0
+            got = got + bulk
+        for a, b in zip(got, want + want):
+            if not (np.array_equal(a.x, b.x) and np.array_equal(a.pos, b.pos) and np.array_equal(a.graph_y, b.graph_y)
+                    and a.x.dtype == b.x.dtype):
+                raise AssertionError(f"data-path: the container read ({mode}) differs from what was written")
+    line("data-path", part="read", graphs=len(lsms), card=repr(card),
+         **{f"{k}_s": round(v, 4) for k, v in reads.items()})
+
+    # the radius graph over the set, native and numpy; then one large cloud
+    positions = [s.pos for s in lsms]
+
+    def graph_all():
+        return [rg.radius_graph(p, 2.0, max_num_neighbors=100) for p in positions]
+
+    def numpy_only(fn):
+        saved = native.native_radius_pairs
+        native.native_radius_pairs = lambda *a: None
+        try:
+            return fn()
+        finally:
+            native.native_radius_pairs = saved
+
+    t0 = time.perf_counter()
+    e_native = graph_all()
+    t1 = time.perf_counter()
+    e_numpy = numpy_only(graph_all)
+    t2 = time.perf_counter()
+    if not all(np.array_equal(a, b) for a, b in zip(e_native, e_numpy)):
+        raise AssertionError("data-path: native and numpy radius graphs differ over the set")
+    grid_calls = sum(p.shape[0] ** 2 > 4096 for p in positions)
+    g = np.stack(np.meshgrid(*[np.arange(DATA_CLOUD_CELLS)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    cloud = np.concatenate([g, g + 0.5]).astype(np.float64)
+    cloud += np.random.default_rng(SEED).normal(scale=0.01, size=cloud.shape)  # no distance ties
+    t3 = time.perf_counter()
+    c_native = rg.radius_graph(cloud, 2.0, max_num_neighbors=100)
+    t4 = time.perf_counter()
+    c_numpy = numpy_only(lambda: rg.radius_graph(cloud, 2.0, max_num_neighbors=100))
+    t5 = time.perf_counter()
+    if not np.array_equal(c_native, c_numpy):
+        raise AssertionError("data-path: native and numpy radius graphs differ on the large cloud")
+    line("data-path", part="radius_graph", graphs=len(positions), edges=sum(e.shape[1] for e in e_native),
+         set_native_s=round(t1 - t0, 4), set_numpy_s=round(t2 - t1, 4), set_calls_through_the_grid=int(grid_calls),
+         cloud_atoms=cloud.shape[0], cloud_edges=c_native.shape[1], cloud_native_s=round(t4 - t3, 4),
+         cloud_numpy_s=round(t5 - t4, 4), card=repr(card))
+
+    # prepare_dataset: the LSMS set against the in-memory set in the files' lexical order
+    order = sorted(range(TRAIN_SAMPLES), key=lambda k: f"output{k}.txt")
+
+    def lexical():
+        mem = deterministic_graph_data(**gen)
+        return [mem[k] for k in order]
+
+    t0 = time.perf_counter()
+    prep_lsms = prepare_config_and_samples(config(), lsms)
+    prepare_s = time.perf_counter() - t0
+    prep_mem = prepare_config_and_samples(config(), lexical())
+    worst = 0.0
+    for split_a, split_b in zip(prep_lsms[:3], prep_mem[:3]):
+        for a, b in zip(split_a, split_b):
+            np.testing.assert_allclose(a.x, b.x, rtol=DATA_FEATURE_RTOL, atol=0, err_msg="data-path features")
+            if not np.array_equal(a.edge_index, b.edge_index):
+                raise AssertionError("data-path: the LSMS set's edges differ from the in-memory set's")
+            worst = max(worst, float(np.abs(a.x - b.x).max()))
+    line("data-path", part="prepare", graphs=TRAIN_SAMPLES, prepare_dataset_s=round(prepare_s, 4),
+         lsms_vs_memory_max_abs_feature_err=worst, feature_rtol=DATA_FEATURE_RTOL, card=repr(card))
+
+    # training: from each format and from memory, deterministic
+    runs = {}
+    with deterministic_algorithms("data-path", "memory_hgc_lexical_lsms"):
+        for label, cfg, samples in (("memory", config(), stored()), ("hgc", config("HGC", hgc_dir), None),
+                                    ("memory_lexical", config(), lexical()),
+                                    ("lsms", config("unit_test", lsms_dir), None)):
+            log_dir = tempfile.mkdtemp(prefix=f"chip_smoke_data_{label}_")
+            reset_counts()
+            t0 = time.perf_counter()
+            _, _, hist, _ = hydragnn_tpu_torch.run_training(cfg, samples, log_dir=log_dir, device="cuda", seed=SEED)
+            torch.cuda.synchronize()
+            runs[label] = (hist, read_counts(), time.perf_counter() - t0, log_dir)
+            if not all(np.isfinite(hist[k]).all() for k in ("train_loss", "val_loss", "test_loss")):
+                raise AssertionError(f"data-path {label}: a loss is not finite: {hist}")
+            line("data-path", part="train", source=label, epochs=DATA_EPOCHS, batch=TRAIN_BATCH,
+                 train_loss=json.dumps(hist["train_loss"]), val_loss=json.dumps(hist["val_loss"]),
+                 test_loss=json.dumps(hist["test_loss"]), epoch_wall_s=json.dumps([round(w, 4) for w in hist["train_wall_s"]]),
+                 run_wall_s=round(runs[label][2], 3),
+                 kernel_launches=json.dumps({k: v for k, v in runs[label][1].items() if v}, separators=(",", ":")),
+                 card=repr(card))
+    h_mem, h_hgc = runs["memory"][0], runs["hgc"][0]
+    if any(h_mem[k] != h_hgc[k] for k in EPOCH_KEYS):
+        raise AssertionError(f"data-path: the HGC run is not bit-equal to the in-memory run: {h_hgc} vs {h_mem}")
+    for k in ("train_loss", "val_loss", "test_loss"):
+        np.testing.assert_allclose(runs["lsms"][0][k], runs["memory_lexical"][0][k], rtol=DATA_LOSS_RTOL,
+                                   err_msg=f"data-path LSMS {k}")
+    lsms_err = max(abs(a - b) / abs(b) for k in ("train_loss", "val_loss", "test_loss")
+                   for a, b in zip(runs["lsms"][0][k], runs["memory_lexical"][0][k]))
+    hgc_counts = runs["hgc"][1]
+    if any(r[1] != hgc_counts for r in runs.values()) or not all(hgc_counts.get(k) for k in PORT_KERNELS):
+        raise AssertionError(f"data-path: launches {[(k, r[1]) for k, r in runs.items()]}; B1-B4 must all run")
+    line("data-path", part="parity", hgc_history_bit_equal=True, lsms_loss_max_rel_err=lsms_err,
+         loss_rtol=DATA_LOSS_RTOL, launches_equal=True)
+
+    # prediction from the container, denormalized
+    err, err_h, trues, preds = hydragnn_tpu_torch.run_prediction(config("HGC", hgc_dir), log_dir=runs["hgc"][3],
+                                                               device="cuda")
+    maes = [float(np.mean(np.abs(t - p))) for t, p in zip(trues, preds)]
+    if not (np.isfinite(err) and all(np.isfinite(m) for m in maes)):
+        raise AssertionError(f"data-path predict: not finite: {err}, {maes}")
+    line("data-path", part="predict", source="hgc", test_loss=err, heads=len(maes), denormalized=True,
+         mae_per_head=json.dumps(maes), rows=json.dumps([int(p.shape[0]) for p in preds]), card=repr(card))
+    return hgc_counts
+
+
+def data_eam_phase(dev, card, counts):
+    """[data-eam]: ``examples/eam/NiNb_EAM_bulk_multitask.json`` read from
+    disk at its published width (PNA, hidden 50, 10 layers, edge lengths,
+    PBC, rotational invariance, a graph and two node heads, batch 16) with
+    only ``Dataset.path`` (synthetic CFG files) and ``num_epoch`` changed:
+    run_training on the card (finite, falling loss), the first batch's
+    forward and backward against the CPU, the step on CUDA events, the
+    card's busy share, launches a step, and run_prediction's per-head
+    MAE. Returns the run's launches."""
+    import hydragnn_tpu_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch.api import prepare_loaders_and_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import train_step
+
+    reset_counts, read_counts = counts
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), EAM_CONFIG)) as f:
+        published = json.load(f)
+    root = tempfile.mkdtemp(prefix="chip_smoke_eam_")
+    cfg_dir = os.path.join(root, "cfg")
+
+    def config():
+        cfg = copy.deepcopy(published)
+        cfg["Dataset"]["path"] = {"total": cfg_dir}
+        cfg["NeuralNetwork"]["Training"]["num_epoch"] = EAM_EPOCHS
+        return cfg
+
+    arch = published["NeuralNetwork"]["Architecture"]
+    line("data-eam", part="config", source=EAM_CONFIG,
+         overrides=json.dumps({"Dataset.path": {"total": "<temporary directory>"},
+                               "NeuralNetwork.Training.num_epoch": EAM_EPOCHS}),
+         model_type=arch["model_type"], hidden=arch["hidden_dim"], conv_layers=arch["num_conv_layers"],
+         edge_features=json.dumps(arch.get("edge_features")), pbc=arch["periodic_boundary_conditions"],
+         rotational_invariance=published["Dataset"]["rotational_invariance"], radius=arch["radius"],
+         max_neighbours=arch["max_neighbours"], heads=json.dumps(published["NeuralNetwork"]["Variables_of_interest"]["output_names"]),
+         batch=published["NeuralNetwork"]["Training"]["batch_size"])
+    t0 = time.perf_counter()
+    write_cfg_files(cfg_dir, EAM_FILES, SEED)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaders = prepare_loaders_and_config(config())
+    train_loader, done = loaders[0], loaders[3]
+    prepare_s = time.perf_counter() - t0
+    first = next(iter(train_loader))
+    degrees = np.bincount(first.receivers[first.edge_mask].numpy().astype(np.int64))
+    line("data-eam", part="data", files=EAM_FILES, write_s=round(write_s, 3), read_and_prepare_s=round(prepare_s, 3),
+         train_graphs=len(train_loader.samples), steps_per_epoch=len(train_loader), node_pad=first.num_nodes,
+         edge_pad=first.num_edges, run_align=first.run_align,
+         dense_slots=None if first.dense_senders is None else first.dense_senders.shape[1],
+         edge_dim=done["NeuralNetwork"]["Architecture"]["edge_dim"],
+         in_degree_min_max=json.dumps([int(degrees[degrees > 0].min()), int(degrees.max())]), card=repr(card))
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_eam_logs_")
+    reset_counts()
+    t0 = time.perf_counter()
+    model, optimizer, hist, done = hydragnn_tpu_torch.run_training(config(), log_dir=log_dir, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_counts = read_counts()
+    losses = hist["train_loss"]
+    if not all(np.isfinite(hist[k]).all() for k in ("train_loss", "val_loss", "test_loss")):
+        raise AssertionError(f"data-eam: a loss is not finite: {hist}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"data-eam: the train loss did not fall: {losses}")
+    launched = {k: v for k, v in run_counts.items() if v}
+    # PNA with edge lengths on the run-aligned layout: per train step the
+    # sender gather (B3; its backward B3 and B2), B2 and the E/K segment
+    # max (its backward B2 and B3), K-group statistics in plain PyTorch;
+    # per eval or BatchNorm-statistics forward B3 and B2 once a layer
+    n_layers = done["NeuralNetwork"]["Architecture"]["num_conv_layers"]
+    per_step = {"gather_rows": 5 * n_layers, "segment_sum": 3 * n_layers}
+    per_fwd = {"gather_rows": n_layers, "segment_sum": n_layers}
+    steps = EAM_EPOCHS * len(train_loader)
+    fwds = EAM_EPOCHS * (len(loaders[1]) + len(loaders[2])) + 2 * len(train_loader)
+    want = {k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in run_counts}
+    if run_counts != want:
+        raise AssertionError(f"data-eam: launches {run_counts}, want {want}")
+    line("data-eam", part="train", epochs=EAM_EPOCHS, steps=steps, eval_and_bn_forwards=fwds,
+         train_loss=json.dumps(losses),
+         val_loss=json.dumps(hist["val_loss"]), test_loss=json.dumps(hist["test_loss"]),
+         epoch_wall_s=json.dumps([round(w, 4) for w in hist["train_wall_s"]]), run_wall_s=round(wall, 3),
+         kernels_launched=json.dumps(sorted(launched)), kernel_launches=json.dumps(launched, separators=(",", ":")),
+         card=repr(card))
+
+    # the first batch's forward and backward against the CPU, and its launches
+    pna_step_vs_cpu("data-eam-step-vs-cpu", done["NeuralNetwork"], first, per_step, counts)
+
+    # the step: launches, CUDA events, the card's busy share
+    bd = first.to(dev)
+    m = create_model_config(done["NeuralNetwork"], seed=SEED, device="cuda")
+    o = select_optimizer(m, done["NeuralNetwork"]["Training"])
+    step_ms = [round(cuda_ms(lambda: train_step(m, o, bd), 10), 4) for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(m, o, bd)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    line("data-eam", part="step", graphs=int(first.graph_mask.sum()), step_ms_cuda_events=json.dumps(step_ms),
+         profiled_wall_ms=round(prof_wall_ms, 3), device_busy_ms=round(busy, 3) if rows else "not measured",
+         device_busy_share=round(busy / prof_wall_ms, 4) if rows else "not measured",
+         device_kernels_seen=len(rows), port_launches_per_step=json.dumps(per_step, separators=(",", ":")),
+         card=repr(card))
+    for key, ms, calls in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"  profile[data-eam]: {ms:9.3f} ms {calls:5d} calls  {key[:110]}")
+
+    # prediction, denormalized (the config's denormalize_output)
+    err, err_h, trues, preds = hydragnn_tpu_torch.run_prediction(config(), log_dir=log_dir, device="cuda")
+    maes = [float(np.mean(np.abs(t - p))) for t, p in zip(trues, preds)]
+    if not (np.isfinite(err) and all(np.isfinite(v) for v in maes)):
+        raise AssertionError(f"data-eam predict: not finite: {err}, {maes}")
+    line("data-eam", part="predict", test_loss=err,
+         heads=json.dumps(published["NeuralNetwork"]["Variables_of_interest"]["output_names"]),
+         mae_per_head=json.dumps(maes), denormalized=published["NeuralNetwork"]["Variables_of_interest"].get(
+             "denormalize_output", False), card=repr(card))
+    return run_counts
+
+
 def main():
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1706,70 +2174,10 @@ def main():
          max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), card=repr(card))
 
     # one train step at STEP_GRAPHS graphs: card (kernels) against CPU (plain)
-    def pna_step_vs_cpu(label, nn_cfg_, batch_, step_want, reordered=()):
-        """The train step at ``batch_`` on the card against the CPU, held to
-        the STEP_* tiers; with ``reordered`` (the same graphs batched in other
-        orders) the head tier is the stacks' spread rule instead."""
-        results = {}
-        orders = [f"order{j}" for j in range(len(reordered))]
-        for where in ["cpu", "cuda"] + orders:
-            m = create_model_config(nn_cfg_, seed=SEED + 1, device="cuda" if where == "cuda" else "cpu")
-            b = (reordered[orders.index(where)] if where in orders else batch_).to(next(m.parameters()).device)
-            reset_counts()
-            m.zero_grad(set_to_none=True)
-            loss, tasks = model_loss(m.cfg, m(b, train=True), b)
-            loss.backward()
-            counts = read_counts()
-            results[where] = (
-                loss.item(), {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
-                {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}, counts,
-            )
-        step_want = {name: step_want.get(name, 0) for name in mods}
-        if results["cuda"][3] != step_want or any(results[w][3][n] for w in ["cpu"] + orders for n in mods):
-            raise AssertionError(f"{label} step launches card {results['cuda'][3]}, cpu {results['cpu'][3]}; "
-                                 f"want {step_want}")
-        rel = {}  # relative L2 difference, card against CPU, per gradient
-        worst = {"head": ("", 0.0), "conv": ("", 0.0), "zero": ("", 0.0)}
-        gc_all, gp_all = results["cuda"][1], results["cpu"][1]
-        head_bad, head_limit = {}, {}
-        for k, g in gp_all.items():
-            if k.startswith("convs.") and k.endswith("post.bias"):
-                ref_w = max(float(gp_all[k[:-4] + "weight"].abs().max()), 1e-30)
-                r = max(float(g.abs().max()), float(gc_all[k].abs().max())) / ref_w
-                tier = "zero"
-            else:
-                r = rel_l2(gc_all[k], g)
-                tier = "conv" if k.startswith(("convs.", "norms.")) else "head"
-            if tier == "head" and orders:
-                spread = max(rel_l2(results[o][1][k], g) for o in orders)
-                head_limit[k] = max(STACK_GRAD_TOL, STACK_SPREAD_FACTOR * spread)
-                if r > head_limit[k]:
-                    head_bad[k] = (r, spread)
-            rel[k] = r
-            if r >= worst[tier][1]:
-                worst[tier] = (k, r)
-        bn_ok = all(torch.allclose(results["cuda"][2][k], v, **STEP_BN_TOL) for k, v in results["cpu"][2].items())
-        worst_spread = (max(rel_l2(results[o][1][worst["head"][0]], gp_all[worst["head"][0]]) for o in orders)
-                        if orders else "not measured")
-        line(label, graphs=batch_.num_graphs - 1, edge_pad=batch_.num_edges, loss_card=results["cuda"][0],
-             loss_cpu=results["cpu"][0], head_rule="spread" if orders else "tier",
-             head_grad_rel_l2_and_spread_above_tol=json.dumps(head_bad), worst_head_spread=worst_spread,
-             worst_head_limit=head_limit.get(worst["head"][0], STEP_HEAD_TOL),
-             head_limit_min_max=json.dumps([min(head_limit.values()), max(head_limit.values())])
-             if head_limit else json.dumps([STEP_HEAD_TOL] * 2),
-             worst_head_grad_rel_l2=json.dumps(worst["head"]),
-             worst_conv_grad_rel_l2=json.dumps(worst["conv"]), worst_bn_fed_bias_grad=json.dumps(worst["zero"]),
-             bn_stats_close=bn_ok, params=len(rel), kernel_launches=json.dumps(results["cuda"][3], separators=(",", ":")))
-        np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=STEP_LOSS_RTOL, err_msg=f"{label} loss")
-        # with the spread rule the heads are held by head_bad instead
-        limits = {"head": float("inf") if orders else STEP_HEAD_TOL, "conv": STEP_CONV_TOL, "zero": STEP_ZERO_TOL}
-        if not bn_ok or head_bad or any(worst[t][1] > limits[t] for t in worst):
-            raise AssertionError(f"{label}: card and CPU differ beyond the tolerance: {rel}, BN close {bn_ok}")
-
     step_loader = GraphLoader(train_loader.samples[:STEP_GRAPHS], STEP_GRAPHS)
     step_batch = next(iter(step_loader))
     nn_cfg = done["NeuralNetwork"]
-    pna_step_vs_cpu("train-step-vs-cpu", nn_cfg, step_batch, per_step)
+    pna_step_vs_cpu("train-step-vs-cpu", nn_cfg, step_batch, per_step, (reset_counts, read_counts))
 
     # ---- 7. predict ------------------------------------------------------
     in_memory = test_epoch(test_loader, model)
@@ -2155,7 +2563,7 @@ def main():
                    for order in [np.arange(STEP_GRAPHS)[::-1]]
                    + [np.random.default_rng(SEED + k).permutation(STEP_GRAPHS) for k in (1, 2)]]
     pna_step_vs_cpu("train-pna-layouts-step-vs-cpu", completed()["NeuralNetwork"], u_step, per_u,
-                    reordered=u_reordered)
+                    (reset_counts, read_counts), reordered=u_reordered)
     # edge lengths on the AUTO layout (run-aligned): v = gather (B3; its
     # backward B3 and B2) + the edge term, K-group statistics in plain
     # PyTorch, then B2 (its backward B3) and the E/K segment max (its
@@ -2392,6 +2800,14 @@ def main():
             or c1["fused_conv"] == 0):
         raise AssertionError(f"knobs inforward SchNet: {int(m1.sum())} vs {int(m0.sum())} edges, rel {max(rels)}, "
                              f"launches {c1}")
+
+    # ---- 9f. data-path, 9g. data-eam: training from Dataset.path ---------
+    t0 = time.perf_counter()
+    data_path_counts = data_path_phase(dev, card, (reset_counts, read_counts))
+    line("data-path", part="phase", seconds=round(time.perf_counter() - t0, 1))
+    t0 = time.perf_counter()
+    eam_counts = data_eam_phase(dev, card, (reset_counts, read_counts))
+    line("data-eam", part="phase", seconds=round(time.perf_counter() - t0, 1))
 
     # ---- 10. timing ------------------------------------------------------
     h = hidden
@@ -2756,7 +3172,8 @@ def main():
              "train_pna_unaligned": layout_counts["unaligned"], "train_pna_edge_lengths": layout_counts["edge_lengths"],
              "train_pna_dense": layout_counts["dense"], "accuracy_pna_dense_singlehead": acc_counts["singlehead"],
              "accuracy_pna_dense_multihead": acc_counts["multihead"],
-             **{f"accuracy_{k}": v for k, v in acc_counts.items() if k.startswith("stack_")}, **loop_counts}
+             **{f"accuracy_{k}": v for k, v in acc_counts.items() if k.startswith("stack_")}, **loop_counts,
+             "data_path_hgc": data_path_counts, "data_eam": eam_counts}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",
                 pna_bwd_grad="train_pna_unaligned", fused_conv_stack="stack_op", row_pointers="train_gin")

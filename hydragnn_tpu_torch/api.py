@@ -3,9 +3,12 @@
 
 The port's counterpart of ``hydragnn_tpu/api.py``. Every entry point
 takes ``device=`` and runs on the CUDA card unless given ``"cpu"``;
-without a card a CUDA request raises. The dataset comes from an
-in-memory ``samples`` list; reading ``Dataset.path`` raw files is not
-ported yet (ROADMAP A-3).
+without a card a CUDA request raises. The dataset comes either from an
+in-memory ``samples`` list or, when ``samples`` is None, from the files
+under ``Dataset.path``: ``{"total": dir}`` (prepared, then split), or
+``{"train": dir, "validate": dir, "test": dir}`` (predefined splits,
+normalized together), in ``Dataset.format`` ``LSMS``/``unit_test``,
+``XYZ``, ``CFG`` or ``HGC`` (the container).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from hydragnn_tpu_torch.data.ingest import prepare_dataset
+from hydragnn_tpu_torch.data.ingest import load_raw_samples, prepare_dataset, prepare_presplit_dataset
 from hydragnn_tpu_torch.data.loader import GraphLoader
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.create import create_model_config
@@ -26,27 +29,35 @@ from hydragnn_tpu_torch.utils.checkpoint import load_existing_model, load_existi
 from hydragnn_tpu_torch.utils.config import get_log_name_config, load_config, save_config, update_config
 
 
+def _prepared_splits(config: Dict[str, Any], samples: Optional[List]):
+    """(train, val, test, minmax_graph, minmax_node) from ``samples`` or,
+    when None, from ``Dataset.path`` (the JAX package's
+    ``prepare_loaders_and_config`` dispatch)."""
+    if samples is not None:
+        return prepare_dataset(samples, config)
+    path = config["Dataset"]["path"]
+    if "total" in path:
+        return prepare_dataset(load_raw_samples(config, path["total"]), config)
+    splits = {}
+    for key in ("train", "validate", "test"):
+        if key not in path:
+            raise ValueError(f"Dataset.path needs 'total' or 'train'/'validate'/'test'; missing {key!r}")
+        splits[key] = load_raw_samples(config, path[key])
+    return prepare_presplit_dataset(splits["train"], splits["validate"], splits["test"], config)
+
+
 def prepare_config_and_samples(
-    config: Dict[str, Any], samples: List
+    config: Dict[str, Any], samples: Optional[List] = None
 ) -> Tuple[List, List, List, Dict[str, Any]]:
     """Data preparation + split + config inference: (train, val, test,
     completed config). ``samples`` are raw in-memory samples and are
-    prepared in place. Reading raw datasets from ``Dataset.path`` comes
-    with the data-breadth slice (ROADMAP A-3)."""
-    train, val, test, mm_g, mm_n = prepare_dataset(samples, config)
+    prepared in place; None reads ``Dataset.path``."""
+    train, val, test, mm_g, mm_n = _prepared_splits(config, samples)
     voi = config["NeuralNetwork"]["Variables_of_interest"]
     voi["minmax_graph_feature"] = mm_g.tolist()
     voi["minmax_node_feature"] = mm_n.tolist()
     config = update_config(config, train, val, test)
     return train, val, test, config
-
-
-def _require_samples(samples) -> None:
-    if samples is None:
-        raise NotImplementedError(
-            "hydragnn_tpu_torch: reading Dataset.path is not ported yet "
-            "(ROADMAP A-3); pass samples="
-        )
 
 
 def create_dataloaders(
@@ -75,7 +86,6 @@ def prepare_loaders_and_config(
     config: Dict[str, Any], samples: Optional[List] = None
 ) -> Tuple[GraphLoader, GraphLoader, GraphLoader, Dict[str, Any]]:
     """Data preparation, split, config inference and the three loaders."""
-    _require_samples(samples)
     train, val, test, config = prepare_config_and_samples(config, samples)
     return (*create_dataloaders(train, val, test, config), config)
 
@@ -175,7 +185,6 @@ def serve_model(
     (``server.stop()``, or use it as a context manager)."""
     dev = resolve_device(device)
     config = load_config(config_file_or_dict)
-    _require_samples(samples)
     train, val, test, config = prepare_config_and_samples(config, samples)
 
     from hydragnn_tpu_torch.serve import ModelRegistry, ModelServer, ServeConfig

@@ -1,15 +1,13 @@
-"""Host-side radius-graph construction (numpy; no periodic images yet).
+"""Host-side radius-graph construction (cell list, optional PBC).
 
 The port's copy of ``hydragnn_tpu/data/radius_graph.py``: the same
-candidate pairs and the same ``_cap_and_sort``, so the edges come out
-receiver-major and identical to the JAX package's for the same
-positions. Edge convention matches PyG: each directed edge
-(sender j -> receiver i) with distance(j, i) <= r; no self-loops unless
-requested.
-
-Not yet ported: the ctypes binding to ``native/radius.cpp`` (the numpy
-cell list below is the same function, slower on large graphs) and the
-periodic radius graph ``radius_graph_pbc`` (ROADMAP A1/A8).
+candidate pairs (the threaded C++ cell list of ``native/radius.cpp``
+through ``hydragnn_tpu_torch.native``, with the numpy cell list as its
+fallback), the same periodic image shifts and the same
+``_cap_and_sort``, so the edges come out receiver-major and identical to
+the JAX package's for the same positions. Edge convention matches PyG:
+each directed edge (sender j -> receiver i) with distance(j, i) <= r; no
+self-loops unless requested.
 """
 
 from __future__ import annotations
@@ -40,6 +38,50 @@ def radius_graph(
     return _cap_and_sort(senders, receivers, dists, max_num_neighbors)
 
 
+def radius_graph_pbc(
+    pos: np.ndarray,
+    r: float,
+    cell: np.ndarray,
+    pbc: Tuple[bool, bool, bool] = (True, True, True),
+    max_num_neighbors: Optional[int] = None,
+    loop: bool = False,
+) -> np.ndarray:
+    """Periodic radius graph via explicit image shifts (the supercell
+    method, ase.neighborlist semantics as the reference's
+    ``RadiusGraphPBC``, hydragnn/preprocess/utils.py:131-171): a pair can
+    contribute several edges through different periodic images, and an
+    atom can neighbour its own image (i == j with a nonzero shift)."""
+    pos = np.asarray(pos, dtype=np.float64)
+    cell = np.asarray(cell, dtype=np.float64).reshape(3, 3)
+    if pos.shape[0] == 0:
+        return np.zeros((2, 0), dtype=np.int64)
+
+    # cell repeats in each periodic direction so every image within r is
+    # covered (the distance between lattice planes)
+    recip = np.linalg.inv(cell).T
+    heights = 1.0 / np.maximum(np.linalg.norm(recip, axis=1), 1e-30)
+    reps = [int(np.ceil(r / heights[k])) if pbc[k] else 0 for k in range(3)]
+    shifts = [
+        np.array([i, j, k], dtype=np.float64) @ cell
+        for i in range(-reps[0], reps[0] + 1)
+        for j in range(-reps[1], reps[1] + 1)
+        for k in range(-reps[2], reps[2] + 1)
+    ]
+
+    all_s, all_r, all_d = [], [], []
+    for shift in shifts:
+        s, t, d = _candidate_pairs(pos + shift, pos, r)
+        if not np.any(shift) and not loop:
+            keep = s != t
+            s, t, d = s[keep], t[keep], d[keep]
+        all_s.append(s)
+        all_r.append(t)
+        all_d.append(d)
+    return _cap_and_sort(
+        np.concatenate(all_s), np.concatenate(all_r), np.concatenate(all_d), max_num_neighbors
+    )
+
+
 def edge_lengths(pos: np.ndarray, edge_index: np.ndarray) -> np.ndarray:
     """[E, 1] Euclidean edge lengths."""
     pos = np.asarray(pos, dtype=np.float64)
@@ -52,13 +94,21 @@ def _candidate_pairs(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """All (src, dst, dist) pairs with dist <= r: brute force for tiny
     inputs, else a uniform cell grid of cell size r (neighbours of a dst
-    point lie in the 27 surrounding cells)."""
+    point lie in the 27 surrounding cells). The grid runs in the native
+    library; the numpy grid below is its fallback (no compiler, or a
+    point cloud too sparse for a dense grid)."""
     n_src, n_dst = src_pos.shape[0], dst_pos.shape[0]
     if n_src * n_dst <= 4096:
         diff = src_pos[:, None, :] - dst_pos[None, :, :]
         dist = np.sqrt((diff * diff).sum(-1))
         s, t = np.nonzero(dist <= r)
         return s.astype(np.int64), t.astype(np.int64), dist[s, t]
+
+    from hydragnn_tpu_torch import native
+
+    found = native.native_radius_pairs(src_pos, dst_pos, r)
+    if found is not None:
+        return found
 
     origin = np.minimum(src_pos.min(0), dst_pos.min(0))
     inv = 1.0 / max(r, 1e-12)

@@ -1,5 +1,6 @@
-"""Dataset splitting: proportional slice and compositional stratification
-(the port's copy of ``hydragnn_tpu/data/splitting.py``; numpy only).
+"""Dataset splitting and subsampling: proportional slice, compositional
+stratification and the stratified subsample (the port's copy of
+``hydragnn_tpu/data/splitting.py``; numpy only).
 
 Mirrors the reference semantics (reference:
 hydragnn/preprocess/load_data.py:286-304 for the plain split,
@@ -83,6 +84,72 @@ def compositional_stratified_splitting(
     val_test, vt_cats = _duplicate_singletons(val_test, vt_cats)
     valset, testset = _stratified_two_way(val_test, vt_cats, 0.5, seed + 1)
     return trainset, valset, testset
+
+
+def subsample_categories(samples: Sequence[GraphSample]) -> List[int]:
+    """The reference's subsample category: sorted positive type
+    frequencies encoded by powers of 100 (``freq * 100**index``,
+    hydragnn/utils/abstractrawdataset.py:430-438) — note this merges
+    compositions sharing a frequency pattern, unlike
+    :func:`composition_categories`."""
+    cats: List[int] = []
+    for s in samples:
+        freqs = sorted(np.unique(s.x[:, 0], return_counts=True)[1].tolist())
+        cats.append(sum(int(f) * 100**i for i, f in enumerate(freqs)))
+    return cats
+
+
+def stratified_subsample(
+    samples: Sequence[GraphSample], subsample_percentage: float, seed: int = 0
+) -> list:
+    """Downselect ``samples`` to a fraction with composition-stratified
+    sampling (reference: stratified_sampling,
+    hydragnn/utils/abstractrawdataset.py:412-452 and the serialized-loader
+    subsample path, preprocess/serialized_dataset_loader.py:193-259).
+
+    The reference's per-sample category is the sorted positive type
+    frequencies positionally encoded by powers of 100 (``freq *
+    100**index``); here the frequencies come from ``np.unique`` of the
+    first node-feature column (robust to float/normalized type columns,
+    where the reference's ``bincount(x.int())`` degenerates), and the
+    per-category proportional draw replaces sklearn's
+    StratifiedShuffleSplit with the same contract: every category
+    represented ~proportionally in the subsample."""
+    if not 0.0 < subsample_percentage <= 1.0:
+        raise ValueError(
+            f"subsample_percentage must be in (0, 1], got {subsample_percentage}"
+        )
+    samples = list(samples)
+    if subsample_percentage == 1.0:
+        return samples
+    cats = subsample_categories(samples)
+
+    rng = np.random.default_rng(seed)
+    by_cat: dict = {}
+    for i, c in enumerate(cats):
+        by_cat.setdefault(c, []).append(i)
+    # Largest-remainder allocation so the TOTAL hits round(frac * n)
+    # exactly (sklearn StratifiedShuffleSplit's _approximate_mode
+    # contract): floor per category, then +1 by descending fractional
+    # remainder until the target is met.
+    target = int(round(subsample_percentage * len(samples)))
+    order = sorted(by_cat)
+    floors = {c: int(subsample_percentage * len(by_cat[c])) for c in order}
+    rem = sorted(
+        order,
+        key=lambda c: subsample_percentage * len(by_cat[c]) - floors[c],
+        reverse=True,
+    )
+    short = target - sum(floors.values())
+    for c in rem[:short]:
+        floors[c] += 1
+    picked: List[int] = []
+    for c in order:
+        idx = np.asarray(by_cat[c])
+        rng.shuffle(idx)
+        picked.extend(idx[: floors[c]].tolist())
+    picked = [picked[i] for i in rng.permutation(len(picked))]
+    return [samples[i] for i in picked]
 
 
 def split_dataset(

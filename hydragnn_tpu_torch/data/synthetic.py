@@ -8,18 +8,22 @@ outputs. Because the learned function is known in closed form, end-to-end
 accuracy thresholds are meaningful.
 
 The port's copy of ``hydragnn_tpu/data/synthetic.py``: from the same
-seed it yields bit-equal samples (tests/test_torch_data.py). Output:
-``deterministic_graph_data`` -> in-memory ``GraphSample`` list whose
-feature packing matches what the reference's LSMS reader produces for
-these files — including the charge-density correction ``x[:,1] -= x[:,0]``
-(reference: hydragnn/preprocess/lsms_raw_dataset_loader.py:91-108), so
-effective node features are [type, knn_x^2, knn_x^3] and the raw graph
-feature is the pre-correction total sum. The LSMS text writer waits for
-the data-breadth slice (ROADMAP A8).
+seed it yields bit-equal samples (tests/test_torch_data.py). Two outputs:
+  - ``deterministic_graph_data`` -> in-memory ``GraphSample`` list whose
+    feature packing matches what the reference's LSMS reader produces for
+    these files — including the charge-density correction
+    ``x[:,1] -= x[:,0]`` (reference:
+    hydragnn/preprocess/lsms_raw_dataset_loader.py:91-108), so effective
+    node features are [type, knn_x^2, knn_x^3] and the raw graph feature
+    is the pre-correction total sum.
+  - ``write_lsms_files`` -> the same configurations (the same rng
+    stream) in the LSMS text format, so the raw-ingestion path can be
+    tested against identical data.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -125,3 +129,50 @@ def deterministic_graph_data(
             )
         )
     return samples
+
+
+def write_lsms_files(
+    path: str,
+    number_configurations: int = 500,
+    configuration_start: int = 0,
+    seed: int = 0,
+    **kwargs,
+) -> None:
+    """Write the same configurations in the reference's LSMS text format
+    (reference: tests/deterministic_graph_data.py:83-180) so the raw text
+    ingestion path can round-trip them."""
+    types = kwargs.pop("types", None) or list(range(kwargs.pop("number_types", 3)))
+    number_neighbors = kwargs.pop("number_neighbors", 2)
+    linear_only = kwargs.pop("linear_only", False)
+    ucx_r = kwargs.pop("unit_cell_x_range", (1, 3))
+    ucy_r = kwargs.pop("unit_cell_y_range", (1, 3))
+    ucz_r = kwargs.pop("unit_cell_z_range", (1, 2))
+    if kwargs:
+        raise TypeError(f"unexpected kwargs: {sorted(kwargs)}")
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ucx = rng.integers(ucx_r[0], ucx_r[1], number_configurations)
+    ucy = rng.integers(ucy_r[0], ucy_r[1], number_configurations)
+    ucz = rng.integers(ucz_r[0], ucz_r[1], number_configurations)
+    for c in range(number_configurations):
+        pos, feature, out_x, out_x2, out_x3, totals = _one_configuration(
+            rng, (int(ucx[c]), int(ucy[c]), int(ucz[c])), types, number_neighbors, linear_only
+        )
+        n = pos.shape[0]
+        lines = ["\t".join(f"{t:.10g}" for t in totals)]
+        for i in range(n):
+            row = [
+                feature[i],
+                float(i),
+                pos[i, 0],
+                pos[i, 1],
+                pos[i, 2],
+                out_x[i],
+                out_x2[i],
+                out_x3[i],
+            ]
+            lines.append("\t".join(f"{v:.10g}" for v in row))
+        fname = os.path.join(path, f"output{c + configuration_start}.txt")
+        with open(fname, "w") as f:
+            f.write("\n".join(lines))

@@ -124,6 +124,19 @@ def update_config(
         arch["edge_dim"] = len(arch["edge_features"])
     elif arch["model_type"] == "CGCNN":
         arch["edge_dim"] = 0
+    # Dataset.Descriptors grow the edge attributes (ingest appends them
+    # after the length column): +2 spherical angles, +4 point-pair
+    # features, so the model's edge_dim matches what the pipeline built
+    desc = config["Dataset"].get("Descriptors", {}) if "Dataset" in config else {}
+    extra = (2 if desc.get("SphericalCoordinates") else 0) + (4 if desc.get("PointPairFeatures") else 0)
+    if extra:
+        if not arch.get("edge_features"):
+            raise ValueError(
+                "Dataset.Descriptors require Architecture.edge_features "
+                '(e.g. ["lengths"]) so the edge attributes are wired into '
+                "an edge-aware model (PNA, CGCNN, SchNet)"
+            )
+        arch["edge_dim"] += extra
 
     arch.setdefault("freeze_conv_layers", False)
     arch.setdefault("initial_bias", None)

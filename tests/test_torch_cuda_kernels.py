@@ -1116,3 +1116,178 @@ def test_cuda_fused_conv_stack_backward_matches_cpu():
     for name, a, r in zip(("x", "W", "b"), grads["cuda"], grads["cpu"]):
         rel = float((a - r).norm() / r.norm().clamp_min(1e-30))
         assert rel <= GRAD_REL_L2, f"grad {name}: relative L2 {rel}"
+
+
+# ---------------------------------------------------------------- Dataset.path on the card
+# The data helpers below import no JAX: tests/test_torch_data_formats.py
+# takes them from here.
+
+EAM_CONFIG = "examples/eam/NiNb_EAM_bulk_multitask.json"
+GDB9 = "tests/data/gdb9_fixture"
+# Ni and Nb: proton number, mass
+SPECIES = {"Ni": (28, 58.693), "Nb": (41, 92.906)}
+
+
+def _repo_path(rel):
+    import os
+
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), rel)
+
+
+def write_cfg_dir(path, n_files, seed, a=3.30, cells=(2, 4)):
+    """Synthetic AtomEye CFG files as the EAM examples read them: BCC
+    supercells of ``cells`` unit cells a side (high end exclusive) at
+    lattice constant ``a``, each atom Ni or Nb, seeded ``c_peratom``,
+    ``fx``, ``fy``, ``fz``, and a ``.bulk`` sidecar whose column 2 holds
+    a seeded bulk modulus."""
+    import os
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for k in range(n_files):
+        reps = rng.integers(cells[0], cells[1], 3)
+        frac = np.array([[i, j, l] for i in range(reps[0]) for j in range(reps[1]) for l in range(reps[2])],
+                        dtype=np.float64)
+        frac = np.concatenate([frac, frac + 0.5]) / reps
+        names = np.where(rng.random(frac.shape[0]) < 0.5, "Ni", "Nb")
+        aux = rng.normal(size=(frac.shape[0], 4))
+        lines = [f"Number of particles = {frac.shape[0]}", "A = 1.0 Angstrom (basic length-scale)"]
+        for i in range(3):
+            for j in range(3):
+                lines.append(f"H0({i + 1},{j + 1}) = {float(a * reps[i]) if i == j else 0.0!r} A")
+        lines += [".NO_VELOCITY.", "entry_count = 7", "auxiliary[0] = c_peratom", "auxiliary[1] = fx",
+                  "auxiliary[2] = fy", "auxiliary[3] = fz"]
+        for name in ("Ni", "Nb"):
+            rows = np.nonzero(names == name)[0]
+            if rows.size == 0:
+                continue
+            lines += [repr(SPECIES[name][1]), name]
+            lines += [" ".join(repr(float(v)) for v in (*frac[r], *aux[r])) for r in rows]
+        stem = os.path.join(path, f"cfg{k:05d}")
+        with open(stem + ".cfg", "w") as f:
+            f.write("\n".join(lines) + "\n")
+        with open(stem + ".bulk", "w") as f:
+            f.write(" ".join(repr(float(v)) for v in (k, frac.shape[0], 150.0 + 40.0 * rng.random())) + "\n")
+
+
+def eam_config(path, hidden=8, layers=2, epochs=1):
+    """The NiNb multitask example config, only ``Dataset.path`` (and, for
+    a small run, width, depth and epochs) changed."""
+    import json
+
+    with open(_repo_path(EAM_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg["Dataset"]["path"] = {"total": path}
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    arch["hidden_dim"], arch["num_conv_layers"] = hidden, layers
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs
+    cfg["Verbosity"]["level"] = 0
+    return cfg
+
+
+def plain_gdb9_files():
+    """The GDB9 fixture files whose atom rows hold plain floats (the
+    others use Fortran ``*^`` exponents, which the XYZ reader refuses)."""
+    import os
+
+    from hydragnn_tpu_torch.data.formats import read_xyz_file
+
+    out = []
+    for f in sorted(f for f in os.listdir(_repo_path(GDB9)) if f.endswith(".xyz")):
+        try:
+            read_xyz_file(os.path.join(_repo_path(GDB9), f))
+        except ValueError:
+            continue
+        out.append(f)
+    return out
+
+
+def write_xyz_dir(path, n):
+    """Copies of the GDB9 fixture's first ``n`` plain files with seeded
+    ``_energy.txt`` sidecars (two columns)."""
+    import os
+    import shutil
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(4)
+    for f in plain_gdb9_files()[:n]:
+        shutil.copy(os.path.join(_repo_path(GDB9), f), os.path.join(path, f))
+        with open(os.path.join(path, f[:-4] + "_energy.txt"), "w") as fh:
+            fh.write(f"{rng.normal()!r} {rng.normal()!r}\n")
+
+
+def xyz_config(path, base):
+    """``base`` (a single-graph-head config) reading XYZ files: x = [Z],
+    the sidecar's column 1 as the graph target."""
+    base["Dataset"].update(
+        format="XYZ", path=path, compositional_stratified_splitting=False,
+        node_features={"name": ["atomic_number"], "dim": [1], "column_index": [0]},
+        graph_features={"name": ["energy"], "dim": [1], "column_index": [1]},
+    )
+    base["NeuralNetwork"]["Variables_of_interest"].update(
+        input_node_features=[0], output_names=["energy"], output_index=[0], type=["graph"])
+    base["NeuralNetwork"]["Architecture"].update(radius=1.6, task_weights=[1.0])
+    return base
+
+
+def _path_config(tmp_path, fmt):
+    """A small config reading ``fmt`` files under ``Dataset.path.total``."""
+    from hydragnn_tpu_torch.data.container import ContainerWriter
+    from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data, write_lsms_files
+    from hydragnn_tpu_torch.flagship import flagship_config
+
+    d = str(tmp_path / fmt)
+    if fmt == "CFG":
+        write_cfg_dir(d, 24, seed=3)
+        return eam_config(d)
+    cfg = flagship_config(hidden_dim=8, num_conv_layers=2, batch_size=8)
+    cfg["Dataset"].update(format=fmt, path={"total": d})
+    if fmt == "XYZ":
+        write_xyz_dir(d, 24)
+        return xyz_config(cfg["Dataset"]["path"], cfg)
+    if fmt == "HGC":
+        w = ContainerWriter(d)
+        w.add(deterministic_graph_data(number_configurations=24, seed=7))
+        w.save()
+    else:
+        write_lsms_files(d, number_configurations=24, seed=7)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["unit_test", "XYZ", "CFG", "HGC"])
+def test_cuda_dataset_path_step_equals_samples_step(tmp_path, fmt):
+    """One train step on the card from ``Dataset.path`` (the port's
+    readers, native radius graph, PBC and rotation for CFG) equals, bit
+    for bit, the step on the same raw samples passed as ``samples=``,
+    under deterministic algorithms."""
+    import copy
+    import os
+    import warnings
+
+    from hydragnn_tpu_torch.api import prepare_loaders_and_config
+    from hydragnn_tpu_torch.data.ingest import load_raw_samples
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import train_step
+
+    dev = _cuda()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = _path_config(tmp_path, fmt)
+    sides = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for where in ("path", "samples"):
+                raw = None if where == "path" else load_raw_samples(cfg, cfg["Dataset"]["path"]["total"])
+                train_loader, _, _, done = prepare_loaders_and_config(copy.deepcopy(cfg), raw)
+                model = create_model_config(done["NeuralNetwork"], seed=0, device=dev)
+                opt = select_optimizer(model, done["NeuralNetwork"]["Training"])
+                loss, tasks = train_step(model, opt, next(iter(train_loader)).to(dev))
+                sides[where] = [loss, tasks] + [p.detach() for p in model.parameters()]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.isfinite(sides["path"][0])
+    for a, b in zip(sides["path"], sides["samples"]):
+        assert torch.equal(a, b)

@@ -8,6 +8,7 @@ statistics.
 """
 
 import copy
+import importlib
 
 import numpy as np
 import pytest
@@ -22,12 +23,14 @@ from hydragnn_tpu.models.convs import avg_degree_stats as jax_avg_degree_stats
 from hydragnn_tpu.utils import config as jax_config
 
 from hydragnn_tpu_torch.data import ingest as t_ingest
-from hydragnn_tpu_torch.data import radius_graph as t_radius
 from hydragnn_tpu_torch.data import splitting as t_splitting
 from hydragnn_tpu_torch.data import synthetic as t_synthetic
 from hydragnn_tpu_torch.flagship import flagship_config as t_flagship_config
 from hydragnn_tpu_torch.models.convs import avg_degree_stats as t_avg_degree_stats
 from hydragnn_tpu_torch.utils import config as t_config
+
+# the package exports the function under the module's name
+t_radius = importlib.import_module("hydragnn_tpu_torch.data.radius_graph")
 
 # the runtime knobs of the JAX package that the port does not resolve
 _JAX_ONLY_KEYS = {"diagnostics", "diag_every", "Parallel"}
@@ -138,9 +141,3 @@ def test_update_config_resolves_the_same_config():
     assert sum(deg) > 0
     assert t_avg_degree_stats(deg) == jax_avg_degree_stats(deg)
 
-
-def test_unported_branches_raise():
-    cfg = t_flagship_config(hidden_dim=16, num_conv_layers=2)
-    cfg["Dataset"]["rotational_invariance"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        t_ingest.prepare_dataset(_samples(t_synthetic, n=4), cfg)
