@@ -156,6 +156,26 @@ raises; nothing is caught):
                    within the train step's tiers; the step on CUDA
                    events, the card's busy share, launches a step, the
                    kernels launched; run_prediction's per-head MAE.
+ 9h. examples    — the seven example drivers (hydragnn_tpu_torch/examples:
+                   Ising, LSMS, EAM, CSCE, OGB, QM9, MD17) through
+                   main([...]) in a temporary directory on the card,
+                   --preonly where the driver has it, then training, each
+                   on its published config unedited at its published
+                   width, data counts only through the driver's own
+                   arguments: the layout AUTO picked, the launches held to
+                   the layout's per-step and per-forward counts, the step
+                   on CUDA events and the card's busy share, the epoch
+                   wall, the first and last loss (finite, falling).
+ 9i. records     — the flagship at full width in the training loop, batch
+                   128, 2 epochs (1,800 graphs: 12 steps an epoch), with
+                   Profile {enable: 1, target_epoch: 1}, under
+                   deterministic algorithms: metrics.jsonl equal to the
+                   history, the printed peak memory equal to
+                   torch.cuda.max_memory_allocated, one Chrome trace that
+                   names the port's kernels, the history and parameters
+                   bit-equal to the same per-step run without Profile;
+                   the tensorboard writer's kind, matplotlib's presence
+                   (and the plots where it is present).
  10. timing      — each kernel at the main path's shapes: ms eager, ms in
                    a CUDA graph, plain ms, library ms (eager and in a
                    graph), beside its bound; B1's backward kernel beside
@@ -195,6 +215,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1579,7 +1600,6 @@ def data_eam_phase(dev, card, counts):
     card's busy share, launches a step, and run_prediction's per-head
     MAE. Returns the run's launches."""
     import hydragnn_tpu_torch
-    from torch.profiler import ProfilerActivity, profile
 
     from hydragnn_tpu_torch.api import prepare_loaders_and_config
     from hydragnn_tpu_torch.models.create import create_model_config
@@ -1636,13 +1656,7 @@ def data_eam_phase(dev, card, counts):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"data-eam: the train loss did not fall: {losses}")
     launched = {k: v for k, v in run_counts.items() if v}
-    # PNA with edge lengths on the run-aligned layout: per train step the
-    # sender gather (B3; its backward B3 and B2), B2 and the E/K segment
-    # max (its backward B2 and B3), K-group statistics in plain PyTorch;
-    # per eval or BatchNorm-statistics forward B3 and B2 once a layer
-    n_layers = done["NeuralNetwork"]["Architecture"]["num_conv_layers"]
-    per_step = {"gather_rows": 5 * n_layers, "segment_sum": 3 * n_layers}
-    per_fwd = {"gather_rows": n_layers, "segment_sum": n_layers}
+    per_step, per_fwd = launch_plan(done["NeuralNetwork"]["Architecture"], "run_aligned")
     steps = EAM_EPOCHS * len(train_loader)
     fwds = EAM_EPOCHS * (len(loaders[1]) + len(loaders[2])) + 2 * len(train_loader)
     want = {k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in run_counts}
@@ -1663,17 +1677,9 @@ def data_eam_phase(dev, card, counts):
     m = create_model_config(done["NeuralNetwork"], seed=SEED, device="cuda")
     o = select_optimizer(m, done["NeuralNetwork"]["Training"])
     step_ms = [round(cuda_ms(lambda: train_step(m, o, bd), 10), 4) for _ in range(3)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(m, o, bd)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
-    busy = sum(ms for _, ms, _ in rows)
+    prof_wall_ms, rows = step_profile(m, o, bd)
     line("data-eam", part="step", graphs=int(first.graph_mask.sum()), step_ms_cuda_events=json.dumps(step_ms),
-         profiled_wall_ms=round(prof_wall_ms, 3), device_busy_ms=round(busy, 3) if rows else "not measured",
-         device_busy_share=round(busy / prof_wall_ms, 4) if rows else "not measured",
+         profiled_wall_ms=round(prof_wall_ms, 3), **busy_fields(prof_wall_ms, rows),
          device_kernels_seen=len(rows), port_launches_per_step=json.dumps(per_step, separators=(",", ":")),
          card=repr(card))
     for key, ms, calls in sorted(rows, key=lambda r: -r[1])[:8]:
@@ -1689,6 +1695,303 @@ def data_eam_phase(dev, card, counts):
          mae_per_head=json.dumps(maes), denormalized=published["NeuralNetwork"]["Variables_of_interest"].get(
              "denormalize_output", False), card=repr(card))
     return run_counts
+
+
+# the [examples] phase: each example driver through main([...]) on the
+# card, the published config unedited, data counts through the driver's
+# own arguments (the JAX drivers' defaults; the Ising lattice 3 x 3 x 3
+# at a histogram cutoff of 100, about 2,460 configurations)
+EXAMPLE_DRIVERS = (
+    ("ising_model", "ising_model.train_ising", True, ["--natom", "3", "--cutoff", "100"]),
+    ("lsms", "lsms.lsms", True, ["--nconfig", "200"]),
+    ("eam", "eam.eam", True, ["--nconfig", "100"]),
+    ("csce", "csce.train_gap", True, []),
+    ("ogb", "ogb.train_gap", True, []),
+    ("qm9", "qm9.qm9", False, ["--nsamples", "1000"]),
+    ("md17", "md17.md17", False, ["--maxframes", "1000"]),
+)
+# the [records] phase: the flagship at batch 128 for 2 epochs, tracing
+# epoch 1; 1,800 graphs give 1,440 train graphs, 12 steps an epoch, so the
+# profiler's 5 + 3 untraced steps leave 3 to trace
+RECORDS_SAMPLES, RECORDS_EPOCHS, RECORDS_PROFILE = 1800, 2, {"enable": 1, "target_epoch": 1}
+
+
+def batch_layout(batch):
+    """The layout the loader's AUTO pick gave ``batch``."""
+    if batch.dense_senders is not None:
+        return "dense"
+    return "run_aligned" if batch.run_align else "unaligned"
+
+
+def launch_plan(arch, layout):
+    """(per train step, per eval or BatchNorm-statistics forward) kernel
+    launches of a model of ``arch`` on ``layout``: the one source of the
+    counts that [train], [train-stacks], [train-pna-layouts], [data-eam],
+    [examples] and [records] hold (the conv stacks by ``stack_launches``;
+    their conv does not read the dense map)."""
+    n = arch["num_conv_layers"]
+    edge = bool(arch.get("edge_features"))
+    if arch["model_type"] != "PNA":
+        return stack_launches(arch["model_type"], n), {"fused_conv": n, "row_pointers": 1}
+    if layout == "dense" and not edge:
+        # the slot gather (B3; its backward B3 and B2 over the real slots),
+        # then the slot reductions in plain PyTorch
+        return {"gather_rows": 2 * n, "segment_sum": n}, {"gather_rows": n}
+    if layout == "run_aligned" and edge:
+        # v = gather (B3; its backward B3 and B2) + the edge term, K-group
+        # statistics in plain PyTorch, then B2 (its backward B3) and the
+        # E/K segment max (its backward B2 and B3)
+        return {"gather_rows": 5 * n, "segment_sum": 3 * n}, {"gather_rows": n, "segment_sum": n}
+    if layout == "run_aligned":
+        # a train step: B1 (forward) and its backward kernel, B2 twice
+        # (forward E/K sum, backward tie counts), B3 three times (backward:
+        # the max's two gathers, the E/K sum's cotangent), B4 (backward
+        # into bsend), a layer each; a forward: B1 and B2
+        return ({"gather_stats": n, "gather_stats_bwd": n, "segment_sum": 2 * n, "gather_rows": 3 * n,
+                 "segment_sum_local": n}, {"gather_stats": n, "segment_sum": n})
+    if layout == "unaligned" and not edge:
+        # the sender gather (B3; its backward the permuted pair, B3 then
+        # B2), B5 forward, B6 and B7 backward, a layer each; B5's row
+        # pointers once a forward
+        return ({"pna_aggregate_fwd": n, "pna_bwd_count": n, "pna_bwd_grad": n, "gather_rows": 2 * n,
+                 "segment_sum": n, "row_pointers": 1}, {"pna_aggregate_fwd": n, "gather_rows": n, "row_pointers": 1})
+    raise AssertionError(f"no launch plan for {arch['model_type']} on {layout} with edge features {edge}")
+
+
+def step_profile(model, optimizer, batch):
+    """One train step under torch.profiler: its wall ms and the card's
+    kernels as (name, self device ms, calls); no kernels where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch.train.state import train_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, optimizer, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+    return wall, rows
+
+
+def busy_fields(wall_ms, rows):
+    """The card's busy ms and busy share of a profiled step, or "not
+    measured" where the profiler saw no device time."""
+    busy = sum(ms for _, ms, _ in rows)
+    if not rows:
+        return {"device_busy_ms": "not measured", "device_busy_share": "not measured"}
+    return {"device_busy_ms": round(busy, 3), "device_busy_share": round(busy / wall_ms, 4)}
+
+
+def examples_phase(dev, card, counts):
+    """[examples]: the seven example drivers (``hydragnn_tpu_torch/examples``)
+    through ``main([...])`` in a temporary working directory on the card:
+    ``--preonly`` where the driver has it, then training, each on its
+    published config at its published width. For each: the layout AUTO
+    picked, the kernels launched (held to ``launch_plan``), the step on
+    CUDA events and the card's busy share on its first train batch, the
+    epoch wall, the first and last train loss (finite, falling), its
+    seconds. A driver's output goes to a log in the directory; the log's
+    tail is printed when it fails. Returns each driver's launches."""
+    import contextlib
+    import importlib
+
+    from hydragnn_tpu_torch.train.state import train_step
+
+    reset_counts, read_counts = counts
+    root = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    cwd = os.getcwd()
+    launches = {}
+    os.chdir(root)
+    try:
+        for name, module, preonly, args in EXAMPLE_DRIVERS:
+            driver = importlib.import_module(f"hydragnn_tpu_torch.examples.{module}")
+            log_path = os.path.join(root, f"{name}.log")
+            t0 = time.perf_counter()
+            try:
+                with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+                    if preonly:
+                        driver.main(["--preonly", *args, "--device", "cuda"])
+                    pre_s = time.perf_counter() - t0
+                    reset_counts()
+                    result = driver.main([*args, "--device", "cuda"])
+                    torch.cuda.synchronize()
+                    got = read_counts()
+            except BaseException:
+                with open(log_path) as f:
+                    print(f"[examples] driver={name} failed; the end of its output:", flush=True)
+                    print("".join(f.readlines()[-40:]), flush=True)
+                raise
+            hist, (tl, vl, tel) = result.history, result.loaders
+            arch = result.config["NeuralNetwork"]["Architecture"]
+            first = next(iter(tl))
+            layout = batch_layout(first)
+            per_step, per_fwd = launch_plan(arch, layout)
+            epochs = len(hist["train_loss"])
+            steps, fwds = epochs * len(tl), epochs * (len(vl) + len(tel)) + 2 * len(tl)
+            want = {k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in got}
+            if got != want:
+                raise AssertionError(f"examples {name}: launches {got}, want {want}")
+            losses = hist["train_loss"]
+            if not all(np.isfinite(hist[k]).all() for k in ("train_loss", "val_loss", "test_loss")):
+                raise AssertionError(f"examples {name}: a loss is not finite: {hist}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"examples {name}: the train loss did not fall: {losses}")
+            bd = first.to(dev)
+            step_ms = [round(cuda_ms(lambda: train_step(result.model, result.optimizer, bd), 10), 4)
+                       for _ in range(2)]
+            prof_wall, rows = step_profile(result.model, result.optimizer, bd)
+            launched = {k: v for k, v in got.items() if v}
+            launches[name] = got
+            line("examples", driver=name, module=f"hydragnn_tpu_torch.examples.{module}", args=json.dumps(args),
+                 model_type=arch["model_type"], hidden=arch["hidden_dim"], conv_layers=arch["num_conv_layers"],
+                 edge_features=json.dumps(arch.get("edge_features")), layout=layout, run_align=first.run_align,
+                 dense_slots=None if first.dense_senders is None else first.dense_senders.shape[1],
+                 node_pad=first.num_nodes, edge_pad=first.num_edges, batch=result.config["NeuralNetwork"][
+                     "Training"]["batch_size"], train_graphs=len(tl.samples), epochs=epochs, steps=steps,
+                 eval_and_bn_forwards=fwds, kernels_launched=json.dumps(sorted(launched)),
+                 kernel_launches=json.dumps(launched, separators=(",", ":")),
+                 step_ms_cuda_events=json.dumps(step_ms), profiled_step_wall_ms=round(prof_wall, 3),
+                 **busy_fields(prof_wall, rows),
+                 epoch_wall_s=json.dumps([round(w, 4) for w in hist["train_wall_s"]]),
+                 first_loss=losses[0], last_loss=losses[-1], preonly_s=round(pre_s, 2),
+                 seconds=round(time.perf_counter() - t0, 2), card=repr(card))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def records_phase(dev, card, counts, samples):
+    """[records]: the flagship at full width in the training loop, batch
+    128, 2 epochs, with ``Profile {enable: 1, target_epoch: 1}`` under
+    deterministic algorithms: ``metrics.jsonl`` has a line an epoch equal
+    to the returned history; the peak memory the loop prints after epoch 0
+    equals ``torch.cuda.max_memory_allocated`` read as it prints; the
+    Chrome trace exists, holds the traced steps' CUDA kernels and names
+    the port's; the history and parameters are bit-equal to the same
+    per-step run without ``Profile``. Prints whether the tensorboard
+    writer is real and whether matplotlib is present, and plots the test
+    pass when it is. Returns the profiled run's launches."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from hydragnn_tpu_torch.api import create_dataloaders, prepare_config_and_samples
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.train import loop as t_loop
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.utils.tensorboard import get_summary_writer
+
+    reset_counts, read_counts = counts
+    tr, va, te, done = prepare_config_and_samples(
+        flagship_config(batch_size=LOOP_BATCH, num_epoch=RECORDS_EPOCHS), samples())
+    root = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    peaks = []
+    real_peak = t_loop.print_peak_memory
+
+    def spy(*a, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            value = real_peak(*a, **kw)
+        peaks.append((value, torch.cuda.max_memory_allocated(dev), buf.getvalue().strip()))
+        print(buf.getvalue(), end="", flush=True)
+        return value
+
+    def run(label, profile):
+        nn = copy.deepcopy(done["NeuralNetwork"])
+        nn["Training"]["scan_epoch"] = False  # per-step, as Profile makes the traced run
+        if profile is not None:
+            nn["Profile"] = dict(profile)
+        loaders = create_dataloaders(tr, va, te, {"NeuralNetwork": nn})
+        model = create_model_config(nn, seed=SEED, device=dev)
+        optimizer = select_optimizer(model, nn["Training"])
+        torch.cuda.reset_peak_memory_stats(dev)  # the printed peak is then this run's
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = t_loop.train_validate_test(model, optimizer, *loaders, nn, verbosity=1, log_name="run",
+                                          log_dir=os.path.join(root, label) + "/")
+        torch.cuda.synchronize()
+        return model, hist, read_counts(), time.perf_counter() - t0, loaders
+
+    t_loop.print_peak_memory = spy
+    try:
+        with deterministic_algorithms("records", "profiled,plain"):
+            m_prof, h_prof, prof_counts, prof_wall, loaders = run("profiled", RECORDS_PROFILE)
+            m_plain, h_plain, _, plain_wall, _ = run("plain", None)
+    finally:
+        t_loop.print_peak_memory = real_peak
+    steps_per_epoch = len(loaders[0])
+    if steps_per_epoch < 11:
+        raise AssertionError(f"records: {steps_per_epoch} steps an epoch; the profiler traces steps 9-11")
+    per_step, per_fwd = launch_plan(done["NeuralNetwork"]["Architecture"], batch_layout(next(iter(loaders[0]))))
+    fwds = RECORDS_EPOCHS * (len(loaders[1]) + len(loaders[2])) + 2 * steps_per_epoch
+    want = {k: RECORDS_EPOCHS * steps_per_epoch * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in prof_counts}
+    if prof_counts != want:
+        raise AssertionError(f"records: launches {prof_counts}, want {want}")
+    for key in t_loop.EPOCH_KEYS:
+        if h_prof[key] != h_plain[key]:
+            raise AssertionError(f"records: {key} differs with Profile: {h_prof[key]} vs {h_plain[key]}")
+    params_equal = all(torch.equal(a, b) for a, b in zip(m_prof.state_dict().values(),
+                                                         m_plain.state_dict().values()))
+    if not params_equal:
+        raise AssertionError("records: the parameters differ with Profile")
+    with open(os.path.join(root, "profiled", "run", "metrics.jsonl")) as f:
+        records = [json.loads(ln) for ln in f]
+    if [r["epoch"] for r in records] != list(range(RECORDS_EPOCHS)) or \
+            [r["train_loss"] for r in records] != h_prof["train_loss"] or \
+            [r["val_loss"] for r in records] != h_prof["val_loss"] or \
+            [r["test_loss"] for r in records] != h_prof["test_loss"] or [r["lr"] for r in records] != h_prof["lr"]:
+        raise AssertionError(f"records: metrics.jsonl {records} is not the history {h_prof}")
+    # two runs each print once, after their epoch 0
+    if len(peaks) != 2 or any(v is None or v != now or f"{v / 1e6:.1f} MB" not in text for v, now, text in peaks):
+        raise AssertionError(f"records: the printed peak memory is not torch.cuda.max_memory_allocated: {peaks}")
+    trace_dir = os.path.join(root, "profiled", "run", "profile")
+    traces = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    if traces != [f"epoch{RECORDS_PROFILE['target_epoch']}.pt.trace.json"]:
+        raise AssertionError(f"records: traces {traces}")
+    trace_path = os.path.join(trace_dir, traces[0])
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [ev.get("name", "") for ev in events if ev.get("cat") == "kernel"]
+    # the port's kernels on this path: B1 (and its backward), B2, B3, B4
+    named = sorted({m for n in kernels for m in re.findall(r"\w*(?:gather_stats|segment_sum|gather_rows)\w*", n)})
+    if not named:
+        raise AssertionError(f"records: the trace names none of the port's kernels among {len(kernels)} kernels")
+    plain_counts = read_counts()
+    writer = get_summary_writer("writer_probe", root)
+    writer_kind = type(writer).__name__
+    writer.close()
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    plots = "not run: matplotlib is not installed"
+    if have_mpl:
+        from hydragnn_tpu_torch.postprocess.visualizer import Visualizer
+
+        _, _, tv, pv = t_loop.test_epoch(loaders[2], m_prof)
+        viz = Visualizer("run", num_heads=m_prof.cfg.num_heads, head_names=m_prof.cfg.output_names,
+                         log_dir=os.path.join(root, "profiled"))
+        paths = viz.create_scatter_plots(tv, pv) + viz.create_reference_plot_suite(
+            tv, pv, m_prof.cfg.output_type, [s.num_nodes for s in loaders[2].samples])
+        plots = json.dumps(sorted(os.path.basename(q) for q in paths))
+    line("records", samples=RECORDS_SAMPLES, batch=LOOP_BATCH, epochs=RECORDS_EPOCHS,
+         steps_per_epoch=steps_per_epoch, profile=json.dumps(RECORDS_PROFILE),
+         dispatch=h_prof["dispatch_mode"]["mode"], history_bit_equal_without_profile=True,
+         parameters_bit_equal=True, metrics_jsonl_lines=len(records), metrics_equal_history=True,
+         peak_memory_bytes=json.dumps([v for v, _, _ in peaks]),
+         max_memory_allocated_at_print=json.dumps([now for _, now, _ in peaks]),
+         trace=os.path.basename(trace_path), trace_mib=round(os.path.getsize(trace_path) / 2**20, 3),
+         trace_kernel_events=len(kernels), trace_port_kernels=json.dumps(named),
+         epoch_wall_s=json.dumps([round(w, 4) for w in h_prof["train_wall_s"]]),
+         epoch_wall_s_without_profile=json.dumps([round(w, 4) for w in h_plain["train_wall_s"]]),
+         run_wall_s=round(prof_wall, 3), run_wall_s_without_profile=round(plain_wall, 3),
+         tensorboard_writer=writer_kind, matplotlib=have_mpl, plots=plots,
+         kernel_launches=json.dumps(prof_counts, separators=(",", ":")),
+         kernel_launches_without_profile_equal=plain_counts == prof_counts, card=repr(card))
+    shutil.rmtree(root, ignore_errors=True)
+    return prof_counts
 
 
 def main():
@@ -1823,6 +2126,12 @@ def main():
     def train_samples():
         return deterministic_graph_data(
             number_configurations=TRAIN_SAMPLES, unit_cell_x_range=TRAIN_UNIT_CELLS,
+            unit_cell_y_range=TRAIN_UNIT_CELLS, unit_cell_z_range=TRAIN_UNIT_CELLS, seed=SEED,
+        )
+
+    def records_samples():
+        return deterministic_graph_data(
+            number_configurations=RECORDS_SAMPLES, unit_cell_x_range=TRAIN_UNIT_CELLS,
             unit_cell_y_range=TRAIN_UNIT_CELLS, unit_cell_z_range=TRAIN_UNIT_CELLS, seed=SEED,
         )
 
@@ -2154,15 +2463,9 @@ def main():
         raise AssertionError(f"train: a loss is not finite: {history}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: the train loss did not fall: {losses}")
-    # per train step: B1 6 (forward), its backward kernel 6, B2 12 (forward
-    # E/K sum, backward tie counts), B3 18 (backward: the max's two gathers,
-    # the E/K sum's cotangent), B4 6 (backward into bsend); per eval or
-    # BatchNorm-statistics forward: B1 6, B2 6
     steps = TRAIN_EPOCHS * len(train_loader)
     forwards = TRAIN_EPOCHS * (len(val_loader) + len(test_loader)) + 2 * len(train_loader)
-    per_step = {"gather_stats": n_layers, "gather_stats_bwd": n_layers, "segment_sum": 2 * n_layers,
-                "gather_rows": 3 * n_layers, "segment_sum_local": n_layers}
-    per_fwd = {"gather_stats": n_layers, "segment_sum": n_layers}
+    per_step, per_fwd = launch_plan(done["NeuralNetwork"]["Architecture"], "run_aligned")
     want = {name: steps * per_step.get(name, 0) + forwards * per_fwd.get(name, 0) for name in mods}
     if train_counts != want:
         raise AssertionError(f"train: launches {train_counts}, want {want}")
@@ -2383,8 +2686,7 @@ def main():
             raise AssertionError(f"train-stacks {mt}: the train loss did not fall: {losses}")
         steps_ = epochs * len(train_loader)
         fwds = epochs * (len(val_loader) + len(test_loader)) + 2 * len(train_loader)
-        per = stack_launches(mt, n_layers)
-        per_fwd = {"fused_conv": n_layers, "row_pointers": 1}
+        per, per_fwd = launch_plan({"model_type": mt, "num_conv_layers": n_layers}, None)
         want_ = {name: steps_ * per.get(name, 0) + fwds * per_fwd.get(name, 0) for name in mods}
         if counts != want_:
             raise AssertionError(f"train-stacks {mt}: launches {counts}, want {want_}")
@@ -2545,13 +2847,9 @@ def main():
         cfg_["NeuralNetwork"]["Variables_of_interest"].update(minmax)
         return update_config(cfg_, train_loader.samples, val_loader.samples, test_loader.samples)
 
-    # the unaligned CSR layout: the sender gather (B3; its backward the
-    # permuted pair, B3 then B2), B5 forward, B6 and B7 backward, per layer
     u_loaders = (unaligned_loader(train_loader.samples, shuffle=True), unaligned_loader(val_loader.samples),
                  unaligned_loader(test_loader.samples))
-    per_u = {"pna_aggregate_fwd": n_layers, "pna_bwd_count": n_layers, "pna_bwd_grad": n_layers,
-             "gather_rows": 2 * n_layers, "segment_sum": n_layers, "row_pointers": 1}
-    fwd_u = {"pna_aggregate_fwd": n_layers, "gather_rows": n_layers, "row_pointers": 1}
+    per_u, fwd_u = launch_plan(completed()["NeuralNetwork"]["Architecture"], "unaligned")
     layout_run("unaligned", completed(), u_loaders, per_u, fwd_u)
     layout_batches["unaligned"] = (u_loaders[0], uhost.to(dev))
     # its train step at STEP_GRAPHS graphs against the CPU
@@ -2564,12 +2862,8 @@ def main():
                    + [np.random.default_rng(SEED + k).permutation(STEP_GRAPHS) for k in (1, 2)]]
     pna_step_vs_cpu("train-pna-layouts-step-vs-cpu", completed()["NeuralNetwork"], u_step, per_u,
                     (reset_counts, read_counts), reordered=u_reordered)
-    # edge lengths on the AUTO layout (run-aligned): v = gather (B3; its
-    # backward B3 and B2) + the edge term, K-group statistics in plain
-    # PyTorch, then B2 (its backward B3) and the E/K segment max (its
-    # backward B2 and B3)
-    per_e = {"gather_rows": 5 * n_layers, "segment_sum": 3 * n_layers}
-    fwd_e = {"gather_rows": n_layers, "segment_sum": n_layers}
+    # edge lengths on the AUTO layout (run-aligned)
+    per_e, fwd_e = launch_plan(completed(edge_lengths=True)["NeuralNetwork"]["Architecture"], "run_aligned")
     layout_run("edge_lengths", completed(edge_lengths=True), (train_loader, val_loader, test_loader), per_e, fwd_e)
     layout_batches["edge_lengths"] = (train_loader, bd)
     # the dense slot map: D = the largest in-degree of the data
@@ -2580,10 +2874,7 @@ def main():
 
     d_loaders = (dense_loader(train_loader.samples, shuffle=True), dense_loader(val_loader.samples),
                  dense_loader(test_loader.samples))
-    # the dense slot map: the slot gather (B3; its backward B3 and B2 over
-    # the real slots), then the slot reductions in plain PyTorch
-    layout_run("dense", completed(), d_loaders, {"gather_rows": 2 * n_layers, "segment_sum": n_layers},
-               {"gather_rows": n_layers})
+    layout_run("dense", completed(), d_loaders, *launch_plan(completed()["NeuralNetwork"]["Architecture"], "dense"))
     layout_batches["dense"] = (d_loaders[0], next(iter(dense_loader(train_loader.samples))).to(dev))
 
     # ---- 9c. accuracy: the reference bar on tests/test_train_e2e.py's PNA config
@@ -2808,6 +3099,14 @@ def main():
     t0 = time.perf_counter()
     eam_counts = data_eam_phase(dev, card, (reset_counts, read_counts))
     line("data-eam", part="phase", seconds=round(time.perf_counter() - t0, 1))
+
+    # ---- 9h. examples, 9i. records ----------------------------------------
+    t0 = time.perf_counter()
+    example_counts = examples_phase(dev, card, (reset_counts, read_counts))
+    line("examples", part="phase", seconds=round(time.perf_counter() - t0, 1))
+    t0 = time.perf_counter()
+    records_counts = records_phase(dev, card, (reset_counts, read_counts), records_samples)
+    line("records", part="phase", seconds=round(time.perf_counter() - t0, 1))
 
     # ---- 10. timing ------------------------------------------------------
     h = hidden
@@ -3124,8 +3423,6 @@ def main():
 
     # the device time of one train step by kernel (torch.profiler), and
     # the share of the step's wall time the card was busy
-    from torch.profiler import ProfilerActivity, profile
-
     ours = ("gather_stats_warp_kernel", "gather_stats_narrow_kernel", "gather_stats_bwd_warp_kernel",
             "gather_stats_bwd_narrow_kernel", "segment_sum_kernel", "gather_rows_kernel", "segment_sum_local_kernel",
             "csr_row_ptr_kernel", "zero_kernel", "fused_identity_warp_kernel",
@@ -3135,20 +3432,12 @@ def main():
             "stack_product", "stack_walk")
 
     def profile_step(label, model_, optimizer_, bd_=bd):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            train_step(model_, optimizer_, bd_)
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
-        kernel_rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
-                       if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+        prof_wall_ms, kernel_rows = step_profile(model_, optimizer_, bd_)
         busy_ms = sum(ms for _, ms, _ in kernel_rows)
         port_ms = sum(ms for key, ms, _ in kernel_rows if any(o in key for o in ours))
         gemm_ms = sum(ms for key, ms, _ in kernel_rows if "gemm" in key.lower())
         line("profile", stack=label, shape=f"train_batch{TRAIN_BATCH}", card=repr(card),
-             wall_ms=round(prof_wall_ms, 3),
-             device_busy_ms=round(busy_ms, 3) if kernel_rows else "not measured",
-             device_busy_share=round(busy_ms / prof_wall_ms, 4) if kernel_rows else "not measured",
+             wall_ms=round(prof_wall_ms, 3), **busy_fields(prof_wall_ms, kernel_rows),
              port_kernels_ms=round(port_ms, 3), gemm_ms=round(gemm_ms, 3),
              other_pytorch_ms=round(busy_ms - port_ms - gemm_ms, 3), kernels_seen=len(kernel_rows))
         for key, ms, calls in sorted(kernel_rows, key=lambda r: -r[1])[:15]:
@@ -3173,7 +3462,8 @@ def main():
              "train_pna_dense": layout_counts["dense"], "accuracy_pna_dense_singlehead": acc_counts["singlehead"],
              "accuracy_pna_dense_multihead": acc_counts["multihead"],
              **{f"accuracy_{k}": v for k, v in acc_counts.items() if k.startswith("stack_")}, **loop_counts,
-             "data_path_hgc": data_path_counts, "data_eam": eam_counts}
+             "data_path_hgc": data_path_counts, "data_eam": eam_counts, "records": records_counts,
+             **{f"examples_{k}": c for k, c in example_counts.items()}}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",
                 pna_bwd_grad="train_pna_unaligned", fused_conv_stack="stack_op", row_pointers="train_gin")

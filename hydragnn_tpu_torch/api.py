@@ -27,6 +27,8 @@ from hydragnn_tpu_torch.train.loop import test_epoch, train_validate_test
 from hydragnn_tpu_torch.train.optimizer import select_optimizer
 from hydragnn_tpu_torch.utils.checkpoint import load_existing_model, load_existing_model_config, save_model
 from hydragnn_tpu_torch.utils.config import get_log_name_config, load_config, save_config, update_config
+from hydragnn_tpu_torch.utils.print_utils import print_model, setup_log
+from hydragnn_tpu_torch.utils.time_utils import Timer, print_timers
 
 
 def _prepared_splits(config: Dict[str, Any], samples: Optional[List]):
@@ -102,19 +104,27 @@ def train_with_loaders(
     """Model (seeded init) + optimizer + epoch loop + checkpoint, on
     loaders whose config went through ``update_config``. With
     ``Training.continue = 1`` the model and optimizer start from
-    ``Training.startfrom``'s checkpoint. Returns (model, optimizer,
-    history)."""
+    ``Training.startfrom``'s checkpoint. The run's log, config, records
+    (``metrics.jsonl``, tensorboard events, a ``Profile`` trace) and the
+    ``Visualization`` section's plots go to ``<log_dir>/<log name>/``.
+    Returns (model, optimizer, history)."""
     dev = resolve_device(device)
     verbosity = config.get("Verbosity", {}).get("level", 0)
     log_name = get_log_name_config(config)
+    setup_log(log_name, log_dir)
     save_config(config, log_name, log_dir)
     nn_config = config["NeuralNetwork"]
     model = create_model_config(nn_config, seed=seed, device=dev)
     optimizer = _optimizer_for(model, nn_config)
     load_existing_model_config(model, nn_config["Training"], log_dir, optimizer=optimizer)
+    print_model(model, verbosity)
+    viz = config.get("Visualization", {})
     history = train_validate_test(
         model, optimizer, train_loader, val_loader, test_loader, nn_config, verbosity=verbosity,
         log_name=log_name, log_dir=log_dir,
+        create_plots=bool(viz.get("create_plots", False)),
+        plot_init_solution=bool(viz.get("plot_init_solution", False)),
+        plot_hist_solution=bool(viz.get("plot_hist_solution", False)),
     )
     save_model(model, log_name, log_dir, optimizer=optimizer, epoch=len(history["train_loss"]))
     return model, optimizer, history
@@ -127,14 +137,22 @@ def run_training(
     device: Optional[str] = "cuda",
     seed: int = 0,
 ):
-    """The full training pipeline on ``device``; returns (model,
-    optimizer, history, completed config)."""
+    """The full training pipeline on ``device``, timed as
+    ``total_training`` (``utils/time_utils.py``, printed at the config's
+    verbosity); returns (model, optimizer, history, completed config)."""
     resolve_device(device)
     config = load_config(config_file_or_dict)
-    train_loader, val_loader, test_loader, config = prepare_loaders_and_config(config, samples)
-    model, optimizer, history = train_with_loaders(
-        config, train_loader, val_loader, test_loader, log_dir=log_dir, device=device, seed=seed
-    )
+    verbosity = config.get("Verbosity", {}).get("level", 0)
+    timer = Timer("total_training")
+    timer.start()
+    try:
+        train_loader, val_loader, test_loader, config = prepare_loaders_and_config(config, samples)
+        model, optimizer, history = train_with_loaders(
+            config, train_loader, val_loader, test_loader, log_dir=log_dir, device=device, seed=seed
+        )
+    finally:
+        timer.stop_if_running()
+    print_timers(verbosity)
     return model, optimizer, history, config
 
 

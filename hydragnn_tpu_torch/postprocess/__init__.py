@@ -1,6 +1,7 @@
 """Output denormalization and per-num-nodes unscaling (the port's copy
 of ``hydragnn_tpu/postprocess/postprocess.py``: ``output_denormalize``,
-``unscale_features_by_num_nodes`` and its config-driven variant)."""
+``unscale_features_by_num_nodes`` and its config-driven variant). The
+plots are in ``postprocess/visualizer.py``."""
 
 from __future__ import annotations
 

@@ -32,14 +32,29 @@ Semantics kept from the JAX package:
     disagree, and makes an early-stopped run's resume a no-op;
   - after the last epoch, unless ``Training.bn_recalibration`` is false,
     two batch-statistics passes over the train split re-estimate the
-    BatchNorm running statistics with the final parameters.
+    BatchNorm running statistics with the final parameters;
+  - **records**, as the JAX loop writes them: one ``metrics.jsonl`` line
+    an epoch in ``<log_dir>/<log_name>/`` (appended, so a resumed run
+    goes on from its last line; the per-task losses keyed by head name),
+    tensorboard scalars (``utils/tensorboard.py``), the peak device
+    memory after epoch 0, the ``train_validate_test`` timer, and the
+    ``Profile`` section's epoch-gated trace (``utils/profile.py``,
+    stepped once per train batch);
+  - **plots** (``postprocess/visualizer.py``) when asked for: the test
+    split's node-count histogram and, with ``plot_init_solution``, the
+    untrained model's parity scatter at setup; with
+    ``plot_hist_solution`` the error histograms each epoch; the final
+    scatter, density, per-head and history figures after training.
 
 Not ported yet: telemetry and flight records (ROADMAP A-6); preemption,
-the watchdog and fault injection (A-7); the visualizer (queued).
+the watchdog and fault injection (A-7).
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -47,13 +62,23 @@ import numpy as np
 import torch
 
 from hydragnn_tpu_torch.models.base import HydraModel
+from hydragnn_tpu_torch.postprocess.visualizer import Visualizer
 from hydragnn_tpu_torch.resilience import NonFiniteRollbackExhausted, NonFiniteSentry
 from hydragnn_tpu_torch.train.optimizer import current_learning_rate, set_learning_rate
 from hydragnn_tpu_torch.train.state import eval_step, make_train_step, stats_step
 from hydragnn_tpu_torch.utils import checkpoint as ckpt
+from hydragnn_tpu_torch.utils.print_utils import print_peak_memory, process_index
+from hydragnn_tpu_torch.utils.profile import Profiler
+from hydragnn_tpu_torch.utils.tensorboard import get_summary_writer
+from hydragnn_tpu_torch.utils.time_utils import Timer
 
 # the per-epoch history the meta sidecar carries (the JAX package's keys)
 EPOCH_KEYS = ("train_loss", "val_loss", "test_loss", "train_tasks", "val_tasks", "test_tasks", "lr")
+
+
+def _named_tasks(names: Sequence[str], values) -> Dict[str, float]:
+    """Per-task losses keyed by head name."""
+    return {n: float(v) for n, v in zip(names, np.asarray(values).reshape(-1))}
 
 
 class EarlyStopping:
@@ -157,10 +182,11 @@ def _epoch_batches(loader, epoch: int, fixed: bool):
 
 def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool = False,
                 sentry: Optional[NonFiniteSentry] = None,
-                timing: Optional[Dict[str, float]] = None) -> Tuple[float, np.ndarray]:
+                timing: Optional[Dict[str, float]] = None, profiler=None) -> Tuple[float, np.ndarray]:
     """One training epoch of ``step_fn`` (``make_train_step``; guarded when
     ``sentry`` is given) over the loader's streamed batches, or over its
-    resident fixed-membership batches in the epoch's order (``fixed``)."""
+    resident fixed-membership batches in the epoch's order (``fixed``);
+    ``profiler`` (``utils/profile.py``) is stepped after each batch."""
     dev = _device_of(model)
     acc = _MetricAccum()
     for batch in _timed(_epoch_batches(loader, epoch, fixed), timing):
@@ -172,6 +198,8 @@ def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool 
         else:
             loss, tasks = step_fn(batch)
             acc.add(loss, tasks, batch.graph_mask)
+        if profiler is not None:
+            profiler.step()
     return acc.finalize()
 
 
@@ -298,6 +326,9 @@ def train_validate_test(
     verbosity: int = 0,
     log_name: str = "run",
     log_dir: str = "./logs/",
+    create_plots: bool = False,
+    plot_init_solution: bool = False,
+    plot_hist_solution: bool = False,
 ) -> Dict[str, Any]:
     """Train for ``Training.num_epoch`` epochs (module docstring);
     ``config`` is the ``NeuralNetwork`` section. The model and optimizer
@@ -404,51 +435,122 @@ def train_validate_test(
             print(f"non-finite sentry: epoch {epoch} ended with {consec_end} consecutive bad steps; rolled back "
                   f"to the last good checkpoint (lr -> {lr:g})", flush=True)
 
-    epochs_done = start_epoch
-    for epoch in range(start_epoch, num_epoch):
-        for loader in (train_loader, val_loader, test_loader):
-            loader.set_epoch(epoch)
-        if sentry is not None:
-            sentry.epoch_start()
-        timing: Dict[str, float] = {}
-        t0 = time.perf_counter()
-        train_loss, train_tasks = train_epoch(train_loader, model, step_fn, epoch, fixed, sentry, timing)
-        history["train_wall_s"].append(time.perf_counter() - t0)  # finalize read the losses: the steps are done
-        history["data_wait_s"].append(timing.get("data_wait_s", 0.0))
-        if sentry is not None:
-            skipped, consec_end = sentry.epoch_finalize()
-            history["nonfinite_skipped"].append(skipped)
-            if sentry.needs_rollback(consec_end):
-                rollback(epoch, consec_end)
-                epochs_done = epoch + 1
-                continue  # the rolled-back epoch consumed its slot
-        val_loss, val_tasks = evaluate_epoch(val_loader, model, val_resident)
-        test_loss, test_tasks, _, _ = test_epoch(test_loader, model, return_samples=False)
-        scheduler.step(optimizer, val_loss)
-        for key, val in (("train_loss", train_loss), ("val_loss", val_loss), ("test_loss", test_loss),
-                         ("train_tasks", train_tasks.tolist()), ("val_tasks", val_tasks.tolist()),
-                         ("test_tasks", test_tasks.tolist()), ("lr", current_learning_rate(optimizer))):
-            history[key].append(val)
-        if verbosity > 0:
-            per_head = ", ".join(f"{n}={v:.6f}" for n, v in zip(names, train_tasks))
-            print(f"Epoch: {epoch:02d}, Train Loss: {train_loss:.8f}, Val Loss: {val_loss:.8f}, "
-                  f"Test Loss: {test_loss:.8f} ({per_head})", flush=True)
-        stop = stopper is not None and stopper(val_loss)
-        epochs_done = epoch + 1
-        if ckpt_every and (epoch + 1) % ckpt_every == 0:
-            write_checkpoint(epoch + 1, early_stopped=False)
-        if stop:
-            if verbosity > 0:
-                print(f"Early stopping at epoch {epoch}", flush=True)
-            break
+    # the Profile section's epoch-gated trace
+    profiler = None
+    if "Profile" in config:
+        profiler = Profiler(os.path.join(log_dir, log_name, "profile"), config["Profile"], dev)
+        if not profiler.enable:
+            profiler = None
+    metrics_path = None
+    if process_index() == 0:
+        os.makedirs(os.path.join(log_dir, log_name), exist_ok=True)
+        metrics_path = os.path.join(log_dir, log_name, "metrics.jsonl")
+    visualizer = None
+    if create_plots and process_index() == 0:
+        visualizer = Visualizer(log_name, num_heads=model.cfg.num_heads, head_names=names, log_dir=log_dir)
+    nodes_per_graph = None
+    if visualizer is not None and hasattr(test_loader, "samples"):
+        nodes_per_graph = [s.num_nodes for s in test_loader.samples]
+        visualizer.num_nodes_plot(nodes_per_graph)
+    if visualizer is not None and plot_init_solution:
+        _, _, tv, pv = test_epoch(test_loader, model, return_samples=True)
+        visualizer.create_scatter_plots(tv, pv, iepoch=-1)
+    # made after the plots that can raise, so the try below closes it
+    writer = get_summary_writer(log_name, log_dir)
 
-    # a resume that trained no epoch (a completed or early-stopped run) is
-    # a no-op: no recalibration, no checkpoint rewrite
-    resumed_noop = training.get("continue") == 1 and epochs_done == start_epoch
-    if training.get("bn_recalibration", True) and not resumed_noop:
-        for _ in range(2):
-            for batch in train_loader:
-                stats_step(model, batch.to(dev, non_blocking=True))
-    if ckpt_every and not resumed_noop:
-        write_checkpoint(epochs_done, early_stopped=bool(stopper and stopper.count >= stopper.patience))
+    hist_plots = visualizer if plot_hist_solution else None
+    timer = Timer("train_validate_test")
+    timer.start()
+    try:
+        epochs_done = start_epoch
+        for epoch in range(start_epoch, num_epoch):
+            for loader in (train_loader, val_loader, test_loader):
+                loader.set_epoch(epoch)
+            if sentry is not None:
+                sentry.epoch_start()
+            if profiler is not None:
+                profiler.set_current_epoch(epoch)
+            timing: Dict[str, float] = {}
+            t0 = time.perf_counter()
+            # the profiler's context closes a trace the epoch's steps left open
+            with profiler if profiler is not None else contextlib.nullcontext():
+                train_loss, train_tasks = train_epoch(train_loader, model, step_fn, epoch, fixed, sentry, timing,
+                                                      profiler)
+            # finalize read the losses: the steps are done
+            history["train_wall_s"].append(time.perf_counter() - t0)
+            history["data_wait_s"].append(timing.get("data_wait_s", 0.0))
+            if sentry is not None:
+                skipped, consec_end = sentry.epoch_finalize()
+                history["nonfinite_skipped"].append(skipped)
+                if sentry.needs_rollback(consec_end):
+                    rollback(epoch, consec_end)
+                    epochs_done = epoch + 1
+                    continue  # the rolled-back epoch consumed its slot
+            val_loss, val_tasks = evaluate_epoch(val_loader, model, val_resident)
+            test_loss, test_tasks, tv, pv = test_epoch(test_loader, model, return_samples=hist_plots is not None)
+            if hist_plots is not None:
+                hist_plots.create_error_histograms(tv, pv, iepoch=epoch)
+            scheduler.step(optimizer, val_loss)
+            for key, val in (("train_loss", train_loss), ("val_loss", val_loss), ("test_loss", test_loss),
+                             ("train_tasks", train_tasks.tolist()), ("val_tasks", val_tasks.tolist()),
+                             ("test_tasks", test_tasks.tolist()), ("lr", current_learning_rate(optimizer))):
+                history[key].append(val)
+            if verbosity > 0:
+                per_head = ", ".join(f"{n}={v:.6f}" for n, v in zip(names, train_tasks))
+                print(f"Epoch: {epoch:02d}, Train Loss: {train_loss:.8f}, Val Loss: {val_loss:.8f}, "
+                      f"Test Loss: {test_loss:.8f} ({per_head})", flush=True)
+            if epoch == 0:
+                # after the first epoch the peak holds the weights, the
+                # activations and the optimizer state: the run's footprint
+                print_peak_memory(verbosity, prefix=f"epoch {epoch}", device=dev)
+            _write_epoch_record(writer, metrics_path, names, epoch, history)
+            stop = stopper is not None and stopper(val_loss)
+            epochs_done = epoch + 1
+            if ckpt_every and (epoch + 1) % ckpt_every == 0:
+                write_checkpoint(epoch + 1, early_stopped=False)
+            if stop:
+                if verbosity > 0:
+                    print(f"Early stopping at epoch {epoch}", flush=True)
+                break
+        # a resume that trained no epoch (a completed or early-stopped run) is
+        # a no-op: no recalibration, no checkpoint rewrite
+        resumed_noop = training.get("continue") == 1 and epochs_done == start_epoch
+        if training.get("bn_recalibration", True) and not resumed_noop:
+            for _ in range(2):
+                for batch in train_loader:
+                    stats_step(model, batch.to(dev, non_blocking=True))
+        if ckpt_every and not resumed_noop:
+            write_checkpoint(epochs_done, early_stopped=bool(stopper and stopper.count >= stopper.patience))
+        writer.flush()
+        if visualizer is not None:
+            _, _, tv, pv = test_epoch(test_loader, model, return_samples=True)
+            visualizer.create_scatter_plots(tv, pv)
+            visualizer.create_plot_global(tv, pv)
+            visualizer.create_reference_plot_suite(tv, pv, model.cfg.output_type, nodes_per_graph)
+            visualizer.plot_history(history)
+    finally:
+        writer.close()
+        timer.stop_if_running()
     return history
+
+
+def _write_epoch_record(writer, metrics_path: Optional[str], names: Sequence[str], epoch: int,
+                        history: Dict[str, Any]) -> None:
+    """The epoch's tensorboard scalars and its ``metrics.jsonl`` line, from
+    the history's last entries."""
+    train_loss, val_loss, test_loss = (history[k][-1] for k in ("train_loss", "val_loss", "test_loss"))
+    train_named = _named_tasks(names, history["train_tasks"][-1])
+    val_named = _named_tasks(names, history["val_tasks"][-1])
+    writer.add_scalar("train error", train_loss, epoch)
+    writer.add_scalar("validate error", val_loss, epoch)
+    writer.add_scalar("test error", test_loss, epoch)
+    for name in names:
+        if name in train_named:
+            writer.add_scalar(f"heads/{name}/train_loss", train_named[name], epoch)
+        if name in val_named:
+            writer.add_scalar(f"heads/{name}/val_loss", val_named[name], epoch)
+    if metrics_path is not None:
+        record = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss, "test_loss": test_loss,
+                  "lr": history["lr"][-1], "train_tasks": train_named, "val_tasks": val_named}
+        with open(metrics_path, "a") as f:
+            f.write(json.dumps(record) + "\n")
