@@ -38,11 +38,28 @@ raises; nothing is caught):
                    occupancy) and on a hub of 60,000 slots among 4,096
                    rows of 24, each with the occupancy bound and without
                    it, against the plain versions.
-  5. serve       — the flagship at full width (hidden 128, 6 PNA layers,
-                   4 heads) served on the card: every answer equal to the
-                   CPU forward; pna_aggregate and the sender gather (B3)
-                   launch 6 x forwards each, the row-pointer pass once a
-                   forward.
+  5. serve-timing — graphs against the eager forward in one run (default
+                   algorithms, before 5a sets CUBLAS_WORKSPACE_CONFIG): the
+                   largest bucket's forward, the burst's p50, p99 and
+                   requests/s, the serial p50.
+ 5a. serve       — the flagship at full width (hidden 128, 6 PNA layers,
+                   4 heads) served on the card from one CUDA graph per
+                   bucket and weight slot, under deterministic algorithms:
+                   the wrappers run at start only (per bucket and slot a
+                   warm-up forward and the capture, each 6 pna_aggregate,
+                   6 sender gathers (B3), 1 row-pointer pass); the
+                   128-request burst makes 0 wrapper calls and 0 captures,
+                   one replay a batch; every batch bit-equal to the eager
+                   forward of the same padded batch, every answer equal to
+                   the CPU forward within SERVE_TOL.
+ 5b. serve-resilience — the same model and data: reloads with the same
+                   and other weights (0 captures; bit-equal, and equal to
+                   the new weights' eager forward), a torn reload refused
+                   with the live outputs unchanged, a killed dispatch
+                   thread restarted with every future resolved, a wedge
+                   seen and cleared by health(), tools/serve_probe.py on
+                   the Prometheus textfile (0 ready, 1 after stop), the
+                   flight record valid.
   6. train       — run_training on the flagship at full width, batch 1024,
                    1,280 samples (one train step per epoch), 3 epochs:
                    finite, falling loss; kernel launches equal to the
@@ -288,6 +305,7 @@ STACK_GRAD_TOL, STACK_SPREAD_FACTOR, STACK_ZERO_TOL = 1e-3, 10.0, 1e-4
 # by a unit's share, more than the run-aligned step's head tier of 1e-4
 # allows (measured on the card: 6.2e-4 in heads.2.layers.0.weight).
 N_SAMPLES, UNIT_CELLS, SEED = 64, (2, 4), 0  # the serving phase's data
+SERVE_THREADS, SERVE_TIMING_ITERS = 4, 20  # the burst's client threads; forwards timed a mode
 TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_EPOCHS, STEP_GRAPHS = 1280, 1024, 3, 64
 TRAIN_UNIT_CELLS = (2, 4)  # 2 or 3 unit cells per axis, as the bench's flagship
 K = 8  # the loader's run alignment
@@ -1994,6 +2012,350 @@ def records_phase(dev, card, counts, samples):
     return prof_counts
 
 
+def serve_burst(server, work, threads=SERVE_THREADS):
+    """Every request of ``work`` submitted from ``threads`` client threads
+    at once; returns (answers, per-request latencies in s, wall s). A
+    request's latency ends when the server resolves its future."""
+    results, lat = [None] * len(work), [0.0] * len(work)
+
+    def client(k):
+        futs = []
+        for i in range(k, len(work), threads):
+            t = time.perf_counter()
+            f = server.submit(work[i])
+            f.add_done_callback(lambda _f, i=i, t=t: lat.__setitem__(i, time.perf_counter() - t))
+            futs.append((i, f))
+        for i, f in futs:
+            results[i] = f.result(timeout=300)
+
+    t_start = time.perf_counter()
+    pool = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("serve: a client thread did not finish")
+    wall = time.perf_counter() - t_start
+    if None in results:
+        raise AssertionError("serve: a request got no answer")
+    return results, lat, wall
+
+
+def serve_latency_fields(lat, wall, serial):
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    return dict(p50_ms=round(float(np.percentile(lat_ms, 50)), 3), p99_ms=round(float(np.percentile(lat_ms, 99)), 3),
+                requests_per_s=round(len(lat) / wall, 1), serial_p50_ms=round(float(np.median(serial)) * 1e3, 3))
+
+
+def serial_latencies(server, requests):
+    """One request at a time (light load): seconds each."""
+    out = []
+    for r in requests:
+        t = time.perf_counter()
+        server.predict(r, timeout=300)
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def record_batches(cache):
+    """Keep every batch the server runs on its live weights, with its
+    outputs: ``cache.run`` wrapped on the instance. Returns the list."""
+    records, run = [], cache.run
+
+    def recording(slot, bucket_index, batch):
+        outs = run(slot, bucket_index, batch)
+        if slot is None:
+            records.append((bucket_index, batch, [o.copy() for o in outs]))
+        return outs
+
+    cache.run = recording
+    return records
+
+
+def bit_equal_to_eager(records, model, dev, label):
+    """Each recorded batch's outputs against the eager forward of the
+    same padded batch by ``model`` on the card, bit for bit."""
+    for bi, batch, outs in records:
+        with torch.inference_mode():
+            want = [o.float().cpu().numpy() for o in model(batch.to(dev), train=False)]
+        for ih, (a, b) in enumerate(zip(outs, want)):
+            if a.shape != b.shape or not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                raise AssertionError(f"{label}: bucket {bi} head {ih} differs from the eager forward "
+                                     f"(max abs {float(np.abs(a - b).max())})")
+    return len(records)
+
+
+def serve_phase(dev, card, counts, raw, launches_per):
+    """[serve]: the flagship at full width served on the card from one
+    CUDA graph per bucket and weight slot, under deterministic
+    algorithms. The kernel wrappers run at start only (a warm-up forward
+    and the capture, each bucket and slot); the 128-request burst from 4
+    threads makes 0 wrapper calls and 0 captures, one replay a batch,
+    and every batch's outputs equal the eager forward of the same padded
+    batch bit for bit; every answer equals the CPU forward within
+    SERVE_TOL. Returns the launches of the path (start and burst)."""
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.graph.batch import batch_graphs
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serve import request_to_dict
+
+    reset, read = counts
+    with deterministic_algorithms("serve", "capture, burst and eager on the card"):
+        reset()
+        server = hydragnn_tpu_torch.serve_model(flagship_config(), raw, device=dev, seed=SEED)
+        try:
+            cache = server._cache
+            start_counts = read()
+            n_buckets = len(server.buckets)
+            if not cache.graphs or cache.captures != 2 * n_buckets or cache.warm_forwards != cache.captures:
+                raise AssertionError(f"serve: {cache.captures} captures, {cache.warm_forwards} warm-up forwards, "
+                                     f"graphs={cache.graphs} ({cache.reason}); want 2 x {n_buckets} buckets")
+            want = {name: v * (cache.captures + cache.warm_forwards) for name, v in launches_per.items()}
+            if start_counts != want:
+                raise AssertionError(f"serve: launches at start {start_counts}, want {want}")
+            requests = [request_to_dict(s) for s in server.reference_samples]
+            work = requests * 2
+            records = record_batches(cache)
+            snap0 = server.metrics_snapshot()
+            reset()
+            results, lat, wall = serve_burst(server, work)
+            burst_counts = read()
+            snap = server.metrics_snapshot()
+            serial = serial_latencies(server, requests[:32])
+            forwards = snap["forwards_total"] - snap0["forwards_total"]
+            batches = snap["batches_total"] - snap0["batches_total"]
+            replays = snap["graph_replays_total"] - snap0["graph_replays_total"]
+            captures = cache.captures
+            if any(burst_counts.values()) or captures != 2 * n_buckets or snap["compile_misses"]:
+                raise AssertionError(f"serve: the burst launched {burst_counts}, captures {captures}, "
+                                     f"misses {snap['compile_misses']}")
+            if not forwards == batches == replays or len(records) < batches:
+                raise AssertionError(f"serve: {forwards} forwards, {batches} batches, {replays} replays")
+            n_eq = bit_equal_to_eager(records, server.served.model, dev, "serve")
+            cpu_model = create_model(server.served.cfg, seed=SEED, device="cpu")
+            cpu_model.load_state_dict({k: t.cpu() for k, t in server.served.model.state_dict().items()})
+            mcfg = server.served.cfg
+            worst = 0.0
+            for g, res in zip(work, results):
+                with torch.no_grad():
+                    ref = cpu_model(batch_graphs([g]), train=False)
+                nn_ = g["x"].shape[0]
+                for ih, name in enumerate(mcfg.output_names):
+                    out = res[name]
+                    want_ = (ref[ih][0] if mcfg.output_type[ih] == "graph" else ref[ih][:nn_]).numpy()
+                    if out.shape != want_.shape or not np.all(np.isfinite(out)):
+                        raise AssertionError(f"serve: head {name} shape {out.shape} or non-finite")
+                    np.testing.assert_allclose(out, want_, err_msg=f"serve head {name}", **SERVE_TOL)
+                    worst = max(worst, float(np.abs(out - want_).max()))
+        finally:
+            server.stop()
+    line("serve", requests=len(work), threads=SERVE_THREADS, forwards=forwards, batches=batches, replays=replays,
+         captures=captures, warm_forwards=cache.warm_forwards, buckets=n_buckets, weight_slots=cache.SLOTS,
+         launches_at_start=json.dumps(start_counts, separators=(",", ":")),
+         launches_in_burst=json.dumps(burst_counts, separators=(",", ":")),
+         batches_bit_equal_to_eager=n_eq, deterministic=True, **serve_latency_fields(lat, wall, serial),
+         max_abs_err_vs_cpu=worst, hidden=mcfg.hidden_dim, conv_layers=mcfg.num_conv_layers, heads=mcfg.num_heads,
+         card=repr(card))
+    line("serve-buckets", **{k: json.dumps(v, separators=(",", ":")) for k, v in snap["buckets"].items()})
+    return {name: start_counts[name] + burst_counts[name] for name in start_counts}
+
+
+def serve_resilience_phase(dev, card, counts, raw):
+    """[serve-resilience]: the flagship at full width on the card under
+    deterministic algorithms, with the Prometheus textfile and a flight
+    record: reloads with the same and with other weights (0 captures;
+    the live batches bit-equal before and after the first, equal to the
+    eager forward of the new weights after the second), a torn reload
+    refused with the live outputs unchanged, a killed dispatch thread
+    restarted with every future resolved, a wedge seen and cleared by
+    health(), ``tools/serve_probe.py`` on the textfile (0 while ready, 1
+    after stop), and the flight file valid with no problems."""
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.obs import FlightRecorder, read_flight_record, validate_flight_record
+    from hydragnn_tpu_torch.resilience import inject
+    from hydragnn_tpu_torch.serve import ReloadFailed, RequestFailed, ServeConfig, request_to_dict
+
+    reset, read = counts
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    prom, flight_path = os.path.join(root, "serve.prom"), os.path.join(root, "flight.jsonl")
+    probe = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "serve_probe.py")
+
+    def probe_rc(*args):
+        return subprocess.run([sys.executable, probe, "--prom", prom, *args], capture_output=True, text=True,
+                              timeout=60).returncode
+
+    def until(pred, seconds):
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            if pred():
+                return True
+            time.sleep(0.005)
+        return False
+
+    cfg = ServeConfig(dispatch_stall_s=0.5, dispatch_backoff_base_s=0.2, prometheus_path=prom,
+                      prometheus_every_s=0.1)
+    out = {}
+    with deterministic_algorithms("serve-resilience", "reloads, faults and probes on the card"):
+        server = hydragnn_tpu_torch.serve_model(flagship_config(), raw, device=dev, seed=SEED, serve_config=cfg,
+                                                flight=FlightRecorder(flight_path))
+        cache = server._cache
+        requests = [request_to_dict(s) for s in server.reference_samples]
+        try:
+            captures = cache.captures
+            reset()
+            records = record_batches(cache)
+            server.predict_many(requests, timeout=300)
+            base = list(records)
+
+            def replay_equal(recs, label):
+                # the live slot on the recorded batches, bit for bit
+                for bi, batch, outs in recs:
+                    again = cache.run(None, bi, batch)
+                    if not all(np.array_equal(a.view(np.int32), b.view(np.int32)) for a, b in zip(again, outs)):
+                        raise AssertionError(f"serve-resilience: {label}: bucket {bi} changed")
+
+            # reload with the same weights: 0 captures, bit-equal answers
+            t0 = time.perf_counter()
+            info_same = server.reload(variables={k: v.clone() for k, v in server.served.model.state_dict().items()})
+            out["reload_same_s"] = round(time.perf_counter() - t0, 4)
+            replay_equal(base, "reload with the same weights")
+            # reload with other weights: equal to their eager forward
+            other = {k: v * 1.1 if v.is_floating_point() else v for k, v in server.served.model.state_dict().items()}
+            server.reload(variables=other)
+            del records[:]
+            server.predict_many(requests, timeout=300)
+            served = read()  # the eager forwards below are the check's, not the server's
+            n_eq = bit_equal_to_eager(records, server.served.model, dev, "reload with other weights")
+            reset()
+            after_other = list(records)
+            bi, batch, outs = base[0]
+            moved = float(np.abs(cache.run(None, bi, batch)[0] - outs[0]).max())
+            # a torn reload: refused, the live outputs bit-unchanged
+            os.environ["HGTORCH_INJECT_SERVE_TORN_RELOAD"] = "1"
+            try:
+                server.reload(variables=other)
+                raise AssertionError("serve-resilience: the torn reload was accepted")
+            except ReloadFailed:
+                pass
+            finally:
+                del os.environ["HGTORCH_INJECT_SERVE_TORN_RELOAD"]
+            replay_equal(after_other, "after the torn reload")
+            snap = server.metrics_snapshot()
+            if (cache.captures != captures or snap["compile_misses"] or snap["reloads"] != 2
+                    or snap["reload_failed"] != 1 or not moved > 0):
+                raise AssertionError(f"serve-resilience: captures {captures} -> {cache.captures}, snapshot {snap}")
+            out.update(reloads=snap["reloads"], reload_failed=snap["reload_failed"], captures=cache.captures,
+                       reload_same_slot=info_same["slot"], other_weights_batches_bit_equal=n_eq,
+                       other_weights_max_change=moved)
+            # a killed dispatch thread: restarted, every future resolved
+            os.environ["HGTORCH_INJECT_SERVE_KILL_DISPATCH"] = str(server._dispatched_batches + 1)
+            try:
+                futs = [server.submit(r) for r in requests[:16]]
+                ok = failed = 0
+                for f in futs:
+                    try:
+                        f.result(timeout=120)
+                        ok += 1
+                    except RequestFailed as exc:
+                        if exc.reason != "dispatch":
+                            raise
+                        failed += 1
+            finally:
+                del os.environ["HGTORCH_INJECT_SERVE_KILL_DISPATCH"]
+            if not (failed >= 1 and ok + failed == 16 and until(lambda: server.health()["ready"], 30)):
+                raise AssertionError(f"serve-resilience: kill: {ok} answered, {failed} failed, {server.health()}")
+            after = server.predict_many(requests[:16], timeout=300)
+            if server.health()["dispatch_restarts"] != 1 or len(after) != 16:
+                raise AssertionError(f"serve-resilience: after the kill {server.health()}")
+            out.update(killed_batch_failed=failed, killed_batch_answered=ok, dispatch_restarts=1)
+            # a wedge: liveness false while stalled, true again after
+            inject.SERVE_WEDGE.fired = False
+            seq = next(server._seq) + 1
+            os.environ["HGTORCH_INJECT_SERVE_WEDGE"] = f"{seq}:2"
+            try:
+                fut = server.submit(requests[0])
+                saw_down = until(lambda: not server.health()["live"], 10)
+                fut.result(timeout=120)
+                saw_up = until(lambda: server.health()["live"] and server.health()["ready"], 10)
+            finally:
+                del os.environ["HGTORCH_INJECT_SERVE_WEDGE"]
+            if not (saw_down and saw_up):
+                raise AssertionError(f"serve-resilience: wedge: live false {saw_down}, back {saw_up}")
+            out.update(wedge_live_false=saw_down, wedge_live_again=saw_up)
+            # the textfile, probed as an orchestrator would, once the
+            # monitor has rewritten it since readiness came back
+            t_ready = time.time()
+            until(lambda: os.path.exists(prom) and os.stat(prom).st_mtime > t_ready, 10)
+            out["probe_ready_rc"], out["probe_live_rc"] = probe_rc(), probe_rc("--live")
+            launches_after_start = {name: n + served[name] for name, n in read().items()}
+        finally:
+            server.stop()
+    server.export_prometheus(prom)
+    out["probe_after_stop_rc"] = probe_rc()
+    events = read_flight_record(flight_path)
+    problems = validate_flight_record(flight_path)
+    kinds = sorted({e["kind"] for e in events})
+    if (out["probe_ready_rc"], out["probe_live_rc"], out["probe_after_stop_rc"]) != (0, 0, 1) or problems \
+            or any(launches_after_start.values()):
+        raise AssertionError(f"serve-resilience: probes {out}, flight problems {problems}, "
+                             f"launches after start {launches_after_start}")
+    for kind in ("run_start", "reload", "reload_failed", "dispatch_restart", "watchdog", "trace_capture", "run_end"):
+        if kind not in kinds:
+            raise AssertionError(f"serve-resilience: no {kind} event in the flight record")
+    line("serve-resilience", **out, flight_events=len(events), flight_kinds=json.dumps(kinds),
+         flight_problems=len(problems), launches_after_start=sum(launches_after_start.values()), card=repr(card))
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def serve_timing_phase(dev, card, make_raw):
+    """[serve-timing]: graphs against the eager forward in one run, with
+    PyTorch's default algorithms (as users run): the largest bucket's
+    forward (copy in, forward, copy out; host clock, synchronised,
+    median of 20), then a 128-request burst from 4 threads (p50, p99,
+    requests/s) and the serial p50 on a server of each kind."""
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.graph.batch import batch_graphs
+    from hydragnn_tpu_torch.serve import ServeConfig, request_to_dict
+
+    fields = {}
+    for mode in ("graph", "eager"):
+        server = hydragnn_tpu_torch.serve_model(flagship_config(), make_raw(), device=dev, seed=SEED,
+                                                serve_config=ServeConfig(cuda_graphs=mode == "graph"))
+        try:
+            cache = server._cache
+            if cache.graphs != (mode == "graph"):
+                raise AssertionError(f"serve-timing: {mode} server's executor is {cache.reason}")
+            top = server.buckets[-1]
+            requests = [request_to_dict(s) for s in server.reference_samples]
+            biggest = sorted(requests, key=lambda g: -len(g["senders"]))[: top.max_batch]
+            hb = batch_graphs(biggest, n_node_pad=top.node_pad, n_edge_pad=top.edge_pad, n_graph_pad=top.graph_pad)
+            for _ in range(5):
+                cache.run(None, top.index, hb)
+            ts = []
+            for _ in range(SERVE_TIMING_ITERS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                cache.run(None, top.index, hb)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t)
+            serve_burst(server, requests[:8])  # warm the path
+            _, lat, wall = serve_burst(server, requests * 2)
+            serial = serial_latencies(server, requests[:32])
+        finally:
+            server.stop()
+        lf = serve_latency_fields(lat, wall, serial)
+        fields[f"{mode}_forward_ms"] = round(float(np.median(ts)) * 1e3, 4)
+        fields.update({f"{mode}_{k}": v for k, v in lf.items()})
+    line("serve-timing", bucket=f"{top.node_pad}x{top.edge_pad}", iters=SERVE_TIMING_ITERS, requests=2 * len(requests),
+         threads=SERVE_THREADS, **fields, deterministic=torch.are_deterministic_algorithms_enabled(),
+         cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"), card=repr(card))
+    return fields
+
+
 def main():
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2365,85 +2727,23 @@ def main():
                      occupancy=int(occ_h), bound_and_none=True, count_bit_equal=True, grad_bit_equal=f32,
                      max_abs_err_grad=worst, max_ties=int(cnt_ref.max()), deterministic=True)
 
-    # ---- 5. serve --------------------------------------------------------
-    raw = deterministic_graph_data(
-        number_configurations=N_SAMPLES, unit_cell_x_range=UNIT_CELLS,
-        unit_cell_y_range=UNIT_CELLS, unit_cell_z_range=UNIT_CELLS, seed=SEED,
-    )
-    server = hydragnn_tpu_torch.serve_model(flagship_config(), raw, device="cuda", seed=SEED)
-    try:
-        requests = [request_to_dict(s) for s in server.reference_samples]
-        for r in requests[:8]:  # warm-up: first cuBLAS/allocator use
-            server.predict(r, timeout=300)
-        work = requests * 2
-        results = [None] * len(work)
-        lat = [0.0] * len(work)
-        snap0 = server.metrics_snapshot()
-        reset_counts()
-        t_start = time.perf_counter()
+    # ---- 5. serve-timing, 5a. serve, 5b. serve-resilience ---------------
+    def serve_raw():
+        return deterministic_graph_data(
+            number_configurations=N_SAMPLES, unit_cell_x_range=UNIT_CELLS,
+            unit_cell_y_range=UNIT_CELLS, unit_cell_z_range=UNIT_CELLS, seed=SEED,
+        )
 
-        def client(k):
-            futs = []
-            for i in range(k, len(work), 4):
-                t = time.perf_counter()
-                f = server.submit(work[i])
-                # latency ends when the server resolves the future
-                f.add_done_callback(lambda _f, i=i, t=t: lat.__setitem__(i, time.perf_counter() - t))
-                futs.append((i, f))
-            for i, f in futs:
-                results[i] = f.result(timeout=300)
-
-        threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-            if t.is_alive():
-                raise AssertionError("serve: a client thread did not finish")
-        wall = time.perf_counter() - t_start
-        serve_counts = read_counts()
-        snap = server.metrics_snapshot()
-        forwards = snap["forwards_total"] - snap0["forwards_total"]
-        batches = snap["batches_total"] - snap0["batches_total"]
-        if None in results:
-            raise AssertionError("serve: a request got no answer")
-        want = {name: 0 for name in mods}
-        want["pna_aggregate_fwd"] = want["gather_rows"] = n_layers * batches
-        want["row_pointers"] = batches  # once a forward, shared by its 6 B5 calls
-        if forwards != batches or serve_counts != want:
-            raise AssertionError(f"serve: launches {serve_counts}, {forwards} forwards, {batches} batches; want {want}")
-
-        cpu_model = create_model(server.served.cfg, seed=SEED, device="cpu")
-        cpu_model.load_state_dict({k: t.cpu() for k, t in server.served.model.state_dict().items()})
-        mcfg = server.served.cfg
-        worst = 0.0
-        for g, res in zip(work, results):
-            with torch.no_grad():
-                ref = cpu_model(batch_graphs([g]), train=False)
-            nn_ = g["x"].shape[0]
-            for ih, name in enumerate(mcfg.output_names):
-                out = res[name]
-                want_ = (ref[ih][0] if mcfg.output_type[ih] == "graph" else ref[ih][:nn_]).numpy()
-                if out.shape != want_.shape or not np.all(np.isfinite(out)):
-                    raise AssertionError(f"serve: head {name} shape {out.shape} or non-finite")
-                np.testing.assert_allclose(out, want_, err_msg=f"serve head {name}", **SERVE_TOL)
-                worst = max(worst, float(np.abs(out - want_).max()))
-        serial = []
-        for r in requests[:32]:  # light load: one request at a time
-            t = time.perf_counter()
-            server.predict(r, timeout=300)
-            serial.append(time.perf_counter() - t)
-    finally:
-        server.stop()
-    lat_ms = np.sort(np.asarray(lat)) * 1e3
-    line("serve", requests=len(work), threads=4, forwards=forwards, batches=batches,
-         kernel_launches=json.dumps(serve_counts, separators=(",", ":")),
-         p50_ms=round(float(np.percentile(lat_ms, 50)), 3),
-         p99_ms=round(float(np.percentile(lat_ms, 99)), 3),
-         requests_per_s=round(len(work) / wall, 1),
-         serial_p50_ms=round(float(np.median(serial)) * 1e3, 3), max_abs_err_vs_cpu=worst,
-         hidden=hidden, conv_layers=n_layers, heads=mcfg.num_heads, card=repr(card))
-    line("serve-buckets", **{k: json.dumps(v, separators=(",", ":")) for k, v in snap["buckets"].items()})
+    per_forward = {name: 0 for name in mods}
+    per_forward.update(pna_aggregate_fwd=n_layers, gather_rows=n_layers, row_pointers=1)
+    t0 = time.perf_counter()
+    # timing first: before the phases below set CUBLAS_WORKSPACE_CONFIG
+    # for deterministic algorithms (the eager forward ran 9.6-15.5 ms
+    # with it set, 6.5-7.7 without, in one process; PERF.md §6)
+    serve_timing_phase(dev, card, serve_raw)
+    serve_counts = serve_phase(dev, card, (reset_counts, read_counts), serve_raw(), per_forward)
+    serve_resilience_phase(dev, card, (reset_counts, read_counts), serve_raw())
+    line("serve", part="phases", seconds=round(time.perf_counter() - t0, 1))
 
     # ---- 6. train --------------------------------------------------------
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_logs_")

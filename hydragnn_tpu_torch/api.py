@@ -13,6 +13,7 @@ normalized together), in ``Dataset.format`` ``LSMS``/``unit_test``,
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -187,6 +188,8 @@ def serve_model(
     device: Optional[str] = "cuda",
     start: bool = True,
     seed: int = 0,
+    log_dir: Optional[str] = None,
+    flight=None,
 ):
     """Stand up a batched online-inference server on ``device``.
 
@@ -194,9 +197,15 @@ def serve_model(
     radius edges, config inference); its prepared samples size the
     bucket ladder and fix the request field spec, and requests must be
     prepared the same way (``server.reference_samples`` holds them).
-    ``params`` is a state dict, or the path of one saved with
-    ``torch.save``; None serves the seeded init (``seed``). Predictions
-    are in model space (normalized targets).
+    The weights: ``params``, a state dict or the path of one saved with
+    ``torch.save``; else, with ``log_dir``, the run's checkpoint under
+    ``<log_dir>/<log_name>/`` through the validating loader, as the JAX
+    package serves; else the seeded init (``seed``). The server's
+    ``log_dir`` (``reload("run")``'s root) is ``log_dir``, or
+    ``./logs/``. ``flight`` (``obs/flight.py:FlightRecorder``) takes the
+    serving record. ``Parallel.fsdp`` above 1 warns and serves
+    replicated on the one device (fsdp serving is ROADMAP A-5).
+    Predictions are in model space (normalized targets).
 
     Raises without a CUDA card unless ``device="cpu"``. Returns the
     server (started unless ``start=False``); callers own its lifecycle
@@ -207,14 +216,25 @@ def serve_model(
 
     from hydragnn_tpu_torch.serve import ModelRegistry, ModelServer, ServeConfig
 
-    registry = ModelRegistry(dev)
-    name = config["Dataset"].get("name", "model") if "Dataset" in config else "model"
     nn_config = config["NeuralNetwork"]
+    fsdp = int((nn_config.get("Parallel") or {}).get("fsdp", 1) or 1)
+    if fsdp > 1:
+        warnings.warn(
+            f"Parallel.fsdp={fsdp} exceeds the one device this server holds; serving single-device "
+            "(replicated parameters)",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    registry = ModelRegistry(log_dir or "./logs/", device=dev)
+    name = config["Dataset"].get("name", "model") if "Dataset" in config else "model"
     if isinstance(params, str):
-        served = registry.load(name, nn_config, params)
+        served = registry.load_state_dict_file(name, nn_config, params)
+    elif params is None and log_dir is not None:
+        served = registry.load(get_log_name_config(config), nn_config, seed=seed)
     else:
         served = registry.register(name, nn_config, params, seed=seed)
-    server = ModelServer(served, list(train) + list(val) + list(test), serve_config or ServeConfig())
+    server = ModelServer(served, list(train) + list(val) + list(test), serve_config or ServeConfig(), flight=flight)
+    server.log_dir = registry.log_dir
     if start:
         server.start()
     return server

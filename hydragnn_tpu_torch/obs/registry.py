@@ -1,0 +1,241 @@
+"""Metrics registry: counters, gauges and windowed histograms.
+
+The port's counterpart of ``hydragnn_tpu/obs/registry.py``, the one
+in-process store the serving metrics record into:
+
+  - :class:`Counter`: a monotone accumulator (requests, compiles);
+  - :class:`Gauge`: a last-write-wins level that tracks its peak (queue
+    depth);
+  - :class:`Histogram`: a bounded rolling window with nearest-rank
+    p50/p95/p99 (request latency; early samples age out).
+
+A disabled registry hands out process-wide null metrics whose record
+methods do nothing: no lock, no allocation. Export is
+:mod:`hydragnn_tpu_torch.obs.export`. ``HGTORCH_TELEMETRY`` (0, false
+or off) turns tracing off (``obs/trace.py``). The JAX package's
+process-global registry has no user in the port yet: a server keeps a
+registry of its own, so two never share counters.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from collections import deque
+from typing import Dict, Optional
+
+
+def _percentile_nearest_rank(sorted_vals, q: float) -> float:
+    """Nearest-rank percentile of an already-sorted sample."""
+    n = len(sorted_vals)
+    if not n:
+        return 0.0
+    return float(sorted_vals[min(n - 1, max(0, int(round(q * (n - 1)))))])
+
+
+def _number(v: float):
+    return int(v) if float(v).is_integer() else v
+
+
+class Counter:
+    """Monotone float/int accumulator."""
+
+    __slots__ = ("name", "_lock", "_value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0.0  # guarded by _lock
+
+    def inc(self, n: float = 1) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def snapshot(self):
+        return _number(self.value)
+
+
+class Gauge:
+    """Last-write-wins level; ``peak`` is the largest value ever set."""
+
+    __slots__ = ("name", "_lock", "_value", "_peak")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0.0  # guarded by _lock
+        self._peak = 0.0  # guarded by _lock
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = v
+            if v > self._peak:
+                self._peak = v
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    @property
+    def peak(self) -> float:
+        with self._lock:
+            return self._peak
+
+    def snapshot(self):
+        return _number(self.value)
+
+
+class Histogram:
+    """Bounded rolling window of observations with nearest-rank
+    percentiles over the window, and all-time count and sum."""
+
+    __slots__ = ("name", "_lock", "_window", "_count", "_sum")
+
+    def __init__(self, name: str, window: int = 2048):
+        self.name = name
+        self._lock = threading.Lock()
+        self._window: deque = deque(maxlen=window)  # guarded by _lock
+        self._count = 0  # guarded by _lock
+        self._sum = 0.0  # guarded by _lock
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self._window.append(v)
+            self._count += 1
+            self._sum += v
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def values(self):
+        """The current window (a copy), oldest first."""
+        with self._lock:
+            return list(self._window)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            vals = sorted(self._window)
+            count, total = self._count, self._sum
+        return {
+            "count": count,
+            "sum": total,
+            "mean": (sum(vals) / len(vals)) if vals else 0.0,
+            "p50": _percentile_nearest_rank(vals, 0.50),
+            "p95": _percentile_nearest_rank(vals, 0.95),
+            "p99": _percentile_nearest_rank(vals, 0.99),
+        }
+
+
+class _NullCounter(Counter):
+    __slots__ = ()
+
+    def inc(self, n: float = 1) -> None:
+        pass
+
+
+class _NullGauge(Gauge):
+    __slots__ = ()
+
+    def set(self, v: float) -> None:
+        pass
+
+
+class _NullHistogram(Histogram):
+    __slots__ = ()
+
+    def observe(self, v: float) -> None:
+        pass
+
+
+# every disabled-registry lookup returns these
+NULL_COUNTER = _NullCounter("null")
+NULL_GAUGE = _NullGauge("null")
+NULL_HISTOGRAM = _NullHistogram("null", window=1)
+
+
+def process_rank() -> int:
+    """This process's rank in a ``torch.distributed`` group, else 0."""
+    try:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return int(dist.get_rank())
+    except (ImportError, RuntimeError):
+        pass
+    return 0
+
+
+class MetricsRegistry:
+    """Named metric store. Names are dotted paths
+    (``serve.requests_total``); :meth:`snapshot` nests them back into a
+    dict tree. ``enabled=False`` makes every factory return the null
+    metrics, and the snapshot empty."""
+
+    def __init__(self, enabled: bool = True, rank: Optional[int] = None):
+        self.enabled = enabled
+        self._rank = rank
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, object] = {}  # guarded by _lock
+
+    def _get(self, name: str, cls, *args):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = cls(name, *args)
+                self._metrics[name] = m
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r} already registered as {type(m).__name__}, requested {cls.__name__}"
+                )
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter) if self.enabled else NULL_COUNTER
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge) if self.enabled else NULL_GAUGE
+
+    def histogram(self, name: str, window: int = 2048) -> Histogram:
+        return self._get(name, Histogram, window) if self.enabled else NULL_HISTOGRAM
+
+    @property
+    def rank(self) -> int:
+        """This process's rank (``process_rank``, read at first use)."""
+        if self._rank is None:
+            self._rank = process_rank()
+        return self._rank
+
+    def names(self):
+        with self._lock:
+            return sorted(self._metrics)
+
+    def get(self, name: str):
+        with self._lock:
+            return self._metrics.get(name)
+
+    def snapshot(self) -> dict:
+        """Nested dict of every metric's value, keyed by the dotted
+        path's segments (histograms: count, sum, mean, p50, p95, p99)."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out: dict = {}
+        for name, metric in items:
+            node = out
+            parts = name.split(".")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = metric.snapshot()
+        return out
+
+
+def telemetry_enabled() -> bool:
+    """``HGTORCH_TELEMETRY`` off (0, false, off, no) disables; default on."""
+    return os.environ.get("HGTORCH_TELEMETRY", "1").strip().lower() not in ("0", "false", "off", "no")

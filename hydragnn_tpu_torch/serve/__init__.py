@@ -1,18 +1,20 @@
-"""Online serving: bucket ladder, deadline micro-batcher, registry,
-server and metrics."""
+"""Online serving: bucket ladder and its CUDA graphs, deadline
+micro-batcher, registry, supervised dispatch, server and metrics."""
 
 from hydragnn_tpu_torch.serve.batcher import (  # noqa: F401
     MicroBatchQueue,
     Overloaded,
     ServerClosed,
 )
-from hydragnn_tpu_torch.serve.buckets import Bucket, build_bucket_ladder, route  # noqa: F401
+from hydragnn_tpu_torch.serve.buckets import Bucket, BucketGraphCache, build_bucket_ladder, route  # noqa: F401
 from hydragnn_tpu_torch.serve.metrics import ServeMetrics  # noqa: F401
-from hydragnn_tpu_torch.serve.registry import ModelRegistry, ServedModel  # noqa: F401
+from hydragnn_tpu_torch.serve.registry import ModelRegistry, ServedModel, load_served_variables  # noqa: F401
 from hydragnn_tpu_torch.serve.server import (  # noqa: F401
     ModelServer,
     Oversize,
+    ReloadFailed,
     RequestFailed,
     ServeConfig,
     request_to_dict,
 )
+from hydragnn_tpu_torch.serve.supervise import DispatchSupervisor  # noqa: F401

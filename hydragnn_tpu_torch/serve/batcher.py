@@ -33,7 +33,9 @@ class PendingRequest:
     future: Future
     t_enqueue: float  # time.monotonic() at admission
     bucket: int
-    seq: int = -1
+    seq: int = -1  # the server's admission sequence number
+    trace: Any = None  # obs/trace.py RequestTrace (None when tracing is off)
+    tenant: str = "default"  # the admitting tenant
 
 
 class MicroBatchQueue:
@@ -60,7 +62,7 @@ class MicroBatchQueue:
         self._count = 0
         self._closed = False
 
-    def put(self, bucket: int, item: Any, seq: int = -1) -> Future:
+    def put(self, bucket: int, item: Any, seq: int = -1, trace: Any = None, tenant: str = "default") -> Future:
         """Admit one request into ``bucket``'s lane; returns its Future.
         Raises Overloaded at capacity and ServerClosed after close()."""
         fut: Future = Future()
@@ -72,7 +74,7 @@ class MicroBatchQueue:
                     f"serving queue full ({self._count}/{self._max_pending} pending)"
                 )
             self._pending[bucket].append(
-                PendingRequest(item, fut, time.monotonic(), bucket, seq)
+                PendingRequest(item, fut, time.monotonic(), bucket, seq, trace, tenant)
             )
             self._count += 1
             self._cv.notify_all()
@@ -81,6 +83,13 @@ class MicroBatchQueue:
     def depth(self) -> int:
         with self._cv:
             return self._count
+
+    def oldest_age_s(self) -> float:
+        """Seconds the oldest queued request has waited, across all
+        buckets (each lane's head is its oldest); 0.0 when empty."""
+        with self._cv:
+            heads = [dq[0].t_enqueue for dq in self._pending if dq]
+        return max(time.monotonic() - min(heads), 0.0) if heads else 0.0
 
     def take_batch(self) -> Optional[Tuple[int, List[PendingRequest], str]]:
         with self._cv:

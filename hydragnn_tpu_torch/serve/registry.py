@@ -1,11 +1,23 @@
-"""Model registry: named weights -> warm models held on a device.
+"""Model registry: named runs -> warm models held on a device.
 
-The port's counterpart of ``hydragnn_tpu/serve/registry.py``. Two
-admission paths: :meth:`ModelRegistry.register` adopts an in-memory
-state dict, and :meth:`ModelRegistry.load` reads one saved with
-``torch.save(model.state_dict(), path)`` — the port's own format. A
-checkpoint the JAX package wrote is read into a model by
-``convert.load_jax_checkpoint``; register its ``state_dict()``.
+The port's counterpart of ``hydragnn_tpu/serve/registry.py``. Three
+admission paths:
+
+  - :meth:`ModelRegistry.load` restores the run's checkpoint under
+    ``<log_dir>/<log_name>/`` through the port's validating loader
+    (``utils/checkpoint.py:load_existing_model``: sha256 sidecars, and a
+    torn or corrupt latest file falls back to the newest intact version
+    with a warning), as the JAX package's does;
+  - :meth:`ModelRegistry.register` adopts an in-memory state dict (or
+    serves the seeded init);
+  - :meth:`ModelRegistry.load_state_dict_file` reads one saved with
+    ``torch.save(model.state_dict(), path)``.
+
+:func:`load_served_variables` restores a run's weights for a model
+already served, the path ``ModelServer.reload`` takes. A checkpoint the
+JAX package wrote is read by ``convert.load_jax_checkpoint``; register
+its ``state_dict()``. The JAX package's fsdp-sharded serving waits for
+ROADMAP A-5.
 """
 
 from __future__ import annotations
@@ -17,14 +29,16 @@ from typing import Any, Dict, List, Mapping, Optional
 import torch
 
 from hydragnn_tpu_torch.device import resolve_device
-from hydragnn_tpu_torch.graph.batch import GraphBatch
 from hydragnn_tpu_torch.models.base import HydraModel
 from hydragnn_tpu_torch.models.create import create_model, model_config_from_dict
+from hydragnn_tpu_torch.utils.checkpoint import load_existing_model
 
 
 @dataclasses.dataclass
 class ServedModel:
-    """A model held warm for inference on ``device``."""
+    """A model held warm for inference on ``device`` (in eval mode; the
+    server runs its forward under ``torch.inference_mode()``). A server's
+    reload points ``model`` at the weight slot it made live."""
 
     name: str
     model: HydraModel
@@ -35,20 +49,21 @@ class ServedModel:
     def cfg(self):
         return self.model.cfg
 
-    def forward(self, batch: GraphBatch) -> List[torch.Tensor]:
-        """Eval forward (running BatchNorm statistics) of a batch that is
-        already on ``device``."""
-        with torch.inference_mode():
-            return self.model(batch, train=False)
-
 
 class ModelRegistry:
-    """Thread-safe name -> :class:`ServedModel` map."""
+    """Thread-safe name -> :class:`ServedModel` map; ``load`` reads runs
+    under ``log_dir``."""
 
-    def __init__(self, device: Optional[str] = "cuda"):
+    def __init__(self, log_dir: str = "./logs/", device: Optional[str] = "cuda"):
+        self.log_dir = log_dir
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._models: Dict[str, ServedModel] = {}  # guarded by _lock
+
+    def _add(self, served: ServedModel) -> ServedModel:
+        with self._lock:
+            self._models[served.name] = served
+        return served
 
     def register(
         self,
@@ -63,18 +78,37 @@ class ModelRegistry:
         model = create_model(model_config_from_dict(nn_config), seed=seed, device=self.device)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
-        served = ServedModel(name=name, model=model, device=self.device, nn_config=nn_config)
-        with self._lock:
-            self._models[name] = served
-        return served
+        return self._add(ServedModel(name=name, model=model, device=self.device, nn_config=nn_config))
 
-    def load(self, name: str, nn_config: Dict[str, Any], path: str) -> ServedModel:
+    def load_state_dict_file(self, name: str, nn_config: Dict[str, Any], path: str) -> ServedModel:
         """Register the state dict saved at ``path`` with ``torch.save``."""
-        state_dict = torch.load(path, map_location="cpu", weights_only=True)
-        return self.register(name, nn_config, state_dict)
+        return self.register(name, nn_config, torch.load(path, map_location="cpu", weights_only=True))
+
+    def load(self, log_name: str, nn_config: Dict[str, Any], example_graph: Any = None, seed: int = 0) -> ServedModel:
+        """Build the model from its completed config, then restore the
+        checkpoint under ``<log_dir>/<log_name>/`` through the validating
+        loader (module docstring). ``example_graph`` is accepted for the
+        JAX package's signature; the port builds from the config alone.
+        A second load of a name replaces the entry."""
+        model = create_model(model_config_from_dict(nn_config), seed=seed, device=self.device)
+        load_existing_model(model, log_name, self.log_dir)
+        return self._add(ServedModel(name=log_name, model=model, device=self.device, nn_config=nn_config))
 
     def get(self, name: str) -> ServedModel:
         with self._lock:
             if name not in self._models:
                 raise KeyError(f"model {name!r} not in registry (loaded: {sorted(self._models)})")
             return self._models[name]
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._models)
+
+
+def load_served_variables(served: ServedModel, log_name: str, log_dir: str = "./logs/") -> Dict[str, torch.Tensor]:
+    """The state dict of the run ``log_name`` under ``log_dir`` for the
+    already-served model's architecture, restored on the host through
+    the validating loader (sha256 sidecars, torn-pointer fallback)."""
+    scratch = create_model(served.cfg, device="cpu")
+    load_existing_model(scratch, log_name, log_dir)
+    return scratch.state_dict()

@@ -1291,3 +1291,88 @@ def test_cuda_dataset_path_step_equals_samples_step(tmp_path, fmt):
     assert torch.isfinite(sides["path"][0])
     for a, b in zip(sides["path"], sides["samples"]):
         assert torch.equal(a, b)
+
+
+def _serve_on_card(model_type="PNA", seed=0):
+    """A small flagship-shaped server on the card (hidden 16, 2 layers,
+    24 BCC graphs), started: its buckets captured."""
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.serve import ServeConfig
+
+    cfg = flagship_config(hidden_dim=16, num_conv_layers=2)
+    cfg["NeuralNetwork"]["Architecture"]["model_type"] = model_type
+    raw = deterministic_graph_data(number_configurations=24, unit_cell_x_range=(2, 4), unit_cell_y_range=(2, 4),
+                                   unit_cell_z_range=(2, 4), seed=seed)
+    return hydragnn_tpu_torch.serve_model(cfg, raw, device="cuda", seed=seed,
+                                          serve_config=ServeConfig(max_batch=4, max_delay_ms=5.0))
+
+
+@pytest.mark.cuda
+def test_cuda_serve_graph_replay_equals_eager_and_reload_captures_nothing():
+    """Every bucket's CUDA graph, replayed on a batch of real requests,
+    equals the eager forward of the same padded batch bit for bit (under
+    deterministic algorithms: the pooling's ``index_add_``); a reload
+    through the standby slot captures nothing, serves the new weights
+    bit-equal to their eager forward and leaves the old slot as it was."""
+    import os
+    import warnings
+
+    from hydragnn_tpu_torch.serve import request_to_dict
+
+    _cuda()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            server = _serve_on_card()
+            try:
+                cache = server._cache
+                assert cache.graphs and cache.captures == 2 * len(server.buckets)
+                reqs = [request_to_dict(s) for s in server.reference_samples]
+
+                def check(model):
+                    for b in server.buckets:
+                        group = [g for g in reqs if b.fits_graph(g["x"].shape[0], len(g["senders"]))][: b.max_batch]
+                        hb = batch_graphs(group, n_node_pad=b.node_pad, n_edge_pad=b.edge_pad,
+                                          n_graph_pad=b.graph_pad)
+                        got = cache.run(None, b.index, hb)
+                        with torch.inference_mode():
+                            want = [o.cpu().numpy() for o in model(hb.to(server.device), train=False)]
+                        for g_, w_ in zip(got, want):
+                            assert g_.shape == w_.shape and np.array_equal(g_.view(np.int32), w_.view(np.int32))
+
+                check(server.served.model)
+                old = {k: v.clone() for k, v in server.served.model.state_dict().items()}
+                new = {k: v * 1.25 if v.is_floating_point() else v for k, v in old.items()}
+                captures = cache.captures
+                server.reload(variables=new)
+                assert cache.captures == captures and server.metrics_snapshot()["compile_misses"] == 0
+                assert cache.active == 1 and server.served.model is cache.models[1]
+                check(server.served.model)
+                assert all(torch.equal(cache.models[0].state_dict()[k], v) for k, v in old.items())
+                res = server.predict(reqs[0], timeout=120)
+                assert all(np.all(np.isfinite(v)) for v in res.values())
+            finally:
+                server.stop()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_mfc_buckets_are_eager():
+    """MFC reads its degree counts on the host: its buckets are the
+    eager forward on the card, decided from the config, said by
+    health()."""
+    _cuda()
+    server = _serve_on_card("MFC")
+    try:
+        h = server.health()
+        assert h["bucket_executor"] == "eager" and "degree" in h["eager_reason"]
+        assert server._cache.captures == 0 and h["ready"]
+        res = server.predict(server.reference_samples[0], timeout=120)
+        assert all(np.all(np.isfinite(v)) for v in res.values())
+    finally:
+        server.stop()

@@ -1,7 +1,8 @@
 """The port imports nothing of JAX: a fresh interpreter imports every
 module of ``hydragnn_tpu_torch`` (and ``chip_smoke.py``'s imports), then
 finds no ``jax``, ``flax``, ``optax`` or ``hydragnn_tpu`` (the exact
-package, not the prefix) in ``sys.modules``."""
+package, not the prefix) in ``sys.modules``. The walk covers the
+serving path's ``obs/`` and ``resilience/`` subpackages."""
 
 import os
 import subprocess
@@ -26,6 +27,7 @@ for node in ast.walk(tree):
         importlib.import_module(node.module)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hydragnn_tpu"))
 print(len(names), "modules")
+print("WALKED", " ".join(names))
 print("BAD", bad)
 """
 
@@ -40,3 +42,7 @@ def test_port_imports_no_jax():
     lines = proc.stdout.strip().splitlines()
     assert int(lines[0].split()[0]) >= 20  # every module was walked
     assert lines[-1] == "BAD []", proc.stdout
+    walked = set(lines[1].split()[1:])
+    for mod in ("obs.registry", "obs.export", "obs.flight", "obs.trace", "resilience.inject",
+                "resilience.watchdog", "resilience.supervisor", "serve.supervise", "serve.buckets"):
+        assert f"hydragnn_tpu_torch.{mod}" in walked, mod
