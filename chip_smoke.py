@@ -193,6 +193,23 @@ raises; nothing is caught):
                    bit-equal to the same per-step run without Profile;
                    the tensorboard writer's kind, matplotlib's presence
                    (and the plots where it is present).
+ 9j. train-obs   — the training loop's telemetry on the flagship at full
+                   width, batch 128 on [records]' 1,800 graphs, 3 epochs,
+                   deterministic algorithms: (a) per-step with telemetry,
+                   diagnostics, SLO triggers, an injected train_loss_spike
+                   and train.prom; (b) the same with HGTORCH_TELEMETRY=0;
+                   (c) the fixed-membership epoch with telemetry. (a)'s
+                   history and parameters bit-equal to (b)'s; each flight
+                   record complete and valid; per-head grad norms finite,
+                   cosine diagonals 1, MAE/RMSE equal to the test pass's;
+                   achieved TFLOP/s and MFU in range, FLOPs a step equal to
+                   the CPU's count, the watermark equal to
+                   max_memory_allocated; the step spans' modes and sampled
+                   steps; one incident whose bundle validates and whose
+                   profile names a port kernel; train.prom's loss; (a)'s
+                   launches = (b)'s + 3 diagnostics samples + the ledger's
+                   step; one diagnostics sample on the card against the
+                   CPU. Prints the telemetry's cost on the epoch wall.
  10. timing      — each kernel at the main path's shapes: ms eager, ms in
                    a CUDA graph, plain ms, library ms (eager and in a
                    graph), beside its bound; B1's backward kernel beside
@@ -221,6 +238,11 @@ raises; nothing is caught):
 B5 and B8 are timed as the chassis calls them: with the receivers' row
 pointers that edge_context builds once per forward; the pass itself is
 its own entry (row_pointers).
+
+Every training run goes through the loop with its telemetry on (the
+default), and each phase's launch counts include what the telemetry adds
+(``telemetry_launches``): a diagnostics sample an epoch (one forward and
+H + 1 backward pulls) and the hardware ledger's one forward and backward.
 
 Without a card (torch.cuda.is_available() false), or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -1677,7 +1699,8 @@ def data_eam_phase(dev, card, counts):
     per_step, per_fwd = launch_plan(done["NeuralNetwork"]["Architecture"], "run_aligned")
     steps = EAM_EPOCHS * len(train_loader)
     fwds = EAM_EPOCHS * (len(loaders[1]) + len(loaders[2])) + 2 * len(train_loader)
-    want = {k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in run_counts}
+    want = plus({k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in run_counts},
+                telemetry_launches(per_step, per_fwd, EAM_EPOCHS, model.cfg.num_heads))
     if run_counts != want:
         raise AssertionError(f"data-eam: launches {run_counts}, want {want}")
     line("data-eam", part="train", epochs=EAM_EPOCHS, steps=steps, eval_and_bn_forwards=fwds,
@@ -1776,6 +1799,23 @@ def launch_plan(arch, layout):
     raise AssertionError(f"no launch plan for {arch['model_type']} on {layout} with edge features {edge}")
 
 
+def telemetry_launches(per_step, per_fwd, epochs, heads):
+    """The launches the training loop's telemetry adds to a run of
+    ``epochs`` epochs of a model with ``heads`` heads (diagnostics on, the
+    default): a diagnostics sample an epoch, one forward and ``heads`` + 1
+    backward pulls through its graph, and the hardware ledger's one
+    forward and backward before the first epoch. A backward's launches are
+    a train step's less its forward's (``launch_plan``)."""
+    names = set(per_step) | set(per_fwd)
+    bwd = {k: per_step.get(k, 0) - per_fwd.get(k, 0) for k in names}
+    return {k: epochs * (per_fwd.get(k, 0) + (heads + 1) * bwd[k]) + per_step.get(k, 0) for k in names}
+
+
+def plus(a, b):
+    """The sum of two launch-count dicts, over ``a``'s keys."""
+    return {k: a[k] + b.get(k, 0) for k in a}
+
+
 def step_profile(model, optimizer, batch):
     """One train step under torch.profiler: its wall ms and the card's
     kernels as (name, self device ms, calls); no kernels where the
@@ -1849,7 +1889,8 @@ def examples_phase(dev, card, counts):
             per_step, per_fwd = launch_plan(arch, layout)
             epochs = len(hist["train_loss"])
             steps, fwds = epochs * len(tl), epochs * (len(vl) + len(tel)) + 2 * len(tl)
-            want = {k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in got}
+            want = plus({k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in got},
+                        telemetry_launches(per_step, per_fwd, epochs, result.model.cfg.num_heads))
             if got != want:
                 raise AssertionError(f"examples {name}: launches {got}, want {want}")
             losses = hist["train_loss"]
@@ -1947,7 +1988,8 @@ def records_phase(dev, card, counts, samples):
         raise AssertionError(f"records: {steps_per_epoch} steps an epoch; the profiler traces steps 9-11")
     per_step, per_fwd = launch_plan(done["NeuralNetwork"]["Architecture"], batch_layout(next(iter(loaders[0]))))
     fwds = RECORDS_EPOCHS * (len(loaders[1]) + len(loaders[2])) + 2 * steps_per_epoch
-    want = {k: RECORDS_EPOCHS * steps_per_epoch * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in prof_counts}
+    want = plus({k: RECORDS_EPOCHS * steps_per_epoch * per_step.get(k, 0) + fwds * per_fwd.get(k, 0)
+                 for k in prof_counts}, telemetry_launches(per_step, per_fwd, RECORDS_EPOCHS, m_prof.cfg.num_heads))
     if prof_counts != want:
         raise AssertionError(f"records: launches {prof_counts}, want {want}")
     for key in t_loop.EPOCH_KEYS:
@@ -2010,6 +2052,259 @@ def records_phase(dev, card, counts, samples):
          kernel_launches_without_profile_equal=plain_counts == prof_counts, card=repr(card))
     shutil.rmtree(root, ignore_errors=True)
     return prof_counts
+
+
+# the [train-obs] phase: [records]' set and batch, 3 epochs
+TRAIN_OBS_EPOCHS = 3
+# one diagnostics sample at LOOP_BATCH, card (kernels) against CPU (plain
+# versions), same weights and batch: each head's gradient norm, the
+# weighted total's and the update's within the train step's conv tier
+# (STEP_CONV_TOL: a per-tensor relative L2 bound bounds the norm of
+# their concatenation), each cosine within twice it, the parameter norm
+# (the same weights) within 1e-6. The update norm leaves out the
+# BatchNorm-fed conv biases by name (frozen in the comparison's
+# optimizer): their gradient is 0 up to rounding, so their first AdamW
+# step is any value up to lr on each side. Below the train step's tiers,
+# a tighter limit from the card's readings (H100 80GB HBM3, 700 W: norms
+# 8e-5 to 1.1e-4 relative, cosines 6.8e-5, the update norm 1.5e-6
+# relative): 1e-3 on every norm and cosine
+DIAG_NORM_TOL, DIAG_COS_TOL, DIAG_PARAM_RTOL = STEP_CONV_TOL, 2 * STEP_CONV_TOL, 1e-6
+DIAG_READING_TOL = 1e-3
+
+
+def train_obs_phase(dev, card, counts, samples):
+    """[train-obs]: the training loop's telemetry on the flagship at full
+    width, batch LOOP_BATCH on ``samples()`` ([records]' 1,800 graphs),
+    TRAIN_OBS_EPOCHS epochs under deterministic algorithms: (a) per-step
+    with telemetry, diagnostics, ``slo_triggers``, an injected
+    ``train_loss_spike`` and ``prometheus_dir``; (b) the same with
+    ``HGTORCH_TELEMETRY=0``; (c) the fixed-membership epoch with
+    telemetry. Raises unless (a)'s history and parameters are bit-equal to
+    (b)'s; (a)'s and (c)'s flight records are complete and valid; every
+    epoch of (a) has per-head diagnostics (finite gradient norms, a 4 x 4
+    cosine matrix with a unit diagonal), MAE/RMSE equal to
+    ``per_head_error_metrics`` of the same test pass, achieved TFLOP/s > 0
+    and 0 < MFU < 1.05; the manifest's FLOPs a step equal the CPU's count
+    of the same step (plain versions); the watermark equals
+    ``torch.cuda.max_memory_allocated``; the spans' modes are per_step and
+    fixed_epoch with 3 sampled steps in each epoch no capture ran in; (a)
+    opens one incident whose bundle validates and whose profile names a
+    port kernel; ``train.prom``'s loss is the last epoch's; (a)'s and (c)'s
+    launches are (b)'s plus ``telemetry_launches``; and one diagnostics
+    sample on the card matches the CPU's. Prints the telemetry-on against
+    telemetry-off epoch wall, the sample's ms on CUDA events, the ledger
+    per epoch, the spans, the incident and the flight event count.
+    Returns (a)'s launches."""
+    from hydragnn_tpu_torch.api import create_dataloaders, prepare_config_and_samples
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.obs import introspect, read_flight_record, reset_registry, validate_flight_record
+    from hydragnn_tpu_torch.obs.triggers import INCIDENT_MANIFEST, list_incidents, validate_incident_bundle
+    from hydragnn_tpu_torch.resilience import inject
+    from hydragnn_tpu_torch.train import loop as t_loop
+    from hydragnn_tpu_torch.train.optimizer import Optimizer, select_optimizer
+
+    reset_counts, read_counts = counts
+    tr, va, te, done = prepare_config_and_samples(
+        flagship_config(batch_size=LOOP_BATCH, num_epoch=TRAIN_OBS_EPOCHS), samples())
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_obs_")
+    real_test_epoch = t_loop.test_epoch
+    knobs = ("HGTORCH_TELEMETRY", "HGTORCH_DIAGNOSTICS", "HGTORCH_INJECT_TRIGGER")
+
+    def run(label, telemetry, fixed, triggers):
+        nn = copy.deepcopy(done["NeuralNetwork"])
+        nn["Training"]["scan_epoch"] = fixed
+        if triggers:
+            nn["Training"].update(slo_triggers=True, prometheus_dir=os.path.join(root, label, "prom"))
+        saved = {k: os.environ.pop(k, None) for k in knobs}
+        os.environ["HGTORCH_TELEMETRY"] = "1" if telemetry else "0"
+        if triggers:
+            os.environ["HGTORCH_INJECT_TRIGGER"] = "train_loss_spike"
+        inject.TRIGGER.reset()
+        reset_registry()
+        passes = []
+
+        def spy(*a, **kw):  # the loop's test passes, for the MAE/RMSE recomputation
+            out = real_test_epoch(*a, **kw)
+            passes.append(out)
+            return out
+
+        t_loop.test_epoch = spy
+        try:
+            loaders = create_dataloaders(tr, va, te, {"NeuralNetwork": nn})
+            model = create_model_config(nn, seed=SEED, device=dev)
+            optimizer = select_optimizer(model, nn["Training"])
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            hist = t_loop.train_validate_test(model, optimizer, *loaders, nn, log_name="run",
+                                              log_dir=os.path.join(root, label) + "/", run_config={"NeuralNetwork": nn})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            t_loop.test_epoch = real_test_epoch
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+            inject.TRIGGER.reset()
+            reset_registry()
+        return types.SimpleNamespace(model=model, optimizer=optimizer, hist=hist, counts=got, wall=wall, peak=peak,
+                                     loaders=loaders, dir=os.path.join(root, label, "run"), passes=passes)
+
+    with deterministic_algorithms("train-obs", "telemetry_on,off,fixed"):
+        a = run("a_per_step", True, False, True)
+        b = run("b_telemetry_off", False, False, False)
+        c = run("c_fixed_epoch", True, True, False)
+
+    def state(r):
+        return (list(r.model.state_dict().values()) + r.optimizer.state_tensors() + [r.optimizer.steps])
+
+    for key in t_loop.EPOCH_KEYS:
+        if a.hist[key] != b.hist[key]:
+            raise AssertionError(f"train-obs: {key} differs with telemetry: {a.hist[key]} vs {b.hist[key]}")
+    if not all(torch.equal(x, y) for x, y in zip(state(a), state(b))):
+        raise AssertionError("train-obs: the parameters or the optimizer state differ with telemetry")
+    if os.path.exists(os.path.join(b.dir, "flight.jsonl")):
+        raise AssertionError("train-obs: the telemetry-off run wrote a flight record")
+    names = list(a.model.cfg.output_names)
+    records = {}
+    for label, r, mode in (("a", a, "per_step"), ("c", c, "fixed_epoch")):
+        path = os.path.join(r.dir, "flight.jsonl")
+        problems = validate_flight_record(path, require_complete=True)
+        if problems:
+            raise AssertionError(f"train-obs {label}: the flight record is not valid: {problems}")
+        events = read_flight_record(path)
+        epochs = [e for e in events if e["kind"] == "epoch"]
+        if len(epochs) != TRAIN_OBS_EPOCHS or any(e["step_time"]["mode"] != mode for e in epochs):
+            raise AssertionError(f"train-obs {label}: epochs {[e.get('step_time') for e in epochs]}, want {mode}")
+        records[label] = events
+    a_epochs = [e for e in records["a"] if e["kind"] == "epoch"]
+    c_epochs = [e for e in records["c"] if e["kind"] == "epoch"]
+    for i, ep in enumerate(a_epochs):
+        heads, hw = ep["heads"], ep["hw"]
+        cos = np.asarray(heads.get("cosine"))
+        if not (heads["available"] and sorted(heads["grad_norm"]) == sorted(names)
+                and all(np.isfinite(v) for v in heads["grad_norm"].values())
+                and cos.shape == (4, 4) and np.abs(np.diagonal(cos) - 1.0).max() <= 1e-5):
+            raise AssertionError(f"train-obs: epoch {i}'s head diagnostics: {heads}")
+        want = introspect.per_head_error_metrics(a.passes[i][2], a.passes[i][3], names)
+        if heads["mae"] != {n: m["mae"] for n, m in want.items()} or \
+                heads["rmse"] != {n: m["rmse"] for n, m in want.items()}:
+            raise AssertionError(f"train-obs: epoch {i}'s MAE/RMSE {heads['mae']} {heads['rmse']}, want {want}")
+        if not (hw["available"] and hw["achieved_tflops"] > 0 and hw["mfu"] is not None and 0 < hw["mfu"] < 1.05):
+            raise AssertionError(f"train-obs: epoch {i}'s hardware record {hw}")
+    if any(e["step_time"]["sampled_steps"] != 3 for e in c_epochs):
+        raise AssertionError(f"train-obs c: sampled steps {[e['step_time'] for e in c_epochs]}")
+    incident_events = [e for e in records["a"] if e["kind"] == "incident"]
+    # an incident opened at an epoch's end captures in the next epoch's first steps
+    captured, last_epoch = set(), -1
+    for e in records["a"]:
+        if e["kind"] == "epoch":
+            last_epoch = e["epoch"]
+        elif e["kind"] == "incident":
+            captured.add(last_epoch + 1)
+    if any(e["step_time"]["sampled_steps"] != 3 for e in a_epochs if e["epoch"] not in captured):
+        raise AssertionError(f"train-obs a: sampled steps {[e['step_time'] for e in a_epochs]}")
+    man = records["a"][0]["manifest"]
+    cpu_model = create_model_config(done["NeuralNetwork"], seed=SEED, device="cpu")
+    example = a.loaders[0].make_batch(np.arange(min(LOOP_BATCH, len(a.loaders[0].samples))))
+    cpu_flops = introspect.step_flops(cpu_model, example)
+    if man["hw_cost"]["flops_per_step"] != cpu_flops or man["hw_cost"]["flops_source"] != "torch.utils.flop_counter":
+        raise AssertionError(f"train-obs: FLOPs a step {man['hw_cost']}, the CPU's count {cpu_flops}")
+    end = records["a"][-1]
+    marks = [e["hw"]["memory"]["peak_bytes_in_use"] for e in a_epochs]
+    if max(marks) != a.peak or end["hw"]["peak_bytes_in_use"] != a.peak:
+        raise AssertionError(f"train-obs: watermarks {marks}, run_end {end['hw']}, max_memory_allocated {a.peak}")
+    # the incident
+    bundles = list_incidents(os.path.join(a.dir, "incidents"))
+    if len(bundles) != 1 or len(incident_events) != 1 or validate_incident_bundle(bundles[0]):
+        raise AssertionError(f"train-obs: incidents {bundles} {incident_events}: "
+                             f"{[validate_incident_bundle(x) for x in bundles]}")
+    with open(os.path.join(bundles[0], INCIDENT_MANIFEST)) as f:
+        inc = json.load(f)
+    with open(os.path.join(bundles[0], "profile", "trace.pt.trace.json")) as f:
+        trace_kernels = [ev.get("name", "") for ev in json.load(f)["traceEvents"] if ev.get("cat") == "kernel"]
+    named = sorted({m for n in trace_kernels for m in re.findall(r"\w*(?:gather_stats|segment_sum|gather_rows)\w*", n)})
+    if not (inc["rule"] == "train_loss_spike" and inc["profile"]["nonempty"] and named):
+        raise AssertionError(f"train-obs: the incident {inc} names no port kernel among {len(trace_kernels)}")
+    # train.prom
+    prom = {}
+    with open(os.path.join(root, "a_per_step", "prom", "train.prom")) as f:
+        for ln in f:
+            if ln.strip() and not ln.startswith("#"):
+                k, v = ln.rsplit(" ", 1)
+                prom[k] = float(v)
+    prom_loss = prom.get('hydragnn_train_loss{rank="0"}')
+    if prom_loss != a.hist["train_loss"][-1]:
+        raise AssertionError(f"train-obs: train.prom's loss {prom_loss}, the last epoch's {a.hist['train_loss'][-1]}")
+    # the launches: (b) the plain run's, (a) and (c) that and the telemetry's
+    per_step, per_fwd = launch_plan(done["NeuralNetwork"]["Architecture"], batch_layout(example))
+    steps = TRAIN_OBS_EPOCHS * len(a.loaders[0])
+    fwds = TRAIN_OBS_EPOCHS * (len(a.loaders[1]) + len(a.loaders[2])) + 2 * len(a.loaders[0])
+    plain = {k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in b.counts}
+    extra = telemetry_launches(per_step, per_fwd, TRAIN_OBS_EPOCHS, len(names))
+    if b.counts != plain or a.counts != plus(b.counts, extra) or c.counts != a.counts:
+        raise AssertionError(f"train-obs: launches a {a.counts}, b {b.counts}, c {c.counts}; want b {plain}, "
+                             f"a and c b + {extra}")
+    # one diagnostics sample, card against CPU
+    sides = {}
+    for where in ("cpu", "cuda"):
+        m = create_model_config(done["NeuralNetwork"], seed=SEED + 1, device=where if where == "cpu" else dev)
+        run_opt = select_optimizer(m, done["NeuralNetwork"]["Training"])
+        by_name = list(m.named_parameters())
+        o = Optimizer([p for _, p in by_name], run_opt.kind, float(run_opt.param_groups[0]["lr"]),
+                      frozen=[k.startswith("convs.") and k.endswith("post.bias") for k, _ in by_name])
+        fn = introspect.make_diagnostics_step(m, o)
+        bd = example.to(next(m.parameters()).device)
+        sides[where] = {k: v.detach().cpu().double().numpy() for k, v in fn(bd).items()}
+        if where == "cuda":
+            diag_ms = cuda_ms(lambda: fn(bd), 3)
+    gc, gp = sides["cuda"], sides["cpu"]
+    norm_err = max(float(np.max(np.abs(gc[k] / gp[k] - 1.0))) for k in ("grad_norms", "grad_norm_total"))
+    cos_err = float(np.max(np.abs(gc["cosine"] - gp["cosine"])))
+    param_err = abs(float(gc["param_norm"]) / float(gp["param_norm"]) - 1.0)
+    upd_err = abs(float(gc["update_norm"]) / float(gp["update_norm"]) - 1.0)
+    line("train-obs", part="diagnostics_vs_cpu", batch=LOOP_BATCH, heads=len(names),
+         grad_norms_card=json.dumps(gc["grad_norms"].tolist()), grad_norms_cpu=json.dumps(gp["grad_norms"].tolist()),
+         worst_norm_rel_err=norm_err, norm_tol=DIAG_NORM_TOL, worst_cosine_abs_err=cos_err, cosine_tol=DIAG_COS_TOL,
+         reading_tol=DIAG_READING_TOL, param_norm_rel_err=param_err, update_norm_card=float(gc["update_norm"]),
+         update_norm_cpu=float(gp["update_norm"]), update_norm_rel_err_without_bn_fed_biases=upd_err,
+         diagnostics_sample_ms_cuda_events=round(diag_ms, 3), card=repr(card))
+    if (norm_err > DIAG_NORM_TOL or cos_err > DIAG_COS_TOL or param_err > DIAG_PARAM_RTOL or upd_err > DIAG_NORM_TOL
+            or max(norm_err, cos_err, upd_err) > DIAG_READING_TOL):
+        raise AssertionError("train-obs: the diagnostics sample on the card differs from the CPU's beyond the tiers")
+    for label, events in records.items():
+        for e in events:
+            if e["kind"] != "epoch":
+                continue
+            st, hw = e["step_time"], e.get("hw", {})
+            line("train-obs", run=label, epoch=e["epoch"], mode=st["mode"], steps=st["steps"],
+                 data_wait_s=st["data_wait_s"], dispatch_s=st["dispatch_s"], sampled_steps=st["sampled_steps"],
+                 device_wait_ms_mean=st["device_wait_ms_mean"], sync_step_ms_mean=st["sync_step_ms_mean"],
+                 train_wall_s=hw.get("train_wall_s"), flops_per_step=man["hw_cost"]["flops_per_step"],
+                 achieved_tflops=hw.get("achieved_tflops"), mfu=hw.get("mfu"),
+                 peak_bytes_in_use=hw.get("memory", {}).get("peak_bytes_in_use"), card=repr(card))
+    line("train-obs", part="summary", samples=RECORDS_SAMPLES, batch=LOOP_BATCH, epochs=TRAIN_OBS_EPOCHS,
+         steps_per_epoch=len(a.loaders[0]), history_and_parameters_bit_equal_without_telemetry=True,
+         epoch_wall_s_telemetry_on=json.dumps([round(w, 4) for w in a.hist["train_wall_s"]]),
+         epoch_wall_s_telemetry_off=json.dumps([round(w, 4) for w in b.hist["train_wall_s"]]),
+         epoch_wall_s_fixed_epoch=json.dumps([round(w, 4) for w in c.hist["train_wall_s"]]),
+         run_wall_s=json.dumps([round(a.wall, 3), round(b.wall, 3), round(c.wall, 3)]),
+         flops_per_step=man["hw_cost"]["flops_per_step"], flops_per_step_cpu=cpu_flops,
+         peak_bf16_tflops=man["hw_cost"]["peak_bf16_tflops"], mfu_mean=end["hw"].get("mfu_mean"),
+         max_memory_allocated=a.peak, incident=os.path.basename(bundles[0]), incident_status=inc["status"],
+         incident_steps=inc["profile"]["steps"], incident_capture_s=inc["profile"]["duration_s"],
+         incident_trace_kernel_events=len(trace_kernels), incident_trace_port_kernels=json.dumps(named),
+         triggers=json.dumps(end["triggers"], separators=(",", ":")),
+         flight_events=json.dumps({k: len(v) for k, v in records.items()}),
+         train_prom_loss=prom_loss, manifest_card=json.dumps(man.get("card")),
+         kernel_launches=json.dumps(a.counts, separators=(",", ":")),
+         telemetry_launches=json.dumps(extra, separators=(",", ":")), card=repr(card))
+    shutil.rmtree(root, ignore_errors=True)
+    return a.counts
 
 
 def serve_burst(server, work, threads=SERVE_THREADS):
@@ -2766,7 +3061,8 @@ def main():
     steps = TRAIN_EPOCHS * len(train_loader)
     forwards = TRAIN_EPOCHS * (len(val_loader) + len(test_loader)) + 2 * len(train_loader)
     per_step, per_fwd = launch_plan(done["NeuralNetwork"]["Architecture"], "run_aligned")
-    want = {name: steps * per_step.get(name, 0) + forwards * per_fwd.get(name, 0) for name in mods}
+    want = plus({name: steps * per_step.get(name, 0) + forwards * per_fwd.get(name, 0) for name in mods},
+                telemetry_launches(per_step, per_fwd, TRAIN_EPOCHS, model.cfg.num_heads))
     if train_counts != want:
         raise AssertionError(f"train: launches {train_counts}, want {want}")
     line("train", epochs=TRAIN_EPOCHS, steps=steps, eval_and_bn_forwards=forwards, batch=TRAIN_BATCH,
@@ -2801,11 +3097,12 @@ def main():
     # ---- 7b. train-loop: the training loop at batch 128 -------------------
     def launches_per(epochs, loaders, bn_recal):
         """A run's launches: per_step a train step, per_fwd an eval or
-        BatchNorm-statistics forward."""
+        BatchNorm-statistics forward, and the telemetry's."""
         tl, vl, tel = loaders
         steps_ = epochs * len(tl)
         fwds = epochs * (len(vl) + len(tel)) + (2 * len(tl) if bn_recal else 0)
-        return {name: steps_ * per_step.get(name, 0) + fwds * per_fwd.get(name, 0) for name in mods}
+        return plus({name: steps_ * per_step.get(name, 0) + fwds * per_fwd.get(name, 0) for name in mods},
+                    telemetry_launches(per_step, per_fwd, epochs, model.cfg.num_heads))
 
     t0 = time.perf_counter()
     loop_counts, loop_batch = train_loop_phase(dev, card, train_samples, (reset_counts, read_counts), launches_per,
@@ -2987,7 +3284,8 @@ def main():
         steps_ = epochs * len(train_loader)
         fwds = epochs * (len(val_loader) + len(test_loader)) + 2 * len(train_loader)
         per, per_fwd = launch_plan({"model_type": mt, "num_conv_layers": n_layers}, None)
-        want_ = {name: steps_ * per.get(name, 0) + fwds * per_fwd.get(name, 0) for name in mods}
+        want_ = plus({name: steps_ * per.get(name, 0) + fwds * per_fwd.get(name, 0) for name in mods},
+                     telemetry_launches(per, per_fwd, epochs, model.cfg.num_heads))
         if counts != want_:
             raise AssertionError(f"train-stacks {mt}: launches {counts}, want {want_}")
         line("train-stacks", stack=mt, epochs=epochs, steps=steps_, eval_and_bn_forwards=fwds, batch=TRAIN_BATCH,
@@ -3124,7 +3422,8 @@ def main():
         tr_, va_, te_ = loaders
         steps_ = LAYOUT_EPOCHS * len(tr_)
         fwds = LAYOUT_EPOCHS * (len(va_) + len(te_)) + 2 * len(tr_)
-        want_ = {name: steps_ * per_step_.get(name, 0) + fwds * per_fwd_.get(name, 0) for name in mods}
+        want_ = plus({name: steps_ * per_step_.get(name, 0) + fwds * per_fwd_.get(name, 0) for name in mods},
+                     telemetry_launches(per_step_, per_fwd_, LAYOUT_EPOCHS, m_.cfg.num_heads))
         if counts != want_:
             raise AssertionError(f"train-pna-layouts {label}: launches {counts}, want {want_}")
         hb = next(iter(tr_))
@@ -3400,13 +3699,16 @@ def main():
     eam_counts = data_eam_phase(dev, card, (reset_counts, read_counts))
     line("data-eam", part="phase", seconds=round(time.perf_counter() - t0, 1))
 
-    # ---- 9h. examples, 9i. records ----------------------------------------
+    # ---- 9h. examples, 9i. records, 9j. train-obs --------------------------
     t0 = time.perf_counter()
     example_counts = examples_phase(dev, card, (reset_counts, read_counts))
     line("examples", part="phase", seconds=round(time.perf_counter() - t0, 1))
     t0 = time.perf_counter()
     records_counts = records_phase(dev, card, (reset_counts, read_counts), records_samples)
     line("records", part="phase", seconds=round(time.perf_counter() - t0, 1))
+    t0 = time.perf_counter()
+    train_obs_counts = train_obs_phase(dev, card, (reset_counts, read_counts), records_samples)
+    line("train-obs", part="phase", seconds=round(time.perf_counter() - t0, 1))
 
     # ---- 10. timing ------------------------------------------------------
     h = hidden
@@ -3763,6 +4065,7 @@ def main():
              "accuracy_pna_dense_multihead": acc_counts["multihead"],
              **{f"accuracy_{k}": v for k, v in acc_counts.items() if k.startswith("stack_")}, **loop_counts,
              "data_path_hgc": data_path_counts, "data_eam": eam_counts, "records": records_counts,
+             "train_obs": train_obs_counts,
              **{f"examples_{k}": c for k, c in example_counts.items()}}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",

@@ -126,6 +126,8 @@ def train_with_loaders(
         create_plots=bool(viz.get("create_plots", False)),
         plot_init_solution=bool(viz.get("plot_init_solution", False)),
         plot_hist_solution=bool(viz.get("plot_hist_solution", False)),
+        # the full resolved config goes into the flight record's manifest
+        run_config=config,
     )
     save_model(model, log_name, log_dir, optimizer=optimizer, epoch=len(history["train_loss"]))
     return model, optimizer, history
@@ -140,7 +142,22 @@ def run_training(
 ):
     """The full training pipeline on ``device``, timed as
     ``total_training`` (``utils/time_utils.py``, printed at the config's
-    verbosity); returns (model, optimizer, history, completed config)."""
+    verbosity); returns (model, optimizer, history, completed config).
+
+    Telemetry (``NeuralNetwork.Training``; all of it inert under
+    ``HGTORCH_TELEMETRY=0``): the run writes the flight record
+    ``<log_dir>/<log name>/flight.jsonl``. ``diagnostics`` (default
+    true; ``HGTORCH_DIAGNOSTICS=0`` forces it off) samples per-head
+    gradient norms, the inter-task cosine matrix and the update ratio
+    every ``diag_every`` steps (0: once an epoch), per-head MAE/RMSE of
+    the test pass, and the hardware ledger (FLOPs a step, achieved
+    TFLOP/s, MFU against the card's bf16 peak, the memory watermark);
+    ``slo_triggers`` evaluates ``train_nonfinite_burst``
+    (``slo_nonfinite_burst``), ``train_loss_spike``
+    (``slo_loss_spike_factor``) and ``train_mfu_drop``
+    (``slo_mfu_drop_factor``) at each epoch's end and writes incident
+    bundles under ``incidents/``; ``prometheus_dir`` writes an atomic
+    ``train.prom`` snapshot each epoch."""
     resolve_device(device)
     config = load_config(config_file_or_dict)
     verbosity = config.get("Verbosity", {}).get("level", 0)

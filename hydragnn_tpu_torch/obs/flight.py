@@ -12,8 +12,9 @@ The ``run_start`` manifest carries the three keys the schema requires:
 ``jax_version`` is None (the port runs no JAX), ``backend`` the device
 type (``cuda`` or ``cpu``) and ``num_processes`` the process count;
 beside them ``torch_version``, ``cuda_version`` and ``device_name``.
-The serving server is this slice's writer; the training loop's records
-come later (ROADMAP A-6).
+The serving server and the training loop (``train/loop.py``: the
+``run_start`` manifest, an ``epoch`` event an epoch, ``run_end``) write
+it.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Union
 
-from hydragnn_tpu_torch.obs.registry import process_rank
+from hydragnn_tpu_torch.obs.registry import process_count, process_rank
 
 SCHEMA_VERSION = 2
 SUPPORTED_SCHEMA_VERSIONS = (1, 2)
@@ -97,18 +98,10 @@ def environment_manifest(device=None) -> Dict[str, Any]:
     name = None
     if dev_type == "cuda" and torch.cuda.is_available():
         name = torch.cuda.get_device_name(device)
-    world = 1
-    try:
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized():
-            world = int(dist.get_world_size())
-    except (ImportError, RuntimeError):
-        pass
     return {
         "jax_version": None,
         "backend": str(dev_type),
-        "num_processes": world,
+        "num_processes": process_count(),
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
         "device_name": name,
@@ -158,6 +151,12 @@ class FlightRecorder:
             manifest.setdefault(k, v)
         self.record("run_start", manifest=manifest)
 
+    def epoch(self, epoch: int, **payload) -> None:
+        self.record("epoch", epoch=epoch, **payload)
+
+    def compile_event(self, count: int, **payload) -> None:
+        self.record("compile", count=count, **payload)
+
     def error(self, error: Union[BaseException, str], **payload) -> None:
         self.record(
             "error",
@@ -204,10 +203,13 @@ def read_flight_record(path: str) -> List[dict]:
     return events
 
 
-def validate_flight_record(record: Union[str, List[dict]]) -> List[str]:
+def validate_flight_record(record: Union[str, List[dict]], require_complete: bool = False) -> List[str]:
     """The schema check of the JAX package's validator (envelope, each
     kind's fields, the manifest's keys); returns the problems, [] when
-    valid."""
+    valid. ``require_complete`` also asks for a finished run's shape:
+    exactly one ``run_start``, first; at least one ``epoch``; ``run_end``
+    last. Without it a crashed run validates when every event it wrote
+    is well formed."""
     events = read_flight_record(record) if isinstance(record, str) else record
     if not events:
         return ["empty flight record"]
@@ -233,4 +235,30 @@ def validate_flight_record(record: Union[str, List[dict]]) -> List[str]:
                 problems.append(f"{where}: manifest is not a dict")
             else:
                 problems += [f"{where}: manifest missing field {f!r}" for f in _MANIFEST_REQUIRED if f not in man]
+    if require_complete:
+        kinds = [e.get("kind") for e in events]
+        if kinds.count("run_start") != 1:
+            problems.append(f"expected exactly one run_start, got {kinds.count('run_start')}")
+        elif kinds[0] != "run_start":
+            problems.append(f"first event is {kinds[0]!r}, expected run_start")
+        if "epoch" not in kinds:
+            problems.append("no epoch events")
+        if kinds[-1] != "run_end":
+            problems.append(f"last event is {kinds[-1]!r}, expected run_end")
     return problems
+
+
+def flight_record_warnings(record: Union[str, List[dict]]) -> List[str]:
+    """Advisories that do not fail validation: event kinds this reader
+    does not know, and events of a newer schema version."""
+    events = read_flight_record(record) if isinstance(record, str) else record
+    warnings: List[str] = []
+    for i, ev in enumerate(events):
+        kind = ev.get("kind")
+        if kind is not None and kind != "_unparseable" and kind not in _REQUIRED:
+            warnings.append(f"event[{i}]: unknown event kind {kind!r}")
+        v = ev.get("v")
+        if isinstance(v, int) and v > SCHEMA_VERSION:
+            warnings.append(f"event[{i}]: schema version {v} is newer than this reader (supports "
+                            f"{SUPPORTED_SCHEMA_VERSIONS}); fields may be missing from views")
+    return warnings

@@ -12,9 +12,12 @@ in-process store the serving metrics record into:
 A disabled registry hands out process-wide null metrics whose record
 methods do nothing: no lock, no allocation. Export is
 :mod:`hydragnn_tpu_torch.obs.export`. ``HGTORCH_TELEMETRY`` (0, false
-or off) turns tracing off (``obs/trace.py``). The JAX package's
-process-global registry has no user in the port yet: a server keeps a
-registry of its own, so two never share counters.
+or off) turns tracing off (``obs/trace.py``) and makes the
+process-global registry (:func:`get_registry`) a disabled one. The
+training loop records into the global registry (``train.*``: the guard's
+``train.nonfinite_skipped``, the epoch gauges of ``train.prom``) and the
+trigger engine reads it; a server keeps a registry of its own, so the
+two never share counters.
 """
 
 from __future__ import annotations
@@ -161,16 +164,28 @@ NULL_GAUGE = _NullGauge("null")
 NULL_HISTOGRAM = _NullHistogram("null", window=1)
 
 
-def process_rank() -> int:
-    """This process's rank in a ``torch.distributed`` group, else 0."""
+def _group():
+    """The ``torch.distributed`` module when a group is initialised, else None."""
     try:
         import torch.distributed as dist
 
         if dist.is_available() and dist.is_initialized():
-            return int(dist.get_rank())
+            return dist
     except (ImportError, RuntimeError):
         pass
-    return 0
+    return None
+
+
+def process_rank() -> int:
+    """This process's rank in a ``torch.distributed`` group, else 0."""
+    dist = _group()
+    return int(dist.get_rank()) if dist is not None else 0
+
+
+def process_count() -> int:
+    """The ``torch.distributed`` group's size, else 1."""
+    dist = _group()
+    return int(dist.get_world_size()) if dist is not None else 1
 
 
 class MetricsRegistry:
@@ -236,6 +251,34 @@ class MetricsRegistry:
         return out
 
 
+def env_flag(name: str) -> bool:
+    """An on-by-default switch: the variable set to 0, false, off or no
+    turns it off."""
+    return os.environ.get(name, "1").strip().lower() not in ("0", "false", "off", "no")
+
+
 def telemetry_enabled() -> bool:
     """``HGTORCH_TELEMETRY`` off (0, false, off, no) disables; default on."""
-    return os.environ.get("HGTORCH_TELEMETRY", "1").strip().lower() not in ("0", "false", "off", "no")
+    return env_flag("HGTORCH_TELEMETRY")
+
+
+_GLOBAL: Optional[MetricsRegistry] = None  # guarded by _GLOBAL_LOCK
+_GLOBAL_LOCK = threading.Lock()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-global registry, made at first use and enabled as
+    ``HGTORCH_TELEMETRY`` says then. A server keeps its own."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        if _GLOBAL is None:
+            _GLOBAL = MetricsRegistry(enabled=telemetry_enabled())
+        return _GLOBAL
+
+
+def reset_registry() -> None:
+    """Drop the process-global registry; the next ``get_registry`` makes
+    a fresh one that reads ``HGTORCH_TELEMETRY`` again."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        _GLOBAL = None

@@ -3,14 +3,16 @@ request.
 
 The port's counterpart of ``hydragnn_tpu/obs/trace.py`` (the
 :class:`RequestTrace` and :class:`Tracer` half; the Chrome export and
-the offline timeline wait for ROADMAP A-6). ``ModelServer.submit``
+the offline timeline wait for ROADMAP A-6b). ``ModelServer.submit``
 begins a trace; the serve path closes the spans ``serve.route``,
 ``serve.queue_wait``, ``serve.batch_build``, ``serve.device_execute``
 and ``serve.postprocess`` (``serve.quarantine`` or
 ``serve.eager_execute`` where a request takes those paths) and hands
 the finished trace back to the :class:`Tracer`, which keeps a bounded
 ring and writes every ``sample_every``-th into the flight record as a
-``trace_capture`` event, the first one always.
+``trace_capture`` event, the first one always. The training loop's
+step spans (``obs/spans.py``) hand each sampled step to a tracer of
+their own as a one-span ``train.sampled_step`` trace.
 
 A disabled tracer (``HGTORCH_TELEMETRY`` or ``HGTORCH_TRACE`` off)
 returns None from :meth:`Tracer.begin`; every call site checks for it.
@@ -25,13 +27,12 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
-from hydragnn_tpu_torch.obs.registry import telemetry_enabled
+from hydragnn_tpu_torch.obs.registry import env_flag, telemetry_enabled
 
 
 def trace_enabled() -> bool:
     """Telemetry on and ``HGTORCH_TRACE`` not off (default on)."""
-    flag = os.environ.get("HGTORCH_TRACE", "1").strip().lower()
-    return telemetry_enabled() and flag not in ("0", "false", "off", "no")
+    return telemetry_enabled() and env_flag("HGTORCH_TRACE")
 
 
 def new_trace_id() -> str:

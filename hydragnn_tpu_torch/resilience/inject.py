@@ -23,9 +23,12 @@ coalescing and the retry-as-singles poison hunt.
   HGTORCH_INJECT_SERVE_TORN_RELOAD=1     ModelServer.reload turns the
                                          candidate weights to NaN before the
                                          canary (which must refuse them)
+  HGTORCH_INJECT_TRIGGER=<rule>          the SLO rule of that name force-fires
+                                         at its engine's next evaluation, once
+                                         a process (``obs/triggers.py``)
   =====================================  ======================================
 
-The training and pod injections wait for ROADMAP A-7.
+The other training injections and the pod ones wait for ROADMAP A-7.
 """
 
 from __future__ import annotations
@@ -82,8 +85,23 @@ class _Latch:
             self.fired = True
             return True
 
+    def reset(self) -> None:
+        with self._lock:
+            self.fired = False
+
 
 SERVE_WEDGE = _Latch()
+TRIGGER = _Latch()
+
+
+def injected_trigger(known_rules=None) -> Optional[str]:
+    """The rule name ``HGTORCH_INJECT_TRIGGER`` gives, once a process
+    (``TRIGGER``). A name outside ``known_rules`` is left for the engine
+    that knows it."""
+    spec = _spec("HGTORCH_INJECT_TRIGGER")
+    if spec is None or (known_rules is not None and spec not in known_rules):
+        return None
+    return spec if TRIGGER.take() else None
 
 
 def maybe_serve_wedge(seqs) -> None:

@@ -31,9 +31,9 @@ per-request results out of the padded outputs.
   - Every request carries a trace (``obs/trace.py``) and a tenant.
 
 The dispatch thread sets the server's CUDA device before it runs
-anything. Waiting for later slices: the spool, drift, triggers and
-incidents, the retrain pilot and the Chrome trace export (ROADMAP A-6,
-A-7); fsdp-sharded serving (A-5).
+anything. Waiting for later slices: the spool, drift, the serving
+triggers and their incidents, the retrain pilot and the Chrome trace
+export (ROADMAP A-6b, A-7); fsdp-sharded serving (A-5).
 """
 
 from __future__ import annotations

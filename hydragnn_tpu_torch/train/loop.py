@@ -46,8 +46,26 @@ Semantics kept from the JAX package:
     ``plot_hist_solution`` the error histograms each epoch; the final
     scatter, density, per-head and history figures after training.
 
-Not ported yet: telemetry and flight records (ROADMAP A-6); preemption,
-the watchdog and fault injection (A-7).
+**Telemetry** (``hydragnn_tpu_torch/obs``, the JAX loop's; all of it
+inert under ``HGTORCH_TELEMETRY=0``): rank 0 writes the flight record
+``<log_dir>/<log_name>/flight.jsonl`` (schema v2: a ``run_start``
+manifest with the resolved config, pad plans, dispatch mode, head
+names, the hardware ledger's cost and the drift reference window; an
+``epoch`` event an epoch with the losses keyed by head name, the step
+spans, the compile monitor's block, the per-head diagnostics and
+MAE/RMSE and the hardware record; ``resumed``, ``rollback``,
+``incident``, ``profile_trace``; ``error`` and ``run_end``). The step
+spans (``obs/spans.py``) decompose both dispatch modes;
+``Training.diagnostics`` (default true; ``HGTORCH_DIAGNOSTICS=0``
+forces it off) samples the per-head gradient diagnostics every
+``diag_every`` steps (0: once an epoch) and keeps the hardware ledger;
+``Training.slo_triggers`` evaluates the three training rules at each
+epoch's end and opens incident bundles under ``incidents/``;
+``Training.prometheus_dir`` writes ``train.prom`` each epoch. None of it
+changes what the run trains: the history and the parameters are bit
+for bit those of a run with telemetry off.
+
+Not ported yet: preemption, the watchdog and fault injection (A-7).
 """
 
 from __future__ import annotations
@@ -62,6 +80,14 @@ import numpy as np
 import torch
 
 from hydragnn_tpu_torch.models.base import HydraModel
+from hydragnn_tpu_torch.obs import (
+    CompileMonitor,
+    FlightRecorder,
+    StepSpans,
+    get_registry,
+    telemetry_enabled,
+)
+from hydragnn_tpu_torch.obs.registry import env_flag, process_count
 from hydragnn_tpu_torch.postprocess.visualizer import Visualizer
 from hydragnn_tpu_torch.resilience import NonFiniteRollbackExhausted, NonFiniteSentry
 from hydragnn_tpu_torch.train.optimizer import current_learning_rate, set_learning_rate
@@ -69,8 +95,8 @@ from hydragnn_tpu_torch.train.state import eval_step, make_train_step, stats_ste
 from hydragnn_tpu_torch.utils import checkpoint as ckpt
 from hydragnn_tpu_torch.utils.print_utils import print_peak_memory, process_index
 from hydragnn_tpu_torch.utils.profile import Profiler
-from hydragnn_tpu_torch.utils.tensorboard import get_summary_writer
-from hydragnn_tpu_torch.utils.time_utils import Timer
+from hydragnn_tpu_torch.utils.tensorboard import get_summary_writer, write_scalar_dict
+from hydragnn_tpu_torch.utils.time_utils import Timer, timers_snapshot
 
 # the per-epoch history the meta sidecar carries (the JAX package's keys)
 EPOCH_KEYS = ("train_loss", "val_loss", "test_loss", "train_tasks", "val_tasks", "test_tasks", "lr")
@@ -182,24 +208,35 @@ def _epoch_batches(loader, epoch: int, fixed: bool):
 
 def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool = False,
                 sentry: Optional[NonFiniteSentry] = None,
-                timing: Optional[Dict[str, float]] = None, profiler=None) -> Tuple[float, np.ndarray]:
+                timing: Optional[Dict[str, float]] = None, profiler=None, spans=None, diag=None,
+                incidents=None) -> Tuple[float, np.ndarray]:
     """One training epoch of ``step_fn`` (``make_train_step``; guarded when
     ``sentry`` is given) over the loader's streamed batches, or over its
     resident fixed-membership batches in the epoch's order (``fixed``);
-    ``profiler`` (``utils/profile.py``) is stepped after each batch."""
+    ``profiler`` (``utils/profile.py``) is stepped after each batch.
+    Telemetry: ``spans`` (``obs/spans.py``) times each step, ``diag``
+    (``obs/introspect.py:HeadDiagnostics``) samples before a step, and
+    ``incidents`` (``obs/triggers.py:IncidentRecorder``) is ticked after
+    one."""
     dev = _device_of(model)
     acc = _MetricAccum()
-    for batch in _timed(_epoch_batches(loader, epoch, fixed), timing):
+    if spans is None:
+        spans = StepSpans.disabled()
+    for batch in spans.timed_iter(_timed(_epoch_batches(loader, epoch, fixed), timing)):
         batch = batch.to(dev, non_blocking=True)
+        if diag is not None:
+            diag.maybe_sample(batch)
         if sentry is not None:
-            loss, tasks, consec, bad = step_fn(batch, sentry.consec)
+            loss, tasks, consec, bad = spans.step(step_fn, batch, sentry.consec)
             sentry.observe(consec, bad)
             acc.add(loss, tasks, batch.graph_mask, bad)
         else:
-            loss, tasks = step_fn(batch)
+            loss, tasks = spans.step(step_fn, batch)
             acc.add(loss, tasks, batch.graph_mask)
         if profiler is not None:
             profiler.step()
+        if incidents is not None:
+            incidents.tick()
     return acc.finalize()
 
 
@@ -316,6 +353,40 @@ def _resume_meta(training, num_epoch, steps, steps_per_epoch, log_name, log_dir,
     return meta
 
 
+def _example_batch(loader):
+    """The loader's first batch of its first membership, built without
+    drawing an epoch from it (the shuffle and the prefetch thread are
+    untouched), or None where the loader cannot build one."""
+    make = getattr(loader, "make_batch", None)
+    samples = getattr(loader, "samples", None)
+    if make is None or not samples:
+        return None
+    return make(np.arange(min(int(loader.batch_size), len(samples))))
+
+
+def _loader_plan(loader) -> Dict[str, Any]:
+    return {
+        "num_batches": len(loader),
+        "num_samples": len(loader.samples) if hasattr(loader, "samples") else None,
+        "batch_size": getattr(loader, "batch_size", None),
+        "pad_nodes": getattr(loader, "pad_nodes", None),
+        "pad_edges": getattr(loader, "pad_edges", None),
+        "pad_graphs": getattr(loader, "pad_graphs", None),
+    }
+
+
+def _train_rules(training: Dict[str, Any]):
+    """The training loop's three SLO rules, thresholds from ``Training``."""
+    from hydragnn_tpu_torch.obs.triggers import TriggerRule
+
+    return [
+        TriggerRule("train_nonfinite_burst", "nonfinite_burst", "train.nonfinite_skipped",
+                    float(training.get("slo_nonfinite_burst", 1))),
+        TriggerRule("train_loss_spike", "loss_spike", "train_loss", float(training.get("slo_loss_spike_factor", 3.0))),
+        TriggerRule("train_mfu_drop", "mfu_drop", "mfu", float(training.get("slo_mfu_drop_factor", 0.5))),
+    ]
+
+
 def train_validate_test(
     model: HydraModel,
     optimizer,
@@ -329,6 +400,9 @@ def train_validate_test(
     create_plots: bool = False,
     plot_init_solution: bool = False,
     plot_hist_solution: bool = False,
+    flight=None,
+    run_config: Optional[Dict[str, Any]] = None,
+    manifest_extra: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Train for ``Training.num_epoch`` epochs (module docstring);
     ``config`` is the ``NeuralNetwork`` section. The model and optimizer
@@ -337,7 +411,12 @@ def train_validate_test(
     history: the per-epoch ``EPOCH_KEYS`` (with a resumed run's earlier
     epochs), and for this run's epochs ``dispatch_mode``, ``data_wait_s``
     and ``train_wall_s`` (host clock), ``nonfinite_skipped`` and the
-    epochs it ``rollbacks``'d."""
+    epochs it ``rollbacks``'d.
+
+    Telemetry: ``flight`` is a caller's ``FlightRecorder`` (the loop
+    makes and closes its own otherwise), ``run_config`` the full
+    resolved config for the manifest (default: this ``NeuralNetwork``
+    section), ``manifest_extra`` keys merged into the manifest."""
     training = config["Training"]
     num_epoch = int(training["num_epoch"])
     stopper = (
@@ -365,9 +444,10 @@ def train_validate_test(
         print(f"dispatch: {dispatch['mode']} ({'auto' if dispatch['auto'] else 'config'}: {dispatch['reason']})",
               flush=True)
     guard = bool(training.get("nonfinite_guard", True))
+    compute_dtype = torch.bfloat16 if training.get("mixed_precision") else None
     step_fn = make_train_step(
         model, optimizer,
-        compute_dtype=torch.bfloat16 if training.get("mixed_precision") else None,
+        compute_dtype=compute_dtype,
         remat=bool(training.get("remat", False)),
         guard_nonfinite=guard,
     )
@@ -386,6 +466,7 @@ def train_validate_test(
     ckpt_every = int(training.get("checkpoint_every", 0))
     keep_last = int(training.get("checkpoint_keep_last", 3))
     start_epoch = 0
+    resumed_from = None
     if training.get("continue") == 1:
         if "startfrom" not in training:
             raise ValueError("Training.continue=1 requires Training.startfrom")
@@ -393,6 +474,7 @@ def train_validate_test(
                             verbosity)
         if meta is not None:
             start_epoch = num_epoch if meta.get("early_stopped") else int(meta["epoch"])
+            resumed_from = start_epoch
             scheduler.best = float(meta["scheduler"]["best"])
             scheduler.num_bad_epochs = int(meta["scheduler"]["num_bad_epochs"])
             if stopper is not None and "stopper" in meta:
@@ -400,6 +482,45 @@ def train_validate_test(
                 stopper.min_loss = float(meta["stopper"]["min_loss"])
             history = {k: meta["history"].get(k, []) for k in EPOCH_KEYS}
     history.update(dispatch_mode=dispatch, data_wait_s=[], train_wall_s=[], nonfinite_skipped=[], rollbacks=[])
+
+    # telemetry, made after the resume handling (a config error there
+    # leaves no flight file): the flight record on rank 0, the step spans,
+    # the compile monitor, the trigger engine and incidents, the per-head
+    # diagnostics and the hardware ledger (module docstring)
+    telemetry_on = telemetry_enabled()
+    rank0 = process_index() == 0
+    own_flight = flight is None
+    if flight is None:
+        flight = FlightRecorder(os.path.join(log_dir, log_name, "flight.jsonl") if telemetry_on and rank0 else None,
+                                enabled=telemetry_on)
+    spans = StepSpans(device=dev) if telemetry_on else StepSpans.disabled()
+    cmon = CompileMonitor().start() if telemetry_on else None
+    trig_engine = incidents = None
+    if telemetry_on:
+        from hydragnn_tpu_torch.obs.trace import Tracer
+
+        spans.tracer = Tracer(flight=flight)
+    if telemetry_on and bool(training.get("slo_triggers", False)):
+        from hydragnn_tpu_torch.obs.triggers import IncidentRecorder, TriggerEngine
+
+        trig_engine = TriggerEngine(_train_rules(training), registry=get_registry())
+        trig_engine.baseline_counters()
+        if rank0:
+            incidents = IncidentRecorder(os.path.join(log_dir, log_name, "incidents"), registry=get_registry(),
+                                         flight_path=flight.path, device=dev)
+    def abort_telemetry(exc: BaseException, epochs: int) -> None:
+        """A crashed run still leaves a readable record: the ``error``
+        event and ``run_end{status: failed}``, then the re-raise."""
+        if incidents is not None:
+            incidents.finalize()
+        flight.error(exc)
+        flight.end_run(status="failed", epochs=epochs,
+                       triggers=trig_engine.summary(incidents.capture_s if incidents else 0.0)
+                       if trig_engine is not None else None)
+        if cmon is not None:
+            cmon.stop()
+        if own_flight:
+            flight.close()
 
     def write_checkpoint(epoch_next: int, early_stopped: bool) -> None:
         ckpt.save_model(model, log_name, log_dir, optimizer=optimizer, epoch=epoch_next, keep_last=keep_last)
@@ -431,63 +552,116 @@ def train_validate_test(
         set_learning_rate(optimizer, lr)
         sentry.on_rollback()
         history["rollbacks"].append(epoch)
+        flight.record("rollback", epoch=epoch, consec=consec_end, rollbacks=sentry.rollbacks, lr=lr)
         if verbosity > 0:
             print(f"non-finite sentry: epoch {epoch} ended with {consec_end} consecutive bad steps; rolled back "
                   f"to the last good checkpoint (lr -> {lr:g})", flush=True)
 
-    # the Profile section's epoch-gated trace
-    profiler = None
-    if "Profile" in config:
-        profiler = Profiler(os.path.join(log_dir, log_name, "profile"), config["Profile"], dev)
-        if not profiler.enable:
-            profiler = None
-    metrics_path = None
-    if process_index() == 0:
-        os.makedirs(os.path.join(log_dir, log_name), exist_ok=True)
-        metrics_path = os.path.join(log_dir, log_name, "metrics.jsonl")
-    visualizer = None
-    if create_plots and process_index() == 0:
-        visualizer = Visualizer(log_name, num_heads=model.cfg.num_heads, head_names=names, log_dir=log_dir)
-    nodes_per_graph = None
-    if visualizer is not None and hasattr(test_loader, "samples"):
-        nodes_per_graph = [s.num_nodes for s in test_loader.samples]
-        visualizer.num_nodes_plot(nodes_per_graph)
-    if visualizer is not None and plot_init_solution:
-        _, _, tv, pv = test_epoch(test_loader, model, return_samples=True)
-        visualizer.create_scatter_plots(tv, pv, iepoch=-1)
-    # made after the plots that can raise, so the try below closes it
-    writer = get_summary_writer(log_name, log_dir)
+    # from here on a failure still ends the record (error, run_end failed)
+    try:
+        introspect_on = (telemetry_on and bool(training.get("diagnostics", True))
+                         and env_flag("HGTORCH_DIAGNOSTICS"))
+        diag = ledger = None
+        if introspect_on:
+            from hydragnn_tpu_torch.obs.introspect import (
+                HardwareLedger,
+                HeadDiagnostics,
+                conv_traffic_model,
+                make_diagnostics_step,
+                pad_waste_from_batch,
+            )
+
+            diag = HeadDiagnostics(make_diagnostics_step(model, optimizer, compute_dtype), head_names=names,
+                                   every=int(training.get("diag_every", 0)) or max(len(train_loader), 1))
+            example = _example_batch(train_loader)
+            if example is None:
+                ledger = HardwareLedger.disabled(reason="example_batch_unavailable")
+            else:
+                ledger = HardwareLedger.from_model(model, example, compute_dtype)
+                waste = pad_waste_from_batch(example)
+                ledger.set_conv_traffic(waste, conv_traffic_model(
+                    waste["node_pad"], waste["edge_pad"], model.cfg.hidden_dim, model.cfg.num_conv_layers,
+                    real_edges=waste["real_edges_mean"]))
+
+        # the Profile section's epoch-gated trace
+        profiler = None
+        if "Profile" in config:
+            profiler = Profiler(os.path.join(log_dir, log_name, "profile"), config["Profile"], dev)
+            if not profiler.enable:
+                profiler = None
+        metrics_path = None
+        if rank0:
+            os.makedirs(os.path.join(log_dir, log_name), exist_ok=True)
+            metrics_path = os.path.join(log_dir, log_name, "metrics.jsonl")
+        visualizer = None
+        if create_plots and rank0:
+            visualizer = Visualizer(log_name, num_heads=model.cfg.num_heads, head_names=names, log_dir=log_dir)
+        nodes_per_graph = None
+        if visualizer is not None and hasattr(test_loader, "samples"):
+            nodes_per_graph = [s.num_nodes for s in test_loader.samples]
+            visualizer.num_nodes_plot(nodes_per_graph)
+        if visualizer is not None and plot_init_solution:
+            _, _, tv, pv = test_epoch(test_loader, model, return_samples=True)
+            visualizer.create_scatter_plots(tv, pv, iepoch=-1)
+
+        if flight.enabled:
+            flight.start_run(_manifest(
+                model, config, run_config, log_name, log_dir, dev, (train_loader, val_loader, test_loader),
+                num_epoch=num_epoch, start_epoch=start_epoch, compute_dtype=compute_dtype, dispatch=dispatch,
+                cmon=cmon, guard=guard, diag=diag, ledger=ledger, extra=manifest_extra,
+            ), device=dev)
+            if resumed_from is not None:
+                flight.record("resumed", epoch=resumed_from)
+        writer = get_summary_writer(log_name, log_dir)
+    except BaseException as exc:
+        abort_telemetry(exc, 0)
+        raise
 
     hist_plots = visualizer if plot_hist_solution else None
     timer = Timer("train_validate_test")
     timer.start()
+    epochs_done = start_epoch
     try:
-        epochs_done = start_epoch
         for epoch in range(start_epoch, num_epoch):
             for loader in (train_loader, val_loader, test_loader):
                 loader.set_epoch(epoch)
             if sentry is not None:
                 sentry.epoch_start()
+            profiled = profiler is not None and not profiler.done and epoch == profiler.target_epoch
             if profiler is not None:
                 profiler.set_current_epoch(epoch)
+            if profiled and incidents is not None:
+                incidents.finalize()  # the Profile's epoch owns the profiler: an open incident ends here
+            if cmon is not None:
+                cmon.mark("epoch_start")
+            spans.epoch_start(epoch)
             timing: Dict[str, float] = {}
             t0 = time.perf_counter()
             # the profiler's context closes a trace the epoch's steps left open
             with profiler if profiler is not None else contextlib.nullcontext():
                 train_loss, train_tasks = train_epoch(train_loader, model, step_fn, epoch, fixed, sentry, timing,
-                                                      profiler)
+                                                      profiler, spans=spans, diag=diag,
+                                                      incidents=None if profiled else incidents)
             # finalize read the losses: the steps are done
-            history["train_wall_s"].append(time.perf_counter() - t0)
+            train_wall = time.perf_counter() - t0
+            history["train_wall_s"].append(train_wall)
             history["data_wait_s"].append(timing.get("data_wait_s", 0.0))
+            if profiled and profiler.trace_path is not None:
+                flight.record("profile_trace", path=profiler.trace_path, epoch=epoch)
+            nonfinite = None
             if sentry is not None:
                 skipped, consec_end = sentry.epoch_finalize()
                 history["nonfinite_skipped"].append(skipped)
+                if skipped and telemetry_on:
+                    get_registry().counter("train.nonfinite_skipped").inc(skipped)
+                    nonfinite = {"skipped": skipped, "consec_end": consec_end}
                 if sentry.needs_rollback(consec_end):
                     rollback(epoch, consec_end)
                     epochs_done = epoch + 1
                     continue  # the rolled-back epoch consumed its slot
             val_loss, val_tasks = evaluate_epoch(val_loader, model, val_resident)
-            test_loss, test_tasks, tv, pv = test_epoch(test_loader, model, return_samples=hist_plots is not None)
+            test_loss, test_tasks, tv, pv = test_epoch(test_loader, model,
+                                                       return_samples=hist_plots is not None or introspect_on)
             if hist_plots is not None:
                 hist_plots.create_error_histograms(tv, pv, iepoch=epoch)
             scheduler.step(optimizer, val_loss)
@@ -504,6 +678,12 @@ def train_validate_test(
                 # activations and the optimizer state: the run's footprint
                 print_peak_memory(verbosity, prefix=f"epoch {epoch}", device=dev)
             _write_epoch_record(writer, metrics_path, names, epoch, history)
+            if telemetry_on:
+                _epoch_telemetry(
+                    flight, writer, epoch, history, names, dispatch, training, start_epoch, len(train_loader),
+                    train_wall, spans, cmon, diag, ledger, (tv, pv) if introspect_on else None, nonfinite,
+                    trig_engine, incidents, rank0,
+                )
             stop = stopper is not None and stopper(val_loss)
             epochs_done = epoch + 1
             if ckpt_every and (epoch + 1) % ckpt_every == 0:
@@ -528,10 +708,169 @@ def train_validate_test(
             visualizer.create_plot_global(tv, pv)
             visualizer.create_reference_plot_suite(tv, pv, model.cfg.output_type, nodes_per_graph)
             visualizer.plot_history(history)
+    except BaseException as exc:
+        timer.stop_if_running()
+        abort_telemetry(exc, epochs_done - start_epoch)
+        raise
     finally:
         writer.close()
         timer.stop_if_running()
+
+    # run_end: the record's last event
+    if cmon is not None:
+        cmon.stop()
+    if incidents is not None:
+        incidents.finalize()  # an incident still capturing closes as "truncated"
+    flight.end_run(
+        status="completed",
+        epochs=epochs_done - start_epoch,
+        epochs_total=epochs_done,
+        early_stopped=bool(stopper and stopper.count >= stopper.patience),
+        best_val_loss=min(history["val_loss"]) if history["val_loss"] else None,
+        final_lr=history["lr"][-1] if history["lr"] else None,
+        compiles=cmon.snapshot() if cmon is not None else None,
+        timers=timers_snapshot(),
+        metrics=get_registry().snapshot(),
+        hw=ledger.run_summary() if ledger is not None else None,
+        triggers=trig_engine.summary(incidents.capture_s if incidents else 0.0) if trig_engine is not None else None,
+        podview=None,
+    )
+    if own_flight:
+        flight.close()
     return history
+
+
+def _manifest(model, config, run_config, log_name, log_dir, dev, loaders, *, num_epoch, start_epoch, compute_dtype,
+              dispatch, cmon, guard, diag, ledger, extra) -> Dict[str, Any]:
+    """The ``run_start`` manifest: what the run is and how to rerun it.
+    Keys the port has no counterpart for yet say so (``parallel``,
+    ``graftcheck``, ``podview``)."""
+    from hydragnn_tpu_torch.obs.introspect import card_identity
+
+    train_loader, val_loader, test_loader = loaders
+    cuda = dev.type == "cuda"
+    stats_block = None
+    samples = getattr(train_loader, "samples", None)
+    if samples:
+        from hydragnn_tpu_torch.obs.drift import build_reference
+
+        stats_block = build_reference(samples, head_names=list(model.cfg.output_names))
+    training = config["Training"]
+    return {
+        "run": log_name,
+        "log_dir": log_dir,
+        "config": run_config if run_config is not None else {"NeuralNetwork": config},
+        "device_kind": torch.cuda.get_device_name(dev) if cuda else dev.type,
+        "local_device_count": torch.cuda.device_count() if cuda else 1,
+        "card": card_identity() if cuda else None,
+        "mesh": {"device_stack": 1, "process_count": process_count()},
+        "podview": {"enabled": False},
+        "parallel": {"available": False, "reason": "the port's parallel layer waits for ROADMAP A-5"},
+        "graftcheck": {"available": False, "reason": "graftcheck audits XLA programs; the port compiles none"},
+        "pad_plans": {"train": _loader_plan(train_loader), "val": _loader_plan(val_loader),
+                      "test": _loader_plan(test_loader)},
+        "num_epoch": num_epoch,
+        "start_epoch": start_epoch,
+        "mixed_precision": compute_dtype is not None,
+        # the port's counterpart of the JAX whole-epoch scan: the fixed
+        # membership's resident batches, launched step by step
+        "scan_epoch": dispatch["mode"] == "fixed_epoch",
+        "dispatch_mode": dict(dispatch),
+        "compile_monitor_available": bool(cmon and cmon.available),
+        "nonfinite_guard": guard,
+        "watchdog_stall_s": float(training.get("watchdog_stall_s", 0) or 0) or None,
+        "head_names": list(model.cfg.output_names),
+        "diagnostics": {"enabled": diag is not None, "diag_every": diag.every if diag is not None else None},
+        "hw_cost": ledger.manifest() if ledger is not None else {"available": False},
+        "stats": stats_block,
+        **(extra or {}),
+    }
+
+
+def _epoch_telemetry(flight, writer, epoch, history, names, dispatch, training, start_epoch, steps, train_wall,
+                     spans, cmon, diag, ledger, samples, nonfinite, trig_engine, incidents, rank0) -> None:
+    """The epoch's telemetry after its records: the flight ``epoch``
+    event, the trigger rules, tensorboard's ``obs/*`` and ``heads/*``
+    scalars and ``train.prom``."""
+    from hydragnn_tpu_torch.obs.introspect import per_head_error_metrics
+
+    train_loss, val_loss, test_loss = (history[k][-1] for k in ("train_loss", "val_loss", "test_loss"))
+    lr = history["lr"][-1]
+    train_named = _named_tasks(names, history["train_tasks"][-1])
+    head_quality = per_head_error_metrics(samples[0], samples[1], names) if samples and samples[0] else None
+    diag_snap = diag.epoch_snapshot() if diag is not None else None
+    hw = ledger.epoch_record(steps=steps, wall_s=train_wall) if ledger is not None else None
+    span_snap = spans.epoch_snapshot()
+    step_time = dict(span_snap, mode=dispatch["mode"]) if span_snap is not None else {"mode": "disabled"}
+    compiles: Dict[str, Any] = {"available": bool(cmon and cmon.available)}
+    if cmon is not None:
+        n_compiles = cmon.count_since("epoch_start")
+        compiles["count"] = n_compiles
+        compiles["unexpected"] = bool(cmon.available and epoch > start_epoch and n_compiles > 0)
+    heads: Dict[str, Any] = {"names": list(names), "available": False}
+    if diag_snap is not None:
+        heads.update(diag_snap)
+    if head_quality is not None:
+        heads["available"] = True
+        heads["mae"] = {n: m["mae"] for n, m in head_quality.items()}
+        heads["rmse"] = {n: m["rmse"] for n, m in head_quality.items()}
+    extra: Dict[str, Any] = {}
+    if nonfinite:
+        extra["nonfinite"] = nonfinite
+    if ledger is not None:
+        extra["heads"] = heads
+        extra["hw"] = hw
+    flight.epoch(epoch, train_loss=train_loss, val_loss=val_loss, test_loss=test_loss, lr=lr,
+                 train_tasks=train_named, val_tasks=_named_tasks(names, history["val_tasks"][-1]),
+                 test_tasks=_named_tasks(names, history["test_tasks"][-1]), step_time=step_time,
+                 compiles=compiles, **extra)
+
+    # the SLO rules at the epoch's end: at most one verdict opens an
+    # incident, whose capture runs in the next epoch's steps
+    if trig_engine is not None:
+        trig_engine.observe("train_loss", train_loss)
+        trig_engine.observe("val_loss", val_loss)
+        if hw is not None:
+            trig_engine.observe("mfu", hw.get("mfu"))
+        for verdict in trig_engine.evaluate():
+            if incidents is not None:
+                incidents.open_incident(verdict, flight=flight)
+
+    if span_snap is not None:
+        write_scalar_dict(writer, span_snap, epoch, prefix="obs/step_time")
+    if diag_snap is not None:
+        for name in names:
+            if name in diag_snap["grad_norm"]:
+                writer.add_scalar(f"heads/{name}/grad_norm", diag_snap["grad_norm"][name], epoch)
+        writer.add_scalar("obs/update_ratio", diag_snap["update_ratio"], epoch)
+    if head_quality is not None:
+        for name, m in head_quality.items():
+            if m["mae"] is not None:
+                writer.add_scalar(f"heads/{name}/mae", m["mae"], epoch)
+                writer.add_scalar(f"heads/{name}/rmse", m["rmse"], epoch)
+    if hw is not None and hw.get("mfu") is not None:
+        writer.add_scalar("obs/hw/mfu", hw["mfu"], epoch)
+    if hw is not None and hw.get("achieved_tflops") is not None:
+        writer.add_scalar("obs/hw/achieved_tflops", hw["achieved_tflops"], epoch)
+
+    # the Prometheus textfile, one atomic snapshot an epoch on rank 0
+    prom_dir = training.get("prometheus_dir")
+    if prom_dir and rank0:
+        from hydragnn_tpu_torch.obs.export import registry_to_prometheus
+
+        reg = get_registry()
+        reg.gauge("train.epoch").set(epoch)
+        reg.gauge("train.loss").set(train_loss)
+        reg.gauge("train.val_loss").set(val_loss)
+        reg.gauge("train.lr").set(lr)
+        for name, v in train_named.items():
+            reg.gauge(f"train.head.{name}.loss").set(v)
+        if diag_snap is not None:
+            for name, v in diag_snap["grad_norm"].items():
+                reg.gauge(f"train.head.{name}.grad_norm").set(v)
+        if hw is not None and hw.get("mfu") is not None:
+            reg.gauge("train.mfu").set(hw["mfu"])
+        registry_to_prometheus(reg, os.path.join(prom_dir, "train.prom"))
 
 
 def _write_epoch_record(writer, metrics_path: Optional[str], names: Sequence[str], epoch: int,

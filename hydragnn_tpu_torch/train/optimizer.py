@@ -130,31 +130,65 @@ class _OptaxRule(torch.optim.Optimizer):
             upd = self._update(grads, params, st)
             torch._foreach_add_(params, torch._foreach_mul(upd, -group["lr"]))
 
-    def _update(self, grads, params, st) -> List[torch.Tensor]:
+    def _update(self, grads, params, st, write: bool = True) -> List[torch.Tensor]:
+        """The rule's ``u``; the new state is written unless ``write`` is
+        false (``Optimizer.dry_update``)."""
         F = torch
         if self.kind == "Adagrad":
             sos = F._foreach_add(F._foreach_mul(grads, grads), [s["sum_of_squares"] for s in st])
-            torch._foreach_copy_([s["sum_of_squares"] for s in st], sos)
+            if write:
+                torch._foreach_copy_([s["sum_of_squares"] for s in st], sos)
             inv = [torch.where(t > 0, torch.rsqrt(t + 1e-7), torch.zeros_like(t)) for t in sos]
             return F._foreach_mul(inv, grads)
         if self.kind == "RMSprop":
             nu = _ema(F._foreach_mul(grads, grads), [s["nu"] for s in st], 0.9)
-            torch._foreach_copy_([s["nu"] for s in st], nu)
+            if write:
+                torch._foreach_copy_([s["nu"] for s in st], nu)
             return F._foreach_mul(F._foreach_rsqrt(F._foreach_add(nu, 1e-8)), grads)
         # FusedLAMB: optax's scale_by_adam (eps 1e-6), weight decay 0, the trust ratio
         counts = [s["count"] for s in st]
-        torch._foreach_add_(counts, 1.0)
-        c = counts[0]
+        c = counts[0] + 1.0
         mu = _ema(grads, [s["mu"] for s in st], B1)
         nu = _ema(F._foreach_mul(grads, grads), [s["nu"] for s in st], B2)
-        torch._foreach_copy_([s["mu"] for s in st], mu)
-        torch._foreach_copy_([s["nu"] for s in st], nu)
+        if write:
+            torch._foreach_add_(counts, 1.0)
+            torch._foreach_copy_([s["mu"] for s in st], mu)
+            torch._foreach_copy_([s["nu"] for s in st], nu)
         m_hat = F._foreach_div(mu, 1.0 - B1 ** c)
         v_hat = F._foreach_div(nu, 1.0 - B2 ** c)
         upd = F._foreach_div(m_hat, F._foreach_add(F._foreach_sqrt(v_hat), 1e-6))
         upd = F._foreach_add(upd, F._foreach_mul(params, 0.0))
         pn, un = F._foreach_norm(params), F._foreach_norm(upd)
         return [u * torch.where((a == 0.0) | (b == 0.0), torch.ones_like(a), a / b) for u, a, b in zip(upd, pn, un)]
+
+
+def _torch_direction(kind: str, params, grads, st) -> List[torch.Tensor]:
+    """``u`` of the torch rule ``kind`` (``p += -lr·u``) from its state
+    ``st``, which stays as it is, in torch's order of operations."""
+    F = torch
+    kw = _TORCH[kind][1]
+    if kind == "SGD":
+        return list(grads)
+    if kind == "Adadelta":
+        rho, eps = kw["rho"], kw["eps"]
+        sq = F._foreach_addcmul(F._foreach_mul([s["square_avg"] for s in st], rho), grads, grads, value=1 - rho)
+        delta = F._foreach_div(F._foreach_sqrt(F._foreach_add([s["acc_delta"] for s in st], eps)),
+                               F._foreach_sqrt(F._foreach_add(sq, eps)))
+        return F._foreach_mul(delta, grads)
+    (b1, b2), eps = kw["betas"], kw["eps"]
+    # the parameters step together: one count; the bias corrections in
+    # float64, as torch's step takes them from its count on the CPU
+    t = st[0]["step"].double() + 1.0
+    m = F._foreach_lerp([s["exp_avg"] for s in st], grads, 1 - b1)
+    if kind == "Adamax":
+        inf = F._foreach_maximum(F._foreach_mul([s["exp_inf"] for s in st], b2),
+                                 F._foreach_add(F._foreach_abs(grads), eps))
+        return F._foreach_div(F._foreach_div(m, inf), 1 - b1 ** t)
+    v = F._foreach_addcmul(F._foreach_mul([s["exp_avg_sq"] for s in st], b2), grads, grads, value=1 - b2)
+    denom = F._foreach_add(F._foreach_div(F._foreach_sqrt(v), (1 - b2 ** t).sqrt()), eps)
+    u = F._foreach_div(F._foreach_div(m, denom), 1 - b1 ** t)
+    # AdamW decays the parameter by lr·wd before the step: wd·p in u
+    return F._foreach_add(u, list(params), alpha=kw.get("weight_decay", 0.0)) if kind == "AdamW" else u
 
 
 class Optimizer:
@@ -265,6 +299,30 @@ class Optimizer:
         for k, v in shared.items():
             self.shared[k].copy_(v)
         self.steps.copy_(state_dict["steps"].to(dev))
+
+    @torch.no_grad()
+    def dry_update(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """What ``step()`` would add to each of ``params`` (any order) for
+        ``grads``, read from the state, which stays as it is (the per-head
+        diagnostics' update norm): the rule's formula in its order of
+        operations, the accumulation's mean and emit, the freeze mask. It
+        matches a real step's change up to rounding."""
+        grads = [g.to(p.dtype) for p, g in zip(params, grads)]
+        st = [self.state[p] for p in params]
+        emit = None
+        if self.accum > 1:
+            mini = self.shared["mini_step"]
+            acc = [s["acc"] for s in st]
+            grads = torch._foreach_add(acc, torch._foreach_div(torch._foreach_sub(grads, acc),
+                                                               (mini + 1).to(grads[0].dtype)))
+            emit = mini == self.accum - 1
+        if self.kind in _TORCH:
+            u = _torch_direction(self.kind, params, grads, st)
+        else:
+            u = self.inner._update(grads, params, st, write=False)
+        lr = {id(p): g["lr"] for g in self.param_groups for p in g["params"]}
+        upd = torch._foreach_mul(u, [-lr[id(p)] for p in params])
+        return upd if emit is None else [torch.where(emit, d, torch.zeros_like(d)) for d in upd]
 
     @torch.no_grad()
     def step(self) -> None:

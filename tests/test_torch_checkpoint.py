@@ -48,6 +48,17 @@ from test_torch_conv_stacks import one_thread  # noqa: F401
 UNIT = dict(unit_cell_x_range=(2, 4), unit_cell_y_range=(2, 4), unit_cell_z_range=(2, 4))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _diagnostics_off():
+    """The training loop's per-head diagnostics and hardware ledger off in
+    this file (``test_torch_{introspect,train_obs}.py`` test them): they
+    add a forward and H + 1 backward pulls an epoch, and a counted
+    forward and backward a run, to every run here."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HGTORCH_DIAGNOSTICS", "0")
+        yield
+
+
 def _tiny():
     cfg = flagship_config(8, 2, 8, 1)
     tr, va, te, _, _ = prepare_dataset(deterministic_graph_data(number_configurations=12, seed=0, **UNIT), cfg)

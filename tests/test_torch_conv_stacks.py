@@ -71,6 +71,17 @@ from hydragnn_tpu_torch.utils.config import update_config
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _diagnostics_off():
+    """The training loop's per-head diagnostics and hardware ledger off in
+    this file (``test_torch_{introspect,train_obs}.py`` test them): they
+    add a forward and H + 1 backward pulls an epoch, and a counted
+    forward and backward a run, to every run here."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HGTORCH_DIAGNOSTICS", "0")
+        yield
+
+
 @pytest.fixture
 def one_thread():
     """The port's CPU ops on one intra-op thread for one test (module

@@ -43,6 +43,18 @@ from test_torch_data import _JAX_ONLY_KEYS, _assert_samples_equal
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GDB9 = os.path.join(REPO, "tests", "data", "gdb9_fixture")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _diagnostics_off():
+    """The training loop's per-head diagnostics and hardware ledger off in
+    this file (``test_torch_{introspect,train_obs}.py`` test them): they
+    add a forward and H + 1 backward pulls an epoch, and a counted
+    forward and backward a run, to every run here."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HGTORCH_DIAGNOSTICS", "0")
+        yield
+
+
 # ---------------------------------------------------------------- LSMS
 
 

@@ -57,6 +57,17 @@ DRIVERS = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _diagnostics_off():
+    """The training loop's per-head diagnostics and hardware ledger off in
+    this file (``test_torch_{introspect,train_obs}.py`` test them): they
+    add a forward and H + 1 backward pulls an epoch, and a counted
+    forward and backward a run, to every run here."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HGTORCH_DIAGNOSTICS", "0")
+        yield
+
+
 def _tree_bytes(path):
     """{relative path: bytes} of a file, or of every file under a directory."""
     if os.path.isfile(path):

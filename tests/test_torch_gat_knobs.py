@@ -77,8 +77,18 @@ BF16_LOSS, BF16_GRAD = 5e-2, 8e-2  # the JAX package's bound, against f32
 BF16_PORT_LOSS, BF16_PORT_GRAD = 1e-2, 2e-2  # the port against JAX, both in bf16
 
 
-# ---- segment_softmax, segment_std ------------------------------------------
+@pytest.fixture(autouse=True, scope="module")
+def _diagnostics_off():
+    """The training loop's per-head diagnostics and hardware ledger off in
+    this file (``test_torch_{introspect,train_obs}.py`` test them): they
+    add a forward and H + 1 backward pulls an epoch, and a counted
+    forward and backward a run, to every run here."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HGTORCH_DIAGNOSTICS", "0")
+        yield
 
+
+# ---- segment_softmax, segment_std ------------------------------------------
 
 def _segments(seed, width):
     """Unsorted ids over 12 segments (2 and 7 empty, 5 all masked), data

@@ -64,6 +64,17 @@ PNA_THRESHOLDS = (0.20, 0.20)
 LAYOUTS = ("dense", "run_aligned", "unaligned")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _diagnostics_off():
+    """The training loop's per-head diagnostics and hardware ledger off in
+    this file (``test_torch_{introspect,train_obs}.py`` test them): they
+    add a forward and H + 1 backward pulls an epoch, and a counted
+    forward and backward a run, to every run here."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HGTORCH_DIAGNOSTICS", "0")
+        yield
+
+
 def pna_config(make, edge=False, head="mlp", model_type="PNA", batch=8, epochs=1):
     cfg = make(8, 2, batch, epochs)
     arch = cfg["NeuralNetwork"]["Architecture"]

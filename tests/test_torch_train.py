@@ -63,6 +63,17 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 UNIT = dict(unit_cell_x_range=(2, 4), unit_cell_y_range=(2, 4), unit_cell_z_range=(2, 4))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _diagnostics_off():
+    """The training loop's per-head diagnostics and hardware ledger off in
+    this file (``test_torch_{introspect,train_obs}.py`` test them): they
+    add a forward and H + 1 backward pulls an epoch, and a counted
+    forward and backward a run, to every run here."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HGTORCH_DIAGNOSTICS", "0")
+        yield
+
+
 def _splits(mod_data, mod_prep, mod_update, cfg, n, seed=2):
     samples = mod_data(number_configurations=n, seed=seed, **UNIT)
     tr, va, te, _, _ = mod_prep(samples, cfg)

@@ -84,6 +84,17 @@ ADAM_LATER_RTOL = 1e-2
 BF16_LOSS_RTOL, BF16_UPDATE_FACTOR = 1e-2, 2.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _diagnostics_off():
+    """The training loop's per-head diagnostics and hardware ledger off in
+    this file (``test_torch_{introspect,train_obs}.py`` test them): they
+    add a forward and H + 1 backward pulls an epoch, and a counted
+    forward and backward a run, to every run here."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HGTORCH_DIAGNOSTICS", "0")
+        yield
+
+
 def _splits(data, prep, upd, cfg, n, seed=2):
     s = data(number_configurations=n, seed=seed, **UNIT)
     tr, va, te, _, _ = prep(s, cfg)
