@@ -2072,7 +2072,7 @@ DIAG_NORM_TOL, DIAG_COS_TOL, DIAG_PARAM_RTOL = STEP_CONV_TOL, 2 * STEP_CONV_TOL,
 DIAG_READING_TOL = 1e-3
 
 
-def train_obs_phase(dev, card, counts, samples):
+def train_obs_phase(dev, card, counts, samples, keep_flight=None):
     """[train-obs]: the training loop's telemetry on the flagship at full
     width, batch LOOP_BATCH on ``samples()`` ([records]' 1,800 graphs),
     TRAIN_OBS_EPOCHS epochs under deterministic algorithms: (a) per-step
@@ -2094,7 +2094,8 @@ def train_obs_phase(dev, card, counts, samples):
     sample on the card matches the CPU's. Prints the telemetry-on against
     telemetry-off epoch wall, the sample's ms on CUDA events, the ledger
     per epoch, the spans, the incident and the flight event count.
-    Returns (a)'s launches."""
+    Copies (a)'s flight record to ``keep_flight`` where given. Returns
+    (a)'s launches."""
     from hydragnn_tpu_torch.api import create_dataloaders, prepare_config_and_samples
     from hydragnn_tpu_torch.flagship import flagship_config
     from hydragnn_tpu_torch.models.create import create_model_config
@@ -2303,6 +2304,8 @@ def train_obs_phase(dev, card, counts, samples):
          train_prom_loss=prom_loss, manifest_card=json.dumps(man.get("card")),
          kernel_launches=json.dumps(a.counts, separators=(",", ":")),
          telemetry_launches=json.dumps(extra, separators=(",", ":")), card=repr(card))
+    if keep_flight is not None:  # [serve-drift] reads its reference back
+        shutil.copyfile(os.path.join(a.dir, "flight.jsonl"), keep_flight)
     shutil.rmtree(root, ignore_errors=True)
     return a.counts
 
@@ -2649,6 +2652,375 @@ def serve_timing_phase(dev, card, make_raw):
          threads=SERVE_THREADS, **fields, deterministic=torch.are_deterministic_algorithms_enabled(),
          cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"), card=repr(card))
     return fields
+
+
+# [serve-drift]: the spool, the drift monitor and the serving triggers on
+# the flagship served from CUDA graphs
+DRIFT_SHIFT = "5.0"  # HGTORCH_INJECT_DRIFT of (c)
+DRIFT_PROFILE_STEPS = 8  # (c)'s incident captures 8 batches
+# (c)'s spool rotates a shard each ~0.25 MB and keeps 1 MB: the shards
+# pinned for the incident must outlive the evictions of its capture
+DRIFT_SPOOL = dict(spool_shard_mb=0.25, spool_max_mb=1.0)
+# (d): the served answers (bucket pads, B5) against an eval forward of the
+# same graphs in the loader's run-aligned batches (B1, B2): f32 sums in
+# another order. The card read 2.4e-6 at most (H100 80GB HBM3, 700 W, two
+# runs): the tier is 1e-5
+REPLAY_TOL = dict(rtol=1e-5, atol=1e-5)
+# The pred_drift rule is off in this phase (drift_pred_psi=None); its
+# gauge is still published and printed. Prediction drift is baselined on
+# the session's first answers (obs/drift.py:_HeadSketch), and a 4-thread
+# burst's first answers are not a sample of its traffic: the buckets'
+# flush order skews them toward some graph sizes. On clean traffic the
+# gauge read 0.655-0.789 on the graph head in the CPU rehearsal (hidden
+# 16, warm-up 64 rows) and up to 2.49 on a node head on the card (hidden
+# 128; NVIDIA H100 80GB HBM3, 700 W), over the 0.5 threshold; at a
+# warm-up of 512 rows the rule opened a pred_drift incident on the card:
+# a false alarm of the JAX package's design, which the port copies
+# (ROADMAP C6).
+
+
+class _Timed:
+    """Accumulated seconds and calls of one bound method, wrapped on its
+    instance."""
+
+    def __init__(self, obj, name):
+        self.s, self.n, fn = 0.0, 0, getattr(obj, name)
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s += time.perf_counter() - t
+                self.n += 1
+
+        setattr(obj, name, timed)
+
+
+def serve_drift_phase(dev, card, counts, make_raw, launches_per, train_flight):
+    """[serve-drift]: the flagship at full width (``make_raw()``'s 64 BCC
+    graphs) served from CUDA graphs under deterministic algorithms, with
+    the spool at 1 (every answer spooled), a drift reference, all three
+    SLO rules and the feature and error drift rules (pred_drift off, its
+    gauge printed: see above), the triggers evaluated every 50 ms:
+    (a) the reference: ``build_reference`` of the serve samples as JSON;
+        ``train_flight`` ([train-obs]'s record) read by ``load_reference``;
+    (b) 256 clean requests from 4 threads: no incident, feature PSI under
+        0.25, 0 captures after start and 0 kernel wrapper calls in the
+        burst, a replay a batch, every batch bit-equal to the eager
+        forward;
+    (c) the same with ``HGTORCH_INJECT_DRIFT``: exactly one
+        ``feature_drift`` incident, its bundle, drift report and spool
+        manifests valid (the port's validators and CLIs), its pinned
+        shards alive at its close while the spool evicted others, a
+        ``drift`` flight event and no ``error`` event;
+    (d) the spool's shards through ``ContainerDataset`` and the
+        run-aligned ``GraphLoader``: the batches' inputs bit-equal to
+        batching the shifted requests, an eval forward on the card equal
+        to the spooled answers within REPLAY_TOL;
+    (e) ``export_trace`` holds the sampled requests' ``serve.*`` spans,
+        ``flight_to_chrome`` reads the serving record;
+    (f) the cost: a 128-request burst (p50, p99, requests/s) and the
+        serial p50 with every plane off, with the spool at 1 and at 8
+        (drift and rules on), in turns, beside ``overhead_frac``, the mean
+        us of an ``observe``, the mean ms of a rotation and the
+        incident's capture s.
+    Raises on any failed check. Returns the path's launches: the start,
+    both bursts and the replay's forwards."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.api import prepare_config_and_samples
+    from hydragnn_tpu_torch.data.loader import GraphLoader
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.obs import (FlightRecorder, build_reference, flight_to_chrome, list_incidents,
+                                        load_reference, read_flight_record, read_spool, validate_drift_report,
+                                        validate_flight_record, validate_incident_bundle, validate_spool_manifest)
+    from hydragnn_tpu_torch.obs.spool import list_shards, read_shard_manifest
+    from hydragnn_tpu_torch.resilience import inject
+    from hydragnn_tpu_torch.serve import ServeConfig, request_to_dict
+    from hydragnn_tpu_torch.tools import drift_report, incident_report
+
+    reset, read = counts
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_drift_")
+    out = {}
+    # (a) the reference of the serve samples, and [train-obs]'s
+    tr, _, _, done = prepare_config_and_samples(flagship_config(), make_raw())
+    ref = build_reference(list(tr))
+    ref_path = os.path.join(root, "ref.json")
+    with open(ref_path, "w") as f:
+        json.dump(ref, f)
+    train_ref = load_reference(train_flight)
+    if len(train_ref["feature"]["channels"]) != len(ref["feature"]["channels"]) or not train_ref["heads"]:
+        raise AssertionError(f"serve-drift: [train-obs]'s reference does not match the serve samples': {train_ref}")
+    out.update(ref_channels=len(ref["feature"]["channels"]), ref_rows=ref["num_rows"],
+               train_ref_rows=train_ref["num_rows"], train_ref_heads=len(train_ref["heads"]))
+    flight_path = os.path.join(root, "flight.jsonl")
+    cfg = ServeConfig(spool=True, spool_sample=1, spool_dir=os.path.join(root, "spool"), drift_ref=ref_path,
+                      slo_p99_ms=60_000.0, slo_queue_depth=10_000, slo_queue_age_s=600.0, trigger_eval_every_s=0.05,
+                      incident_dir=os.path.join(root, "incidents"), drift_pred_psi=None, **DRIFT_SPOOL)
+    os.environ.pop("HGTORCH_INJECT_DRIFT", None)
+    os.environ["HGTORCH_INCIDENT_PROFILE_STEPS"] = str(DRIFT_PROFILE_STEPS)
+    path_counts = []
+    with deterministic_algorithms("serve-drift", "capture, bursts, replay and eager on the card"):
+        reset()
+        try:
+            server = hydragnn_tpu_torch.serve_model(flagship_config(), make_raw(), device=dev, seed=SEED,
+                                                    serve_config=cfg,
+                                                    flight=FlightRecorder(flight_path))
+        finally:
+            os.environ.pop("HGTORCH_INCIDENT_PROFILE_STEPS")
+        cache = server._cache
+        start_counts = read()
+        path_counts.append(start_counts)
+        try:
+            want = {name: v * (cache.captures + cache.warm_forwards) for name, v in launches_per.items()}
+            if start_counts != want or not cache.graphs or cache.captures != 2 * len(server.buckets):
+                raise AssertionError(f"serve-drift: start launched {start_counts} (want {want}), "
+                                     f"{cache.captures} captures, graphs={cache.graphs}")
+            captures = cache.captures
+            observe = _Timed(server._drift, "observe")
+            rotate = _Timed(server._spool, "_rotate_locked")
+            # the spool's evictions as the incident opens, and its pinned
+            # shards and the evictions as it closes
+            at_open, at_close = [], []
+            attach, on_close = server._attach_drift_evidence, server._incidents.on_close
+
+            def open_hook(opened, verdict):
+                at_open.append(server._spool._evicted)
+                attach(opened, verdict)
+
+            def close_hook(inc, status):
+                pinned_ = list(server._incident_pins.get(inc.id, []))
+                alive = all(os.path.isdir(os.path.join(server.spool_dir(), n)) for n in pinned_)
+                at_close.append((pinned_, alive, server._spool._evicted))
+                on_close(inc, status)
+
+            server._attach_drift_evidence = open_hook
+            server._incidents.on_close = close_hook
+            requests = [request_to_dict(s) for s in server.reference_samples]
+            # (b) clean traffic
+            records = record_batches(cache)
+            snap0 = server.metrics_snapshot()
+            reset()
+            _, lat_b, wall_b = serve_burst(server, requests * 4)
+            b_counts = read()
+            path_counts.append(b_counts)
+            snap = server.metrics_snapshot()
+            batches = snap["batches_total"] - snap0["batches_total"]
+            replays = snap["graph_replays_total"] - snap0["graph_replays_total"]
+            psi_clean = server.metrics.registry.gauge("serve.drift.feature_psi").value
+            time.sleep(0.1)  # one more evaluation window, on the next batch
+            server.predict(requests[0], timeout=300)
+            if (any(b_counts.values()) or cache.captures != captures or replays != batches
+                    or len(records) < batches or list_incidents(cfg.incident_dir) or not psi_clean < 0.25):
+                raise AssertionError(f"serve-drift (b): launches {b_counts}, captures {cache.captures}, "
+                                     f"{replays} replays of {batches} batches, feature psi {psi_clean}, "
+                                     f"incidents {list_incidents(cfg.incident_dir)}")
+            n_eq = bit_equal_to_eager(records, server.served.model, dev, "serve-drift (b)")
+            out.update(clean_requests=4 * len(requests), clean_batches=batches, clean_replays=replays,
+                       clean_batches_bit_equal_to_eager=n_eq, clean_feature_psi=psi_clean,
+                       clean_pred_psi=server.metrics.registry.gauge("serve.drift.pred_psi").value,
+                       clean_head_psi=json.dumps({k: round(v, 4) for k, v in server._drift.head_psi().items()}),
+                       clean_p50_ms=round(float(np.percentile(lat_b, 50)) * 1e3, 3),
+                       clean_requests_per_s=round(len(lat_b) / wall_b, 1))
+            del cache.run  # record_batches' wrapper off
+            # (c) drift
+            first_shifted = next(server._seq) + 1
+            os.environ["HGTORCH_INJECT_DRIFT"] = DRIFT_SHIFT
+            try:
+                reset()
+                shifted_results, _, _ = serve_burst(server, requests * 3)
+                c_counts = read()
+                path_counts.append(c_counts)
+                deadline = time.monotonic() + 60
+                while server._incidents.open is not None and time.monotonic() < deadline:
+                    server.predict(requests[0], timeout=300)  # ticks the capture to its end
+            finally:
+                del os.environ["HGTORCH_INJECT_DRIFT"]
+            if any(c_counts.values()) or cache.captures != captures:
+                raise AssertionError(f"serve-drift (c): launches {c_counts}, captures {cache.captures}")
+            spool_root = server.spool_dir()
+        finally:
+            server.stop()
+        events = read_flight_record(flight_path)
+        problems = validate_flight_record(flight_path)
+        errors = [e for e in events if e["kind"] == "error"]
+        bundles = list_incidents(cfg.incident_dir)
+        drifts = [e for e in events if e["kind"] == "drift"]
+        end = events[-1]
+        if problems or errors or len(bundles) != 1 or [e["rule_kind"] for e in drifts] != ["feature_drift"] \
+                or end["kind"] != "run_end":
+            raise AssertionError(f"serve-drift (c): flight problems {problems}, errors "
+                                 f"{[(e.get('where'), e.get('error')) for e in errors]}, bundles {bundles}, "
+                                 f"drift events {drifts}")
+        bundle = bundles[0]
+        with open(os.path.join(bundle, "incident_manifest.json")) as f:
+            inc_man = json.load(f)
+        with open(os.path.join(bundle, "drift_report.json")) as f:
+            report = json.load(f)
+        man_problems = validate_incident_bundle(bundle) + validate_drift_report(report)
+        pinned = report["pinned_shards"]
+        bundle_mans = sorted(os.listdir(os.path.join(bundle, "spool_manifests")))
+        for name in bundle_mans:
+            with open(os.path.join(bundle, "spool_manifests", name)) as f:
+                man_problems += validate_spool_manifest(json.load(f))
+        shards = list_shards(spool_root)
+        for shard in shards:
+            man_problems += validate_spool_manifest(read_shard_manifest(shard))
+        cli_out = io.StringIO()
+        with contextlib.redirect_stdout(cli_out):
+            cli_rc = (drift_report.main(["--validate", spool_root, os.path.join(bundle, "drift_report.json"),
+                                         flight_path]),
+                      incident_report.main(["--validate", cfg.incident_dir]))
+        if len(at_open) != 1 or len(at_close) != 1:
+            raise AssertionError(f"serve-drift (c): {len(at_open)} drift incidents opened, {len(at_close)} closed")
+        (close_pins, close_alive, evicted_at_close), evicted_at_open = at_close[0], at_open[0]
+        if (man_problems or cli_rc != (0, 0) or inc_man["rule"] != "serve_feature_drift"
+                or bundle_mans != sorted(f"{n}.json" for n in pinned) or not pinned or close_pins != pinned
+                or not close_alive or not evicted_at_close > evicted_at_open):
+            raise AssertionError(f"serve-drift (c): problems {man_problems}, CLIs {cli_rc} {cli_out.getvalue()}, "
+                                 f"manifest {inc_man}, pinned {pinned}, at close {at_close}, evicted at open "
+                                 f"{evicted_at_open}")
+        out.update(incident=os.path.basename(bundle), incident_status=inc_man["status"],
+                   incident_steps=inc_man["profile"]["steps"], incident_capture_s=inc_man["profile"]["duration_s"],
+                   observed_feature_psi=report["trigger"]["observed"], pinned_shards=len(pinned),
+                   pinned_alive_at_close=close_alive, evicted_while_open=evicted_at_close - evicted_at_open,
+                   spool=json.dumps(end["spool"], separators=(",", ":")),
+                   drift=json.dumps(end["drift"], separators=(",", ":")),
+                   triggers=json.dumps(end["triggers"], separators=(",", ":")),
+                   observe_us=round(observe.s / max(observe.n, 1) * 1e6, 2), observes=observe.n,
+                   rotation_ms=round(rotate.s / max(rotate.n, 1) * 1e3, 3), rotations=rotate.n)
+        # the capture's trace: the kernels inside the replayed graphs, or only their launches
+        trace_path = os.path.join(bundle, "profile", "trace.pt.trace.json")
+        kernels, graph_launches = set(), 0
+        if os.path.exists(trace_path):
+            with open(trace_path) as f:
+                for ev in json.load(f).get("traceEvents", []):
+                    if ev.get("cat") == "kernel":
+                        kernels.add(ev.get("name", ""))
+                    elif "cudaGraphLaunch" in str(ev.get("name", "")):
+                        graph_launches += 1
+        out.update(trace_kernel_names=len(kernels), trace_graph_launches=graph_launches,
+                   trace_names_b5=any("pna_aggregate" in k for k in kernels),
+                   trace_names_b3=any("gather_rows" in k for k in kernels))
+        # (d) replay the spool
+        spooled = [s for s in read_spool(spool_root) if s.meta["spool"]["seq"] >= first_shifted]
+
+        def key(s):
+            return np.asarray(s.x, np.float32).tobytes(), np.asarray(s.edge_index, np.int32).tobytes()
+
+        os.environ["HGTORCH_INJECT_DRIFT"] = DRIFT_SHIFT
+        try:  # the shifted requests, shifted as the server shifted them
+            shifted = [dataclasses.replace(s, x=inject.maybe_drift_shift(s.x)) for s in server.reference_samples]
+        finally:
+            del os.environ["HGTORCH_INJECT_DRIFT"]
+        by_graph = {key(s): s for s in shifted}
+        originals = [by_graph[key(s)] for s in spooled]
+        if len(spooled) < 8:
+            raise AssertionError(f"serve-drift (d): {len(spooled)} shifted requests in the spool")
+        loader_kw = dict(batch_size=8, shuffle=False, dense_slots=False, run_align=True)
+        got_batches = list(GraphLoader(spooled, **loader_kw))
+        want_batches = list(GraphLoader(originals, **loader_kw))
+        fields = ("nodes", "senders", "receivers", "node_graph", "n_node", "n_edge", "node_mask", "edge_mask",
+                  "graph_mask", "edge_attr", "pos", "sender_perm", "in_degree", "edge_occupancy", "n_real_nodes",
+                  "sender_win")
+        for gb, wb in zip(got_batches, want_batches):
+            for fld in fields:
+                a, b = getattr(gb, fld), getattr(wb, fld)
+                if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                    raise AssertionError(f"serve-drift (d): the spooled batch's {fld} differs from the original's")
+            if gb.run_align != 8:
+                raise AssertionError(f"serve-drift (d): the loader's batch is not run-aligned ({gb.run_align})")
+        mcfg = server.served.cfg
+        model = server.served.model
+        reset()
+        outs = []
+        with torch.inference_mode():
+            for gb in got_batches:
+                outs.append([o.float().cpu() for o in model(gb.to(dev), train=False)])
+        d_counts = read()
+        path_counts.append(d_counts)
+    per_fwd = launch_plan(done["NeuralNetwork"]["Architecture"], "run_aligned")[1]
+    want_d = {name: len(got_batches) * per_fwd.get(name, 0) for name in d_counts}
+    if d_counts != want_d:
+        raise AssertionError(f"serve-drift (d): the replay launched {d_counts}, want {want_d}")
+    worst = 0.0
+    for gb, o in zip(got_batches, outs):
+        for ih, name in enumerate(mcfg.output_names):
+            graph = mcfg.output_type[ih] == "graph"
+            mask = gb.graph_mask if graph else gb.node_mask
+            tgt = (gb.graph_targets if graph else gb.node_targets)[name][mask]
+            got = o[ih][mask]
+            np.testing.assert_allclose(got.numpy(), tgt.numpy(), err_msg=f"serve-drift (d) head {name}",
+                                       **REPLAY_TOL)
+            worst = max(worst, float((got - tgt).abs().max()))
+    out.update(replay_samples=len(spooled), replay_batches=len(got_batches), replay_batches_bit_equal=True,
+               replay_max_abs_err=worst, replay_tol=json.dumps(REPLAY_TOL))
+    # (e) the Chrome traces
+    trace_out = server.export_trace(os.path.join(root, "serve_trace.json"))
+    with open(trace_out) as f:
+        trace_events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in trace_events}
+    from_flight = flight_to_chrome(flight_path)["traceEvents"]
+    if not {"serve.route", "serve.queue_wait", "serve.batch_build", "serve.device_execute"} <= names \
+            or not from_flight or not all(e["name"].startswith("serve.") for e in from_flight):
+        raise AssertionError(f"serve-drift (e): trace names {sorted(names)}, {len(from_flight)} from the flight")
+    out.update(trace_events=len(trace_events), trace_requests=len({e["tid"] for e in trace_events}),
+               flight_chrome_events=len(from_flight))
+    line("serve-drift", **out, card=repr(card))
+    # (f) the cost: three servers, bursts in turns
+    timing_cfgs = {
+        "off": ServeConfig(),
+        "spool1": dataclasses.replace(cfg, spool_dir=os.path.join(root, "spool1"), spool_shard_mb=1.0,
+                                      spool_max_mb=64.0, incident_dir=os.path.join(root, "inc1")),
+        "spool8": dataclasses.replace(cfg, spool_sample=8, spool_dir=os.path.join(root, "spool8"), spool_shard_mb=1.0,
+                                      spool_max_mb=64.0, incident_dir=os.path.join(root, "inc8")),
+    }
+    servers, flights, timers = {}, {}, {}
+    with deterministic_algorithms("serve-drift", "the cost's bursts"):
+        try:
+            for mode, tcfg in timing_cfgs.items():
+                flights[mode] = os.path.join(root, f"{mode}.jsonl")
+                servers[mode] = hydragnn_tpu_torch.serve_model(flagship_config(), make_raw(), device=dev, seed=SEED,
+                                                               serve_config=tcfg, flight=FlightRecorder(flights[mode]))
+                if servers[mode]._drift is not None:
+                    timers[mode] = (_Timed(servers[mode]._drift, "observe"), _Timed(servers[mode]._spool,
+                                                                                    "_rotate_locked"))
+                serve_burst(servers[mode], requests[:16])  # warm the path
+            lat = {m: [] for m in servers}
+            walls = {m: [] for m in servers}
+            serial = {m: [] for m in servers}
+            for mode in ("off", "spool1", "spool8", "spool8", "spool1", "off"):
+                _, l_, w_ = serve_burst(servers[mode], requests * 2)
+                lat[mode] += l_
+                walls[mode].append(w_)
+                serial[mode] += serial_latencies(servers[mode], requests[:16])
+        finally:
+            for s_ in servers.values():
+                s_.stop()
+    cost = {}
+    for mode in servers:
+        fields_ = serve_latency_fields(lat[mode], sum(walls[mode]), serial[mode])
+        end_ = read_flight_record(flights[mode])[-1]
+        errs = [e for e in read_flight_record(flights[mode]) if e["kind"] == "error"]
+        if errs or list_incidents(timing_cfgs[mode].incident_dir or os.path.join(root, "none")):
+            raise AssertionError(f"serve-drift (f): {mode}: errors {errs} or an incident")
+        if mode in timers:
+            ob, ro = timers[mode]
+            fields_.update(overhead_frac=end_["spool"]["overhead_frac"], spooled=end_["spool"]["spooled"],
+                           observe_us=round(ob.s / max(ob.n, 1) * 1e6, 2),
+                           rotation_ms=round(ro.s / max(ro.n, 1) * 1e3, 3), rotations=ro.n)
+        cost[mode] = fields_
+        line("serve-drift", part="cost", mode=mode, requests=len(lat[mode]), **fields_, card=repr(card))
+    line("serve-drift", part="cost_summary", incident_capture_s=out["incident_capture_s"],
+         **{f"{m}_p50_ms": c["p50_ms"] for m, c in cost.items()},
+         **{f"{m}_serial_p50_ms": c["serial_p50_ms"] for m, c in cost.items()}, card=repr(card))
+    shutil.rmtree(root, ignore_errors=True)
+    total = {name: sum(c[name] for c in path_counts) for name in path_counts[0]}
+    return total
 
 
 def main():
@@ -3707,8 +4079,17 @@ def main():
     records_counts = records_phase(dev, card, (reset_counts, read_counts), records_samples)
     line("records", part="phase", seconds=round(time.perf_counter() - t0, 1))
     t0 = time.perf_counter()
-    train_obs_counts = train_obs_phase(dev, card, (reset_counts, read_counts), records_samples)
+    train_obs_flight = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_train_obs_record_"), "flight.jsonl")
+    train_obs_counts = train_obs_phase(dev, card, (reset_counts, read_counts), records_samples,
+                                       keep_flight=train_obs_flight)
     line("train-obs", part="phase", seconds=round(time.perf_counter() - t0, 1))
+
+    # ---- 9k. serve-drift: the spool, drift and the serving triggers --------
+    t0 = time.perf_counter()
+    serve_drift_counts = serve_drift_phase(dev, card, (reset_counts, read_counts), serve_raw, per_forward,
+                                           train_obs_flight)
+    shutil.rmtree(os.path.dirname(train_obs_flight), ignore_errors=True)
+    line("serve-drift", part="phase", seconds=round(time.perf_counter() - t0, 1))
 
     # ---- 10. timing ------------------------------------------------------
     h = hidden
@@ -4065,7 +4446,7 @@ def main():
              "accuracy_pna_dense_multihead": acc_counts["multihead"],
              **{f"accuracy_{k}": v for k, v in acc_counts.items() if k.startswith("stack_")}, **loop_counts,
              "data_path_hgc": data_path_counts, "data_eam": eam_counts, "records": records_counts,
-             "train_obs": train_obs_counts,
+             "train_obs": train_obs_counts, "serve_drift": serve_drift_counts,
              **{f"examples_{k}": c for k, c in example_counts.items()}}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",

@@ -2,17 +2,26 @@
 the metrics registry (with the process-global one of the training loop)
 and its exporters, the flight recorder, per-request traces, the training
 loop's step spans, compile monitor, per-head diagnostics and hardware
-ledger, the drift reference window, and the SLO triggers with their
-incident bundles. The serving side's triggers and rules, the spool, the
-drift monitor and the Chrome export wait for ROADMAP A-6b; podview for
-A-5.
+ledger, the drift reference window and the live drift monitor, the
+sampled request spool, the Chrome trace export, and the SLO and drift
+triggers with their incident bundles. Podview waits for ROADMAP A-5.
 
 ``HGTORCH_TELEMETRY=0`` disables the global registry and everything the
 training loop wires up; each piece can also be made enabled or
 disabled on its own."""
 
 from hydragnn_tpu_torch.obs.compile_monitor import CompileMonitor  # noqa: F401
-from hydragnn_tpu_torch.obs.drift import QUANTILE_PROBES, REFERENCE_SCHEMA, build_reference  # noqa: F401
+from hydragnn_tpu_torch.obs.drift import (  # noqa: F401
+    QUANTILE_PROBES,
+    REFERENCE_SCHEMA,
+    DriftMonitor,
+    P2Quantile,
+    RunningMoments,
+    build_reference,
+    load_reference,
+    psi,
+    validate_drift_report,
+)
 from hydragnn_tpu_torch.obs.export import (  # noqa: F401
     prometheus_name,
     registry_to_jsonl,
@@ -51,7 +60,15 @@ from hydragnn_tpu_torch.obs.registry import (  # noqa: F401
     telemetry_enabled,
 )
 from hydragnn_tpu_torch.obs.spans import StepSpans  # noqa: F401
-from hydragnn_tpu_torch.obs.trace import RequestTrace, Tracer, new_trace_id, trace_enabled  # noqa: F401
+from hydragnn_tpu_torch.obs.spool import RequestSpool, list_shards, read_spool, validate_spool_manifest  # noqa: F401
+from hydragnn_tpu_torch.obs.trace import (  # noqa: F401
+    RequestTrace,
+    Tracer,
+    export_flight_chrome,
+    flight_to_chrome,
+    new_trace_id,
+    trace_enabled,
+)
 from hydragnn_tpu_torch.obs.triggers import (  # noqa: F401
     RULE_KINDS,
     Incident,

@@ -1,9 +1,8 @@
 """Per-request tracing: a trace id and a span list for every serve
 request.
 
-The port's counterpart of ``hydragnn_tpu/obs/trace.py`` (the
-:class:`RequestTrace` and :class:`Tracer` half; the Chrome export and
-the offline timeline wait for ROADMAP A-6b). ``ModelServer.submit``
+The port's counterpart of ``hydragnn_tpu/obs/trace.py``.
+``ModelServer.submit``
 begins a trace; the serve path closes the spans ``serve.route``,
 ``serve.queue_wait``, ``serve.batch_build``, ``serve.device_execute``
 and ``serve.postprocess`` (``serve.quarantine`` or
@@ -14,6 +13,12 @@ ring and writes every ``sample_every``-th into the flight record as a
 step spans (``obs/spans.py``) hand each sampled step to a tracer of
 their own as a one-span ``train.sampled_step`` trace.
 
+Export is Chrome/Perfetto trace-event JSON: :meth:`Tracer.export_chrome`
+writes the live ring (``ModelServer.export_trace``);
+:func:`flight_to_chrome` rebuilds a timeline offline from a flight
+record (its ``trace_capture`` spans and ``epoch`` events), so a crashed
+run's JSONL alone gives its timeline.
+
 A disabled tracer (``HGTORCH_TELEMETRY`` or ``HGTORCH_TRACE`` off)
 returns None from :meth:`Tracer.begin`; every call site checks for it.
 Timestamps are ``time.time()``, the flight recorder's clock.
@@ -21,12 +26,14 @@ Timestamps are ``time.time()``, the flight recorder's clock.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
+from hydragnn_tpu_torch.obs.flight import read_flight_record
 from hydragnn_tpu_torch.obs.registry import env_flag, telemetry_enabled
 
 
@@ -112,3 +119,166 @@ class Tracer:
         """The ring (a copy), oldest first."""
         with self._lock:
             return list(self._finished)
+
+    # -- export ------------------------------------------------------------
+
+    def to_chrome_trace(self) -> dict:
+        events: List[dict] = []
+        for i, tr in enumerate(self.traces()):
+            d = tr.to_dict()
+            tid = tr.seq if tr.seq >= 0 else i
+            args = {"trace_id": d["trace_id"]}
+            args.update(d.get("attrs", {}))
+            events.extend(_chrome_events(d["spans"], pid=1, tid=tid, args=args))
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def export_chrome(self, path: str) -> str:
+        """Write the ring as Chrome trace-event JSON (atomic); returns
+        ``path``."""
+        return _atomic_json(path, self.to_chrome_trace())
+
+
+def _chrome_events(spans, pid: int, tid, args: Optional[dict] = None) -> List[dict]:
+    """Span dicts -> Chrome trace-event 'X' (complete) events.
+    ``ts``/``dur`` are microseconds; ``t0`` wall seconds pass through
+    unshifted so events from different sources stay on one axis."""
+    out = []
+    for s in spans:
+        ev_args = dict(args or {})
+        ev_args.update(
+            {k: v for k, v in s.items() if k not in ("name", "t0", "dur_ms")}
+        )
+        out.append(
+            {
+                "name": s.get("name", "span"),
+                "ph": "X",
+                "ts": round(float(s.get("t0", 0.0)) * 1e6, 1),
+                "dur": round(float(s.get("dur_ms", 0.0)) * 1e3, 1),
+                "pid": pid,
+                "tid": tid,
+                "args": ev_args,
+            }
+        )
+    return out
+
+
+def flight_to_chrome(record: Union[str, List[dict]]) -> dict:
+    """Rebuild a Chrome/Perfetto timeline from a flight record: every
+    ``trace_capture`` event's spans (serve requests, sampled train
+    steps) plus one synthetic span per ``epoch`` event, all keyed by
+    the run name from the ``run_start`` manifest. This is the offline
+    join the tracing design promises: a crashed run's JSONL alone is
+    enough to reconstruct the timeline a human can open."""
+    events = read_flight_record(record) if isinstance(record, str) else record
+    run = "run"
+    for ev in events:
+        if ev.get("kind") == "run_start":
+            man = ev.get("manifest")
+            if isinstance(man, dict):
+                run = str(man.get("log_name") or man.get("run") or run)
+            break
+    out: List[dict] = []
+    hosts_seen: set = set()
+    for i, ev in enumerate(events):
+        kind = ev.get("kind")
+        if kind == "trace_capture":
+            spans = ev.get("spans")
+            if not isinstance(spans, list):
+                continue
+            seq = ev.get("seq", -1)
+            tid = seq if isinstance(seq, int) and seq >= 0 else i
+            args = {"run": run, "trace_id": ev.get("trace_id")}
+            args.update(
+                {
+                    k: v
+                    for k, v in ev.items()
+                    if k not in ("v", "kind", "t", "rank", "spans", "trace_id", "seq")
+                }
+            )
+            out.extend(_chrome_events(spans, pid=1, tid=tid, args=args))
+        elif kind == "epoch":
+            # the epoch event is stamped at epoch END; reconstruct the
+            # interval from the recorded epoch duration when present
+            t1 = float(ev.get("t", 0.0))
+            dur_s = ev.get("time") or ev.get("epoch_s") or 0.0
+            try:
+                dur_s = max(float(dur_s), 0.0)
+            except (TypeError, ValueError):
+                dur_s = 0.0
+            args = {"run": run, "epoch": ev.get("epoch")}
+            for key in ("train_loss", "val_loss", "steps"):
+                if key in ev:
+                    args[key] = ev[key]
+            tid = int(ev.get("host", ev.get("rank", 0)) or 0)
+            hosts_seen.add(tid)
+            out.append(
+                {
+                    "name": f"epoch {ev.get('epoch')}",
+                    "ph": "X",
+                    "ts": round((t1 - dur_s) * 1e6, 1),
+                    "dur": round(dur_s * 1e6, 1),
+                    "pid": 0,
+                    "tid": tid,
+                    "args": args,
+                }
+            )
+        elif kind == "host_epoch":
+            # per-host epoch summary (the JAX package's obs/podview.py):
+            # one interval per host per epoch, a track per host (tid =
+            # host index)
+            t1 = float(ev.get("t", 0.0))
+            try:
+                dur_s = max(float(ev.get("epoch_s") or 0.0), 0.0)
+            except (TypeError, ValueError):
+                dur_s = 0.0
+            host = int(ev.get("host", ev.get("rank", 0)) or 0)
+            hosts_seen.add(host)
+            args = {"run": run, "epoch": ev.get("epoch"), "host": host}
+            for key in ("data_wait_s", "steps", "mfu", "run_id"):
+                if ev.get(key) is not None:
+                    args[key] = ev[key]
+            out.append(
+                {
+                    "name": f"host{host} epoch {ev.get('epoch')}",
+                    "ph": "X",
+                    "ts": round((t1 - dur_s) * 1e6, 1),
+                    "dur": round(dur_s * 1e6, 1),
+                    "pid": 0,
+                    "tid": host,
+                    "args": args,
+                }
+            )
+    # name the per-host tracks so Perfetto shows "host k" instead of a
+    # bare thread id (only worth the metadata rows when >1 host)
+    if len(hosts_seen) > 1:
+        for h in sorted(hosts_seen):
+            out.append(
+                {
+                    "name": "thread_name",
+                    "ph": "M",
+                    "pid": 0,
+                    "tid": h,
+                    "args": {"name": f"host {h}"},
+                }
+            )
+    return {"traceEvents": out, "displayTimeUnit": "ms"}
+
+
+def _atomic_json(path: str, data) -> str:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    # per-writer tmp name: two threads exporting to the same path each
+    # replace atomically, never interleaving into one tmp
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(data, f)
+    os.replace(tmp, path)
+    return path
+
+
+def export_flight_chrome(record_path: str, out_path: str) -> str:
+    """``flight_to_chrome`` of the flight record at ``record_path`` to
+    ``out_path`` (atomic write); returns ``out_path``. The JAX package's
+    merge of a directory of per-host records waits for ROADMAP A-5."""
+    if os.path.isdir(record_path):
+        raise ValueError(f"{record_path} is a directory: per-host flight records are not merged here")
+    return _atomic_json(out_path, flight_to_chrome(record_path))

@@ -559,11 +559,16 @@ class IncidentRecorder:
         profile_s: Optional[float] = None,
         overhead_frac: Optional[float] = None,
         clock: Callable[[], float] = time.monotonic,
+        on_close: Optional[Callable[[Incident, str], None]] = None,
         device=None,
     ):
         self.root = root
         self.registry = registry
         self.flight_path = flight_path
+        # called after each incident closes (outside the lock) with
+        # (incident, status): the server releases the spool shards it
+        # pinned for the incident's drift evidence
+        self.on_close = on_close
         # the run's device: memory.json reads its watermark
         self.device = device
         if profile_steps is None:
@@ -647,6 +652,11 @@ class IncidentRecorder:
             self.closed_ids.append(inc.id)
             if self._open is inc:
                 self._open = None
+        if self.on_close is not None:
+            try:
+                self.on_close(inc, status)
+            except Exception:
+                pass  # a cleanup hook never fails a close
 
     def finalize(self) -> None:
         """Run teardown (clean or crashed): close any open incident so

@@ -26,6 +26,11 @@ coalescing and the retry-as-singles poison hunt.
   HGTORCH_INJECT_TRIGGER=<rule>          the SLO rule of that name force-fires
                                          at its engine's next evaluation, once
                                          a process (``obs/triggers.py``)
+  HGTORCH_INJECT_DRIFT=SHIFT             every admitted request's node features
+                                         shift by SHIFT (a float) at admission,
+                                         so the drift sketches and the model
+                                         both see it (drives the feature_drift
+                                         rule and the spool; ``obs/drift.py``)
   =====================================  ======================================
 
 The other training injections and the pod ones wait for ROADMAP A-7.
@@ -123,6 +128,18 @@ def maybe_serve_kill_dispatch(batch_count: int) -> None:
         raise RuntimeError(f"injected serve fault: dispatch thread killed at batch {batch_count}")
 
 
+def maybe_drift_shift(x):
+    """The request's node features plus the injected shift (``x +
+    SHIFT``), or ``x`` unchanged when none is set. Every request shifts
+    alike, so the sketches see a clean displacement."""
+    spec = _spec("HGTORCH_INJECT_DRIFT")
+    if spec is None:
+        return x
+    import numpy as np
+
+    return np.asarray(x) + float(spec)
+
+
 def serve_torn_reload() -> bool:
     """Whether ``ModelServer.reload`` corrupts the candidate weights
     before the canary."""
@@ -130,6 +147,7 @@ def serve_torn_reload() -> bool:
 
 
 def strip_injection_env(env: dict) -> dict:
-    """A copy of ``env`` without any ``HGTORCH_INJECT_*`` variable, so a
-    restarted process does not fire an injected fault again."""
+    """A copy of ``env`` without any ``HGTORCH_INJECT_*`` variable (the
+    table above, ``HGTORCH_INJECT_DRIFT`` among them), so a restarted
+    process does not fire an injected fault again."""
     return {k: v for k, v in env.items() if not k.startswith(INJECT_PREFIX)}

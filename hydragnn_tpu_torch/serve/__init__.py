@@ -8,7 +8,12 @@ from hydragnn_tpu_torch.serve.batcher import (  # noqa: F401
 )
 from hydragnn_tpu_torch.serve.buckets import Bucket, BucketGraphCache, build_bucket_ladder, route  # noqa: F401
 from hydragnn_tpu_torch.serve.metrics import ServeMetrics  # noqa: F401
-from hydragnn_tpu_torch.serve.registry import ModelRegistry, ServedModel, load_served_variables  # noqa: F401
+from hydragnn_tpu_torch.serve.registry import (  # noqa: F401
+    ModelRegistry,
+    ServedModel,
+    load_served_variables,
+    structural_fingerprint,
+)
 from hydragnn_tpu_torch.serve.server import (  # noqa: F401
     ModelServer,
     Oversize,

@@ -23,6 +23,7 @@ ROADMAP A-5.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 from typing import Any, Dict, List, Mapping, Optional
 
@@ -103,6 +104,20 @@ class ModelRegistry:
     def names(self) -> List[str]:
         with self._lock:
             return sorted(self._models)
+
+
+def structural_fingerprint(state_dict: Mapping[str, torch.Tensor]) -> str:
+    """The served weights' structure as a hex sha256 over ``(name, shape,
+    dtype)`` of every entry, in name order: stable under a change of
+    values (a reload of the same architecture), changed by any shape,
+    dtype or name. The request spool stamps it on every shard. It is
+    not the JAX package's ``abstract_fingerprint`` string: the parameter
+    names of the two packages differ."""
+    h = hashlib.sha256()
+    for name in sorted(state_dict):
+        t = state_dict[name]
+        h.update(f"{name}|{tuple(t.shape)}|{str(t.dtype).replace('torch.', '')};".encode())
+    return h.hexdigest()
 
 
 def load_served_variables(served: ServedModel, log_name: str, log_dir: str = "./logs/") -> Dict[str, torch.Tensor]:

@@ -28,18 +28,37 @@ per-request results out of the padded outputs.
   - :meth:`ModelServer.reload` swaps in new weights with no capture and
     no pause: into the standby weight slot, canaried on every bucket's
     graph, then made live; any failure rolls back (:class:`ReloadFailed`).
-  - Every request carries a trace (``obs/trace.py``) and a tenant.
+  - Every request carries a trace (``obs/trace.py``) and a tenant;
+    :meth:`ModelServer.export_trace` writes the recent traces as Chrome
+    trace JSON.
+  - Observability planes, each off by default and contained (a failing
+    plane records one ``error`` flight event and disarms; a request is
+    never failed by it):
+
+      * the request spool (``obs/spool.py``): every ``spool_sample``-th
+        answered request into rotating container shards;
+      * the drift monitor (``obs/drift.py``) against a training
+        reference (``drift_ref``), publishing ``serve.drift.*`` gauges;
+      * SLO and drift trigger rules (``obs/triggers.py``), evaluated on
+        the dispatch thread after each batch; a rule that fires opens an
+        incident bundle with a bounded profiler capture, and a drift
+        incident carries ``drift_report.json`` and pins the offending
+        spool shards until it closes.
+
+    The spool and drift run on the dispatch thread on host arrays the
+    server already holds: they add no device synchronisation.
+  - :meth:`ModelServer.attach_pilot` and the spool and drift hooks beside
+    it are the seam a retrain pilot attaches to (ROADMAP A-7).
 
 The dispatch thread sets the server's CUDA device before it runs
-anything. Waiting for later slices: the spool, drift, the serving
-triggers and their incidents, the retrain pilot and the Chrome trace
-export (ROADMAP A-6b, A-7); fsdp-sharded serving (A-5).
+anything. fsdp-sharded serving waits for ROADMAP A-5.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -50,14 +69,17 @@ import torch
 
 from hydragnn_tpu_torch.graph.batch import batch_graphs
 from hydragnn_tpu_torch.obs.export import registry_to_prometheus
+from hydragnn_tpu_torch.obs.drift import DriftMonitor, load_reference
 from hydragnn_tpu_torch.obs.flight import FlightRecorder
+from hydragnn_tpu_torch.obs.spool import RequestSpool, read_shard_manifest
 from hydragnn_tpu_torch.obs.trace import Tracer
+from hydragnn_tpu_torch.obs.triggers import IncidentRecorder, TriggerEngine, TriggerRule, _atomic_json, _knob
 from hydragnn_tpu_torch.resilience import inject
 from hydragnn_tpu_torch.resilience.supervisor import SupervisorPolicy
 from hydragnn_tpu_torch.serve.batcher import MicroBatchQueue, Overloaded, PendingRequest, ServerClosed
 from hydragnn_tpu_torch.serve.buckets import Bucket, BucketGraphCache, build_bucket_ladder, eager_reason, route
 from hydragnn_tpu_torch.serve.metrics import ServeMetrics
-from hydragnn_tpu_torch.serve.registry import ServedModel, load_served_variables
+from hydragnn_tpu_torch.serve.registry import ServedModel, load_served_variables, structural_fingerprint
 from hydragnn_tpu_torch.serve.supervise import DispatchSupervisor
 
 
@@ -105,6 +127,28 @@ class ServeConfig:
       more than this fraction of max_pending.
     prometheus_path: when set, the supervisor's monitor writes the
       health and metrics textfile there every prometheus_every_s.
+    slo_p99_ms, slo_queue_depth, slo_queue_age_s: SLO trigger rules
+      (``obs/triggers.py``) on the latency p99, the queue depth and the
+      oldest queued request's age; None disables a rule, so a default
+      server runs as before. With any rule set, the dispatch loop
+      evaluates them every trigger_eval_every_s and a firing rule opens
+      an incident bundle (a bounded profiler capture and evidence files)
+      under incident_dir (default: <log_dir>/serve/incidents).
+    spool, spool_sample, spool_max_mb, spool_shard_mb, spool_dir: every
+      spool_sample-th answered request (inputs, per-head predictions,
+      trace, tenant, fingerprint) into rotating container shards under
+      spool_dir (default <log_dir>/serve/spool), bounded to spool_max_mb
+      on disk. On with spool=True, spool_sample>0 or HGTORCH_SPOOL=1;
+      the 0 defaults resolve through HGTORCH_SPOOL_SAMPLE (8) and
+      HGTORCH_SPOOL_MAX_MB (64).
+    drift_ref: the training reference window (or HGTORCH_DRIFT_REF): a
+      training flight.jsonl or a bare stats JSON. Arming it builds a
+      DriftMonitor and, per threshold not None, a feature_drift,
+      pred_drift or error_drift rule on the SLO rules' cadence.
+      Prediction drift is baselined on the session's own first window,
+      so its clean-traffic floor is a two-sample PSI and its threshold
+      sits above feature drift's. drift_min_count: rows before a drift
+      gauge leaves 0.
     cuda_graphs: one CUDA graph per bucket on the card; False serves
       every bucket by the eager forward on the card (the port's own
       knob: the baseline the graphs are timed against).
@@ -127,7 +171,32 @@ class ServeConfig:
     ready_queue_highwater: float = 0.9
     prometheus_path: Optional[str] = None
     prometheus_every_s: float = 5.0
+    slo_p99_ms: Optional[float] = None
+    slo_queue_depth: Optional[int] = None
+    slo_queue_age_s: Optional[float] = None
+    trigger_eval_every_s: float = 1.0
+    incident_dir: Optional[str] = None
+    spool: bool = False
+    spool_sample: int = 0
+    spool_max_mb: float = 0.0
+    spool_shard_mb: float = 1.0
+    spool_dir: Optional[str] = None
+    drift_ref: Optional[str] = None
+    drift_feature_psi: Optional[float] = 0.25
+    drift_pred_psi: Optional[float] = 0.5
+    drift_error_score: Optional[float] = 3.0
+    drift_min_count: int = 64
     cuda_graphs: bool = True
+
+
+DRIFT_KINDS = ("feature_drift", "pred_drift", "error_drift")
+
+
+def _env_on(name: str) -> bool:
+    """A switch that is off unless set to something other than 0, false,
+    off or no."""
+    v = os.environ.get(name, "").strip().lower()
+    return v not in ("", "0", "false", "off", "no")
 
 
 def request_to_dict(sample: Any) -> Dict[str, Any]:
@@ -223,6 +292,22 @@ class ModelServer:
         self._supervisor: Optional[DispatchSupervisor] = None
         self._tracer: Optional[Tracer] = None
         self.log_dir = "./logs/"  # reload()'s default checkpoint root (api.serve_model stamps it)
+        # the triggers, the spool and the drift monitor are built in
+        # start(); the dispatch thread alone feeds them, and alone
+        # disarms the spool and drift after a failure
+        self._triggers: Optional[TriggerEngine] = None
+        self._incidents: Optional[IncidentRecorder] = None
+        self._last_trigger_eval = 0.0  # the dispatch thread's alone
+        self._spool: Optional[RequestSpool] = None
+        self._drift: Optional[DriftMonitor] = None
+        # the spool and drift blocks start() writes into run_start
+        self.obs_arming: Dict[str, Any] = {"spool": {"enabled": False}, "drift": {"armed": False}}
+        self._t_started = 0.0
+        self._pilot = None  # attach_pilot(), before traffic
+        self._pin_lock = threading.Lock()
+        # spool shards pinned for each open incident, released by the
+        # recorder's on_close: no bundle points at evicted traffic
+        self._incident_pins: Dict[str, List[str]] = {}  # guarded by _pin_lock
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -237,6 +322,9 @@ class ModelServer:
         t0 = time.monotonic()
         self._cache.warmup(self.buckets)
         cache = self._cache
+        # built before start_run, so the manifest says whether they are armed
+        spool_block, drift_block = self._build_spool_drift()
+        self.obs_arming = {"spool": spool_block, "drift": drift_block}
         self.flight.start_run(
             {
                 "mode": "serve",
@@ -260,11 +348,44 @@ class ModelServer:
                 "compile_warmup": f"CUDA graph captures, one a bucket and weight slot: {cache.captures}",
                 "model": {"model_type": self.served.cfg.model_type, "hidden_dim": self.served.cfg.hidden_dim,
                           "num_conv_layers": self.served.cfg.num_conv_layers, "heads": self.served.cfg.num_heads},
+                "spool": spool_block,
+                "drift": drift_block,
             },
             device=self.device,
         )
+        self._t_started = t0
         cfg = self.config
         self._tracer = Tracer(flight=self.flight)
+        # the SLO and drift rules; none set leaves both None and the
+        # dispatch loop pays one attribute check a batch
+        mp = self.metrics.prefix
+        rules = []
+        for name, kind, metric, thresh in (
+            ("serve_p99", "latency_p99", "latency_s", None if cfg.slo_p99_ms is None else cfg.slo_p99_ms / 1e3),
+            ("serve_queue_depth", "queue_depth", "queue_depth", cfg.slo_queue_depth),
+            ("serve_queue_age", "queue_age", "queue_oldest_age_s", cfg.slo_queue_age_s),
+        ):
+            if thresh is not None:
+                rules.append(TriggerRule(name, kind, f"{mp}.{metric}", float(thresh)))
+        if self._drift is not None:
+            # a drift incident's bundle carries the drift report and the
+            # offending spool window (_attach_drift_evidence)
+            for name, kind, gauge, thresh in (
+                ("serve_feature_drift", "feature_drift", "drift.feature_psi", cfg.drift_feature_psi),
+                ("serve_pred_drift", "pred_drift", "drift.pred_psi", cfg.drift_pred_psi),
+                ("serve_error_drift", "error_drift", "drift.error_score", cfg.drift_error_score),
+            ):
+                if thresh is not None:
+                    rules.append(TriggerRule(name, kind, f"{mp}.{gauge}", float(thresh)))
+        if rules:
+            self._triggers = TriggerEngine(rules, registry=self.metrics.registry)
+            self._incidents = IncidentRecorder(
+                cfg.incident_dir or os.path.join(self.log_dir, "serve", "incidents"),
+                registry=self.metrics.registry,
+                flight_path=self.flight.path,
+                on_close=self._on_incident_close,
+                device=self.device,
+            )
         self._supervisor = DispatchSupervisor(
             self._run,
             policy=SupervisorPolicy(
@@ -296,7 +417,64 @@ class ModelServer:
         finally:
             self._started = False
             if was_started:
-                self.flight.end_run(status="stopped", metrics=self.metrics_snapshot())
+                self._end_run()
+
+    def _end_run(self) -> None:
+        """``run_end`` with the metrics and the planes' blocks: any open
+        incident is closed first, so the triggers block counts it."""
+        extra: Dict[str, Any] = {}
+        if self._incidents is not None:
+            self._incidents.finalize()
+        if self._triggers is not None:
+            extra["triggers"] = self._triggers.summary(self._incidents.capture_s if self._incidents else 0.0)
+        if self._spool is not None:
+            # the tail shard flushed, and the spool's cost as a share of
+            # the serving wall time
+            spool_summary = self._spool.finalize()
+            wall = max(time.monotonic() - self._t_started, 1e-9)
+            spool_summary["overhead_frac"] = round(spool_summary["overhead_s"] / wall, 6)
+            extra["spool"] = spool_summary
+        if self._drift is not None:
+            extra["drift"] = self._drift.summary()
+        self.flight.end_run(status="stopped", metrics=self.metrics_snapshot(), **extra)
+
+    def _build_spool_drift(self) -> tuple:
+        """Build the spool and the drift monitor as configured (the
+        ``ServeConfig`` fields win over ``HGTORCH_SPOOL``,
+        ``HGTORCH_SPOOL_SAMPLE``, ``HGTORCH_SPOOL_MAX_MB`` and
+        ``HGTORCH_DRIFT_REF``); returns the two manifest blocks. A
+        reference that fails to load raises here: serving unmonitored
+        when monitoring was asked for is what this plane prevents."""
+        cfg = self.config
+        spool_block: Dict[str, Any] = {"enabled": False}
+        if cfg.spool or cfg.spool_sample > 0 or _env_on("HGTORCH_SPOOL"):
+            sample = int(cfg.spool_sample or _knob("HGTORCH_SPOOL_SAMPLE", 8))
+            max_mb = float(cfg.spool_max_mb or _knob("HGTORCH_SPOOL_MAX_MB", 64.0))
+            mcfg = self.served.cfg
+            self._spool = RequestSpool(
+                cfg.spool_dir or os.path.join(self.log_dir, "serve", "spool"),
+                sample_every=sample,
+                max_mb=max_mb,
+                shard_mb=cfg.spool_shard_mb,
+                model_fingerprint=structural_fingerprint(self.served.model.state_dict()),
+                head_kinds={mcfg.output_names[i]: mcfg.output_type[i] for i in range(mcfg.num_heads)},
+                flight=self.flight,
+            )
+            spool_block = {"enabled": True, "dir": self._spool.root, "sample_every": sample, "max_mb": max_mb}
+        drift_block: Dict[str, Any] = {"armed": False}
+        ref_path = cfg.drift_ref or os.environ.get("HGTORCH_DRIFT_REF") or None
+        if ref_path:
+            self._drift = DriftMonitor(load_reference(ref_path), self.metrics.registry, prefix=self.metrics.prefix,
+                                       min_count=cfg.drift_min_count)
+            drift_block = {
+                "armed": True,
+                "ref": ref_path,
+                "channels": self._drift.num_channels,
+                "min_count": cfg.drift_min_count,
+                "thresholds": {"feature_psi": cfg.drift_feature_psi, "pred_psi": cfg.drift_pred_psi,
+                               "error_score": cfg.drift_error_score},
+            }
+        return spool_block, drift_block
 
     def _on_dispatch_giveup(self, exc: BaseException) -> None:
         """The restart budget is spent: close admission and fail every
@@ -328,6 +506,9 @@ class ModelServer:
         if not self._started:
             raise RuntimeError("server not started (call start())")
         g = self._validated(request_to_dict(sample))
+        # the injected covariate shift, at admission: the sketches and
+        # the model both see it
+        g["x"] = inject.maybe_drift_shift(g["x"])
         n, e = _dict_sizes(g)
         seq = next(self._seq)
         trace = self._tracer.begin(seq=seq, tenant=tenant) if self._tracer is not None else None
@@ -514,6 +695,8 @@ class ModelServer:
             return fut
         fut.set_result(result)
         self.metrics.observe_latency(time.monotonic() - t0)
+        if self._drift is not None or self._spool is not None:
+            self._observe_answered(g, result, trace, tenant, seq)
         if trace is not None:
             trace.mark("serve.eager_execute")
             self._tracer.finish(trace)
@@ -553,6 +736,7 @@ class ModelServer:
                 # the thread-death injection fires outside request isolation
                 inject.maybe_serve_kill_dispatch(self._dispatched_batches)
                 self._execute_bucket(bucket_index, requests, reason)
+                self._maybe_trigger()
             except BaseException as exc:
                 # dispatch-level: fail the batch in hand with the typed
                 # error, then die so the supervisor restarts the loop
@@ -610,6 +794,9 @@ class ModelServer:
             if not r.future.done():
                 r.future.set_result(result)
                 self.metrics.observe_latency(t_done - r.t_enqueue)
+                # everything in hand is host-side numpy: no device sync
+                if self._drift is not None or self._spool is not None:
+                    self._observe_answered(r.item, result, r.trace, r.tenant, r.seq)
                 if r.trace is not None:
                     r.trace.add_span("serve.postprocess", t_exec1, time.time())
                     self._tracer.finish(r.trace)
@@ -644,6 +831,141 @@ class ModelServer:
             r.trace.mark("serve.quarantine", reason=kind)
             self._tracer.finish(r.trace)
             r.trace = None
+
+    # -- spool, drift, triggers -------------------------------------------
+
+    def _observe_answered(self, g: Dict[str, Any], result: Dict[str, np.ndarray], trace, tenant: str,
+                          seq: int) -> None:
+        """Feed one answered request to the drift monitor and the spool.
+        Contained: a failing plane records one ``error`` flight event
+        (``where="spool_drift"``) and both planes disarm."""
+        try:
+            if self._drift is not None:
+                self._drift.observe(np.asarray(g["x"]), result)
+            if self._spool is not None:
+                self._spool.offer(g, result, trace=trace.trace_id if trace is not None else None, tenant=tenant,
+                                  seq=seq)
+        except Exception as exc:
+            self.flight.error(exc, where="spool_drift")
+            self._drift = None
+            self._spool = None
+
+    def _maybe_trigger(self) -> None:
+        """After each batch: drive an open incident's bounded capture,
+        then (every ``trigger_eval_every_s``) evaluate the rules.
+        Contained: a failure records an ``error`` flight event
+        (``where="trigger_engine"``) and the dispatch thread goes on."""
+        trig, inc = self._triggers, self._incidents
+        if trig is None or inc is None:
+            return
+        try:
+            inc.tick()
+            now = time.monotonic()
+            if now - self._last_trigger_eval < self.config.trigger_eval_every_s:
+                return
+            self._last_trigger_eval = now
+            for verdict in trig.evaluate():
+                opened = inc.open_incident(verdict, flight=self.flight)
+                if opened is None:
+                    continue
+                if verdict.kind in DRIFT_KINDS:
+                    self._attach_drift_evidence(opened, verdict)
+                    if self._pilot is not None:
+                        # the pilot owns its failures past this handoff
+                        try:
+                            self._pilot.on_drift_incident(opened, verdict)
+                        except Exception as exc:
+                            self.flight.error(exc, where="pilot_notify")
+                opened.tick()  # the capture starts on this batch
+        except Exception as exc:
+            self.flight.error(exc, where="trigger_engine")
+
+    def _attach_drift_evidence(self, opened, verdict) -> None:
+        """Write the drift report and the offending spool window into the
+        bundle as ``drift_report.json`` and record a ``drift`` flight
+        event. The window's shards are pinned against eviction until the
+        incident closes (``_on_incident_close``), and each one's
+        ``spool_manifest.json`` is copied under ``spool_manifests/``."""
+        report = self._drift.report() if self._drift is not None else {}
+        window: Dict[str, Any] = {}
+        if self._spool is not None:
+            # the traffic that tripped the rule is mostly in the open
+            # pending shard: cut it, so the window covers it
+            self._spool.flush_pending()
+            window = self._spool.window()
+        pinned: List[str] = []
+        if self._spool is not None and window.get("shards"):
+            pinned = self._spool.pin(window["shards"])
+            with self._pin_lock:
+                self._incident_pins[opened.id] = list(pinned)
+            mdir = os.path.join(opened.dir, "spool_manifests")
+            os.makedirs(mdir, exist_ok=True)
+            for name in pinned:
+                try:
+                    man = read_shard_manifest(os.path.join(window["dir"], name))
+                except (OSError, ValueError):
+                    continue  # an unreadable manifest; the pin still holds the shard
+                _atomic_json(os.path.join(mdir, f"{name}.json"), man)
+                opened.files[f"spool_manifest/{name}"] = os.path.join("spool_manifests", f"{name}.json")
+        report["spool_window"] = window
+        report["pinned_shards"] = pinned
+        report["trigger"] = verdict.to_dict()
+        _atomic_json(os.path.join(opened.dir, "drift_report.json"), report)
+        opened.files["drift_report"] = "drift_report.json"
+        self.flight.record("drift", rule=verdict.rule, rule_kind=verdict.kind, metric=verdict.metric,
+                           observed=verdict.observed, threshold=verdict.threshold, spool_window=window,
+                           pinned_shards=pinned)
+
+    def _on_incident_close(self, inc, status: str) -> None:
+        """The recorder's close hook: release the spool pins taken for
+        the incident's drift evidence (a retrain pilot holds pins of its
+        own)."""
+        with self._pin_lock:
+            pinned = self._incident_pins.pop(inc.id, None)
+        if pinned and self._spool is not None:
+            self._spool.unpin(pinned)
+
+    # -- the retrain pilot's seam ------------------------------------------
+
+    def attach_pilot(self, pilot) -> None:
+        """Forward every drift incident to ``pilot.on_drift_incident(
+        incident, verdict)`` once its evidence is in the bundle."""
+        self._pilot = pilot
+
+    def pin_spool(self, shards) -> List[str]:
+        """Pin spool shards against eviction (reference counted); returns
+        the names pinned, [] without a spool."""
+        if self._spool is None:
+            return []
+        return self._spool.pin(shards)
+
+    def unpin_spool(self, shards) -> None:
+        if self._spool is not None:
+            self._spool.unpin(shards)
+
+    def spool_dir(self) -> Optional[str]:
+        return self._spool.root if self._spool is not None else None
+
+    def reset_drift(self) -> None:
+        """Drop the drift monitor's sketches (the reference stays): after
+        a reload, the rules re-arm against the new weights."""
+        if self._drift is not None:
+            self._drift.reset()
+
+    def open_pilot_incident(self, verdict):
+        """An escalation bundle for a pilot's terminal state; None while
+        another incident's capture runs (one at a time). The dispatch
+        loop's ticks drive its capture and close."""
+        if self._incidents is None:
+            return None
+        return self._incidents.open_incident(verdict, flight=self.flight)
+
+    def export_trace(self, path: str) -> Optional[str]:
+        """The tracer's recent requests as Chrome/Perfetto trace JSON at
+        ``path``; returns it (None with tracing off)."""
+        if self._tracer is None or not self._tracer.enabled:
+            return None
+        return self._tracer.export_chrome(path)
 
     def _slice_result(self, outputs, graph_index: int, node_offset: int, num_nodes: int):
         cfg = self.served.cfg
