@@ -210,6 +210,27 @@ raises; nothing is caught):
                    launches = (b)'s + 3 diagnostics samples + the ledger's
                    step; one diagnostics sample on the card against the
                    CPU. Prints the telemetry's cost on the epoch wall.
+ 9l. train-resilience — the flagship at full width, batch 128 on the
+                   [train-loop] data (8 steps an epoch), 4 epochs,
+                   checkpoint_every 1, per-step dispatch, deterministic
+                   algorithms: (a) SIGTERM at epoch 2 in process, then the
+                   auto-resume, bit-equal to the uninterrupted run, with
+                   the signal-to-raise seconds and the hard-exit timer
+                   cancelled; in children that load this process's
+                   kernels: (b) SIGTERM at step 11 (75), then the resume
+                   (0); (c) the second checkpoint torn (-9), then the
+                   resume that rejects it (0); (d) a stalled loader under
+                   a 3 s watchdog (79, MainThread in the loader's wait);
+                   (e) the supervise CLI through a preemption (0, one
+                   restart, bit-equal to the uninterrupted run); then (f)
+                   the NaN injection bit-equal to a poisoning loader and
+                   (g) the handler's and the watchdog's cost on the epoch
+                   wall. The uninterrupted run's and (a)'s launches are
+                   held to launch_plan.
+ 9m. lock-witness — the [serve] burst with the lock-order witness off and
+                   on: 0 violations, p50 and requests/s of both; an
+                   injected order inversion on two of the server's locks
+                   gives one valid lock_order event, the server answering.
  10. timing      — each kernel at the main path's shapes: ms eager, ms in
                    a CUDA graph, plain ms, library ms (eager and in a
                    graph), beside its bound; B1's backward kernel beside
@@ -256,6 +277,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1362,10 +1384,11 @@ def write_cfg_files(path, n_files, seed, a=EAM_LATTICE, cells=(2, 4)):
 
 
 @contextlib.contextmanager
-def deterministic_algorithms(phase, label):
+def deterministic_algorithms(phase, label, card=None):
     """PyTorch's deterministic algorithms for bit-equal runs (the pooling's
     ``index_add_`` adds with atomics otherwise); the warnings of ops
-    without a deterministic implementation are counted and printed."""
+    without a deterministic implementation are counted and printed (with
+    the card line when given)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -1376,7 +1399,8 @@ def deterministic_algorithms(phase, label):
         torch.use_deterministic_algorithms(False)
     nondet = sorted({str(w.message)[:160] for w in caught if "deterministic" in str(w.message)})
     line(phase, part="determinism", runs=label, deterministic_algorithms=True,
-         nondeterministic_op_warnings=len(nondet), first=json.dumps(nondet[:3]))
+         nondeterministic_op_warnings=len(nondet), first=json.dumps(nondet[:3]),
+         **({"card": repr(card)} if card is not None else {}))
 
 
 def pna_step_vs_cpu(label, nn_cfg_, batch_, step_want, counts, reordered=()):
@@ -3023,6 +3047,472 @@ def serve_drift_phase(dev, card, counts, make_raw, launches_per, train_flight):
     return total
 
 
+RES_EPOCHS, RES_GRACE_S = 4, 8.0  # [train-resilience]: 4 epochs of 8 steps; (a)'s short grace window
+RES_STALL_S = 3.0  # (d)'s watchdog
+# a resumed child's final val loss against the uninterrupted run's: after
+# a mid-epoch stop the stopped epoch is re-run on weights that took part
+# of it (rel 0.2); after the torn checkpoint the run resumes from the
+# newest intact version (rel 1e-3); the JAX package's own bars
+# (tests/test_resilience.py:433-498)
+RES_MIDEPOCH_REL, RES_TORN_REL = 0.2, 1e-3
+
+_RES_CHILD = r'''
+import json, os, pickle, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {repo!r})
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+t_torch = time.perf_counter()
+from hydragnn_tpu_torch.api import run_training
+from hydragnn_tpu_torch.resilience import run_guard
+t_port = time.perf_counter()
+cfg_path, samples_path, log_dir = sys.argv[1:4]
+with open(cfg_path) as f:
+    cfg = json.load(f)
+with open(samples_path, "rb") as f:
+    samples = pickle.load(f)
+t_data = time.perf_counter()
+print("CHILD-STARTUP", round(t_data - t0, 3), "torch", round(t_torch - t0, 3), "port", round(t_port - t_torch, 3),
+      "data", round(t_data - t_port, 3), flush=True)
+with run_guard():
+    run_training(cfg, samples=samples, log_dir=log_dir, device="cuda", seed={seed})
+print("CHILD-COMPLETED", round(time.perf_counter() - t0, 3), flush=True)
+'''
+
+
+def train_resilience_phase(dev, card, counts, samples, per_step, per_fwd):
+    """[train-resilience]: the flagship at full width (batch LOOP_BATCH, 8
+    steps an epoch, RES_EPOCHS epochs, checkpoint_every 1, per-step
+    dispatch, deterministic algorithms, diagnostics off) through
+    ``run_training``, in process and in ``sys.executable`` children that
+    wrap it in ``run_guard()`` and load the kernels this process built:
+    (a) SIGTERM at epoch 2 in process, then the auto-resume, bit-equal to
+    the uninterrupted run, the signal-to-raise seconds and the hard-exit
+    timer cancelled; (b) a mid-epoch SIGTERM in a child (75), then its
+    resume (0); (c) a torn checkpoint (-9), then its resume; (d) a stalled
+    loader under the watchdog (79); (e) the supervise CLI through a
+    preemption (0), bit-equal to the uninterrupted run; (f) the NaN
+    injection bit-equal to a poisoning loader wrapper; (g) the handler's
+    and the watchdog's cost on the epoch wall. The launches of the
+    uninterrupted run and (a)'s two runs are held to ``launch_plan``
+    (``per_step``, ``per_fwd``) and returned."""
+    import pickle
+
+    from hydragnn_tpu_torch.api import create_dataloaders, prepare_config_and_samples, run_training, \
+        train_with_loaders
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.obs import read_flight_record, validate_flight_record
+    from hydragnn_tpu_torch.ops._build import BUILD_DIR
+    from hydragnn_tpu_torch.resilience import EXIT_HUNG, EXIT_PREEMPTED, TrainingPreempted, inject
+    from hydragnn_tpu_torch.train.loop import EPOCH_KEYS
+    from hydragnn_tpu_torch.utils import checkpoint as ckpt
+    from hydragnn_tpu_torch.utils.config import get_log_name_config
+
+    reset, read = counts
+    root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    saved_env = {k: os.environ.get(k) for k in ("HGTORCH_DIAGNOSTICS", "HGTORCH_NUM_PREFETCH")}
+    os.environ.update(HGTORCH_DIAGNOSTICS="0", HGTORCH_NUM_PREFETCH="2")
+    raw = samples()
+    samples_path = os.path.join(root, "samples.pkl")
+    with open(samples_path, "wb") as f:
+        pickle.dump(raw, f)
+    cfg0 = flagship_config(batch_size=LOOP_BATCH, num_epoch=RES_EPOCHS)
+    cfg0["NeuralNetwork"]["Training"].update(checkpoint_every=1, scan_epoch=False)
+    tr, va, te, done = prepare_config_and_samples(copy.deepcopy(cfg0), copy.deepcopy(raw))
+    loaders = create_dataloaders(tr, va, te, done)
+    n_train, n_eval = len(loaders[0]), len(loaders[1]) + len(loaders[2])
+    log_name = get_log_name_config(done)
+    script = os.path.join(root, "child.py")
+    with open(script, "w") as f:
+        f.write(_RES_CHILD.format(repo=os.path.dirname(os.path.abspath(__file__)), seed=SEED))
+    built = sorted(os.listdir(BUILD_DIR))
+
+    def config(**training):
+        cfg = copy.deepcopy(cfg0)
+        cfg["NeuralNetwork"]["Training"].update(training)
+        return cfg
+
+    def want(steps, fwds):
+        names = set(per_step) | set(per_fwd)
+        return {k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in names}
+
+    def state_of(model, optimizer):
+        return ([t.detach().clone() for t in model.state_dict().values()]
+                + [t.clone() for t in optimizer.state_tensors()] + [optimizer.steps.clone()])
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def events(label, name=log_name):
+        return read_flight_record(os.path.join(root, label, name, "flight.jsonl"))
+
+    def final_val(label):
+        with open(os.path.join(root, label, log_name, "metrics.jsonl")) as f:
+            return [json.loads(ln) for ln in f][-1]["val_loss"]
+
+    def in_process(label, cfg, **kw):
+        t0 = time.perf_counter()
+        model, optimizer, hist, _ = run_training(cfg, copy.deepcopy(raw), log_dir=os.path.join(root, label),
+                                                 device="cuda", seed=SEED, **kw)
+        torch.cuda.synchronize()
+        return model, optimizer, hist, time.perf_counter() - t0
+
+    def start(label, training, extra, argv=None):
+        """A child (``argv`` before it: the supervise CLI) started in the
+        background, its output to a file."""
+        cfg_path = os.path.join(root, f"{label}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(config(**training), f)
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("HGTORCH_INJECT_", "HGTORCH_AUTO_RESUME"))}
+        env.update(extra)
+        cmd = [sys.executable, script, cfg_path, samples_path, os.path.join(root, label)]
+        log = open(os.path.join(root, f"{label}.{len(os.listdir(root))}.log"), "w+")
+        return subprocess.Popen((argv or []) + cmd, env=env, stdout=log, stderr=subprocess.STDOUT), log, time.time()
+
+    def finish(handle, timeout=600):
+        """(exit code, output, start-up seconds of each child, wall s, the
+        time it ended)."""
+        proc, log, t0 = handle
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+        t_end = time.time()
+        log.seek(0)
+        out = log.read()
+        log.close()
+        startup = [[float(x) for x in ln.split()[1::2]] for ln in out.splitlines() if ln.startswith("CHILD-STARTUP")]
+        return rc, out, startup, t_end - t0, t_end
+
+    def expect_rc(label, rc, want_rc, out):
+        if rc != want_rc:
+            raise AssertionError(f"train-resilience {label}: exit code {rc}, want {want_rc}\n{out[-4000:]}")
+
+    try:
+        with deterministic_algorithms("train-resilience", "uninterrupted, (a), (f), (g)", card):
+            # the uninterrupted run: the reference of (a), (b), (c), (e)
+            reset()
+            ref_model, ref_opt, ref_hist, ref_wall = in_process("reference", config())
+            path_counts = read()
+            ref_state = state_of(ref_model, ref_opt)
+            ref_cpu = {k: t.detach().cpu() for k, t in ref_model.state_dict().items()}
+            ref_val = ref_hist["val_loss"][-1]
+            if not (np.isfinite(ref_hist["train_loss"]).all() and ref_hist["train_loss"][-1] < ref_hist["train_loss"][0]):
+                raise AssertionError(f"train-resilience: the reference's loss is not finite and falling: {ref_hist}")
+            need = ref_need = want(RES_EPOCHS * n_train, RES_EPOCHS * n_eval + 2 * n_train)
+
+            # (a) SIGTERM at the start of epoch 2, in process; then the resume
+            real_sigterm, fired_at = inject.maybe_sigterm, []
+            handler_before = signal.getsignal(signal.SIGTERM)
+
+            def timed_sigterm(step=None, epoch=None):
+                if epoch is not None and epoch == 2:
+                    if threading.current_thread() is not threading.main_thread():
+                        raise AssertionError("train-resilience (a): the loop is off the main thread")
+                    fired_at.append(time.perf_counter())
+                real_sigterm(step=step, epoch=epoch)
+
+            os.environ["HGTORCH_INJECT_SIGTERM_EPOCH"] = "2"
+            inject.maybe_sigterm = timed_sigterm
+            reset()
+            try:
+                in_process("a", config(preempt_grace_s=RES_GRACE_S))
+                raise AssertionError("train-resilience (a): the run was not preempted")
+            except TrainingPreempted as exc:
+                t_raise = time.perf_counter()
+                if (exc.signum, exc.epoch) != (signal.SIGTERM, 2):
+                    raise AssertionError(f"train-resilience (a): {exc.signum}, epoch {exc.epoch}")
+            finally:
+                inject.maybe_sigterm = real_sigterm
+                del os.environ["HGTORCH_INJECT_SIGTERM_EPOCH"]
+            pre_counts = read()
+            signal_to_raise = t_raise - fired_at[0]
+            if signal.getsignal(signal.SIGTERM) != handler_before:
+                raise AssertionError("train-resilience (a): the handler was not uninstalled")
+            os.environ["HGTORCH_AUTO_RESUME"] = "1"
+            reset()
+            try:
+                a_model, a_opt, a_hist, a_wall = in_process("a", config(preempt_grace_s=RES_GRACE_S))
+            finally:
+                del os.environ["HGTORCH_AUTO_RESUME"]
+            resume_counts = read()
+            for name, c in (("pre", pre_counts), ("resume", resume_counts)):
+                path_counts = {k: path_counts[k] + c[k] for k in path_counts}
+            need = plus(need, want(2 * n_train, 2 * n_eval))
+            need = plus(need, want(2 * n_train, 2 * n_eval + 2 * n_train))
+            if path_counts != {k: need.get(k, 0) for k in path_counts}:
+                raise AssertionError(f"train-resilience: launches {path_counts}, want {need}")
+            if any(a_hist[k] != ref_hist[k] for k in EPOCH_KEYS) or not same(state_of(a_model, a_opt), ref_state):
+                raise AssertionError("train-resilience (a): the resumed run differs from the uninterrupted one")
+            a_events = events("a")
+            kinds = [e["kind"] for e in a_events if e["kind"] in ("preempt", "resumed", "run_end")]
+            if kinds != ["preempt", "run_end", "resumed", "run_end"] or validate_flight_record(a_events):
+                raise AssertionError(f"train-resilience (a): flight {kinds}, {validate_flight_record(a_events)}")
+            # the hard-exit timer was cancelled: this process outlives the grace window
+            time.sleep(max(0.0, RES_GRACE_S + 1.0 - (time.perf_counter() - fired_at[0])))
+            line("train-resilience", scenario="a_epoch_boundary_in_process", signal=15, preempt_epoch=2,
+                 signal_to_raise_s=round(signal_to_raise, 4), grace_s=RES_GRACE_S,
+                 alive_after_grace_s=round(time.perf_counter() - fired_at[0], 2), resumed_bit_equal=True,
+                 history_epochs=len(a_hist["train_loss"]), wall_s_uninterrupted=round(ref_wall, 3),
+                 wall_s_resume=round(a_wall, 3), card=repr(card))
+
+            # (f) NaN injection against a poisoning loader wrapper
+            nan_hists = {}
+            nan_cfg = copy.deepcopy(done)
+            nan_cfg["NeuralNetwork"]["Training"]["num_epoch"] = 2
+            for label in ("f_wrapper", "f_injected"):
+                tl, vl, tel = create_dataloaders(tr, va, te, copy.deepcopy(nan_cfg))
+                if label == "f_injected":
+                    os.environ["HGTORCH_INJECT_NAN_STEP"] = "3:2"
+                else:
+                    tl = _PoisonAt(tl, 3, 2)
+                try:
+                    _, _, nan_hists[label] = train_with_loaders(copy.deepcopy(nan_cfg), tl, vl, tel,
+                                                                log_dir=os.path.join(root, label), device=dev,
+                                                                seed=SEED)
+                finally:
+                    os.environ.pop("HGTORCH_INJECT_NAN_STEP", None)
+            fw, fi = nan_hists["f_wrapper"], nan_hists["f_injected"]
+            skipped = {e["epoch"]: e["nonfinite"]["skipped"] for e in events("f_injected", get_log_name_config(nan_cfg))
+                       if e["kind"] == "epoch" and e.get("nonfinite")}
+            if (any(fw[k] != fi[k] for k in EPOCH_KEYS) or not np.isfinite(fi["train_loss"]).all()
+                    or fi["nonfinite_skipped"] != fw["nonfinite_skipped"] or skipped != {0: 2}):
+                raise AssertionError(f"train-resilience (f): {fi['nonfinite_skipped']} vs {fw['nonfinite_skipped']}, "
+                                     f"flight {skipped}")
+            line("train-resilience", scenario="f_nan_injection", steps="3:2", skipped=json.dumps(fi["nonfinite_skipped"]),
+                 bit_equal_to_wrapper=True, dispatch=fi["dispatch_mode"]["reason"], card=repr(card))
+
+            # (g) the cost: the handler off (bit-equal, the same launches), the
+            # watchdog's per-step epoch against the fixed epoch it turns off
+            reset()
+            off_model, off_opt, off_hist, _ = in_process("g_handler_off", config(preempt_handler=False))
+            off_counts = read()
+            if (any(off_hist[k] != ref_hist[k] for k in EPOCH_KEYS) or not same(state_of(off_model, off_opt), ref_state)
+                    or off_counts != {k: ref_need.get(k, 0) for k in off_counts}):
+                raise AssertionError("train-resilience (g): the handler changed the run or its launches")
+            wd_hist = in_process("g_watchdog", config(scan_epoch=None, watchdog_stall_s=600))[2]
+            fixed_hist = in_process("g_fixed", config(scan_epoch=None))[2]
+            if wd_hist["dispatch_mode"]["reason"] != "hang watchdog active" or fixed_hist["dispatch_mode"]["mode"] != "fixed_epoch":
+                raise AssertionError(f"train-resilience (g): {wd_hist['dispatch_mode']}, {fixed_hist['dispatch_mode']}")
+            walls = {k: [round(x, 4) for x in h["train_wall_s"]] for k, h in
+                     (("handler_on", ref_hist), ("handler_off", off_hist), ("watchdog_per_step", wd_hist),
+                      ("fixed", fixed_hist))}
+            mean = {k: float(np.mean(v[1:])) for k, v in walls.items()}
+            line("train-resilience", scenario="g_cost", epoch_wall_s=json.dumps(walls, separators=(",", ":")),
+                 handler_on_minus_off_ms=round((mean["handler_on"] - mean["handler_off"]) * 1e3, 2),
+                 watchdog_per_step_minus_fixed_ms=round((mean["watchdog_per_step"] - mean["fixed"]) * 1e3, 2),
+                 handler_bit_equal=True, handler_launches_equal=True, steps_per_epoch=n_train, card=repr(card))
+
+        # the children, each under deterministic algorithms (the child script
+        # sets them) and loading this process's kernels: (b), (c) and (e)
+        # together, then (b)'s and (c)'s resumes, then (d) alone (its 3 s
+        # watchdog must not see another process's load)
+        ctimes = {}
+        sup_flight = os.path.join(root, "e_supervisor.jsonl")
+        running = {"b": start("b", {}, {"HGTORCH_INJECT_SIGTERM_STEP": "11"}),
+                   "c": start("c", {}, {"HGTORCH_INJECT_KILL_CHECKPOINT": "2"}),
+                   "e": start("e", {}, {"HGTORCH_INJECT_SIGTERM_EPOCH": "2"},
+                              argv=[sys.executable, "-m", "hydragnn_tpu_torch.tools.supervise", "--flight",
+                                    sup_flight, "--"])}
+        try:
+            rc, out, st, _, _ = finish(running.pop("b"))
+            expect_rc("(b)", rc, EXIT_PREEMPTED, out)
+            ev = events("b")
+            pre = [e for e in ev if e["kind"] == "preempt"]
+            if (len(pre) != 1 or pre[0]["signal"] != 15 or ev[-1]["kind"] != "run_end"
+                    or ev[-1]["status"] != "preempted"
+                    or not os.path.exists(os.path.join(root, "b", log_name, f"{log_name}.pt"))
+                    or not os.path.exists(os.path.join(root, "b", log_name, f"{log_name}.meta.json"))):
+                raise AssertionError(f"train-resilience (b): {[e['kind'] for e in ev]}")
+            ctimes["b"] = st
+            running["b"] = start("b", {}, {"HGTORCH_AUTO_RESUME": "1"})
+            rc, out, st, _, _ = finish(running.pop("c"))
+            expect_rc("(c)", rc, -signal.SIGKILL, out)
+            if ckpt.validate_checkpoint_file(os.path.join(root, "c", log_name, f"{log_name}.pt")):
+                raise AssertionError("train-resilience (c): the torn pointer validates")
+            ctimes["c"] = st
+            running["c"] = start("c", {}, {"HGTORCH_AUTO_RESUME": "1"})
+
+            rc, out, st, _, _ = finish(running.pop("b"))
+            expect_rc("(b) resume", rc, 0, out)
+            ev = events("b")
+            statuses = [e["status"] for e in ev if e["kind"] == "run_end"]
+            b_val = final_val("b")
+            if (sum(e["kind"] == "resumed" for e in ev) != 1 or statuses != ["preempted", "completed"]
+                    or validate_flight_record(ev) or abs(b_val - ref_val) > RES_MIDEPOCH_REL * abs(ref_val)):
+                raise AssertionError(f"train-resilience (b): {statuses}, val {b_val} vs {ref_val}")
+            ctimes["b"] += st
+            line("train-resilience", scenario="b_mid_epoch_child", rcs="75,0", preempt_epoch=pre[0]["epoch"],
+                 preempt_step=pre[0]["step"], final_val_loss=b_val, uninterrupted_val_loss=ref_val,
+                 rel=round(abs(b_val - ref_val) / abs(ref_val), 6), tol_rel=RES_MIDEPOCH_REL,
+                 child_startup_s=json.dumps(ctimes["b"]), card=repr(card))
+
+            rc, out, st, _, _ = finish(running.pop("c"))
+            expect_rc("(c) resume", rc, 0, out)
+            c_val = final_val("c")
+            ev = events("c")
+            if ("rejected" not in out or ev[-1]["status"] != "completed"
+                    or sum(e["kind"] == "resumed" for e in ev) != 1 or abs(c_val - ref_val) > RES_TORN_REL * abs(ref_val)):
+                raise AssertionError(f"train-resilience (c): val {c_val} vs {ref_val}\n{out[-3000:]}")
+            ctimes["c"] += st
+            line("train-resilience", scenario="c_torn_checkpoint_child", rcs="-9,0", rejected_warning=True,
+                 final_val_loss=c_val, uninterrupted_val_loss=ref_val,
+                 rel=round(abs(c_val - ref_val) / abs(ref_val), 8), tol_rel=RES_TORN_REL,
+                 child_startup_s=json.dumps(ctimes["c"]), card=repr(card))
+
+            rc, out, st, e_wall, _ = finish(running.pop("e"))
+            expect_rc("(e)", rc, 0, out)
+            sup = read_flight_record(sup_flight)
+            restarts = [e for e in sup if e["kind"] == "restart"]
+            e_state = torch.load(os.path.join(root, "e", log_name, f"{log_name}.pt"), map_location="cpu",
+                                 weights_only=True)["model"]
+            if (len(restarts) != 1 or restarts[0]["cause"] != "preempted" or restarts[0]["delay_s"] != 0.0
+                    or sup[-1]["status"] != "completed" or validate_flight_record(sup)
+                    or list(e_state) != list(ref_cpu) or not all(torch.equal(e_state[k], ref_cpu[k]) for k in ref_cpu)):
+                raise AssertionError(f"train-resilience (e): {[e['kind'] for e in sup]}, {sup[-1]}")
+            ctimes["e"] = st
+            line("train-resilience", scenario="e_supervisor_cli", rc=0, restarts=1, cause="preempted", delay_s=0.0,
+                 status="completed", params_bit_equal_to_uninterrupted=True, wall_s=round(e_wall, 3),
+                 child_startup_s=json.dumps(st), card=repr(card))
+
+            rc, out, st, _, t_exit = finish(start("d", {"watchdog_stall_s": RES_STALL_S},
+                                                  {"HGTORCH_INJECT_STALL_LOADER": "2:120"}), timeout=300)
+            expect_rc("(d)", rc, EXIT_HUNG, out)
+            ev = events("d")
+            wd = [e for e in ev if e["kind"] == "watchdog"]
+            main_stack = wd[0]["stacks"].get("MainThread", "") if wd else ""
+            if (len(wd) != 1 or wd[0]["stall_s"] < RES_STALL_S or "loader.py" not in main_stack
+                    or ev[-1]["kind"] != "run_end" or ev[-1]["status"] != "hung" or validate_flight_record(ev)):
+                raise AssertionError(f"train-resilience (d): {[e['kind'] for e in ev]}\n{main_stack[-2000:]}")
+            stall_began = wd[0]["t"] - wd[0]["stall_s"]
+            ctimes["d"] = st
+            line("train-resilience", scenario="d_stalled_loader_child", rc=79, stall_s=wd[0]["stall_s"],
+                 watchdog_s=RES_STALL_S, stall_to_exit_s=round(t_exit - stall_began, 3),
+                 main_thread_in="GraphLoader.__iter__ (queue wait)", child_startup_s=json.dumps(st), card=repr(card))
+        finally:
+            for proc, log, _ in running.values():  # only after a failure: stop what still runs
+                proc.kill()
+                proc.wait()
+                log.close()
+        rebuilt = sorted(os.listdir(BUILD_DIR)) != built
+        if rebuilt:
+            raise AssertionError("train-resilience: a child built kernels again")
+        line("train-resilience", part="children", children=sum(len(v) for v in ctimes.values()),
+             startup_s_total_torch_port_data=json.dumps(ctimes, separators=(",", ":")), kernels_rebuilt=False,
+             launches=json.dumps(path_counts, separators=(",", ":")), card=repr(card))
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    return path_counts
+
+
+class _PoisonAt:
+    """A train loader that gives train steps ``start .. start+count-1``
+    (counted over the run, as ``HGTORCH_INJECT_NAN_STEP`` counts them) new
+    batches with NaN node features, and offers no resident batches."""
+
+    def __init__(self, loader, start, count):
+        self.loader, self.start, self.count, self.step = loader, start, count, 0
+        self.shuffle = loader.shuffle
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def set_device(self, device):
+        self.loader.set_device(device)
+
+    def __iter__(self):
+        for b in self.loader:
+            bad = self.start <= self.step < self.start + self.count
+            self.step += 1
+            yield dataclasses.replace(b, nodes=torch.full_like(b.nodes, float("nan"))) if bad else b
+
+
+def lock_witness_phase(dev, card, counts, make_raw, per_forward):
+    """[lock-witness]: the [serve] burst on the flagship at full width with
+    the lock-order witness off, then on (``HGTORCH_LOCK_DEBUG=1``): 0
+    violations on clean traffic, the p50 and requests/s of both; then
+    ``HGTORCH_INJECT_LOCK_ORDER`` on two of the server's locks: one
+    injected ``lock_order`` event, valid, and the server goes on
+    answering. Every start's launches (the warm-up forwards and the
+    captures) are held to ``per_forward``; a burst launches nothing.
+    Returns the launches."""
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.obs import FlightRecorder, read_flight_record, validate_flight_record
+    from hydragnn_tpu_torch.serve import request_to_dict
+    from hydragnn_tpu_torch.utils import syncdebug
+
+    reset, read = counts
+    root = tempfile.mkdtemp(prefix="chip_smoke_witness_")
+    saved = os.environ.get("HGTORCH_LOCK_DEBUG")
+    total = {k: 0 for k in per_forward}
+    fields = {}
+    try:
+        for label, on, injected in (("off", "0", None), ("on", "1", None),
+                                    ("injected", "1", "server.ModelServer._reload_lock,server.ModelServer._pin_lock")):
+            os.environ["HGTORCH_LOCK_DEBUG"] = on
+            if injected:
+                os.environ["HGTORCH_INJECT_LOCK_ORDER"] = injected
+            syncdebug.reset()  # the witness reads its knob once a process
+            flight_path = os.path.join(root, f"{label}.jsonl")
+            flight = FlightRecorder(flight_path)
+            reset()
+            server = hydragnn_tpu_torch.serve_model(flagship_config(), make_raw(), device=dev, seed=SEED,
+                                                    flight=flight)
+            try:
+                cache = server._cache
+                start = read()
+                need = {k: v * (cache.captures + cache.warm_forwards) for k, v in per_forward.items()}
+                if {k: start[k] for k in need} != need:
+                    raise AssertionError(f"lock-witness {label}: launches at start {start}, want {need}")
+                requests = [request_to_dict(s) for s in server.reference_samples]
+                reset()
+                results, lat, wall = serve_burst(server, requests * 2)
+                burst = read()
+                serial = serial_latencies(server, requests[:16])
+                if any(burst.values()):
+                    raise AssertionError(f"lock-witness {label}: the burst launched {burst}")
+            finally:
+                server.stop()
+                flight.close()
+                os.environ.pop("HGTORCH_INJECT_LOCK_ORDER", None)
+            total = {k: total[k] + start[k] for k in total}
+            ev = read_flight_record(flight_path)
+            orders = [e for e in ev if e["kind"] == "lock_order"]
+            witnessed = syncdebug.enabled()
+            n_viol = len(syncdebug.violations())
+            want_n = 1 if injected else 0
+            if (witnessed != (on == "1") or n_viol != want_n or len(orders) != want_n or validate_flight_record(ev)
+                    or (injected and not orders[0]["injected"]) or ev[-1]["kind"] != "run_end"):
+                raise AssertionError(f"lock-witness {label}: witness {witnessed}, {n_viol} violations, "
+                                     f"{len(orders)} lock_order events")
+            fields[label] = serve_latency_fields(lat, wall, serial)
+            line("lock-witness", run=label, witness=witnessed, violations=n_viol, lock_order_events=len(orders),
+                 injected=bool(injected), answered=len(results), locks_witnessed=len(syncdebug._REGISTERED),
+                 **fields[label], card=repr(card))
+        line("lock-witness", part="cost", p50_ms_off=fields["off"]["p50_ms"], p50_ms_on=fields["on"]["p50_ms"],
+             requests_per_s_off=fields["off"]["requests_per_s"], requests_per_s_on=fields["on"]["requests_per_s"],
+             card=repr(card))
+    finally:
+        if saved is None:
+            os.environ.pop("HGTORCH_LOCK_DEBUG", None)
+        else:
+            os.environ["HGTORCH_LOCK_DEBUG"] = saved
+        syncdebug.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def main():
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4091,6 +4581,15 @@ def main():
     shutil.rmtree(os.path.dirname(train_obs_flight), ignore_errors=True)
     line("serve-drift", part="phase", seconds=round(time.perf_counter() - t0, 1))
 
+    # ---- 9l. train-resilience, 9m. lock-witness -----------------------------
+    t0 = time.perf_counter()
+    resilience_counts = train_resilience_phase(dev, card, (reset_counts, read_counts), train_samples, per_step,
+                                               per_fwd)
+    line("train-resilience", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
+    t0 = time.perf_counter()
+    witness_counts = lock_witness_phase(dev, card, (reset_counts, read_counts), serve_raw, per_forward)
+    line("lock-witness", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
+
     # ---- 10. timing ------------------------------------------------------
     h = hidden
     table = torch.randn(n, h, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
@@ -4447,6 +4946,7 @@ def main():
              **{f"accuracy_{k}": v for k, v in acc_counts.items() if k.startswith("stack_")}, **loop_counts,
              "data_path_hgc": data_path_counts, "data_eam": eam_counts, "records": records_counts,
              "train_obs": train_obs_counts, "serve_drift": serve_drift_counts,
+             "train_resilience": resilience_counts, "lock_witness": witness_counts,
              **{f"examples_{k}": c for k, c in example_counts.items()}}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",

@@ -24,6 +24,7 @@ from hydragnn_tpu_torch.data.loader import GraphLoader
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.create import create_model_config
 from hydragnn_tpu_torch.postprocess import output_denormalize
+from hydragnn_tpu_torch.resilience.preempt import auto_resume_config
 from hydragnn_tpu_torch.train.loop import test_epoch, train_validate_test
 from hydragnn_tpu_torch.train.optimizer import select_optimizer
 from hydragnn_tpu_torch.utils.checkpoint import load_existing_model, load_existing_model_config, save_model
@@ -117,6 +118,9 @@ def train_with_loaders(
     nn_config = config["NeuralNetwork"]
     model = create_model_config(nn_config, seed=seed, device=dev)
     optimizer = _optimizer_for(model, nn_config)
+    # a child the restart supervisor started again (HGTORCH_AUTO_RESUME=1)
+    # picks up its own checkpoint through continue/startfrom
+    auto_resume_config(nn_config["Training"], log_name, log_dir)
     load_existing_model_config(model, nn_config["Training"], log_dir, optimizer=optimizer)
     print_model(model, verbosity)
     viz = config.get("Visualization", {})

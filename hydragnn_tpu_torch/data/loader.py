@@ -10,7 +10,8 @@ pad plan, run-aligned layout and sender windows:
     ``prefetch`` batches ahead (``HGTORCH_NUM_PREFETCH``, default 2; 0
     builds inline), into pinned memory when the loader's device is a
     card, so the consumer's ``batch.to(dev, non_blocking=True)`` is an
-    asynchronous copy;
+    asynchronous copy (``HGTORCH_INJECT_STALL_LOADER=B:S`` sleeps S
+    seconds before batch B of an epoch, in either path);
   - ``cache_device_batches`` builds every batch once, with fixed
     membership, keeps it on the device and permutes only the order;
   - ``device_batches(epoch)`` / ``epoch_order(epoch)`` are what the
@@ -37,6 +38,7 @@ import torch
 
 from hydragnn_tpu_torch.data.dataset import samples_to_graph_dicts
 from hydragnn_tpu_torch.graph.batch import GraphBatch, batch_graphs
+from hydragnn_tpu_torch.resilience.inject import maybe_stall_loader
 from hydragnn_tpu_torch.utils.config import max_in_degree
 
 
@@ -309,6 +311,7 @@ class GraphLoader:
         order = self._order()
         if self.prefetch <= 0:
             for b in range(nb):
+                maybe_stall_loader(b)
                 yield self._host_batch(order[b * bs : (b + 1) * bs])
             return
         # the producer builds batches ahead into a bounded queue; an
@@ -330,6 +333,7 @@ class GraphLoader:
         def producer():
             try:
                 for b in range(nb):
+                    maybe_stall_loader(b)
                     if not put(self._host_batch(order[b * bs : (b + 1) * bs])):
                         return
                 put(done)

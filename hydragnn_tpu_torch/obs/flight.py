@@ -6,7 +6,9 @@ JAX package's ``validate_flight_record`` and ``tools/obs_report.py``
 read the port's records. Each event is one line, written and flushed
 under a lock (the watchdog and the supervisor record from their own
 threads); a run that dies keeps every event up to the crash, the tail
-at worst one truncated line, which the reader skips.
+at worst one truncated line, which the reader skips. An open recorder
+is registered with the lock-order witness (``utils/syncdebug.py``),
+whose ``lock_order`` events land in it.
 
 The ``run_start`` manifest carries the three keys the schema requires:
 ``jax_version`` is None (the port runs no JAX), ``backend`` the device
@@ -26,6 +28,7 @@ import time
 from typing import Any, Dict, List, Optional, Union
 
 from hydragnn_tpu_torch.obs.registry import process_count, process_rank
+from hydragnn_tpu_torch.utils import syncdebug
 
 SCHEMA_VERSION = 2
 SUPPORTED_SCHEMA_VERSIONS = (1, 2)
@@ -116,11 +119,12 @@ class FlightRecorder:
     def __init__(self, path: Optional[str], enabled: bool = True):
         self.path = path
         self.enabled = bool(enabled and path)
-        self._lock = threading.Lock()
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "flight.FlightRecorder._lock")
         self._f = None  # guarded by _lock
         if self.enabled:
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
             self._f = open(path, "a", buffering=1)
+            syncdebug.register_flight(self)
 
     def record(self, kind: str, **payload) -> None:
         if not self.enabled:

@@ -27,6 +27,8 @@ import threading
 from collections import deque
 from typing import Dict, Optional
 
+from hydragnn_tpu_torch.utils import syncdebug
+
 
 def _percentile_nearest_rank(sorted_vals, q: float) -> float:
     """Nearest-rank percentile of an already-sorted sample."""
@@ -47,7 +49,7 @@ class Counter:
 
     def __init__(self, name: str):
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "registry.Counter._lock")
         self._value = 0.0  # guarded by _lock
 
     def inc(self, n: float = 1) -> None:
@@ -70,7 +72,7 @@ class Gauge:
 
     def __init__(self, name: str):
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "registry.Gauge._lock")
         self._value = 0.0  # guarded by _lock
         self._peak = 0.0  # guarded by _lock
 
@@ -102,7 +104,7 @@ class Histogram:
 
     def __init__(self, name: str, window: int = 2048):
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "registry.Histogram._lock")
         self._window: deque = deque(maxlen=window)  # guarded by _lock
         self._count = 0  # guarded by _lock
         self._sum = 0.0  # guarded by _lock
@@ -197,7 +199,7 @@ class MetricsRegistry:
     def __init__(self, enabled: bool = True, rank: Optional[int] = None):
         self.enabled = enabled
         self._rank = rank
-        self._lock = threading.Lock()
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "registry.MetricsRegistry._lock")
         self._metrics: Dict[str, object] = {}  # guarded by _lock
 
     def _get(self, name: str, cls, *args):
@@ -263,7 +265,7 @@ def telemetry_enabled() -> bool:
 
 
 _GLOBAL: Optional[MetricsRegistry] = None  # guarded by _GLOBAL_LOCK
-_GLOBAL_LOCK = threading.Lock()
+_GLOBAL_LOCK = syncdebug.maybe_wrap(threading.Lock(), "registry._GLOBAL_LOCK")
 
 
 def get_registry() -> MetricsRegistry:

@@ -40,6 +40,7 @@ import numpy as np
 
 from hydragnn_tpu_torch.data.container import ContainerDataset, ContainerWriter
 from hydragnn_tpu_torch.data.dataset import GraphSample
+from hydragnn_tpu_torch.utils import syncdebug
 
 SPOOL_SCHEMA = 1
 SHARD_PREFIX = "shard-"
@@ -115,7 +116,7 @@ class RequestSpool:
         self.model_fingerprint = model_fingerprint
         self.head_kinds = dict(head_kinds or {})
         self.flight = flight
-        self._lock = threading.Lock()  # guards every field below
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "spool.RequestSpool._lock")  # guards every field below
         self._seen = 0
         self._pending: List[Any] = []
         self._pending_bytes = 0

@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Union
 
 from hydragnn_tpu_torch.obs.flight import read_flight_record
 from hydragnn_tpu_torch.obs.registry import env_flag, telemetry_enabled
+from hydragnn_tpu_torch.utils import syncdebug
 
 
 def trace_enabled() -> bool:
@@ -96,7 +97,7 @@ class Tracer:
             sample_every = int(os.environ.get("HGTORCH_TRACE_SAMPLE", "100"))
         self.sample_every = max(1, int(sample_every))
         self.flight = flight
-        self._lock = threading.Lock()
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "trace.Tracer._lock")
         self._finished: deque = deque(maxlen=max(1, keep))  # guarded by _lock
         self._count = 0  # guarded by _lock
 

@@ -53,6 +53,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
+from hydragnn_tpu_torch.utils import syncdebug
+
 
 def _knob(name: str, default: float) -> float:
     raw = os.environ.get(name)
@@ -584,7 +586,7 @@ class IncidentRecorder:
         self.overhead_frac = float(overhead_frac)
         self._clock = clock
         self._t0 = clock()
-        self._lock = threading.Lock()
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "triggers.IncidentRecorder._lock")
         self._seq = 0
         self._open: Optional[Incident] = None
         self.capture_s = 0.0

@@ -1,9 +1,73 @@
-"""Fault tolerance (the port's counterpart of ``hydragnn_tpu/resilience/``):
-the training loop's non-finite sentry; the serving path's fault
-injections, hang watchdog and restart policy. Preemption, the
-process-level supervisors, pod checkpoints and hooks wait for ROADMAP
-A-7."""
+"""Fault-tolerant training and serving (the port's counterpart of
+``hydragnn_tpu/resilience/``): the machinery that keeps a run alive on
+preemptible hardware without a human in the loop.
 
-from hydragnn_tpu_torch.resilience.sentry import NonFiniteRollbackExhausted, NonFiniteSentry  # noqa: F401
-from hydragnn_tpu_torch.resilience.supervisor import SupervisorPolicy  # noqa: F401
-from hydragnn_tpu_torch.resilience.watchdog import HangWatchdog, dump_thread_stacks  # noqa: F401
+  - :mod:`~hydragnn_tpu_torch.resilience.preempt`: SIGTERM/SIGINT -> a
+    graceful-stop flag read at batch granularity; a final checkpoint and
+    ``run_end{status:"preempted"}`` inside a grace window; the process
+    exit-code contract (``EXIT_*``) and :func:`run_guard`.
+  - :mod:`~hydragnn_tpu_torch.resilience.sentry`: the host's policy over
+    the guarded train step (skipped-batch accounting, the rollback to
+    the last good checkpoint).
+  - :mod:`~hydragnn_tpu_torch.resilience.watchdog`: a heartbeat thread
+    that writes every Python thread's stack into the flight record and
+    aborts (exit 79) when the loop stalls; serving embeds it against a
+    wedged forward.
+  - :mod:`~hydragnn_tpu_torch.resilience.supervisor`: the bounded
+    restart supervisor (``python -m hydragnn_tpu_torch.tools.supervise``):
+    exponential backoff, exit-cause classification, fail-fast on config
+    errors; its policy also drives serving's dispatch supervisor.
+  - :mod:`~hydragnn_tpu_torch.resilience.inject`: env-gated deterministic
+    fault injection (NaN batch, SIGTERM, SIGKILL mid-checkpoint, stalled
+    loader, and the serving faults), so every path above is testable.
+  - :mod:`~hydragnn_tpu_torch.resilience.hooks`: the per-batch hook
+    bundle ``train/loop.py`` threads through its hot loop.
+
+Everything flows into the flight recorder (``obs/flight.py``); the JAX
+package's ``tools/obs_report.py --faults`` narrates a port run's fault
+history. The pod layer (``PodSupervisor``, ``PodHostLost``, pod
+checkpoints) waits for ROADMAP A-5.
+"""
+
+from hydragnn_tpu_torch.resilience.preempt import (
+    EXIT_CONFIG_ERROR,
+    EXIT_HUNG,
+    EXIT_OK,
+    EXIT_PREEMPTED,
+    EXIT_ROLLBACK_EXHAUSTED,
+    NonFiniteRollbackExhausted,
+    PreemptionHandler,
+    TrainingPreempted,
+    auto_resume_config,
+    run_guard,
+)
+from hydragnn_tpu_torch.resilience.sentry import NonFiniteSentry
+from hydragnn_tpu_torch.resilience.watchdog import HangWatchdog, dump_thread_stacks
+from hydragnn_tpu_torch.resilience.supervisor import (
+    FAIL_FAST_CAUSES,
+    Supervisor,
+    SupervisorPolicy,
+    classify_exit,
+)
+from hydragnn_tpu_torch.resilience.hooks import TrainHooks
+
+__all__ = [
+    "EXIT_OK",
+    "EXIT_PREEMPTED",
+    "EXIT_ROLLBACK_EXHAUSTED",
+    "EXIT_CONFIG_ERROR",
+    "EXIT_HUNG",
+    "TrainingPreempted",
+    "NonFiniteRollbackExhausted",
+    "PreemptionHandler",
+    "auto_resume_config",
+    "run_guard",
+    "NonFiniteSentry",
+    "HangWatchdog",
+    "dump_thread_stacks",
+    "Supervisor",
+    "SupervisorPolicy",
+    "FAIL_FAST_CAUSES",
+    "classify_exit",
+    "TrainHooks",
+]

@@ -1,11 +1,37 @@
-"""Env-gated deterministic fault injection, the serving part.
-
-The port's counterpart of the serve half of
-``hydragnn_tpu/resilience/inject.py``, with the JAX package's spec
+"""Env-gated deterministic fault injection (the port's counterpart of
+``hydragnn_tpu/resilience/inject.py``), with the JAX package's spec
 grammar under the port's ``HGTORCH_`` prefix. Every hook is a no-op
-unless its variable is set. Request numbers are the server's admission
-sequence (0-based), so an injection follows its request through batch
-coalescing and the retry-as-singles poison hunt.
+unless its variable is set, and the restart supervisor strips every name
+of :data:`INJECTIONS` from restarted children, so an injected fault
+fires once a supervised run.
+
+Training faults (step numbers are process-local dispatch counts, 0-based,
+counted by ``resilience/hooks.py:TrainHooks``, so an injection is
+deterministic whatever the resume state):
+
+  =================================  ==========================================
+  HGTORCH_INJECT_NAN_STEP=N[:M]      train steps N..N+M-1 (M=1) get a new
+                                     batch whose node features are NaN
+  HGTORCH_INJECT_SIGTERM_STEP=N      SIGTERM to itself before train step N
+  HGTORCH_INJECT_SIGTERM_EPOCH=E     SIGTERM to itself at the start of epoch E
+  HGTORCH_INJECT_KILL_CHECKPOINT=K   during the K-th (1-indexed) checkpoint
+                                     save of the process: the latest file is
+                                     written TRUNCATED in place (a torn write
+                                     on a filesystem without atomic replace)
+                                     and the process SIGKILLs itself
+  HGTORCH_INJECT_STALL_LOADER=B:S    the loader sleeps S seconds (default
+                                     3600) before building batch B of an
+                                     epoch (drives the hang watchdog)
+  HGTORCH_INJECT_TRIGGER=<rule>      the SLO rule of that name force-fires
+                                     at its engine's next evaluation, once
+                                     a process (``obs/triggers.py``)
+  HGTORCH_INJECT_LOCK_ORDER=A,B      the lock-order witness's one-shot
+                                     self-test (``utils/syncdebug.py``)
+  =================================  ==========================================
+
+Serving faults (request numbers are the server's admission sequence,
+0-based, so an injection follows its request through batch coalescing and
+the retry-as-singles poison hunt):
 
   =====================================  ======================================
   HGTORCH_INJECT_SERVE_RAISE=N           the forward raises for any batch
@@ -23,9 +49,6 @@ coalescing and the retry-as-singles poison hunt.
   HGTORCH_INJECT_SERVE_TORN_RELOAD=1     ModelServer.reload turns the
                                          candidate weights to NaN before the
                                          canary (which must refuse them)
-  HGTORCH_INJECT_TRIGGER=<rule>          the SLO rule of that name force-fires
-                                         at its engine's next evaluation, once
-                                         a process (``obs/triggers.py``)
   HGTORCH_INJECT_DRIFT=SHIFT             every admitted request's node features
                                          shift by SHIFT (a float) at admission,
                                          so the drift sketches and the model
@@ -33,17 +56,39 @@ coalescing and the retry-as-singles poison hunt.
                                          rule and the spool; ``obs/drift.py``)
   =====================================  ======================================
 
-The other training injections and the pod ones wait for ROADMAP A-7.
+The retrain pilot's and the pod's injections wait for ROADMAP A-7b and
+A-5.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import signal
 import threading
 import time
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 INJECT_PREFIX = "HGTORCH_INJECT_"
+
+#: Every injection of the port, by name: what ``active_injections`` reads
+#: and ``strip_injection_env`` drops (the role of the JAX package's knob
+#: registry, ``hydragnn_tpu/utils/knobs.py``).
+INJECTIONS = (
+    "HGTORCH_INJECT_NAN_STEP",
+    "HGTORCH_INJECT_SIGTERM_STEP",
+    "HGTORCH_INJECT_SIGTERM_EPOCH",
+    "HGTORCH_INJECT_KILL_CHECKPOINT",
+    "HGTORCH_INJECT_STALL_LOADER",
+    "HGTORCH_INJECT_TRIGGER",
+    "HGTORCH_INJECT_LOCK_ORDER",
+    "HGTORCH_INJECT_SERVE_RAISE",
+    "HGTORCH_INJECT_SERVE_NAN",
+    "HGTORCH_INJECT_SERVE_WEDGE",
+    "HGTORCH_INJECT_SERVE_KILL_DISPATCH",
+    "HGTORCH_INJECT_SERVE_TORN_RELOAD",
+    "HGTORCH_INJECT_DRIFT",
+)
 
 
 def _spec(name: str) -> Optional[str]:
@@ -55,6 +100,81 @@ def _two_ints(spec: str, default_second: int) -> Tuple[int, int]:
     parts = spec.split(":")
     b = int(parts[1]) if len(parts) > 1 and parts[1] else default_second
     return int(parts[0]), b
+
+
+def active_injections(env: Optional[Dict[str, str]] = None, include_serve: bool = False) -> List[str]:
+    """The names of :data:`INJECTIONS` set (non-empty) in the environment,
+    or in ``env``, sorted. ``include_serve=False`` leaves out the serving
+    family: what the dispatch resolution asks (a training injection is
+    step-indexed and needs the per-step path)."""
+    src = os.environ if env is None else env
+    return sorted(
+        k for k in INJECTIONS
+        if src.get(k) and (include_serve or not k.startswith("HGTORCH_INJECT_SERVE"))
+    )
+
+
+def maybe_nan_batch(batch, step: int):
+    """A NEW batch whose node features are NaN when ``step`` is inside
+    the injected window, else ``batch`` itself. The given batch is never
+    written: resident batches and pinned staging buffers are reused
+    across epochs."""
+    spec = _spec("HGTORCH_INJECT_NAN_STEP")
+    if spec is None:
+        return batch
+    start, count = _two_ints(spec, 1)
+    if not start <= step < start + count:
+        return batch
+    import torch
+
+    return dataclasses.replace(batch, nodes=torch.full_like(batch.nodes, float("nan")))
+
+
+def maybe_sigterm(step: Optional[int] = None, epoch: Optional[int] = None) -> None:
+    """SIGTERM to this process at the injected step or epoch boundary."""
+    if step is not None:
+        spec = _spec("HGTORCH_INJECT_SIGTERM_STEP")
+        if spec is not None and step == int(spec):
+            os.kill(os.getpid(), signal.SIGTERM)
+    if epoch is not None:
+        spec = _spec("HGTORCH_INJECT_SIGTERM_EPOCH")
+        if spec is not None and epoch == int(spec):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+# checkpoint saves of this process; only the thread that writes
+# checkpoints (the train loop's) counts them
+_CHECKPOINT_SAVES = 0
+
+
+def maybe_kill_checkpoint(path: str, data: bytes) -> None:
+    """During the K-th checkpoint save: leave ``path`` TRUNCATED (half the
+    payload, written in place, bypassing the temporary file and the
+    atomic rename, as a filesystem that tears writes on power loss would)
+    and SIGKILL the process. The restart must reject the torn file and
+    restore the previous good one."""
+    spec = _spec("HGTORCH_INJECT_KILL_CHECKPOINT")
+    if spec is None:
+        return
+    global _CHECKPOINT_SAVES
+    _CHECKPOINT_SAVES += 1
+    if _CHECKPOINT_SAVES != int(spec):
+        return
+    with open(path, "wb") as f:
+        f.write(data[: max(len(data) // 2, 1)])
+        f.flush()
+        os.fsync(f.fileno())
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_stall_loader(batch_index: int) -> None:
+    """Sleep before the loader builds the injected batch of an epoch."""
+    spec = _spec("HGTORCH_INJECT_STALL_LOADER")
+    if spec is None:
+        return
+    b, seconds = _two_ints(spec, 3600)
+    if batch_index == b:
+        time.sleep(seconds)
 
 
 def maybe_serve_raise(seqs) -> None:
@@ -147,7 +267,9 @@ def serve_torn_reload() -> bool:
 
 
 def strip_injection_env(env: dict) -> dict:
-    """A copy of ``env`` without any ``HGTORCH_INJECT_*`` variable (the
-    table above, ``HGTORCH_INJECT_DRIFT`` among them), so a restarted
-    process does not fire an injected fault again."""
-    return {k: v for k, v in env.items() if not k.startswith(INJECT_PREFIX)}
+    """A copy of ``env`` without the injections: every name of
+    :data:`INJECTIONS` set there (``active_injections``), and any other
+    ``HGTORCH_INJECT_*`` name as a backstop, so a restarted process does
+    not fire an injected fault again."""
+    drop = set(active_injections(env=env, include_serve=True))
+    return {k: v for k, v in env.items() if k not in drop and not k.startswith(INJECT_PREFIX)}

@@ -23,7 +23,11 @@ import torch
 class NonFiniteRollbackExhausted(RuntimeError):
     """The run kept producing non-finite steps after its rollback budget
     (or with no checkpoint to roll back to): a data or model fault that
-    retrying will not cure."""
+    retrying will not cure. A supervised run exits with 76
+    (``resilience/preempt.py:EXIT_ROLLBACK_EXHAUSTED``), which the
+    supervisor fails fast on."""
+
+    exit_code = 76
 
 
 class NonFiniteSentry:

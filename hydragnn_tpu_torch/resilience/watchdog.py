@@ -9,8 +9,10 @@ settings: ``gate`` (a stall counts only while the gate returns True, so
 a server idle on its queue is not hung), ``rearm=True`` (a fresh beat
 clears ``fired`` and re-arms the detector) and ``end_run_on_fire=False``
 (the flight record stays open). Without an ``action`` a stall aborts
-the process with exit code 79, as the JAX package's does; the training
-loop's use of it waits for ROADMAP A-7.
+the process with exit code 79, as the JAX package's does: the training
+loop (``Training.watchdog_stall_s`` or ``HGTORCH_WATCHDOG_S``) beats it
+once a batch and in the BatchNorm recalibration passes, and a stall ends
+its flight record with ``run_end{status:"hung"}``.
 """
 
 from __future__ import annotations

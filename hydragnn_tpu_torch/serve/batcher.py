@@ -18,6 +18,8 @@ from collections import deque
 from concurrent.futures import Future
 from typing import Any, List, Optional, Tuple
 
+from hydragnn_tpu_torch.utils import syncdebug
+
 
 class Overloaded(RuntimeError):
     """The request queue is full — explicit load-shedding signal."""
@@ -56,7 +58,7 @@ class MicroBatchQueue:
         self._max_batch = max_batch
         self._max_delay_s = float(max_delay_s)
         self._max_pending = max_pending
-        self._cv = threading.Condition()
+        self._cv = syncdebug.maybe_wrap(threading.Condition(), "batcher.MicroBatchQueue._cv")
         # guarded by _cv
         self._pending: List[deque] = [deque() for _ in range(num_buckets)]
         self._count = 0

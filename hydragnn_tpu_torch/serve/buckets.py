@@ -42,6 +42,7 @@ import torch
 from hydragnn_tpu_torch.data.loader import bucket_pad_plans
 from hydragnn_tpu_torch.graph.batch import GraphBatch
 from hydragnn_tpu_torch.models.create import create_model
+from hydragnn_tpu_torch.utils import syncdebug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,7 +190,7 @@ class BucketGraphCache:
         self._metrics = metrics
         self._entries: Dict[Tuple[int, int], _Entry] = {}  # written under _lock
         # serialises every run and every weight write (module docstring)
-        self._lock = threading.Lock()
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "buckets.BucketGraphCache._lock")
         self.active = 0  # the live slot; written under _lock
         self.captures = 0
         self.warm_forwards = 0

@@ -33,6 +33,7 @@ from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.base import HydraModel
 from hydragnn_tpu_torch.models.create import create_model, model_config_from_dict
 from hydragnn_tpu_torch.utils.checkpoint import load_existing_model
+from hydragnn_tpu_torch.utils import syncdebug
 
 
 @dataclasses.dataclass
@@ -58,7 +59,7 @@ class ModelRegistry:
     def __init__(self, log_dir: str = "./logs/", device: Optional[str] = "cuda"):
         self.log_dir = log_dir
         self.device = resolve_device(device)
-        self._lock = threading.Lock()
+        self._lock = syncdebug.maybe_wrap(threading.Lock(), "registry.ModelRegistry._lock")
         self._models: Dict[str, ServedModel] = {}  # guarded by _lock
 
     def _add(self, served: ServedModel) -> ServedModel:

@@ -81,6 +81,7 @@ from hydragnn_tpu_torch.serve.buckets import Bucket, BucketGraphCache, build_buc
 from hydragnn_tpu_torch.serve.metrics import ServeMetrics
 from hydragnn_tpu_torch.serve.registry import ServedModel, load_served_variables, structural_fingerprint
 from hydragnn_tpu_torch.serve.supervise import DispatchSupervisor
+from hydragnn_tpu_torch.utils import syncdebug
 
 
 class Oversize(RuntimeError):
@@ -282,10 +283,10 @@ class ModelServer:
             len(self.buckets), self.config.max_batch, self.config.max_delay_ms / 1e3, self.config.max_pending
         )
         self._eager_shapes: set = set()  # guarded by _eager_lock
-        self._eager_lock = threading.Lock()
+        self._eager_lock = syncdebug.maybe_wrap(threading.Lock(), "server.ModelServer._eager_lock")
         self._seq = itertools.count()  # admission sequence (the injections' anchor)
         self._dispatched_batches = 0  # the dispatch thread's alone
-        self._reload_lock = threading.Lock()
+        self._reload_lock = syncdebug.maybe_wrap(threading.Lock(), "server.ModelServer._reload_lock")
         # lifecycle state, written by the owning thread in start()/stop()
         self._started = False
         self._stopped = False
@@ -304,7 +305,7 @@ class ModelServer:
         self.obs_arming: Dict[str, Any] = {"spool": {"enabled": False}, "drift": {"armed": False}}
         self._t_started = 0.0
         self._pilot = None  # attach_pilot(), before traffic
-        self._pin_lock = threading.Lock()
+        self._pin_lock = syncdebug.maybe_wrap(threading.Lock(), "server.ModelServer._pin_lock")
         # spool shards pinned for each open incident, released by the
         # recorder's on_close: no bundle points at evicted traffic
         self._incident_pins: Dict[str, List[str]] = {}  # guarded by _pin_lock

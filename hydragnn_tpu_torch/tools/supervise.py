@@ -1,0 +1,110 @@
+"""Bounded restart supervisor CLI (the port's copy of the JAX package's
+``tools/supervise.py``; it imports no JAX): keep a training command alive
+through preemptions and crashes, without looping on a run that can never
+succeed (``hydragnn_tpu_torch/resilience/supervisor.py``):
+
+    python -m hydragnn_tpu_torch.tools.supervise [options] -- python my_training_script.py ...
+
+The child should wrap its ``run_training`` call in
+``hydragnn_tpu_torch.resilience.run_guard()`` so its exits follow the
+contract the supervisor classifies:
+
+    0   completed            done
+    75  preempted            restart at once (HGTORCH_AUTO_RESUME=1)
+    76  rollback exhausted   FAIL FAST (a deterministic non-finite run)
+    78  config error         FAIL FAST
+    79  hung (watchdog)      retry with backoff
+    *   crash / signal       retry with exponential backoff
+
+Restarted children get ``HGTORCH_AUTO_RESUME=1`` and, by default, no
+``HGTORCH_INJECT_*`` variable. ``--flight`` writes the supervisor's own
+flight record (one ``restart`` event a re-run and a final ``run_end``)
+beside the run's. ``--max-wall-s`` kills an attempt that outlives it and
+counts it as hung.
+
+``--pod N`` and ``--pod-elastic`` (a pod of simulated hosts) belong to
+the pod layer, which waits for ROADMAP A-5: they exit with
+``EXIT_CONFIG_ERROR`` (78) and say so.
+
+The supervisor's own exit code is the final child's (0 when the run
+completed), so wrapping scripts compose.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+from hydragnn_tpu_torch.obs.flight import FlightRecorder
+from hydragnn_tpu_torch.resilience.preempt import EXIT_CONFIG_ERROR
+from hydragnn_tpu_torch.resilience.supervisor import Supervisor, SupervisorPolicy, wall_clock_runner
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--" not in argv:
+        print("usage: python -m hydragnn_tpu_torch.tools.supervise [options] -- <command> [args...]",
+              file=sys.stderr)
+        return 2
+    split = argv.index("--")
+    opts, child = argv[:split], argv[split + 1:]
+    if not child:
+        print("supervise: empty child command", file=sys.stderr)
+        return 2
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--max-restarts", type=int, default=5)
+    p.add_argument("--max-preemptions", type=int, default=1000)
+    p.add_argument("--backoff-base", type=float, default=1.0)
+    p.add_argument("--backoff-factor", type=float, default=2.0)
+    p.add_argument("--backoff-max", type=float, default=60.0)
+    p.add_argument("--no-auto-resume", action="store_true",
+                   help="do not set HGTORCH_AUTO_RESUME=1 for restarted children")
+    p.add_argument("--keep-injection", action="store_true",
+                   help="keep HGTORCH_INJECT_* variables across restarts (default: stripped, so an injected "
+                        "fault fires once)")
+    p.add_argument("--max-wall-s", type=float, default=None,
+                   help="a hard wall clock an attempt: kill the child (SIGTERM, then SIGKILL) after this many "
+                        "seconds and classify the attempt as hung/79")
+    p.add_argument("--flight", default=None,
+                   help="write the supervisor's flight record (restart events and the final summary) to this "
+                        "JSONL path")
+    p.add_argument("--pod", type=int, default=None, metavar="N",
+                   help="supervise a pod of N simulated hosts: waits for ROADMAP A-5 (exits 78)")
+    p.add_argument("--pod-elastic", action="store_true",
+                   help="restart a pod with N-1 hosts after a host loss: waits for ROADMAP A-5 (exits 78)")
+    p.add_argument("--pod-grace", type=float, default=30.0, help="pod mode only (ROADMAP A-5)")
+    p.add_argument("--run-id", default=None, help="pod mode only (ROADMAP A-5)")
+    args = p.parse_args(opts)
+
+    if args.pod is not None or args.pod_elastic:
+        print("supervise: --pod/--pod-elastic supervise a pod of hosts, which the port does not have yet "
+              "(ROADMAP A-5: the parallel layer and pod checkpoints); refusing rather than running one process",
+              file=sys.stderr)
+        return EXIT_CONFIG_ERROR
+
+    policy = SupervisorPolicy(
+        max_restarts=args.max_restarts,
+        max_preemptions=args.max_preemptions,
+        backoff_base_s=args.backoff_base,
+        backoff_factor=args.backoff_factor,
+        backoff_max_s=args.backoff_max,
+        auto_resume=not args.no_auto_resume,
+        strip_injection=not args.keep_injection,
+    )
+    flight = FlightRecorder(args.flight, enabled=args.flight is not None)
+    # the supervisor runs no model: its run_start names the child and the policy
+    flight.start_run({"supervisor": True, "argv": child, "policy": vars(args)})
+    runner = wall_clock_runner(args.max_wall_s) if args.max_wall_s is not None else None
+    sup = Supervisor(child, policy=policy, env=dict(os.environ), flight=flight, runner=runner)
+    result = sup.run()
+    flight.close()
+    print("supervise: " + json.dumps({k: v for k, v in result.items() if k != "history"}), file=sys.stderr)
+    return int(result["exit_code"]) if result["status"] != "completed" else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

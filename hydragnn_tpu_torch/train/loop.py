@@ -7,11 +7,11 @@ Semantics kept from the JAX package:
     epoch trains on fixed-membership batches resident on the device
     (``GraphLoader.device_batches``, the JAX package's whole-epoch scan
     over ``stacked_device_batches``: the same batches in the same order,
-    step for step), unless a ``Profile`` section or a hang watchdog asks
-    for per-step streaming, or the split does not fit on the device
-    (then it streams, and says why). The port launches the fixed epoch
-    step by step; ``history["dispatch_mode"]`` says which mode ran and
-    why (printed at verbosity > 0).
+    step for step), unless a training fault injection, a hang watchdog
+    or a ``Profile`` section asks for per-step streaming, or the split
+    does not fit on the device (then it streams, and says why). The port
+    launches the fixed epoch step by step; ``history["dispatch_mode"]``
+    says which mode ran and why (printed at verbosity > 0).
   - losses are averaged weighted by each batch's real graph count
     (``graph_mask``), so padding never dilutes them; per-batch losses
     stay on the device and are read once per epoch;
@@ -65,7 +65,22 @@ epoch's end and opens incident bundles under ``incidents/``;
 changes what the run trains: the history and the parameters are bit
 for bit those of a run with telemetry off.
 
-Not ported yet: preemption, the watchdog and fault injection (A-7).
+**Resilience** (``hydragnn_tpu_torch/resilience``, the JAX loop's
+wiring): unless ``Training.preempt_handler`` is false the loop installs a
+``PreemptionHandler`` (SIGTERM/SIGINT; hard exit 75 after
+``Training.preempt_grace_s``, default 30 s); a stop seen at an epoch's
+start, after a per-step epoch that stopped mid-way (the resumed run
+re-runs it) or after an epoch's evaluation writes the checkpoint and
+meta pair, records ``preempt`` and ``run_end{status: preempted}`` and
+raises ``TrainingPreempted`` (``run_guard`` maps it to exit 75).
+``Training.watchdog_stall_s`` or ``HGTORCH_WATCHDOG_S`` above 0 starts a
+``HangWatchdog`` (exit 79, ``run_end{status: hung}``), beaten once a batch
+and in the BatchNorm recalibration passes. ``TrainHooks`` carries both
+and the step-indexed ``HGTORCH_INJECT_*`` faults through the per-step
+loop. The fixed epoch, the counterpart of the JAX package's one-dispatch
+scan, runs no per-step hook: a signal there is seen at the epoch's
+boundaries. Every exit path tears the hooks down (the handler's timer
+cancelled, the watchdog stopped).
 """
 
 from __future__ import annotations
@@ -89,7 +104,15 @@ from hydragnn_tpu_torch.obs import (
 )
 from hydragnn_tpu_torch.obs.registry import env_flag, process_count
 from hydragnn_tpu_torch.postprocess.visualizer import Visualizer
-from hydragnn_tpu_torch.resilience import NonFiniteRollbackExhausted, NonFiniteSentry
+from hydragnn_tpu_torch.resilience import (
+    HangWatchdog,
+    NonFiniteRollbackExhausted,
+    NonFiniteSentry,
+    PreemptionHandler,
+    TrainHooks,
+    TrainingPreempted,
+)
+from hydragnn_tpu_torch.resilience.inject import active_injections
 from hydragnn_tpu_torch.train.optimizer import current_learning_rate, set_learning_rate
 from hydragnn_tpu_torch.train.state import eval_step, make_train_step, stats_step
 from hydragnn_tpu_torch.utils import checkpoint as ckpt
@@ -209,11 +232,14 @@ def _epoch_batches(loader, epoch: int, fixed: bool):
 def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool = False,
                 sentry: Optional[NonFiniteSentry] = None,
                 timing: Optional[Dict[str, float]] = None, profiler=None, spans=None, diag=None,
-                incidents=None) -> Tuple[float, np.ndarray]:
+                incidents=None, hooks: Optional[TrainHooks] = None) -> Tuple[float, np.ndarray]:
     """One training epoch of ``step_fn`` (``make_train_step``; guarded when
     ``sentry`` is given) over the loader's streamed batches, or over its
     resident fixed-membership batches in the epoch's order (``fixed``);
     ``profiler`` (``utils/profile.py``) is stepped after each batch.
+    ``hooks`` (``resilience/hooks.py``), on the streamed path only: the
+    epoch stops before a batch once a preemption is flagged, and
+    ``before_step`` beats the watchdog and fires the step's injections.
     Telemetry: ``spans`` (``obs/spans.py``) times each step, ``diag``
     (``obs/introspect.py:HeadDiagnostics``) samples before a step, and
     ``incidents`` (``obs/triggers.py:IncidentRecorder``) is ticked after
@@ -222,8 +248,14 @@ def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool 
     acc = _MetricAccum()
     if spans is None:
         spans = StepSpans.disabled()
+    if fixed:
+        hooks = None  # one dispatch an epoch in the JAX package: no per-step hook
     for batch in spans.timed_iter(_timed(_epoch_batches(loader, epoch, fixed), timing)):
+        if hooks is not None and hooks.preempted:
+            break
         batch = batch.to(dev, non_blocking=True)
+        if hooks is not None:
+            batch = hooks.before_step(batch)
         if diag is not None:
             diag.maybe_sample(batch)
         if sentry is not None:
@@ -282,6 +314,18 @@ def test_epoch(
     return loss, tasks, true_values, pred_values
 
 
+def _watchdog_knob() -> float:
+    """``HGTORCH_WATCHDOG_S``: the hang watchdog's stall seconds when the
+    config sets none (0: off)."""
+    raw = os.environ.get("HGTORCH_WATCHDOG_S", "").strip()
+    if not raw:
+        return 0.0
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"HGTORCH_WATCHDOG_S must be a number, got {raw!r}") from None
+
+
 def _fixed_auto_eligible(loader) -> Tuple[bool, str]:
     """Is the fixed-membership epoch the right default for ``loader``?"""
     if not hasattr(loader, "device_batches") or not hasattr(loader, "shuffle"):
@@ -291,11 +335,18 @@ def _fixed_auto_eligible(loader) -> Tuple[bool, str]:
             return False, "empty loader"
     except TypeError:
         return False, "unsized loader"
+    injections = active_injections(include_serve=False)
+    if injections:
+        # the injections are step-indexed: they need the per-step path
+        return False, f"fault injection active ({injections[0]})"
+    if _watchdog_knob() > 0:
+        # the watchdog beats once a batch; a whole-epoch dispatch would read as a stall
+        return False, "hang watchdog active"
     return True, "single-device run + device-resident fixed-membership batches"
 
 
 def resolve_dispatch(training: Dict[str, Any], config: Dict[str, Any], train_loader) -> Dict[str, Any]:
-    """The JAX package's dispatch resolution (``loop.py:563-595``):
+    """The JAX package's dispatch resolution (``loop.py:470-499, 563-595``):
     ``{"mode": "fixed_epoch" | "per_step", "auto": bool, "reason": str}``.
     In auto mode it builds the train split's resident batches, and falls
     back to streaming when that fails (the split does not fit)."""
@@ -508,9 +559,21 @@ def train_validate_test(
         if rank0:
             incidents = IncidentRecorder(os.path.join(log_dir, log_name, "incidents"), registry=get_registry(),
                                          flight_path=flight.path, device=dev)
+    # resilience (module docstring): the preemption handler, the hang
+    # watchdog, and the hooks that carry them and the sentry
+    preempt = (
+        PreemptionHandler(grace_s=float(training.get("preempt_grace_s", 30.0))).install()
+        if training.get("preempt_handler", True)
+        else None
+    )
+    stall_s = float(training.get("watchdog_stall_s", 0) or _watchdog_knob() or 0)
+    watchdog = HangWatchdog(stall_s, flight=flight).start() if stall_s > 0 else None
+    hooks = TrainHooks(preempt=preempt, sentry=sentry, watchdog=watchdog)
+
     def abort_telemetry(exc: BaseException, epochs: int) -> None:
         """A crashed run still leaves a readable record: the ``error``
         event and ``run_end{status: failed}``, then the re-raise."""
+        hooks.teardown()
         if incidents is not None:
             incidents.finalize()
         flight.error(exc)
@@ -536,6 +599,25 @@ def train_validate_test(
             },
             log_name, log_dir,
         )
+
+    def preempt_exit(epoch: int) -> None:
+        """A graceful stop inside the handler's grace window: the
+        checkpoint and meta pair for ``epoch``, the ``preempt`` event,
+        ``run_end{status: preempted}``, the telemetry closed, then
+        ``TrainingPreempted`` (exit 75 under ``run_guard``)."""
+        signum = preempt.signum if preempt is not None and preempt.signum is not None else 0
+        write_checkpoint(epoch, early_stopped=False)
+        flight.record("preempt", signal=signum, epoch=epoch, step=int(optimizer.steps))
+        if incidents is not None:
+            incidents.finalize()
+        flight.end_run(status="preempted", epochs=epoch - start_epoch)
+        if cmon is not None:
+            cmon.stop()
+        if own_flight:
+            flight.close()
+        writer.flush()
+        hooks.teardown()
+        raise TrainingPreempted(signum, epoch)
 
     def rollback(epoch: int, consec_end: int) -> None:
         """Restore the last good checkpoint at a reduced learning rate, or
@@ -609,6 +691,7 @@ def train_validate_test(
                 model, config, run_config, log_name, log_dir, dev, (train_loader, val_loader, test_loader),
                 num_epoch=num_epoch, start_epoch=start_epoch, compute_dtype=compute_dtype, dispatch=dispatch,
                 cmon=cmon, guard=guard, diag=diag, ledger=ledger, extra=manifest_extra,
+                preempt=preempt, stall_s=stall_s,
             ), device=dev)
             if resumed_from is not None:
                 flight.record("resumed", epoch=resumed_from)
@@ -623,10 +706,11 @@ def train_validate_test(
     epochs_done = start_epoch
     try:
         for epoch in range(start_epoch, num_epoch):
+            hooks.epoch_start(epoch)
+            if hooks.preempted:
+                preempt_exit(epoch)
             for loader in (train_loader, val_loader, test_loader):
                 loader.set_epoch(epoch)
-            if sentry is not None:
-                sentry.epoch_start()
             profiled = profiler is not None and not profiler.done and epoch == profiler.target_epoch
             if profiler is not None:
                 profiler.set_current_epoch(epoch)
@@ -641,13 +725,16 @@ def train_validate_test(
             with profiler if profiler is not None else contextlib.nullcontext():
                 train_loss, train_tasks = train_epoch(train_loader, model, step_fn, epoch, fixed, sentry, timing,
                                                       profiler, spans=spans, diag=diag,
-                                                      incidents=None if profiled else incidents)
+                                                      incidents=None if profiled else incidents, hooks=hooks)
             # finalize read the losses: the steps are done
             train_wall = time.perf_counter() - t0
             history["train_wall_s"].append(train_wall)
             history["data_wait_s"].append(timing.get("data_wait_s", 0.0))
             if profiled and profiler.trace_path is not None:
                 flight.record("profile_trace", path=profiler.trace_path, epoch=epoch)
+            if hooks.preempted:
+                # stopped mid-epoch: the epoch is incomplete and the resumed run re-runs it
+                preempt_exit(epoch)
             nonfinite = None
             if sentry is not None:
                 skipped, consec_end = sentry.epoch_finalize()
@@ -688,6 +775,9 @@ def train_validate_test(
             epochs_done = epoch + 1
             if ckpt_every and (epoch + 1) % ckpt_every == 0:
                 write_checkpoint(epoch + 1, early_stopped=False)
+            if hooks.preempted:
+                # the signal landed during evaluation: this epoch is complete and recorded
+                preempt_exit(epoch + 1)
             if stop:
                 if verbosity > 0:
                     print(f"Early stopping at epoch {epoch}", flush=True)
@@ -698,6 +788,7 @@ def train_validate_test(
         if training.get("bn_recalibration", True) and not resumed_noop:
             for _ in range(2):
                 for batch in train_loader:
+                    hooks.beat()  # the recalibration batches count as liveness
                     stats_step(model, batch.to(dev, non_blocking=True))
         if ckpt_every and not resumed_noop:
             write_checkpoint(epochs_done, early_stopped=bool(stopper and stopper.count >= stopper.patience))
@@ -708,6 +799,9 @@ def train_validate_test(
             visualizer.create_plot_global(tv, pv)
             visualizer.create_reference_plot_suite(tv, pv, model.cfg.output_type, nodes_per_graph)
             visualizer.plot_history(history)
+    except TrainingPreempted:
+        # preempt_exit wrote the checkpoint and the record and tore the hooks down
+        raise
     except BaseException as exc:
         timer.stop_if_running()
         abort_telemetry(exc, epochs_done - start_epoch)
@@ -737,11 +831,12 @@ def train_validate_test(
     )
     if own_flight:
         flight.close()
+    hooks.teardown()
     return history
 
 
 def _manifest(model, config, run_config, log_name, log_dir, dev, loaders, *, num_epoch, start_epoch, compute_dtype,
-              dispatch, cmon, guard, diag, ledger, extra) -> Dict[str, Any]:
+              dispatch, cmon, guard, diag, ledger, extra, preempt, stall_s) -> Dict[str, Any]:
     """The ``run_start`` manifest: what the run is and how to rerun it.
     Keys the port has no counterpart for yet say so (``parallel``,
     ``graftcheck``, ``podview``)."""
@@ -755,7 +850,6 @@ def _manifest(model, config, run_config, log_name, log_dir, dev, loaders, *, num
         from hydragnn_tpu_torch.obs.drift import build_reference
 
         stats_block = build_reference(samples, head_names=list(model.cfg.output_names))
-    training = config["Training"]
     return {
         "run": log_name,
         "log_dir": log_dir,
@@ -778,7 +872,8 @@ def _manifest(model, config, run_config, log_name, log_dir, dev, loaders, *, num
         "dispatch_mode": dict(dispatch),
         "compile_monitor_available": bool(cmon and cmon.available),
         "nonfinite_guard": guard,
-        "watchdog_stall_s": float(training.get("watchdog_stall_s", 0) or 0) or None,
+        "preempt_handler": bool(preempt and preempt.available),
+        "watchdog_stall_s": stall_s or None,
         "head_names": list(model.cfg.output_names),
         "diagnostics": {"enabled": diag is not None, "diag_every": diag.every if diag is not None else None},
         "hw_cost": ledger.manifest() if ledger is not None else {"available": False},

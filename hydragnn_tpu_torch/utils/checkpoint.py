@@ -143,6 +143,12 @@ def save_model(
         _atomic_write(vp, data)
         _atomic_write(vp + ".sha256", _sha256_hex(data).encode())
         _prune_versions(log_name, path, int(keep_last))
+    # HGTORCH_INJECT_KILL_CHECKPOINT: the K-th save tears the latest file
+    # and SIGKILLs the process; load_existing_model's validation recovers
+    # from it
+    from hydragnn_tpu_torch.resilience.inject import maybe_kill_checkpoint
+
+    maybe_kill_checkpoint(target, data)
     _atomic_write(target, data)
     return target
 

@@ -39,12 +39,13 @@ from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+from hydragnn_tpu_torch.utils import syncdebug
 
 WAIT, WARMUP, ACTIVE = 5, 3, 3
 
 # the process's one capture: "idle", "active" or "stopping" (the slot
 # stays taken while a capture is torn down outside the lock)
-_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_LOCK = syncdebug.maybe_wrap(threading.Lock(), "profile._CAPTURE_LOCK")
 _CAPTURE_STATE = "idle"  # guarded by _CAPTURE_LOCK
 _CAPTURE = None  # (profile, prefix, cuda) of try_start_capture's capture; guarded by _CAPTURE_LOCK
 

@@ -2,7 +2,8 @@
 module of ``hydragnn_tpu_torch`` (and ``chip_smoke.py``'s imports), then
 finds no ``jax``, ``flax``, ``optax`` or ``hydragnn_tpu`` (the exact
 package, not the prefix) in ``sys.modules``. The walk covers the
-serving path's ``obs/`` and ``resilience/`` subpackages."""
+serving path's ``obs/`` and ``resilience/`` subpackages, the lock-order
+witness and the supervise CLI."""
 
 import os
 import subprocess
@@ -44,5 +45,6 @@ def test_port_imports_no_jax():
     assert lines[-1] == "BAD []", proc.stdout
     walked = set(lines[1].split()[1:])
     for mod in ("obs.registry", "obs.export", "obs.flight", "obs.trace", "resilience.inject",
-                "resilience.watchdog", "resilience.supervisor", "serve.supervise", "serve.buckets"):
+                "resilience.watchdog", "resilience.supervisor", "serve.supervise", "serve.buckets",
+                "resilience.preempt", "resilience.hooks", "utils.syncdebug", "tools.supervise"):
         assert f"hydragnn_tpu_torch.{mod}" in walked, mod
