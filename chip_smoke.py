@@ -228,9 +228,29 @@ raises; nothing is caught):
                    wall. The uninterrupted run's and (a)'s launches are
                    held to launch_plan.
  9m. lock-witness — the [serve] burst with the lock-order witness off and
-                   on: 0 violations, p50 and requests/s of both; an
+                   on: 0 violations, p50 and requests/s of both, and
+                   under the device lock, a plain lock and none, in
+                   turns; an
                    injected order inversion on two of the server's locks
                    gives one valid lock_order event, the server answering.
+ 9n. pilot       — the retrain pilot on the flagship at full width served
+                   from CUDA graphs off a run on disk: (a) a drift shift
+                   opens one incident and the real supervised fine-tune
+                   child on the card, the canary and the reload complete
+                   a cycle (answers bit-equal to the candidate's eager
+                   forward, the serving checkpoint unchanged, 0 captures
+                   after start; the same fine-tune in process bit-equal
+                   to the child's, its launches as launch_plan); (b) an
+                   injected child crash, one restart; (c) an injected
+                   canary regression and (d) a torn candidate, neither
+                   reloaded, the old weights answering bit-equal.
+ 9o. fleet       — a Fleet of flagship replicas on one card, each with its
+                   own weights and graphs: the burst at N = 1 and 2; the
+                   probes; rolling reloads of the same and other weights
+                   (r1 on the old ones until its turn); a quiet
+                   scale-down, a kill under traffic and its replacement, a
+                   scale-up under load, a kill mid-roll; every spawn's
+                   launches held to launch_plan, the bursts none.
  10. timing      — each kernel at the main path's shapes: ms eager, ms in
                    a CUDA graph, plain ms, library ms (eager and in a
                    graph), beside its bound; B1's backward kernel beside
@@ -272,6 +292,7 @@ of the repository, it exits non-zero and prints no result.
 import contextlib
 import copy
 import dataclasses
+import gc
 import importlib
 import json
 import os
@@ -3437,15 +3458,41 @@ class _PoisonAt:
             yield dataclasses.replace(b, nodes=torch.full_like(b.nodes, float("nan"))) if bad else b
 
 
+def device_lock_turns(run_burst, rounds=2):
+    """``run_burst(label)``'s latency fields under ``serve/buckets.py``'s
+    DEVICE_LOCK (``shared``: runs side by side), under one plain lock in
+    its place (``plain``: one run at a time) and under none (``none``),
+    in turns (shared, plain, none, none, plain, shared) ``rounds`` times,
+    and the medians of each: the lock's cost where no capture runs."""
+    from hydragnn_tpu_torch.serve import buckets
+
+    lock, plain = buckets.DEVICE_LOCK, threading.Lock()
+    stand_ins = {"shared": lock,
+                 "plain": types.SimpleNamespace(shared=lambda: plain, exclusive=lambda: plain),
+                 "none": types.SimpleNamespace(shared=contextlib.nullcontext, exclusive=contextlib.nullcontext)}
+    turns = {mode: [] for mode in stand_ins}
+    for _ in range(rounds):
+        for mode in ("shared", "plain", "none", "none", "plain", "shared"):
+            buckets.DEVICE_LOCK = stand_ins[mode]
+            try:
+                turns[mode].append(run_burst(f"lock {mode}"))
+            finally:
+                buckets.DEVICE_LOCK = lock
+    medians = {f"{k}_{mode}": float(np.median([f[k] for f in turns[mode]]))
+               for mode in turns for k in ("p50_ms", "requests_per_s")}
+    return turns, medians
+
+
 def lock_witness_phase(dev, card, counts, make_raw, per_forward):
     """[lock-witness]: the [serve] burst on the flagship at full width with
     the lock-order witness off, then on (``HGTORCH_LOCK_DEBUG=1``): 0
     violations on clean traffic, the p50 and requests/s of both; then
     ``HGTORCH_INJECT_LOCK_ORDER`` on two of the server's locks: one
     injected ``lock_order`` event, valid, and the server goes on
-    answering. Every start's launches (the warm-up forwards and the
-    captures) are held to ``per_forward``; a burst launches nothing.
-    Returns the launches."""
+    answering. With the witness off, the same burst under the device
+    lock, a plain lock and none, in turns (``device_lock_turns``). Every start's
+    launches (the warm-up forwards and the captures) are held to
+    ``per_forward``; a burst launches nothing. Returns the launches."""
     import hydragnn_tpu_torch
     from hydragnn_tpu_torch.flagship import flagship_config
     from hydragnn_tpu_torch.obs import FlightRecorder, read_flight_record, validate_flight_record
@@ -3482,6 +3529,17 @@ def lock_witness_phase(dev, card, counts, make_raw, per_forward):
                 serial = serial_latencies(server, requests[:16])
                 if any(burst.values()):
                     raise AssertionError(f"lock-witness {label}: the burst launched {burst}")
+                if label == "off":
+
+                    def lock_burst(mode):
+                        reset()
+                        _, lat_, wall_ = serve_burst(server, requests * 2)
+                        if any(read().values()):
+                            raise AssertionError(f"lock-witness ({mode}): the burst launched {read()}")
+                        return serve_latency_fields(lat_, wall_, [0.0])
+
+                    turns, medians = device_lock_turns(lock_burst)
+                    line("lock-witness", part="device_lock", turns=json.dumps(turns), **medians, card=repr(card))
             finally:
                 server.stop()
                 flight.close()
@@ -3511,6 +3569,600 @@ def lock_witness_phase(dev, card, counts, make_raw, per_forward):
         syncdebug.reset()
         shutil.rmtree(root, ignore_errors=True)
     return total
+
+
+PILOT_BATCH, PILOT_EPOCHS = 16, 2  # [pilot]'s serving run: run_training on [serve]'s 64 graphs
+# the knobs of the JAX package's own closed-loop smoke (ci.sh:1872-1874):
+# the loop's mechanics, not a model-quality statement. A fine-tune ends in
+# the BatchNorm recalibration over the shifted window, so the candidate's
+# clean reference slice moves by more than the default 0.2 tolerance; the
+# injected regression (+1e6) still fails any tolerance
+PILOT_ENV = {"HGTORCH_PILOT_CANARY_TOL": "10.0", "HGTORCH_PILOT_TUNE_EPOCHS": "1",
+             "HGTORCH_PILOT_TUNE_BACKOFF_S": "0.1", "HGTORCH_PILOT_COOLDOWN_S": "1.0",
+             "HGTORCH_PILOT_MAX_WALL_S": "300", "HGTORCH_DIAGNOSTICS": "0"}
+# a fine-tune child: deterministic algorithms (as this process runs them),
+# and the seconds its interpreter and its `import torch` took
+_PILOT_SITE = r'''
+import json, os, time
+_t0 = time.time()
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+with open(os.environ["CHIP_SMOKE_CHILD_LOG"], "a") as _f:
+    _f.write(json.dumps({"pid": os.getpid(), "t_python": _t0, "t_torch": time.time()}) + "\n")
+'''
+
+
+def _sha256(path):
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _answers_equal(a, b):
+    return sorted(a) == sorted(b) and all(np.array_equal(np.asarray(a[k]).view(np.int32),
+                                                         np.asarray(b[k]).view(np.int32)) for k in a)
+
+
+def pilot_phase(dev, card, counts, make_raw, per_forward):
+    """[pilot]: the retrain pilot on the flagship at full width, served
+    from CUDA graphs under deterministic algorithms, from a run on disk
+    (``run_training`` on [serve]'s 64 graphs, PILOT_EPOCHS epochs), with
+    the spool at 1, the feature drift rule and the knobs of PILOT_ENV:
+    (a) a shift of 5.0 opens one feature_drift incident; the pilot runs
+        the real supervised fine-tune child on this card and journals
+        drift_confirmed -> fine_tuning -> canary -> reloading -> cooldown;
+        every request answered, no error event, the serving checkpoint's
+        bytes unchanged, 0 captures after start, the replays after the
+        reload bit-equal to the candidate checkpoint's eager forward; the
+        same fine-tune in process on the pinned window gives parameters
+        bit-equal to the child's, its launches held to launch_plan;
+    (b) HGTORCH_INJECT_PILOT_TRAIN_CRASH=1: the first child exits 70, one
+        restart, the stripped retry completes the cycle;
+    (c) HGTORCH_INJECT_PILOT_CANARY_REGRESS (a's candidate through the
+        tuner seam): canary_regression, no reload, the answers bit-equal;
+    (d) HGTORCH_INJECT_PILOT_TORN_RELOAD (a's candidate, its pointer torn;
+        no versioned checkpoints): reload_failed, the answers bit-equal.
+    Prints each state's seconds, the children's start-up and `import
+    torch`, the fine-tune's wall, the canary's ms, the reload's swap_s and
+    the burst while the child trains against the same burst before.
+    Returns the path's launches: the canary's forwards and the in-process
+    fine-tune's."""
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.api import create_dataloaders, prepare_config_and_samples
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.obs import FlightRecorder, build_reference, list_incidents, read_flight_record
+    from hydragnn_tpu_torch.obs import validate_flight_record
+    from hydragnn_tpu_torch.obs.triggers import TriggerVerdict
+    from hydragnn_tpu_torch.pilot import RetrainPilot
+    from hydragnn_tpu_torch.pilot import tune
+    from hydragnn_tpu_torch.serve import ServeConfig, request_to_dict
+    from hydragnn_tpu_torch.serve.registry import load_served_variables
+    from hydragnn_tpu_torch.utils.checkpoint import checkpoint_path
+    from hydragnn_tpu_torch.utils.config import get_log_name_config
+
+    reset, read = counts
+    root = tempfile.mkdtemp(prefix="chip_smoke_pilot_")
+    log_dir = os.path.join(root, "logs") + "/"
+    site_dir = os.path.join(root, "site")
+    os.makedirs(site_dir)
+    with open(os.path.join(site_dir, "sitecustomize.py"), "w") as f:
+        f.write(_PILOT_SITE)
+    child_log = os.path.join(root, "children.jsonl")
+    env_keys = list(PILOT_ENV) + ["PYTHONPATH", "CHIP_SMOKE_CHILD_LOG", "HGTORCH_INJECT_DRIFT",
+                                  "HGTORCH_INCIDENT_PROFILE_STEPS"]
+    saved = {k: os.environ.get(k) for k in env_keys}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.environ.update(PILOT_ENV, CHIP_SMOKE_CHILD_LOG=child_log, HGTORCH_INCIDENT_PROFILE_STEPS="4",
+                      PYTHONPATH=os.pathsep.join([site_dir, repo] + [p for p in [saved["PYTHONPATH"]] if p]))
+    out, fields = {}, {}
+    try:
+        with deterministic_algorithms("pilot", "the serving run, the server, the children and the in-process "
+                                      "fine-tune on the card", card):
+            cfg0 = flagship_config(batch_size=PILOT_BATCH, num_epoch=PILOT_EPOCHS)
+            _, _, _, done = hydragnn_tpu_torch.run_training(copy.deepcopy(cfg0), make_raw(), log_dir=log_dir,
+                                                            device=dev, seed=SEED)
+            run = get_log_name_config(done)
+            ckpt = checkpoint_path(run, log_dir)
+            ckpt_sha = _sha256(ckpt)
+            tr, va, te, _ = prepare_config_and_samples(copy.deepcopy(cfg0), make_raw())
+            ref_path = os.path.join(root, "ref.json")
+            with open(ref_path, "w") as f:
+                json.dump(build_reference(list(tr)), f)
+            flight_path = os.path.join(root, "flight.jsonl")
+            scfg = ServeConfig(spool=True, spool_sample=1, spool_shard_mb=0.25, spool_max_mb=64.0,
+                               spool_dir=os.path.join(root, "spool"), drift_ref=ref_path, drift_pred_psi=None,
+                               drift_min_count=400, trigger_eval_every_s=0.05,
+                               incident_dir=os.path.join(root, "incidents"))
+            reset()
+            server = hydragnn_tpu_torch.serve_model(copy.deepcopy(cfg0), make_raw(), serve_config=scfg, device=dev,
+                                                    log_dir=log_dir, flight=FlightRecorder(flight_path))
+            try:
+                cache = server._cache
+                start = read()
+                need = {k: v * (cache.captures + cache.warm_forwards) for k, v in per_forward.items()}
+                if {k: start[k] for k in need} != need or cache.captures != 2 * len(server.buckets):
+                    raise AssertionError(f"pilot: launches at start {start}, want {need}; {cache.captures} captures")
+                captures = cache.captures
+                tuned = []
+
+                def timed_tuner(candidate):
+                    # the shift has done its work once a cycle starts; a child
+                    # must not inherit it (an injection turns the loop's
+                    # dispatch per-step, and the in-process run below has none)
+                    os.environ.pop("HGTORCH_INJECT_DRIFT", None)
+                    t = time.time()
+                    res = pilot._default_tuner(candidate)
+                    tuned.append({"candidate": candidate, "t_spawn": t, "t_end": time.time(), **res})
+                    return res
+
+                pilot = RetrainPilot(server, run, reference_samples=list(va) + list(te), tuner=timed_tuner)
+                server.attach_pilot(pilot)
+                requests = [request_to_dict(s) for s in server.reference_samples]
+                serve_burst(server, requests)  # warm the path
+                _, lat0, wall0 = serve_burst(server, requests * 2)
+                fields["before"] = serve_latency_fields(lat0, wall0, [0.0])
+                # (a) the shift opens the incident; the cycle's launches are the canary's
+                reset()
+                os.environ["HGTORCH_INJECT_DRIFT"] = DRIFT_SHIFT
+                answered = len(serve_burst(server, requests * 3)[0])
+                deadline = time.monotonic() + 120
+                while pilot.status()["cycle"] == 0 and time.monotonic() < deadline:
+                    server.predict(requests[answered % len(requests)], timeout=300)
+                    answered += 1
+                os.environ.pop("HGTORCH_INJECT_DRIFT", None)
+                if pilot.status()["cycle"] != 1:
+                    raise AssertionError(f"pilot (a): no cycle after {answered} shifted requests: {pilot.status()}")
+                lat1, wall1 = [], 0.0
+                while pilot.poll() in ("drift_confirmed", "fine_tuning") and len(lat1) < 6 * 2 * len(requests):
+                    res, l_, w_ = serve_burst(server, requests * 2)
+                    answered += len(res)
+                    if pilot.poll() in ("drift_confirmed", "fine_tuning"):
+                        lat1 += l_
+                        wall1 += w_
+                pilot.join(timeout=float(PILOT_ENV["HGTORCH_PILOT_MAX_WALL_S"]) * 3)
+                a_counts = read()
+                if lat1:
+                    fields["while_training"] = serve_latency_fields(lat1, wall1, [0.0])
+                entries = pilot.journal.entries()
+                states = [e["state"] for e in entries]
+                tail = entries[-1]["detail"]
+                want_states = ["idle", "drift_confirmed", "fine_tuning", "canary", "reloading", "cooldown"]
+                if states != want_states or tail.get("reason") != "reloaded":
+                    raise AssertionError(f"pilot (a): journal {states}, tail {tail}")
+                pinned = entries[1]["detail"]["pinned_shards"]
+                cand = tail["candidate"]
+                # the replays after the reload against the candidate checkpoint's eager forward
+                records = record_batches(cache)
+                serve_burst(server, requests)
+                del cache.run
+                cand_model = create_model(server.served.cfg, device=dev)
+                cand_model.load_state_dict(load_served_variables(server.served, cand, log_dir))
+                n_eq = bit_equal_to_eager(records, cand_model, dev, "pilot (a)")
+                # the same fine-tune in process: bit-equal parameters, its launches as launch_plan
+                window = tune._load_window(server.spool_dir(), pinned)
+                t_sp, v_sp, e_sp = tune._split(window)
+                with open(os.path.join(log_dir, run, "config.json")) as f:
+                    run_cfg = json.load(f)
+                tl, vl, el = create_dataloaders(t_sp, v_sp, e_sp, run_cfg)
+                per_step, per_fwd = launch_plan(run_cfg["NeuralNetwork"]["Architecture"],
+                                                batch_layout(next(iter(tl))))
+                epochs = int(PILOT_ENV["HGTORCH_PILOT_TUNE_EPOCHS"])
+                steps, fwds = epochs * len(tl), epochs * (len(vl) + len(el)) + 2 * len(tl)
+                reset()
+                t_in = time.perf_counter()
+                tune.fine_tune(log_dir, run, f"{run}-inprocess", spool_dir=server.spool_dir(), shards=pinned,
+                               epochs=epochs, device=dev)
+                inproc_s = time.perf_counter() - t_in
+                f_counts = read()
+                want_f = {k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in f_counts}
+                if f_counts != want_f:
+                    raise AssertionError(f"pilot (a): the in-process fine-tune launched {f_counts}, want {want_f}")
+                child_sd = load_served_variables(server.served, cand, log_dir)
+                inproc_sd = load_served_variables(server.served, f"{run}-inprocess", log_dir)
+                differ = [k for k in child_sd if not torch.equal(child_sd[k], inproc_sd[k])]
+                if differ:
+                    raise AssertionError(f"pilot (a): the child's candidate differs from the in-process one at "
+                                         f"{differ[:5]}")
+                n_canary = sum(min(len(s), pilot.config.canary_samples) for s in (list(va) + list(te), window))
+                want_a = {k: 2 * n_canary * per_forward.get(k, 0) for k in a_counts}
+                if a_counts != want_a:
+                    raise AssertionError(f"pilot (a): the cycle launched {a_counts} in this process, want {want_a} "
+                                         f"({n_canary} samples scored twice)")
+                path_counts = {k: a_counts[k] + f_counts[k] for k in a_counts}
+                secs = {s: round(entries[i + 1]["t"] - entries[i]["t"], 3) for i, s in enumerate(states[:-1])}
+                cflight = read_flight_record(os.path.join(log_dir, cand, "flight.jsonl"))
+                c_start = next(e for e in cflight if e["kind"] == "run_start")["t"]
+                c_end = next(e for e in reversed(cflight) if e["kind"] == "run_end")["t"]
+                out.update(answered=answered, incidents=len(list_incidents(scfg.incident_dir)), candidate=cand,
+                           pinned_shards=len(pinned), window_samples=len(window), state_s=json.dumps(secs),
+                           canary_ms=round(secs["canary"] * 1e3, 1), fine_tune_wall_s=round(c_end - c_start, 3),
+                           child_start_up_s=round(c_start - tuned[0]["t_spawn"], 3),
+                           replays_bit_equal_to_candidate=n_eq, candidate_bit_equal_in_process=True,
+                           in_process_fine_tune_s=round(inproc_s, 3), canary=json.dumps(tail.get("reference")),
+                           canary_window=json.dumps(tail.get("window")),
+                           launches_cycle=json.dumps(a_counts, separators=(",", ":")),
+                           launches_fine_tune=json.dumps(f_counts, separators=(",", ":")))
+                line("pilot", scenario="a", **out, card=repr(card))
+                # (b)-(d) through the pilot's own entry, on (a)'s pinned window
+                inc_dir = os.path.join(root, "stub_incident")
+                os.makedirs(inc_dir)
+                with open(os.path.join(inc_dir, "drift_report.json"), "w") as f:
+                    json.dump({"pinned_shards": pinned}, f)
+                incident = types.SimpleNamespace(id="stub", dir=inc_dir)
+                verdict = TriggerVerdict("serve_feature_drift", "feature_drift", "serve.drift.feature_psi", 1.0,
+                                         0.25, time.time())
+
+                def cycle(label, injection, reuse):
+                    deadline_ = time.monotonic() + 30
+                    while pilot.poll() != "idle" and time.monotonic() < deadline_:
+                        time.sleep(0.1)
+                    if injection:
+                        os.environ[injection] = "1"
+                    if reuse:
+                        def copy_tuner(candidate):
+                            shutil.copytree(os.path.join(log_dir, cand), os.path.join(log_dir, candidate))
+                            for name in os.listdir(os.path.join(log_dir, candidate)):
+                                if name.startswith(cand):
+                                    os.rename(os.path.join(log_dir, candidate, name),
+                                              os.path.join(log_dir, candidate, candidate + name[len(cand):]))
+                            return {"status": "completed"}
+
+                        pilot.tuner = copy_tuner
+                    else:
+                        pilot.tuner = timed_tuner
+                    before = [server.predict(r, timeout=300) for r in requests[:16]]
+                    n_ev = len(read_flight_record(flight_path))
+                    try:
+                        if not pilot.on_drift_incident(incident, verdict):
+                            raise AssertionError(f"pilot ({label}): the incident started no cycle: {pilot.status()}")
+                        pilot.join(timeout=900)
+                    finally:
+                        if injection:
+                            del os.environ[injection]
+                    after = [server.predict(r, timeout=300) for r in requests[:16]]
+                    new_events = read_flight_record(flight_path)[n_ev:]
+                    return pilot.journal.last()["detail"], before, after, new_events
+
+                n_tuned = len(tuned)
+                tail, before, after, ev = cycle("b", "HGTORCH_INJECT_PILOT_TRAIN_CRASH", reuse=False)
+                res = tuned[n_tuned]
+                causes = [h["cause"] for h in res["history"]]
+                if (tail.get("reason") != "reloaded" or res["restarts"] != 1 or causes != ["crash", "completed"]
+                        or res["history"][0]["exit_code"] != 70):
+                    raise AssertionError(f"pilot (b): tail {tail}, supervisor {res}")
+                line("pilot", scenario="b", reason=tail["reason"], candidate=tail["candidate"],
+                     restarts=res["restarts"], exit_codes=json.dumps([h["exit_code"] for h in res["history"]]),
+                     supervised_s=round(res["t_end"] - res["t_spawn"], 3),
+                     reloads=len([e for e in ev if e["kind"] == "reload"]), card=repr(card))
+                for label, injection, reason, kind in (("c", "HGTORCH_INJECT_PILOT_CANARY_REGRESS",
+                                                        "canary_regression", None),
+                                                       ("d", "HGTORCH_INJECT_PILOT_TORN_RELOAD", "reload_failed",
+                                                        "reload_failed")):
+                    tail, before, after, ev = cycle(label, injection, reuse=True)
+                    reloads = [e["kind"] for e in ev if e["kind"] in ("reload", "reload_failed")]
+                    same = all(_answers_equal(a, b) for a, b in zip(before, after))
+                    if tail.get("reason") != reason or reloads != ([kind] if kind else []) or not same:
+                        raise AssertionError(f"pilot ({label}): tail {tail}, reload events {reloads}, "
+                                             f"answers unchanged {same}")
+                    line("pilot", scenario=label, reason=reason, reload_events=json.dumps(reloads),
+                         answers_bit_equal_to_before=same, card=repr(card))
+                if cache.captures != captures or _sha256(ckpt) != ckpt_sha:
+                    raise AssertionError(f"pilot: {cache.captures - captures} captures after start, or the serving "
+                                         f"checkpoint changed")
+            finally:
+                server.stop()
+        events = read_flight_record(flight_path)
+        errors = [e for e in events if e["kind"] == "error"]
+        drifts = [e for e in events if e["kind"] == "drift"]
+        swaps = [e["swap_s"] for e in events if e["kind"] == "reload"]
+        if validate_flight_record(flight_path) or errors or [e["rule_kind"] for e in drifts] != ["feature_drift"] \
+                or len(swaps) != 2:
+            raise AssertionError(f"pilot: flight problems {validate_flight_record(flight_path)}, errors "
+                                 f"{[(e.get('where'), e.get('error')) for e in errors]}, drift events "
+                                 f"{len(drifts)}, reloads {swaps}")
+        with open(child_log) as f:
+            kids = [json.loads(ln) for ln in f if ln.strip()]
+        line("pilot", part="summary", children=len(kids),
+             child_import_torch_s=json.dumps([round(k["t_torch"] - k["t_python"], 3) for k in kids]),
+             reload_swap_s=json.dumps(swaps), burst_before=json.dumps(fields["before"]),
+             burst_while_training=json.dumps(fields.get("while_training")), serving_checkpoint_unchanged=True,
+             captures_after_start=0, card=repr(card))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    return path_counts
+
+
+FLEET_BURST = 2  # [fleet]'s burst: [serve]'s 64 requests twice, from SERVE_THREADS threads
+
+
+def fleet_phase(dev, card, counts, make_raw, per_forward):
+    """[fleet]: a ``Fleet`` of flagship replicas at full width on one card,
+    each with its own weights and CUDA graphs, under deterministic
+    algorithms (``ServeConfig()``, [serve]'s 64 graphs):
+    (a) the 128-request burst at N = 1 and N = 2: requests/s and p99,
+        every answer bit-equal to its replica's eager forward;
+    (h) ``tools/serve_probe.py --fleet`` on ``export_probes``: exit 0,
+        naming router, r0 and r1;
+    (d) a rolling reload of the same weights: ok on each replica, one
+        fleet_reload event each, the answers bit-identical;
+    (f) a rolling reload to other weights: after r0's swap r1 answers on
+        the old ones; then both on the new, and so does a replica whose
+        spawn was asked for after r0's swap (it waits for the roll);
+    (g) a quiet scale-down under traffic: drain_stop drops no request;
+    (b) a replica killed under a burst: the router retries each dead
+        future, none lost; the controller's step replaces it, the
+        replacement captures its own graphs, the survivor none;
+    (c) a sustained fleet_queue_depth breach under a burst: one ``up``,
+        the new replica capturing while the others replay, no failed
+        request;
+    (e) a replica killed mid-roll: ReloadFailed "died mid-roll", every
+        future resolved, the survivor bit-equal to the old weights, one
+        aborted_roll event and none ok.
+    Prints each spawn's capture seconds and the card memory it adds, the
+    kill-to-replace seconds and the rolls' walls. Every spawn's launches
+    are held to ``per_forward`` x (captures + warm-up forwards); a burst
+    launches nothing. Returns the launches."""
+    from hydragnn_tpu_torch.api import prepare_config_and_samples
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.fleet import ControllerConfig, Fleet, FleetController
+    from hydragnn_tpu_torch.obs import FlightRecorder, read_flight_record, validate_flight_record
+    from hydragnn_tpu_torch.serve import ModelRegistry, ReloadFailed, RequestFailed, ServeConfig, request_to_dict
+    from hydragnn_tpu_torch.serve import buckets
+
+    reset, read = counts
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    flight_path = os.path.join(root, "flight.jsonl")
+    total = {k: 0 for k in per_forward}
+    spawns = []
+    with deterministic_algorithms("fleet", "the replicas' captures, bursts and eager forwards on the card", card):
+        tr, va, te, done = prepare_config_and_samples(flagship_config(), make_raw())
+        samples = list(tr) + list(va) + list(te)
+        served = ModelRegistry(device=dev).register("flagship", done["NeuralNetwork"], seed=SEED)
+        requests = [request_to_dict(s) for s in samples]
+        work = requests * FLEET_BURST
+        fleet = Fleet(flight=FlightRecorder(flight_path))
+        spawn = fleet._spawn
+
+        def card_memory():
+            # the memory a spawn adds, not the garbage earlier steps left;
+            # each capture empties the allocator's cache (torch.cuda.graph),
+            # so both readings are taken on an emptied cache
+            gc.collect()
+            with buckets.DEVICE_LOCK.exclusive():
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                return torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+
+        def measured_spawn(model):
+            alloc, resv = card_memory()
+            c0 = dict(read())
+            t = time.perf_counter()
+            rep = spawn(model)
+            secs = time.perf_counter() - t
+            alloc1, resv1 = card_memory()
+            c1 = read()
+            cache = rep.server._cache
+            launched = {k: c1[k] - c0[k] for k in c1}
+            need = {k: v * (cache.captures + cache.warm_forwards) for k, v in per_forward.items()}
+            if {k: launched[k] for k in need} != need or cache.captures != 2 * len(rep.server.buckets) \
+                    or not cache.graphs:
+                raise AssertionError(f"fleet: spawning {rep.name} launched {launched} (want {need}), "
+                                     f"{cache.captures} captures, graphs={cache.graphs}")
+            for k in total:
+                total[k] += launched[k]
+            spawns.append(dict(replica=rep.name, capture_s=round(secs, 3), captures=cache.captures,
+                               allocated_mib=round((alloc1 - alloc) / 2**20, 2),
+                               reserved_mib=round((resv1 - resv) / 2**20, 2)))
+            return rep
+
+        fleet._spawn = measured_spawn
+
+        def burst(label):
+            c0 = dict(read())
+            res, lat, wall = serve_burst(fleet, work)
+            launched = {k: read()[k] - c0[k] for k in c0}
+            if any(launched.values()):
+                raise AssertionError(f"fleet ({label}): the burst launched {launched}")
+            return res, serve_latency_fields(lat, wall, [0.0])
+
+        def recorded():
+            return {r.name: record_batches(r.server._cache) for r in fleet.replicas()}
+
+        def check_eager(recs, label):
+            n = 0
+            for r in fleet.replicas():
+                if r.name in recs:
+                    n += bit_equal_to_eager(recs[r.name], r.server.served.model, dev, f"fleet ({label}) {r.name}")
+                    if "run" in vars(r.server._cache):
+                        del r.server._cache.run
+            return n
+
+        def answers():
+            return [fleet.predict(r, timeout=300) for r in requests]
+
+        try:
+            reset()
+            # (a) N = 1, then N = 2
+            fleet.add_model("flagship", served, samples, ServeConfig(), replicas=1)
+            recs = recorded()
+            _, one = burst("a, N=1")
+            n_eq = check_eager(recs, "a, N=1")
+            fleet.scale_up()
+            recs = recorded()
+            _, two = burst("a, N=2")
+            n_eq += check_eager(recs, "a, N=2")
+            # the device lock's cost on the burst (no capture runs here):
+            # N = 2 under it, a plain lock and none, in turns
+            turns, medians = device_lock_turns(lambda mode: burst(f"a, {mode}")[1])
+            line("fleet", scenario="a", n1=json.dumps(one), n2=json.dumps(two), batches_bit_equal_to_eager=n_eq,
+                 n2_device_lock=json.dumps(turns), **{f"n2_{k}": v for k, v in medians.items()}, card=repr(card))
+            # (h) the probes
+            probe_dir = os.path.join(root, "probes")
+            fleet.export_probes(probe_dir)
+            probe = subprocess.run([sys.executable, "tools/serve_probe.py", "--fleet", probe_dir],
+                                   cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                                   timeout=120)
+            if probe.returncode != 0 or not all(n in probe.stdout for n in ("router", "r0", "r1")):
+                raise AssertionError(f"fleet (h): serve_probe --fleet exit {probe.returncode}: {probe.stdout}"
+                                     f"{probe.stderr}")
+            line("fleet", scenario="h", serve_probe_exit=probe.returncode,
+                 probed=json.dumps(sorted(os.listdir(probe_dir))), card=repr(card))
+            # (d) the same weights, rolled
+            before = answers()
+            n_ev = len(read_flight_record(flight_path))
+            t = time.perf_counter()
+            outcomes = fleet.rolling_reload("flagship", variables=served.model.state_dict())
+            roll_same_s = time.perf_counter() - t
+            evs = [e for e in read_flight_record(flight_path)[n_ev:] if e["kind"] == "fleet_reload"]
+            same = all(_answers_equal(a, b) for a, b in zip(before, answers()))
+            if [o["ok"] for o in outcomes] != [True, True] or [(e["replica"], e["ok"]) for e in evs] != \
+                    [("r0", True), ("r1", True)] or not same:
+                raise AssertionError(f"fleet (d): outcomes {outcomes}, events {evs}, bit-identical {same}")
+            line("fleet", scenario="d", outcomes=json.dumps([o["replica"] for o in outcomes]),
+                 swap_s=json.dumps([o["swap_s"] for o in outcomes]), roll_wall_s=round(roll_same_s, 3),
+                 answers_bit_identical=same, card=repr(card))
+            # (f) other weights: r1 stays on the old ones until its turn; a
+            # spawn asked for after r0's swap waits for the roll and serves
+            # its weights
+            new_state = {k: (v * 0.9 if v.is_floating_point() else v) for k, v in served.model.state_dict().items()}
+            r0, r1 = fleet.get_replica("r0"), fleet.get_replica("r1")
+            probe_req = requests[:8]
+            old1 = [r1.server.predict(r, timeout=300) for r in probe_req]
+            seen = {}
+            r0_reload = r0.server.reload
+
+            def reload_then_look(*a, **kw):
+                info = r0_reload(*a, **kw)
+                seen["r0"] = [r0.server.predict(r, timeout=300) for r in probe_req]
+                seen["r1"] = [r1.server.predict(r, timeout=300) for r in probe_req]
+                seen["spawner"] = threading.Thread(target=lambda: seen.update(later=fleet._spawn("flagship")))
+                seen["spawner"].start()
+                seen["spawner"].join(0.2)
+                seen["waited"] = seen["spawner"].is_alive()
+                return info
+
+            r0.server.reload = reload_then_look
+            t = time.perf_counter()
+            fleet.rolling_reload("flagship", variables=new_state)
+            roll_new_s = time.perf_counter() - t
+            del r0.server.reload
+            seen["spawner"].join(300)
+            later = seen.get("later")
+            if later is None or not seen["waited"]:
+                raise AssertionError(f"fleet (f): the spawn asked for mid-roll gave {later}, waited {seen['waited']}")
+            spawns[-1]["asked_mid_roll"] = True  # its seconds include the wait for r1's turn
+            new1 = [r1.server.predict(r, timeout=300) for r in probe_req]
+            new2 = [later.server.predict(r, timeout=300) for r in probe_req]
+            ok = (all(_answers_equal(a, b) for a, b in zip(seen["r1"], old1))
+                  and not all(_answers_equal(a, b) for a, b in zip(seen["r0"], old1))
+                  and all(_answers_equal(a, b) for a, b in zip(new1, seen["r0"]))
+                  and all(_answers_equal(a, b) for a, b in zip(new2, seen["r0"])))
+            if not ok:
+                raise AssertionError("fleet (f): a replica answered on weights that were not its own")
+            line("fleet", scenario="f", r1_old_until_its_turn=True, spawned_mid_roll=later.name,
+                 roll_wall_s=round(roll_new_s, 3), card=repr(card))
+            # (g) a quiet scale-down under traffic
+            futures = [fleet.submit(r) for r in work]
+            ctl = FleetController(fleet, registry=fleet.registry, flight=fleet.flight,
+                                  config=ControllerConfig(min_replicas=1, max_replicas=4, quiet_for_s=0.0,
+                                                          cooldown_s=0.0, quiet_load=10 ** 6))
+            down = ctl.step()
+            got = [f.result(timeout=300) for f in futures]
+            if [d["action"] for d in down] != ["down"] or len(got) != len(work) or fleet.replica_count() != 2:
+                raise AssertionError(f"fleet (g): decisions {down}, {len(got)} of {len(work)} answered")
+            line("fleet", scenario="g", retired=down[0]["retired"], answered=len(got), card=repr(card))
+            # (b) a replica killed under a burst, then replaced
+            victim, survivor = sorted(fleet.replicas(), key=lambda r: r.name)
+            surv_captures = survivor.server._cache.captures
+            box = {}
+            client = threading.Thread(target=lambda: box.update(res=serve_burst(fleet, work * 2)))
+            client.start()
+            time.sleep(0.01)
+            t_kill = time.perf_counter()
+            victim.kill()
+            client.join(timeout=600)
+            if "res" not in box:
+                raise AssertionError("fleet (b): the burst did not finish")
+            ctl = FleetController(fleet, registry=fleet.registry, flight=fleet.flight,
+                                  config=ControllerConfig(min_replicas=1, max_replicas=4))
+            dec = ctl.step()
+            kill_to_replace = time.perf_counter() - t_kill
+            repl = [r for r in fleet.replicas() if r.name != survivor.name]
+            retries = fleet.registry.get("fleet.death_retries").value
+            if ([d["action"] for d in dec] != ["replace"] or len(repl) != 1
+                    or repl[0].server._cache.captures != 2 * len(repl[0].server.buckets)
+                    or survivor.server._cache.captures != surv_captures):
+                raise AssertionError(f"fleet (b): decisions {dec}, replacement {[r.name for r in repl]}")
+            line("fleet", scenario="b", killed=victim.name, replacement=repl[0].name, answered=len(box["res"][0]),
+                 death_retries=retries, kill_to_replace_s=round(kill_to_replace, 3),
+                 survivor_captures_after_start=0, card=repr(card))
+            # (c) a sustained queue-depth breach under a burst: one `up`
+            ctl = FleetController(fleet, registry=fleet.registry, flight=fleet.flight,
+                                  config=ControllerConfig(min_replicas=1, max_replicas=3, cooldown_s=600.0,
+                                                          breach_evals=2, slo_queue_depth=8.0))
+            box = {}
+            client = threading.Thread(target=lambda: box.update(res=serve_burst(fleet, work * 4)))
+            client.start()
+            ups = []
+            deadline = time.monotonic() + 60
+            while not ups and client.is_alive() and time.monotonic() < deadline:
+                ups += [d for d in ctl.step() if d["action"] in ("up", "up_failed")]
+                time.sleep(0.002)
+            client.join(timeout=600)
+            if [d["action"] for d in ups] != ["up"] or "res" not in box:
+                raise AssertionError(f"fleet (c): decisions {ups}, burst finished {'res' in box}")
+            line("fleet", scenario="c", spawned=ups[0]["spawned"], answered=len(box["res"][0]),
+                 replicas=fleet.replica_count(), card=repr(card))
+            # (e) a replica killed mid-roll
+            before = {r.name: [r.server.predict(q, timeout=300) for q in probe_req] for r in fleet.replicas()}
+            first = sorted(fleet.replicas(), key=lambda r: r.name)[0]
+            first.kill()
+            futures = [fleet.submit(r) for r in requests]
+            n_ev = len(read_flight_record(flight_path))
+            try:
+                fleet.rolling_reload("flagship", variables=served.model.state_dict(), drain_timeout_s=10.0)
+                raise AssertionError("fleet (e): the roll did not abort")
+            except ReloadFailed as exc:
+                if "died mid-roll" not in str(exc):
+                    raise
+            resolved = 0
+            for f_ in futures:
+                try:
+                    f_.result(timeout=300)
+                except RequestFailed:
+                    pass
+                resolved += 1
+            evs = [e for e in read_flight_record(flight_path)[n_ev:] if e["kind"] == "fleet_reload"]
+            alive = [r for r in fleet.replicas() if r.live]
+            same = all(_answers_equal(a, b) for r in alive
+                       for a, b in zip(before[r.name], [r.server.predict(q, timeout=300) for q in probe_req]))
+            if (resolved != len(futures) or [e["replica"] for e in evs if e.get("aborted_roll")] != [first.name]
+                    or any(e.get("ok") for e in evs) or not same or not alive):
+                raise AssertionError(f"fleet (e): {resolved} resolved, events {evs}, survivors bit-equal {same}")
+            line("fleet", scenario="e", killed=first.name, resolved=resolved, survivors=len(alive),
+                 survivors_bit_equal=same, card=repr(card))
+        finally:
+            fleet.stop()
+            fleet.flight.close()
+    events = read_flight_record(flight_path)
+    errors = [e for e in events if e["kind"] == "error" and e.get("where") != "dispatch_giveup"]
+    if validate_flight_record(flight_path) or errors:
+        raise AssertionError(f"fleet: flight problems {validate_flight_record(flight_path)}, errors {errors}")
+    for s in spawns:
+        line("fleet", part="spawn", **s, card=repr(card))
+    line("fleet", part="summary", spawns=len(spawns),
+         decisions=json.dumps([e["action"] for e in events if e["kind"] == "fleet_scale"]),
+         launches=json.dumps(total, separators=(",", ":")), card=repr(card))
+    shutil.rmtree(root, ignore_errors=True)
+    return total
+
 
 
 def main():
@@ -4590,6 +5242,14 @@ def main():
     witness_counts = lock_witness_phase(dev, card, (reset_counts, read_counts), serve_raw, per_forward)
     line("lock-witness", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
 
+    # ---- 9n. pilot, 9o. fleet: the retrain loop and the serving fleet -------
+    t0 = time.perf_counter()
+    pilot_counts = pilot_phase(dev, card, (reset_counts, read_counts), serve_raw, per_forward)
+    line("pilot", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
+    t0 = time.perf_counter()
+    fleet_counts = fleet_phase(dev, card, (reset_counts, read_counts), serve_raw, per_forward)
+    line("fleet", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
+
     # ---- 10. timing ------------------------------------------------------
     h = hidden
     table = torch.randn(n, h, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
@@ -4947,6 +5607,7 @@ def main():
              "data_path_hgc": data_path_counts, "data_eam": eam_counts, "records": records_counts,
              "train_obs": train_obs_counts, "serve_drift": serve_drift_counts,
              "train_resilience": resilience_counts, "lock_witness": witness_counts,
+             "pilot": pilot_counts, "fleet": fleet_counts,
              **{f"examples_{k}": c for k, c in example_counts.items()}}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",

@@ -19,13 +19,17 @@ preemptible hardware without a human in the loop.
     errors; its policy also drives serving's dispatch supervisor.
   - :mod:`~hydragnn_tpu_torch.resilience.inject`: env-gated deterministic
     fault injection (NaN batch, SIGTERM, SIGKILL mid-checkpoint, stalled
-    loader, and the serving faults), so every path above is testable.
+    loader, the serving faults and the retrain pilot's), so every path
+    above is testable.
   - :mod:`~hydragnn_tpu_torch.resilience.hooks`: the per-batch hook
     bundle ``train/loop.py`` threads through its hot loop.
 
 Everything flows into the flight recorder (``obs/flight.py``); the JAX
 package's ``tools/obs_report.py --faults`` narrates a port run's fault
-history. The pod layer (``PodSupervisor``, ``PodHostLost``, pod
+history. The retrain pilot (``pilot/``) runs its fine-tune child under
+:class:`Supervisor` with ``wall_clock_runner``; the serving fleet
+(``fleet/``) reaps and replaces replicas whose dispatch supervisor gave
+up. The pod layer (``PodSupervisor``, ``PodHostLost``, pod
 checkpoints) waits for ROADMAP A-5.
 """
 

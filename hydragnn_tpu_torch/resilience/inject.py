@@ -56,8 +56,28 @@ the retry-as-singles poison hunt):
                                          rule and the spool; ``obs/drift.py``)
   =====================================  ======================================
 
-The retrain pilot's and the pod's injections wait for ROADMAP A-7b and
-A-5.
+Retrain-pilot faults (``pilot/``), one a stage of the loop, each proving
+that the loop degrades to "the old weights keep serving":
+
+  =====================================  ======================================
+  HGTORCH_INJECT_PILOT_TRAIN_CRASH=N     the fine-tune child exits 70 before
+                                         training (the restart supervisor
+                                         strips it from the retried child, so
+                                         N=1 means one crash, then a clean run)
+  HGTORCH_INJECT_PILOT_HUNG_TUNE=S       the fine-tune sleeps S seconds before
+                                         any work (the wall-clock runner kills
+                                         it and the supervisor classifies it
+                                         hung/79)
+  HGTORCH_INJECT_PILOT_CANARY_REGRESS=1  the pilot's canary inflates the
+                                         candidate's scores, so the gate
+                                         rejects it (cooldown, never a reload)
+  HGTORCH_INJECT_PILOT_TORN_RELOAD=1     the pilot truncates the candidate's
+                                         checkpoint pointer between its canary
+                                         and the reload (the reload path's own
+                                         validating loader must reject it)
+  =====================================  ======================================
+
+The pod's injections wait for ROADMAP A-5.
 """
 
 from __future__ import annotations
@@ -88,6 +108,10 @@ INJECTIONS = (
     "HGTORCH_INJECT_SERVE_KILL_DISPATCH",
     "HGTORCH_INJECT_SERVE_TORN_RELOAD",
     "HGTORCH_INJECT_DRIFT",
+    "HGTORCH_INJECT_PILOT_TRAIN_CRASH",
+    "HGTORCH_INJECT_PILOT_HUNG_TUNE",
+    "HGTORCH_INJECT_PILOT_CANARY_REGRESS",
+    "HGTORCH_INJECT_PILOT_TORN_RELOAD",
 )
 
 
@@ -264,6 +288,33 @@ def serve_torn_reload() -> bool:
     """Whether ``ModelServer.reload`` corrupts the candidate weights
     before the canary."""
     return _spec("HGTORCH_INJECT_SERVE_TORN_RELOAD") is not None
+
+
+def pilot_train_crashes() -> int:
+    """How many fine-tune attempts crash before one runs (0: none). The
+    supervisor strips the variable from a restarted child, so a child
+    reads N only on the first attempt."""
+    spec = _spec("HGTORCH_INJECT_PILOT_TRAIN_CRASH")
+    return int(spec) if spec is not None else 0
+
+
+def maybe_pilot_hang() -> None:
+    """Sleep the injected seconds before the fine-tune does any work: the
+    supervisor's wall clock, not the in-process watchdog, must end it."""
+    spec = _spec("HGTORCH_INJECT_PILOT_HUNG_TUNE")
+    if spec is not None:
+        time.sleep(float(spec))
+
+
+def pilot_canary_regress() -> bool:
+    """Whether the pilot's canary inflates the candidate's scores."""
+    return _spec("HGTORCH_INJECT_PILOT_CANARY_REGRESS") is not None
+
+
+def pilot_torn_reload() -> bool:
+    """Whether the pilot tears the candidate's checkpoint between its
+    canary and the reload."""
+    return _spec("HGTORCH_INJECT_PILOT_TORN_RELOAD") is not None
 
 
 def strip_injection_env(env: dict) -> dict:

@@ -16,10 +16,20 @@ so a reload copies the candidate weights into the standby slot
 (``load_standby``), replays the standby graphs on each bucket's warm
 batch (the server's canary) and swaps the active slot index
 (``rebind``): no capture after ``start()``, and the live weights are
-untouched until the swap. One lock serialises every run (copy in,
-replay, copy out) and every weight write, so a batch in flight finishes
-on the weights it started with and no two graphs replay at once.
+untouched until the swap. One lock a cache serialises every run (copy
+in, replay, copy out) and every weight write, so a batch in flight
+finishes on the weights it started with and no two graphs replay at once.
 ``compile_warmup`` counts the captures: 2 x buckets.
+
+Several caches in one process (a fleet's replicas, ``fleet/``) share the
+card. A capture runs under ``torch.cuda.graph``'s default global capture
+mode, in which another thread's allocation, copy or synchronisation fails
+the capture or itself. So every cache's device work (each run, each
+weight write, each module built, :func:`build_module`) takes the shared
+side of the process-wide :data:`DEVICE_LOCK`, and each capture (with its
+warm-up forward and its buffers) takes the exclusive side: replays of
+other caches go on side by side between one capture and the next, never
+during one.
 
 Three model configs touch the host inside their forward and cannot be
 captured (MFC, an ``mlp_per_node`` head, SchNet's in-forward radius
@@ -31,6 +41,7 @@ that fails raises: nothing falls back to eager or to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -153,6 +164,61 @@ def check_like(ref: GraphBatch, batch: GraphBatch, what: str) -> None:
             raise ValueError(f"{what}: batch field {f.name!r} is {b!r}, the captured batch's {a!r}")
 
 
+class SharedExclusiveLock:
+    """Any number of holders of the shared side, or one of the exclusive
+    side; a waiting exclusive holder bars new shared ones, so a capture is
+    not starved by traffic. Not reentrant."""
+
+    def __init__(self, name: str):
+        self._cond = syncdebug.maybe_wrap(threading.Condition(), name)
+        self._shared = 0  # the three counts are guarded by _cond
+        self._exclusive = False
+        self._waiting = 0
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cond:
+            while self._exclusive or self._waiting:
+                self._cond.wait()
+            self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._shared -= 1
+                if not self._shared:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cond:
+            self._waiting += 1
+            while self._exclusive or self._shared:
+                self._cond.wait()
+            self._waiting -= 1
+            self._exclusive = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._exclusive = False
+                self._cond.notify_all()
+
+
+#: The process's device work against its CUDA-graph captures (module docstring).
+DEVICE_LOCK = SharedExclusiveLock("buckets.DEVICE_LOCK")
+
+
+def build_module(cfg, device, state_dict):
+    """A fresh module of ``cfg`` on ``device`` loaded (strict) with
+    ``state_dict``, built on the shared side of :data:`DEVICE_LOCK`:
+    never during a capture."""
+    with DEVICE_LOCK.shared():
+        module = create_model(cfg, device=device)
+        module.load_state_dict(state_dict, strict=True)
+    return module
+
+
 @dataclasses.dataclass
 class _Entry:
     """One bucket of one weight slot: the warm host batch, and for a
@@ -199,16 +265,14 @@ class BucketGraphCache:
 
     def _standby_model(self):
         live = self.models[0]
-        standby = create_model(live.cfg, device=self.device)
-        standby.load_state_dict(live.state_dict(), strict=True)
-        return standby
+        return build_module(live.cfg, self.device, live.state_dict())
 
     def _make(self, slot: int, bucket) -> _Entry:
         warm = self._build_warm_batch(bucket)
         if not self.graphs:
             return _Entry(warm)
         model = self.models[slot]
-        with torch.cuda.device(self.device):
+        with DEVICE_LOCK.exclusive(), torch.cuda.device(self.device):
             static = warm.to(self.device)
             # one forward off the capture first: the kernels' libraries,
             # cuBLAS's handle and workspace are made outside the graph
@@ -222,7 +286,8 @@ class BucketGraphCache:
             with torch.inference_mode(), torch.cuda.graph(graph):
                 outputs = list(model(static, train=False))
             self.captures += 1
-        return _Entry(warm, graph, static, warm.pin_memory(), outputs)
+            staging = warm.pin_memory()
+        return _Entry(warm, graph, static, staging, outputs)
 
     def _fill(self, buckets: Sequence, warmup: bool) -> None:
         if len(self.models) < self.SLOTS:
@@ -273,7 +338,7 @@ class BucketGraphCache:
         """Host float32 outputs of ``batch`` (on the host, at the bucket's
         plan) through ``slot``'s entry, or the live slot's (None, read
         under the lock: a batch runs wholly on one slot)."""
-        with self._lock:
+        with DEVICE_LOCK.shared(), self._lock:
             slot = self.active if slot is None else slot
             entry = self._entries[(slot, bucket_index)]
             check_like(entry.warm, batch, f"bucket {bucket_index}")
@@ -296,14 +361,17 @@ class BucketGraphCache:
             # replay cannot touch what was handed out
             return [o.to("cpu", torch.float32, copy=True).numpy() for o in entry.outputs]
 
-    def run_eager(self, batch: GraphBatch) -> List[np.ndarray]:
+    def run_eager(self, batch: GraphBatch, model=None) -> List[np.ndarray]:
         """The live slot's eager forward of ``batch`` at any shape (the
-        server's oversize path), under the same lock."""
-        with self._lock:
-            if self._metrics is not None:
+        server's oversize path), under the same locks; or ``model``'s (a
+        retrain pilot's candidate on the same device), which is not
+        counted as a served forward."""
+        with DEVICE_LOCK.shared(), self._lock:
+            if model is None and self._metrics is not None:
                 self._metrics.record_forward()
             with torch.inference_mode():
-                outputs = self.models[self.active](batch.to(self.device), train=False)
+                live = self.models[self.active] if model is None else model
+                outputs = live(batch.to(self.device), train=False)
             return [o.float().cpu().numpy() for o in outputs]
 
     # -- reload ------------------------------------------------------------
@@ -311,7 +379,7 @@ class BucketGraphCache:
     def load_standby(self, state_dict) -> int:
         """Copy ``state_dict`` (strict) into the standby slot's weights in
         place; returns the slot. The live slot is not touched."""
-        with self._lock:
+        with DEVICE_LOCK.shared(), self._lock:
             slot = self.standby
             self.models[slot].load_state_dict(state_dict, strict=True)
         return slot

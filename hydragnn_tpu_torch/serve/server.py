@@ -48,7 +48,10 @@ per-request results out of the padded outputs.
     The spool and drift run on the dispatch thread on host arrays the
     server already holds: they add no device synchronisation.
   - :meth:`ModelServer.attach_pilot` and the spool and drift hooks beside
-    it are the seam a retrain pilot attaches to (ROADMAP A-7).
+    it are the seam the retrain pilot (``pilot/pilot.py``) attaches to;
+    a fleet (``fleet/fleet.py``) passes each replica's ``metrics``, so
+    its counters live under ``fleet.<replica>.*`` in the fleet's
+    registry.
 
 The dispatch thread sets the server's CUDA device before it runs
 anything. fsdp-sharded serving waits for ROADMAP A-5.
@@ -236,7 +239,9 @@ class ModelServer:
     """Batched online inference over one :class:`ServedModel`.
 
     ``reference_samples`` (the prepared dataset) size the bucket ladder
-    and fix the request field spec every request must match. ``flight``
+    and fix the request field spec every request must match. ``metrics``
+    (a :class:`ServeMetrics`, its registry and prefix the caller's) is
+    used when given, else the server makes its own. ``flight``
     (``obs/flight.py``) receives the serving manifest at ``start()``,
     the fault events and ``run_end`` at ``stop()``."""
 
@@ -245,6 +250,7 @@ class ModelServer:
         served: ServedModel,
         reference_samples: Sequence,
         config: Optional[ServeConfig] = None,
+        metrics: Optional[ServeMetrics] = None,
         flight: Optional[FlightRecorder] = None,
     ):
         if not reference_samples:
@@ -260,7 +266,8 @@ class ModelServer:
             node_multiple=self.config.node_multiple,
             edge_multiple=self.config.edge_multiple,
         )
-        self.metrics = ServeMetrics(len(self.buckets), latency_window=self.config.latency_window)
+        self.metrics = (metrics if metrics is not None
+                        else ServeMetrics(len(self.buckets), latency_window=self.config.latency_window))
         ref = request_to_dict(self.reference_samples[0])
         ref_x = np.asarray(ref["x"])
         ref_ea = np.asarray(ref["edge_attr"]) if "edge_attr" in ref else None

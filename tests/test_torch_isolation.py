@@ -46,5 +46,7 @@ def test_port_imports_no_jax():
     walked = set(lines[1].split()[1:])
     for mod in ("obs.registry", "obs.export", "obs.flight", "obs.trace", "resilience.inject",
                 "resilience.watchdog", "resilience.supervisor", "serve.supervise", "serve.buckets",
-                "resilience.preempt", "resilience.hooks", "utils.syncdebug", "tools.supervise"):
+                "resilience.preempt", "resilience.hooks", "utils.syncdebug", "tools.supervise",
+                "pilot.journal", "pilot.pilot", "pilot.tune", "fleet.replica", "fleet.router",
+                "fleet.controller", "fleet.fleet"):
         assert f"hydragnn_tpu_torch.{mod}" in walked, mod
