@@ -211,7 +211,7 @@ raises; nothing is caught):
                    step; one diagnostics sample on the card against the
                    CPU. Prints the telemetry's cost on the epoch wall.
  9l. train-resilience — the flagship at full width, batch 128 on the
-                   [train-loop] data (8 steps an epoch), 4 epochs,
+                   [train-loop] data (8 steps an epoch), 3 epochs,
                    checkpoint_every 1, per-step dispatch, deterministic
                    algorithms: (a) SIGTERM at epoch 2 in process, then the
                    auto-resume, bit-equal to the uninterrupted run, with
@@ -299,6 +299,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -3068,7 +3069,7 @@ def serve_drift_phase(dev, card, counts, make_raw, launches_per, train_flight):
     return total
 
 
-RES_EPOCHS, RES_GRACE_S = 4, 8.0  # [train-resilience]: 4 epochs of 8 steps; (a)'s short grace window
+RES_EPOCHS, RES_GRACE_S = 3, 8.0  # [train-resilience]: 3 epochs of 8 steps; (a)'s short grace window
 RES_STALL_S = 3.0  # (d)'s watchdog
 # a resumed child's final val loss against the uninterrupted run's: after
 # a mid-epoch stop the stopped epoch is re-run on weights that took part
@@ -3262,7 +3263,7 @@ def train_resilience_phase(dev, card, counts, samples, per_step, per_fwd):
             for name, c in (("pre", pre_counts), ("resume", resume_counts)):
                 path_counts = {k: path_counts[k] + c[k] for k in path_counts}
             need = plus(need, want(2 * n_train, 2 * n_eval))
-            need = plus(need, want(2 * n_train, 2 * n_eval + 2 * n_train))
+            need = plus(need, want((RES_EPOCHS - 2) * n_train, (RES_EPOCHS - 2) * n_eval + 2 * n_train))
             if path_counts != {k: need.get(k, 0) for k in path_counts}:
                 raise AssertionError(f"train-resilience: launches {path_counts}, want {need}")
             if any(a_hist[k] != ref_hist[k] for k in EPOCH_KEYS) or not same(state_of(a_model, a_opt), ref_state):
@@ -4165,6 +4166,586 @@ def fleet_phase(dev, card, counts, make_raw, per_forward):
 
 
 
+# ---- [parallel] -----------------------------------------------------------
+# The Partitioner over torch.distributed (hydragnn_tpu_torch/parallel/):
+# one group of ranks, spawned once, runs every case. On one card two ranks
+# share it over gloo (NCCL refuses two ranks on one device); with a card a
+# rank, NCCL.
+PARALLEL_EPOCHS = 2  # (a)-(c) at [train]'s batch of 1,024 graphs (512 a rank)
+PARALLEL_TIMEOUT_S = 900
+GIANT_LATTICE, GIANT_HIDDEN, GIANT_STEPS = (50, 50, 48), 32, 8  # the giant driver's defaults
+# the PNA hidden-128 giant-graph step (tests/test_edge_sharded.py:320's
+# shape) on the driver's lattice, with its SGD step
+GIANT_PNA = dict(model_type="PNA", input_dim=4, hidden_dim=128, output_dim=(1,), output_type=("graph",),
+                 output_names=("energy",), task_weights=(1.0,), num_conv_layers=2, graph_num_sharedlayers=1,
+                 graph_dim_sharedlayers=8, graph_num_headlayers=1, graph_dim_headlayers=(8,), pna_avg_deg_lin=20.0,
+                 pna_avg_deg_log=3.0)
+# (a) against one process on the same global batches: both epochs' losses
+# at the step tier (STEP_LOSS_RTOL; chip runs 1-6 of the port's parallel
+# slice measured them equal to the bit), and one step's reduced gradient
+# against the mean of the sub-batches' gradients at the same state, rtol
+# 1e-5 (two ranks: the sum of two addends, halved, as one process adds
+# them). (b) and (c) against (a): rtol 1e-5 (the rule runs on slices of
+# the same reduced gradients). (d): the driver and the PNA step against
+# one process rtol 1e-4, the planted tie's gradient rtol 1e-6.
+PAR_LAYOUT_RTOL, PAR_EDGE_RTOL, PAR_TIE_RTOL = 1e-5, 1e-4, 1e-6
+_PARALLEL_CHILD = r'''
+import os, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {repo!r})
+import torch
+t_torch = time.perf_counter() - t0
+import chip_smoke
+chip_smoke.parallel_rank(sys.argv[1], sys.argv[2], t_torch)
+'''
+
+
+def kernel_modules():
+    """Every kernel's wrapper module (its ``launches`` count, ``SOURCE``
+    and ``REPLACES``), by the kernel's name in the ``kernels`` line."""
+    from hydragnn_tpu_torch.ops import fused_conv as b8
+    from hydragnn_tpu_torch.ops import gather_rows as b3
+    from hydragnn_tpu_torch.ops import gather_stats as b1
+    from hydragnn_tpu_torch.ops import pna_aggregate as agg
+    from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd
+    from hydragnn_tpu_torch.ops import row_pointers as rp
+    from hydragnn_tpu_torch.ops import segment_sum as b2
+    from hydragnn_tpu_torch.ops import segment_sum_local as b4
+
+    return {"pna_aggregate_fwd": agg, "gather_stats": b1,
+            "gather_stats_bwd": types.SimpleNamespace(launches=b1.bwd_launches, SOURCE=b1.SOURCE,
+                                                      REPLACES=b1.BWD_REPLACES),
+            "segment_sum": b2,
+            "gather_rows": b3, "segment_sum_local": b4, "fused_conv": b8,
+            "pna_bwd_count": types.SimpleNamespace(launches=bwd.count_launches, SOURCE=bwd.SOURCE,
+                                                   REPLACES=bwd.COUNT_REPLACES),
+            "pna_bwd_grad": types.SimpleNamespace(launches=bwd.grad_launches, SOURCE=bwd.SOURCE,
+                                                  REPLACES=bwd.GRAD_REPLACES),
+            "fused_conv_stack": importlib.import_module("hydragnn_tpu_torch.ops.fused_conv_stack"),
+            "row_pointers": rp}
+
+
+def giant_gin_launches(n_layers):
+    """One train step of GIN on an edge shard: B8 a layer and the row
+    pointers once (forward); a layer whose input takes a gradient gathers
+    the cotangent (B3) and scatters grad_x through the permuted pair (B3,
+    then B2), the window plan being dropped on a shard."""
+    return {"fused_conv": n_layers, "gather_rows": 2 * (n_layers - 1), "segment_sum": n_layers - 1,
+            "row_pointers": 1}
+
+
+def _tie_inputs(dev, h=128):
+    """v [E, h] on sorted receivers, one node's run straddling the middle
+    of the edge list, with a maximum of v and of -v planted on both sides."""
+    counts = np.asarray([5, 7, 6, 4, 8, 6, 4, 8] * 63)  # 3,024 slots: the middle falls inside a run
+    recv = torch.from_numpy(np.repeat(np.arange(len(counts)), counts).astype(np.int32))
+    e = recv.shape[0]
+    v = quarter_grid((e, h), 97)
+    mid = e // 2
+    if int(recv[mid - 1]) != int(recv[mid]):
+        raise AssertionError("the planted tie must straddle the boundary")
+    v[[mid - 1, mid], 0] = 9.0
+    v[[mid - 1, mid], 1] = -9.0
+    return v.to(dev), recv.to(dev), len(counts)
+
+
+def _profile_step(step, batch):
+    """One partitioned train step under torch.profiler: its wall ms, the
+    card's kernels' busy ms, and the collectives' ms (the host's gloo or
+    c10d spans, NCCL's device kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+    coll = [(ev.key, ev.cpu_time_total / 1e3) for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CPU
+            and any(t in ev.key.lower() for t in ("gloo:", "nccl:", "c10d::all", "c10d::broadcast"))]
+    nccl_dev = sum(ms for key, ms, _ in rows if "nccl" in key.lower())
+    coll_ms = max(sum(ms for _, ms in coll), nccl_dev)
+    return {"wall_ms": round(wall, 3), **busy_fields(wall, rows),
+            "collectives_ms": round(coll_ms, 3), "collectives_share": round(coll_ms / wall, 4) if wall else None,
+            "collective_ops": sorted({k for k, _ in coll})[:6]}
+
+
+def _rank_kernel_checks(b1, b2, b3, b4, bd, hidden, seed):
+    """B1 (and its backward kernel), B2, B3 and B4 at this rank's
+    sub-batch against their plain versions on the host copy."""
+    host = bd.to("cpu")
+    n, e = host.num_nodes, host.num_edges
+    dev = bd.nodes.device
+    tab = quarter_grid((n, hidden), seed)
+    err = {}
+    stats, both = b1.gather_stats(tab.to(dev), bd.senders, bd.edge_mask, K)
+    r_stats, r_both = b1.gather_stats_plain(tab, host.senders, host.edge_mask, K)
+    err["gather_stats"] = max(compare(stats, r_stats, "parallel gather_stats"),
+                              compare(both, r_both, "parallel gather_stats both", exact=True))
+    g_stats, g_both = quarter_grid(tuple(r_stats.shape), seed + 1, 1.0), quarter_grid(tuple(r_both.shape), seed + 2, 1.0)
+    gv = b1.gather_presum_bwd(tab.to(dev), bd.senders, bd.edge_mask, both, g_stats.to(dev), g_both.to(dev), K)
+    err["gather_stats_bwd"] = compare(gv, b1.gather_presum_bwd_plain(tab, host.senders, host.edge_mask, r_both,
+                                                                      g_stats, g_both, K), "parallel gather_stats_bwd")
+    vals = quarter_grid((e, hidden), seed + 3)
+    err["segment_sum"] = compare(b2.segment_sum(vals.to(dev), bd.receivers, n),
+                                 b2.segment_sum_plain(vals, host.receivers, n), "parallel segment_sum")
+    err["gather_rows"] = compare(b3.gather_rows(tab.to(dev), bd.senders), b3.gather_rows_plain(tab, host.senders),
+                                 "parallel gather_rows", exact=True)
+    err["segment_sum_local"] = compare(b4.segment_sum_local(vals.to(dev), bd.senders, bd.sender_win, n),
+                                       b4.segment_sum_local_plain(vals, host.senders, n), "parallel segment_sum_local")
+    return err
+
+
+def _shard_kernel_checks(agg, bwd, b8, rp, shard, hidden, seed):
+    """B5, B6, B7 and B8 (and the row pointers) at this rank's edge shard
+    of the giant graph against their plain versions on the host copy."""
+    host = shard.to("cpu")
+    n, e = host.num_nodes, host.num_edges
+    dev = shard.nodes.device
+    err = {}
+    ptr = rp.row_pointers(shard.receivers, n)
+    err["row_pointers"] = compare(ptr, rp.row_pointers_plain(host.receivers, n), "parallel row_pointers", exact=True)
+    v = quarter_grid((e, hidden), seed)
+    out = agg.pna_aggregate(v.to(dev), shard.receivers, n, shard.edge_mask, ptr)
+    ref = agg.pna_aggregate_plain(v, host.receivers, n, host.edge_mask)
+    err["pna_aggregate_fwd"] = max(compare(a, r, f"parallel pna_aggregate {i}", exact=True)
+                                   for i, (a, r) in enumerate(zip(out, ref)))
+    g_sum, g_sq = quarter_grid((n, hidden), seed + 1, 1.0), quarter_grid((n, hidden), seed + 2, 1.0)
+    g_both = quarter_grid((n, 2 * hidden), seed + 3, 1.0)
+    cnt = bwd.pna_bwd_count(v.to(dev), shard.receivers, shard.edge_mask, out[3], n, ptr)
+    cnt_ref = bwd.pna_bwd_count_plain(v, host.receivers, host.edge_mask, ref[3], n)
+    err["pna_bwd_count"] = compare(cnt, cnt_ref, "parallel pna_bwd_count", exact=True)
+    grad = bwd.pna_bwd_grad(v.to(dev), shard.receivers, shard.edge_mask, out[3], g_sum.to(dev), g_sq.to(dev),
+                            g_both.to(dev), cnt)
+    err["pna_bwd_grad"] = compare(grad, bwd.pna_bwd_grad_plain(v, host.receivers, host.edge_mask, ref[3], g_sum, g_sq,
+                                                                g_both, cnt_ref), "parallel pna_bwd_grad", exact=True)
+    x = quarter_grid((n, GIANT_HIDDEN), seed + 4)
+    err["fused_conv"] = compare(b8.fused_conv(x.to(dev), shard.senders, shard.receivers, shard.edge_mask, n),
+                                b8.fused_conv_plain(x, host.senders, host.receivers, host.edge_mask, n),
+                                "parallel fused_conv")
+    return err
+
+
+def parallel_rank(spec_path, out_dir, t_torch):
+    """One rank of [parallel] (started by ``parallel_phase``): every case
+    in order; its results into ``out_dir``."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    from hydragnn_tpu_torch.parallel import setup_distributed
+
+    t0 = time.perf_counter()
+    rank = int(os.environ["RANK"])
+    try:
+        world, rank = setup_distributed("cuda", backend=spec["backend"])
+        res = {"torch_import_s": round(t_torch, 2), "group_up_s": round(time.perf_counter() - t0, 2)}
+        res.update(_parallel_cases(spec, world, rank))
+    except BaseException:
+        with open(os.path.join(out_dir, f"error.rank{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _parallel_cases(spec, world, rank):
+    import torch.distributed as dist
+
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.api import create_dataloaders, prepare_config_and_samples, train_with_loaders
+    from hydragnn_tpu_torch.examples.giant_graph.train_giant import build_giant_batch, train_giant
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.models.base import ModelConfig
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops import pna_aggregate_bwd as bwd_mod
+    from hydragnn_tpu_torch.parallel import Partitioner, place_giant_batch
+    from hydragnn_tpu_torch.parallel.edge_sharded import pna_aggregate_edge_sharded
+    from hydragnn_tpu_torch.parallel.sharded import held_bytes
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+
+    dev = hydragnn_tpu_torch.resolve_device("cuda")
+    mods = kernel_modules()
+
+    def reset():
+        for m in mods.values():
+            m.launches.reset()
+
+    def read():
+        return {name: m.launches.value for name, m in mods.items()}
+
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(), "cuda_index": dev.index,
+           "kind": torch.cuda.get_device_name(dev.index), "cases": {}, "kernel_err": {}}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # the data prepared once for the layouts after (a), which goes through
+    # run_training from raw samples as a user's run does
+    prepared = prepare_config_and_samples(flagship_config(batch_size=TRAIN_BATCH, num_epoch=PARALLEL_EPOCHS),
+                                          _parallel_raw())
+    for name, par, zero1 in spec["layouts"]:
+        log_dir = os.path.join(spec["log_dir"], name)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        t0 = time.perf_counter()
+        if name == spec["layouts"][0][0]:
+            cfg = flagship_config(batch_size=TRAIN_BATCH, num_epoch=PARALLEL_EPOCHS)
+            cfg["NeuralNetwork"]["Parallel"] = dict(par)
+            model, opt, hist, done = hydragnn_tpu_torch.run_training(cfg, _parallel_raw(), log_dir=log_dir,
+                                                                     device="cuda", seed=SEED)
+        else:
+            done = copy.deepcopy(prepared[3])
+            done["NeuralNetwork"]["Parallel"] = dict(par)
+            if zero1:
+                done["NeuralNetwork"]["Training"]["Optimizer"]["use_zero_redundancy"] = True
+            model, opt, hist = train_with_loaders(done, *create_dataloaders(*prepared[:3], done), log_dir=log_dir,
+                                                  device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        part = Partitioner.from_config(done["NeuralNetwork"], device_stack=world // int(par.get("edge", 1)))
+        man = part.manifest(model, opt)
+        held = held_bytes(model, opt)  # what the rank keeps between steps (none of FSDP's whole parameters)
+        # the step alone: this rank's first sub-batch, timed and profiled
+        loaders = create_dataloaders(*prepared[:3], done)
+        for lo in loaders:
+            part.attach_loader(lo)
+        bd = next(iter(loaders[0])).to(dev)
+        step = part.shard_train_step(model, opt)
+        probe = None
+        if name == spec["layouts"][0][0]:
+            # (a)'s reduced gradient of one step from the run's last state
+            # (its checkpoint), held in the parent against one process
+            probe = {"state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     "batch": bd.to("cpu"), "config": done["NeuralNetwork"]}
+            step(bd)
+            probe["grads"] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        step_ms = cuda_ms(lambda: step(bd), 3)
+        prof = _profile_step(step, bd)
+        out["cases"][name] = {
+            "history": {k: hist[k] for k in ("train_loss", "val_loss", "test_loss")},
+            "counts": counts, "wall_s": round(wall, 2), "peak_mib": round(peak, 1), "step_ms": round(step_ms, 3),
+            "profile": prof, "manifest": {k: man.get(k) for k in ("params", "opt", "replicated_leaves", "mesh")},
+            "param_bytes": held[0], "opt_bytes": held[1], "grad_probe": probe,
+            "buffers": {k: b.detach().cpu().numpy() for k, b in model.named_buffers()},
+            # through state_dict: FSDP gathers the parameters it freed after the step
+            "param_sum": float(sum(v.double().sum() for k, v in model.state_dict().items()
+                                   if k in dict(model.named_parameters()))),
+            "steps": len(loaders[0]) * PARALLEL_EPOCHS,
+            "forwards": PARALLEL_EPOCHS * (len(loaders[1]) + len(loaders[2])) + 2 * len(loaders[0]),
+            "files": sorted(os.listdir(os.path.join(log_dir, os.listdir(log_dir)[0]))) if rank == 0 else None,
+            "sub_batch_graphs": int(bd.graph_mask.sum()),
+        }
+        if name == spec["layouts"][0][0]:
+            hidden = done["NeuralNetwork"]["Architecture"]["hidden_dim"]
+            out["kernel_err"].update(_rank_kernel_checks(mods["gather_stats"], mods["segment_sum"],
+                                                         mods["gather_rows"], mods["segment_sum_local"], bd, hidden,
+                                                         200 + rank))
+        del model, opt, step, bd
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    if not spec["giant"]:
+        return out
+    # (d) the giant driver at its defaults, then the PNA step and the tie
+    reset()
+    t0 = time.perf_counter()
+    gin = train_giant(*GIANT_LATTICE, hidden=GIANT_HIDDEN, steps=GIANT_STEPS, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    gin_counts = read()
+    out["cases"]["giant_gin"] = {"losses": gin["losses"], "step_ms": gin["step_ms"], "residency": gin["residency"],
+                                 "wall_s": round(time.perf_counter() - t0, 2), "counts": gin_counts,
+                                 "peak_mib": round(torch.cuda.max_memory_allocated(dev) / 2**20, 1)}
+    del gin
+    part = Partitioner(edge=world)
+    batch = build_giant_batch(*GIANT_LATTICE, world)
+    batch = dataclasses.replace(batch, graph_targets={"energy": torch.tensor([[0.7], [0.0]])}, node_targets={})
+    model = create_model(ModelConfig(**GIANT_PNA), seed=SEED, device=dev)
+    opt = part.shard_init(model, Optimizer(list(model.parameters()), "SGD", 0.05))
+    shard = place_giant_batch(part.edge_group, batch).to(dev)
+    step = part.shard_train_step(model, opt)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step(shard)[0])
+    pna_ms = (time.perf_counter() - t0) * 1e3
+    pna_counts = read()
+    out["cases"]["giant_pna"] = {"loss": loss, "step_ms": round(pna_ms, 3), "counts": pna_counts,
+                                 "params": {k: p.detach().cpu().numpy() for k, p in model.named_parameters()},
+                                 "rows": int(shard.senders.shape[0]), "global_rows": int(batch.senders.shape[0]),
+                                 "win_dropped": shard.sender_win is None,
+                                 "profile": _profile_step(step, shard)}
+    out["kernel_err"].update(_shard_kernel_checks(mods["pna_aggregate_fwd"], bwd_mod, mods["fused_conv"],
+                                                  mods["row_pointers"], shard, GIANT_PNA["hidden_dim"], 300 + rank))
+    del model, opt, step, shard
+    # the planted tie across the boundary: the shard's gradient (over the
+    # group's width, the edge axis's convention) against the whole graph's
+    v, recv, n = _tie_inputs(dev)
+    e = v.shape[0]
+    lo, hi = rank * e // world, (rank + 1) * e // world
+    weight = torch.linspace(0.5, 1.5, 2 * v.shape[1], device=dev)
+    full = v.clone().requires_grad_(True)
+    s, _, _, both = mods["pna_aggregate_fwd"].pna_aggregate(full, recv, n)
+    ((both * weight).sum() + (s * s).sum()).backward()
+    loc = v[lo:hi].clone().requires_grad_(True)
+    s2, _, _, both2 = pna_aggregate_edge_sharded(loc, recv[lo:hi].contiguous(), n, part.edge_group)
+    ((both2 * weight).sum() + (s2 * s2).sum()).backward()
+    tie_err = compare(loc.grad / world, full.grad[lo:hi], "parallel tie", tol=dict(rtol=PAR_TIE_RTOL, atol=1e-6))
+    mid = e // 2
+    out["cases"]["tie"] = {"max_abs_err": tie_err, "split": float(full.grad[mid, 0]) == float(full.grad[mid - 1, 0])}
+    return out
+
+
+def parallel_phase(dev, card, world=2):
+    """[parallel]: one group of ``world`` ranks on the card(s) (two on one
+    card over gloo; one a card over NCCL) runs (a) data-parallel training
+    through ``run_training`` with ``Parallel`` set, (b) FSDP and (c) ZeRO-1
+    (two ranks: fsdp = 2 and data = 2; four: data 2 × fsdp 2 and data 2 ×
+    edge 2), and (d) the giant-graph driver at its defaults on the edge
+    axis, the PNA hidden-128 giant step and a planted cross-shard tie.
+    Each rank checks its kernels against their plain versions at its own
+    shapes. Here: (a) against one process on the same global batches, the
+    checkpoint and ``serve_model`` from it, (b) and (c) against (a), (d)
+    against one process. Returns the path's launches summed over the
+    ranks (held to ``launch_plan`` × ranks) and the kernels' errors."""
+    import pickle
+
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.examples.giant_graph.train_giant import build_giant_batch, train_giant
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.models.base import ModelConfig
+    from hydragnn_tpu_torch.models.create import create_model, create_model_config
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    from hydragnn_tpu_torch.train.state import _loss, make_train_step
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    # each layout's reference: (a)'s run, or one process accumulating the
+    # step's K sub-batches in order (``one:K``)
+    if world == 2:
+        layouts = [("a_data2", {}, False), ("b_fsdp2", {"fsdp": 2}, False), ("c_zero1", {}, True)]
+        refs = {"a_data2": "one:2", "b_fsdp2": "a_data2", "c_zero1": "a_data2"}
+    else:
+        layouts = [("a_data4", {}, False), ("b_data2_fsdp2", {"fsdp": 2}, False),
+                   ("d_data2_edge2", {"edge": 2}, False)]
+        refs = {"a_data4": "one:4", "b_data2_fsdp2": "a_data4", "d_data2_edge2": "one:2"}
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    spec = {"backend": backend, "layouts": layouts, "log_dir": os.path.join(work, "logs"), "giant": True}
+    spec_path = os.path.join(work, "spec.pkl")
+    with open(spec_path, "wb") as f:
+        pickle.dump(spec, f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    code = _PARALLEL_CHILD.format(repo=repo)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), HGTORCH_DIAGNOSTICS="0", CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        log = open(os.path.join(work, f"rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, "-c", code, spec_path, work], env=env, cwd=repo,
+                                      stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, PARALLEL_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"[parallel]: the group did not finish within {PARALLEL_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    spawn_s = time.perf_counter() - t0
+    errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work)) if f.startswith("error.")]
+    if errors or any(p.returncode != 0 for p in procs):
+        tails = [open(os.path.join(work, f"rank{r}.log")).read()[-3000:] for r in range(world)]
+        raise AssertionError(f"[parallel]: ranks exited {[p.returncode for p in procs]}:\n" + "\n".join(errors or tails))
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    r0 = ranks[0]
+    line("parallel", part="group", world=world, backend=backend, cards=cards, card=repr(card),
+         collective_via="gloo_cuda_tensors" if backend == "gloo" else "nccl",
+         spawn_s=round(spawn_s, 2), torch_import_s=json.dumps([r["torch_import_s"] for r in ranks]),
+         group_up_s=json.dumps([r["group_up_s"] for r in ranks]))
+    # (a)-(c): every rank the same history, parameters and statistics
+    a_name = layouts[0][0]
+    for name, _, _ in layouts:
+        for r in ranks[1:]:
+            if r["cases"][name]["history"] != r0["cases"][name]["history"]:
+                raise AssertionError(f"[parallel] {name}: the ranks' histories differ")
+            if r["cases"][name]["param_sum"] != r0["cases"][name]["param_sum"]:
+                raise AssertionError(f"[parallel] {name}: the ranks' parameters differ")
+            for k, v in r0["cases"][name]["buffers"].items():
+                if not np.array_equal(v, r["cases"][name]["buffers"][k]):
+                    raise AssertionError(f"[parallel] {name}: BatchNorm statistics {k} differ between the ranks")
+        c = r0["cases"][name]
+        for rk, r in enumerate(ranks):
+            cr = r["cases"][name]
+            line("parallel", case=name, rank=rk, backend=backend, world=world, card=repr(card),
+                 train_loss=json.dumps(cr["history"]["train_loss"]), step_ms=cr["step_ms"], wall_s=cr["wall_s"],
+                 peak_mib=cr["peak_mib"], sub_batch_graphs=cr["sub_batch_graphs"],
+                 param_bytes=cr["param_bytes"], opt_bytes=cr["opt_bytes"],
+                 **{f"profile_{k}": (json.dumps(v) if isinstance(v, list) else v) for k, v in cr["profile"].items()})
+        man = c["manifest"]
+        line("parallel", case=name, part="layout", card=repr(card), mesh=json.dumps(man["mesh"]),
+             params=json.dumps(man["params"]), opt=json.dumps(man["opt"]),
+             replicated_leaves=json.dumps(man["replicated_leaves"][:6]), n_replicated=len(man["replicated_leaves"]))
+        if not refs[name].startswith("one:"):
+            np.testing.assert_allclose(c["history"]["train_loss"], r0["cases"][refs[name]]["history"]["train_loss"],
+                                       rtol=PAR_LAYOUT_RTOL, err_msg=f"[parallel] {name} against {refs[name]}")
+    a = r0["cases"][a_name]
+    if a["files"].count(a["files"][0]) != 1 or sum(f.endswith(".pt") for f in a["files"]) != 1:
+        raise AssertionError(f"[parallel] (a): want exactly one checkpoint, got {a['files']}")
+    # (b) fsdp 2 (and (c) ZeRO-1 on two ranks) hold about half of (a)'s
+    # optimizer state; fsdp keeps its slices alone between steps, as the
+    # manifest says
+    for name in [layouts[1][0]] + (["c_zero1"] if world == 2 else []):
+        c = r0["cases"][name]
+        if not c["opt_bytes"] < 0.6 * a["opt_bytes"]:
+            raise AssertionError(f"[parallel] {name}: optimizer state {c['opt_bytes']} B, (a) {a['opt_bytes']} B")
+    b = r0["cases"][layouts[1][0]]
+    if not (b["param_bytes"] < 0.6 * a["param_bytes"] and b["param_bytes"] == b["manifest"]["params"]["bytes_per_device"]):
+        raise AssertionError(f"[parallel] {layouts[1][0]}: holds {b['param_bytes']} B of parameters, (a) "
+                             f"{a['param_bytes']} B, manifest {b['manifest']['params']}")
+    # against one process on the same global batches: batch 1024 / K with
+    # K accumulated micro-batches (the step's K sub-batches, in order),
+    # streamed
+    for name, ref in refs.items():
+        if not ref.startswith("one:"):
+            continue
+        k = int(ref[4:])
+        ref_cfg = flagship_config(batch_size=TRAIN_BATCH // k, num_epoch=PARALLEL_EPOCHS)
+        ref_cfg["NeuralNetwork"]["Training"].update(grad_accum_steps=k, scan_epoch=False)
+        with deterministic_algorithms("parallel", f"one_process_reference_{name}", card):
+            _, _, ref_hist, _ = hydragnn_tpu_torch.run_training(ref_cfg, _parallel_raw(),
+                                                                log_dir=os.path.join(work, f"ref_{name}"),
+                                                                device="cuda", seed=SEED)
+        got = r0["cases"][name]["history"]["train_loss"]
+        np.testing.assert_allclose(got, ref_hist["train_loss"], rtol=STEP_LOSS_RTOL,
+                                   err_msg=f"[parallel] {name} against one process")
+        line("parallel", case=name, part="vs_one_process", micro_batches=k, card=repr(card),
+             train_loss=json.dumps(got), one_process=json.dumps(ref_hist["train_loss"]),
+             rel_err=json.dumps([abs(x - y) / abs(y) for x, y in zip(got, ref_hist["train_loss"])]))
+    # (a)'s reduced gradient against one process: each rank's sub-batch's
+    # gradient at the same state, averaged (AdamW's update hides a
+    # gradient's scale; this does not)
+    probes = [r["cases"][a_name]["grad_probe"] for r in ranks]
+    gmodel = create_model_config(probes[0]["config"], seed=SEED, device=dev)
+    gmodel.load_state_dict(probes[0]["state"])
+    mean = None
+    with deterministic_algorithms("parallel", "one_process_gradient", card):
+        for pr in probes:
+            gmodel.zero_grad(set_to_none=True)
+            loss, _ = _loss(gmodel, pr["batch"].to(dev), None)
+            loss.backward()
+            g = {k: p.grad.detach().clone() for k, p in gmodel.named_parameters()}
+            mean = g if mean is None else {k: mean[k] + g[k] for k in g}
+    grad_err = 0.0
+    for rk, pr in enumerate(probes):
+        for k, v in mean.items():
+            grad_err = max(grad_err, compare(pr["grads"][k], v / world, f"[parallel] {a_name} rank {rk} gradient {k}",
+                                             tol=dict(rtol=PAR_LAYOUT_RTOL, atol=1e-9)))
+    line("parallel", case=a_name, part="gradient_vs_one_process", ranks=world, tensors=len(mean),
+         max_abs_err=grad_err, tol=json.dumps(dict(rtol=PAR_LAYOUT_RTOL, atol=1e-9)), card=repr(card))
+    del gmodel, mean, probes
+    # the one checkpoint serves
+    serve_dir = os.path.join(spec["log_dir"], a_name)
+    scfg = flagship_config(batch_size=TRAIN_BATCH, num_epoch=PARALLEL_EPOCHS)
+    server = hydragnn_tpu_torch.serve_model(scfg, _parallel_raw(), log_dir=serve_dir, device="cuda", start=True)
+    try:
+        answers = server.predict_many(server.reference_samples[:4], timeout=120)
+    finally:
+        server.stop()
+    if len(answers) != 4 or not all(np.isfinite(np.asarray(v)).all() for ans in answers for v in ans.values()):
+        raise AssertionError("[parallel] serve_model from (a)'s checkpoint: answers not finite")
+    line("parallel", case=a_name, part="serve_from_checkpoint", answers=len(answers), card=repr(card))
+    # (d) against one process
+    gin = [r["cases"]["giant_gin"] for r in ranks]
+    one = train_giant(*GIANT_LATTICE, hidden=GIANT_HIDDEN, steps=GIANT_STEPS, device="cuda", verbose=False)
+    for rk, g in enumerate(gin):
+        np.testing.assert_allclose(g["losses"], one["losses"], rtol=PAR_EDGE_RTOL,
+                                   err_msg="[parallel] giant driver against one process")
+        res = g["residency"]["senders"]
+        if res["rows_per_device"] * world != res["global_rows"]:
+            raise AssertionError(f"[parallel] giant driver: rank {rk} holds {res}")
+        line("parallel", case="d_giant_gin", rank=rk, world=world, backend=backend, card=repr(card),
+             losses=json.dumps([round(x, 6) for x in g["losses"]]), step_ms_median=round(float(np.median(g["step_ms"])), 3),
+             one_process_step_ms_median=round(float(np.median(one["step_ms"])), 3),
+             edge_rows=res["rows_per_device"], global_rows=res["global_rows"],
+             edge_bytes_per_rank=sum(v["bytes_per_device"] for v in g["residency"].values()), peak_mib=g["peak_mib"])
+    if not gin[0]["losses"][-1] < gin[0]["losses"][0]:
+        raise AssertionError(f"[parallel] giant driver: the loss did not fall {gin[0]['losses']}")
+    del one
+    batch = build_giant_batch(*GIANT_LATTICE, 1)
+    batch = dataclasses.replace(batch, graph_targets={"energy": torch.tensor([[0.7], [0.0]])}, node_targets={})
+    model = create_model(ModelConfig(**GIANT_PNA), seed=SEED, device=dev)
+    step = make_train_step(model, Optimizer(list(model.parameters()), "SGD", 0.05))
+    loss = float(step(batch.to(dev))[0])
+    pna = r0["cases"]["giant_pna"]
+    np.testing.assert_allclose(pna["loss"], loss, rtol=PAR_EDGE_RTOL, err_msg="[parallel] PNA giant step loss")
+    worst = 0.0
+    for k, p in model.named_parameters():
+        ref = p.detach().cpu().numpy()
+        np.testing.assert_allclose(pna["params"][k], ref, rtol=PAR_EDGE_RTOL, atol=1e-6, err_msg=k)
+        worst = max(worst, float(np.abs(pna["params"][k] - ref).max()))
+    for rk, r in enumerate(ranks):
+        pr = r["cases"]["giant_pna"]
+        line("parallel", case="d_giant_pna", rank=rk, card=repr(card), loss=pr["loss"], one_process_loss=loss,
+             step_ms=pr["step_ms"], edge_rows=pr["rows"], global_rows=pr["global_rows"],
+             window_plans_dropped=pr["win_dropped"], param_max_abs_err=worst,
+             **{f"profile_{k}": (json.dumps(v) if isinstance(v, list) else v) for k, v in pr["profile"].items()})
+    for rk, r in enumerate(ranks):
+        t = r["cases"]["tie"]
+        if not t["split"]:
+            raise AssertionError("[parallel] the planted tie was not split evenly")
+        line("parallel", case="d_cross_shard_tie", rank=rk, max_abs_err=t["max_abs_err"], split_evenly=True)
+    # the path's launches, summed over the ranks, against the plans
+    arch = flagship_config()["NeuralNetwork"]["Architecture"]
+    per_step, per_fwd = launch_plan(arch, "run_aligned")
+    pna_step, _ = launch_plan(dict(model_type="PNA", num_conv_layers=GIANT_PNA["num_conv_layers"]), "unaligned")
+    gin_step = giant_gin_launches(2)
+    names = list(ranks[0]["cases"][a_name]["counts"])
+    summed = {k: sum(r["cases"][a_name]["counts"][k] + r["cases"]["giant_gin"]["counts"][k]
+                     + r["cases"]["giant_pna"]["counts"][k] for r in ranks) for k in names}
+    want = {k: world * (a["steps"] * per_step.get(k, 0) + a["forwards"] * per_fwd.get(k, 0)
+                        + GIANT_STEPS * gin_step.get(k, 0) + pna_step.get(k, 0)) for k in names}
+    if summed != want:
+        raise AssertionError(f"[parallel]: launches {summed}, want {want}")
+    missing = [k for k in names if k != "fused_conv_stack" and summed[k] == 0]
+    if missing:
+        raise AssertionError(f"[parallel]: no launch of {missing} on the path")
+    kernel_err = {k: max(r["kernel_err"].get(k, 0.0) for r in ranks) for k in names}
+    line("parallel", part="launches", world=world, kernel_launches=json.dumps(summed, separators=(",", ":")),
+         kernel_max_abs_err=json.dumps(kernel_err, separators=(",", ":")), card=repr(card))
+    shutil.rmtree(work, ignore_errors=True)
+    return summed, kernel_err
+
+
+def _parallel_raw():
+    from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
+
+    return deterministic_graph_data(number_configurations=TRAIN_SAMPLES, unit_cell_x_range=TRAIN_UNIT_CELLS,
+                                    unit_cell_y_range=TRAIN_UNIT_CELLS, unit_cell_z_range=TRAIN_UNIT_CELLS, seed=SEED)
+
+
+
 def main():
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4210,17 +4791,7 @@ def main():
     line("device", kind=repr(kind), count=count, nvidia_smi=repr(card),
          torch=torch.__version__, cuda=torch.version.cuda,
          tf32=torch.backends.cuda.matmul.allow_tf32)
-    mods = {"pna_aggregate_fwd": agg, "gather_stats": b1,
-            "gather_stats_bwd": types.SimpleNamespace(launches=b1.bwd_launches, SOURCE=b1.SOURCE,
-                                                      REPLACES=b1.BWD_REPLACES),
-            "segment_sum": b2,
-            "gather_rows": b3, "segment_sum_local": b4, "fused_conv": b8,
-            "pna_bwd_count": types.SimpleNamespace(launches=bwd.count_launches, SOURCE=bwd.SOURCE,
-                                                   REPLACES=bwd.COUNT_REPLACES),
-            "pna_bwd_grad": types.SimpleNamespace(launches=bwd.grad_launches, SOURCE=bwd.SOURCE,
-                                                  REPLACES=bwd.GRAD_REPLACES),
-            "fused_conv_stack": importlib.import_module("hydragnn_tpu_torch.ops.fused_conv_stack"),
-            "row_pointers": rp}
+    mods = kernel_modules()
     sources = {name: os.path.basename(m.SOURCE) for name, m in mods.items()}
 
     def reset_counts():
@@ -5591,6 +6162,13 @@ def main():
     profile_step("GIN", *stack_models["GIN"])
     profile_step("GAT", gat_model, gat_opt)
 
+    # ---- 10b. parallel: the Partitioner over torch.distributed ------------
+    t0 = time.perf_counter()
+    parallel_counts, parallel_err = parallel_phase(dev, card)
+    for name, err in parallel_err.items():
+        max_err[name] = max(max_err[name], err)
+    line("parallel", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
+
     # ---- 11. summary -----------------------------------------------------
     # each kernel's launches on its own main path (serve: B5; PNA
     # training: B1, its backward kernel, B2-B4; GIN training: B8;
@@ -5607,7 +6185,7 @@ def main():
              "data_path_hgc": data_path_counts, "data_eam": eam_counts, "records": records_counts,
              "train_obs": train_obs_counts, "serve_drift": serve_drift_counts,
              "train_resilience": resilience_counts, "lock_witness": witness_counts,
-             "pilot": pilot_counts, "fleet": fleet_counts,
+             "pilot": pilot_counts, "fleet": fleet_counts, "parallel": parallel_counts,
              **{f"examples_{k}": c for k, c in example_counts.items()}}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",
@@ -5647,6 +6225,33 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 
+def parallel_only(world):
+    """``python3 chip_smoke.py --parallel-only N``: the kernels built and
+    [parallel] alone in a group of N ranks (a card a rank on a machine
+    with N cards)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card")
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.ops._build import build_all
+
+    dev = hydragnn_tpu_torch.resolve_device("cuda")
+    card = card_line()
+    line("device", kind=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(), nvidia_smi=repr(card),
+         torch=torch.__version__, cuda=torch.version.cuda)
+    t0 = time.time()
+    build_all(sorted({os.path.basename(m.SOURCE) for m in kernel_modules().values()}))
+    line("build", seconds=round(time.time() - t0, 2))
+    t0 = time.perf_counter()
+    parallel_phase(dev, card, world=world)
+    line("parallel", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-only":
+        parallel_only(int(sys.argv[2]))
+    else:
+        main()
     sys.exit(0)

@@ -9,6 +9,14 @@ under ``Dataset.path``: ``{"total": dir}`` (prepared, then split), or
 ``{"train": dir, "validate": dir, "test": dir}`` (predefined splits,
 normalized together), in ``Dataset.format`` ``LSMS``/``unit_test``,
 ``XYZ``, ``CFG`` or ``HGC`` (the container).
+
+Several processes (``torchrun --nproc_per_node N``, or any launcher that
+sets ``WORLD_SIZE``/``RANK``/``MASTER_ADDR``/``MASTER_PORT``; a driver
+calls ``parallel.setup_distributed`` first) train one model together:
+the ``Parallel`` section's ``fsdp`` and ``edge`` widths and
+``Training.Optimizer.use_zero_redundancy`` pick the layout, and the
+loaders give each rank its sub-batch of every step
+(``parallel/partitioner.py``).
 """
 
 from __future__ import annotations
@@ -64,18 +72,75 @@ def prepare_config_and_samples(
     return train, val, test, config
 
 
+def _choose_device_stack(config: Dict[str, Any]) -> int:
+    """The sub-batches one batch splits into: the processes of the run
+    over ``Parallel.edge`` (which shards within a sub-batch) when the
+    batch size divides evenly, else 1, and then each rank takes whole
+    batches of its own shard of the samples (the JAX package's
+    multi-host layout). The width feeds ``Partitioner.from_config``,
+    which splits it into ``data × fsdp``."""
+    from hydragnn_tpu_torch.parallel import get_comm_size_and_rank
+
+    world = get_comm_size_and_rank()[0]
+    nn = config["NeuralNetwork"]
+    par = nn.get("Parallel") or {}
+    fsdp = int(par.get("fsdp", 1) or 1)
+    edge = int(par.get("edge", 1) or 1)
+    if world % edge:
+        raise ValueError(f"Parallel.edge={edge} must divide local_device_count={world}")
+    usable = world // edge
+    bs = int(nn["Training"]["batch_size"])
+    if usable > 1 and bs % usable != 0:
+        if fsdp > 1:
+            # an explicit fsdp request must not silently degrade to a
+            # replicated single-device run that may not even fit HBM
+            raise ValueError(
+                f"Parallel.fsdp={fsdp} is set but batch_size={bs} is not "
+                f"divisible by the usable device width {usable}; pick a "
+                "batch size the device width divides"
+            )
+        warnings.warn(
+            f"batch_size={bs} is not divisible by the usable device "
+            f"width {usable}; falling back to one sub-batch a process "
+            f"(each of the {usable} processes trains whole batches of its "
+            f"own shard of the samples). Use a batch_size divisible "
+            f"by {usable} to split each batch over the processes.",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+        return 1
+    if fsdp > 1 and (usable < fsdp or usable % fsdp):
+        raise ValueError(
+            f"Parallel.fsdp={fsdp} must divide the usable device width "
+            f"{usable} (local_device_count={world}, edge={edge})"
+        )
+    return usable
+
+
 def create_dataloaders(
-    train: List, val: List, test: List, config: Dict[str, Any]
+    train: List, val: List, test: List, config: Dict[str, Any], device_stack: Optional[int] = None
 ) -> Tuple[GraphLoader, GraphLoader, GraphLoader]:
     """Per-split loaders: the train split reshuffles every epoch;
     ``Training.cache_device_batches`` and ``scan_reshuffle_every`` reach
-    every loader."""
+    every loader. In a group of processes each rank's loaders yield its
+    share: sub-batch ``rank // Parallel.edge`` of ``device_stack``
+    (default ``_choose_device_stack``), or, at a width of 1, whole
+    batches of its shard of the samples."""
+    from hydragnn_tpu_torch.parallel import get_comm_size_and_rank
+
     training = config["NeuralNetwork"]["Training"]
     bs = int(training["batch_size"])
+    world, rank = get_comm_size_and_rank()
+    edge = int((config["NeuralNetwork"].get("Parallel") or {}).get("edge", 1) or 1)
+    stack = _choose_device_stack(config) if device_stack is None else int(device_stack)
     kw = dict(
         cache_device_batches=bool(training.get("cache_device_batches", False)),
         scan_reshuffle_every=int(training.get("scan_reshuffle_every", 0)),
     )
+    if stack > 1:
+        kw.update(device_stack=stack, stack_rank=rank // edge)
+    elif world > 1:
+        kw.update(num_shards=world // edge, shard_rank=rank // edge)
     return GraphLoader(train, bs, shuffle=True, **kw), GraphLoader(val, bs, **kw), GraphLoader(test, bs, **kw)
 
 
@@ -109,20 +174,46 @@ def train_with_loaders(
     ``Training.startfrom``'s checkpoint. The run's log, config, records
     (``metrics.jsonl``, tensorboard events, a ``Profile`` trace) and the
     ``Visualization`` section's plots go to ``<log_dir>/<log name>/``.
-    Returns (model, optimizer, history)."""
+    Returns (model, optimizer, history).
+
+    The run's ``Partitioner`` (``parallel/partitioner.py``) comes from the
+    config and the loaders' split; in a group of processes the loaders'
+    widths are first checked to agree on every rank. The model is built
+    with SyncBatchNorm's group, the loaders are attached, and the
+    optimizer is placed in the layout before a checkpoint is restored
+    into it; rank 0 prints the model and writes the checkpoint."""
+    from hydragnn_tpu_torch.parallel import Partitioner, get_comm_size_and_rank
+
     dev = resolve_device(device)
     verbosity = config.get("Verbosity", {}).get("level", 0)
     log_name = get_log_name_config(config)
     setup_log(log_name, log_dir)
     save_config(config, log_name, log_dir)
     nn_config = config["NeuralNetwork"]
-    model = create_model_config(nn_config, seed=seed, device=dev)
+    world, rank = get_comm_size_and_rank()
+    stack = int(getattr(train_loader, "device_stack", 1))
+    if world > 1:
+        # every process's width, gathered BEFORE anyone raises: a rank
+        # that raised alone would leave the others blocked in a collective
+        import torch.distributed as dist
+
+        widths = [None] * world
+        dist.all_gather_object(widths, stack)
+        if any(w != stack for w in widths):
+            raise ValueError(f"device_stack must agree across processes, got {widths}")
+    partitioner = Partitioner.from_config(nn_config, device_stack=stack, multihost=world > 1 and stack == 1)
+    model = create_model_config(nn_config, seed=seed, device=dev, bn_axis_name=partitioner.bn_axis_name)
     optimizer = _optimizer_for(model, nn_config)
+    for loader in (train_loader, val_loader, test_loader):
+        partitioner.attach_loader(loader)
+    # placed BEFORE the restore: a checkpoint loads into the run's layout
+    optimizer = partitioner.shard_init(model, optimizer)
     # a child the restart supervisor started again (HGTORCH_AUTO_RESUME=1)
     # picks up its own checkpoint through continue/startfrom
     auto_resume_config(nn_config["Training"], log_name, log_dir)
     load_existing_model_config(model, nn_config["Training"], log_dir, optimizer=optimizer)
-    print_model(model, verbosity)
+    if rank == 0:
+        print_model(model, verbosity)
     viz = config.get("Visualization", {})
     history = train_validate_test(
         model, optimizer, train_loader, val_loader, test_loader, nn_config, verbosity=verbosity,
@@ -132,6 +223,7 @@ def train_with_loaders(
         plot_hist_solution=bool(viz.get("plot_hist_solution", False)),
         # the full resolved config goes into the flight record's manifest
         run_config=config,
+        partitioner=partitioner,
     )
     save_model(model, log_name, log_dir, optimizer=optimizer, epoch=len(history["train_loss"]))
     return model, optimizer, history
@@ -225,7 +317,8 @@ def serve_model(
     ``log_dir`` (``reload("run")``'s root) is ``log_dir``, or
     ``./logs/``. ``flight`` (``obs/flight.py:FlightRecorder``) takes the
     serving record. ``Parallel.fsdp`` above 1 warns and serves
-    replicated on the one device (fsdp serving is ROADMAP A-5).
+    replicated on the one device (fsdp serving, a server over several
+    processes, is ROADMAP A-5b).
     Predictions are in model space (normalized targets).
 
     Raises without a CUDA card unless ``device="cpu"``. Returns the

@@ -26,8 +26,8 @@ fallback.
 
 The port's copy of ``hydragnn_tpu/data/container.py``: the on-disk schema
 is the same byte for byte, so a container either package writes opens in
-the other. Writing is single-process here; the JAX package's
-multi-process write waits for ROADMAP A-5.
+the other. Several processes write one container together as the JAX
+package's do: each process its own byte range (``ContainerWriter``).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import numpy as np
 
 from hydragnn_tpu_torch.data.dataset import GraphSample
 from hydragnn_tpu_torch.native import MappedFile, copy_to_shm
+from hydragnn_tpu_torch.parallel.mesh import barrier
 
 
 def _field_arrays(sample: GraphSample) -> Dict[str, np.ndarray]:
@@ -81,23 +82,33 @@ def _jsonable_meta(meta: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _distributed_world() -> int:
-    """Processes in an initialised ``torch.distributed`` group (1 when
-    there is none)."""
+def _world_and_rank():
+    """(processes, rank) of an initialised ``torch.distributed`` group,
+    (1, 0) without one."""
+    from hydragnn_tpu_torch.parallel.mesh import get_comm_size_and_rank
+
+    return get_comm_size_and_rank()
+
+
+def _all_gather_object(obj) -> list:
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 class ContainerWriter:
-    """Writes a sample list into an HGC container, from one process.
+    """Writes a sample list (this process's shard) into an HGC container.
 
-    The JAX package's multi-process save (every process writes its own
-    shard's byte range after an allgather of the row counts) waits for
-    the port's ``torch.distributed`` layer (ROADMAP A-5): under an
-    initialised group of more than one process ``save()`` raises.
+    Single process: trivial. In an initialised ``torch.distributed``
+    group of several processes every process calls ``save()`` with its
+    own shard, in rank order of the samples: the schema fingerprints,
+    the sample counts and each field's per-sample row counts are
+    gathered (``all_gather_object``), rank 0 sizes each ``.bin`` and
+    writes the whole count index, a barrier, then each process writes
+    its own byte range (the JAX package's multi-process branch). The
+    files are the bytes one process writes from all the shards in order.
     """
 
     def __init__(self, path: str):
@@ -112,15 +123,13 @@ class ContainerWriter:
         self.attrs[name] = np.asarray(value).tolist() if hasattr(value, "tolist") else value
 
     def save(self) -> None:
-        if _distributed_world() > 1:
-            raise NotImplementedError(
-                "ContainerWriter.save from several torch.distributed processes "
-                "is not ported yet (ROADMAP A-5); write from one process"
-            )
+        nproc, rank = _world_and_rank()
         os.makedirs(self.path, exist_ok=True)
 
         per_sample = [_field_arrays(s) for s in self.samples]
         if not per_sample:
+            # an empty shard cannot learn the schema, and skipping its
+            # collectives would deadlock peers mid-save
             raise ValueError("save() needs at least one sample")
         field_names = sorted(per_sample[0].keys())
         for i, fa in enumerate(per_sample):
@@ -129,20 +138,35 @@ class ContainerWriter:
                     f"sample {i} has fields {sorted(fa.keys())}, "
                     f"expected {field_names} (schema must be homogeneous)"
                 )
+        if nproc > 1:
+            import hashlib
+
+            # every field's per-sample row counts, with the schema's
+            # fingerprint: one gather for the whole save
+            fp = hashlib.sha1(",".join(field_names).encode()).hexdigest()
+            local = {fname: [int(fa[fname].shape[0]) for fa in per_sample] for fname in field_names}
+            gathered = _all_gather_object((fp, local))
+            if any(g[0] != fp for g in gathered):
+                raise ValueError("field schema differs across processes")
+            all_counts = [g[1] for g in gathered]
+        else:
+            all_counts = [{fname: [int(fa[fname].shape[0]) for fa in per_sample] for fname in field_names}]
+        ndata = sum(len(c[field_names[0]]) for c in all_counts)
 
         meta: Dict[str, Any] = {
-            "ndata": len(self.samples),
+            "ndata": ndata,
             "keys": field_names,
             "attrs": self.attrs,
             "fields": {},
         }
         for fname in field_names:
             arrays = [fa[fname] for fa in per_sample]
-            counts = np.asarray([a.shape[0] for a in arrays], dtype=np.int64)
             row_shape = arrays[0].shape[1:]
             dtype = arrays[0].dtype
             concat = np.concatenate(arrays, axis=0)
-            total_rows = int(concat.shape[0])
+            rows = [sum(c[fname]) for c in all_counts]
+            total_rows = int(sum(rows))
+            row_start = int(sum(rows[:rank]))
             row_elems = int(np.prod(row_shape)) if row_shape else 1
             if total_rows * row_elems == 0:
                 # nothing to store (e.g. no sample carries meta); an empty
@@ -150,16 +174,30 @@ class ContainerWriter:
                 continue
             bin_path = os.path.join(self.path, f"{fname}.bin")
             cnt_path = os.path.join(self.path, f"{fname}.cnt")
-            with open(bin_path, "wb") as f:
-                f.write(np.ascontiguousarray(concat).tobytes())
-            counts.tofile(cnt_path)
+            if nproc == 1:
+                with open(bin_path, "wb") as f:
+                    f.write(np.ascontiguousarray(concat).tobytes())
+            else:
+                if rank == 0:
+                    with open(bin_path, "wb") as f:
+                        f.truncate(total_rows * row_elems * dtype.itemsize)
+                barrier(f"hgc_alloc_{fname}")
+                if concat.shape[0] > 0:
+                    with open(bin_path, "r+b") as f:
+                        f.seek(row_start * row_elems * dtype.itemsize)
+                        f.write(np.ascontiguousarray(concat).tobytes())
+            if rank == 0:
+                np.asarray([n for c in all_counts for n in c[fname]], dtype=np.int64).tofile(cnt_path)
             meta["fields"][fname] = {
                 "dtype": dtype.name,
                 "row_shape": list(row_shape),
                 "total_rows": total_rows,
             }
-        with open(os.path.join(self.path, "meta.json"), "w") as f:
-            json.dump(meta, f)
+        if rank == 0:
+            with open(os.path.join(self.path, "meta.json"), "w") as f:
+                json.dump(meta, f)
+        if nproc > 1:
+            barrier("hgc_meta")
 
 
 class ContainerDataset:

@@ -19,10 +19,19 @@ pad plan, run-aligned layout and sender windows:
     (``stacked_device_batches``): batch b is ``samples[b·bs:(b+1)·bs]``
     on the device, rebuilt from an epoch-seeded sample permutation every
     ``scan_reshuffle_every`` epochs, and each epoch visits them in the
-    order ``default_rng(seed + epoch).permutation(n_batches)``.
-
-Not ported yet (ROADMAP A-5): multi-host sharding and ``device_stack >
-1`` with its ``_mask_out`` filler batches.
+    order ``default_rng(seed + epoch).permutation(n_batches)``;
+  - sharding over processes: ``num_shards``/``shard_rank`` keep
+    ``samples[shard_rank::num_shards]`` (wrapping around to
+    ``ceil(n / num_shards)`` samples, so every rank steps alike), and
+    ``device_stack = D`` splits each batch of ``batch_size`` graphs into
+    the JAX loader's D sub-batches, of which this loader yields the one
+    at ``stack_rank`` (``Partitioner.attach_loader`` sets it): rank r of
+    a ``data × fsdp`` group trains on exactly the JAX package's
+    sub-batch r, an all-padding filler (``graph/batch.py:mask_out``)
+    where a short last batch has none. The pad plan is the whole
+    dataset's at ``batch_size / D`` graphs, equal on every rank;
+  - ``set_placer`` applies a rank's placement (the edge axis's slice of
+    the edges) to every batch it yields.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import numpy as np
 import torch
 
 from hydragnn_tpu_torch.data.dataset import samples_to_graph_dicts
-from hydragnn_tpu_torch.graph.batch import GraphBatch, batch_graphs
+from hydragnn_tpu_torch.graph.batch import GraphBatch, batch_graphs, mask_out
 from hydragnn_tpu_torch.resilience.inject import maybe_stall_loader
 from hydragnn_tpu_torch.utils.config import max_in_degree
 
@@ -156,6 +165,10 @@ class GraphLoader:
         ``HGTORCH_NUM_PREFETCH`` (default 2), 0 builds inline.
       scan_reshuffle_every: rebuild ``device_batches``' membership every
         k epochs (0 = never).
+      num_shards / shard_rank: this loader sees
+        ``samples[shard_rank::num_shards]``, wrapped to equal lengths.
+      device_stack / stack_rank: each batch is the ``stack_rank``-th of
+        ``device_stack`` sub-batches (``batch_size`` must divide).
 
     ``set_device`` says where ``device_batches`` and the cached batches
     live and, for a card, that host batches are pinned (the train loop
@@ -180,8 +193,23 @@ class GraphLoader:
         cache_device_batches: bool = False,
         prefetch: Optional[int] = None,
         scan_reshuffle_every: int = 0,
+        num_shards: int = 1,
+        shard_rank: int = 0,
+        device_stack: int = 1,
+        stack_rank: int = 0,
     ):
-        self.samples = list(samples)
+        if device_stack > 1 and batch_size % device_stack != 0:
+            raise ValueError(f"batch_size {batch_size} must be divisible by device_stack {device_stack}")
+        self.all_samples = list(samples)
+        n = len(self.all_samples)
+        if num_shards > 1 and n > 0:
+            per_shard = math.ceil(n / num_shards)
+            self.samples = [self.all_samples[(shard_rank + k * num_shards) % n] for k in range(per_shard)]
+        else:
+            self.samples = list(self.all_samples)
+        self.num_shards, self.shard_rank = int(num_shards), int(shard_rank)
+        self.device_stack, self.stack_rank = int(device_stack), int(stack_rank)
+        self._placer = None
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -199,12 +227,15 @@ class GraphLoader:
         self._resident: Optional[List[GraphBatch]] = None
         self._resident_key = None
         self._epoch = 0
+        # the plan, the dense map and the alignment from the whole dataset
+        # at one sub-batch: equal on every rank
+        sub = batch_size // self.device_stack
         self.pad_nodes, self.pad_edges, self.pad_graphs = pad_plan_for(
-            self.samples, batch_size, node_multiple, edge_multiple
+            self.all_samples, sub, node_multiple, edge_multiple
         )
         self.dense_slots = None
         if dense_slots is True:
-            dmax = max_in_degree(self.samples)
+            dmax = max_in_degree(self.all_samples)
             if dmax and self.pad_nodes * dmax / max(self.pad_edges, 1) <= 1.35:
                 self.dense_slots = dmax
         elif dense_slots:
@@ -219,22 +250,37 @@ class GraphLoader:
                     "dense_slots=False alongside an explicit run_align"
                 )
         if self.run_align:
-            aligned = _aligned_edge_counts(self.samples, self.run_align)
+            aligned = _aligned_edge_counts(self.all_samples, self.run_align)
             if aligned is None:
                 self.run_align = 0  # a sample without edges built: nothing to align
             else:
-                worst = sorted(aligned, reverse=True)[:batch_size]
+                worst = sorted(aligned, reverse=True)[:sub]
                 self.pad_edges = _round_up(
                     max(sum(worst) + 1, self.pad_edges), math.lcm(edge_multiple, self.run_align)
                 )
         # window-plan node block: the dataset's mean graph, at least 128
         # and at most 512 rows, so one block covers whole graphs
-        mean_nodes = int(sum(s.num_nodes for s in self.samples) / max(len(self.samples), 1))
+        mean_nodes = int(sum(s.num_nodes for s in self.all_samples) / max(len(self.all_samples), 1))
         self.win_block_rows = min(512, _round_up(max(mean_nodes, 128), 128))
         self._dicts = samples_to_graph_dicts(self.samples)
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
+
+    def set_stack_rank(self, stack_rank: int) -> None:
+        """The sub-batch of each batch this loader yields."""
+        if not 0 <= stack_rank < self.device_stack:
+            raise ValueError(f"stack_rank {stack_rank} outside device_stack {self.device_stack}")
+        if stack_rank != self.stack_rank:
+            self._resident = self._resident_key = None
+        self.stack_rank = int(stack_rank)
+
+    def set_placer(self, placer) -> None:
+        """A callable applied to every batch before it is yielded (the
+        Partitioner's ``shard_batch``); drops the batches resident."""
+        if placer is not self._placer:
+            self._resident = self._resident_key = None
+        self._placer = placer
 
     def set_device(self, device) -> None:
         """Where resident batches live and whether host batches are pinned;
@@ -266,7 +312,17 @@ class GraphLoader:
 
     def make_batch(self, idx: Sequence[int]) -> GraphBatch:
         """The batch of the samples at ``idx``, on this loader's pad plan
-        and layout."""
+        and layout: with ``device_stack`` > 1 its ``stack_rank``-th
+        sub-batch (an all-padding filler when the chunk has none)."""
+        if self.device_stack > 1:
+            sub = self.batch_size // self.device_stack
+            part = idx[self.stack_rank * sub:(self.stack_rank + 1) * sub]
+            if len(part) == 0:
+                return mask_out(self._sub_batch(idx[:1]))
+            return self._sub_batch(part)
+        return self._sub_batch(idx)
+
+    def _sub_batch(self, idx: Sequence[int]) -> GraphBatch:
         return batch_graphs(
             [self._dicts[i] for i in idx],
             n_node_pad=self.pad_nodes,
@@ -291,12 +347,16 @@ class GraphLoader:
             n = len(self.samples)
             base = np.arange(n) if key is None else np.random.default_rng(self.seed + key).permutation(n)
             bs, dev = self.batch_size, self.device or torch.device("cpu")
-            self._resident = [self.make_batch(base[b * bs : (b + 1) * bs]).to(dev) for b in range(len(self))]
+            self._resident = [self._placed(self.make_batch(base[b * bs : (b + 1) * bs])).to(dev)
+                              for b in range(len(self))]
             self._resident_key = key
         return self._resident
 
+    def _placed(self, batch: GraphBatch) -> GraphBatch:
+        return batch if self._placer is None else self._placer(batch)
+
     def _host_batch(self, idx: Sequence[int]) -> GraphBatch:
-        batch = self.make_batch(idx)
+        batch = self._placed(self.make_batch(idx))
         if self.device is not None and self.device.type == "cuda":
             batch = batch.pin_memory()
         return batch

@@ -24,7 +24,7 @@ from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 
 from hydragnn_tpu_torch.data.container import ContainerDataset, ContainerWriter
-from hydragnn_tpu_torch.parallel import get_comm_size_and_rank, nsplit
+from hydragnn_tpu_torch.parallel import nsplit
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SPLITS = ("trainset", "valset", "testset")
@@ -85,12 +85,9 @@ def set_minmax(config: Dict[str, Any], mm_g: np.ndarray, mm_n: np.ndarray) -> No
 
 def train_splits(config: Dict[str, Any], train: List, val: List, test: List, device: str) -> TrainResult:
     """``update_config``, the three loaders and ``train_with_loaders`` on
-    ``device``; prints the timers at the config's verbosity. Raises in a
-    group of more than one process: without data parallelism each would
-    train its own replica."""
-    if get_comm_size_and_rank()[0] > 1:
-        raise NotImplementedError("training from several torch.distributed processes needs data "
-                                  "parallelism, which is not ported yet (ROADMAP A-5); train from one process")
+    ``device``; prints the timers at the config's verbosity. In a group
+    of processes every rank calls it with the same splits and trains its
+    share of each step (``api.create_dataloaders``) of one model."""
     from hydragnn_tpu_torch.api import create_dataloaders, train_with_loaders
     from hydragnn_tpu_torch.utils.config import update_config
     from hydragnn_tpu_torch.utils.time_utils import print_timers

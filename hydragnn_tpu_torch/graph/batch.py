@@ -26,7 +26,8 @@ Every field is emitted with the JAX package's values
 (``tests/test_torch_batch.py``, ``tests/test_torch_loader.py`` and
 ``tests/test_torch_conv_stacks.py`` hold them equal). The conv stacks
 that aggregate over the CSR edges never read the dense map; PNA's dense
-branch is its one consumer. Not ported yet (ROADMAP A-5): ``pad_batch``.
+branch is its one consumer. ``pad_batch`` grows a batch to larger static
+shapes (the edge-sharded placement rounds the edge pad up with it).
 """
 
 from __future__ import annotations
@@ -404,3 +405,153 @@ def _edge_endpoints(g: Dict[str, Any]):
         return np.asarray(g["senders"]), np.asarray(g["receivers"])
     ei = np.asarray(g["edge_index"])
     return ei[0], ei[1]
+
+
+def pad_batch(batch: GraphBatch, n_node: int, n_edge: int, n_graph: int) -> GraphBatch:
+    """Pad an existing batch up to larger static shapes (the JAX
+    package's ``pad_batch``): new padding nodes and edges point at a
+    padding slot (the first new one, or the batch's reserved last one),
+    the senders' sort order and window plans extend without a re-sort
+    (the new edges sort last), ``in_degree`` gains zeros. A node growth
+    rebuilds the window plans on the host at their block granularity."""
+    from hydragnn_tpu_torch.ops.segment_sum_local import local_block_rows
+
+    dn, de, dg = n_node - batch.num_nodes, n_edge - batch.num_edges, n_graph - batch.num_graphs
+    if dn < 0 or de < 0 or dg < 0:
+        raise ValueError("target shape smaller than current batch")
+    if batch.run_align and n_edge % batch.run_align:
+        raise ValueError(
+            f"n_edge={n_edge} must stay a multiple of run_align="
+            f"{batch.run_align} (the model reshapes edges into K-groups)"
+        )
+    if dn == de == dg == 0:
+        return batch
+
+    def pad0(a, amount, value=0):
+        if a is None:
+            return None
+        fill = torch.full((amount,) + tuple(a.shape[1:]), value, dtype=a.dtype, device=a.device)
+        return torch.cat([a, fill])
+
+    if dg > 0:
+        pad_graph_id = batch.num_graphs
+    else:
+        if bool(batch.graph_mask[-1]):
+            raise ValueError("cannot pad nodes: batch has no padding graph slot")
+        pad_graph_id = batch.num_graphs - 1
+    if dn > 0:
+        pad_node_id = batch.num_nodes
+    else:
+        if bool(batch.node_mask[-1]):
+            raise ValueError("cannot pad edges: batch has no padding node slot")
+        pad_node_id = batch.num_nodes - 1
+    sender_perm = batch.sender_perm
+    if sender_perm is not None:
+        sender_perm = torch.cat([sender_perm, torch.arange(batch.num_edges, n_edge, dtype=sender_perm.dtype,
+                                                           device=sender_perm.device)])
+    in_degree = pad0(batch.in_degree, dn)
+    dense_sender_perm = batch.dense_sender_perm
+    if dense_sender_perm is not None and batch.dense_senders is not None:
+        old_flat = batch.dense_senders.numel()
+        new_flat = old_flat + dn * batch.dense_senders.shape[1]
+        dense_sender_perm = torch.cat([dense_sender_perm, torch.arange(old_flat, new_flat,
+                                                                       dtype=dense_sender_perm.dtype)])
+
+    def extend_win(win, n_appended, old_len, new_len):
+        # no node growth: the blocks stay; only the padding node's block
+        # widens to the appended tail
+        if win is None or n_appended <= 0:
+            return win
+        b = pad_node_id // local_block_rows(batch.num_nodes, win.shape[1])
+        win = win.clone()
+        lo = old_len if int(win[0, b]) == int(win[1, b]) else min(int(win[0, b]), old_len)
+        win[0, b], win[1, b] = lo, new_len
+        return win
+
+    senders = pad0(batch.senders, de, pad_node_id)
+    dense_senders = pad0(batch.dense_senders, dn, pad_node_id)
+    if dn > 0:
+        sender_win = None
+        if batch.sender_win is not None and sender_perm is not None:
+            target = local_block_rows(batch.num_nodes, batch.sender_win.shape[1])
+            sender_win = torch.from_numpy(_block_windows(senders.numpy(), sender_perm.numpy(), n_node, target))
+        dense_sender_win = None
+        if batch.dense_sender_win is not None and dense_senders is not None and dense_sender_perm is not None:
+            target = local_block_rows(batch.num_nodes, batch.dense_sender_win.shape[1])
+            dense_sender_win = torch.from_numpy(_block_windows(dense_senders.reshape(-1).numpy(),
+                                                               dense_sender_perm.numpy(), n_node, target))
+    else:
+        sender_win = extend_win(batch.sender_win, de, batch.num_edges, n_edge)
+        dense_sender_win = batch.dense_sender_win
+        if dense_sender_win is not None and batch.dense_senders is not None:
+            k = batch.dense_senders.numel()
+            dense_sender_win = extend_win(dense_sender_win, dn * batch.dense_senders.shape[1], k,
+                                          k + dn * batch.dense_senders.shape[1])
+    return dataclasses.replace(
+        batch,
+        nodes=pad0(batch.nodes, dn),
+        senders=senders,
+        receivers=pad0(batch.receivers, de, pad_node_id),
+        node_graph=pad0(batch.node_graph, dn, pad_graph_id),
+        n_node=pad0(batch.n_node, dg),
+        n_edge=pad0(batch.n_edge, dg),
+        node_mask=pad0(batch.node_mask, dn, False),
+        edge_mask=pad0(batch.edge_mask, de, False),
+        graph_mask=pad0(batch.graph_mask, dg, False),
+        edge_attr=pad0(batch.edge_attr, de),
+        pos=pad0(batch.pos, dn),
+        graph_targets={k: pad0(v, dg) for k, v in batch.graph_targets.items()},
+        node_targets={k: pad0(v, dn) for k, v in batch.node_targets.items()},
+        dense_senders=dense_senders,
+        dense_mask=pad0(batch.dense_mask, dn, False),
+        dense_edge_attr=pad0(batch.dense_edge_attr, dn),
+        sender_perm=sender_perm,
+        in_degree=in_degree,
+        dense_sender_perm=dense_sender_perm,
+        sender_win=sender_win,
+        dense_sender_win=dense_sender_win,
+    )
+
+
+def mask_out(batch: GraphBatch) -> GraphBatch:
+    """The batch turned into pure padding (the JAX loader's ``_mask_out``):
+    every mask False and count zero, the edges repointed at the last node
+    slot (always a padding slot), the occupancy and real node count 0,
+    the senders' sort order the identity, ``in_degree`` 0, and the window
+    plans' padding-node block covering every slot."""
+    from hydragnn_tpu_torch.ops.segment_sum_local import local_block_rows
+
+    pad_slot = batch.num_nodes - 1
+    upd: Dict[str, Any] = {}
+    if batch.dense_mask is not None:
+        upd["dense_mask"] = torch.zeros_like(batch.dense_mask)
+        upd["dense_senders"] = torch.full_like(batch.dense_senders, pad_slot)
+        if batch.dense_sender_perm is not None:
+            upd["dense_sender_perm"] = torch.arange(batch.dense_senders.numel(), dtype=torch.int32)
+        if batch.dense_sender_win is not None:
+            w = torch.zeros_like(batch.dense_sender_win)
+            w[1, pad_slot // local_block_rows(batch.num_nodes, w.shape[1])] = batch.dense_senders.numel()
+            upd["dense_sender_win"] = w
+    if batch.edge_occupancy is not None:
+        upd["edge_occupancy"] = torch.zeros((), dtype=torch.int32)
+    if batch.n_real_nodes is not None:
+        upd["n_real_nodes"] = torch.zeros((), dtype=torch.int32)
+    if batch.sender_perm is not None:
+        upd["sender_perm"] = torch.arange(batch.num_edges, dtype=torch.int32)
+    if batch.in_degree is not None:
+        upd["in_degree"] = torch.zeros(batch.num_nodes, dtype=torch.float32)
+    if batch.sender_win is not None:
+        w = torch.zeros_like(batch.sender_win)
+        w[1, pad_slot // local_block_rows(batch.num_nodes, w.shape[1])] = batch.num_edges
+        upd["sender_win"] = w
+    return dataclasses.replace(
+        batch,
+        senders=torch.full_like(batch.senders, pad_slot),
+        receivers=torch.full_like(batch.receivers, pad_slot),
+        node_mask=torch.zeros_like(batch.node_mask),
+        edge_mask=torch.zeros_like(batch.edge_mask),
+        graph_mask=torch.zeros_like(batch.graph_mask),
+        n_node=torch.zeros_like(batch.n_node),
+        n_edge=torch.zeros_like(batch.n_edge),
+        **upd,
+    )

@@ -141,6 +141,7 @@ class HydraModel(nn.Module):
         self.cfg = cfg
         self.dropout_seed = int(dropout_seed)
         self._dropout_gen: Optional[torch.Generator] = None
+        self.edge_group = None
         h = cfg.hidden_dim
         wide = h * cfg.gat_heads if cfg.model_type == "GAT" else h
         self.convs = nn.ModuleList()
@@ -247,6 +248,8 @@ class HydraModel(nn.Module):
             return self._inforward_context(batch)
         in_degree = batch.in_degree
         if in_degree is None:
+            if self.edge_group is not None:
+                raise ValueError("an edge-sharded batch must carry the whole graph's in_degree")
             in_degree = S.segment_count(batch.receivers, batch.num_nodes, batch.edge_mask)
         edge_attr = batch.edge_attr if cfg.use_edge_attr else None
         edge_weight = None
@@ -286,7 +289,21 @@ class HydraModel(nn.Module):
             degree_groups=degree_groups,
             fused_conv=cfg.fused_conv,
             conv_bf16=cfg.conv_bf16,
+            edge_group=self.edge_group,
         )
+
+    def set_bn_group(self, group) -> None:
+        """SyncBatchNorm: every MaskedBatchNorm reduces its batch
+        statistics over ``group`` (None: this rank's alone)."""
+        for m in self.modules():
+            if isinstance(m, MaskedBatchNorm):
+                m.group = group
+
+    def set_edge_group(self, group) -> None:
+        """Edge sharding (``parallel/edge_sharded.py``): the batch holds
+        this rank's slice of the edges and every aggregation is reduced
+        over ``group`` (None: the batch holds every edge)."""
+        self.edge_group = group
 
     @property
     def uses_dropout(self) -> bool:

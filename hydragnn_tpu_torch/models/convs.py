@@ -72,6 +72,9 @@ class EdgeContext:
     # Architecture.conv_bf16: the conv stacks' streamed operands in
     # bfloat16 (sums in f32), the result cast back to the incoming dtype
     conv_bf16: bool = False
+    # edge sharding (parallel/edge_sharded.py): the edges are this rank's
+    # slice and every aggregation is reduced over this group
+    edge_group: Optional[object] = None
 
     @functools.cached_property
     def row_ptr(self) -> torch.Tensor:
@@ -91,6 +94,17 @@ class EdgeContext:
             return None
         k = self.run_align
         return torch.div(self.edge_occ + (k - 1), k, rounding_mode="floor")
+
+
+def _edge_sum(t: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
+    """On an edge-sharded batch, the sum of every rank's partial
+    aggregate (the autograd all-reduce: its backward sums the gradients
+    over the group); else ``t``."""
+    if ctx.edge_group is None:
+        return t
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, group=ctx.edge_group)
 
 
 def _gather_senders(x: torch.Tensor, ctx: EdgeContext) -> torch.Tensor:
@@ -116,9 +130,9 @@ def _segment_sum_edges(vals: torch.Tensor, ctx: EdgeContext, n: int) -> torch.Te
     if ctx.run_align:
         k = ctx.run_align
         v8 = vm.float().view(-1, k, vals.shape[1]).sum(1)
-        return S.segment_sum_sorted(v8, ctx.receivers[::k].contiguous(), n, grad_dtype=vals.dtype,
-                                    real_rows=ctx.group_occ).to(vals.dtype)
-    return S.segment_sum_sorted(vm, ctx.receivers, n, real_rows=ctx.edge_occ)
+        return _edge_sum(S.segment_sum_sorted(v8, ctx.receivers[::k].contiguous(), n, grad_dtype=vals.dtype,
+                                              real_rows=ctx.group_occ), ctx).to(vals.dtype)
+    return _edge_sum(S.segment_sum_sorted(vm, ctx.receivers, n, real_rows=ctx.edge_occ), ctx)
 
 
 def _gather_scatter(
@@ -133,10 +147,11 @@ def _gather_scatter(
         x = x.to(torch.bfloat16)
         scale = None if scale is None else scale.to(torch.bfloat16)
     if ctx.fused_conv:
-        return fused_aggregate(
+        return _edge_sum(fused_aggregate(
             x, ctx.senders, ctx.receivers, ctx.edge_mask, n,
             scale=scale, win=ctx.sender_win, real_edges=ctx.edge_occ, row_ptr=ctx.row_ptr,
-        ).to(xd)
+            perm=ctx.sender_perm if ctx.edge_group is not None else None,
+        ), ctx).to(xd)
     vals = _gather_senders(x, ctx)
     if scale is not None:
         vals = vals * scale
@@ -237,7 +252,7 @@ class PNAConv(nn.Module):
             max_v = torch.where(vmax <= neg, zero, vmax)
             min_v = torch.where(vmin >= -neg, zero, vmin)
         else:
-            if ctx.run_align and not use_edge:
+            if ctx.run_align and not use_edge and ctx.sender_win is not None:
                 k = ctx.run_align
                 stats8, both8 = gather_presum_stats(
                     bsend, ctx.senders, ctx.edge_mask, ctx.sender_win, n, k, real_edges=ctx.edge_occ
@@ -254,15 +269,28 @@ class PNAConv(nn.Module):
                 # edge: past them the statistics are 0, and the tail's
                 # all-masked groups tie only the padding node's maximum,
                 # whose cotangent is 0
-                pair = S.segment_sum_sorted(stats8, recv8, n, grad_dtype=v.dtype, real_rows=ctx.group_occ)
+                pair = _edge_sum(S.segment_sum_sorted(stats8, recv8, n, grad_dtype=v.dtype, real_rows=ctx.group_occ),
+                                 ctx)
                 vsum, vsumsq = pair[:, :fin], pair[:, fin : 2 * fin]
                 # all-masked groups carry the type's lowest value: the max
                 # cleans rows at or below it to 0
-                both = S.segment_max(both8, recv8, n, indices_are_sorted=True, empty_value=0.0,
-                                     real_rows=ctx.group_occ)
-            else:
+                if ctx.edge_group is None:
+                    both = S.segment_max(both8, recv8, n, indices_are_sorted=True, empty_value=0.0,
+                                         real_rows=ctx.group_occ)
+                else:
+                    from hydragnn_tpu_torch.parallel.edge_sharded import edge_max
+
+                    both = edge_max(both8, recv8, n, ctx.edge_group, indices_are_sorted=True, empty_value=0.0,
+                                    real_rows=ctx.group_occ)
+            elif ctx.edge_group is None:
                 vsum, vsumsq, _, both = pna_aggregate(v, ctx.receivers, n, mask=ctx.edge_mask, row_ptr=ctx.row_ptr,
                                                       real_edges=ctx.edge_occ)
+            else:
+                from hydragnn_tpu_torch.parallel.edge_sharded import pna_aggregate_edge_sharded
+
+                vsum, vsumsq, _, both = pna_aggregate_edge_sharded(
+                    v, ctx.receivers, n, ctx.edge_group, mask=ctx.edge_mask, row_ptr=ctx.row_ptr,
+                    real_edges=ctx.edge_occ)
             max_v = both[:, :fin]
             min_v = -both[:, fin:]
 
@@ -416,11 +444,12 @@ class CGConv(nn.Module):
         cf = cs = None
         if ea is not None:
             cf, cs = ea @ wf[2 * fin :], ea @ ws[2 * fin :]
-        agg = fused_aggregate(
+        agg = _edge_sum(fused_aggregate(
             xc, ctx.senders, ctx.receivers, ctx.edge_mask, n,
             branches=((wf[fin : 2 * fin], None, af, cf), (ws[fin : 2 * fin], None, ac, cs)),
             acts=("sigmoid", "softplus"), win=ctx.sender_win, real_edges=ctx.edge_occ, row_ptr=ctx.row_ptr,
-        ).to(x.dtype)
+            perm=ctx.sender_perm if ctx.edge_group is not None else None,
+        ), ctx).to(x.dtype)
         return x + agg
 
 
@@ -484,6 +513,9 @@ class GATv2Conv(nn.Module):
     def forward(
         self, x: torch.Tensor, ctx: EdgeContext, train: bool = False, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
+        if ctx.edge_group is not None:
+            raise ValueError("GAT's attention softmax spans the edge shards and has no edge-sharded form in the "
+                             "port; drop Parallel.edge for GAT")
         n = x.shape[0]
         h, d = self.heads, self.out_dim
         loops = torch.arange(n, dtype=ctx.senders.dtype, device=x.device)

@@ -88,6 +88,13 @@ def create_model(
 
 
 def create_model_config(
-    config: Dict[str, Any], seed: int = 0, device: Optional[str] = "cuda"
+    config: Dict[str, Any], seed: int = 0, device: Optional[str] = "cuda", bn_axis_name=None
 ) -> HydraModel:
-    return create_model(model_config_from_dict(config), seed=seed, device=device)
+    """The model of the ``NeuralNetwork`` section. ``bn_axis_name`` is
+    the group SyncBatchNorm reduces over (``Partitioner.bn_axis_name``),
+    taken when ``Architecture.SyncBatchNorm`` is set, as the JAX
+    package takes its axis name."""
+    model = create_model(model_config_from_dict(config), seed=seed, device=device)
+    if bn_axis_name is not None and config["Architecture"].get("SyncBatchNorm"):
+        model.set_bn_group(bn_axis_name)
+    return model

@@ -91,7 +91,12 @@ class MaskedBatchNorm(nn.Module):
     variance, f32) and updates the running statistics in place, flax's
     way: ``ra = 0.9·ra + 0.1·batch``, with the unbiased variance
     ``var·c/max(c−1, 1)`` of the c unmasked rows. ``train=False``
-    normalizes with the running statistics."""
+    normalizes with the running statistics. ``group`` (SyncBatchNorm, the
+    JAX package's ``axis_name``): the count, Σx and Σx² are summed over
+    its ranks first, through the autograd all-reduce, so the gradient
+    flows through the reduction."""
+
+    group = None
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -115,6 +120,12 @@ class MaskedBatchNorm(nn.Module):
                 count = m.sum()
                 total = (x * m).sum(0)
                 total_sq = (x * x * m).sum(0)
+            if self.group is not None:
+                from torch.distributed.nn.functional import all_reduce
+
+                f = total.shape[0]
+                red = all_reduce(torch.cat([count.reshape(1), total, total_sq]), group=self.group)
+                count, total, total_sq = red[0], red[1:1 + f], red[1 + f:]
             safe = torch.clamp(count, min=1.0)
             mean = total / safe
             var = torch.clamp(total_sq / safe - mean * mean, min=0.0)

@@ -4,7 +4,7 @@ and its exporters, the flight recorder, per-request traces, the training
 loop's step spans, compile monitor, per-head diagnostics and hardware
 ledger, the drift reference window and the live drift monitor, the
 sampled request spool, the Chrome trace export, and the SLO and drift
-triggers with their incident bundles. Podview waits for ROADMAP A-5.
+triggers with their incident bundles. Podview waits for ROADMAP A-5b.
 
 ``HGTORCH_TELEMETRY=0`` disables the global registry and everything the
 training loop wires up; each piece can also be made enabled or

@@ -246,7 +246,7 @@ def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.reshape(-1).double() for t in tensors])
 
 
-def make_diagnostics_step(model, optimizer, compute_dtype: Optional[torch.dtype] = None
+def make_diagnostics_step(model, optimizer, compute_dtype: Optional[torch.dtype] = None, group=None
                           ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``diag(batch) -> dict of device tensors`` over the loss the train
     step optimises, leaving the training state as it was (module
@@ -259,7 +259,10 @@ def make_diagnostics_step(model, optimizer, compute_dtype: Optional[torch.dtype]
 
     The norms, dot products and cosines are float64. Cost: one forward
     and H + 1 backward pulls through one graph, and the optimizer's
-    dry update."""
+    dry update. In a partitioned run (``group``: every rank of it) the
+    weighted pull is averaged over the ranks first, as the step's
+    reduction averages the gradient the optimizer consumes
+    (``parallel/sharded.py``); the per-head pulls stay this rank's."""
     from hydragnn_tpu_torch.train.state import _loss
 
     cfg = model.cfg
@@ -282,6 +285,13 @@ def make_diagnostics_step(model, optimizer, compute_dtype: Optional[torch.dtype]
             norms = torch.sqrt(torch.clamp(torch.diagonal(dots), min=0.0))
             cosine = dots / torch.clamp(norms[:, None] * norms[None, :], min=1e-30)
             total = pulls[num_heads]
+            if group is not None:
+                import torch.distributed as dist
+
+                flat = torch.cat([g.reshape(-1) for g in total])
+                dist.all_reduce(flat, group=group)
+                flat /= dist.get_world_size(group)
+                total = [t.view_as(g) for t, g in zip(torch.split(flat, [g.numel() for g in total]), total)]
             param_norm = torch.linalg.vector_norm(_flat(params))
             update_norm = torch.linalg.vector_norm(_flat(optimizer.dry_update(params, total)))
             return {

@@ -279,7 +279,7 @@ def _atomic_json(path: str, data) -> str:
 def export_flight_chrome(record_path: str, out_path: str) -> str:
     """``flight_to_chrome`` of the flight record at ``record_path`` to
     ``out_path`` (atomic write); returns ``out_path``. The JAX package's
-    merge of a directory of per-host records waits for ROADMAP A-5."""
+    merge of a directory of per-host records waits for ROADMAP A-5b."""
     if os.path.isdir(record_path):
         raise ValueError(f"{record_path} is a directory: per-host flight records are not merged here")
     return _atomic_json(out_path, flight_to_chrome(record_path))

@@ -271,18 +271,18 @@ def fused_conv(
 
 class _FusedAggregate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, acts, num_segments, x, senders, receivers, mask, win, real_edges, row_ptr, scale, *flat):
+    def forward(ctx, acts, num_segments, x, senders, receivers, mask, win, real_edges, row_ptr, perm, scale, *flat):
         branches = tuple(tuple(flat[i : i + 4]) for i in range(0, len(flat), 4))
         out = fused_conv(x, senders, receivers, mask, num_segments, branches, acts, scale, real_edges, row_ptr)
-        ctx.save_for_backward(x, senders, receivers, mask, win, scale, *flat)
+        ctx.save_for_backward(x, senders, receivers, mask, win, perm, scale, *flat)
         ctx.acts, ctx.real_edges = acts, real_edges
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, senders, receivers, mask, win, scale, *flat = ctx.saved_tensors
+        x, senders, receivers, mask, win, perm, scale, *flat = ctx.saved_tensors
         needs = ctx.needs_input_grad
-        need_x, need_scale, need_flat = needs[2], needs[9], needs[10:]
+        need_x, need_scale, need_flat = needs[2], needs[10], needs[11:]
         branches = [tuple(flat[i : i + 4]) for i in range(0, len(flat), 4)]
         dt, n = x.dtype, x.shape[0]
 
@@ -335,10 +335,15 @@ class _FusedAggregate(torch.autograd.Function):
             grad_v = grad_v.contiguous()
             if win is not None:
                 grad_x = segment_sum_local(grad_v, senders, win, n, real_edges=ctx.real_edges).to(dt)
+            elif perm is not None:
+                # the permuted pair: the cotangent in sorted-sender order
+                # (B3), summed over the sorted senders (B2)
+                grad_x = segment_sum(gather_rows(grad_v, perm), senders.index_select(0, perm), n,
+                                     real_rows=ctx.real_edges).to(dt)
             else:
                 zero = torch.zeros(n, grad_v.shape[1], dtype=torch.float32, device=grad_v.device)
                 grad_x = zero.index_add_(0, senders.long(), grad_v.float()).to(dt)
-        return (None, None, grad_x, None, None, None, None, None, None, g_scale, *g_flat)
+        return (None, None, grad_x, None, None, None, None, None, None, None, g_scale, *g_flat)
 
 
 def fused_aggregate(
@@ -353,14 +358,18 @@ def fused_aggregate(
     win: Optional[torch.Tensor] = None,
     real_edges: Optional[torch.Tensor] = None,
     row_ptr: Optional[torch.Tensor] = None,
+    perm: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Differentiable ``fused_conv`` (module docstring): gradients for
     ``x``, ``scale`` and every branch tensor. ``win`` is the senders'
-    window plan for ``grad_x`` (B4), ``row_ptr`` the receivers' row
+    window plan for ``grad_x`` (B4); without one, ``perm`` (the senders'
+    stable argsort) takes ``grad_x`` through the permuted pair (B3, B2),
+    as an edge shard does (``parallel/edge_sharded.py``), and without
+    either through ``index_add_``. ``row_ptr`` is the receivers' row
     pointers; the result is float32."""
     flat = [t for br in branches for t in tuple(br)]
     if any(len(tuple(br)) != 4 for br in branches):
         raise ValueError("fused_aggregate: each branch is (W, b, rtab, eterm)")
     return _FusedAggregate.apply(
-        tuple(acts), int(num_segments), x, senders, receivers, mask, win, real_edges, row_ptr, scale, *flat
+        tuple(acts), int(num_segments), x, senders, receivers, mask, win, real_edges, row_ptr, perm, scale, *flat
     )

@@ -30,7 +30,7 @@ history. The retrain pilot (``pilot/``) runs its fine-tune child under
 :class:`Supervisor` with ``wall_clock_runner``; the serving fleet
 (``fleet/``) reaps and replaces replicas whose dispatch supervisor gave
 up. The pod layer (``PodSupervisor``, ``PodHostLost``, pod
-checkpoints) waits for ROADMAP A-5.
+checkpoints) waits for ROADMAP A-5b.
 """
 
 from hydragnn_tpu_torch.resilience.preempt import (

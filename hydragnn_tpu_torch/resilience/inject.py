@@ -77,7 +77,7 @@ that the loop degrades to "the old weights keep serving":
                                          validating loader must reject it)
   =====================================  ======================================
 
-The pod's injections wait for ROADMAP A-5.
+The pod's injections wait for ROADMAP A-5b.
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ returns, and the loop sees it at its next batch. The checkpoint is
 written by the loop, never from the handler.
 
 ``PodHostLost`` and its ``run_guard`` branch belong to the pod layer,
-which waits for ROADMAP A-5.
+which waits for ROADMAP A-5b.
 """
 
 from __future__ import annotations

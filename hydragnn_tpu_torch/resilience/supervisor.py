@@ -27,7 +27,7 @@ processes.
 :class:`SupervisorPolicy` is also the restart policy of the serving
 path's in-process dispatch supervisor (``serve/supervise.py``), with
 serving-scale defaults. ``PodSupervisor``, ``classify_pod_exit`` and the
-pod's exit code wait for ROADMAP A-5.
+pod's exit code wait for ROADMAP A-5b.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from hydragnn_tpu_torch.resilience.preempt import (
 FAIL_FAST_CAUSES = frozenset({"config_error", "rollback_exhausted"})
 
 # causes that restart at once, without the crash backoff (host_lost is
-# the pod layer's, ROADMAP A-5)
+# the pod layer's, ROADMAP A-5b)
 PREEMPT_CLASS_CAUSES = frozenset({"preempted", "host_lost"})
 
 

@@ -54,7 +54,7 @@ per-request results out of the padded outputs.
     registry.
 
 The dispatch thread sets the server's CUDA device before it runs
-anything. fsdp-sharded serving waits for ROADMAP A-5.
+anything. fsdp-sharded serving waits for ROADMAP A-5b.
 """
 
 from __future__ import annotations

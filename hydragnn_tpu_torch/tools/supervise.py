@@ -23,7 +23,7 @@ beside the run's. ``--max-wall-s`` kills an attempt that outlives it and
 counts it as hung.
 
 ``--pod N`` and ``--pod-elastic`` (a pod of simulated hosts) belong to
-the pod layer, which waits for ROADMAP A-5: they exit with
+the pod layer, which waits for ROADMAP A-5b: they exit with
 ``EXIT_CONFIG_ERROR`` (78) and say so.
 
 The supervisor's own exit code is the final child's (0 when the run
@@ -73,16 +73,16 @@ def main(argv=None) -> int:
                    help="write the supervisor's flight record (restart events and the final summary) to this "
                         "JSONL path")
     p.add_argument("--pod", type=int, default=None, metavar="N",
-                   help="supervise a pod of N simulated hosts: waits for ROADMAP A-5 (exits 78)")
+                   help="supervise a pod of N simulated hosts: waits for ROADMAP A-5b (exits 78)")
     p.add_argument("--pod-elastic", action="store_true",
-                   help="restart a pod with N-1 hosts after a host loss: waits for ROADMAP A-5 (exits 78)")
-    p.add_argument("--pod-grace", type=float, default=30.0, help="pod mode only (ROADMAP A-5)")
-    p.add_argument("--run-id", default=None, help="pod mode only (ROADMAP A-5)")
+                   help="restart a pod with N-1 hosts after a host loss: waits for ROADMAP A-5b (exits 78)")
+    p.add_argument("--pod-grace", type=float, default=30.0, help="pod mode only (ROADMAP A-5b)")
+    p.add_argument("--run-id", default=None, help="pod mode only (ROADMAP A-5b)")
     args = p.parse_args(opts)
 
     if args.pod is not None or args.pod_elastic:
         print("supervise: --pod/--pod-elastic supervise a pod of hosts, which the port does not have yet "
-              "(ROADMAP A-5: the parallel layer and pod checkpoints); refusing rather than running one process",
+              "(ROADMAP A-5b: the parallel layer and pod checkpoints); refusing rather than running one process",
               file=sys.stderr)
         return EXIT_CONFIG_ERROR
 

@@ -114,7 +114,7 @@ from hydragnn_tpu_torch.resilience import (
 )
 from hydragnn_tpu_torch.resilience.inject import active_injections
 from hydragnn_tpu_torch.train.optimizer import current_learning_rate, set_learning_rate
-from hydragnn_tpu_torch.train.state import eval_step, make_train_step, stats_step
+from hydragnn_tpu_torch.train.state import eval_step
 from hydragnn_tpu_torch.utils import checkpoint as ckpt
 from hydragnn_tpu_torch.utils.print_utils import print_peak_memory, process_index
 from hydragnn_tpu_torch.utils.profile import Profiler
@@ -182,8 +182,10 @@ class _MetricAccum:
         self._counts: List[torch.Tensor] = []
 
     def add(self, loss: torch.Tensor, tasks: torch.Tensor, graph_mask: torch.Tensor,
-            bad: Optional[torch.Tensor] = None) -> None:
-        count = graph_mask.sum().float()
+            bad: Optional[torch.Tensor] = None, count: Optional[torch.Tensor] = None) -> None:
+        """``count``: the step's real graphs when it is not this batch's
+        own (a partitioned step's, over every rank)."""
+        count = graph_mask.sum().float() if count is None else count
         self._losses.append(loss)
         self._tasks.append(tasks)
         self._counts.append(count if bad is None else count * (1.0 - bad))
@@ -232,7 +234,8 @@ def _epoch_batches(loader, epoch: int, fixed: bool):
 def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool = False,
                 sentry: Optional[NonFiniteSentry] = None,
                 timing: Optional[Dict[str, float]] = None, profiler=None, spans=None, diag=None,
-                incidents=None, hooks: Optional[TrainHooks] = None) -> Tuple[float, np.ndarray]:
+                incidents=None, hooks: Optional[TrainHooks] = None,
+                partitioned: bool = False) -> Tuple[float, np.ndarray]:
     """One training epoch of ``step_fn`` (``make_train_step``; guarded when
     ``sentry`` is given) over the loader's streamed batches, or over its
     resident fixed-membership batches in the epoch's order (``fixed``);
@@ -243,7 +246,8 @@ def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool 
     Telemetry: ``spans`` (``obs/spans.py``) times each step, ``diag``
     (``obs/introspect.py:HeadDiagnostics``) samples before a step, and
     ``incidents`` (``obs/triggers.py:IncidentRecorder``) is ticked after
-    one."""
+    one. A ``partitioned`` step (``Partitioner.shard_train_step``) returns
+    the whole step's real graph count last, which weighs its loss."""
     dev = _device_of(model)
     acc = _MetricAccum()
     if spans is None:
@@ -259,12 +263,13 @@ def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool 
         if diag is not None:
             diag.maybe_sample(batch)
         if sentry is not None:
-            loss, tasks, consec, bad = spans.step(step_fn, batch, sentry.consec)
+            out = spans.step(step_fn, batch, sentry.consec)
+            loss, tasks, consec, bad = out[:4]
             sentry.observe(consec, bad)
-            acc.add(loss, tasks, batch.graph_mask, bad)
+            acc.add(loss, tasks, batch.graph_mask, bad, count=out[4] if partitioned else None)
         else:
-            loss, tasks = spans.step(step_fn, batch)
-            acc.add(loss, tasks, batch.graph_mask)
+            out = spans.step(step_fn, batch)
+            acc.add(out[0], out[1], batch.graph_mask, count=out[2] if partitioned else None)
         if profiler is not None:
             profiler.step()
         if incidents is not None:
@@ -272,23 +277,34 @@ def train_epoch(loader, model: HydraModel, step_fn, epoch: int = 0, fixed: bool 
     return acc.finalize()
 
 
-def evaluate_epoch(loader, model: HydraModel, batches=None) -> Tuple[float, np.ndarray]:
+def _eval(model, step, batch):
+    """(loss, tasks, outputs, count or None) of the plain eval step or of
+    a partitioned one (``Partitioner.shard_eval_step``)."""
+    if step is None:
+        return eval_step(model, batch) + (None,)
+    out = step(batch)
+    return out if len(out) == 4 else tuple(out) + (None,)
+
+
+def evaluate_epoch(loader, model: HydraModel, batches=None, step=None) -> Tuple[float, np.ndarray]:
     """The weighted loss over ``loader`` (or over ``batches``, its
-    resident batches) with the running statistics."""
+    resident batches) with the running statistics; ``step`` is the run's
+    eval step (default ``train/state.py:eval_step``)."""
     dev = _device_of(model)
     acc = _MetricAccum()
     for batch in (loader if batches is None else batches):
         batch = batch.to(dev, non_blocking=True)
-        loss, tasks, _ = eval_step(model, batch)
-        acc.add(loss, tasks, batch.graph_mask)
+        loss, tasks, _, count = _eval(model, step, batch)
+        acc.add(loss, tasks, batch.graph_mask, count=count)
     return acc.finalize()
 
 
 def test_epoch(
-    loader, model: HydraModel, return_samples: bool = True
+    loader, model: HydraModel, return_samples: bool = True, step=None
 ) -> Tuple[float, np.ndarray, List[np.ndarray], List[np.ndarray]]:
     """Full test pass; with ``return_samples`` also the per-head (true,
-    predicted) values over the real (unpadded) rows."""
+    predicted) values over the real (unpadded) rows (a partitioned
+    ``step``'s: this rank's rows, the loss over every rank's)."""
     cfg = model.cfg
     dev = _device_of(model)
     acc = _MetricAccum()
@@ -296,8 +312,8 @@ def test_epoch(
     preds: List[List[np.ndarray]] = [[] for _ in range(cfg.num_heads)]
     for host in loader:
         batch = host.to(dev, non_blocking=True)
-        loss, tasks, outputs = eval_step(model, batch)
-        acc.add(loss, tasks, batch.graph_mask)
+        loss, tasks, outputs, count = _eval(model, step, batch)
+        acc.add(loss, tasks, batch.graph_mask, count=count)
         if not return_samples:
             continue
         host = host.to("cpu")
@@ -326,10 +342,16 @@ def _watchdog_knob() -> float:
         raise ValueError(f"HGTORCH_WATCHDOG_S must be a number, got {raw!r}") from None
 
 
-def _fixed_auto_eligible(loader) -> Tuple[bool, str]:
-    """Is the fixed-membership epoch the right default for ``loader``?"""
+def _fixed_auto_eligible(loader, partitioner=None) -> Tuple[bool, str]:
+    """Is the fixed-membership epoch the right default for ``loader``?
+    Only on a single device: ``partitioner.single_device`` is the
+    topology signal (the JAX package's ``_scan_auto_eligible``)."""
     if not hasattr(loader, "device_batches") or not hasattr(loader, "shuffle"):
         return False, "loader cannot stack device-resident batches"
+    if partitioner is not None and not partitioner.single_device:
+        return False, "partitioner mesh is multi-device"
+    if process_count() > 1:
+        return False, "multi-process run"
     try:
         if len(loader) < 1:
             return False, "empty loader"
@@ -345,14 +367,15 @@ def _fixed_auto_eligible(loader) -> Tuple[bool, str]:
     return True, "single-device run + device-resident fixed-membership batches"
 
 
-def resolve_dispatch(training: Dict[str, Any], config: Dict[str, Any], train_loader) -> Dict[str, Any]:
+def resolve_dispatch(training: Dict[str, Any], config: Dict[str, Any], train_loader,
+                     partitioner=None) -> Dict[str, Any]:
     """The JAX package's dispatch resolution (``loop.py:470-499, 563-595``):
     ``{"mode": "fixed_epoch" | "per_step", "auto": bool, "reason": str}``.
     In auto mode it builds the train split's resident batches, and falls
     back to streaming when that fails (the split does not fit)."""
     scan_cfg = training.get("scan_epoch")
     if scan_cfg is None:
-        fixed, reason = _fixed_auto_eligible(train_loader)
+        fixed, reason = _fixed_auto_eligible(train_loader, partitioner)
         if fixed and "Profile" in config:
             fixed, reason = False, "per-step profiler configured"
         if fixed and float(training.get("watchdog_stall_s", 0) or 0) > 0:
@@ -454,6 +477,7 @@ def train_validate_test(
     flight=None,
     run_config: Optional[Dict[str, Any]] = None,
     manifest_extra: Optional[Dict[str, Any]] = None,
+    partitioner=None,
 ) -> Dict[str, Any]:
     """Train for ``Training.num_epoch`` epochs (module docstring);
     ``config`` is the ``NeuralNetwork`` section. The model and optimizer
@@ -467,7 +491,13 @@ def train_validate_test(
     Telemetry: ``flight`` is a caller's ``FlightRecorder`` (the loop
     makes and closes its own otherwise), ``run_config`` the full
     resolved config for the manifest (default: this ``NeuralNetwork``
-    section), ``manifest_extra`` keys merged into the manifest."""
+    section), ``manifest_extra`` keys merged into the manifest.
+
+    ``partitioner`` (``parallel/partitioner.py``) is the run's layout:
+    its train, eval and statistics steps run the epochs, the fixed epoch
+    is chosen only when it says ``single_device``, and its ``manifest``
+    is the record's ``parallel`` block. Every rank runs this loop in
+    step; rank 0 alone writes the records and the checkpoint files."""
     training = config["Training"]
     num_epoch = int(training["num_epoch"])
     stopper = (
@@ -482,7 +512,12 @@ def train_validate_test(
         if hasattr(loader, "set_device"):
             loader.set_device(dev)
 
-    dispatch = resolve_dispatch(training, config, train_loader)
+    if partitioner is None:
+        from hydragnn_tpu_torch.parallel.partitioner import Partitioner
+
+        partitioner = Partitioner()
+    partitioned = not partitioner.single_device
+    dispatch = resolve_dispatch(training, config, train_loader, partitioner)
     fixed = dispatch["mode"] == "fixed_epoch"
     val_resident = None
     if fixed and hasattr(val_loader, "device_batches"):
@@ -496,12 +531,14 @@ def train_validate_test(
               flush=True)
     guard = bool(training.get("nonfinite_guard", True))
     compute_dtype = torch.bfloat16 if training.get("mixed_precision") else None
-    step_fn = make_train_step(
+    step_fn = partitioner.shard_train_step(
         model, optimizer,
         compute_dtype=compute_dtype,
         remat=bool(training.get("remat", False)),
         guard_nonfinite=guard,
     )
+    eval_fn = partitioner.shard_eval_step(model) if partitioned else None
+    stats_fn = partitioner.shard_stats_step(model)
     sentry = (
         NonFiniteSentry(
             patience=int(training.get("nonfinite_patience", 16)),
@@ -587,6 +624,8 @@ def train_validate_test(
 
     def write_checkpoint(epoch_next: int, early_stopped: bool) -> None:
         ckpt.save_model(model, log_name, log_dir, optimizer=optimizer, epoch=epoch_next, keep_last=keep_last)
+        if process_index() != 0:
+            return
         ckpt.save_train_meta(
             {
                 "epoch": epoch_next,
@@ -653,7 +692,8 @@ def train_validate_test(
                 pad_waste_from_batch,
             )
 
-            diag = HeadDiagnostics(make_diagnostics_step(model, optimizer, compute_dtype), head_names=names,
+            diag = HeadDiagnostics(make_diagnostics_step(model, optimizer, compute_dtype,
+                                                         group=partitioner.world_group), head_names=names,
                                    every=int(training.get("diag_every", 0)) or max(len(train_loader), 1))
             example = _example_batch(train_loader)
             if example is None:
@@ -683,7 +723,7 @@ def train_validate_test(
             nodes_per_graph = [s.num_nodes for s in test_loader.samples]
             visualizer.num_nodes_plot(nodes_per_graph)
         if visualizer is not None and plot_init_solution:
-            _, _, tv, pv = test_epoch(test_loader, model, return_samples=True)
+            _, _, tv, pv = test_epoch(test_loader, model, return_samples=True, step=eval_fn)
             visualizer.create_scatter_plots(tv, pv, iepoch=-1)
 
         if flight.enabled:
@@ -691,7 +731,7 @@ def train_validate_test(
                 model, config, run_config, log_name, log_dir, dev, (train_loader, val_loader, test_loader),
                 num_epoch=num_epoch, start_epoch=start_epoch, compute_dtype=compute_dtype, dispatch=dispatch,
                 cmon=cmon, guard=guard, diag=diag, ledger=ledger, extra=manifest_extra,
-                preempt=preempt, stall_s=stall_s,
+                preempt=preempt, stall_s=stall_s, parallel=partitioner.manifest(model, optimizer),
             ), device=dev)
             if resumed_from is not None:
                 flight.record("resumed", epoch=resumed_from)
@@ -725,7 +765,8 @@ def train_validate_test(
             with profiler if profiler is not None else contextlib.nullcontext():
                 train_loss, train_tasks = train_epoch(train_loader, model, step_fn, epoch, fixed, sentry, timing,
                                                       profiler, spans=spans, diag=diag,
-                                                      incidents=None if profiled else incidents, hooks=hooks)
+                                                      incidents=None if profiled else incidents, hooks=hooks,
+                                                      partitioned=partitioned)
             # finalize read the losses: the steps are done
             train_wall = time.perf_counter() - t0
             history["train_wall_s"].append(train_wall)
@@ -746,9 +787,10 @@ def train_validate_test(
                     rollback(epoch, consec_end)
                     epochs_done = epoch + 1
                     continue  # the rolled-back epoch consumed its slot
-            val_loss, val_tasks = evaluate_epoch(val_loader, model, val_resident)
+            val_loss, val_tasks = evaluate_epoch(val_loader, model, val_resident, step=eval_fn)
             test_loss, test_tasks, tv, pv = test_epoch(test_loader, model,
-                                                       return_samples=hist_plots is not None or introspect_on)
+                                                       return_samples=hist_plots is not None or introspect_on,
+                                                       step=eval_fn)
             if hist_plots is not None:
                 hist_plots.create_error_histograms(tv, pv, iepoch=epoch)
             scheduler.step(optimizer, val_loss)
@@ -789,12 +831,12 @@ def train_validate_test(
             for _ in range(2):
                 for batch in train_loader:
                     hooks.beat()  # the recalibration batches count as liveness
-                    stats_step(model, batch.to(dev, non_blocking=True))
+                    stats_fn(batch.to(dev, non_blocking=True))
         if ckpt_every and not resumed_noop:
             write_checkpoint(epochs_done, early_stopped=bool(stopper and stopper.count >= stopper.patience))
         writer.flush()
         if visualizer is not None:
-            _, _, tv, pv = test_epoch(test_loader, model, return_samples=True)
+            _, _, tv, pv = test_epoch(test_loader, model, return_samples=True, step=eval_fn)
             visualizer.create_scatter_plots(tv, pv)
             visualizer.create_plot_global(tv, pv)
             visualizer.create_reference_plot_suite(tv, pv, model.cfg.output_type, nodes_per_graph)
@@ -836,10 +878,11 @@ def train_validate_test(
 
 
 def _manifest(model, config, run_config, log_name, log_dir, dev, loaders, *, num_epoch, start_epoch, compute_dtype,
-              dispatch, cmon, guard, diag, ledger, extra, preempt, stall_s) -> Dict[str, Any]:
+              dispatch, cmon, guard, diag, ledger, extra, preempt, stall_s, parallel) -> Dict[str, Any]:
     """The ``run_start`` manifest: what the run is and how to rerun it.
-    Keys the port has no counterpart for yet say so (``parallel``,
-    ``graftcheck``, ``podview``)."""
+    ``parallel`` is the partitioner's block (``Partitioner.manifest``).
+    Keys the port has no counterpart for yet say so (``graftcheck``,
+    ``podview``)."""
     from hydragnn_tpu_torch.obs.introspect import card_identity
 
     train_loader, val_loader, test_loader = loaders
@@ -859,7 +902,7 @@ def _manifest(model, config, run_config, log_name, log_dir, dev, loaders, *, num
         "card": card_identity() if cuda else None,
         "mesh": {"device_stack": 1, "process_count": process_count()},
         "podview": {"enabled": False},
-        "parallel": {"available": False, "reason": "the port's parallel layer waits for ROADMAP A-5"},
+        "parallel": parallel,
         "graftcheck": {"available": False, "reason": "graftcheck audits XLA programs; the port compiles none"},
         "pad_plans": {"train": _loader_plan(train_loader), "val": _loader_plan(val_loader),
                       "test": _loader_plan(test_loader)},

@@ -158,7 +158,9 @@ class _OptaxRule(torch.optim.Optimizer):
         v_hat = F._foreach_div(nu, 1.0 - B2 ** c)
         upd = F._foreach_div(m_hat, F._foreach_add(F._foreach_sqrt(v_hat), 1e-6))
         upd = F._foreach_add(upd, F._foreach_mul(params, 0.0))
-        pn, un = F._foreach_norm(params), F._foreach_norm(upd)
+        # a sharded layout reduces the norms over each tensor's shards (parallel/sharded.py)
+        norms = getattr(self, "tensor_norms", None)
+        pn, un = (norms(params, params), norms(upd, params)) if norms else (F._foreach_norm(params), F._foreach_norm(upd))
         return [u * torch.where((a == 0.0) | (b == 0.0), torch.ones_like(a), a / b) for u, a, b in zip(upd, pn, un)]
 
 

@@ -63,6 +63,9 @@ def _loss(model: HydraModel, batch: GraphBatch, compute_dtype: Optional[torch.dt
     if compute_dtype is None:
         outputs = model(batch, train=True)
     else:
+        store = getattr(model, "sharded_params", None)
+        if store is not None:
+            store.unshard()  # FSDP's whole parameters, before the cast reads them (parallel/sharded.py)
         params = {k: p.to(compute_dtype) if p.dtype == torch.float32 else p for k, p in model.named_parameters()}
         outputs = functional_call(model, params, (_cast_floats(batch, compute_dtype),), {"train": True})
         outputs = [o.float() for o in outputs]
@@ -98,25 +101,41 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
     guard_nonfinite: bool = False,
+    sync: Optional[Callable] = None,
 ) -> Callable:
     """``step(batch) -> (loss, per-head losses)``, or with
     ``guard_nonfinite`` ``step(batch, consec) -> (loss, per-head losses,
-    consec, bad)`` (``bad`` 0.0/1.0 as float32); all device tensors."""
+    consec, bad)`` (``bad`` 0.0/1.0 as float32); all device tensors.
+
+    ``sync(loss, tasks, batch) -> (loss, tasks, count)`` runs between
+    the backward and the update (the data-parallel reduction,
+    ``parallel/sharded.py``): the guard then decides on what it returns,
+    and the step returns its ``count`` last."""
+
+    def reduced(loss, tasks, batch):
+        if sync is None:
+            return loss, tasks, ()
+        loss, tasks, count = sync(loss, tasks, batch)
+        return loss, tasks, (count,)
 
     def step(batch: GraphBatch):
         optimizer.zero_grad(set_to_none=True)
         loss, tasks = _loss_and_backward(model, batch, compute_dtype, remat)
+        loss, tasks, extra = reduced(loss, tasks, batch)
         optimizer.step()
         with torch.no_grad():
             optimizer.steps.add_(1)
-        return loss.detach(), tasks.detach()
+        return (loss.detach(), tasks.detach()) + extra
 
     def guarded(batch: GraphBatch, consec: torch.Tensor):
         params = list(model.parameters())
-        kept = [t.detach() for t in params + list(model.buffers()) + optimizer.state_tensors()]
+        # a sharded optimizer names the tensors that hold the values between steps
+        resident = optimizer.resident_params() if hasattr(optimizer, "resident_params") else params
+        kept = [t.detach() for t in resident + list(model.buffers()) + optimizer.state_tensors()]
         snap = snapshot(kept)
         optimizer.zero_grad(set_to_none=True)
         loss, tasks = _loss_and_backward(model, batch, compute_dtype, remat)
+        loss, tasks, extra = reduced(loss, tasks, batch)
         with torch.no_grad():
             sq = [(p.grad * p.grad).sum() for p in params if p.grad is not None]
             norm = torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros((), device=loss.device)
@@ -128,7 +147,7 @@ def make_train_step(
             consec = torch.where(bad, consec + 1, torch.zeros_like(consec))
             loss = torch.where(bad, torch.zeros_like(loss), loss.detach())
             tasks = torch.where(bad, torch.zeros_like(tasks), tasks.detach())
-        return loss, tasks, consec, bad.float()
+        return (loss, tasks, consec, bad.float()) + extra
 
     return guarded if guard_nonfinite else step
 

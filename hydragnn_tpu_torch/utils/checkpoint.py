@@ -123,9 +123,17 @@ def save_model(
     keep_last: Optional[int] = None,
 ) -> str:
     """Write the checkpoint (module docstring); returns the latest file's
-    path. Versions are named by the optimizer's step count."""
+    path. Versions are named by the optimizer's step count.
+
+    In a group of processes every rank calls it: a sharded optimizer's
+    state is gathered whole on every rank (``parallel/sharded.py``), rank
+    0 alone writes the files, and every rank leaves once they are
+    written, so the file is the one a single process writes and
+    ``load_existing_model``, ``serve_model`` and ``convert.py`` read it
+    unchanged."""
+    from hydragnn_tpu_torch.parallel.mesh import barrier, get_comm_size_and_rank
+
     target = checkpoint_path(log_name, path)
-    os.makedirs(os.path.dirname(target), exist_ok=True)
     dev = next(model.parameters()).device
     uses_dropout = getattr(model, "uses_dropout", False)
     state = {
@@ -134,6 +142,10 @@ def save_model(
         "epoch": int(epoch),
         "dropout": model.dropout_generator(dev).get_state() if uses_dropout else None,
     }
+    if get_comm_size_and_rank()[1] != 0:
+        barrier("checkpoint_written")
+        return target
+    os.makedirs(os.path.dirname(target), exist_ok=True)
     buf = io.BytesIO()
     torch.save(state, buf)
     data = buf.getvalue()
@@ -150,6 +162,7 @@ def save_model(
 
     maybe_kill_checkpoint(target, data)
     _atomic_write(target, data)
+    barrier("checkpoint_written")
     return target
 
 

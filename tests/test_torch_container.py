@@ -180,14 +180,26 @@ def test_unknown_mode_and_empty_save_raise(tmp_path):
         TWriter(str(tmp_path / "e")).save()
 
 
-def test_multi_process_save_waits_for_a5(built, tmp_path, monkeypatch):
-    """Writing from several torch.distributed processes is the JAX
-    package's multihost branch, not ported: it raises naming ROADMAP A-5."""
-    monkeypatch.setattr(t_container, "_distributed_world", lambda: 2)
-    w = TWriter(str(tmp_path / "d"))
-    w.add(built[0][:2])
-    with pytest.raises(NotImplementedError, match="A-5"):
-        w.save()
+def test_multi_process_save_waits_for_a5(built, tmp_path):
+    """Writing from two torch.distributed processes (the JAX package's
+    multi-process branch: gathered counts, each process its own byte
+    range) gives the files, byte for byte, one process writes from both
+    shards in order."""
+    from test_torch_parallel_cases import spawn_group
+
+    samples = built[0][:9]
+    spawn_group(2, [("save", "container_save", dict(samples=samples, path=str(tmp_path / "two")))],
+                str(tmp_path / "group"))
+    one = TWriter(str(tmp_path / "one"))
+    one.add(samples)
+    one.add_global("note", "two processes")
+    one.save()
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert names == sorted(os.listdir(tmp_path / "two")) and "meta.json" in names
+    for name in names:
+        with open(tmp_path / "one" / name, "rb") as a, open(tmp_path / "two" / name, "rb") as b:
+            assert a.read() == b.read(), name
+    assert TDataset(str(tmp_path / "two")).ndata == 9
 
 
 def test_container_feeds_training(built, tmp_path):

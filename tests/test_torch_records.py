@@ -40,6 +40,7 @@ from hydragnn_tpu_torch.utils.checkpoint import load_existing_model_config
 from hydragnn_tpu_torch.utils.config import update_config
 
 from test_torch_conv_stacks import one_thread  # noqa: F401
+from test_torch_parallel_cases import two_process_worker
 from test_torch_train_loop import ADAM_LATER_RTOL, LOSS_RTOL, _both_flagship, _run_both, _splits
 
 KEYS = ["epoch", "train_loss", "val_loss", "test_loss", "lr", "train_tasks", "val_tasks"]
@@ -304,46 +305,12 @@ def test_peak_memory_is_none_on_the_cpu_and_setup_log_paths_match(tmp_path):
         assert f.read().rstrip().endswith("hello")
 
 
-def _two_process_worker(rank, port, out_dir):
-    """One of two gloo processes: the launcher's environment, then
-    ``setup_distributed``, a timer of rank-dependent length, ``barrier``
-    and ``print_timers``; writes what it saw."""
-    import time as _time
-
-    import torch.distributed as dist
-
-    from hydragnn_tpu_torch.parallel import barrier, get_comm_size_and_rank, setup_distributed
-
-    os.environ.update(WORLD_SIZE="2", RANK=str(rank), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-    try:
-        world = setup_distributed("cpu")
-        backend = dist.get_backend()
-        from hydragnn_tpu_torch.examples import train_splits
-
-        try:  # a group of two would train two replicas: refused until data parallelism is ported
-            train_splits({}, [], [], [], "cpu")
-            refused = ""
-        except NotImplementedError as err:
-            refused = str(err)
-        t_time.reset_timers()
-        with t_time.Timer("work"):
-            _time.sleep(0.05 * (rank + 1))
-        barrier("timed")
-        stats = t_time.print_timers(0)
-        own = t_time.timers_snapshot()["work"]["elapsed_s"]
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump({"world": world, "again": get_comm_size_and_rank(), "stats": stats["work"], "own": own,
-                       "print_rank": t_print.process_index(), "backend": backend, "refused": refused}, f)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-
-
 def test_two_gloo_processes_reduce_the_timers(tmp_path):
     """``setup_distributed`` from torchrun's environment on two CPU
     processes (gloo): (2, rank) each; ``print_timers`` gives both the min,
     max and mean of the two ranks' elapsed times; the examples' training
-    refuses the group."""
+    trains one model over the group (equal losses and parameters on both
+    ranks, each rank on its sub-batch, one checkpoint written by rank 0)."""
     import multiprocessing
     import socket
 
@@ -351,7 +318,7 @@ def test_two_gloo_processes_reduce_the_timers(tmp_path):
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_two_process_worker, args=(r, port, str(tmp_path))) for r in range(2)]
+    procs = [ctx.Process(target=two_process_worker, args=(r, port, str(tmp_path))) for r in range(2)]
     for p in procs:
         p.start()
     for p in procs:
@@ -361,8 +328,12 @@ def test_two_gloo_processes_reduce_the_timers(tmp_path):
     owns = [s["own"] for s in seen]
     for rank, s in enumerate(seen):
         assert s["world"] == s["again"] == [2, rank] and s["print_rank"] == rank
-        assert s["backend"] == "gloo" and "A-5" in s["refused"]
+        assert s["backend"] == "gloo" and s["trained"]["stack"] == 2 and s["trained"]["stack_rank"] == rank
+        assert s["trained"]["train_loss"] == seen[0]["trained"]["train_loss"]
+        assert s["trained"]["param"] == seen[0]["trained"]["param"]
         assert s["stats"]["min"] == pytest.approx(min(owns), abs=1e-6)
         assert s["stats"]["max"] == pytest.approx(max(owns), abs=1e-6)
         assert s["stats"]["avg"] == pytest.approx(sum(owns) / 2, abs=1e-6)
     assert owns[1] > owns[0]
+    (run,) = os.listdir(tmp_path / "logs")
+    assert [f for f in os.listdir(tmp_path / "logs" / run) if f.endswith(".pt")] == [f"{run}.pt"]

@@ -112,7 +112,11 @@ def test_the_keys_cover_the_jax_record(records):
     assert man["hw_cost"]["flops_source"] == "torch.utils.flop_counter" and man["hw_cost"]["peak_dtype"] == "bf16"
     assert man["stats"]["schema"] == jman["stats"]["schema"] and set(man["stats"]["heads"]) == set(HEADS)
     assert man["dispatch_mode"]["mode"] == "fixed_epoch" and man["scan_epoch"] is True
-    assert man["parallel"]["available"] is False and man["graftcheck"]["available"] is False
+    # the partitioner's block with JAX's keys: a single-device run here
+    assert set(jman["parallel"]) <= set(man["parallel"]), set(jman["parallel"]) - set(man["parallel"])
+    assert man["parallel"]["available"] is True and man["parallel"]["single_device"] is True
+    assert man["parallel"]["mesh"] is None and man["parallel"]["params"]["leaves"] > 0
+    assert man["graftcheck"]["available"] is False
     assert man["podview"] == {"enabled": False} and man["card"] is None
     assert man["compile_monitor_available"] is False
 
