@@ -274,7 +274,31 @@ raises; nothing is caught):
                    SchNet train steps (and GAT's)
                    broken into their stages, and the PNA and GIN steps'
                    device time by kernel (torch.profiler).
+ 10b. parallel   — two ranks on the one card over gloo (four cards over
+                   NCCL with ``--parallel-only 4``): data-parallel, FSDP
+                   and ZeRO-1 training against one process, the giant
+                   graph on the edge axis; riding on its group, the pod
+                   planes: (a)'s per-host flight shards merged (a
+                   host_epoch a host an epoch, host 0's podview verdicts,
+                   overhead_frac under 0.01, a Chrome track a host), each
+                   layout's pod generations (a slice written once), (b)'s
+                   newest restored onto this one process bit-equal to its
+                   gathered state, and the sample store's cross-rank
+                   fetches bit-equal.
+ 10c. pod        — the flagship at full width, batch 128, 3 epochs,
+                   through ``supervise --pod 2`` in two legs side by side,
+                   host 1 SIGKILLed mid-save of generation 2: ``fixed``
+                   restarts at 2 hosts, ``elastic`` at 1; a straggler pair
+                   (host 1, then host 0) opens one step_skew incident
+                   naming host 1. Every epoch's losses bit-equal to the
+                   uninterrupted run in this process; each host's launches
+                   as launch_plan, its kernels against their plain
+                   versions. ``--pod-only`` runs 10b and 10c alone.
  11. summary     — the kernels line, the card line, then the result line.
+
+Children (the ranks, the supervised runs, the fine-tune child) read and
+write their bytecode under ``hydragnn_tpu_torch/ops/build_pycache/``
+(``PYTHONPYCACHEPREFIX``), warmed while the kernels build.
 
 B5 and B8 are timed as the chassis calls them: with the receivers' row
 pointers that edge_context builds once per forward; the pass itself is
@@ -293,6 +317,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import glob
 import importlib
 import json
 import os
@@ -824,8 +849,7 @@ def train_loop_phase(dev, card, samples, counts, launches_per, step_batch):
     step_fns = {"plain": lambda: plain(batch), "guarded": lambda: guarded(batch, consec),
                 "mixed": lambda: mixed(batch)}
     turns = {k: [] for k in step_fns}
-    for order in (("plain", "guarded", "mixed"), ("mixed", "guarded", "plain"), ("plain", "guarded", "mixed"),
-                  ("mixed", "guarded", "plain")):
+    for order in (("plain", "guarded", "mixed"), ("mixed", "guarded", "plain")):
         for k in order:
             turns[k].append(round(cuda_ms(step_fns[k], 10), 4))
     guarded_ms, plain_ms, mixed_ms = (float(np.median(turns[k])) for k in ("guarded", "plain", "mixed"))
@@ -3459,7 +3483,7 @@ class _PoisonAt:
             yield dataclasses.replace(b, nodes=torch.full_like(b.nodes, float("nan"))) if bad else b
 
 
-def device_lock_turns(run_burst, rounds=2):
+def device_lock_turns(run_burst, rounds=1):
     """``run_burst(label)``'s latency fields under ``serve/buckets.py``'s
     DEVICE_LOCK (``shared``: runs side by side), under one plain lock in
     its place (``plain``: one run at a time) and under none (``none``),
@@ -4329,6 +4353,48 @@ def _shard_kernel_checks(agg, bwd, b8, rp, shard, hidden, seed):
     return err
 
 
+# the pod planes ride on [parallel]'s layouts: each cuts a pod generation
+# an epoch (single files without versions, so (a) keeps one .pt)
+POD_RIDER_TRAINING = {"checkpoint_every": 1, "checkpoint_keep_last": 0}
+STORE_FETCHES = 16  # graphs each rank fetches from the next rank's shard of the store
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+def _store_rider(rank, world):
+    """The sample store over the group: each rank owns its share of the
+    1,280 graphs (``data/diststore.py``) and fetches ``STORE_FETCHES`` of
+    the next rank's over TCP; the fetched graphs go back to the parent."""
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.data.diststore import DistSampleStore
+
+    raw = _parallel_raw()
+    per = len(raw) // world
+    t0 = time.perf_counter()
+    store = DistSampleStore(raw[rank * per:(rank + 1) * per])
+    up = time.perf_counter() - t0
+    other = (rank + 1) % world
+    ids = [other * per + j for j in range(0, per, per // STORE_FETCHES)][:STORE_FETCHES]
+    t0 = time.perf_counter()
+    fetched = {gi: store.get(gi) for gi in ids}
+    fetch_s = time.perf_counter() - t0
+    owners = {gi: store.owner_of(gi) for gi in ids}
+    counts = [int(c) for c in store.counts]
+    dist.barrier()  # every fetch served before a server closes
+    store.close()
+    return {"counts": counts, "fetched": fetched, "owners": owners, "up_s": round(up, 3),
+            "fetch_ms_mean": round(fetch_s / len(ids) * 1e3, 3)}
+
+
 def parallel_rank(spec_path, out_dir, t_torch):
     """One rank of [parallel] (started by ``parallel_phase``): every case
     in order; its results into ``out_dir``."""
@@ -4399,11 +4465,13 @@ def _parallel_cases(spec, world, rank):
         if name == spec["layouts"][0][0]:
             cfg = flagship_config(batch_size=TRAIN_BATCH, num_epoch=PARALLEL_EPOCHS)
             cfg["NeuralNetwork"]["Parallel"] = dict(par)
+            cfg["NeuralNetwork"]["Training"].update(POD_RIDER_TRAINING)
             model, opt, hist, done = hydragnn_tpu_torch.run_training(cfg, _parallel_raw(), log_dir=log_dir,
                                                                      device="cuda", seed=SEED)
         else:
             done = copy.deepcopy(prepared[3])
             done["NeuralNetwork"]["Parallel"] = dict(par)
+            done["NeuralNetwork"]["Training"].update(POD_RIDER_TRAINING)
             if zero1:
                 done["NeuralNetwork"]["Training"]["Optimizer"]["use_zero_redundancy"] = True
             model, opt, hist = train_with_loaders(done, *create_dataloaders(*prepared[:3], done), log_dir=log_dir,
@@ -4411,6 +4479,12 @@ def _parallel_cases(spec, world, rank):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read()
+        final_state = None
+        if name == spec["layouts"][1][0]:
+            # (b)'s whole final state, gathered on every rank (a collective),
+            # for the parent's restore of its last pod generation onto one process
+            final_state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                           "optimizer": _to_cpu(opt.state_dict()), "nn": done["NeuralNetwork"]}
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
         part = Partitioner.from_config(done["NeuralNetwork"], device_stack=world // int(par.get("edge", 1)))
         man = part.manifest(model, opt)
@@ -4444,6 +4518,8 @@ def _parallel_cases(spec, world, rank):
             "forwards": PARALLEL_EPOCHS * (len(loaders[1]) + len(loaders[2])) + 2 * len(loaders[0]),
             "files": sorted(os.listdir(os.path.join(log_dir, os.listdir(log_dir)[0]))) if rank == 0 else None,
             "sub_batch_graphs": int(bd.graph_mask.sum()),
+            "run_dir": os.path.join(log_dir, os.listdir(log_dir)[0]),
+            "final_state": final_state if rank == 0 else None,
         }
         if name == spec["layouts"][0][0]:
             hidden = done["NeuralNetwork"]["Architecture"]["hidden_dim"]
@@ -4453,6 +4529,7 @@ def _parallel_cases(spec, world, rank):
         del model, opt, step, bd
         torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(False)
+    out["store"] = _store_rider(rank, world)
     if not spec["giant"]:
         return out
     # (d) the giant driver at its defaults, then the PNA step and the tie
@@ -4716,6 +4793,7 @@ def parallel_phase(dev, card, world=2):
         if not t["split"]:
             raise AssertionError("[parallel] the planted tie was not split evenly")
         line("parallel", case="d_cross_shard_tie", rank=rk, max_abs_err=t["max_abs_err"], split_evenly=True)
+    _pod_riders(ranks, layouts, world, card, work)
     # the path's launches, summed over the ranks, against the plans
     arch = flagship_config()["NeuralNetwork"]["Architecture"]
     per_step, per_fwd = launch_plan(arch, "run_aligned")
@@ -4736,6 +4814,438 @@ def parallel_phase(dev, card, world=2):
          kernel_max_abs_err=json.dumps(kernel_err, separators=(",", ":")), card=repr(card))
     shutil.rmtree(work, ignore_errors=True)
     return summed, kernel_err
+
+
+def _pod_riders(ranks, layouts, world, card, work):
+    """The pod planes on [parallel]'s group: (a)'s per-host flight shards
+    merged (one ``host_epoch`` a host an epoch, host 0's ``podview``
+    verdicts, the plane's ``overhead_frac`` under 0.01, a Chrome track a
+    host); every layout's committed pod generations (each slice written
+    once, by its replica 0; (a)'s leaves whole, FSDP's and ZeRO-1's with
+    slices) and (b)'s newest restored onto this one process equal to
+    (b)'s gathered final state to the bit; the sample store's fetches
+    bit-equal to this process's copy of the graphs."""
+    import hydragnn_tpu_torch
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.obs import (
+        export_flight_chrome,
+        flight_to_chrome,
+        host_epoch_table,
+        merge_host_flights,
+        read_flight_record,
+    )
+    from hydragnn_tpu_torch.resilience import podckpt
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+
+    r0 = ranks[0]
+    a_name, b_name = layouts[0][0], layouts[1][0]
+    # (a): the shards of a clean run of `world` hosts
+    run_a = r0["cases"][a_name]["run_dir"]
+    merged = merge_host_flights(run_a)
+    table = host_epoch_table(merged.events)
+    if merged.hosts != list(range(world)) or merged.problems:
+        raise AssertionError(f"[parallel] podview: hosts {merged.hosts}, problems {merged.problems}")
+    if sorted(table) != list(range(PARALLEL_EPOCHS)) or any(sorted(v) != list(range(world)) for v in table.values()):
+        raise AssertionError(f"[parallel] podview: host_epoch table {{epoch: hosts}} "
+                             f"{ {e: sorted(v) for e, v in table.items()} }")
+    verdicts = [e for e in merged.events if e["kind"] == "podview"]
+    end = [e for e in read_flight_record(os.path.join(run_a, "flight.jsonl")) if e["kind"] == "run_end"][-1]
+    pv = end.get("podview") or {}
+    chrome = flight_to_chrome(merged.events)["traceEvents"]
+    tracks = {e["tid"] for e in chrome if e.get("ph") == "X" and str(e.get("name", "")).startswith("host")}
+    export_flight_chrome(run_a, os.path.join(work, "pod_trace.json"))
+    if not verdicts or not pv.get("overhead_frac", 1.0) < 0.01 or tracks != set(range(world)):
+        raise AssertionError(f"[parallel] podview: {len(verdicts)} verdicts, run_end {pv}, tracks {tracks}")
+    line("parallel", part="podview", case=a_name, hosts=json.dumps(merged.hosts), shards=len(merged.hosts),
+         host_epochs=sum(len(v) for v in table.values()), podview_verdicts=len(verdicts),
+         skew_frac=json.dumps([v["skew_frac"] for v in verdicts]), overhead_s=pv.get("overhead_s"),
+         overhead_frac=pv.get("overhead_frac"), chrome_tracks=len(tracks), card=repr(card))
+    # every layout's generations: each slice once, every leaf covered
+    for name, _, _ in layouts:
+        run_dir = r0["cases"][name]["run_dir"]
+        gens = podckpt.list_committed_generations(run_dir)
+        if gens != list(range(1, PARALLEL_EPOCHS + 1)):
+            raise AssertionError(f"[parallel] {name}: committed generations {gens}")
+        entries = []
+        for h in range(world):
+            with open(os.path.join(run_dir, "podckpt", f"ckpt.gen{gens[-1]}.host{h}.manifest.json")) as f:
+                entries += json.load(f)["leaves"]
+        keys = [(e["path"], json.dumps(e["slices"])) for e in entries]
+        sliced = sorted({e["path"] for e in entries if e["slices"] is not None})
+        podckpt.load_generation(run_dir, gens[-1])  # every leaf wholly covered
+        if len(keys) != len(set(keys)):
+            raise AssertionError(f"[parallel] {name}: a slice written twice in generation {gens[-1]}")
+        want_sliced = name != a_name and not name.startswith("d_")
+        if bool(sliced) != want_sliced:
+            raise AssertionError(f"[parallel] {name}: sliced leaves {sliced[:4]}")
+        line("parallel", part="pod_generations", case=name, committed=json.dumps(gens), writers=world,
+             entries=len(entries), sliced_leaves=len(sliced),
+             sliced_model=sum(p.startswith("model/") for p in sliced),
+             sliced_optimizer=sum(p.startswith("optimizer/") for p in sliced), card=repr(card))
+    # (b)'s newest generation onto this one process, against (b)'s gathered state
+    fin = r0["cases"][b_name]["final_state"]
+    model = create_model_config(fin["nn"], seed=SEED + 7, device="cuda")
+    opt = select_optimizer(model, fin["nn"]["Training"])
+    t0 = time.perf_counter()
+    epoch, info = podckpt.restore_pod_checkpoint(model, r0["cases"][b_name]["run_dir"], optimizer=opt)
+    restore_s = time.perf_counter() - t0
+    got = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+           "optimizer": _to_cpu(opt.state_dict())}
+    diffs = []
+
+    def walk(a, b, path):
+        if isinstance(b, torch.Tensor):
+            if not (isinstance(a, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)):
+                diffs.append(path)
+        elif isinstance(b, dict):
+            if set(a) != set(b):
+                diffs.append(path + "{keys}")
+            for k in b:
+                if k in a:
+                    walk(a[k], b[k], f"{path}/{k}")
+    walk(got["model"], fin["model"], "model")
+    walk(got["optimizer"]["rule"]["state"], fin["optimizer"]["rule"]["state"], "optimizer/state")
+    walk(got["optimizer"]["shared"], fin["optimizer"]["shared"], "optimizer/shared")
+    walk(got["optimizer"]["steps"], fin["optimizer"]["steps"], "optimizer/steps")
+    if info is None or info["hosts"] != world or info["fallbacks"] or diffs:
+        raise AssertionError(f"[parallel] {b_name}: restore onto one process {info}, differs at {diffs[:6]}")
+    held = r0["cases"][b_name]["param_bytes"]
+    line("parallel", part="pod_restore", case=b_name, gen=info["gen"], prior_hosts=info["hosts"], onto_hosts=1,
+         loader_epoch=epoch, tensors=len(got["model"]) + sum(len(v) for v in got["optimizer"]["rule"]["state"].values()),
+         bit_equal=True, restore_s=round(restore_s, 3), b_param_bytes_held=held, layout=json.dumps(info["layout"]),
+         card=repr(card))
+    del model, opt
+    # the sample store
+    raw = _parallel_raw()
+    for rk, r in enumerate(ranks):
+        st = r["store"]
+        for gi, s in st["fetched"].items():
+            want = raw[gi]
+            for f in ("x", "pos", "edge_index", "edge_attr", "graph_y"):
+                a, b = getattr(s, f), getattr(want, f)
+                if (a is None) != (b is None) or (b is not None and not (np.asarray(a).dtype == np.asarray(b).dtype
+                                                                          and np.array_equal(a, b))):
+                    raise AssertionError(f"[parallel] store: rank {rk} graph {gi} field {f} differs")
+            if st["owners"][gi] == rk:
+                raise AssertionError(f"[parallel] store: rank {rk} fetched its own graph {gi}")
+        if len(st["fetched"]) < STORE_FETCHES or sum(st["counts"]) != len(raw):
+            raise AssertionError(f"[parallel] store: rank {rk} fetched {len(st['fetched'])}, counts {st['counts']}")
+        line("parallel", part="store", rank=rk, owns=st["counts"][rk], fetched=len(st["fetched"]),
+             from_rank=(rk + 1) % world, bit_equal=True, up_s=st["up_s"], fetch_ms_mean=st["fetch_ms_mean"],
+             card=repr(card))
+
+
+# [pod]: the flagship at full width on [train-loop]'s data at batch 128, 3
+# epochs of 8 steps, a pod generation an epoch, per-step dispatch,
+# deterministic algorithms, diagnostics off, through
+# ``python -m hydragnn_tpu_torch.tools.supervise --pod 2``. Host 1 dies of
+# SIGKILL in its generation-2 save; host 0 waits POD_COMMIT_TIMEOUT_S for
+# it at each of its two cuts of generation 2 (the epoch's, then the
+# preemption's) before it exits 75. The straggler sleeps POD_STRAGGLE_MS in
+# each of host 1's steps (about four of the ~60 ms steps).
+POD_EPOCHS, POD_COMMIT_TIMEOUT_S, POD_GRACE_S, POD_STRAGGLE_MS = 3, 5.0, 60.0, 250
+POD_TIMEOUT_S = 420
+_POD_CHILD = r'''
+import sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {repo!r})
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+t_torch = time.perf_counter() - t0
+import chip_smoke
+chip_smoke.pod_host(sys.argv[1:], t0, t_torch)
+'''
+
+
+def pod_host(argv, t0, t_torch):
+    """One host of [pod] (``_POD_CHILD``, started by the supervisor or by
+    ``pod_phase``): a start barrier with its peers, ``run_training`` under
+    ``run_guard``, then (whatever the exit) its launches, start-up seconds
+    and status into ``<out>.host<k>.<pid>.json``; a host that completed
+    also checks B1-B4 against their plain versions at its first batch."""
+    import pickle
+
+    from hydragnn_tpu_torch import resolve_device
+    from hydragnn_tpu_torch.api import prepare_loaders_and_config, train_with_loaders
+    from hydragnn_tpu_torch.obs.podview import host_flight_path, host_identity
+    from hydragnn_tpu_torch.obs.flight import read_flight_record
+    from hydragnn_tpu_torch.resilience import run_guard
+    from hydragnn_tpu_torch.resilience.podckpt import pod_barrier
+
+    cfg_path, samples_path, log_dir, out, sync = argv
+    t_port = time.perf_counter() - t0 - t_torch
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    with open(samples_path, "rb") as f:
+        raw = pickle.load(f)
+    # run_training's two halves, the data prepared before the barrier: the
+    # hosts enter their loops (and install their SIGTERM handlers) together
+    *loaders, done = prepare_loaders_and_config(cfg, raw)
+    host, hosts = host_identity()
+    attempt = int(os.environ.get("HGTORCH_AUTO_RESUME", "0") == "1")
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches.reset()
+    startup = time.perf_counter() - t0
+    barrier_s = 0.0
+    if hosts > 1 and sync == "barrier":
+        # the hosts start their epochs together, so host 0's bounded commit
+        # waits for a live peer take seconds, not a start-up's skew
+        tb = time.perf_counter()
+        pod_barrier(log_dir, f"start.{attempt}.{hosts}", host, hosts, timeout_s=120)
+        barrier_s = time.perf_counter() - tb
+    rec = {"host": host, "hosts": hosts, "attempt": attempt, "pid": os.getpid(), "torch_import_s": round(t_torch, 2),
+           "port_import_s": round(t_port, 2), "startup_s": round(startup, 2), "barrier_s": round(barrier_s, 2),
+           "status": "failed"}
+    path = f"{out}.host{host}.{os.getpid()}.json"
+    try:
+        with run_guard():
+            train_with_loaders(done, *loaders, log_dir=log_dir, device="cuda", seed=SEED)
+        rec["status"] = "completed"
+    finally:
+        rec["counts"] = {n: m.launches.value for n, m in mods.items()}
+        (shard,) = glob.glob(os.path.join(log_dir, "*", os.path.basename(host_flight_path(".", host))))
+        seg = read_flight_record(shard)
+        last = max(i for i, e in enumerate(seg) if e["kind"] == "run_start")
+        # this attempt's epochs and the steps they ran (a preempted epoch may stop early)
+        rec["epochs"] = sum(e["kind"] == "epoch" for e in seg[last:])
+        rec["steps"] = sum(e["step_time"]["steps"] for e in seg[last:] if e["kind"] == "epoch")
+        rec["wall_s"] = round(time.perf_counter() - t0, 2)
+        with open(path, "w") as f:
+            json.dump(rec, f)
+    bd = next(iter(loaders[0])).to(resolve_device("cuda"))
+    rec["kernel_err"] = _rank_kernel_checks(mods["gather_stats"], mods["segment_sum"], mods["gather_rows"],
+                                            mods["segment_sum_local"], bd,
+                                            done["NeuralNetwork"]["Architecture"]["hidden_dim"], 400 + host)
+    with open(path, "w") as f:
+        json.dump(rec, f)
+
+
+def pod_phase(dev, card, counts, samples, per_step, per_fwd):
+    """[pod]: two pod legs side by side through ``supervise --pod 2``,
+    each with host 1 SIGKILLed mid-save of generation 2 (``fixed``: the
+    pod restarts at 2 hosts and cuts generation 3; ``elastic``: host 1
+    straggling in the first attempt, the pod restarts at 1 host, the last
+    COMMIT staying 1), and a straggler pair run as ``ci.sh`` runs
+    it (host 1, then host 0, whose monitor must open one ``step_skew``
+    incident naming host 1: in a concurrent pod, host 0 reaches an epoch's
+    boundary before the straggler has written that epoch's summary, so it
+    never sees the skew). The reference, the same run uninterrupted, runs
+    in this process meanwhile; every leg's per-epoch losses equal it to the
+    bit. Each host's launches equal ``launch_plan`` × its epochs, and each
+    completed host checks B1-B4 at its shapes. Returns the reference's
+    launches and the hosts' kernels' worst errors."""
+    import pickle
+
+    from hydragnn_tpu_torch.api import create_dataloaders, prepare_config_and_samples, run_training
+    from hydragnn_tpu_torch.flagship import flagship_config
+    from hydragnn_tpu_torch.obs import read_flight_record, validate_podview_report
+    from hydragnn_tpu_torch.obs.triggers import list_incidents, validate_incident_bundle
+    from hydragnn_tpu_torch.resilience.podckpt import latest_commit_info
+    from hydragnn_tpu_torch.utils.checkpoint import load_train_meta
+
+    reset, read = counts
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_pod_")
+    raw = samples()
+    samples_path = os.path.join(root, "samples.pkl")
+    with open(samples_path, "wb") as f:
+        pickle.dump(raw, f)
+    cfg0 = flagship_config(batch_size=LOOP_BATCH, num_epoch=POD_EPOCHS)
+    cfg0["NeuralNetwork"]["Training"].update(checkpoint_every=1, scan_epoch=False)
+    tr, va, te, done = prepare_config_and_samples(copy.deepcopy(cfg0), copy.deepcopy(raw))
+    loaders = create_dataloaders(tr, va, te, done)
+    n_train, n_eval = len(loaders[0]), len(loaders[1]) + len(loaders[2])
+    paths = {}
+    for label, training in (("legs", {}), ("straggler", {"slo_triggers": True})):
+        cfg = copy.deepcopy(cfg0)
+        cfg["NeuralNetwork"]["Training"].update(training)
+        paths[label] = os.path.join(root, f"{label}.json")
+        with open(paths[label], "w") as f:
+            json.dump(cfg, f)
+    child = os.path.join(root, "child.py")
+    with open(child, "w") as f:
+        f.write(_POD_CHILD.format(repo=os.path.dirname(os.path.abspath(__file__))))
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("HGTORCH_INJECT_", "HGTORCH_AUTO_RESUME", "HGTORCH_PODVIEW"))}
+    base.update(HGTORCH_DIAGNOSTICS="0", CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                HGTORCH_POD_COMMIT_TIMEOUT_S=str(POD_COMMIT_TIMEOUT_S))
+    procs, logs = {}, []
+
+    def start(label, argv, **env):
+        log = open(os.path.join(root, f"{label}.log"), "w+")
+        logs.append(log)
+        procs[label] = (subprocess.Popen(argv, env=dict(base, **env), cwd=os.path.dirname(os.path.abspath(__file__)),
+                                         stdout=log, stderr=subprocess.STDOUT), log, time.perf_counter())
+
+    def host_argv(label, cfg, sync="barrier"):
+        return [sys.executable, child, paths[cfg], samples_path, os.path.join(root, label, "logs"),
+                os.path.join(root, "out", label), sync]
+
+    os.makedirs(os.path.join(root, "out"))
+    for leg, extra, env in (("fixed", [], {}),
+                            ("elastic", ["--pod-elastic"], {"HGTORCH_INJECT_STRAGGLER": f"1:{POD_STRAGGLE_MS}"})):
+        start(leg, [sys.executable, "-m", "hydragnn_tpu_torch.tools.supervise", "--pod", "2", *extra,
+                    "--pod-grace", str(POD_GRACE_S), "--run-id", f"pod{leg}", "--flight",
+                    os.path.join(root, f"sup_{leg}.jsonl"), "--", *host_argv(leg, "legs")],
+              HGTORCH_INJECT_POD_KILL_HOST="1:2", **env)
+    start("straggler1", host_argv("straggler", "straggler", "none"), HGTORCH_PODVIEW_HOST="1", HGTORCH_PODVIEW_HOSTS="2",
+          HGTORCH_PODVIEW_RUN_ID="podstrag", HGTORCH_INJECT_STRAGGLER=f"1:{POD_STRAGGLE_MS}")
+
+    def finish(label):
+        proc, log, t0 = procs[label]
+        try:
+            rc = proc.wait(timeout=max(1.0, POD_TIMEOUT_S - (time.perf_counter() - t_phase)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"[pod] {label} did not finish within {POD_TIMEOUT_S} s")
+        log.seek(0)
+        out = log.read()
+        if rc != 0:
+            raise AssertionError(f"[pod] {label}: exit {rc}\n{out[-4000:]}")
+        return time.perf_counter() - t0
+
+    saved = os.environ.get("HGTORCH_DIAGNOSTICS")
+    os.environ["HGTORCH_DIAGNOSTICS"] = "0"  # as the hosts run
+    try:
+        # the reference: the same run uninterrupted, in this process
+        with deterministic_algorithms("pod", "reference", card):
+            reset()
+            t0 = time.perf_counter()
+            _, _, ref_hist, _ = run_training(copy.deepcopy(cfg0), copy.deepcopy(raw), log_dir=os.path.join(root, "ref"),
+                                             device="cuda", seed=SEED)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            ref_counts = read()
+        walls = {"straggler1": finish("straggler1")}
+        start("straggler0", host_argv("straggler", "straggler", "none"), HGTORCH_PODVIEW_HOST="0", HGTORCH_PODVIEW_HOSTS="2",
+              HGTORCH_PODVIEW_RUN_ID="podstrag", HGTORCH_INCIDENT_PROFILE_STEPS="2")
+        for label in ("fixed", "elastic", "straggler0"):
+            walls[label] = finish(label)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+        if saved is None:
+            os.environ.pop("HGTORCH_DIAGNOSTICS", None)
+        else:
+            os.environ["HGTORCH_DIAGNOSTICS"] = saved
+
+    def want(steps, epochs, completed):
+        fwds = epochs * n_eval + (2 * n_train if completed else 0)
+        return {k: steps * per_step.get(k, 0) + fwds * per_fwd.get(k, 0) for k in ref_counts}
+
+    if ref_counts != want(POD_EPOCHS * n_train, POD_EPOCHS, True):
+        raise AssertionError(f"[pod] reference launches {ref_counts}, want {want(POD_EPOCHS * n_train, POD_EPOCHS, True)}")
+    ref = {k: ref_hist[k] for k in ("train_loss", "val_loss", "test_loss")}
+
+    def bit_equal(events, label):
+        got = {e["epoch"]: e for e in events if e["kind"] == "epoch"}  # a re-run epoch's last record wins
+        if sorted(got) != list(range(POD_EPOCHS)):
+            raise AssertionError(f"[pod] {label}: epochs {sorted(got)}")
+        for k, v in ref.items():
+            if [got[ep][k] for ep in range(POD_EPOCHS)] != v:
+                raise AssertionError(f"[pod] {label}: {k} {[got[ep][k] for ep in range(POD_EPOCHS)]} != reference {v}")
+
+    for leg, width, last_gen in (("fixed", 2, 3), ("elastic", 1, 1)):
+        sup = read_flight_record(os.path.join(root, f"sup_{leg}.jsonl"))
+        lost = [e for e in sup if e["kind"] == "host_lost"]
+        restarts = [e for e in sup if e["kind"] == "restart"]
+        if (len(lost) != 1 or lost[0]["host"] != 1 or not lost[0]["exit_code"] < 0 or len(restarts) != 1
+                or (restarts[0]["cause"], restarts[0]["delay_s"], restarts[0]["hosts"]) != ("host_lost", 0, width)
+                or [e["status"] for e in sup if e["kind"] == "run_end"] != ["completed"]):
+            raise AssertionError(f"[pod] {leg}: supervisor record {lost}, {restarts}")
+        (flight,) = glob.glob(os.path.join(root, leg, "logs", "*", "flight.jsonl"))
+        run_dir = os.path.dirname(flight)
+        ev = read_flight_record(flight)
+        ends = [e["status"] for e in ev if e["kind"] == "run_end"]
+        signals = [e["signal"] for e in ev if e["kind"] == "preempt"]
+        fails = [e for e in ev if e["kind"] == "error" and e.get("error_type") == "PodCommitFailed"]
+        resumes = [e for e in ev if e["kind"] == "pod_resume"]
+        lineage = [e for e in ev if e["kind"] == "run_start"][-1]["manifest"].get("pod_resume") or {}
+        commit = latest_commit_info(run_dir) or {}
+        meta = load_train_meta(os.path.basename(run_dir), os.path.dirname(run_dir)) or {}
+        if (ends != ["preempted", "completed"] or signals != [15] or not fails or len(resumes) != 1
+                or (resumes[0]["gen"], resumes[0]["prior_hosts"], resumes[0]["fallbacks"]) != (1, 2, [])
+                or lineage.get("resumed_from_gen") != 1 or commit.get("gen") != last_gen or meta.get("epoch") != 3):
+            raise AssertionError(f"[pod] {leg}: run_end {ends}, preempt {signals}, {len(fails)} PodCommitFailed, "
+                                 f"pod_resume {resumes}, lineage {lineage}, COMMIT {commit}, meta epoch "
+                                 f"{meta.get('epoch')}")
+        bit_equal(ev, leg)
+        line("pod", leg=leg, hosts_after=width, lost_host=1, lost_exit=lost[0]["exit_code"],
+             restart_delay_s=restarts[0]["delay_s"], run_end=json.dumps(ends), preempt_signal=15,
+             pod_commit_failed=len(fails), resumed_from_gen=1, last_commit_gen=commit["gen"], meta_epoch=meta["epoch"],
+             losses_bit_equal_to_reference=True, wall_s=round(walls[leg], 2), card=repr(card))
+    # the straggler pair: one step_skew incident naming host 1
+    (flight,) = glob.glob(os.path.join(root, "straggler", "logs", "*", "flight.jsonl"))
+    bundles = list_incidents(os.path.join(os.path.dirname(flight), "incidents"))
+    if len(bundles) != 1 or validate_incident_bundle(bundles[0]):
+        raise AssertionError(f"[pod] straggler: incidents {bundles}")
+    with open(os.path.join(bundles[0], "incident_manifest.json")) as f:
+        man = json.load(f)
+    with open(os.path.join(bundles[0], "podview_report.json")) as f:
+        report = json.load(f)
+    verdicts = [e for e in read_flight_record(flight) if e["kind"] == "podview"]
+    if ((man["rule"], man["kind"]) != ("podview_step_skew", "step_skew")
+            or man["trigger"]["detail"].get("slowest_host") != 1 or validate_podview_report(report)
+            or report["slowest_host"] != 1 or not os.path.exists(os.path.join(bundles[0], "flight_tail.host1.jsonl"))):
+        raise AssertionError(f"[pod] straggler: incident {man}, report {report}")
+    bit_equal(read_flight_record(flight), "straggler host 0")
+    line("pod", leg="straggler", straggle_ms=POD_STRAGGLE_MS, incidents=1, rule=man["rule"], slowest_host=1,
+         skew_frac=json.dumps([v["skew_frac"] for v in verdicts]), threshold=report["threshold"],
+         cause=report["cause"], losses_bit_equal_to_reference=True, card=repr(card))
+    # every host: launch_plan x its epochs; every completed host's kernels
+    recs = []
+    for p in sorted(glob.glob(os.path.join(root, "out", "*.json"))):
+        with open(p) as f:
+            recs.append(dict(json.load(f), label=os.path.basename(p).split(".")[0]))
+    kernel_err = {}
+    for r in recs:
+        w = want(r["steps"], r["epochs"], r["status"] == "completed")
+        if r["counts"] != {k: w.get(k, 0) for k in r["counts"]}:
+            raise AssertionError(f"[pod] {r['label']} host {r['host']} attempt {r['attempt']}: launches {r['counts']}, "
+                                 f"want {w} ({r['steps']} steps, {r['epochs']} epochs, {r['status']})")
+        for k, v in (r.get("kernel_err") or {}).items():
+            kernel_err[k] = max(kernel_err.get(k, 0.0), v)
+    done_hosts = [r for r in recs if r["status"] == "completed"]
+    if len(done_hosts) != 2 + 1 + 2 or set(kernel_err) != set(PORT_KERNELS):
+        raise AssertionError(f"[pod] completed hosts {[(r['label'], r['host']) for r in done_hosts]}, "
+                             f"kernels checked {sorted(kernel_err)}")
+    seconds = time.perf_counter() - t_phase
+    line("pod", part="hosts", records=len(recs), completed=len(done_hosts),
+         startup_s=json.dumps(sorted(r["startup_s"] for r in recs)),
+         torch_import_s=json.dumps(sorted(r["torch_import_s"] for r in recs)),
+         barrier_s=json.dumps(sorted(r["barrier_s"] for r in recs)),
+         kernel_launches_by_host=json.dumps({f"{r['label']}{r['host']}.a{r['attempt']}": sum(r["counts"].values())
+                                             for r in recs}),
+         kernel_max_abs_err=json.dumps(kernel_err, separators=(",", ":")), reference_s=round(ref_s, 2),
+         seconds=round(seconds, 1), card=repr(card))
+    shutil.rmtree(root, ignore_errors=True)
+    return ref_counts, kernel_err
+
+
+# Bytecode for the children: the card's machine sets PYTHONDONTWRITEBYTECODE
+# and its site-packages hold no .pyc, so every child compiled torch's
+# sources anew at its import (PERF.md §6). The children write and read
+# their bytecode here instead (gitignored, beside ops/build/).
+PYCACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hydragnn_tpu_torch", "ops", "build_pycache")
+
+
+def child_bytecode_cache():
+    """Point every child this process starts at ``PYCACHE_DIR`` (writing
+    allowed) and warm it: one ``import`` of torch and the port in the
+    background, which the caller waits for. Returns the process."""
+    os.makedirs(PYCACHE_DIR, exist_ok=True)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE_DIR
+    return subprocess.Popen([sys.executable, "-c", "import torch, torch.distributed, numpy, hydragnn_tpu_torch, "
+                             "hydragnn_tpu_torch.tools.supervise, hydragnn_tpu_torch.pilot.tune, chip_smoke"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.DEVNULL,
+                            stderr=subprocess.STDOUT)
 
 
 def _parallel_raw():
@@ -4803,12 +5313,24 @@ def main():
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.time()
+    warm = child_bytecode_cache()
     logs = build_all(list(sources.values()))
     line("build", kernels=len(mods), sources=len(logs), parallel_nvcc=len(logs), seconds=round(time.time() - t0, 2))
+    warm.wait()
+    line("build", part="child_bytecode", prefix=os.path.relpath(PYCACHE_DIR), warm_rc=warm.returncode,
+         seconds_with_build=round(time.time() - t0, 2))
     for src, log in logs.items():
         for ln in log.splitlines():
             if "Used" in ln or "Compiling entry" in ln or "spill" in ln:
                 print(f"  ptxas[{src}]:", ln.strip())
+
+    # every section's seconds, the ones that print no phase line of their own too
+    t_section = [time.perf_counter()]
+
+    def section_end(name):
+        now = time.perf_counter()
+        line("section", ended=name, seconds=round(now - t_section[0], 1))
+        t_section[0] = now
 
     # ---- 3. check: pna_aggregate_fwd at serving shapes -------------------
     cfg = flagship_config()
@@ -4862,6 +5384,7 @@ def main():
         line("check", kernel="pna_aggregate_fwd", case=label, E=serve_batch.num_edges, N=n_rows, H=h,
              dtype=str(dtype)[6:], max_abs_err=err, bit_equal=True, row_ptr="shared_and_own", deterministic=True)
 
+    section_end("3. check")
     # ---- 4. check-train: B1-B4 at the flagship training shapes ------------
     tcfg = flagship_config(batch_size=TRAIN_BATCH, num_epoch=TRAIN_EPOCHS)
 
@@ -4993,6 +5516,7 @@ def main():
         line("check-train", case=f"autograd_backward_f32_h{h}", ops="gather_presum_stats,segment_sum_sorted,segment_max",
              max_abs_err_grad_table=err, grad_norm=float(grads["cuda"][0].norm()))
 
+    section_end("4. check-train")
     # ---- 4b. check-pna-bwd: B6 and B7 at the flagship's unaligned shapes --
     def unaligned_loader(samples, shuffle=False):
         return GraphLoader(samples, TRAIN_BATCH, shuffle=shuffle, dense_slots=False, run_align=False)
@@ -5107,6 +5631,7 @@ def main():
                      occupancy=int(occ_h), bound_and_none=True, count_bit_equal=True, grad_bit_equal=f32,
                      max_abs_err_grad=worst, max_ties=int(cnt_ref.max()), deterministic=True)
 
+    section_end("4b. check-pna-bwd")
     # ---- 5. serve-timing, 5a. serve, 5b. serve-resilience ---------------
     def serve_raw():
         return deterministic_graph_data(
@@ -5125,6 +5650,7 @@ def main():
     serve_resilience_phase(dev, card, (reset_counts, read_counts), serve_raw())
     line("serve", part="phases", seconds=round(time.perf_counter() - t0, 1))
 
+    section_end("5. serve-timing, serve, serve-resilience")
     # ---- 6. train --------------------------------------------------------
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_logs_")
     torch.cuda.reset_peak_memory_stats()
@@ -5179,6 +5705,7 @@ def main():
     line("predict", test_loss=err, in_memory_test_loss=in_memory[0], heads=len(preds),
          rows=json.dumps([int(p.shape[0]) for p in preds]), max_abs_err=worst)
 
+    section_end("6. train, 7. predict")
     # ---- 7b. train-loop: the training loop at batch 128 -------------------
     def launches_per(epochs, loaders, bn_recal):
         """A run's launches: per_step a train step, per_fwd an eval or
@@ -5194,6 +5721,7 @@ def main():
                                                step_batch)
     line("train-loop", part="phase", seconds=round(time.perf_counter() - t0, 1))
 
+    section_end("7b. train-loop")
     # ---- 8. check-conv: B8 at the flagship training shapes ----------------
     rng8 = np.random.default_rng(SEED + 8)
 
@@ -5333,6 +5861,7 @@ def main():
         check_b8_backward(f"{variant}_f32", variant, host, mask_h, 82)
     check_b8_backward("molecular_identity_h128_f32", "identity_h128", mhost, mhost.edge_mask, 83)
 
+    section_end("8. check-conv")
     # ---- 8b. stack: fused_conv_stack (B9) at full width ----------------
     stack_counts_by_layout, stack_timing, max_err["fused_conv_stack"] = stack_phase(
         dev, {"unaligned": uhost, "run_aligned": host}, hidden, n_layers, mods, card)
@@ -5348,6 +5877,7 @@ def main():
         if counts != want_:
             raise AssertionError(f"stack {label}: launches {counts}, want {want_}")
 
+    section_end("8b. stack")
     # ---- 9. train-stacks: GIN, SAGE, MFC, SchNet, CGCNN -------------------
     gin_log = tempfile.mkdtemp(prefix="chip_smoke_gin_")
     torch.cuda.reset_peak_memory_stats()
@@ -5482,6 +6012,7 @@ def main():
     for mt in STACKS:
         stack_step_vs_cpu(mt, stack_cfgs[mt], stack_launches(mt, n_layers))
 
+    section_end("9. train-stacks")
     # ---- 9b. train-pna-layouts: the flagship on its other layouts -------
     layout_models, layout_counts, layout_batches = {}, {}, {}
 
@@ -5561,6 +6092,7 @@ def main():
     layout_run("dense", completed(), d_loaders, *launch_plan(completed()["NeuralNetwork"]["Architecture"], "dense"))
     layout_batches["dense"] = (d_loaders[0], next(iter(dense_loader(train_loader.samples))).to(dev))
 
+    section_end("9b. train-pna-layouts")
     # ---- 9c. accuracy: the reference bar on tests/test_train_e2e.py's PNA config
     acc_counts = {}
     for multihead in (False, True):
@@ -5626,6 +6158,7 @@ def main():
         if gated and not (np.isfinite(r) and r < bar_err and mae < bar_mae):
             raise AssertionError(f"accuracy {mt}: error {r}, MAE {mae} not below {(bar_err, bar_mae)}")
 
+    section_end("9c. accuracy")
     # ---- 9d. train-gat: GAT at full width, and the e2e GAT bar ----------
     gat_log = tempfile.mkdtemp(prefix="chip_smoke_gat_")
     torch.cuda.reset_peak_memory_stats()
@@ -5690,6 +6223,7 @@ def main():
         if not (np.isfinite(r) and r < GAT_THRESHOLDS[0] and mae < GAT_THRESHOLDS[1]):
             raise AssertionError(f"train-gat e2e head {i}: error {r}, MAE {mae} not below {GAT_THRESHOLDS}")
 
+    section_end("9d. train-gat")
     # ---- 9e. knobs: fused_conv false, conv_bf16, the in-forward radius graph
     knob_counts = {}
 
@@ -5776,6 +6310,7 @@ def main():
         raise AssertionError(f"knobs inforward SchNet: {int(m1.sum())} vs {int(m0.sum())} edges, rel {max(rels)}, "
                              f"launches {c1}")
 
+    section_end("9e. knobs")
     # ---- 9f. data-path, 9g. data-eam: training from Dataset.path ---------
     t0 = time.perf_counter()
     data_path_counts = data_path_phase(dev, card, (reset_counts, read_counts))
@@ -5821,6 +6356,7 @@ def main():
     fleet_counts = fleet_phase(dev, card, (reset_counts, read_counts), serve_raw, per_forward)
     line("fleet", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
 
+    section_end("9f-9o. data-path to fleet (their phase lines)")
     # ---- 10. timing ------------------------------------------------------
     h = hidden
     table = torch.randn(n, h, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
@@ -6162,12 +6698,20 @@ def main():
     profile_step("GIN", *stack_models["GIN"])
     profile_step("GAT", gat_model, gat_opt)
 
+    section_end("10. timing")
     # ---- 10b. parallel: the Partitioner over torch.distributed ------------
     t0 = time.perf_counter()
     parallel_counts, parallel_err = parallel_phase(dev, card)
     for name, err in parallel_err.items():
         max_err[name] = max(max_err[name], err)
     line("parallel", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
+
+    # ---- 10c. pod: the pod planes under supervise --pod 2 ---------------------
+    t0 = time.perf_counter()
+    pod_counts, pod_err = pod_phase(dev, card, (reset_counts, read_counts), train_samples, per_step, per_fwd)
+    for name, err in pod_err.items():
+        max_err[name] = max(max_err[name], err)
+    line("pod", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
 
     # ---- 11. summary -----------------------------------------------------
     # each kernel's launches on its own main path (serve: B5; PNA
@@ -6185,7 +6729,7 @@ def main():
              "data_path_hgc": data_path_counts, "data_eam": eam_counts, "records": records_counts,
              "train_obs": train_obs_counts, "serve_drift": serve_drift_counts,
              "train_resilience": resilience_counts, "lock_witness": witness_counts,
-             "pilot": pilot_counts, "fleet": fleet_counts, "parallel": parallel_counts,
+             "pilot": pilot_counts, "fleet": fleet_counts, "parallel": parallel_counts, "pod": pod_counts,
              **{f"examples_{k}": c for k, c in example_counts.items()}}
     home = {name: "train_pna" for name in mods}
     home.update(pna_aggregate_fwd="serve", fused_conv="train_gin", pna_bwd_count="train_pna_unaligned",
@@ -6225,10 +6769,10 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 
-def parallel_only(world):
+def parallel_only(world, pod=False):
     """``python3 chip_smoke.py --parallel-only N``: the kernels built and
     [parallel] alone in a group of N ranks (a card a rank on a machine
-    with N cards)."""
+    with N cards); ``--pod-only``: [parallel] on two ranks, then [pod]."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card")
     import hydragnn_tpu_torch
@@ -6239,11 +6783,27 @@ def parallel_only(world):
     line("device", kind=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(), nvidia_smi=repr(card),
          torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.time()
+    warm = child_bytecode_cache()
     build_all(sorted({os.path.basename(m.SOURCE) for m in kernel_modules().values()}))
+    warm.wait()
     line("build", seconds=round(time.time() - t0, 2))
     t0 = time.perf_counter()
     parallel_phase(dev, card, world=world)
     line("parallel", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
+    if pod:
+        from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
+        from hydragnn_tpu_torch.flagship import flagship_config
+
+        mods = kernel_modules()
+        per_step, per_fwd = launch_plan(flagship_config()["NeuralNetwork"]["Architecture"], "run_aligned")
+        t0 = time.perf_counter()
+        pod_phase(dev, card, (lambda: [m.launches.reset() for m in mods.values()],
+                              lambda: {n: m.launches.value for n, m in mods.items()}),
+                  lambda: deterministic_graph_data(number_configurations=TRAIN_SAMPLES, unit_cell_x_range=TRAIN_UNIT_CELLS,
+                                                   unit_cell_y_range=TRAIN_UNIT_CELLS,
+                                                   unit_cell_z_range=TRAIN_UNIT_CELLS, seed=SEED),
+                  per_step, per_fwd)
+        line("pod", part="phase", seconds=round(time.perf_counter() - t0, 1), card=repr(card))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -6252,6 +6812,8 @@ def parallel_only(world):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--parallel-only":
         parallel_only(int(sys.argv[2]))
+    elif sys.argv[1:] == ["--pod-only"]:
+        parallel_only(2, pod=True)
     else:
         main()
     sys.exit(0)

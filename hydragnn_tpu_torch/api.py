@@ -318,7 +318,7 @@ def serve_model(
     ``./logs/``. ``flight`` (``obs/flight.py:FlightRecorder``) takes the
     serving record. ``Parallel.fsdp`` above 1 warns and serves
     replicated on the one device (fsdp serving, a server over several
-    processes, is ROADMAP A-5b).
+    processes, is ROADMAP A-5c).
     Predictions are in model space (normalized targets).
 
     Raises without a CUDA card unless ``device="cpu"``. Returns the

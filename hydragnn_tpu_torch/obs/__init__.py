@@ -4,7 +4,8 @@ and its exporters, the flight recorder, per-request traces, the training
 loop's step spans, compile monitor, per-head diagnostics and hardware
 ledger, the drift reference window and the live drift monitor, the
 sampled request spool, the Chrome trace export, and the SLO and drift
-triggers with their incident bundles. Podview waits for ROADMAP A-5b.
+triggers with their incident bundles, and the pod-visibility plane
+(per-host flight shards, their merge, the skew monitor).
 
 ``HGTORCH_TELEMETRY=0`` disables the global registry and everything the
 training loop wires up; each piece can also be made enabled or
@@ -49,6 +50,21 @@ from hydragnn_tpu_torch.obs.introspect import (  # noqa: F401
     peak_flops,
     peak_hbm_bw,
     per_head_error_metrics,
+)
+from hydragnn_tpu_torch.obs.podview import (  # noqa: F401
+    MergedFlights,
+    SkewMonitor,
+    collective_attribution,
+    host_artifact_path,
+    host_epoch_table,
+    host_flight_path,
+    host_identity,
+    list_host_shards,
+    merge_host_flights,
+    podview_enabled,
+    resolve_run_id,
+    straggler_spec,
+    validate_podview_report,
 )
 from hydragnn_tpu_torch.obs.registry import (  # noqa: F401
     Counter,

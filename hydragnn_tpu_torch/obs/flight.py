@@ -116,8 +116,12 @@ class FlightRecorder:
     (``enabled=False`` or no path) creates no file and every method is a
     no-op, so call sites need no gate of their own."""
 
-    def __init__(self, path: Optional[str], enabled: bool = True):
+    def __init__(self, path: Optional[str], enabled: bool = True, host: Optional[int] = None):
         self.path = path
+        # the pod host's index (``obs/podview.py``): when set, every event's
+        # ``rank`` is stamped with it, so simulated hosts and real ranks
+        # each get a track of their own in the merged timeline
+        self.host = host
         self.enabled = bool(enabled and path)
         self._lock = syncdebug.maybe_wrap(threading.Lock(), "flight.FlightRecorder._lock")
         self._f = None  # guarded by _lock
@@ -133,7 +137,7 @@ class FlightRecorder:
             "v": SCHEMA_VERSION,
             "kind": kind,
             "t": round(time.time(), 3),
-            "rank": process_rank(),
+            "rank": self.host if self.host is not None else process_rank(),
         }
         event.update({k: _jsonable(v) for k, v in payload.items()})
         try:

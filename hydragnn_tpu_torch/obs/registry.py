@@ -225,9 +225,12 @@ class MetricsRegistry:
 
     @property
     def rank(self) -> int:
-        """This process's rank (``process_rank``, read at first use)."""
+        """This process's rank, read at first use: the simulated pod host
+        ``HGTORCH_PODVIEW_HOST`` first (so each host's export is told
+        apart on one machine), else ``process_rank``."""
         if self._rank is None:
-            self._rank = process_rank()
+            r = int(env_number("HGTORCH_PODVIEW_HOST", -1))
+            self._rank = r if r >= 0 else process_rank()
         return self._rank
 
     def names(self):
@@ -257,6 +260,15 @@ def env_flag(name: str) -> bool:
     """An on-by-default switch: the variable set to 0, false, off or no
     turns it off."""
     return os.environ.get(name, "1").strip().lower() not in ("0", "false", "off", "no")
+
+
+def env_number(name: str, default: float) -> float:
+    """The number the variable ``name`` holds; ``default`` when it is
+    unset, empty or not a number."""
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
 
 
 def telemetry_enabled() -> bool:

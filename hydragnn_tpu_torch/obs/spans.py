@@ -30,8 +30,6 @@ from typing import Any, Iterable, Iterator, Optional
 
 import torch
 
-from hydragnn_tpu_torch.obs.registry import process_count, process_rank
-
 
 class StepSpans:
     """Per-epoch span accumulator of the loop's steps:
@@ -51,6 +49,13 @@ class StepSpans:
         self.tracer = tracer
         dev = torch.device(device) if device is not None else None
         self._cuda = dev if dev is not None and dev.type == "cuda" else None
+        # HGTORCH_INJECT_STRAGGLER="HOST:MS": on the named pod host every
+        # step sleeps MS first, so its host_epoch summary runs long and
+        # host 0's SkewMonitor has a real skew to see (obs/podview.py)
+        from hydragnn_tpu_torch.obs import podview
+
+        spec = podview.straggler_spec()
+        self._straggle_s = spec[1] if spec is not None and spec[0] == podview.host_identity()[0] else 0.0
         self._reset()
 
     @staticmethod
@@ -98,6 +103,8 @@ class StepSpans:
         from hydragnn_tpu_torch.utils.profile import capture_active, trace_annotation
 
         t0 = time.perf_counter()
+        if self._straggle_s:
+            time.sleep(self._straggle_s)
         sampling = self.skip_first <= self.steps < self.skip_first + self.sample_steps and not capture_active()
         if sampling:
             with trace_annotation("obs.sampled_sync_step"):
@@ -128,11 +135,14 @@ class StepSpans:
     def epoch_snapshot(self) -> dict:
         """One epoch's breakdown for the flight record: seconds for the
         epoch's totals, milliseconds for the sampled steps' means."""
+        from hydragnn_tpu_torch.obs.podview import host_identity
+
         n = self.sampled
+        host, hosts = host_identity()
         return {
             "steps": self.steps,
-            "process_index": process_rank(),
-            "process_count": process_count(),
+            "process_index": host,
+            "process_count": hosts,
             "data_wait_s": round(self.data_wait_s, 6),
             "dispatch_s": round(self.dispatch_s, 6),
             "first_step_s": round(self.first_step_s, 6),

@@ -224,7 +224,7 @@ def flight_to_chrome(record: Union[str, List[dict]]) -> dict:
                 }
             )
         elif kind == "host_epoch":
-            # per-host epoch summary (the JAX package's obs/podview.py):
+            # per-host epoch summary (obs/podview.py):
             # one interval per host per epoch, a track per host (tid =
             # host index)
             t1 = float(ev.get("t", 0.0))
@@ -278,8 +278,11 @@ def _atomic_json(path: str, data) -> str:
 
 def export_flight_chrome(record_path: str, out_path: str) -> str:
     """``flight_to_chrome`` of the flight record at ``record_path`` to
-    ``out_path`` (atomic write); returns ``out_path``. The JAX package's
-    merge of a directory of per-host records waits for ROADMAP A-5b."""
+    ``out_path`` (atomic write); returns ``out_path``. ``record_path`` may
+    be a run directory of per-host flight shards: they are merged first
+    (``obs/podview.py``), one track a host."""
     if os.path.isdir(record_path):
-        raise ValueError(f"{record_path} is a directory: per-host flight records are not merged here")
+        from hydragnn_tpu_torch.obs.podview import merge_host_flights
+
+        return _atomic_json(out_path, flight_to_chrome(merge_host_flights(record_path).events))
     return _atomic_json(out_path, flight_to_chrome(record_path))

@@ -36,7 +36,9 @@ A bundle under ``<run log dir>/incidents/<id>/`` holds ``trigger.json``
 ``chip_hygiene.json`` (the card's compute processes,
 :func:`chip_hygiene_report`), ``memory.json`` (the card's memory,
 ``obs/introspect.py``), ``profile/`` (the capture's Chrome trace,
-through the capture slot of ``utils/profile.py``) and, written last and
+through the capture slot of ``utils/profile.py``), with a pod's skew
+monitor ``podview_report.json`` and ``flight_tail.host<k>.jsonl`` (the
+other hosts' shard tails, ``obs/podview.py``) and, written last and
 atomically, ``incident_manifest.json``. A bundle without a manifest is
 a run that died mid-capture; every reader here takes it as such. The
 JAX package's ``tools/incident_report.py`` reads the port's bundles.
@@ -440,7 +442,7 @@ class Incident:
     # -- sidecars ----------------------------------------------------------
 
     def write_sidecars(self, registry=None, flight_path: Optional[str] = None,
-                       device=None) -> None:
+                       device=None, podview=None) -> None:
         _atomic_json(os.path.join(self.dir, "trigger.json"), self.verdict.to_dict())
         self.files["trigger"] = "trigger.json"
         if registry is not None:
@@ -461,6 +463,22 @@ class Incident:
                 self.files["flight_tail"] = "flight_tail.jsonl"
             except OSError:
                 pass
+        if podview is not None:
+            # the pod's evidence (obs/podview.py SkewMonitor): the skew
+            # report naming the host, and every other host shard's tail
+            # (host 0's is flight_tail.jsonl)
+            try:
+                _atomic_json(os.path.join(self.dir, "podview_report.json"), podview.report())
+                self.files["podview_report"] = "podview_report.json"
+                for h, lines in sorted(podview.shard_tails(FLIGHT_TAIL_LINES).items()):
+                    if h == 0:
+                        continue
+                    name = f"flight_tail.host{h}.jsonl"
+                    with open(os.path.join(self.dir, name), "w") as f:
+                        f.write("\n".join(lines) + ("\n" if lines else ""))
+                    self.files[f"flight_tail_host{h}"] = name
+            except Exception:
+                pass  # evidence capture never fails the incident
         _atomic_json(
             os.path.join(self.dir, "chip_hygiene.json"), chip_hygiene_report()
         )
@@ -563,8 +581,12 @@ class IncidentRecorder:
         clock: Callable[[], float] = time.monotonic,
         on_close: Optional[Callable[[Incident, str], None]] = None,
         device=None,
+        podview=None,
     ):
         self.root = root
+        # obs/podview.py's SkewMonitor: every bundle then carries
+        # podview_report.json and the other hosts' shard tails
+        self.podview = podview
         self.registry = registry
         self.flight_path = flight_path
         # called after each incident closes (outside the lock) with
@@ -628,6 +650,7 @@ class IncidentRecorder:
             registry=self.registry,
             flight_path=self.flight_path,
             device=self.device,
+            podview=self.podview,
         )
         if flight is not None:
             flight.record("incident", id=iid, rule=verdict.rule, path=bundle)

@@ -448,13 +448,15 @@ class Partitioner:
             dims = odims[:n] if odims else [None] * n  # every slot of a parameter splits alike
         else:
             return [None] * len(pdims)
-        width, index = (c.fsdp, self.coords[1]) if axis == FSDP_AXIS else (c.data, self.coords[0])
+        d_, f_, e_ = self.coords
+        # the copies of a slice differ in the coordinates off its axis
+        width, index, replica = (c.fsdp, f_, d_ * c.edge + e_) if axis == FSDP_AXIS else (c.data, d_, f_ * c.edge + e_)
         group = self.group(axis)
         flip = self._transposed(model)
         # the JAX axis a rule picked, as this package's axis
         dims = [None if d is None else (1 - d if name in flip else d)
                 for (name, _), d in zip(model.named_parameters(), dims)]
-        return [None if d is None else LeafShard(d, width, index, group) for d in dims]
+        return [None if d is None else LeafShard(d, width, index, group, replica) for d in dims]
 
     def broadcast_model(self, model) -> None:
         """Every rank starts from rank 0's parameters and statistics."""
@@ -551,8 +553,8 @@ class Partitioner:
                 "bytes_per_device": int(per_dev)}
 
     def layout_fingerprint(self) -> Dict[str, Any]:
-        """Compact, JSON-stable identity of the layout (the pod checkpoint
-        protocol, ROADMAP A-5b, stamps it)."""
+        """Compact, JSON-stable identity of the layout (the manifest's
+        ``layout``, which a pod checkpoint's manifests and COMMIT stamp)."""
         c = self.config
         return {"data": int(c.data), "fsdp": int(c.fsdp), "edge": int(c.edge), "zero1": bool(c.zero1),
                 "devices": None if self.single_device else int(self.num_devices),

@@ -58,12 +58,15 @@ from hydragnn_tpu_torch.train.state import make_train_step
 @dataclasses.dataclass(frozen=True)
 class LeafShard:
     """Where one tensor's slices live: split on ``dim`` into ``width``
-    equal slices over ``group``, this rank holding slice ``index``."""
+    equal slices over ``group``, this rank holding slice ``index``, as
+    copy ``replica`` of it (the ranks off the group's axis hold the same
+    slice; a pod checkpoint takes each slice from its replica 0)."""
 
     dim: int
     width: int
     index: int
     group: Any
+    replica: int = 0
 
     def take(self, t: torch.Tensor) -> torch.Tensor:
         size = t.shape[self.dim] // self.width

@@ -29,8 +29,10 @@ package's ``tools/obs_report.py --faults`` narrates a port run's fault
 history. The retrain pilot (``pilot/``) runs its fine-tune child under
 :class:`Supervisor` with ``wall_clock_runner``; the serving fleet
 (``fleet/``) reaps and replaces replicas whose dispatch supervisor gave
-up. The pod layer (``PodSupervisor``, ``PodHostLost``, pod
-checkpoints) waits for ROADMAP A-5b.
+up. The pod layer: :mod:`~hydragnn_tpu_torch.resilience.podckpt`
+(per-host generation shards with a commit protocol, heartbeats,
+coordinated preemption), :class:`PodSupervisor` and
+:class:`PodHostLost`.
 """
 
 from hydragnn_tpu_torch.resilience.preempt import (
@@ -40,6 +42,7 @@ from hydragnn_tpu_torch.resilience.preempt import (
     EXIT_PREEMPTED,
     EXIT_ROLLBACK_EXHAUSTED,
     NonFiniteRollbackExhausted,
+    PodHostLost,
     PreemptionHandler,
     TrainingPreempted,
     auto_resume_config,
@@ -49,9 +52,11 @@ from hydragnn_tpu_torch.resilience.sentry import NonFiniteSentry
 from hydragnn_tpu_torch.resilience.watchdog import HangWatchdog, dump_thread_stacks
 from hydragnn_tpu_torch.resilience.supervisor import (
     FAIL_FAST_CAUSES,
+    PodSupervisor,
     Supervisor,
     SupervisorPolicy,
     classify_exit,
+    classify_pod_exit,
 )
 from hydragnn_tpu_torch.resilience.hooks import TrainHooks
 
@@ -63,6 +68,7 @@ __all__ = [
     "EXIT_HUNG",
     "TrainingPreempted",
     "NonFiniteRollbackExhausted",
+    "PodHostLost",
     "PreemptionHandler",
     "auto_resume_config",
     "run_guard",
@@ -71,7 +77,9 @@ __all__ = [
     "dump_thread_stacks",
     "Supervisor",
     "SupervisorPolicy",
+    "PodSupervisor",
     "FAIL_FAST_CAUSES",
     "classify_exit",
+    "classify_pod_exit",
     "TrainHooks",
 ]

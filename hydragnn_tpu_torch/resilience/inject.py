@@ -77,7 +77,33 @@ that the loop degrades to "the old weights keep serving":
                                          validating loader must reject it)
   =====================================  ======================================
 
-The pod's injections wait for ROADMAP A-5b.
+Pod faults (``resilience/podckpt.py``, ``obs/podview.py``), each tied
+to a (host, generation-like) pair so exactly one host misbehaves at one
+point (host indices are ``obs/podview.py:host_identity``'s):
+
+  =====================================  ======================================
+  HGTORCH_INJECT_POD_KILL_HOST=H:G       host H SIGKILLs itself in its
+                                         generation-G pod checkpoint save,
+                                         AFTER its shard bytes land and BEFORE
+                                         its manifest: generation G can never
+                                         commit (a torn generation)
+  HGTORCH_INJECT_POD_TORN_SHARD=H:G      host H writes its generation-G shard
+                                         truncated while its sha256 sidecar
+                                         holds the good digest: the restore
+                                         must reject it and fall back a
+                                         generation
+  HGTORCH_INJECT_POD_LOST_HEARTBEAT=H:E  host H writes no heartbeat from epoch
+                                         E on (alive but silent, as a wedged
+                                         host looks from outside: drives the
+                                         host_lost detection)
+  HGTORCH_INJECT_POD_BARRIER_STALL=H:S   host H sleeps S seconds (default 5)
+                                         before it enters a pod_barrier, once
+                                         a process: its peers must time out,
+                                         go on and record it
+  HGTORCH_INJECT_STRAGGLER=H:MS          host H sleeps MS milliseconds in every
+                                         train step (``obs/spans.py``): a
+                                         straggler for the step_skew rule
+  =====================================  ======================================
 """
 
 from __future__ import annotations
@@ -112,6 +138,11 @@ INJECTIONS = (
     "HGTORCH_INJECT_PILOT_HUNG_TUNE",
     "HGTORCH_INJECT_PILOT_CANARY_REGRESS",
     "HGTORCH_INJECT_PILOT_TORN_RELOAD",
+    "HGTORCH_INJECT_POD_KILL_HOST",
+    "HGTORCH_INJECT_POD_TORN_SHARD",
+    "HGTORCH_INJECT_POD_LOST_HEARTBEAT",
+    "HGTORCH_INJECT_POD_BARRIER_STALL",
+    "HGTORCH_INJECT_STRAGGLER",
 )
 
 
@@ -315,6 +346,54 @@ def pilot_torn_reload() -> bool:
     """Whether the pilot tears the candidate's checkpoint between its
     canary and the reload."""
     return _spec("HGTORCH_INJECT_PILOT_TORN_RELOAD") is not None
+
+
+def maybe_pod_kill_host(host: int, gen) -> None:
+    """SIGKILL this process when it is the injected host saving the
+    injected generation. Called between the shard write and the manifest
+    write, so the death always leaves a torn generation."""
+    spec = _spec("HGTORCH_INJECT_POD_KILL_HOST")
+    if spec is None or gen is None:
+        return
+    h, g = _two_ints(spec, 1)
+    if int(host) == h and int(gen) == g:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_pod_torn_shard(host: int, gen) -> bool:
+    """Whether the injected host writes its injected generation's shard
+    truncated while the sha256 sidecar keeps the good digest."""
+    spec = _spec("HGTORCH_INJECT_POD_TORN_SHARD")
+    if spec is None or gen is None:
+        return False
+    h, g = _two_ints(spec, 1)
+    return int(host) == h and int(gen) == g
+
+
+def maybe_pod_lost_heartbeat(host: int, epoch) -> bool:
+    """Whether the injected host writes no heartbeat (from the injected
+    epoch on). It trains on; only its liveness signal stops, so its peers
+    must declare it lost on evidence, not on an exit code."""
+    spec = _spec("HGTORCH_INJECT_POD_LOST_HEARTBEAT")
+    if spec is None or epoch is None:
+        return False
+    h, e = _two_ints(spec, 0)
+    return int(host) == h and int(epoch) >= e
+
+
+POD_BARRIER_STALL = _Latch()
+
+
+def maybe_pod_barrier_stall(host: int) -> None:
+    """Sleep the injected host before it enters a ``pod_barrier``, once a
+    process (``POD_BARRIER_STALL``): its peers must time out, go on and
+    record the missing host rather than hang."""
+    spec = _spec("HGTORCH_INJECT_POD_BARRIER_STALL")
+    if spec is None:
+        return
+    h, seconds = _two_ints(spec, 5)
+    if int(host) == h and POD_BARRIER_STALL.take():
+        time.sleep(seconds)
 
 
 def strip_injection_env(env: dict) -> dict:

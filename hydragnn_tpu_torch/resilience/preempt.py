@@ -28,8 +28,10 @@ a ``synchronize``, the epoch's loss read) delays it until the call
 returns, and the loop sees it at its next batch. The checkpoint is
 written by the loop, never from the handler.
 
-``PodHostLost`` and its ``run_guard`` branch belong to the pod layer,
-which waits for ROADMAP A-5b.
+In a pod (``resilience/podckpt.py``) the handler also posts the
+generation it will cut to the peers through its ``signaler``, so every
+host cuts the same one; :class:`PodHostLost` (a peer declared lost)
+exits with the preemption's code.
 """
 
 from __future__ import annotations
@@ -69,6 +71,23 @@ class TrainingPreempted(Exception):
         )
 
 
+class PodHostLost(Exception):
+    """A peer host of the pod was declared lost from the heartbeat view
+    (``resilience/podckpt.py:PodSignaler``), typically mid-commit, where
+    waiting longer cannot help. Exits with the preemption's code: the run
+    resumes from the last committed generation, and the pod supervisor
+    restarts it at once rather than spend its crash backoff."""
+
+    exit_code = EXIT_PREEMPTED
+
+    def __init__(self, lost, epoch: int):
+        self.lost = sorted(int(h) for h in lost)
+        self.epoch = int(epoch)
+        super().__init__(
+            f"pod host(s) {self.lost} declared lost at epoch {epoch}; restart from the last committed generation"
+        )
+
+
 class PreemptionHandler:
     """Installable SIGTERM/SIGINT -> graceful-stop flag.
 
@@ -94,6 +113,11 @@ class PreemptionHandler:
         self.available = False
         self._signals = tuple(signals)
         self._stop = threading.Event()
+        # the pod's coordination (resilience/podckpt.py): with a
+        # PodSignaler attached and proposed_gen kept current by the loop,
+        # SIGTERM announces the generation this host will cut to its peers
+        self.signaler = None
+        self.proposed_gen = 0
         self._old: dict = {}
         self._timer: Optional[threading.Timer] = None
 
@@ -123,6 +147,8 @@ class PreemptionHandler:
     def _handle(self, signum, frame) -> None:
         self.signum = signum
         self._stop.set()
+        if self.signaler is not None:
+            self.signaler.post_preempt(self.proposed_gen, signum)  # never raises
         if self.hard_exit and self._timer is None:
             t = threading.Timer(self.grace_s, self._force_exit)
             t.daemon = True
@@ -164,6 +190,9 @@ def run_guard():
     try:
         yield
     except TrainingPreempted as exc:
+        raise SystemExit(exc.exit_code)
+    except PodHostLost as exc:
+        print(f"run_guard: {exc}", file=sys.stderr)
         raise SystemExit(exc.exit_code)
     except NonFiniteRollbackExhausted as exc:
         print(f"run_guard: {exc}", file=sys.stderr)

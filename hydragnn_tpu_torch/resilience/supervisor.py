@@ -26,8 +26,13 @@ processes.
 
 :class:`SupervisorPolicy` is also the restart policy of the serving
 path's in-process dispatch supervisor (``serve/supervise.py``), with
-serving-scale defaults. ``PodSupervisor``, ``classify_pod_exit`` and the
-pod's exit code wait for ROADMAP A-5b.
+serving-scale defaults.
+
+:class:`PodSupervisor` runs one command as a pod of N concurrent hosts
+(``--pod N``): :func:`classify_pod_exit` folds an attempt's per-host exit
+codes into one cause, and a host dead of a signal is ``host_lost``,
+restarted at once from the last committed pod generation
+(``resilience/podckpt.py``).
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ from hydragnn_tpu_torch.resilience.preempt import (
 
 FAIL_FAST_CAUSES = frozenset({"config_error", "rollback_exhausted"})
 
-# causes that restart at once, without the crash backoff (host_lost is
-# the pod layer's, ROADMAP A-5b)
+# causes that restart at once, without the crash backoff: eviction and a
+# pod's host loss are the steady state of preemptible machines, and the
+# run resumes from its last checkpoint or committed generation either way
 PREEMPT_CLASS_CAUSES = frozenset({"preempted", "host_lost"})
 
 
@@ -99,6 +105,48 @@ def classify_exit(returncode: int) -> str:
     if returncode == EXIT_HUNG:
         return "hung"
     return "crash"
+
+
+def classify_pod_exit(returncodes: Dict[int, int]) -> str:
+    """One pod attempt's per-host exit codes as one cause, worst first:
+
+      - a fail-fast code (78 config, 76 rollback) wins: the failure is
+        deterministic, and N hosts restarted fail N times;
+      - else any signal death (a negative code: an evictor's SIGKILL, the
+        OOM killer, a dead machine) is ``host_lost``: restart the pod at
+        once from the last committed generation;
+      - else preempted (75) beats hung (79) beats crash;
+      - all zero: completed.
+    """
+    if not returncodes:
+        raise ValueError("classify_pod_exit: empty returncode map")
+    causes = {classify_exit(rc) for rc in returncodes.values()}
+    if "config_error" in causes:
+        return "config_error"
+    if "rollback_exhausted" in causes:
+        return "rollback_exhausted"
+    if any(rc < 0 for rc in returncodes.values()):
+        return "host_lost"
+    for cause in ("preempted", "hung", "crash"):
+        if cause in causes:
+            return cause
+    return "completed"
+
+
+def _pod_exit_code(returncodes: Dict[int, int], cause: str) -> int:
+    """The exit code that stands for a classified pod attempt."""
+    table = {
+        "completed": EXIT_OK,
+        "config_error": EXIT_CONFIG_ERROR,
+        "rollback_exhausted": EXIT_ROLLBACK_EXHAUSTED,
+        "preempted": EXIT_PREEMPTED,
+        "hung": EXIT_HUNG,
+    }
+    if cause in table:
+        return table[cause]
+    if cause == "host_lost":
+        return next(rc for rc in returncodes.values() if rc < 0)
+    return next(rc for rc in returncodes.values() if rc != EXIT_OK)
 
 
 @dataclasses.dataclass
@@ -194,4 +242,174 @@ class Supervisor:
         if self.flight is not None:
             self.flight.end_run(status=status, exit_code=rc, cause=cause, attempts=result["attempts"],
                                 restarts=crashes, preemptions=preemptions)
+        return result
+
+
+class PodSupervisor:
+    """Supervise one training command as a pod of ``hosts`` concurrent
+    processes.
+
+    Each attempt starts every host with its pod identity
+    (``HGTORCH_PODVIEW_HOST=k``, ``HGTORCH_PODVIEW_HOSTS=N`` and, given a
+    ``run_id``, a shared ``HGTORCH_PODVIEW_RUN_ID``), then polls them. The
+    pod lives and dies together: when a host exits non-zero the others get
+    SIGTERM (they cut a last generation inside their grace window), then
+    SIGKILL after ``grace_s``. :func:`classify_pod_exit` folds the
+    attempt's codes into one cause; ``host_lost`` restarts at once, like a
+    preemption, without spending the crash backoff. ``elastic=True``
+    restarts with one host fewer after a ``host_lost`` attempt (the
+    restore re-shards the committed generation onto the smaller pod).
+    ``max_wall_s`` ends an attempt that outlives it, its unfinished hosts
+    reported hung (79). Restarted hosts get ``HGTORCH_AUTO_RESUME=1`` and
+    no injection, as :class:`Supervisor`'s children.
+
+    ``popen`` and ``sleep`` are seams for the tests."""
+
+    def __init__(
+        self,
+        argv: Sequence[str],
+        hosts: int,
+        policy: Optional[SupervisorPolicy] = None,
+        env: Optional[Dict[str, str]] = None,
+        flight=None,
+        run_id: Optional[str] = None,
+        popen=subprocess.Popen,
+        sleep: Callable[[float], None] = time.sleep,
+        grace_s: float = 30.0,
+        poll_s: float = 0.05,
+        max_wall_s: Optional[float] = None,
+        elastic: bool = False,
+    ):
+        if hosts < 1:
+            raise ValueError(f"hosts must be >= 1, got {hosts}")
+        self.argv = list(argv)
+        self.hosts = int(hosts)
+        self.policy = policy or SupervisorPolicy()
+        self.base_env = dict(env if env is not None else os.environ)
+        self.flight = flight
+        self.run_id = run_id
+        self.popen = popen
+        self.sleep = sleep
+        self.grace_s = float(grace_s)
+        self.poll_s = float(poll_s)
+        self.max_wall_s = max_wall_s
+        self.elastic = bool(elastic)
+        self.history: List[dict] = []
+
+    def _host_env(self, host: int, hosts: int, attempt: int) -> Dict[str, str]:
+        env = dict(self.base_env)
+        if attempt > 0:
+            if self.policy.auto_resume:
+                env["HGTORCH_AUTO_RESUME"] = "1"
+            if self.policy.strip_injection:
+                env = strip_injection_env(env)
+        env["HGTORCH_PODVIEW_HOST"] = str(host)
+        env["HGTORCH_PODVIEW_HOSTS"] = str(hosts)
+        if self.run_id:
+            env["HGTORCH_PODVIEW_RUN_ID"] = self.run_id
+        return env
+
+    def _stop_peers(self, procs: dict, rcs: Dict[int, int]) -> None:
+        """SIGTERM every host still running, ``grace_s`` for all of them
+        together, then SIGKILL to the rest."""
+        live = [k for k in procs if k not in rcs]
+        for k in live:
+            try:
+                procs[k].terminate()
+            except OSError:
+                pass
+        deadline = time.monotonic() + self.grace_s
+        for k in live:
+            try:
+                rcs[k] = int(procs[k].wait(timeout=max(deadline - time.monotonic(), 0.0)))
+            except subprocess.TimeoutExpired:
+                try:
+                    procs[k].kill()
+                except OSError:
+                    pass
+                rcs[k] = int(procs[k].wait())
+
+    def _run_attempt(self, hosts: int, attempt: int) -> Dict[int, int]:
+        procs = {k: self.popen(self.argv, env=self._host_env(k, hosts, attempt)) for k in range(hosts)}
+        rcs: Dict[int, int] = {}
+        deadline = time.monotonic() + self.max_wall_s if self.max_wall_s is not None else None
+        while len(rcs) < hosts:
+            progressed = failed = False
+            for k, p in procs.items():
+                if k in rcs:
+                    continue
+                rc = p.poll()
+                if rc is not None:
+                    rcs[k] = int(rc)
+                    progressed = True
+                    failed = failed or rc != EXIT_OK
+            if failed:
+                self._stop_peers(procs, rcs)
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                # the outer wall clock: the unfinished hosts are hung (79),
+                # not the signal deaths the kill itself makes
+                unfinished = [k for k in procs if k not in rcs]
+                self._stop_peers(procs, rcs)
+                for k in unfinished:
+                    rcs[k] = EXIT_HUNG
+                break
+            if not progressed:
+                self.sleep(self.poll_s)
+        return rcs
+
+    def run(self) -> dict:
+        """Supervise the pod to completion or give-up: :meth:`Supervisor.run`'s
+        result, with each attempt's ``exit_codes`` and ``hosts`` in the
+        history, the final ``hosts``, and ``host_lost`` counted among the
+        preemptions."""
+        crashes = preemptions = attempt = 0
+        hosts = self.hosts
+        while True:
+            rcs = self._run_attempt(hosts, attempt)
+            cause = classify_pod_exit(rcs)
+            rc = _pod_exit_code(rcs, cause)
+            self.history.append({"attempt": attempt, "hosts": hosts,
+                                 "exit_codes": {str(k): v for k, v in sorted(rcs.items())}, "cause": cause})
+            if cause == "completed":
+                return self._finish("completed", rc, cause, crashes, preemptions, hosts)
+            if cause in FAIL_FAST_CAUSES:
+                return self._finish("failed_fast", rc, cause, crashes, preemptions, hosts)
+            if cause in PREEMPT_CLASS_CAUSES:
+                preemptions += 1
+                if preemptions > self.policy.max_preemptions:
+                    return self._finish("gave_up", rc, cause, crashes, preemptions, hosts)
+                delay = 0.0
+            else:  # crash / hung
+                crashes += 1
+                if crashes > self.policy.max_restarts:
+                    return self._finish("gave_up", rc, cause, crashes, preemptions, hosts)
+                delay = self.policy.backoff(crashes)
+            if cause == "host_lost":
+                if self.flight is not None:
+                    for k, code in sorted(rcs.items()):
+                        if code < 0:
+                            self.flight.record("host_lost", host=k, exit_code=code, attempt=attempt)
+                if self.elastic and hosts > 1:
+                    hosts -= 1
+            attempt += 1
+            if self.flight is not None:
+                self.flight.record("restart", attempt=attempt, cause=cause, exit_code=rc, delay_s=delay, hosts=hosts)
+            if delay > 0:
+                self.sleep(delay)
+
+    def _finish(self, status, rc, cause, crashes, preemptions, hosts) -> dict:
+        result = {
+            "status": status,
+            "exit_code": rc,
+            "cause": cause,
+            "attempts": len(self.history),
+            "restarts": crashes,
+            "preemptions": preemptions,
+            "hosts": hosts,
+            "history": list(self.history),
+        }
+        if self.flight is not None:
+            self.flight.end_run(status=status, exit_code=rc, cause=cause, attempts=result["attempts"],
+                                restarts=crashes, preemptions=preemptions, hosts=hosts)
         return result

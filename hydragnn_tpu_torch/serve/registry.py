@@ -17,7 +17,7 @@ admission paths:
 already served, the path ``ModelServer.reload`` takes. A checkpoint the
 JAX package wrote is read by ``convert.load_jax_checkpoint``; register
 its ``state_dict()``. The JAX package's fsdp-sharded serving waits for
-ROADMAP A-5b.
+ROADMAP A-5c.
 """
 
 from __future__ import annotations

@@ -54,7 +54,7 @@ per-request results out of the padded outputs.
     registry.
 
 The dispatch thread sets the server's CUDA device before it runs
-anything. fsdp-sharded serving waits for ROADMAP A-5b.
+anything. fsdp-sharded serving waits for ROADMAP A-5c.
 """
 
 from __future__ import annotations
@@ -602,9 +602,14 @@ class ModelServer:
 
     def export_prometheus(self, path: str) -> None:
         """Write the metrics as a Prometheus textfile (atomic rename),
-        the health gauges refreshed first."""
+        the health gauges refreshed first. On a pod host other than 0 the
+        path takes the host's index (``x.host<k>.prom``,
+        ``obs/podview.py:host_artifact_path``), so hosts never overwrite
+        each other's file."""
+        from hydragnn_tpu_torch.obs.podview import host_artifact_path
+
         self.health()
-        registry_to_prometheus(self.metrics.registry, path)
+        registry_to_prometheus(self.metrics.registry, host_artifact_path(path))
 
     def _export_tick(self) -> None:
         """The supervisor monitor's periodic export."""

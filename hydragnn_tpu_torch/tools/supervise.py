@@ -22,9 +22,16 @@ flight record (one ``restart`` event a re-run and a final ``run_end``)
 beside the run's. ``--max-wall-s`` kills an attempt that outlives it and
 counts it as hung.
 
-``--pod N`` and ``--pod-elastic`` (a pod of simulated hosts) belong to
-the pod layer, which waits for ROADMAP A-5b: they exit with
-``EXIT_CONFIG_ERROR`` (78) and say so.
+``--pod N`` supervises the command as a pod of N concurrent hosts
+(``resilience/supervisor.py:PodSupervisor``): each child gets its pod
+identity (``HGTORCH_PODVIEW_HOST=k``, ``HGTORCH_PODVIEW_HOSTS=N``, and
+with ``--run-id`` a shared ``HGTORCH_PODVIEW_RUN_ID``), the pod lives and
+dies as one, and a host dead of a signal (SIGKILL, the OOM killer) is
+``host_lost``: the pod restarts at once from the last committed pod
+generation (``resilience/podckpt.py``). ``--pod-grace`` is the seconds the
+surviving hosts get after SIGTERM to cut their last generation;
+``--pod-elastic`` restarts with N-1 hosts after a loss (the restore
+re-shards the committed generation onto the smaller pod).
 
 The supervisor's own exit code is the final child's (0 when the run
 completed), so wrapping scripts compose.
@@ -37,8 +44,7 @@ import os
 import sys
 
 from hydragnn_tpu_torch.obs.flight import FlightRecorder
-from hydragnn_tpu_torch.resilience.preempt import EXIT_CONFIG_ERROR
-from hydragnn_tpu_torch.resilience.supervisor import Supervisor, SupervisorPolicy, wall_clock_runner
+from hydragnn_tpu_torch.resilience.supervisor import PodSupervisor, Supervisor, SupervisorPolicy, wall_clock_runner
 
 
 def main(argv=None) -> int:
@@ -73,18 +79,19 @@ def main(argv=None) -> int:
                    help="write the supervisor's flight record (restart events and the final summary) to this "
                         "JSONL path")
     p.add_argument("--pod", type=int, default=None, metavar="N",
-                   help="supervise a pod of N simulated hosts: waits for ROADMAP A-5b (exits 78)")
+                   help="supervise the command as a pod of N concurrent hosts (HGTORCH_PODVIEW_HOST=k, "
+                        "HGTORCH_PODVIEW_HOSTS=N a child); the pod lives and dies as one, a host dead of a signal is "
+                        "host_lost and the pod restarts at once from the last committed generation")
     p.add_argument("--pod-elastic", action="store_true",
-                   help="restart a pod with N-1 hosts after a host loss: waits for ROADMAP A-5b (exits 78)")
-    p.add_argument("--pod-grace", type=float, default=30.0, help="pod mode only (ROADMAP A-5b)")
-    p.add_argument("--run-id", default=None, help="pod mode only (ROADMAP A-5b)")
+                   help="after a host_lost attempt, restart the pod with N-1 hosts (the restore re-shards the "
+                        "committed generation; pod mode)")
+    p.add_argument("--pod-grace", type=float, default=30.0,
+                   help="seconds the surviving hosts get after SIGTERM to cut their last generation, then SIGKILL "
+                        "(pod mode)")
+    p.add_argument("--run-id", default=None,
+                   help="the HGTORCH_PODVIEW_RUN_ID every pod host shares (pod mode; default: each child takes "
+                        "its run's log name)")
     args = p.parse_args(opts)
-
-    if args.pod is not None or args.pod_elastic:
-        print("supervise: --pod/--pod-elastic supervise a pod of hosts, which the port does not have yet "
-              "(ROADMAP A-5b: the parallel layer and pod checkpoints); refusing rather than running one process",
-              file=sys.stderr)
-        return EXIT_CONFIG_ERROR
 
     policy = SupervisorPolicy(
         max_restarts=args.max_restarts,
@@ -98,8 +105,13 @@ def main(argv=None) -> int:
     flight = FlightRecorder(args.flight, enabled=args.flight is not None)
     # the supervisor runs no model: its run_start names the child and the policy
     flight.start_run({"supervisor": True, "argv": child, "policy": vars(args)})
-    runner = wall_clock_runner(args.max_wall_s) if args.max_wall_s is not None else None
-    sup = Supervisor(child, policy=policy, env=dict(os.environ), flight=flight, runner=runner)
+    if args.pod is not None:
+        sup = PodSupervisor(child, hosts=args.pod, policy=policy, env=dict(os.environ), flight=flight,
+                            run_id=args.run_id, grace_s=args.pod_grace, max_wall_s=args.max_wall_s,
+                            elastic=args.pod_elastic)
+    else:
+        runner = wall_clock_runner(args.max_wall_s) if args.max_wall_s is not None else None
+        sup = Supervisor(child, policy=policy, env=dict(os.environ), flight=flight, runner=runner)
     result = sup.run()
     flight.close()
     print("supervise: " + json.dumps({k: v for k, v in result.items() if k != "history"}), file=sys.stderr)

@@ -81,6 +81,23 @@ loop. The fixed epoch, the counterpart of the JAX package's one-dispatch
 scan, runs no per-step hook: a signal there is seen at the epoch's
 boundaries. Every exit path tears the hooks down (the handler's timer
 cancelled, the watchdog stopped).
+
+**The pod** (``obs/podview.py``, ``resilience/podckpt.py``, the JAX
+loop's planes): on a run of several hosts (the ranks of a
+``torch.distributed`` group, or simulated hosts through
+``HGTORCH_PODVIEW_HOST``/``_HOSTS``) every host writes its own flight
+shard (``flight.host<k>.jsonl``, ``train.host<k>.prom``) and a
+``host_epoch`` summary an epoch; host 0's ``SkewMonitor`` records its
+``podview`` verdicts and feeds the ``step_skew`` and ``host_stall`` rules
+(``Training.podview_skew_threshold``); ``run_end`` carries the plane's
+``overhead_frac``. Each host cuts a pod generation beside every
+checkpoint (``HGTORCH_POD_CKPT``, default on) and host 0 commits it; the
+hosts beat a heartbeat at each epoch boundary (a peer silent past
+``HGTORCH_POD_LOST_AFTER_S`` is ``host_lost``); a SIGTERM is posted to
+the peers, which cut the same generation at the epoch's end; a commit
+that fails records a ``PodCommitFailed`` error and, on a lost peer,
+raises ``PodHostLost`` (exit 75). A run restored from a pod generation
+records ``pod_resume`` and its lineage in the manifest.
 """
 
 from __future__ import annotations
@@ -102,12 +119,14 @@ from hydragnn_tpu_torch.obs import (
     get_registry,
     telemetry_enabled,
 )
-from hydragnn_tpu_torch.obs.registry import env_flag, process_count
+from hydragnn_tpu_torch.obs import podview
+from hydragnn_tpu_torch.obs.registry import env_flag, env_number, process_count
 from hydragnn_tpu_torch.postprocess.visualizer import Visualizer
 from hydragnn_tpu_torch.resilience import (
     HangWatchdog,
     NonFiniteRollbackExhausted,
     NonFiniteSentry,
+    PodHostLost,
     PreemptionHandler,
     TrainHooks,
     TrainingPreempted,
@@ -449,16 +468,29 @@ def _loader_plan(loader) -> Dict[str, Any]:
     }
 
 
-def _train_rules(training: Dict[str, Any]):
-    """The training loop's three SLO rules, thresholds from ``Training``."""
+def _train_rules(training: Dict[str, Any], monitor=None, signaler=None):
+    """The training loop's three SLO rules, thresholds from ``Training``;
+    with host 0's skew ``monitor`` the pod's ``step_skew``
+    (``Training.podview_skew_threshold``, else the monitor's) and
+    ``host_stall`` (``HGTORCH_PODVIEW_STALL_S``, 120 s); with an armed
+    liveness ``signaler`` the ``host_lost`` rule."""
     from hydragnn_tpu_torch.obs.triggers import TriggerRule
 
-    return [
+    rules = [
         TriggerRule("train_nonfinite_burst", "nonfinite_burst", "train.nonfinite_skipped",
                     float(training.get("slo_nonfinite_burst", 1))),
         TriggerRule("train_loss_spike", "loss_spike", "train_loss", float(training.get("slo_loss_spike_factor", 3.0))),
         TriggerRule("train_mfu_drop", "mfu_drop", "mfu", float(training.get("slo_mfu_drop_factor", 0.5))),
     ]
+    if monitor is not None:
+        rules.append(TriggerRule("podview_step_skew", "step_skew", "podview.skew_frac",
+                                 float(training.get("podview_skew_threshold") or monitor.threshold)))
+        rules.append(TriggerRule("podview_host_stall", "host_stall", "podview.stall_age_s",
+                                 env_number("HGTORCH_PODVIEW_STALL_S", 120.0)))
+    if signaler is not None and signaler.lost_after_s > 0:
+        # a peer silent past HGTORCH_POD_LOST_AFTER_S sets podview.lost_hosts
+        rules.append(TriggerRule("podview_host_lost", "host_lost", "podview.lost_hosts", 0.5))
+    return rules
 
 
 def train_validate_test(
@@ -577,10 +609,28 @@ def train_validate_test(
     # diagnostics and the hardware ledger (module docstring)
     telemetry_on = telemetry_enabled()
     rank0 = process_index() == 0
+    # the pod (module docstring): each host its own flight shard, host
+    # 0's skew monitor, and on several hosts the liveness and commit plane
+    pv_host, pv_hosts = podview.host_identity()
+    pv_on = telemetry_on and podview.podview_enabled()
+    pv_run_id = podview.resolve_run_id(log_name)
+    run_dir = os.path.join(log_dir, log_name)
+    pv_cost = {"s": 0.0, "t0": time.perf_counter()}
     own_flight = flight is None
     if flight is None:
-        flight = FlightRecorder(os.path.join(log_dir, log_name, "flight.jsonl") if telemetry_on and rank0 else None,
-                                enabled=telemetry_on)
+        flight = FlightRecorder(podview.host_flight_path(run_dir, pv_host)
+                                if telemetry_on and (pv_host == 0 or pv_on) else None,
+                                enabled=telemetry_on, host=pv_host if pv_on else None)
+    pv_monitor = (podview.SkewMonitor(run_dir, host=pv_host, hosts=pv_hosts, run_id=pv_run_id,
+                                      registry=get_registry())
+                  if pv_on and pv_host == 0 else None)
+    pv_signaler = None
+    pod_ckpt_on = False
+    if pv_on and pv_hosts > 1:
+        from hydragnn_tpu_torch.resilience.podckpt import PodSignaler
+
+        pv_signaler = PodSignaler(run_dir, host=pv_host, hosts=pv_hosts)
+        pod_ckpt_on = env_flag("HGTORCH_POD_CKPT")
     spans = StepSpans(device=dev) if telemetry_on else StepSpans.disabled()
     cmon = CompileMonitor().start() if telemetry_on else None
     trig_engine = incidents = None
@@ -591,11 +641,11 @@ def train_validate_test(
     if telemetry_on and bool(training.get("slo_triggers", False)):
         from hydragnn_tpu_torch.obs.triggers import IncidentRecorder, TriggerEngine
 
-        trig_engine = TriggerEngine(_train_rules(training), registry=get_registry())
+        trig_engine = TriggerEngine(_train_rules(training, pv_monitor, pv_signaler), registry=get_registry())
         trig_engine.baseline_counters()
         if rank0:
             incidents = IncidentRecorder(os.path.join(log_dir, log_name, "incidents"), registry=get_registry(),
-                                         flight_path=flight.path, device=dev)
+                                         flight_path=flight.path, device=dev, podview=pv_monitor)
     # resilience (module docstring): the preemption handler, the hang
     # watchdog, and the hooks that carry them and the sentry
     preempt = (
@@ -606,6 +656,10 @@ def train_validate_test(
     stall_s = float(training.get("watchdog_stall_s", 0) or _watchdog_knob() or 0)
     watchdog = HangWatchdog(stall_s, flight=flight).start() if stall_s > 0 else None
     hooks = TrainHooks(preempt=preempt, sentry=sentry, watchdog=watchdog)
+    if preempt is not None and pv_signaler is not None:
+        # a SIGTERM on this host announces the generation it will cut to
+        # the pod (proposed_gen is kept current at each epoch's start)
+        preempt.signaler = pv_signaler
 
     def abort_telemetry(exc: BaseException, epochs: int) -> None:
         """A crashed run still leaves a readable record: the ``error``
@@ -613,6 +667,8 @@ def train_validate_test(
         hooks.teardown()
         if incidents is not None:
             incidents.finalize()
+        if pv_monitor is not None:
+            pv_monitor.close()
         flight.error(exc)
         flight.end_run(status="failed", epochs=epochs,
                        triggers=trig_engine.summary(incidents.capture_s if incidents else 0.0)
@@ -622,8 +678,75 @@ def train_validate_test(
         if own_flight:
             flight.close()
 
+    def declare_lost(lost, epoch_now: int) -> None:
+        """One ``host_lost`` event a newly lost peer, and the
+        ``podview.lost_host(s)`` gauges the ``host_lost`` rule reads."""
+        fresh = pv_signaler.mark_declared(lost)
+        if not fresh:
+            return
+        reg = get_registry()
+        reg.gauge("podview.lost_hosts").set(float(len(set(pv_signaler.lost_hosts()) | set(lost))))
+        for h in fresh:
+            reg.gauge("podview.lost_host").set(float(h))
+            flight.record("host_lost", host=int(h), epoch=int(epoch_now), lost_after_s=pv_signaler.lost_after_s)
+
+    def pod_checkpoint(gen: int) -> None:
+        """One generation cut (``resilience/podckpt.py``): every host its
+        shard, sidecar and manifest; host 0 waits for the peers'
+        manifests, checks them and writes ``gen<N>.COMMIT`` last. Before
+        the meta, so a commit that dies on a lost peer leaves the meta of
+        the last committed generation."""
+        from hydragnn_tpu_torch.resilience import podckpt
+
+        pv_signaler.heartbeat(epoch=gen, force=True)
+        podckpt.save_pod_shard(model, run_dir, gen=gen, host=pv_host, hosts=pv_hosts, step=int(optimizer.steps),
+                               layout=parallel_block.get("layout"), optimizer=optimizer, epoch=gen)
+        if pv_host != 0:
+            # host 0 alone waits at the commit: hosts simulated one after
+            # another would deadlock on a wait of their own
+            return
+        commit = podckpt.commit_generation(run_dir, gen, pv_hosts, signaler=pv_signaler)
+        if commit.get("committed"):
+            podckpt.prune_generations(run_dir)
+            return
+        # the failed commit is evidence; a lost peer also ends the run with
+        # the exit the supervisor restarts from the last committed one
+        flight.record("error", error=f"pod generation {gen} failed to commit: lost={commit.get('lost')} "
+                                     f"bad={commit.get('bad')} timeout={commit.get('timeout')}",
+                      error_type="PodCommitFailed")
+        lost = commit.get("lost") or []
+        if lost:
+            declare_lost(lost, gen)
+            raise PodHostLost(lost, gen)
+
+    def pod_epoch(epoch: int, train_wall: float, span_snap, hw, nonfinite) -> None:
+        """This host's ``host_epoch`` summary into its shard and, on host 0,
+        every host's folded into the skew gauges (before the trigger rules,
+        which then see this epoch's skew); then the pod's liveness at the
+        boundary: this host's beat, and a ``host_lost`` a peer silent too
+        long."""
+        t0 = time.perf_counter()
+        snap = span_snap or {}
+        summary = {"hosts": pv_hosts, "epoch_s": round(train_wall, 6), "data_wait_s": snap.get("data_wait_s"),
+                   "dispatch_s": snap.get("dispatch_s"), "steps": snap.get("steps", len(train_loader)),
+                   "nonfinite_skipped": (nonfinite or {}).get("skipped", 0),
+                   "mfu": hw.get("mfu") if hw is not None else None}
+        flight.record("host_epoch", epoch=epoch, host=pv_host, run_id=pv_run_id, **summary)
+        if pv_monitor is not None:
+            skew = pv_monitor.observe_epoch(epoch, dict(summary, epoch=epoch))
+            if skew is not None:
+                flight.record("podview", **skew)
+        pv_cost["s"] += time.perf_counter() - t0
+        if pv_signaler is not None:
+            pv_signaler.heartbeat(epoch=epoch + 1, force=True)
+            lost_now = pv_signaler.lost_hosts()
+            if lost_now:
+                declare_lost(lost_now, epoch + 1)  # once a host, however often polled
+
     def write_checkpoint(epoch_next: int, early_stopped: bool) -> None:
         ckpt.save_model(model, log_name, log_dir, optimizer=optimizer, epoch=epoch_next, keep_last=keep_last)
+        if pod_ckpt_on:
+            pod_checkpoint(epoch_next)
         if process_index() != 0:
             return
         ckpt.save_train_meta(
@@ -639,16 +762,21 @@ def train_validate_test(
             log_name, log_dir,
         )
 
-    def preempt_exit(epoch: int) -> None:
+    def preempt_exit(epoch: int, coordinated_from: Optional[int] = None) -> None:
         """A graceful stop inside the handler's grace window: the
         checkpoint and meta pair for ``epoch``, the ``preempt`` event,
         ``run_end{status: preempted}``, the telemetry closed, then
-        ``TrainingPreempted`` (exit 75 under ``run_guard``)."""
+        ``TrainingPreempted`` (exit 75 under ``run_guard``).
+        ``coordinated_from``: the peer whose announcement this cut
+        follows, rather than this host's own signal."""
         signum = preempt.signum if preempt is not None and preempt.signum is not None else 0
         write_checkpoint(epoch, early_stopped=False)
-        flight.record("preempt", signal=signum, epoch=epoch, step=int(optimizer.steps))
+        flight.record("preempt", signal=signum, epoch=epoch, step=int(optimizer.steps),
+                      **({"coordinated_from": int(coordinated_from)} if coordinated_from is not None else {}))
         if incidents is not None:
             incidents.finalize()
+        if pv_monitor is not None:
+            pv_monitor.close()
         flight.end_run(status="preempted", epochs=epoch - start_epoch)
         if cmon is not None:
             cmon.stop()
@@ -726,15 +854,29 @@ def train_validate_test(
             _, _, tv, pv = test_epoch(test_loader, model, return_samples=True, step=eval_fn)
             visualizer.create_scatter_plots(tv, pv, iepoch=-1)
 
+        parallel_block = partitioner.manifest(model, optimizer)
+        if pv_monitor is not None:
+            pv_monitor.set_parallel(parallel_block)  # the layout, for the collective attribution
+        # the lineage a pod restore in this process left (utils/checkpoint.py
+        # -> resilience/podckpt.py), taken once: only the run that restored stamps it
+        from hydragnn_tpu_torch.resilience.podckpt import consume_last_restore_info
+
+        pod_lineage = consume_last_restore_info()
         if flight.enabled:
             flight.start_run(_manifest(
                 model, config, run_config, log_name, log_dir, dev, (train_loader, val_loader, test_loader),
                 num_epoch=num_epoch, start_epoch=start_epoch, compute_dtype=compute_dtype, dispatch=dispatch,
                 cmon=cmon, guard=guard, diag=diag, ledger=ledger, extra=manifest_extra,
-                preempt=preempt, stall_s=stall_s, parallel=partitioner.manifest(model, optimizer),
+                preempt=preempt, stall_s=stall_s, parallel=parallel_block,
+                podview_block={"enabled": pv_on, "host": pv_host, "hosts": pv_hosts, "run_id": pv_run_id},
+                pod_lineage=pod_lineage,
             ), device=dev)
             if resumed_from is not None:
                 flight.record("resumed", epoch=resumed_from)
+            if pod_lineage is not None:
+                flight.record("pod_resume", gen=int(pod_lineage.get("gen", -1)),
+                              prior_hosts=pod_lineage.get("hosts"), prior_layout=pod_lineage.get("layout"),
+                              fallbacks=pod_lineage.get("fallbacks") or [])
         writer = get_summary_writer(log_name, log_dir)
     except BaseException as exc:
         abort_telemetry(exc, 0)
@@ -749,6 +891,12 @@ def train_validate_test(
             hooks.epoch_start(epoch)
             if hooks.preempted:
                 preempt_exit(epoch)
+            if pv_signaler is not None:
+                # a SIGTERM anywhere in this epoch announces the cut at its
+                # end, so every host checkpoints the same generation
+                if preempt is not None:
+                    preempt.proposed_gen = epoch + 1
+                pv_signaler.heartbeat(epoch=epoch, force=True)
             for loader in (train_loader, val_loader, test_loader):
                 loader.set_epoch(epoch)
             profiled = profiler is not None and not profiler.done and epoch == profiler.target_epoch
@@ -773,8 +921,9 @@ def train_validate_test(
             history["data_wait_s"].append(timing.get("data_wait_s", 0.0))
             if profiled and profiler.trace_path is not None:
                 flight.record("profile_trace", path=profiler.trace_path, epoch=epoch)
-            if hooks.preempted:
-                # stopped mid-epoch: the epoch is incomplete and the resumed run re-runs it
+            if hooks.preempted and pv_signaler is None:
+                # stopped mid-epoch: the epoch is incomplete and the resumed run re-runs it (a pod
+                # host goes on to the epoch's end, the generation its signal announced)
                 preempt_exit(epoch)
             nonfinite = None
             if sentry is not None:
@@ -811,15 +960,24 @@ def train_validate_test(
                 _epoch_telemetry(
                     flight, writer, epoch, history, names, dispatch, training, start_epoch, len(train_loader),
                     train_wall, spans, cmon, diag, ledger, (tv, pv) if introspect_on else None, nonfinite,
-                    trig_engine, incidents, rank0,
+                    trig_engine, incidents, pv_host if pv_on else (0 if rank0 else None),
+                    pod_epoch=(lambda span_snap, hw: pod_epoch(epoch, train_wall, span_snap, hw, nonfinite))
+                    if pv_on else None,
                 )
             stop = stopper is not None and stopper(val_loss)
             epochs_done = epoch + 1
             if ckpt_every and (epoch + 1) % ckpt_every == 0:
                 write_checkpoint(epoch + 1, early_stopped=False)
             if hooks.preempted:
-                # the signal landed during evaluation: this epoch is complete and recorded
+                # the signal landed during evaluation (on a pod, anywhere in the
+                # epoch): this epoch is complete and recorded
                 preempt_exit(epoch + 1)
+            if pv_signaler is not None:
+                req = pv_signaler.preempt_request()
+                if req is not None and int(req.get("host", -1)) != pv_host and epoch + 1 >= int(req.get("gen", 0)):
+                    # a peer announced a preemption: cut the same generation
+                    # here, so the supervisor restarts every host from one COMMIT
+                    preempt_exit(epoch + 1, coordinated_from=int(req.get("host", -1)))
             if stop:
                 if verbosity > 0:
                     print(f"Early stopping at epoch {epoch}", flush=True)
@@ -857,6 +1015,8 @@ def train_validate_test(
         cmon.stop()
     if incidents is not None:
         incidents.finalize()  # an incident still capturing closes as "truncated"
+    if pv_monitor is not None:
+        pv_monitor.close()
     flight.end_run(
         status="completed",
         epochs=epochs_done - start_epoch,
@@ -869,7 +1029,12 @@ def train_validate_test(
         metrics=get_registry().snapshot(),
         hw=ledger.run_summary() if ledger is not None else None,
         triggers=trig_engine.summary(incidents.capture_s if incidents else 0.0) if trig_engine is not None else None,
-        podview=None,
+        # the pod plane's measured cost: its shard writes and host 0's skew
+        # folds as a fraction of the run's wall
+        podview={"enabled": True, "host": pv_host, "hosts": pv_hosts, "run_id": pv_run_id,
+                 "overhead_s": round(pv_cost["s"], 6),
+                 "overhead_frac": round(pv_cost["s"] / max(time.perf_counter() - pv_cost["t0"], 1e-9), 8)}
+        if pv_on else None,
     )
     if own_flight:
         flight.close()
@@ -878,11 +1043,15 @@ def train_validate_test(
 
 
 def _manifest(model, config, run_config, log_name, log_dir, dev, loaders, *, num_epoch, start_epoch, compute_dtype,
-              dispatch, cmon, guard, diag, ledger, extra, preempt, stall_s, parallel) -> Dict[str, Any]:
+              dispatch, cmon, guard, diag, ledger, extra, preempt, stall_s, parallel, podview_block,
+              pod_lineage=None) -> Dict[str, Any]:
     """The ``run_start`` manifest: what the run is and how to rerun it.
-    ``parallel`` is the partitioner's block (``Partitioner.manifest``).
-    Keys the port has no counterpart for yet say so (``graftcheck``,
-    ``podview``)."""
+    ``parallel`` is the partitioner's block (``Partitioner.manifest``),
+    ``podview_block`` the pod identity (which host's shard, the run id
+    the merge joins on), ``pod_lineage`` a pod restore's (the
+    ``pod_resume`` block: the committed generation, the prior layout,
+    the generations passed over). ``graftcheck`` says the port has no
+    counterpart."""
     from hydragnn_tpu_torch.obs.introspect import card_identity
 
     train_loader, val_loader, test_loader = loaders
@@ -901,7 +1070,7 @@ def _manifest(model, config, run_config, log_name, log_dir, dev, loaders, *, num
         "local_device_count": torch.cuda.device_count() if cuda else 1,
         "card": card_identity() if cuda else None,
         "mesh": {"device_stack": 1, "process_count": process_count()},
-        "podview": {"enabled": False},
+        "podview": dict(podview_block),
         "parallel": parallel,
         "graftcheck": {"available": False, "reason": "graftcheck audits XLA programs; the port compiles none"},
         "pad_plans": {"train": _loader_plan(train_loader), "val": _loader_plan(val_loader),
@@ -921,15 +1090,21 @@ def _manifest(model, config, run_config, log_name, log_dir, dev, loaders, *, num
         "diagnostics": {"enabled": diag is not None, "diag_every": diag.every if diag is not None else None},
         "hw_cost": ledger.manifest() if ledger is not None else {"available": False},
         "stats": stats_block,
+        **({"pod_resume": {"resumed_from_gen": pod_lineage.get("gen"), "step": pod_lineage.get("step"),
+                           "prior_hosts": pod_lineage.get("hosts"), "prior_layout": pod_lineage.get("layout"),
+                           "fallbacks": pod_lineage.get("fallbacks") or []}} if pod_lineage is not None else {}),
         **(extra or {}),
     }
 
 
 def _epoch_telemetry(flight, writer, epoch, history, names, dispatch, training, start_epoch, steps, train_wall,
-                     spans, cmon, diag, ledger, samples, nonfinite, trig_engine, incidents, rank0) -> None:
+                     spans, cmon, diag, ledger, samples, nonfinite, trig_engine, incidents, prom_host,
+                     pod_epoch=None) -> None:
     """The epoch's telemetry after its records: the flight ``epoch``
-    event, the trigger rules, tensorboard's ``obs/*`` and ``heads/*``
-    scalars and ``train.prom``."""
+    event, the pod's ``pod_epoch(span_snap, hw)`` (its summary, skew and
+    liveness), the trigger rules, tensorboard's ``obs/*`` and ``heads/*``
+    scalars and ``train.prom`` (written by ``prom_host``, None: not by
+    this process; ``train.host<k>.prom`` on a pod host k)."""
     from hydragnn_tpu_torch.obs.introspect import per_head_error_metrics
 
     train_loss, val_loss, test_loss = (history[k][-1] for k in ("train_loss", "val_loss", "test_loss"))
@@ -962,6 +1137,8 @@ def _epoch_telemetry(flight, writer, epoch, history, names, dispatch, training, 
                  train_tasks=train_named, val_tasks=_named_tasks(names, history["val_tasks"][-1]),
                  test_tasks=_named_tasks(names, history["test_tasks"][-1]), step_time=step_time,
                  compiles=compiles, **extra)
+    if pod_epoch is not None:
+        pod_epoch(span_snap, hw)
 
     # the SLO rules at the epoch's end: at most one verdict opens an
     # incident, whose capture runs in the next epoch's steps
@@ -991,9 +1168,9 @@ def _epoch_telemetry(flight, writer, epoch, history, names, dispatch, training, 
     if hw is not None and hw.get("achieved_tflops") is not None:
         writer.add_scalar("obs/hw/achieved_tflops", hw["achieved_tflops"], epoch)
 
-    # the Prometheus textfile, one atomic snapshot an epoch on rank 0
+    # the Prometheus textfile, one atomic snapshot an epoch (rank 0, or each pod host its own)
     prom_dir = training.get("prometheus_dir")
-    if prom_dir and rank0:
+    if prom_dir and prom_host is not None:
         from hydragnn_tpu_torch.obs.export import registry_to_prometheus
 
         reg = get_registry()
@@ -1008,7 +1185,7 @@ def _epoch_telemetry(flight, writer, epoch, history, names, dispatch, training, 
                 reg.gauge(f"train.head.{name}.grad_norm").set(v)
         if hw is not None and hw.get("mfu") is not None:
             reg.gauge("train.mfu").set(hw["mfu"])
-        registry_to_prometheus(reg, os.path.join(prom_dir, "train.prom"))
+        registry_to_prometheus(reg, podview.host_artifact_path(os.path.join(prom_dir, "train.prom"), prom_host))
 
 
 def _write_epoch_record(writer, metrics_path: Optional[str], names: Sequence[str], epoch: int,

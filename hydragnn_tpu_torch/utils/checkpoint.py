@@ -20,6 +20,13 @@ the restore raise. The JSON meta sidecar ``<log_name>.meta.json``
 stamped with ``CHECKPOINT_FORMAT_VERSION``; a newer stamp is refused
 with ``CheckpointFormatError``.
 
+A pod run (``resilience/podckpt.py``) also cuts per-host generation
+shards under ``<path>/<log_name>/podckpt/``; ``load_existing_model``
+tries them first, newest committed generation first, re-sharding onto
+the target's layout, and reconciles the meta sidecar to the generation
+that committed (``reconcile_pod_meta``); only when none restores does it
+fall back, with a warning, to the single files.
+
 Reading the JAX package's checkpoints is ``convert.py:load_jax_checkpoint``.
 """
 
@@ -183,10 +190,19 @@ def load_existing_model(
     optimizer: Optional[torch.optim.Optimizer] = None,
 ) -> int:
     """Restore the run's newest valid checkpoint into ``model`` (strict)
-    and, when given, ``optimizer``; returns its loader epoch. Raises
+    and, when given, ``optimizer``; returns its loader epoch. A pod run's
+    committed generations come first (module docstring). Raises
     ``FileNotFoundError`` when the run has no checkpoint and
     ``ValueError`` when every candidate fails validation."""
     _check_meta_format(log_name, path)
+    run_dir = os.path.join(path, log_name)
+    if os.path.isdir(os.path.join(run_dir, "podckpt")):
+        from hydragnn_tpu_torch.resilience import podckpt
+
+        epoch, info = podckpt.restore_pod_checkpoint(model, run_dir, optimizer=optimizer)
+        if info is not None:
+            reconcile_pod_meta(log_name, path, info)
+            return epoch
     dev = next(model.parameters()).device
     latest = checkpoint_path(log_name, path)
     versioned = [p for _, p in list_versioned_checkpoints(log_name, path)]
@@ -220,7 +236,34 @@ def load_existing_model(
 
 
 def checkpoint_exists(log_name: str, path: str = "./logs/") -> bool:
-    return os.path.exists(checkpoint_path(log_name, path)) or bool(list_versioned_checkpoints(log_name, path))
+    if os.path.exists(checkpoint_path(log_name, path)) or list_versioned_checkpoints(log_name, path):
+        return True
+    if os.path.isdir(os.path.join(path, log_name, "podckpt")):
+        from hydragnn_tpu_torch.resilience import podckpt
+
+        return bool(podckpt.list_committed_generations(os.path.join(path, log_name)))
+    return False
+
+
+def reconcile_pod_meta(log_name: str, path: str, info: Dict[str, Any]) -> None:
+    """Make the meta sidecar agree with the pod generation that committed.
+    A host can write the meta of epoch N and die before generation N
+    commits (the COMMIT is always last), and a resume would then skip
+    epoch N on generation N-1's weights. So the sidecar follows the
+    COMMIT: its epoch the committed generation, its history cut to it,
+    its early-stop flag cleared."""
+    gen = int(info["gen"])
+    meta = load_train_meta(log_name, path) or {}
+    if int(meta.get("epoch", -1)) == gen and meta.get("early_stopped") is not True:
+        return
+    meta["epoch"] = gen
+    if info.get("step") is not None:
+        meta["step"] = int(info["step"])
+    meta["early_stopped"] = False
+    history = meta.get("history")
+    if isinstance(history, dict):
+        meta["history"] = {k: (v[:gen] if isinstance(v, list) else v) for k, v in history.items()}
+    save_train_meta(meta, log_name, path)
 
 
 def save_train_meta(meta: Dict[str, Any], log_name: str, path: str = "./logs/") -> None:

@@ -274,11 +274,43 @@ def _supervise(args, env=None, timeout=120):
                           env=dict(os.environ, **(env or {})), capture_output=True, text=True, timeout=timeout)
 
 
-@pytest.mark.parametrize("flag", [["--pod", "2"], ["--pod-elastic"]])
-def test_supervise_cli_refuses_pod_mode(flag):
-    proc = _supervise([*flag, "--", sys.executable, "-c", "pass"])
-    assert proc.returncode == tpre.EXIT_CONFIG_ERROR
-    assert "A-5" in proc.stderr
+_POD_CHILD = r"""
+import glob, os, signal, sys, time
+host, hosts = int(os.environ["HGTORCH_PODVIEW_HOST"]), int(os.environ["HGTORCH_PODVIEW_HOSTS"])
+assert os.environ["HGTORCH_PODVIEW_RUN_ID"] == "clirun"
+open(os.path.join(sys.argv[1], f"launch.{os.getpid()}"), "w").write(f"{host} {hosts}")
+if host == 1 and os.environ.get("HGTORCH_INJECT_POD_KILL_HOST"):
+    # die once host 0 has started, as a host lost mid-run
+    deadline = time.time() + 60
+    while time.time() < deadline and not any(open(p).read() == f"0 {hosts}"
+                                             for p in glob.glob(os.path.join(sys.argv[1], "launch.*"))):
+        time.sleep(0.05)
+    os.kill(os.getpid(), signal.SIGKILL)
+"""
+
+
+@pytest.mark.parametrize("flag", [["--pod", "2"], ["--pod", "2", "--pod-elastic"]])
+def test_supervise_cli_refuses_pod_mode(flag, tmp_path):
+    """The name is the refusal's, kept: ``--pod`` and ``--pod-elastic`` now
+    run a pod. Host 1 dies of SIGKILL in the first attempt; the pod
+    restarts at once, at 2 hosts or (elastic) 1, and completes."""
+    from hydragnn_tpu_torch.obs.flight import read_flight_record
+
+    script = tmp_path / "child.py"
+    script.write_text(_POD_CHILD)
+    flight = tmp_path / "sup.jsonl"
+    proc = _supervise([*flag, "--run-id", "clirun", "--pod-grace", "5", "--flight", str(flight), "--",
+                       sys.executable, str(script), str(tmp_path)], env={"HGTORCH_INJECT_POD_KILL_HOST": "1:1"})
+    assert proc.returncode == tpre.EXIT_OK, proc.stderr[-2000:]
+    width = 1 if "--pod-elastic" in flag else 2
+    launches = sorted(open(p).read() for p in tmp_path.glob("launch.*"))
+    assert launches == sorted(["0 2", "1 2"] + [f"{h} {width}" for h in range(width)])
+    events = read_flight_record(str(flight))
+    (lost,) = [e for e in events if e["kind"] == "host_lost"]
+    (restart,) = [e for e in events if e["kind"] == "restart"]
+    assert lost["host"] == 1 and lost["exit_code"] == -signal.SIGKILL
+    assert (restart["cause"], restart["delay_s"], restart["hosts"]) == ("host_lost", 0.0, width)
+    assert [e["status"] for e in events if e["kind"] == "run_end"] == ["completed"]
 
 
 def test_supervise_cli_usage_errors():
